@@ -12,7 +12,11 @@ Counterpart of ``llm_weighted_consensus_tpu/models/bert.py``:
   a -1e9 additive key bias (never -inf);
 * attention goes through ``ops.attention.attention``: the CUDA kernel for
   tensors on the card, its plain version on the CPU.  No other path
-  exists on the card.
+  exists on the card;
+* the dense layers go through ``layers.dense_cfg`` / ``mlp_cfg``: a layer
+  stack quantized by ``models.quant`` (``QuantLinear``) runs the W8A8 or
+  W4A8 kernel for every dense layer, with the GELU in the MLP expansion's
+  epilogue, and never reaches ``F.linear``.
 
 The layer loop is a Python loop over ``encoder.layer``.
 """
@@ -26,8 +30,9 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention
+from . import quant
 from .configs import BertConfig, position_base
-from .layers import dense, gelu_erf, layer_norm
+from .layers import dense_cfg, layer_norm, mlp_cfg
 
 
 class LayerNorm(nn.Module):
@@ -127,21 +132,17 @@ def _attention(x, p: BertAttention, key_bias, config: BertConfig):
     b, s, h = x.shape
     nh, hd = config.num_heads, config.head_dim
     sa = p.self
-    q = dense(x, sa.query.weight, sa.query.bias).view(b, s, nh, hd)
-    k = dense(x, sa.key.weight, sa.key.bias).view(b, s, nh, hd)
-    v = dense(x, sa.value.weight, sa.value.bias).view(b, s, nh, hd)
+    q = dense_cfg(x, sa.query).view(b, s, nh, hd)
+    k = dense_cfg(x, sa.key).view(b, s, nh, hd)
+    v = dense_cfg(x, sa.value).view(b, s, nh, hd)
     ctx = attention(q, k, v, key_bias, 1.0 / float(hd) ** 0.5)
-    out = p.output.dense
-    return dense(ctx.reshape(b, s, h), out.weight, out.bias)
+    return dense_cfg(ctx.reshape(b, s, h), p.output.dense)
 
 
 def _layer(x, layer: BertLayer, key_bias, config: BertConfig):
     attn = _attention(x, layer.attention, key_bias, config)
     x = layer.attention.output.LayerNorm(x + attn)
-    inter, out = layer.intermediate.dense, layer.output.dense
-    mlp = dense(
-        gelu_erf(dense(x, inter.weight, inter.bias)), out.weight, out.bias
-    )
+    mlp = mlp_cfg(x, layer.intermediate.dense, layer.output.dense)
     return layer.output.LayerNorm(x + mlp)
 
 
@@ -246,12 +247,15 @@ def _build(
 ) -> BertEncoder:
     """A BertEncoder on ``device`` (CUDA unless ``"cpu"``) in ``dtype``
     (by default bf16 on CUDA, f32 on the CPU) whose every parameter is
-    filled from ``state`` ({HF name: array}), gradients off."""
+    filled from ``state`` ({HF name: array}), gradients off.  Dense layers
+    that ``state`` carries quantized (``<name>.weight_q``, ``.scale``,
+    ``.bias``) become ``quant.QuantLinear`` modules with those bytes."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     with torch.device("meta"):
         model = BertEncoder(config)
     model = model.to_empty(device=device).to(dtype)
+    quant.load_quantized(model, state, device)
     names = {name for name, _ in model.named_parameters()}
     missing = sorted(names - set(state))
     if missing:

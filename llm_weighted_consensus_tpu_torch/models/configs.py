@@ -3,9 +3,8 @@
 Counterpart of ``llm_weighted_consensus_tpu/models/configs.py``, with the
 same field names and preset values.  Left out: ``attention_impl`` and
 ``ring_axis`` (the port's attention is the CUDA kernel on the card and
-its plain version on the CPU, nothing else), ``quantize`` (the int8/int4
-serving modes are a later slice) and ``DebertaConfig`` (the DeBERTa
-slice).
+its plain version on the CPU, nothing else) and ``DebertaConfig`` (the
+DeBERTa slice).
 """
 
 from __future__ import annotations
@@ -32,10 +31,21 @@ class BertConfig:
     # framework's left-aligned masks that is an arange offset, so the
     # usable window is max_position_embeddings - pad_token_id - 1.
     position_style: str = "absolute"
+    # "none" = dense layers in the param dtype; a quantized mode (see
+    # QUANT_MODES) is stamped by models.quant.resolve_quantize when the
+    # layer stack's dense layers are replaced by quantized ones
+    quantize: str = "none"
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+# the reference's mode strings.  "int8", "int8-pallas" and "int4-pallas"
+# run the hand-written W8A8 / W4A8 kernels on the card (their plain
+# versions on the CPU); "int8-xla" pins an XLA composition the port does
+# not have and is refused (models.quant.resolve_quantize).
+QUANT_MODES = ("none", "int8", "int8-pallas", "int8-xla", "int4-pallas")
 
 
 # BGE family (BAAI/bge-*-en-v1.5 shapes; CLS pooling)

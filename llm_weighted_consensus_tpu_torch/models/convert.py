@@ -8,7 +8,14 @@ so that both packages can run on the same weights:
   ``[out, in]``, so it is transposed;
 * layer parameters are stacked on axis 0 for the reference's scanned
   layer body; they are unstacked per layer;
-* LayerNorm ``scale`` becomes ``weight``.
+* LayerNorm ``scale`` becomes ``weight``;
+* a quantized tree (``models/quant.py``'s ``quantize_bert_params`` or
+  ``_int4``: ``kernel_q`` ``[L, K, N]`` int8 or ``[L, Kp/2, N]`` uint8,
+  ``scale`` ``[L, N]``) keeps its bytes: ``kernel_q`` is unstacked and
+  transposed into ``<name>.weight_q``, beside ``<name>.scale`` and
+  ``<name>.bias`` in f32, which ``bert.from_hf_state_dict`` loads as
+  ``quant.QuantLinear`` modules, so both packages compute from the same
+  quantized weights.
 
 This module reads numpy arrays only and imports nothing of JAX.
 """
@@ -51,7 +58,14 @@ def from_jax_params(tree: dict, config: BertConfig) -> dict:
         base = f"encoder.layer.{i}"
         for jax_name, hf in _LAYER_DENSE.items():
             p = layers[jax_name]
-            state[f"{base}.{hf}.weight"] = _f32(p["kernel"][i]).T.copy()
+            if "kernel_q" in p:
+                kq = np.asarray(p["kernel_q"][i])
+                if kq.dtype not in (np.int8, np.uint8):
+                    raise TypeError(f"{jax_name}.kernel_q is {kq.dtype}")
+                state[f"{base}.{hf}.weight_q"] = kq.T.copy()
+                state[f"{base}.{hf}.scale"] = _f32(p["scale"][i])
+            else:
+                state[f"{base}.{hf}.weight"] = _f32(p["kernel"][i]).T.copy()
             state[f"{base}.{hf}.bias"] = _f32(p["bias"][i])
         for jax_name, hf in _LAYER_LN.items():
             p = layers[jax_name]

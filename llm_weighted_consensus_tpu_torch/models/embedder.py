@@ -32,6 +32,7 @@ from ..ops.kernels import cosine_vote
 from ..types.embeddings import CreateEmbeddingResponse, Embedding, Usage
 from . import bert
 from .configs import PRESETS, BertConfig, usable_positions
+from .quant import resolve_quantize
 from .tokenizer import BaseTokenizer, load_tokenizer
 
 DEFAULT_VOTE_TEMPERATURE = 0.05
@@ -73,7 +74,10 @@ class TorchEmbedder:
     ``model=None`` random-inits from ``seed``; pass a ``bert.BertEncoder``
     (``loading.load_params``, ``bert.from_hf_state_dict``) for real
     weights.  Runs on CUDA unless ``device="cpu"``; the dtype defaults to
-    bf16 on CUDA and f32 on the CPU.
+    bf16 on CUDA and f32 on the CPU.  ``quantize`` (``configs.QUANT_MODES``,
+    ``EMBEDDER_QUANTIZE``) quantizes the layer stack's dense layers once,
+    after the model is placed and cast, from its weights in the serving
+    dtype (``models.quant.resolve_quantize``).
     """
 
     MAX_DEVICE_BATCH = 4096
@@ -90,6 +94,7 @@ class TorchEmbedder:
         pooling: Optional[str] = None,
         seed: int = 0,
         device=None,
+        quantize: str = "none",
     ) -> None:
         self.model_name = model_name
         self.device = bert.resolve_device(device)
@@ -106,7 +111,11 @@ class TorchEmbedder:
             model = bert.init_params(
                 self.config, seed=seed, dtype=self.dtype, device=self.device
             )
+        # a quantized layer stack keeps its f32 scales through this cast
+        # (quant.QuantLinear._apply); full-precision weights quantize after
+        # it, from the serving dtype, as the reference does
         self.model = model.to(device=self.device, dtype=self.dtype)
+        self.config = resolve_quantize(self.model, self.config, quantize)
 
     # -- core ----------------------------------------------------------------
 

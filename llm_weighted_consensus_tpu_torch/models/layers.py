@@ -6,12 +6,19 @@ f32 whatever the activation dtype; GELU is exact erf for f32 and the
 Abramowitz-Stegun 7.1.26 form for bf16; dense layers run in the param
 dtype with f32 accumulation.  ``F.layer_norm`` and ``F.gelu`` compute
 differently and are not used.
+
+``dense_cfg`` and ``mlp_cfg`` are the layer stack's dense ops: a torch
+``Linear`` runs ``dense``, a ``quant.QuantLinear`` (``EMBEDDER_QUANTIZE``)
+its W8A8 / W4A8 kernel, with the MLP's GELU folded into the expansion
+layer's epilogue, so no separate GELU pass runs on the quantized path.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .quant import QuantLinear
 
 
 def layer_norm(
@@ -35,6 +42,24 @@ def dense(
     the reference rounds, then adds: at most one bf16 ulp apart, and
     identical in f32."""
     return F.linear(x, weight, bias)
+
+
+def dense_cfg(x: torch.Tensor, linear, gelu: bool = False) -> torch.Tensor:
+    """The layer dense op for ``linear`` as it is held: ``dense`` for a
+    torch ``Linear``, the quantized kernel for a ``QuantLinear``.
+    ``gelu=True`` applies ``gelu_erf`` after the dense layer, or folds the
+    same GELU into the quantized kernel's f32 epilogue (before the one
+    rounding, as the reference's Pallas kernel does)."""
+    if isinstance(linear, QuantLinear):
+        return linear(x, gelu=gelu)
+    out = dense(x, linear.weight, linear.bias)
+    return gelu_erf(out) if gelu else out
+
+
+def mlp_cfg(x: torch.Tensor, inter, out) -> torch.Tensor:
+    """The encoder MLP: dense -> GELU -> dense, in whichever form the two
+    layers are held."""
+    return dense_cfg(dense_cfg(x, inter, gelu=True), out)
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:

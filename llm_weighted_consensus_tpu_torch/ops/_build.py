@@ -23,7 +23,7 @@ from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("cosine_vote.cu", "attention.cu")
+SOURCES = ("cosine_vote.cu", "attention.cu", "quant_matmul.cu")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "liblwc_torch_kernels.so"
 NVCC_FLAGS = (
@@ -113,6 +113,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), f32, i32, vp,
     ]
     lib.lwc_attention.restype = i32
+    lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.lwc_quantize_rows.restype = i32
+    lib.lwc_quant_matmul.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
+    ]
+    lib.lwc_quant_matmul.restype = i32
     return lib
 
 

@@ -1,13 +1,30 @@
-"""The cosine self-consistency vote: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""The port's kernels outside attention: the cosine self-consistency vote
+and the W8A8 / W4A8 quantized dense layers.  Each CUDA kernel's wrapper
+sits beside its plain PyTorch version.
 
 Counterpart of ``llm_weighted_consensus_tpu/ops/kernels.py``'s
-``fused_cosine_vote``.  ``cosine_vote`` takes a leading request axis
+``fused_cosine_vote``, ``w8a8_matmul``, ``w4a8_matmul`` and
+``pack_int4_weights``.
+
+Vote: ``fused_cosine_vote``.  ``cosine_vote`` takes a leading request axis
 ``[R, N, D]`` and a run-time temperature, so one kernel serves the
 single-request and the coalesced dispatches at every temperature.  A CPU
 tensor takes the plain version; a CUDA tensor launches
 ``csrc/cosine_vote.cu`` or raises.  ``cosine_vote.launches`` counts the
 kernel launches.
+
+Quantized dense layers: ``w8a8_matmul(x, wq, sw, bias, gelu)`` computes
+``x[..., K] @ wq[N, K]^T`` with per-row dynamic int8 activations, int32
+accumulation, the epilogue ``acc * sx * sw + bias`` in f32, an optional
+GELU and one rounding to x's dtype; ``w4a8_matmul`` takes the weight as
+packed biased nibbles ``[N, Kp/2]`` instead.  The weight is ``[out, in]``
+(torch's ``Linear`` layout, the transpose of the JAX kernel).  On CUDA
+each call launches two kernels of ``csrc/quant_matmul.cu``: the row
+quantisation (wrapper ``quantize_rows``, counted in
+``quantize_rows.launches``) and the int8 tensor-core GEMM with its fused
+epilogue (counted in ``w8a8_matmul.launches`` / ``w4a8_matmul.launches``).
+The plain versions take the int8 product in f64, which is exact here
+(|acc| <= K * 127^2 < 2^53), where f32 would not be past K ~ 1040.
 """
 
 from __future__ import annotations
@@ -18,6 +35,11 @@ import torch
 
 from . import _build
 from .similarity import masked_cosine_vote
+
+# K of the split-K int4 packing: Kp is K rounded up to a multiple of this
+W4A8_PACK_K = 256
+# K tile of the int8 GEMM: the quantised activations are padded to it
+QUANT_K_TILE = 64
 
 # the kernel keeps 2N + D floats in shared memory; past this it would
 # need more than the 227 KB a Hopper block can have
@@ -88,3 +110,226 @@ def cosine_vote(
 
 
 cosine_vote.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Quantized dense layers (W8A8, W4A8)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def pack_int4_weights(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-7, 7], ``q[..., N, K]`` -> uint8 ``[..., N, Kp/2]``
+    in the reference's split-K biased-nibble layout along K: Kp is K
+    rounded up to 256, byte kk holds row kk + 8 in its low nibble and row
+    kk + Kp/2 + 8 in its high nibble, and a pad nibble is 8 (0 once
+    unbiased).  Byte for byte ``pack_int4_weights(q_jax).T``."""
+    k = q.shape[-1]
+    kp = _round_up(k, W4A8_PACK_K)
+    biased = torch.full(
+        (*q.shape[:-1], kp), 8, dtype=torch.uint8, device=q.device
+    )
+    biased[..., :k] = (q.to(torch.int32) + 8).to(torch.uint8)
+    half = kp // 2
+    return biased[..., :half] | (biased[..., half:] << 4)
+
+
+def unpack_int4_weights(wq4: torch.Tensor, k: int) -> torch.Tensor:
+    """Packed uint8 ``[..., N, Kp/2]`` -> int8 ``[..., N, k]``."""
+    w = wq4.to(torch.int32)
+    lo = (w & 0xF) - 8
+    hi = (w >> 4) - 8
+    return torch.cat([lo, hi], dim=-1)[..., :k].to(torch.int8)
+
+
+def symmetric_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """``max(amax / qmax, 1e-12)`` in f32 with an IEEE division: PyTorch
+    on CUDA divides by a Python number as a multiply by its reciprocal,
+    which is an ulp off the reference's scale for some inputs, so the
+    divisor is a tensor."""
+    return torch.clamp(amax / torch.full_like(amax, qmax), min=1e-12)
+
+
+def quantize_rows_plain(x: torch.Tensor, kp: Optional[int] = None):
+    """x[..., K] -> (int8 [..., kp or K], f32 scale[...]): per-row
+    symmetric ``sx = max(max|x| / 127, 1e-12)``, x / sx rounded half to
+    even and clipped to +-127; columns past K are 0."""
+    x32 = x.float()
+    scale = symmetric_scale(torch.amax(torch.abs(x32), dim=-1), 127.0)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    q = q.to(torch.int8)
+    k = x.shape[-1]
+    if kp is not None and kp > k:
+        q = torch.nn.functional.pad(q, (0, kp - k))
+    return q, scale
+
+
+def quantize_rows(x: torch.Tensor, kp: int):
+    """x[M, K] (f32 or bf16, contiguous) -> (xq[M, kp] int8, sx[M] f32),
+    kp >= K a multiple of ``QUANT_K_TILE``.  A CPU tensor takes
+    ``quantize_rows_plain``; a CUDA tensor launches
+    ``lwc_quantize_rows`` or raises."""
+    if x.ndim != 2:
+        raise ValueError(f"quantize_rows wants x[M, K], got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_rows takes f32 or bf16, got {x.dtype}")
+    m, k = x.shape
+    if kp < k or kp % QUANT_K_TILE:
+        raise ValueError(
+            f"quantize_rows: kp={kp} must be >= K={k} and a multiple of "
+            f"{QUANT_K_TILE}"
+        )
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x, kp)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_rows wants a contiguous x")
+    lib = _build.library()
+    xq = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return xq, sx
+    rc = lib.lwc_quantize_rows(
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, kp,
+        0 if x.dtype == torch.float32 else 1,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "quantize_rows")
+    quantize_rows.launches += 1
+    return xq, sx
+
+
+quantize_rows.launches = 0
+
+
+def _epilogue_plain(acc, sx, sw, bias, gelu: bool, dtype) -> torch.Tensor:
+    # lazy: ops must not import models at module load (models.quant
+    # imports this module)
+    from ..models.layers import gelu_f32
+
+    out = acc.float() * sx[..., None] * sw.float() + bias.float()
+    if gelu:
+        out = gelu_f32(out, approx=dtype == torch.bfloat16)
+    return out.to(dtype)
+
+
+def w8a8_matmul_plain(x, wq, sw, bias, gelu: bool = False) -> torch.Tensor:
+    """The W8A8 kernel's arithmetic in plain PyTorch: the int8 product in
+    f64 (exact), the epilogue as ``(acc * sx) * sw + bias`` in f32."""
+    xq, sx = quantize_rows_plain(x)
+    acc = torch.matmul(xq.double(), wq.double().T)
+    return _epilogue_plain(acc, sx, sw, bias, gelu, x.dtype)
+
+
+def w4a8_matmul_plain(x, wq4, sw, bias, gelu: bool = False) -> torch.Tensor:
+    """``w8a8_matmul_plain`` over the unpacked int4 weight."""
+    return w8a8_matmul_plain(
+        x, unpack_int4_weights(wq4, x.shape[-1]), sw, bias, gelu
+    )
+
+
+def _check_quant_operands(name, x, w, sw, bias, int4):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes f32 or bf16 x, got {x.dtype}")
+    want = torch.uint8 if int4 else torch.int8
+    if w.ndim != 2 or w.dtype != want:
+        raise TypeError(
+            f"{name} wants a 2-d {want} weight, got {w.dtype} "
+            f"{tuple(w.shape)}"
+        )
+    n = w.shape[0]
+    for label, t in (("scale", sw), ("bias", bias)):
+        if t.shape != (n,) or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name}: {label} must be f32 [{n}], got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+    devices = {t.device for t in (x, w, sw, bias)}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices: {devices}")
+
+
+def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
+    """Launch the row quantisation and the GEMM for ``x[..., K]``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not (w.is_contiguous() and sw.is_contiguous()
+            and bias.is_contiguous()):
+        raise ValueError(f"{name} wants contiguous weight, scale and bias")
+    k = x.shape[-1]
+    n = w.shape[0]
+    x2 = x.reshape(-1, k)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    m = x2.shape[0]
+    xq, sx = quantize_rows(x2, kp)
+    lib = _build.library()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m and n:
+        rc = lib.lwc_quant_matmul(
+            xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), m, n, k, kp, int(int4),
+            int(bool(gelu)), 0 if x.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(rc, name)
+        wrapper.launches += 1
+    return out.reshape(*x.shape[:-1], n)
+
+
+def w8a8_matmul(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    bias: torch.Tensor,
+    gelu: bool = False,
+) -> torch.Tensor:
+    """x[..., K] (f32 or bf16) @ wq[N, K]^T (int8, per-output-channel
+    scale ``sw[N]`` f32) + bias[N] f32 -> [..., N] in x's dtype;
+    ``gelu=True`` applies the GELU (erf for f32, A&S 7.1.26 for bf16) to
+    the f32 pre-activation before the one rounding."""
+    _check_quant_operands("w8a8_matmul", x, wq, sw, bias, int4=False)
+    k = x.shape[-1]
+    if wq.shape[1] != k:
+        raise ValueError(f"w8a8_matmul: x has K={k}, wq is {tuple(wq.shape)}")
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, wq, sw, bias, gelu)
+    return _quant_matmul(
+        "w8a8_matmul", w8a8_matmul, x, wq, sw, bias, gelu, False,
+        _round_up(k, QUANT_K_TILE),
+    )
+
+
+w8a8_matmul.launches = 0
+
+
+def w4a8_matmul(
+    x: torch.Tensor,
+    wq4: torch.Tensor,
+    sw: torch.Tensor,
+    bias: torch.Tensor,
+    gelu: bool = False,
+) -> torch.Tensor:
+    """``w8a8_matmul`` with the weight as packed biased nibbles
+    ``wq4[N, Kp/2]`` uint8 (``pack_int4_weights``, Kp a multiple of 256,
+    K <= Kp)."""
+    _check_quant_operands("w4a8_matmul", x, wq4, sw, bias, int4=True)
+    k = x.shape[-1]
+    kp = 2 * wq4.shape[1]
+    if kp % W4A8_PACK_K or k > kp:
+        raise ValueError(
+            f"w4a8_matmul: x has K={k}, packed weight {tuple(wq4.shape)} "
+            f"(Kp={kp} must be a multiple of {W4A8_PACK_K} and >= K)"
+        )
+    if x.device.type == "cpu":
+        return w4a8_matmul_plain(x, wq4, sw, bias, gelu)
+    return _quant_matmul(
+        "w4a8_matmul", w4a8_matmul, x, wq4, sw, bias, gelu, True, kp
+    )
+
+
+w4a8_matmul.launches = 0

@@ -10,7 +10,12 @@ Environment, as the reference's server reads it:
 * ``EMBEDDER_VOCAB`` — a WordPiece ``vocab.txt``; defaults to the one
   beside the weights, else the hash tokenizer (also synthetic, same
   opt-in);
-* ``EMBEDDER_MAX_TOKENS`` — truncation window (default 512).
+* ``EMBEDDER_MAX_TOKENS`` — truncation window (default 512);
+* ``EMBEDDER_QUANTIZE`` — ``none`` (default), ``int8`` or ``int8-pallas``
+  (the encoder's dense layers as W8A8 int8 tensor-core kernels) or
+  ``int4-pallas`` (W4A8, packed int4 weights); quantized once at load.
+  ``int8-xla`` (the reference's XLA composition) is refused, and so is
+  any other value, with the list of valid modes.
 
 The device defaults to CUDA; without a card that raises.
 """
@@ -34,7 +39,7 @@ def build_embedder(env, device=None, dtype=None):
     Synthetic state — random weights or the hash tokenizer — embeds
     garbage that looks valid, so it needs ``LWC_ALLOW_RANDOM_PARAMS``."""
     from ..models.bert import resolve_device
-    from ..models.configs import PRESETS
+    from ..models.configs import PRESETS, QUANT_MODES
     from ..models.embedder import TorchEmbedder
     from ..models.loading import find_vocab, load_params
     from ..models.tokenizer import HashTokenizer, load_tokenizer
@@ -46,6 +51,12 @@ def build_embedder(env, device=None, dtype=None):
             + ", ".join(sorted(PRESETS))
         )
     config = PRESETS[name]
+    quantize = env.get("EMBEDDER_QUANTIZE") or "none"
+    if quantize not in QUANT_MODES:
+        raise ValueError(
+            f"EMBEDDER_QUANTIZE={quantize!r} is not a quantize mode; valid "
+            "values: " + ", ".join(QUANT_MODES)
+        )
     device = resolve_device(device)
     model = None
     vocab = env.get("EMBEDDER_VOCAB")
@@ -62,6 +73,7 @@ def build_embedder(env, device=None, dtype=None):
         max_tokens=max_tokens,
         device=device,
         dtype=dtype,
+        quantize=quantize,
     )
     synthetic = []
     if model is None:
@@ -96,8 +108,9 @@ def main(argv=None) -> int:
     embedder = build_embedder(os.environ, device=args.device)
     server = Server(embedder, host=args.host, port=args.port)
     log.info(
-        "serving %s on %s:%d (%s, %s)", embedder.model_name, args.host,
-        server.port, embedder.device, embedder.dtype,
+        "serving %s on %s:%d (%s, %s, quantize=%s)", embedder.model_name,
+        args.host, server.port, embedder.device, embedder.dtype,
+        embedder.config.quantize,
     )
     try:
         server.serve_forever()

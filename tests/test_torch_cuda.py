@@ -13,7 +13,11 @@ and imports the JAX package.)
 
 Tolerances: vote 1e-5 (f32 reassociation of the column-sum identity);
 attention 1e-4 f32, 2e-2 bf16 (probabilities rounded to bf16 before P·V);
-bge_micro /consensus on the card vs the CPU 1e-5 (f32).
+bge_micro /consensus on the card vs the CPU 1e-5 (f32); W8A8 / W4A8
+2e-5 + 2e-5 |want| (f32: erf and exp differ by ulps between the card
+and its plain version) and 2e-2 + 2e-2 |want| (bf16: one ulp at |x| ~ 4),
+quantized bge_micro confidences card vs CPU 1e-3 (an upstream ulp can
+flip one int8 rounding).
 """
 
 import os
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+from llm_weighted_consensus_tpu_torch.models import loading, quant, tokenizer
 from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 from llm_weighted_consensus_tpu_torch.ops import attention, kernels
 
@@ -158,3 +162,92 @@ def test_embedder_defaults_to_the_card_in_bf16(card):
     assert emb.device.type == "cuda" and emb.dtype == torch.bfloat16
     conf = emb.consensus_confidence(["a b", "a b c", "d"])
     assert conf.shape == (3,) and abs(float(conf.sum()) - 1.0) <= 1e-5
+
+
+def _quant_operands(m, k, n, int4, seed, card, dtype):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.05).astype(np.float32))
+    fn = quant.quantize_weight_int4 if int4 else quant.quantize_weight
+    wq, sw = fn(w)
+    bias = torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    x[0] = 0.0  # an all-zero row
+    return (x.to(card, getattr(torch, dtype)), wq.to(card), sw.to(card),
+            bias.to(card))
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["w8a8", "w4a8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize(
+    "m,k,n", [(5, 48, 24), (37, 96, 384), (130, 192, 96), (300, 1024, 1024),
+              (129, 4096, 136)],
+)
+def test_quant_matmul_kernel_matches_plain(card, int4, dtype, gelu, m, k, n):
+    x, wq, sw, bias = _quant_operands(m, k, n, int4, m + k + n, card, dtype)
+    wrapper = kernels.w4a8_matmul if int4 else kernels.w8a8_matmul
+    plain = kernels.w4a8_matmul_plain if int4 else kernels.w8a8_matmul_plain
+    before = (wrapper.launches, kernels.quantize_rows.launches)
+    got = wrapper(x, wq, sw, bias, gelu=gelu)
+    assert (wrapper.launches, kernels.quantize_rows.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    want = plain(x, wq, sw, bias, gelu=gelu)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    err = (got.float() - want.float()).abs()
+    assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
+
+
+def test_quantize_rows_kernel_is_byte_equal_to_plain(card):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((70, 200)).astype(np.float32))
+    x[0] = 0.0
+    x[1, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    x[1, 6:] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(card, dtype)
+        got_q, got_s = kernels.quantize_rows(xc, 256)
+        want_q, want_s = kernels.quantize_rows_plain(xc, 256)
+        assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
+def test_quant_matmul_takes_leading_axes(card):
+    x, wq, sw, bias = _quant_operands(12, 96, 40, False, 3, card, "bfloat16")
+    got = kernels.w8a8_matmul(x.view(3, 4, 96), wq, sw, bias)
+    assert got.shape == (3, 4, 40)
+    flat = kernels.w8a8_matmul(x, wq, sw, bias)
+    assert torch.equal(got.reshape(12, 40), flat)
+
+
+def test_quant_matmul_rejects_cpu_weights_for_a_card_input(card):
+    x, wq, sw, bias = _quant_operands(4, 48, 24, False, 5, card, "float32")
+    with pytest.raises(ValueError, match="devices"):
+        kernels.w8a8_matmul(x, wq.cpu(), sw, bias)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4-pallas"])
+def test_quantized_bge_micro_on_card_matches_cpu(card, mode):
+    cfg = loading.load_hf_config(FIXTURE)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(FIXTURE))
+    texts = [
+        "paris is the capital of france",
+        "the capital of france is paris",
+        "bananas are curved and yellow",
+    ]
+    confs = {}
+    for device in ("cpu", "cuda"):
+        model = loading.load_params(
+            FIXTURE, cfg, dtype=torch.float32, device=device
+        )
+        emb = TorchEmbedder(
+            "bge-micro", model=model, config=cfg, tokenizer=tok,
+            max_tokens=64, device=device, dtype=torch.float32, quantize=mode,
+        )
+        assert all(
+            m.scale.dtype == torch.float32 for m in emb.model.modules()
+            if isinstance(m, quant.QuantLinear)
+        )
+        confs[device] = emb.consensus_confidence(texts)
+    assert np.abs(confs["cuda"] - confs["cpu"]).max() <= 1e-3

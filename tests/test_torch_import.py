@@ -72,7 +72,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     # every module of the slice was imported
     for name in (
         "models.configs", "models.tokenizer", "models.loading",
-        "models.layers", "models.bert", "models.convert",
+        "models.layers", "models.bert", "models.convert", "models.quant",
         "models.embedder", "ops.similarity", "ops.kernels",
         "ops.attention", "ops._build", "types.embeddings",
         "serve.batcher", "serve.gateway", "serve.__main__",
@@ -114,10 +114,15 @@ def test_port_has_its_kernel_sources():
     csrc = PORT / "csrc"
     assert (csrc / "cosine_vote.cu").is_file()
     assert (csrc / "attention.cu").is_file()
-    for name in ("cosine_vote.cu", "attention.cu"):
+    assert (csrc / "quant_matmul.cu").is_file()
+    for name in ("cosine_vote.cu", "attention.cu", "quant_matmul.cu"):
         text = (csrc / name).read_text()
         # a hand-written kernel, bound with a plain C entry point; no
         # library kernel behind it
         assert "__global__" in text and 'extern "C"' in text
-        for banned in ("cublas", "cudnn", "scaled_dot_product", "torch/"):
+        for banned in ("cublas", "cudnn", "scaled_dot_product", "torch/",
+                       "_int_mm", "cutlass"):
             assert banned not in text.lower()
+    # the quantized matmuls run on the int8 tensor cores
+    text = (csrc / "quant_matmul.cu").read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
