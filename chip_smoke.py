@@ -10,34 +10,48 @@ Phases, each printing one JSON line:
 2. kernels: every kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (``MAIN_PATH_ATTENTION_SHAPES``
    for attention, ``QUANT_MAIN_SHAPES`` at ``QUANT_M`` rows for the W8A8
-   and W4A8 matmuls and their row quantisation) and at odd shapes, max
+   and W4A8 matmuls and their row quantisation, every packed call shape
+   ``PACKED_SHAPES`` for the segment attention) and at odd shapes, max
    |diff| beside the stated tolerance, with the kernel's, the plain
-   version's and (for attention) ``scaled_dot_product_attention``'s time
+   version's and (for both attentions; the segment one with its boolean
+   same-segment mask) ``scaled_dot_product_attention``'s time
    and the least time the card could take (bytes at 3.35 TB/s or
    operations at the type's peak, whichever is larger); the quantized
    matmuls are timed beside bf16 ``F.linear`` and ``torch._int_mm`` on
    pre-quantised operands, yardsticks the port never calls;
 3. bge_micro: the committed fixture, loaded by the port's loader, served
    through ``/consensus`` on the card and on the CPU; the confidences
-   must agree, unquantized and under ``int8`` / ``int4-pallas``;
+   must agree, unquantized and under ``int8`` / ``int4-pallas``; packed
+   embeddings on the card against the CPU's and the padded path's, and
+   a segment beside row-mates against itself alone (f32);
 4. main path: the port's HTTP server on the card at full bge-large width
    (random weights from a fixed seed, bf16): bursts of 8 concurrent
    ``/consensus`` requests of 64 candidates in the s=128 bucket, one
    request in the s=512 bucket and one ``/embeddings`` request; outputs
    and buckets checked, kernel launch counts checked against the
    dispatches, latency and answers/s reported;
-5. quantized paths: the same server with ``quantize="int8"`` (3 bursts
-   and ``/embeddings``) and ``"int4-pallas"`` (1 burst and
-   ``/embeddings``) on the same weights; launch counts checked (6 quantized
-   matmuls per layer per encoder dispatch), answers held against the
-   unquantized path's on the same texts (embedding cosine and confidence
-   bars of the reference's own quantization tests);
-6. profiles: device time by kernel for one coalesced dispatch of the main
-   path (torch.profiler), unquantized and under ``int8``, the full tables
-   in ``chiprun_out/profile_main_path.txt`` and
-   ``chiprun_out/profile_quant_path.txt``; the device's idle share as
-   measured, failing if the summed device time exceeds the wall time, and
-   failing if a cuBLAS GEMM runs in the int8 dispatch.
+5. packed path: the main path's embedder served with ``PACKING`` (the
+   ``PACKING_ENABLED`` defaults) under the reference's mixed-length
+   traffic, 3 bursts of 32 concurrent ``/consensus`` requests (N in
+   {3, 4, 6, 8}) each with one ``/embeddings`` request of 16 texts, and
+   the same traffic through a padded server; p50, answers/s, packed call
+   shapes and real/slot tokens of both; segment-attention launches
+   checked against the packed calls (no padded kernel); answers held
+   against the padded path with prefix dedup off and against the dedup
+   contract with it on; then the segment kernel's times at every packed
+   shape the traffic dispatched and at the bucket;
+6. quantized paths: the same server with ``quantize="int8"`` (3 bursts
+   and ``/embeddings``, then one packed burst) and ``"int4-pallas"`` (1
+   burst and ``/embeddings``) on the same weights; launch counts checked
+   (6 quantized matmuls per layer per encoder call), answers held against
+   the unquantized path's on the same texts (embedding cosine and
+   confidence bars of the reference's own quantization tests);
+7. profiles: device time by kernel for one coalesced dispatch of the main
+   path and one packed [8, 512] call (torch.profiler), unquantized and
+   under ``int8``, the full tables in ``chiprun_out/profile_*.txt``; the
+   device's idle share as measured, failing if the summed device time
+   exceeds the wall time, and failing if a cuBLAS GEMM runs in an int8
+   dispatch.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -104,6 +118,32 @@ SCHEME_MARGIN = 0.05
 SCHEME_TEXTS = 8
 # kernel names of a cuBLAS / cuBLASLt GEMM in a profile
 CUBLAS_GEMM = ("nvjet", "cublas", "gemm", "xmma", "cutlass", "gemv")
+# the packed path (phase 5): PACKING_ENABLED with the reference's
+# defaults, and the reference's mixed-length traffic (bench_http.py,
+# --mixed-lengths, seed 11): bursts of concurrent /consensus requests
+# with one concurrent /embeddings request of mixed-length texts each
+PACKING = {
+    "packing": True, "packing_row_tokens": 512, "packing_max_rows": 8,
+    "packing_max_segments": 64, "prefix_dedup": True,
+    "prefix_dedup_min_chars": 48,
+}
+PACKED_BURSTS, PACKED_BURST, PACKED_EMBED_N = 3, 32, 16
+BENCH_WORDS = [  # bench.py's vocabulary
+    "the", "answer", "is", "42", "41", "value", "result", "compute",
+    "therefore", "because", "number", "final", "we", "get", "so",
+]
+# every [b, L] a packed call can take at those defaults: b a power of two
+# up to 8 rows, L on packing._L_BUCKETS up to 512
+PACKED_SHAPES = tuple(
+    (b, l) for b in (1, 2, 4, 8) for l in (64, 128, 192, 256, 384, 512)
+)
+SEG_BUCKET = (8, 512)
+# packed against padded on bge-large in bf16, the same texts: the bf16
+# rounding of another key-tile order, amplified by T = 0.05 in the vote
+PACKED_MIN_COS, PACKED_CONF_TOL = 0.999, 2e-2
+# bge_micro in f32 on the card: packed against the CPU and against the
+# padded path, and a segment beside other row-mates
+PACKED_MICRO_TOL, ROW_MATE_TOL = 1e-5, 1e-6
 
 
 def emit(obj) -> None:
@@ -447,21 +487,166 @@ def check_quant(gpu: str) -> dict:
     return {"rows": rows, "worst": worst}
 
 
-def segment_attention_bound() -> dict:
-    """The bound of the TPU kernel still to be ported,
-    ``ops/attention.py::fused_attention_tiled_seg``, at the packed bucket
-    the reference serves by default (8 rows of 512 tokens, bge-large's
-    16 heads of 64, bf16): q/k/v read and out written once, int32
-    segment ids read once; 4 b nh s^2 hd FLOPs."""
-    b, s, nh, hd = 8, 512, 16, 64
-    bound, by = bound_ms(
-        4 * b * s * nh * hd * 2 + 4 * b * s, 4.0 * b * nh * s * s * hd,
-        "bfloat16",
+def segment_ids_for(b, s, seed, hard=False):
+    """Packed rows of segment ids [b, s] int32: segments of the mixed
+    traffic's lengths (a few to a few hundred tokens) laid end to end,
+    pad tails; ``hard`` adds an all-pad row, one-token segments, a
+    segment straddling the 64-key tile edge and one starting past 64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, s), np.int32)
+    for r in range(b):
+        off, slot = 0, 1
+        while off < s - 8:
+            n = int(min(rng.choice([rng.integers(6, 22), rng.integers(26, 70),
+                                    rng.integers(98, 200)], p=[.6, .3, .1]),
+                        s - 4 - off))
+            seg[r, off: off + n] = slot
+            off, slot = off + n, slot + 1
+    if hard:
+        seg[0] = 0
+        if b > 1:
+            seg[1] = 0
+            seg[1, :3] = [1, 2, 3]
+            if s > 70:
+                seg[1, 60:70] = 4
+                seg[1, s - 3:] = 5
+    return seg
+
+
+def segment_bound(seg, nh, hd, itemsize):
+    """The least time of one segment-attention call on these ids: q/k/v
+    read and out written once, the ids read once; the operations this
+    data needs, 4 len^2 hd per segment and head (QK^T and PV over its own
+    keys) and one mean of v per head for a row with pad slots."""
+    import numpy as np
+
+    b, s = seg.shape
+    ops = 0.0
+    for row in seg:
+        ids, counts = np.unique(row, return_counts=True)
+        ops += 4.0 * nh * hd * float((counts[ids > 0].astype(np.float64) ** 2).sum())
+        if (row == 0).any():
+            ops += 2.0 * nh * hd * s
+    nbytes = 4 * b * s * nh * hd * itemsize + 4 * b * s
+    dtype = "bfloat16" if itemsize == 2 else "float32"
+    bound, by = bound_ms(nbytes, ops, dtype)
+    return bound, by, ops, 4.0 * b * nh * s * s * hd
+
+
+def segment_case(b, s, nh, hd, dtype, seed, hard=False):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.tensor(rng.normal(size=(b, s, nh, hd)), dtype=dtype,
+                     device="cuda")
+        for _ in range(3)
     )
-    row = {"phase": "bound", "kernel": "fused_attention_tiled_seg",
-           "status": "not ported (packed serving, the next slice)",
-           "shape": [b, s, nh, hd], "dtype": "bfloat16",
-           "bound_ms": bound, "bound_by": by}
+    seg = torch.tensor(segment_ids_for(b, s, seed, hard), device="cuda")
+    return q, k, v, seg
+
+
+def segment_err(q, k, v, seg, scale, what: str) -> float:
+    """max |kernel - plain|, failing past the tolerance, on non-finite
+    output, or where a pad query row is not the uniform mean of v."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import attention as attn
+
+    name = str(q.dtype).split(".")[-1]
+    got = attn.segment_attention(q, k, v, seg, scale)
+    want = attn.segment_attention_plain(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    pad = (seg == 0)
+    mean_v = v.float().mean(dim=1, keepdim=True).expand_as(got)
+    pad_err = ((got.float() - mean_v).abs().amax(dim=(2, 3))[pad].max().item()
+               if pad.any() else 0.0)
+    if (not torch.isfinite(got.float()).all() or err > ATTN_TOL[name]
+            or pad_err > ATTN_TOL[name]):
+        raise AssertionError(
+            f"segment_attention {what} {name}: max|diff| {err}, pad rows "
+            f"{pad_err} > {ATTN_TOL[name]}"
+        )
+    return err
+
+
+def check_segment_attention(gpu: str) -> dict:
+    """The segment-attention kernel against its plain version at every
+    [b, L] a packed call can take at bge-large width (16 heads of 64),
+    bf16 and f32, and at odd cases; its time at the packed bucket and
+    beside SDPA with the same-segment boolean mask (built beforehand, a
+    yardstick the port never calls)."""
+    import torch
+
+    nh, hd = 16, 64
+    worst, cases = 0.0, 0
+    for (b, s), dtype in itertools.product(
+        PACKED_SHAPES, (torch.bfloat16, torch.float32)
+    ):
+        q, k, v, seg = segment_case(b, s, nh, hd, dtype, seed=b * s)
+        worst = max(worst, segment_err(q, k, v, seg, hd ** -0.5,
+                                       f"b={b} s={s}"))
+        cases += 1
+    odd = {}
+    # hd 16, 24 and 32; L not a multiple of 64; one-token segments, an
+    # all-pad row, segments past 64 and across the tile edge; then 8 rows
+    # of 64 segments of 8 tokens
+    for (b, s, h, d), dtype in itertools.product(
+        ((3, 200, 4, 16), (2, 77, 4, 24), (3, 130, 4, 32), (2, 100, 16, 64)),
+        (torch.bfloat16, torch.float32),
+    ):
+        q, k, v, seg = segment_case(b, s, h, d, dtype, seed=s, hard=True)
+        key = f"{str(dtype).split('.')[-1]}-hd{d}-s{s}"
+        odd[key] = segment_err(q, k, v, seg, d ** -0.5, key)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = segment_case(8, 512, nh, hd, dtype, seed=64)
+        seg = (torch.arange(512, device="cuda", dtype=torch.int32) // 8 + 1
+               ).expand(8, 512).contiguous()
+        key = f"{str(dtype).split('.')[-1]}-64-segments-per-row"
+        odd[key] = segment_err(q, k, v, seg, hd ** -0.5, key)
+    worst = max(worst, max(odd.values()))
+    emit({"phase": "kernel", "kernel": "segment_attention", "gpu": gpu,
+          "cases": cases + len(odd), "max_abs_err": worst,
+          "shapes": [list(x) for x in PACKED_SHAPES], "odd": odd,
+          "tolerance": ATTN_TOL})
+    return {"max_abs_err": worst, "checked": set(PACKED_SHAPES)}
+
+
+def time_segment_attention(gpu, b, s) -> dict:
+    """Kernel, plain and SDPA-with-mask times (bf16) at one [b, s] of
+    bge-large (16 heads of 64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_weighted_consensus_tpu_torch.ops import attention as attn
+
+    nh, hd = 16, 64
+    q, k, v, seg = segment_case(b, s, nh, hd, torch.bfloat16, seed=b * s)
+    scale = hd ** -0.5
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+    mask4 = same[:, None]  # [b, 1, s, s]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    bound, by, ops, dense_ops = segment_bound(seg.cpu().numpy(), nh, hd, 2)
+    row = {
+        "phase": "kernel", "kernel": "segment_attention", "gpu": gpu,
+        "shape": [b, s, nh, hd], "dtype": "bfloat16",
+        "kernel_ms": time_ms(lambda: attn.segment_attention(q, k, v, seg, scale)),
+        "plain_ms": time_ms(
+            lambda: attn.segment_attention_plain(q, k, v, seg, scale),
+            iters=5, warmup=1,
+        ),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask4, scale=scale
+            )
+        ),
+        "bound_ms": bound, "bound_by": by, "data_ops": ops,
+        "dense_ops": dense_ops,
+    }
     emit(row)
     return row
 
@@ -562,6 +747,57 @@ def check_bge_micro(gpu: str) -> dict:
     return row
 
 
+def check_bge_micro_packed(gpu: str) -> dict:
+    """bge_micro in f32: packed on the card against packed on the CPU
+    (plain versions) and against the padded path on the card, and a
+    segment's vector beside other row-mates against it alone."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "bge_micro")
+    cfg = loading.load_hf_config(fixture)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(fixture))
+    texts = MICRO_TEXTS + [
+        "x", "a much longer answer about the capital city of france, the "
+        "river seine that runs through it and the bridges across it",
+    ]
+
+    def packed(emb, texts):  # rows of 64 tokens, 4 rows, 8 segments
+        return packed_vectors(emb, texts, 64, 4, 8)
+
+    embs = {}
+    for device in ("cpu", "cuda"):
+        model = loading.load_params(fixture, cfg, dtype=torch.float32,
+                                    device=device)
+        embs[device] = TorchEmbedder(
+            "bge-micro", model=model, config=cfg, tokenizer=tok,
+            max_tokens=64, device=device, dtype=torch.float32,
+        )
+    card = packed(embs["cuda"], texts)
+    vs_cpu = float(np.abs(card - packed(embs["cpu"], texts)).max())
+    vs_padded = float(np.abs(card - embs["cuda"].embed_texts(texts)).max())
+    alone = packed(embs["cuda"], texts[:1])[0]
+    mates = max(
+        float(np.abs(packed(embs["cuda"], texts[:1] + other)[0] - alone).max())
+        for other in (texts[1:3], texts[3:])
+    )
+    row = {
+        "phase": "bge_micro_packed", "gpu": gpu, "dtype": "float32",
+        "packed_card_vs_cpu": vs_cpu, "packed_vs_padded_card": vs_padded,
+        "tolerance": PACKED_MICRO_TOL, "row_mate_err": mates,
+        "row_mate_tolerance": ROW_MATE_TOL,
+    }
+    emit(row)
+    if vs_cpu > PACKED_MICRO_TOL or vs_padded > PACKED_MICRO_TOL or (
+        mates > ROW_MATE_TOL
+    ):
+        raise AssertionError(f"bge_micro packed: {row}")
+    return row
+
+
 # -- phase 4: the main path at full bge-large width ----------------------------
 
 
@@ -592,6 +828,7 @@ def _wrappers() -> dict:
 
     return {
         "cosine_vote": kernels.cosine_vote, "attention": attention.attention,
+        "segment_attention": attention.segment_attention,
         "quantize_rows": kernels.quantize_rows,
         "w8a8_matmul": kernels.w8a8_matmul, "w4a8_matmul": kernels.w4a8_matmul,
     }
@@ -691,12 +928,18 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
     }
 
 
-def expected_launches(layers, consensus_d, embed_d, quantize="none") -> dict:
+def expected_launches(layers, consensus_d, embed_d, quantize="none",
+                      packed_calls=0) -> dict:
+    """Launches of ``consensus_d`` padded consensus dispatches,
+    ``embed_d`` padded embedding dispatches and ``packed_calls`` packed
+    calls: one attention (or segment attention) per layer per encoder
+    call, 6 quantized matmuls per layer under a quantize mode."""
     encoder_d = consensus_d + embed_d
-    dense = 6 * layers * encoder_d if quantize != "none" else 0
+    dense = 6 * layers * (encoder_d + packed_calls) if quantize != "none" else 0
     int4 = quantize.startswith("int4")
     return {
         "cosine_vote": consensus_d, "attention": layers * encoder_d,
+        "segment_attention": layers * packed_calls,
         "quantize_rows": dense, "w8a8_matmul": 0 if int4 else dense,
         "w4a8_matmul": dense if int4 else 0,
     }
@@ -753,6 +996,286 @@ def main_path(gpu: str):
     return row, emb, bursts, embed_texts
 
 
+# -- phase 5: the packed path ---------------------------------------------------
+
+
+def mixed_traffic(seed: int = 11):
+    """The reference's mixed-length workload (``bench_http.py
+    --mixed-lengths``): per request N in {3, 4, 6, 8} (p .3/.3/.25/.15),
+    a shared context of 4-16 words (60%), 24-64 (30%) or 96-192 (10%),
+    then ``answer j`` and 6 words per candidate.  -> (bursts of
+    ``PACKED_BURST`` requests' texts, one list of ``PACKED_EMBED_N``
+    texts of the same length mixture per burst)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def text(words: int, tag: str) -> str:
+        return f"{tag} " + " ".join(
+            rng.choice(BENCH_WORDS, size=max(1, words)).tolist()
+        )
+
+    def words() -> int:
+        kind = rng.random()
+        if kind < 0.6:
+            return int(rng.integers(4, 17))
+        if kind < 0.9:
+            return int(rng.integers(24, 65))
+        return int(rng.integers(96, 193))
+
+    def request_texts(i: int) -> list:
+        n = int(rng.choice([3, 4, 6, 8], p=[0.3, 0.3, 0.25, 0.15]))
+        prefix = text(words(), f"ctx {i}")
+        return [f"{prefix} answer {j} {text(6, 'a')}" for j in range(n)]
+
+    bursts = [
+        [request_texts(k * PACKED_BURST + i) for i in range(PACKED_BURST)]
+        for k in range(PACKED_BURSTS)
+    ]
+    embeds = [
+        [text(words(), f"doc {k} {j}") for j in range(PACKED_EMBED_N)]
+        for k in range(PACKED_BURSTS)
+    ]
+    return bursts, embeds
+
+
+def _delta(after: dict, before: dict) -> dict:
+    """The growth of the integer counters of ``stats()`` (nested dicts)
+    between two reads."""
+    out = {}
+    for key, value in after.items():
+        prev = before.get(key, 0)
+        if isinstance(value, dict):
+            out[key] = _delta(value, prev if isinstance(prev, dict) else {})
+        elif isinstance(value, int) and not isinstance(value, bool):
+            out[key] = value - prev
+    return out
+
+
+def serve_mixed(emb, bursts, embeds, **options) -> dict:
+    """Serve ``bursts`` of concurrent /consensus requests, each with one
+    concurrent /embeddings request, through the port's HTTP server with
+    the batcher ``options``; the launch counts are set to 0 after a
+    warm-up request and read at the end.  Checks every answer."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.gateway import Server
+
+    model_name = emb.model_name
+    with Server(emb, max_batch=PACKED_BURST, max_wait_ms=100,
+                **options) as srv:
+        post(srv.port, "/consensus", {"input": bursts[0][0]})
+        post(srv.port, "/embeddings", {"model": model_name,
+                                       "input": embeds[0][:2]})
+        torch.cuda.synchronize()
+        stats0 = srv.batcher.stats()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        latencies, results = [], {}
+
+        def call(key, path, body):
+            t = time.perf_counter()
+            out = post(srv.port, path, body)
+            if path == "/consensus":
+                latencies.append(time.perf_counter() - t)
+            results[key] = out
+
+        t_burst = time.perf_counter()
+        for k, burst in enumerate(bursts):
+            threads = [
+                threading.Thread(target=call, args=(
+                    (k, i), "/consensus", {"input": texts, "temperature": 0.05}
+                ))
+                for i, texts in enumerate(burst)
+            ]
+            threads.append(threading.Thread(target=call, args=(
+                (k, "embed"), "/embeddings",
+                {"model": model_name, "input": embeds[k]},
+            )))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("a request did not return")
+        burst_s = time.perf_counter() - t_burst
+        torch.cuda.synchronize()
+        launches = read_launches()
+        stats = _delta(srv.batcher.stats(), stats0)
+    for k, burst in enumerate(bursts):
+        for i, texts in enumerate(burst):
+            check_answer(results[(k, i)]["confidence"], len(texts))
+        vecs = np.asarray([r["embedding"] for r in results[(k, "embed")]["data"]])
+        if vecs.shape != (len(embeds[k]), emb.config.hidden_size) or (
+            not np.isfinite(vecs).all()
+            or np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-3
+        ):
+            raise AssertionError(f"/embeddings burst {k}: {vecs.shape}")
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    return {
+        "results": results, "launches": launches, "stats": stats,
+        "p50_ms": float(np.median(lat_ms)), "max_ms": lat_ms[-1],
+        "requests": len(latencies), "answers_per_s": len(latencies) / burst_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def packed_vectors(emb, texts, row_tokens=PACKING["packing_row_tokens"],
+                   max_rows=PACKING["packing_max_rows"],
+                   max_segments=PACKING["packing_max_segments"]):
+    """Per-text embeddings through the packed path (the batcher's plan
+    with prefix dedup off: ``tokenize_ragged``, ``build_calls``, one
+    ``embed_packed`` per call), by default at the PACKING defaults."""
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.serve import packing
+
+    rows = emb.tokenize_ragged(texts, min(row_tokens, emb.max_tokens))
+    calls = packing.build_calls(rows, row_tokens, max_rows, max_segments)
+    out = [None] * len(texts)
+    for call in calls:
+        vecs = emb.embed_packed(
+            call.ids, call.segment_ids, call.positions, call.seg_starts
+        )
+        for si, (r, slot) in call.slots.items():
+            out[si] = vecs[r, slot]
+    return np.stack(out)
+
+
+def composed_confidence(emb, texts, temperature=0.05):
+    """The prefix-dedup contract on the padded path's embeddings: the
+    prefix and the suffixes embedded padded, composed and voted on the
+    host, as ``ConsensusBatcher._dispatch_packed`` defines it; None when
+    dedup does not apply to ``texts``."""
+    from llm_weighted_consensus_tpu_torch.serve import packing
+
+    prefix = packing.shared_prefix(texts, PACKING["prefix_dedup_min_chars"])
+    if prefix is None:
+        return None
+    suffixes = [t[len(prefix):] for t in texts]
+    parts = [prefix] + [x for x in suffixes if x]
+    rows = emb.tokenize_ragged(parts, PACKING["packing_row_tokens"])
+    if len(rows[0]) < 4:
+        return None
+    vecs = emb.embed_texts(parts)
+    it = iter(range(1, len(parts)))
+    cand = []
+    for x in suffixes:
+        i = next(it) if x else None
+        cand.append(packing.compose_prefix_suffix(
+            vecs[0], len(rows[0]), None if i is None else vecs[i],
+            0 if i is None else len(rows[i]),
+        ))
+    import numpy as np
+
+    return packing.consensus_vote_np(np.stack(cand), temperature)
+
+
+def packed_path(gpu: str, emb, checked: set) -> dict:
+    """The packed path on the main path's bge-large embedder (bf16): the
+    mixed traffic through a packed server (PACKING defaults) and through a
+    padded one; launch counts; answers held against the padded path with
+    dedup off and against the dedup contract with it on."""
+    import numpy as np
+
+    layers = emb.config.num_layers
+    bursts, embeds = mixed_traffic()
+    packed = serve_mixed(emb, bursts, embeds, **PACKING)
+    padded = serve_mixed(emb, bursts, embeds)
+    pk = packed["stats"]["packing"]
+    pk["call_shapes"] = {k: n for k, n in pk["call_shapes"].items() if n}
+    calls = sum(pk["call_shapes"].values())
+    shapes = sorted(tuple(int(x) for x in key.split("x"))
+                    for key in pk["call_shapes"])
+    if pk["fallback_items"] or calls < 1:
+        raise AssertionError(f"packed path: {pk}")
+    want = expected_launches(layers, 0, 0, packed_calls=calls)
+    if packed["launches"] != want:
+        raise AssertionError(
+            f"packed launches {packed['launches']} != expected {want}"
+        )
+    if not set(shapes) <= checked:
+        raise AssertionError(f"packed calls {shapes} outside {checked}")
+    pad_d = padded["stats"]["dispatches"]
+    want_pad = expected_launches(layers, pad_d["consensus"], pad_d["embed"])
+    if padded["launches"] != want_pad:
+        raise AssertionError(
+            f"padded launches {padded['launches']} != expected {want_pad}"
+        )
+    # dedup off, the same texts: the padded path's answers
+    nodedup = serve_mixed(emb, bursts[:1], embeds[:1],
+                          **dict(PACKING, prefix_dedup=False))
+    conf_off, conf_on, cos_min = 0.0, 0.0, 1.0
+    for i, texts in enumerate(bursts[0]):
+        ref = np.asarray(padded["results"][(0, i)]["confidence"])
+        got = np.asarray(nodedup["results"][(0, i)]["confidence"])
+        conf_off = max(conf_off, float(np.abs(got - ref).max()))
+        composed = composed_confidence(emb, texts)
+        contract = ref if composed is None else composed
+        got_on = np.asarray(packed["results"][(0, i)]["confidence"])
+        conf_on = max(conf_on, float(np.abs(got_on - contract).max()))
+    texts = [t for req in bursts[0] for t in req] + embeds[0]
+    vecs = packed_vectors(emb, texts)
+    cos = (vecs * emb.embed_texts(texts)).sum(axis=1)
+    cos_min = float(cos.min())
+    row = {
+        "phase": "packed_path", "gpu": gpu, "model": emb.model_name,
+        "dtype": str(emb.dtype).split(".")[-1], "options": PACKING,
+        "bursts": PACKED_BURSTS, "requests": packed["requests"],
+        "p50_ms": packed["p50_ms"], "max_ms": packed["max_ms"],
+        "answers_per_s": packed["answers_per_s"],
+        "packed_dispatches": pk["dispatches"], "packed_calls": calls,
+        "call_shapes": pk["call_shapes"],
+        "real_tokens": pk["real_tokens"], "slot_tokens": pk["slot_tokens"],
+        "prefix_dedup_hits": pk["prefix_dedup_hits"],
+        "prefix_dedup_tokens_saved": pk["prefix_dedup_tokens_saved"],
+        "fallback_items": pk["fallback_items"],
+        "launches": packed["launches"], "expected_launches": want,
+        "peak_mem_gib": packed["peak_mem_gib"],
+        "padded_p50_ms": padded["p50_ms"], "padded_max_ms": padded["max_ms"],
+        "padded_answers_per_s": padded["answers_per_s"],
+        "padded_dispatches": pad_d,
+        "padded_real_tokens": padded["stats"]["padded"]["real_tokens"],
+        "padded_slot_tokens": padded["stats"]["padded"]["slot_tokens"],
+        "padded_peak_mem_gib": padded["peak_mem_gib"],
+        "dedup_off_max_conf_diff": conf_off,
+        "dedup_on_max_conf_diff_vs_contract": conf_on,
+        "min_candidate_cosine_vs_padded": cos_min,
+        "bars": {"min_cosine": PACKED_MIN_COS, "conf": PACKED_CONF_TOL},
+    }
+    emit(row)
+    if (conf_off > PACKED_CONF_TOL or conf_on > PACKED_CONF_TOL
+            or cos_min < PACKED_MIN_COS):
+        raise AssertionError(f"packed path against the padded path: {row}")
+    return {"row": row, "shapes": shapes, "bursts": bursts, "embeds": embeds}
+
+
+def packed_int8_burst(gpu: str, emb, bursts, embeds) -> dict:
+    """One packed burst under ``quantize="int8"``: 6 quantized matmuls
+    (and row quantisations) and one segment attention per layer per
+    packed call, no padded kernel."""
+    layers = emb.config.num_layers
+    out = serve_mixed(emb, bursts[:1], embeds[:1], **PACKING)
+    pk = out["stats"]["packing"]
+    calls = sum(pk["call_shapes"].values())
+    pk["call_shapes"] = {k: n for k, n in pk["call_shapes"].items() if n}
+    want = expected_launches(layers, 0, 0, "int8", packed_calls=calls)
+    row = {
+        "phase": "packed_int8", "gpu": gpu, "model": emb.model_name,
+        "quantize": "int8", "requests": out["requests"],
+        "p50_ms": out["p50_ms"], "answers_per_s": out["answers_per_s"],
+        "packed_calls": calls, "call_shapes": pk["call_shapes"],
+        "launches": out["launches"], "expected_launches": want,
+    }
+    emit(row)
+    if out["launches"] != want or pk["fallback_items"] or calls < 1:
+        raise AssertionError(f"packed int8 launches: {row}")
+    return row
+
+
 def scheme_cosines(mode, texts):
     """Per-text cosine between the quantized and the unquantized
     embeddings of the port's plain versions on the CPU, f32, bge-large at
@@ -773,10 +1296,12 @@ def scheme_cosines(mode, texts):
     return (vecs[0] * vecs[1]).sum(axis=1)
 
 
-def quant_path(gpu, mode, full, bursts, embed_texts) -> dict:
+def quant_path(gpu, mode, full, bursts, embed_texts, packed=None) -> dict:
     """The main path's traffic (without the s=512 request) under
     ``quantize=mode`` on the same weights, held against the unquantized
-    embedder ``full`` on the same texts."""
+    embedder ``full`` on the same texts; with ``packed`` (the packed
+    phase's traffic), one packed burst and a profile of one packed call
+    on the same quantized embedder."""
     import numpy as np
     import torch
 
@@ -840,6 +1365,10 @@ def quant_path(gpu, mode, full, bursts, embed_texts) -> dict:
         min_cos_bar is not None and min_cos < min_cos_bar
     ) or card_cos[:SCHEME_TEXTS].min() < scheme_cos.min() - SCHEME_MARGIN:
         raise AssertionError(f"{mode} against the unquantized path: {row}")
+    if packed is not None:
+        row["packed"] = packed_int8_burst(gpu, emb, packed["bursts"],
+                                          packed["embeds"])
+        profile_packed(gpu, emb, packed["bursts"], mode)
     del emb
     torch.cuda.empty_cache()
     return row
@@ -875,19 +1404,7 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         emb.consensus_confidence_tokens_many(ids, mask)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # device kernels, memcpys and memsets only: host-side entries
-        # (launch calls, "Command Buffer Full" waits) carry device time
-        # of the kernels they wait on
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
-        if dev_us:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = device_table(prof)
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -940,13 +1457,98 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     return row
 
 
-def kernel_summary(vote, attn_rows, quant, launches, q8, q4) -> dict:
+def device_table(prof):
+    """(device ms, count, name) per kernel from a profile, largest first:
+    device kernels, memcpys and memsets only (host-side entries, launch
+    calls and "Command Buffer Full" waits, carry device time of the
+    kernels they wait on)."""
+    import torch
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        if dev_us:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
+    """Device time by kernel for one packed call of [8, 512] rows (the
+    bucket), made from the packed traffic's candidate texts with dedup
+    off; the table goes to chiprun_out/profile_packed_path.txt (or
+    profile_packed_int8.txt, where a cuBLAS GEMM fails the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_weighted_consensus_tpu_torch.serve import packing
+
+    texts = [t for burst in bursts for req in burst for t in req]
+    rows = emb.tokenize_ragged(texts, PACKING["packing_row_tokens"])
+    call = next(
+        c for c in packing.build_calls(
+            rows, PACKING["packing_row_tokens"], PACKING["packing_max_rows"],
+            PACKING["packing_max_segments"],
+        ) if c.ids.shape == SEG_BUCKET
+    )
+    args = (call.ids, call.segment_ids, call.positions, call.seg_starts)
+    emb.embed_packed(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        emb.embed_packed(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = device_table(prof)
+    device_ms = sum(r[0] for r in rows)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    name = ("profile_packed_path.txt" if quantize == "none"
+            else f"profile_packed_{quantize}.txt")
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write(f"# {gpu}; one packed call {list(call.ids.shape)}, "
+                f"{len(call.slots)} segments, {call.real_tokens} real tokens, "
+                f"quantize={quantize}, wall {wall_ms:.3f} ms\n")
+        for ms, count, key in rows:
+            f.write(f"{ms:10.3f} ms  {count:6d}  {key[:110]}\n")
+    cublas = [
+        key for _, _, key in rows
+        if any(pat in key.lower() for pat in CUBLAS_GEMM)
+        and "quant_gemm_kernel" not in key
+    ]
+    row = {
+        "phase": "profile_packed", "gpu": gpu, "quantize": quantize,
+        "shape": list(call.ids.shape), "segments": len(call.slots),
+        "real_tokens": call.real_tokens, "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "top": [{"kernel": key[:80], "ms": ms, "count": count}
+                for ms, count, key in rows[:8]],
+        "cublas_gemm_kernels": cublas,
+    }
+    emit(row)
+    if quantize != "none" and cublas:
+        raise AssertionError(f"packed profile ({quantize}): cuBLAS {cublas}")
+    if device_ms > wall_ms * DEVICE_TIME_SLACK:
+        raise AssertionError(
+            f"packed profile: device time {device_ms} ms exceeds the wall "
+            f"time {wall_ms} ms"
+        )
+    return row
+
+
+def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
+                   packed) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
-    path, the int4 path; the row quantisation runs on both quantized
-    paths and counts both) and its numbers at the main path's shape
-    (bf16; for the quantized matmuls the MLP expansion, K=1024,
-    N=4096 with GELU)."""
+    path, the int4 path, the packed path; the row quantisation runs on
+    both quantized paths and counts both) and its numbers at the main
+    path's shape (bf16; for the quantized matmuls the MLP expansion,
+    K=1024, N=4096 with GELU; for the segment attention the packed
+    bucket, 8 rows of 512 tokens)."""
     main = next(
         r for r in attn_rows
         if r.get("shape", [])[:2] == [BURST * N_CANDIDATES, 128]
@@ -1007,6 +1609,17 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4) -> dict:
         "bound_by": q8_row["quantize_rows_bound_by"], "library_ms": None,
         "shape": [QUANT_M, 1024],
     })
+    bucket = seg["rows"][SEG_BUCKET]
+    entries.append({
+        "name": "segment_attention", "route": "cuda",
+        "source": csrc + "attention.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/attention.py:224",
+        "launches": packed["launches"]["segment_attention"],
+        "max_abs_err": seg["max_abs_err"], "ms": bucket["kernel_ms"],
+        "plain_ms": bucket["plain_ms"], "bound_ms": bucket["bound_ms"],
+        "bound_by": bucket["bound_by"], "library_ms": bucket["library_ms"],
+        "shape": bucket["shape"],
+    })
     return {"kernels": entries}
 
 
@@ -1034,17 +1647,25 @@ def main() -> int:
     vote = check_vote(gpu)
     attn_rows = check_attention(gpu)["rows"]
     quant = check_quant(gpu)
-    segment_attention_bound()
+    seg = check_segment_attention(gpu)
     check_bge_micro(gpu)
+    check_bge_micro_packed(gpu)
     main_row, full, bursts, embed_texts = main_path(gpu)
-    q8 = quant_path(gpu, "int8", full, bursts, embed_texts)
+    packed = packed_path(gpu, full, seg["checked"])
+    profile_packed(gpu, full, packed["bursts"])
+    seg["rows"] = {
+        shape: time_segment_attention(gpu, *shape)
+        for shape in sorted(set(packed["shapes"]) | {SEG_BUCKET})
+    }
+    q8 = quant_path(gpu, "int8", full, bursts, embed_texts, packed=packed)
     q4 = quant_path(gpu, "int4-pallas", full, bursts[:1], embed_texts)
     del full
     torch.cuda.empty_cache()
     profile_dispatch(gpu)
     profile_dispatch(gpu, quantize="int8")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4))
+    emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
+                        seg, packed["row"]))
     print(gpu)
     emit({
         "ok": True,

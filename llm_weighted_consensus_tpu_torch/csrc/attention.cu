@@ -1,9 +1,28 @@
-// Encoder multi-head attention for Hopper (sm_90a).
+// Encoder multi-head attention for Hopper (sm_90a), padded and packed.
 //
 // Replaces: llm_weighted_consensus_tpu/ops/attention.py::fused_attention_tiled
 // (the Pallas kernel _attn_kernel_tiled): softmax(Q K^T * scale + bias) V
 // with an additive key bias [b, s] (0 for real tokens, -1e9 for padding),
 // logits and softmax in f32, f32 accumulation, output in q's dtype.
+// Entry point lwc_attention.
+//
+// And, as the SEG variant of the same two kernels (entry point
+// lwc_attention_seg), ops/attention.py:147-233, fused_attention_tiled_seg
+// (the Pallas kernel _attn_kernel_tiled_seg) of the packed serving path:
+// many sequences laid end to end in one row, int32 segment_ids [b, s]
+// (0 = pad slot).  Query i sees key j iff seg[i] == seg[j] && seg[j] > 0;
+// a masked logit is REPLACED by -1e9 (a select, not an add), so a pad
+// query row (every logit -1e9) softmaxes to the uniform mean of V, as in
+// JAX.  What bounds it at the packed bucket (b=8 rows of s=512 tokens,
+// nh=16, hd=64, bf16): bytes, barely.  q/k/v/out are 33.6 MB (0.0100 ms
+// at 3.35 TB/s) against at most 4 b nh s^2 hd = 8.6 GFLOP (0.0087 ms at
+// 989 TFLOP/s), and the same-segment blocks the data needs are fewer.
+// The design keeps the traffic at that minimum: the int32 key-segment
+// tile takes the place of the f32 bias tile (the same 4 bytes per key),
+// each thread keeps the segment ids of its query rows in registers, and
+// the mask is one compare per logit; no [b, s, s] mask or bias exists in
+// device memory.  Key tiles whose every key is masked are still computed
+// (skipping them would change the pad query rows; later work).
 //
 // What bounds it on the H100: operations.  At the serving shape (b=64,
 // s=128, nh=16, hd=64) one call does 4 b nh s^2 hd = 4.3 GFLOP against
@@ -61,17 +80,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T, int HD>
+// SEG false: `mask` is the f32 key bias [b, s]; SEG true: the int32
+// segment ids [b, s] of the packed layout (both kernels below)
+template <typename T, int HD, bool SEG>
 __global__ void __launch_bounds__(kBQ)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
+                     const T* __restrict__ v, const void* __restrict__ mask,
                      T* __restrict__ out, int s, int nh, long long q_sb,
                      long long q_ss, long long q_sh, long long k_sb,
                      long long k_ss, long long k_sh, long long v_sb,
                      long long v_ss, long long v_sh, float scale) {
   __shared__ __align__(16) float ks[kBK][HD];
   __shared__ __align__(16) float vs[kBK][HD];
-  __shared__ float bs[kBK];
+  __shared__ float bs[kBK];  // key bias tile (SEG false)
+  __shared__ int ss[kBK];    // key segment-id tile (SEG true)
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
@@ -81,7 +103,9 @@ __global__ void __launch_bounds__(kBQ)
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
-  const float* bias_row = bias + static_cast<size_t>(b) * s;
+  const float* bias_row = static_cast<const float*>(mask) + static_cast<size_t>(b) * s;
+  const int* seg_row = static_cast<const int*>(mask) + static_cast<size_t>(b) * s;
+  const int sq = (SEG && active) ? seg_row[qi] : 0;  // this row's segment
 
   float qr[HD];
   float acc[HD];
@@ -107,8 +131,12 @@ __global__ void __launch_bounds__(kBQ)
       ks[j][d] = kv;
       vs[j][d] = vv;
     }
-    for (int j = threadIdx.x; j < kBK; j += kBQ)
-      bs[j] = j < kn ? bias_row[k0 + j] : 0.0f;
+    for (int j = threadIdx.x; j < kBK; j += kBQ) {
+      if constexpr (SEG)
+        ss[j] = j < kn ? seg_row[k0 + j] : 0;
+      else
+        bs[j] = j < kn ? bias_row[k0 + j] : 0.0f;
+    }
     __syncthreads();
 
     for (int j0 = 0; j0 < kn; j0 += kChunk) {
@@ -127,8 +155,15 @@ __global__ void __launch_bounds__(kBQ)
           dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
           dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
         }
-        lg[jj] = j < kn ? dot * scale + bs[j] : -CUDART_INF_F;
-        cm = fmaxf(cm, lg[jj]);
+        float x = -CUDART_INF_F;  // keys past s
+        if (j < kn) {
+          if constexpr (SEG)
+            x = (ss[j] == sq && ss[j] > 0) ? dot * scale : -1e9f;
+          else
+            x = dot * scale + bs[j];
+        }
+        lg[jj] = x;
+        cm = fmaxf(cm, x);
       }
       const float mn = fmaxf(m, cm);
       const float corr = expf(m - mn);  // 0 on the first step (m = -inf)
@@ -161,15 +196,14 @@ __global__ void __launch_bounds__(kBQ)
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* bias,
+template <typename T, int HD, bool SEG>
+int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, int b, int s, int nh, const long long* st, float scale,
            cudaStream_t stream) {
   const dim3 grid(b * nh, (s + kBQ - 1) / kBQ);
-  attention_kernel<T, HD><<<grid, kBQ, 0, stream>>>(
+  attention_kernel<T, HD, SEG><<<grid, kBQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), s, nh, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<const T*>(v), mask, static_cast<T*>(out), s, nh, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -182,7 +216,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // mma.sync.m16n8k16 (bf16 inputs, f32 accumulation).  One block of four
 // warps takes 64 queries; each warp owns 16 query rows, keeps its Q
 // fragments in registers, and walks the keys in 64-key shared-memory
-// tiles: S = Q K^T into f32 accumulators, scale + bias + ragged-edge mask,
+// tiles: S = Q K^T into f32 accumulators, scale + bias (or the segment
+// select) + ragged-edge mask,
 // running max and sum per row (the four lanes of a quad share a row),
 // then P (rounded to bf16, as the reference rounds its probabilities to
 // v's dtype) times V from the accumulators' registers.  Shared rows are
@@ -254,12 +289,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int HD>
+template <int HD, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
-                         const float* __restrict__ bias,
+                         const void* __restrict__ mask,
                          __nv_bfloat16* __restrict__ out, int s, int nh,
                          long long q_sb, long long q_ss, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh,
@@ -272,7 +307,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) __nv_bfloat16 qs[kBQ * LD];
   __shared__ __align__(16) __nv_bfloat16 ks[kBK * LD];
   __shared__ __align__(16) __nv_bfloat16 vs[kBK * LD];
-  __shared__ float bs[kBK];
+  __shared__ float bs[kBK];  // key bias tile (SEG false)
+  __shared__ int ss[kBK];    // key segment-id tile (SEG true)
 
   const int bh = blockIdx.x;
   const int b = bh / nh;
@@ -285,7 +321,18 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const float* bias_row = bias + static_cast<size_t>(b) * s;
+  const float* bias_row = static_cast<const float*>(mask) + static_cast<size_t>(b) * s;
+  const int* seg_row = static_cast<const int*>(mask) + static_cast<size_t>(b) * s;
+  // the segments of this thread's two query rows (g and g + 8 of the
+  // warp's 16); rows past s are pad slots
+  int sq[2] = {0, 0};
+  if constexpr (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + warp * 16 + g + r * 8;
+      sq[r] = qi < s ? seg_row[qi] : 0;
+    }
+  }
 
   load_tile<HD, LD>(qs, qb + q0 * q_ss, q_ss, kBQ, s - q0);
   __syncthreads();
@@ -308,8 +355,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile is consumed
     load_tile<HD, LD>(ks, kb + k0 * k_ss, k_ss, kBK, s - k0);
     load_tile<HD, LD>(vs, vb + k0 * v_ss, v_ss, kBK, s - k0);
-    for (int j = threadIdx.x; j < kBK; j += kThreads)
-      bs[j] = k0 + j < s ? bias_row[k0 + j] : 0.0f;
+    for (int j = threadIdx.x; j < kBK; j += kThreads) {
+      if constexpr (SEG)
+        ss[j] = k0 + j < s ? seg_row[k0 + j] : 0;
+      else
+        bs[j] = k0 + j < s ? bias_row[k0 + j] : 0.0f;
+    }
     __syncthreads();
 
     float sc[kNTiles][4];
@@ -332,8 +383,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * c + (e & 1);
-        const float x = k0 + col < s ? sc[nt][e] * scale + bs[col]
-                                     : -CUDART_INF_F;
+        float x = -CUDART_INF_F;  // keys past s
+        if (k0 + col < s) {
+          if constexpr (SEG) {
+            const int sk = ss[col];
+            x = (sk == sq[e >> 1] && sk > 0) ? sc[nt][e] * scale : -1e9f;
+          } else {
+            x = sc[nt][e] * scale + bs[col];
+          }
+        }
         sc[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -395,15 +453,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* bias,
+template <int HD, bool SEG>
+int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, int b, int s, int nh, const long long* st, float scale,
            cudaStream_t stream) {
   const dim3 grid(b * nh, (s + kBQ - 1) / kBQ);
-  attention_mma_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  attention_mma_kernel<HD, SEG><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(v), mask,
       static_cast<__nv_bfloat16*>(out), s, nh, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], scale);
   return static_cast<int>(cudaGetLastError());
@@ -421,6 +479,34 @@ bool aligned(const void* q, const void* k, const void* v,
 
 }  // namespace mma
 
+// the mma path where it applies, else the FMA path; SEG picks the mask
+template <bool SEG>
+int dispatch(const void* q, const void* k, const void* v, const void* mask,
+             void* out, int b, int s, int nh, int hd, const long long* st,
+             float scale, int dtype, cudaStream_t stream) {
+  if (dtype == 1 && mma::aligned(q, k, v, st)) {
+    if (hd == 64)
+      return mma::launch<64, SEG>(q, k, v, mask, out, b, s, nh, st, scale, stream);
+    if (hd == 32)
+      return mma::launch<32, SEG>(q, k, v, mask, out, b, s, nh, st, scale, stream);
+    if (hd == 16)
+      return mma::launch<16, SEG>(q, k, v, mask, out, b, s, nh, st, scale, stream);
+  }
+#define LWC_ATTN_CASE(DT, T, HD)                                            \
+  if (dtype == DT && hd == HD)                                              \
+    return launch<T, HD, SEG>(q, k, v, mask, out, b, s, nh, st, scale, stream);
+  LWC_ATTN_CASE(0, float, 16)
+  LWC_ATTN_CASE(0, float, 24)
+  LWC_ATTN_CASE(0, float, 32)
+  LWC_ATTN_CASE(0, float, 64)
+  LWC_ATTN_CASE(1, __nv_bfloat16, 16)
+  LWC_ATTN_CASE(1, __nv_bfloat16, 24)
+  LWC_ATTN_CASE(1, __nv_bfloat16, 32)
+  LWC_ATTN_CASE(1, __nv_bfloat16, 64)
+#undef LWC_ATTN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // q/k/v: [b, s, nh, hd] with element strides (batch, seq, head) given in
@@ -432,26 +518,17 @@ extern "C" int lwc_attention(const void* q, const void* k, const void* v,
                              const void* bias, void* out, int b, int s,
                              int nh, int hd, const long long* strides,
                              float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && mma::aligned(q, k, v, strides)) {
-    if (hd == 64)
-      return mma::launch<64>(q, k, v, bias, out, b, s, nh, strides, scale, st);
-    if (hd == 32)
-      return mma::launch<32>(q, k, v, bias, out, b, s, nh, strides, scale, st);
-    if (hd == 16)
-      return mma::launch<16>(q, k, v, bias, out, b, s, nh, strides, scale, st);
-  }
-#define LWC_ATTN_CASE(DT, T, HD)                                            \
-  if (dtype == DT && hd == HD)                                              \
-    return launch<T, HD>(q, k, v, bias, out, b, s, nh, strides, scale, st);
-  LWC_ATTN_CASE(0, float, 16)
-  LWC_ATTN_CASE(0, float, 24)
-  LWC_ATTN_CASE(0, float, 32)
-  LWC_ATTN_CASE(0, float, 64)
-  LWC_ATTN_CASE(1, __nv_bfloat16, 16)
-  LWC_ATTN_CASE(1, __nv_bfloat16, 24)
-  LWC_ATTN_CASE(1, __nv_bfloat16, 32)
-  LWC_ATTN_CASE(1, __nv_bfloat16, 64)
-#undef LWC_ATTN_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, bias, out, b, s, nh, hd, strides, scale,
+                         dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The packed twin: as lwc_attention, with segment_ids [b, s] int32
+// contiguous (0 = pad slot) in place of the bias.
+extern "C" int lwc_attention_seg(const void* q, const void* k, const void* v,
+                                 const void* segment_ids, void* out, int b,
+                                 int s, int nh, int hd,
+                                 const long long* strides, float scale,
+                                 int dtype, void* stream) {
+  return dispatch<true>(q, k, v, segment_ids, out, b, s, nh, hd, strides,
+                        scale, dtype, static_cast<cudaStream_t>(stream));
 }

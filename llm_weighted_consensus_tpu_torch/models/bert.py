@@ -10,9 +10,12 @@ Counterpart of ``llm_weighted_consensus_tpu/models/bert.py``:
   reference's numerics: matmuls in the param dtype with f32
   accumulation, LayerNorm, GELU, softmax and pooling in f32, padding as
   a -1e9 additive key bias (never -inf);
-* attention goes through ``ops.attention.attention``: the CUDA kernel for
-  tensors on the card, its plain version on the CPU.  No other path
-  exists on the card;
+* ``embed_packed`` / ``pool_segments`` are the packed layout's twins
+  (``serve/packing.py``): many sequences per row, segment-masked
+  attention, per-segment positions and one pooled vector per segment;
+* attention goes through ``ops.attention.attention`` (padded) or
+  ``segment_attention`` (packed): the CUDA kernel for tensors on the
+  card, its plain version on the CPU.  No other path exists on the card;
 * the dense layers go through ``layers.dense_cfg`` / ``mlp_cfg``: a layer
   stack quantized by ``models.quant`` (``QuantLinear``) runs the W8A8 or
   W4A8 kernel for every dense layer, with the GELU in the MLP expansion's
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import attention
+from ..ops.attention import attention, segment_attention
 from . import quant
 from .configs import BertConfig, position_base
 from .layers import dense_cfg, layer_norm, mlp_cfg
@@ -128,58 +131,88 @@ class BertEncoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _attention(x, p: BertAttention, key_bias, config: BertConfig):
+def _attention(x, p: BertAttention, key_mask, config: BertConfig):
+    """``key_mask`` is the f32 key bias[b, s] of the padded layout or the
+    int32 segment ids[b, s] of the packed one."""
     b, s, h = x.shape
     nh, hd = config.num_heads, config.head_dim
     sa = p.self
     q = dense_cfg(x, sa.query).view(b, s, nh, hd)
     k = dense_cfg(x, sa.key).view(b, s, nh, hd)
     v = dense_cfg(x, sa.value).view(b, s, nh, hd)
-    ctx = attention(q, k, v, key_bias, 1.0 / float(hd) ** 0.5)
+    fn = attention if key_mask.dtype.is_floating_point else segment_attention
+    ctx = fn(q, k, v, key_mask, 1.0 / float(hd) ** 0.5)
     return dense_cfg(ctx.reshape(b, s, h), p.output.dense)
 
 
-def _layer(x, layer: BertLayer, key_bias, config: BertConfig):
-    attn = _attention(x, layer.attention, key_bias, config)
+def _layer(x, layer: BertLayer, key_mask, config: BertConfig):
+    attn = _attention(x, layer.attention, key_mask, config)
     x = layer.attention.output.LayerNorm(x + attn)
     mlp = mlp_cfg(x, layer.intermediate.dense, layer.output.dense)
     return layer.output.LayerNorm(x + mlp)
 
 
+def check_positions(config: BertConfig, last: int, what: str) -> None:
+    """Refuse, by name, a position index ``last`` (before the base) past
+    the position table: an index past it would fail, or on the card read
+    out of bounds."""
+    base = position_base(config)
+    if base + last >= config.max_position_embeddings:
+        raise ValueError(
+            f"{what} (position base {base}) exceeds "
+            f"max_position_embeddings={config.max_position_embeddings}"
+        )
+
+
 def encode(
     model: BertEncoder,
     input_ids: torch.Tensor,
-    attention_mask: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],
     token_type_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """input_ids[b, s], attention_mask[b, s] -> hidden[b, s, h] in the
-    param dtype.  Positions are left-aligned from ``position_base``."""
+    param dtype.  Positions are left-aligned from ``position_base``.
+
+    The packed layout passes int32 ``segment_ids[b, s]`` (0 = pad slot)
+    and ``positions[b, s]`` (restarting at 0 in each segment) instead of
+    the mask: every layer runs ``segment_attention`` and no [b, s, s]
+    bias is built.  A packed row may be longer than the position table;
+    each segment is bounded instead (``check_positions``).  That check
+    runs here for positions on the CPU; on the card the caller makes it
+    from its host copy before the upload (``TorchEmbedder.embed_packed``),
+    so no device sync is added."""
     config = model.config
     b, s = input_ids.shape
     base = position_base(config)
-    if base + s > config.max_position_embeddings:
-        # an index past the table would fail (or, on the card, read out
-        # of bounds) — refuse it by name
-        raise ValueError(
-            f"sequence {s} (position base {base}) exceeds "
-            f"max_position_embeddings={config.max_position_embeddings}"
-        )
+    if positions is None:
+        check_positions(config, s - 1, f"sequence {s}")
+    elif positions.device.type == "cpu" and positions.numel():
+        last = int(positions.max())
+        check_positions(config, last, f"a segment of {last + 1} tokens")
     emb = model.embeddings
     ids = input_ids.long()
     x = emb.word_embeddings.weight[ids]
-    positions = torch.arange(base, base + s, device=ids.device)
-    x = x + emb.position_embeddings.weight[positions][None]
+    if positions is None:
+        pos = torch.arange(base, base + s, device=ids.device)[None]
+    else:
+        pos = positions.long() + base
+    x = x + emb.position_embeddings.weight[pos]
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(ids)
     x = x + emb.token_type_embeddings.weight[token_type_ids.long()]
     x = emb.LayerNorm(x)
-    key_bias = torch.where(
-        attention_mask > 0,
-        torch.zeros((), dtype=torch.float32, device=ids.device),
-        torch.full((), -1e9, dtype=torch.float32, device=ids.device),
-    )
+    if segment_ids is not None:
+        key_mask = segment_ids
+    else:
+        key_mask = torch.where(
+            attention_mask > 0,
+            torch.zeros((), dtype=torch.float32, device=ids.device),
+            torch.full((), -1e9, dtype=torch.float32, device=ids.device),
+        )
     for layer in model.encoder.layer:
-        x = _layer(x, layer, key_bias, config)
+        x = _layer(x, layer, key_mask, config)
     return x
 
 
@@ -200,10 +233,41 @@ def pool(
         )
     else:
         raise ValueError(f"unknown pooling {pooling!r}")
-    if normalize:
-        norm = torch.sqrt(torch.sum(emb * emb, dim=-1, keepdim=True))
-        emb = emb / torch.clamp(norm, min=1e-12)
-    return emb
+    return _l2(emb) if normalize else emb
+
+
+def _l2(emb: torch.Tensor) -> torch.Tensor:
+    norm = torch.sqrt(torch.sum(emb * emb, dim=-1, keepdim=True))
+    return emb / torch.clamp(norm, min=1e-12)
+
+
+def pool_segments(
+    hidden: torch.Tensor,
+    segment_ids: torch.Tensor,
+    seg_starts: torch.Tensor,
+    pooling: str = "cls",
+    normalize: bool = True,
+) -> torch.Tensor:
+    """hidden[b, s, h], segment_ids[b, s], seg_starts[b, k] ->
+    embedding[b, k, h] f32: slot j of row b pools the tokens of segment
+    j + 1.  CLS gathers the token at ``seg_starts`` (unused slots point at
+    offset 0 and stay finite; nobody reads them); mean is the one-hot f32
+    contraction over the segment's tokens divided by max(count, 1).  Then
+    L2 normalisation, all in f32."""
+    if pooling == "cls":
+        emb = torch.take_along_dim(
+            hidden, seg_starts.long()[:, :, None], dim=1
+        ).float()
+    elif pooling == "mean":
+        k = seg_starts.shape[1]
+        slots = torch.arange(1, k + 1, device=segment_ids.device)
+        one_hot = (segment_ids[:, :, None] == slots).float()  # [b, s, k]
+        emb = torch.einsum(
+            "bsh,bsk->bkh", hidden.float(), one_hot
+        ) / torch.clamp(one_hot.sum(dim=1), min=1.0)[:, :, None]
+    else:
+        raise ValueError(f"unknown pooling {pooling!r}")
+    return _l2(emb) if normalize else emb
 
 
 def embed(
@@ -216,6 +280,24 @@ def embed(
     """ids -> pooled vectors [b, h] f32."""
     hidden = encode(model, input_ids, attention_mask)
     return pool(hidden, attention_mask, pooling, normalize)
+
+
+def embed_packed(
+    model: BertEncoder,
+    input_ids: torch.Tensor,
+    segment_ids: torch.Tensor,
+    positions: torch.Tensor,
+    seg_starts: torch.Tensor,
+    pooling: str = "cls",
+    normalize: bool = True,
+) -> torch.Tensor:
+    """The packed twin of ``embed``: ids/segment_ids/positions[b, s]
+    int32, seg_starts[b, k] int32 -> one pooled vector per segment slot,
+    [b, k, h] f32."""
+    hidden = encode(
+        model, input_ids, None, segment_ids=segment_ids, positions=positions
+    )
+    return pool_segments(hidden, segment_ids, seg_starts, pooling, normalize)
 
 
 # ---------------------------------------------------------------------------

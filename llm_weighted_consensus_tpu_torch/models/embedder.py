@@ -19,6 +19,10 @@ Dispatch semantics kept from the reference:
 One vote kernel serves the single-request and the coalesced dispatch at
 every temperature; the reference splits them (fused Pallas vote only at
 T=0.05 for one request, the jnp vote otherwise).
+
+The packed path (``tokenize_ragged``, ``embed_packed``) takes the ragged
+layout of ``serve/packing.py``: one upload and one forward per packed
+call, one pooled vector per segment.
 """
 
 from __future__ import annotations
@@ -215,6 +219,61 @@ class TorchEmbedder:
             emb[: r * n].reshape(r, n, -1), n, float(temperature)
         )
         return conf.cpu().numpy()
+
+    # -- packed (continuous-batching) path ------------------------------------
+
+    def supports_packing(self) -> bool:
+        """The packed dispatch is always available in the port (one
+        device, no mesh hooks)."""
+        return True
+
+    def tokenize_ragged(
+        self, texts: Iterable[str], max_tokens: Optional[int] = None
+    ) -> list:
+        """texts -> list of 1-D int32 token rows, padding stripped: each
+        row is what ``tokenize`` gives that text before padding, so a
+        packed segment embeds the same tokens as its padded twin."""
+        cap = min(max_tokens or self.max_tokens, self.max_tokens)
+        ids, mask = self.tokenizer.encode_batch(list(texts), cap)
+        lens = mask.sum(axis=1)
+        return [
+            np.ascontiguousarray(ids[i, : int(lens[i])], np.int32)
+            for i in range(ids.shape[0])
+        ]
+
+    @torch.inference_mode()
+    def embed_packed(
+        self,
+        ids: np.ndarray,
+        segment_ids: np.ndarray,
+        positions: np.ndarray,
+        seg_starts: np.ndarray,
+    ) -> np.ndarray:
+        """Packed layout ids/segment_ids/positions[B, L] and
+        seg_starts[B, K] -> per-slot embeddings[B, K, H] (f32,
+        L2-normalised).  The segments are bounded by the position table
+        here, on the host copy, before one int32 upload and one forward."""
+        positions = np.asarray(positions)
+        if positions.size:
+            last = int(positions.max())
+            bert.check_positions(
+                self.config, last, f"a segment of {last + 1} tokens"
+            )
+        parts = [np.ascontiguousarray(a, np.int32).ravel()
+                 for a in (ids, segment_ids, positions, seg_starts)]
+        flat = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        b, l = np.shape(ids)
+        dev_ids, dev_seg, dev_pos, dev_starts = (
+            t.view(shape) for t, shape in zip(
+                torch.split(flat, [p.size for p in parts]),
+                ((b, l), (b, l), (b, l), np.shape(seg_starts)),
+            )
+        )
+        out = bert.embed_packed(
+            self.model, dev_ids, dev_seg, dev_pos, dev_starts,
+            pooling=self.pooling, normalize=True,
+        )
+        return out.cpu().numpy()
 
     # -- wire contract --------------------------------------------------------
 

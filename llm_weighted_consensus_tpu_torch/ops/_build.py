@@ -108,11 +108,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lwc_cosine_vote.argtypes = [vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.lwc_cosine_vote.restype = i32
-    lib.lwc_attention.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32,
-        ctypes.POINTER(ctypes.c_longlong), f32, i32, vp,
-    ]
-    lib.lwc_attention.restype = i32
+    for name in ("lwc_attention", "lwc_attention_seg"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            vp, vp, vp, vp, vp, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_longlong), f32, i32, vp,
+        ]
+        fn.restype = i32
     lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.lwc_quantize_rows.restype = i32
     lib.lwc_quant_matmul.argtypes = [

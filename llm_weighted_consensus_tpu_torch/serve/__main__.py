@@ -15,7 +15,21 @@ Environment, as the reference's server reads it:
   (the encoder's dense layers as W8A8 int8 tensor-core kernels) or
   ``int4-pallas`` (W4A8, packed int4 weights); quantized once at load.
   ``int8-xla`` (the reference's XLA composition) is refused, and so is
-  any other value, with the list of valid modes.
+  any other value, with the list of valid modes;
+* ``PACKING_ENABLED`` — continuous batching (default 0, off): embedding
+  and consensus requests of any N and temperature share packed dispatches
+  whose rows hold many sequences end to end (``serve/packing.py``), with
+  the segment-masked attention kernel; composes with
+  ``EMBEDDER_QUANTIZE``;
+* ``PACKING_ROW_TOKENS`` — tokens per packed row, also the cap of one
+  sequence on the packed path (default 512, min 16);
+* ``PACKING_MAX_ROWS`` — rows per packed call (default 8, min 1);
+* ``PACKING_MAX_SEGMENTS`` — sequences per packed row (default 64, min 1);
+* ``PREFIX_DEDUP`` — with packing, embed a consensus request's shared
+  candidate prefix once and compose each candidate from its prefix and
+  suffix vectors (default 1, on);
+* ``PREFIX_DEDUP_MIN_CHARS`` — the shortest shared prefix worth that
+  (default 48, min 1).
 
 The device defaults to CUDA; without a card that raises.
 """
@@ -93,6 +107,23 @@ def build_embedder(env, device=None, dtype=None):
     return embedder
 
 
+def packing_options(env) -> dict:
+    """The batcher's packing keyword arguments from the environment, with
+    the reference's defaults and clamps (``serve/config.py``)."""
+    return {
+        "packing": _truthy(env.get("PACKING_ENABLED", "0")),
+        "packing_row_tokens": max(16, int(env.get("PACKING_ROW_TOKENS", 512))),
+        "packing_max_rows": max(1, int(env.get("PACKING_MAX_ROWS", 8))),
+        "packing_max_segments": max(
+            1, int(env.get("PACKING_MAX_SEGMENTS", 64))
+        ),
+        "prefix_dedup": _truthy(env.get("PREFIX_DEDUP", "1")),
+        "prefix_dedup_min_chars": max(
+            1, int(env.get("PREFIX_DEDUP_MIN_CHARS", 48))
+        ),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m llm_weighted_consensus_tpu_torch.serve"
@@ -106,11 +137,12 @@ def main(argv=None) -> int:
     from .gateway import Server
 
     embedder = build_embedder(os.environ, device=args.device)
-    server = Server(embedder, host=args.host, port=args.port)
+    packing = packing_options(os.environ)
+    server = Server(embedder, host=args.host, port=args.port, **packing)
     log.info(
-        "serving %s on %s:%d (%s, %s, quantize=%s)", embedder.model_name,
-        args.host, server.port, embedder.device, embedder.dtype,
-        embedder.config.quantize,
+        "serving %s on %s:%d (%s, %s, quantize=%s, packing=%s)",
+        embedder.model_name, args.host, server.port, embedder.device,
+        embedder.dtype, embedder.config.quantize, packing["packing"],
     )
     try:
         server.serve_forever()

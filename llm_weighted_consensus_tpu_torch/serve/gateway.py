@@ -175,9 +175,20 @@ def make_handler(embedder, batcher):
     return Handler
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # the listen backlog: socketserver's default of 5 drops the SYNs of a
+    # burst of concurrent clients, which the client's kernel retries
+    # after a 1 s timeout; 128 is aiohttp's default (the reference's)
+    request_queue_size = 128
+
+
 class Server:
     """The HTTP server, its batcher and its serving thread.  ``port=0``
-    binds an ephemeral port (``.port`` says which)."""
+    binds an ephemeral port (``.port`` says which).  ``packing`` options
+    (``packing``, ``packing_row_tokens``, ``packing_max_rows``,
+    ``packing_max_segments``, ``prefix_dedup``, ``prefix_dedup_min_chars``)
+    go to the ``ConsensusBatcher`` as they are."""
 
     def __init__(
         self,
@@ -186,17 +197,17 @@ class Server:
         port: int = 0,
         max_batch: int = 16,
         max_wait_ms: float = 2.0,
+        **packing,
     ) -> None:
         from .batcher import ConsensusBatcher
 
         self.embedder = embedder
         self.batcher = ConsensusBatcher(
-            embedder, max_batch=max_batch, max_wait_ms=max_wait_ms
+            embedder, max_batch=max_batch, max_wait_ms=max_wait_ms, **packing
         )
-        self.httpd = ThreadingHTTPServer(
+        self.httpd = _HTTPServer(
             (host, port), make_handler(embedder, self.batcher)
         )
-        self.httpd.daemon_threads = True
         self._thread: threading.Thread = None
 
     @property

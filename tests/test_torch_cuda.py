@@ -12,7 +12,10 @@ port only, so it runs on the machine with the card, which has no JAX:
 and imports the JAX package.)
 
 Tolerances: vote 1e-5 (f32 reassociation of the column-sum identity);
-attention 1e-4 f32, 2e-2 bf16 (probabilities rounded to bf16 before P·V);
+attention and segment attention 1e-4 f32, 2e-2 bf16 (probabilities
+rounded to bf16 before P·V); packed bge_micro on the card against the CPU
+and against the padded path 1e-5 (f32), a segment beside other row-mates
+1e-6;
 bge_micro /consensus on the card vs the CPU 1e-5 (f32); W8A8 / W4A8
 2e-5 + 2e-5 |want| (f32: erf and exp differ by ulps between the card
 and its plain version) and 2e-2 + 2e-2 |want| (bf16: one ulp at |x| ~ 4),
@@ -29,6 +32,7 @@ import torch
 from llm_weighted_consensus_tpu_torch.models import loading, quant, tokenizer
 from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 from llm_weighted_consensus_tpu_torch.ops import attention, kernels
+from llm_weighted_consensus_tpu_torch.serve import packing
 
 pytestmark = pytest.mark.cuda
 
@@ -251,3 +255,151 @@ def test_quantized_bge_micro_on_card_matches_cpu(card, mode):
         )
         confs[device] = emb.consensus_confidence(texts)
     assert np.abs(confs["cuda"] - confs["cpu"]).max() <= 1e-3
+
+
+def _segment_ids(b, s, seed):
+    """Packed-row segment ids [b, s] int32: mixed segment lengths, pad
+    gaps and tails, a row that is all pad, one-token segments, a segment
+    straddling the 64-key tile edge and one starting past 64."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, s), np.int32)
+    for r in range(b):
+        off, slot = 0, 1
+        while off < s:
+            n = int(rng.integers(1, 40))
+            if rng.random() < 0.1:
+                off += n
+                continue
+            seg[r, off: off + n] = slot
+            off, slot = off + n, slot + 1
+    seg[0] = 0
+    if b > 1:
+        seg[1] = 0
+        seg[1, :3] = [1, 2, 3]
+        if s > 70:
+            seg[1, 60:70] = 4
+            seg[1, s - 3:] = 5
+    return seg
+
+
+def _segment_case(card, b, s, nh, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, nh, hd)).astype(
+        np.float32)).to(card, getattr(torch, dtype)) for _ in range(3))
+    seg = torch.from_numpy(_segment_ids(b, s, seed)).to(card)
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,nh,hd",
+    [(8, 512, 16, 64), (4, 192, 16, 64), (3, 200, 4, 16), (2, 77, 4, 24),
+     (2, 130, 4, 32), (1, 64, 2, 64)],
+)
+def test_segment_attention_kernel_matches_plain(card, dtype, b, s, nh, hd):
+    q, k, v, seg = _segment_case(card, b, s, nh, hd, dtype, seed=s + hd)
+    before = attention.segment_attention.launches
+    got = attention.segment_attention(q, k, v, seg, hd ** -0.5)
+    assert attention.segment_attention.launches == before + 1
+    want = attention.segment_attention_plain(q, k, v, seg, hd ** -0.5)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    # the all-pad row is the uniform mean of v
+    uniform = v[0].float().mean(dim=0)
+    assert (got[0].float() - uniform[None]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_attention_kernel_at_64_segments_per_row(card, dtype):
+    b, s, nh, hd = 8, 512, 16, 64
+    q, k, v, _ = _segment_case(card, b, s, nh, hd, dtype, seed=3)
+    seg = torch.arange(s, device=card, dtype=torch.int32) // 8 + 1
+    seg = seg.expand(b, s).contiguous()
+    got = attention.segment_attention(q, k, v, seg, 0.125)
+    want = attention.segment_attention_plain(q, k, v, seg, 0.125)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_segment_attention_kernel_reads_unaligned_strided_views(card):
+    q, k, v, seg = _segment_case(card, 3, 100, 4, 64, "bfloat16", seed=9)
+    views = []
+    for t in (q, k, v):
+        wide = torch.zeros(3, 100, 4, 65, device=card, dtype=torch.bfloat16)
+        wide[..., :64] = t
+        views.append(wide[..., :64])
+    got = attention.segment_attention(*views, seg, 0.125)
+    want = attention.segment_attention_plain(*views, seg, 0.125)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("bad", ["int64", "cpu_ids", "strided_ids", "hd"])
+def test_segment_attention_rejects_bad_input(card, bad):
+    q, k, v, seg = _segment_case(card, 2, 16, 2, 16, "bfloat16", seed=1)
+    if bad == "int64":
+        seg = seg.long()
+    elif bad == "cpu_ids":
+        seg = seg.cpu()
+    elif bad == "strided_ids":
+        seg = torch.cat([seg, seg], dim=1)[:, ::2]
+        assert not seg.is_contiguous()
+    else:
+        q = k = v = torch.zeros(2, 16, 2, 128, device=card,
+                                dtype=torch.bfloat16)
+    before = attention.segment_attention.launches
+    with pytest.raises(ValueError):
+        attention.segment_attention(q, k, v, seg, 0.25)
+    assert attention.segment_attention.launches == before
+
+
+def _micro(device):
+    cfg = loading.load_hf_config(FIXTURE)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(FIXTURE))
+    model = loading.load_params(FIXTURE, cfg, dtype=torch.float32,
+                                device=device)
+    return TorchEmbedder(
+        "bge-micro", model=model, config=cfg, tokenizer=tok, max_tokens=64,
+        device=device, dtype=torch.float32,
+    )
+
+
+MICRO_TEXTS = [
+    "paris is the capital of france",
+    "the capital of france is paris",
+    "bananas are curved and yellow",
+    "a much longer candidate answer that talks about the capital city of "
+    "france and the river that runs through it",
+    "x",
+]
+
+
+def _packed_embed(emb, texts, row_tokens=64, max_rows=4, max_segments=8):
+    calls = packing.build_calls(
+        emb.tokenize_ragged(texts), row_tokens, max_rows, max_segments
+    )
+    out = [None] * len(texts)
+    for c in calls:
+        vecs = emb.embed_packed(c.ids, c.segment_ids, c.positions,
+                                c.seg_starts)
+        for si, (r, slot) in c.slots.items():
+            out[si] = vecs[r, slot]
+    return np.stack(out)
+
+
+def test_packed_bge_micro_on_card_matches_cpu_and_padded(card):
+    cpu, gpu = _micro("cpu"), _micro("cuda")
+    before = attention.segment_attention.launches
+    on_card = _packed_embed(gpu, MICRO_TEXTS)
+    assert attention.segment_attention.launches > before
+    assert np.abs(on_card - _packed_embed(cpu, MICRO_TEXTS)).max() <= 1e-5
+    assert np.abs(on_card - gpu.embed_texts(MICRO_TEXTS)).max() <= 1e-5
+
+
+def test_packed_segment_ignores_its_row_mates_on_card(card):
+    gpu = _micro("cuda")
+    alone = _packed_embed(gpu, MICRO_TEXTS[:1])[0]
+    for mates in (MICRO_TEXTS[1:3], MICRO_TEXTS[3:]):
+        got = _packed_embed(gpu, MICRO_TEXTS[:1] + mates)[0]
+        assert np.abs(got - alone).max() <= 1e-6

@@ -75,7 +75,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "models.layers", "models.bert", "models.convert", "models.quant",
         "models.embedder", "ops.similarity", "ops.kernels",
         "ops.attention", "ops._build", "types.embeddings",
-        "serve.batcher", "serve.gateway", "serve.__main__",
+        "serve.batcher", "serve.gateway", "serve.__main__", "serve.packing",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 
@@ -126,3 +126,5 @@ def test_port_has_its_kernel_sources():
     # the quantized matmuls run on the int8 tensor cores
     text = (csrc / "quant_matmul.cu").read_text()
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
+    # the packed path's segment-masked attention has its own entry point
+    assert 'extern "C" int lwc_attention_seg(' in (csrc / "attention.cu").read_text()
