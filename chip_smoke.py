@@ -9,16 +9,24 @@ Phases, each printing one JSON line:
    csrc`` (timed);
 2. kernels: every kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (``MAIN_PATH_ATTENTION_SHAPES``
-   for attention, ``QUANT_MAIN_SHAPES`` at ``QUANT_M`` rows for the W8A8
-   and W4A8 matmuls and their row quantisation, every packed call shape
-   ``PACKED_SHAPES`` for the segment attention) and at odd shapes, max
+   for attention, ``QUANT_MAIN_SHAPES`` at ``QUANT_M`` and
+   ``QUANT_SMALL_M`` rows for the W8A8 and W4A8 matmuls and their row
+   quantisation, every packed call shape ``PACKED_SHAPES`` for the
+   segment attention) and at odd shapes, each call held to the route it
+   must take (attention: TMA for bf16 hd 64, also at ``ATTN_RAGGED``;
+   mma.sync for bf16 hd 16/32; FMA for f32, hd 24 and unaligned views;
+   W8A8: TMA where K % 16 == 0, else mma.sync; W4A8: mma.sync), max
    |diff| beside the stated tolerance, with the kernel's, the plain
    version's and (for both attentions; the segment one with its boolean
    same-segment mask) ``scaled_dot_product_attention``'s time
    and the least time the card could take (bytes at 3.35 TB/s or
    operations at the type's peak, whichever is larger); the quantized
    matmuls are timed beside bf16 ``F.linear`` and ``torch._int_mm`` on
-   pre-quantised operands, yardsticks the port never calls;
+   pre-quantised operands, yardsticks the port never calls; the TMA
+   attention and GEMM also beside the mma.sync kernels they replaced, on
+   the same inputs in the same run (the attentions also by device time
+   per launch from torch.profiler: at the small shapes the wrapper's host
+   time per call exceeds the kernel's);
 3. bge_micro: the committed fixture, loaded by the port's loader, served
    through ``/consensus`` on the card and on the CPU; the confidences
    must agree, unquantized and under ``int8`` / ``int4-pallas``; packed
@@ -29,7 +37,8 @@ Phases, each printing one JSON line:
    ``/consensus`` requests of 64 candidates in the s=128 bucket, one
    request in the s=512 bucket and one ``/embeddings`` request; outputs
    and buckets checked, kernel launch counts checked against the
-   dispatches, latency and answers/s reported;
+   dispatches (every attention launch on the TMA route), latency and
+   answers/s reported;
 5. packed path: the main path's embedder served with ``PACKING`` (the
    ``PACKING_ENABLED`` defaults) under the reference's mixed-length
    traffic, 3 bursts of 32 concurrent ``/consensus`` requests (N in
@@ -43,15 +52,18 @@ Phases, each printing one JSON line:
 6. quantized paths: the same server with ``quantize="int8"`` (3 bursts
    and ``/embeddings``, then one packed burst) and ``"int4-pallas"`` (1
    burst and ``/embeddings``) on the same weights; launch counts checked
-   (6 quantized matmuls per layer per encoder call), answers held against
+   (6 quantized matmuls per layer per encoder call, every W8A8 one on
+   the TMA route), answers held against
    the unquantized path's on the same texts (embedding cosine and
    confidence bars of the reference's own quantization tests);
 7. profiles: device time by kernel for one coalesced dispatch of the main
    path and one packed [8, 512] call (torch.profiler), unquantized and
    under ``int8``, the full tables in ``chiprun_out/profile_*.txt``; the
    device's idle share as measured, failing if the summed device time
-   exceeds the wall time, and failing if a cuBLAS GEMM runs in an int8
-   dispatch.
+   exceeds the wall time, if a cuBLAS GEMM runs in an int8 dispatch, or
+   unless the dispatch ran ``attention_tma_kernel`` once per layer (and no
+   ``attention_mma_kernel<64, false>``) and, under int8,
+   ``quant_gemm_tma_kernel`` six times per layer.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -91,6 +103,8 @@ MAIN_PATH_ATTENTION_SHAPES = (
 # was taken in by this much (timer skew) before the sum counts as wrong
 DEVICE_TIME_SLACK = 1.01
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# ragged [b, s] of the TMA attention route (bge-large's 16 heads of 64)
+ATTN_RAGGED = ((5, 77), (4, 100), (3, 130), (2, 200))
 MICRO_TOL = 1e-5  # /consensus confidences, card (f32) vs CPU (f32)
 # quantized bge_micro confidences, card (f32) vs CPU (f32): an upstream
 # ulp can flip one int8 activation rounding
@@ -106,6 +120,8 @@ QUANT_MAIN_SHAPES = ((1024, 1024, False), (1024, 4096, True),
                      (4096, 1024, False))
 QUANT_ODD_SHAPES = ((5, 48, 24), (37, 96, 384), (130, 192, 96),
                     (17, 1000, 40))
+# rows of the int8 packed burst's largest call, 8 rows of 512 tokens
+QUANT_SMALL_M = 8 * 512
 # quantized vs unquantized answers on the same weights and texts: the
 # reference's bars (tests/test_quant.py) as (min cosine, max |conf diff|).
 # Its int4 cosine bar (0.95) was set on test-tiny's 2 layers; at
@@ -118,6 +134,8 @@ SCHEME_MARGIN = 0.05
 SCHEME_TEXTS = 8
 # kernel names of a cuBLAS / cuBLASLt GEMM in a profile
 CUBLAS_GEMM = ("nvjet", "cublas", "gemm", "xmma", "cutlass", "gemv")
+# the port's own GEMM kernels (exact function names), exempt from it
+PORT_GEMMS = ("quant_gemm_kernel", "quant_gemm_tma_kernel")
 # the packed path (phase 5): PACKING_ENABLED with the reference's
 # defaults, and the reference's mixed-length traffic (bench_http.py,
 # --mixed-lengths, seed 11): bursts of concurrent /consensus requests
@@ -276,6 +294,35 @@ def attention_inputs(b, s, nh, hd, dtype, seed):
     return q, k, v, bias
 
 
+def attention_err(q, k, v, bias, scale, route, what: str):
+    """(max |kernel - plain|, all-pad row's distance from the mean of v)
+    of one ``attention`` call, which must take ``route``; fails past
+    ``ATTN_TOL`` or on non-finite output."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import attention as attn
+
+    name = str(q.dtype).split(".")[-1]
+    before = dict(attn.attention.routes)
+    got = attn.attention(q, k, v, bias, scale)
+    want = attn.attention_plain(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    taken = [r for r, n in attn.attention.routes.items() if n != before[r]]
+    if taken != [route]:
+        raise AssertionError(f"attention {what}: took {taken}, not {route}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.isfinite(got).all() or err > ATTN_TOL[name]:
+        raise AssertionError(
+            f"attention {what} {name}: max|diff| {err} > {ATTN_TOL[name]}"
+        )
+    # the all-padding row is the uniform average of v
+    uniform = v[-1].float().mean(dim=0)
+    u_err = (got[-1].float() - uniform[None]).abs().max().item()
+    if u_err > ATTN_TOL[name]:
+        raise AssertionError(f"attention all-pad row {what} {name}: {u_err}")
+    return err, u_err
+
+
 def check_attention(gpu: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -293,22 +340,9 @@ def check_attention(gpu: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(b, s, nh, hd, dtype, seed=b + s)
-            got = attn.attention(q, k, v, bias, scale)
-            want = attn.attention_plain(q, k, v, bias, scale)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.isfinite(got).all() or err > ATTN_TOL[name]:
-                raise AssertionError(
-                    f"attention b={b} s={s} {name}: max|diff| {err} > "
-                    f"{ATTN_TOL[name]}"
-                )
-            # the all-padding row is the uniform average of v
-            uniform = v[-1].float().mean(dim=0)
-            u_err = (got[-1].float() - uniform[None]).abs().max().item()
-            if u_err > ATTN_TOL[name]:
-                raise AssertionError(
-                    f"attention all-pad row b={b} s={s} {name}: {u_err}"
-                )
+            route = "tma" if dtype == torch.bfloat16 else "fma"
+            err, u_err = attention_err(q, k, v, bias, scale, route,
+                                       f"b={b} s={s} {name}")
             ms = time_ms(lambda: attn.attention(q, k, v, bias, scale))
             plain = time_ms(
                 lambda: attn.attention_plain(q, k, v, bias, scale), iters=5
@@ -325,23 +359,50 @@ def check_attention(gpu: str) -> dict:
             bound, by = bound_ms(nbytes, 4.0 * b * nh * s * s * hd, name)
             row = {
                 "phase": "kernel", "kernel": "attention", "gpu": gpu,
-                "shape": [b, s, nh, hd], "dtype": name,
+                "shape": [b, s, nh, hd], "dtype": name, "route": route,
                 "max_abs_err": err, "all_pad_row_err": u_err,
                 "tolerance": ATTN_TOL[name], "kernel_ms": ms,
                 "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                 "bound_by": by,
             }
+            if route == "tma":
+                # the mma.sync kernel this route replaced, same inputs,
+                # both through the same launch code; and each kernel's
+                # device time alone, which the small shapes need: there
+                # the wrapper's host time per call exceeds the kernel's
+                def tma():
+                    return attn._launch("lwc_attention_tma", q, k, v, bias,
+                                        scale)
+
+                def mma():
+                    return attn._launch("lwc_attention", q, k, v, bias, scale)
+
+                row.update({
+                    "launch_ms": time_ms(tma),
+                    "device_ms": device_ms_per_launch(
+                        tma, "attention_tma_kernel"),
+                    "previous_ms": time_ms(mma),
+                    "previous_device_ms": device_ms_per_launch(
+                        mma, "attention_mma_kernel"),
+                })
             emit(row)
             rows.append(row)
-    # both kernel paths at small ragged shapes: bf16 hd 16/32/64 take the
-    # tensor-core path, bf16 hd 24 and an unaligned strided view the FMA
-    # path, f32 always the FMA path
+    # the TMA route at ragged s, bge-large's 16 heads of 64
     worst = {}
+    for b, s in ATTN_RAGGED:
+        q, k, v, bias = attention_inputs(b, s, nh, hd, torch.bfloat16, seed=s)
+        worst[f"tma-s{s}"], _ = attention_err(q, k, v, bias, scale, "tma",
+                                              f"ragged b={b} s={s}")
+    # the other routes at small ragged shapes: bf16 hd 16/32 take the
+    # mma.sync kernel, bf16 hd 24 and an unaligned strided view the FMA
+    # kernel, f32 always the FMA kernel (and bf16 hd 64 the TMA route)
     for hd in (16, 24, 32, 64):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(5, 77, 4, hd, dtype, seed=hd)
-            cases = [(q, k, v)]
+            route = ("fma" if dtype == torch.float32 or hd == 24
+                     else "tma" if hd == 64 else "mma")
+            cases = [(q, k, v, route)]
             if hd == 64:
                 # every row start off 16-byte alignment
                 wide = torch.zeros(5, 77, 4, hd + 1, dtype=dtype, device="cuda")
@@ -350,18 +411,14 @@ def check_attention(gpu: str) -> dict:
                     w = wide.clone()
                     w[..., :hd] = t
                     views.append(w[..., :hd])
-                cases.append(tuple(views))
-            for qq, kk, vv in cases:
-                got = attn.attention(qq, kk, vv, bias, hd ** -0.5)
-                want = attn.attention_plain(qq, kk, vv, bias, hd ** -0.5)
-                err = (got.float() - want.float()).abs().max().item()
-                if not torch.isfinite(got).all() or err > ATTN_TOL[name]:
-                    raise AssertionError(
-                        f"attention hd={hd} {name}: max|diff| {err}"
-                    )
-                worst[f"{name}-hd{hd}"] = max(worst.get(f"{name}-hd{hd}", 0), err)
+                cases.append((*views, "fma"))
+            for qq, kk, vv, route in cases:
+                key = f"{name}-hd{hd}-{route}"
+                err, _ = attention_err(qq, kk, vv, bias, hd ** -0.5, route, key)
+                worst[key] = max(worst.get(key, 0), err)
     emit({"phase": "kernel", "kernel": "attention", "gpu": gpu,
-          "paths": "hd 16/24/32/64, bf16/f32, aligned and strided",
+          "paths": "TMA at ragged s; hd 16/24/32/64, bf16/f32, aligned "
+                   "and strided, each on its route",
           "max_abs_err": worst})
     rows.append({"max_abs_err": max(worst.values())})
     return {"rows": rows}
@@ -399,11 +456,12 @@ def quant_err(got, want, what: str, dtype: str) -> float:
 def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     """One quantized matmul at a main-path shape, bf16: the kernel (row
     quantisation included), the row quantisation alone, the plain
-    versions, the yardsticks and the bounds."""
+    versions, the yardsticks and the bounds; for W8A8 also the GEMM alone
+    on its TMA route and on the mma.sync route it replaced."""
     import torch
     import torch.nn.functional as F
 
-    from llm_weighted_consensus_tpu_torch.ops import kernels
+    from llm_weighted_consensus_tpu_torch.ops import _build, kernels
 
     fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     m, k = x.shape
@@ -415,6 +473,25 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     bound, by = bound_ms_ops(
         2 * m * k + wq.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k
     )
+    routes = {}
+    if name == "w8a8_matmul":
+        # the GEMM alone on each route, on the same quantised rows: the
+        # TMA route the wrapper takes and the mma.sync route it replaced
+        xq_k, sx = kernels.quantize_rows(x, kp)
+        out = torch.empty(m, n, dtype=x.dtype, device="cuda")
+        lib = _build.library()
+        runs = [("tma", "lwc_quant_matmul_tma", gelu),
+                ("mma", "lwc_quant_matmul", gelu)]
+        if gelu:
+            # what the GELU costs the TMA route's epilogue
+            runs.append(("tma_without_gelu", "lwc_quant_matmul_tma", False))
+        for route, entry, act in runs:
+            fn_c = getattr(lib, entry)
+            routes[route] = time_ms(lambda: fn_c(
+                xq_k.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), m, n, k, kp, 0, int(act), 1,
+                torch.cuda.current_stream().cuda_stream,
+            ))
     q_bound, q_by = bound_ms(2 * m * k + m * kp + 4 * m, 2.0 * m * k, "float32")
     row = {
         "phase": "kernel", "kernel": name, "gpu": gpu, "shape": [m, k, n],
@@ -432,6 +509,13 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
         "bf16_linear_ms": time_ms(lambda: F.linear(x, wb, bb)),
         "int_mm_ms": time_ms(lambda: torch._int_mm(xq[:, :k], w8t)),
     }
+    if routes:
+        row["route"] = "tma"
+        row["gemm_ms"] = routes["tma"]
+        row["previous_gemm_ms"] = routes["mma"]
+        row["previous_ms"] = routes["mma"] + row["quantize_rows_ms"]
+        if gelu:
+            row["gemm_without_gelu_ms"] = routes["tma_without_gelu"]
     emit(row)
     return row
 
@@ -445,23 +529,34 @@ def check_quant(gpu: str) -> dict:
     from llm_weighted_consensus_tpu_torch.ops import kernels
 
     worst = {"w8a8_matmul": 0.0, "w4a8_matmul": 0.0}
+    worst_by_route = {}
     rows, cases = [], 0
     # (M, K, N, the main path's GELU flag, or None at an odd shape)
     shapes = [(QUANT_M, k, n, gelu) for k, n, gelu in QUANT_MAIN_SHAPES]
+    shapes += [(QUANT_SMALL_M, k, n, None) for k, n, _ in QUANT_MAIN_SHAPES]
     shapes += [(m, k, n, None) for m, k, n in QUANT_ODD_SHAPES]
     for (m, k, n, main_gelu), int4, dtype in itertools.product(
         shapes, (False, True), (torch.bfloat16, torch.float32)
     ):
         name = "w4a8_matmul" if int4 else "w8a8_matmul"
+        wrapper = getattr(kernels, name)
         dname = str(dtype).split(".")[-1]
+        route = "mma" if int4 or k % 16 else "tma"
         x, w, wq, sw, bias = quant_operands(m, k, n, int4, dtype, m + k + n)
         for gelu in (False, True):
-            got = getattr(kernels, name)(x, wq, sw, bias, gelu=gelu)
+            before = dict(wrapper.routes)
+            got = wrapper(x, wq, sw, bias, gelu=gelu)
             want = getattr(kernels, name + "_plain")(x, wq, sw, bias, gelu=gelu)
             torch.cuda.synchronize()
-            err = quant_err(got, want, f"{name} m={m} k={k} n={n} {dname} "
-                            f"gelu={gelu}", dname)
+            what = f"{name} m={m} k={k} n={n} {dname} gelu={gelu}"
+            taken = [r for r, c in wrapper.routes.items() if c != before[r]]
+            if taken != [route]:
+                raise AssertionError(f"{what}: took {taken}, not {route}")
+            err = quant_err(got, want, what, dname)
             worst[name] = max(worst[name], err)
+            worst_by_route[f"{name}-{route}"] = max(
+                worst_by_route.get(f"{name}-{route}", 0.0), err
+            )
             cases += 1
         kp = 2 * wq.shape[1] if int4 else -(-k // 64) * 64
         xq, sx = kernels.quantize_rows(x, kp)
@@ -478,8 +573,9 @@ def check_quant(gpu: str) -> dict:
             )
     emit({"phase": "kernel", "kernel": "w8a8_matmul+w4a8_matmul",
           "gpu": gpu, "cases": cases, "max_abs_err": worst,
-          "tolerance": QUANT_TOL,
-          "shapes": [[QUANT_M, k, n] for k, n, _ in QUANT_MAIN_SHAPES]
+          "max_abs_err_by_route": worst_by_route, "tolerance": QUANT_TOL,
+          "shapes": [[m, k, n] for m in (QUANT_M, QUANT_SMALL_M)
+                     for k, n, _ in QUANT_MAIN_SHAPES]
           + [list(shape) for shape in QUANT_ODD_SHAPES],
           "note": "library_ms null: no one PyTorch call quantises, "
                   "multiplies and dequantises; int_mm_ms is torch._int_mm "
@@ -834,13 +930,32 @@ def _wrappers() -> dict:
     }
 
 
+# the route every launch of these wrappers must take on bge-large
+BGE_ROUTES = {"attention": "tma", "w8a8_matmul": "tma", "w4a8_matmul": "mma"}
+
+
 def reset_launches() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_routes() -> dict:
+    """Launches by route since ``reset_launches``; fails unless every
+    launch of a routed wrapper took its ``BGE_ROUTES`` route."""
+    wrappers = _wrappers()
+    routes = {name: dict(wrappers[name].routes) for name in BGE_ROUTES}
+    for name, want in BGE_ROUTES.items():
+        if routes[name][want] != wrappers[name].launches:
+            raise AssertionError(
+                f"{name}: launches by route {routes[name]}, not all {want}"
+            )
+    return routes
 
 
 def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
@@ -898,6 +1013,7 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
         embed_ms = (time.perf_counter() - t) * 1e3
         torch.cuda.synchronize()
         launches = read_launches()
+        routes = read_routes()
         stats1 = srv.batcher.stats()
     n = len(bursts[0][0])
     # each request's tokens put it in the bucket whose shapes the kernel
@@ -918,7 +1034,7 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
     return {
         "results": results, "vecs": vecs, "long_out": long_out,
         "long_ms": long_ms, "embed_ms": embed_ms, "launches": launches,
-        "consensus_d": (stats1["dispatches"]["consensus"]
+        "routes": routes, "consensus_d": (stats1["dispatches"]["consensus"]
                         - stats0["dispatches"]["consensus"]),
         "embed_d": stats1["dispatches"]["embed"] - stats0["dispatches"]["embed"],
         "largest_group": stats1["largest_group"],
@@ -990,6 +1106,7 @@ def main_path(gpu: str):
         "long_request_ms": out["long_ms"], "long_request_tokens":
             long_out["usage"]["prompt_tokens"],
         "embeddings_ms": out["embed_ms"], "launches": out["launches"],
+        "routes": out["routes"],
         "expected_launches": want, "peak_mem_gib": out["peak_mem_gib"],
     }
     emit(row)
@@ -1104,6 +1221,7 @@ def serve_mixed(emb, bursts, embeds, **options) -> dict:
         burst_s = time.perf_counter() - t_burst
         torch.cuda.synchronize()
         launches = read_launches()
+        routes = read_routes()
         stats = _delta(srv.batcher.stats(), stats0)
     for k, burst in enumerate(bursts):
         for i, texts in enumerate(burst):
@@ -1116,7 +1234,8 @@ def serve_mixed(emb, bursts, embeds, **options) -> dict:
             raise AssertionError(f"/embeddings burst {k}: {vecs.shape}")
     lat_ms = sorted(x * 1e3 for x in latencies)
     return {
-        "results": results, "launches": launches, "stats": stats,
+        "results": results, "launches": launches, "routes": routes,
+        "stats": stats,
         "p50_ms": float(np.median(lat_ms)), "max_ms": lat_ms[-1],
         "requests": len(latencies), "answers_per_s": len(latencies) / burst_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1352,6 +1471,7 @@ def quant_path(gpu, mode, full, bursts, embed_texts, packed=None) -> dict:
         "p50_ms": out["p50_ms"], "max_ms": out["max_ms"],
         "answers_per_s": out["answers_per_s"],
         "embeddings_ms": out["embed_ms"], "launches": out["launches"],
+        "routes": out["routes"],
         "expected_launches": want, "peak_mem_gib": out["peak_mem_gib"],
         "max_conf_diff_vs_unquantized": conf_diff,
         "conf_bar": conf_bar, "min_embedding_cosine": min_cos,
@@ -1381,8 +1501,6 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     chiprun_out/profile_main_path.txt, or profile_quant_path.txt under a
     quantize mode, where a cuBLAS GEMM in the dispatch fails the run."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 
@@ -1397,14 +1515,9 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     ids, mask = emb.tokenize(texts)
     tokenize_ms = (time.perf_counter() - t) * 1e3
     ids, mask = ids.reshape(r, n, -1), mask.reshape(r, n, -1)
-    emb.consensus_confidence_tokens_many(ids, mask)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        emb.consensus_confidence_tokens_many(ids, mask)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = device_table(prof)
+    rows, wall_ms = profile_call(
+        lambda: emb.consensus_confidence_tokens_many(ids, mask)
+    )
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1420,13 +1533,18 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         {"kernel": key[:80], "ms": ms, "count": count}
         for ms, count, key in rows[:8]
     ]
-    cublas = [
-        key for _, _, key in rows
-        if any(pat in key.lower() for pat in CUBLAS_GEMM)
-        and "quant_gemm_kernel" not in key
-    ]
+    cublas = cublas_gemms(rows)
+    layers = emb.config.num_layers
+    new_kernels = {
+        "attention_tma_kernel": launches_of(rows, "attention_tma_kernel"),
+        "attention_mma_kernel<64, false>": launches_of(
+            rows, "attention_mma_kernel", "<64, false>"),
+        "quant_gemm_tma_kernel": launches_of(rows, "quant_gemm_tma_kernel"),
+        "quant_gemm_kernel": launches_of(rows, "quant_gemm_kernel"),
+    }
     row = {
         "phase": "profile", "gpu": gpu, "quantize": quantize,
+        "kernel_launches": new_kernels,
         "shape": list(ids.shape),
         "tokenize_ms": tokenize_ms, "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -1434,18 +1552,22 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         "top": top, "cublas_gemm_kernels": cublas,
     }
     emit(row)
+    # every layer's attention on the TMA route, none on the mma.sync one
+    if (new_kernels["attention_tma_kernel"] != layers
+            or new_kernels["attention_mma_kernel<64, false>"]):
+        raise AssertionError(f"profile ({quantize}): attention {new_kernels}")
     if quantize != "none":
         if cublas:
             raise AssertionError(
                 f"profile ({quantize}): cuBLAS GEMMs in the layer stack: "
                 f"{cublas}"
             )
-        names = " ".join(key for _, _, key in rows)
-        if "quant_gemm_kernel" not in names or (
-            "quantize_rows_kernel" not in names
-        ):
+        # six W8A8 GEMMs per layer, all on the TMA route
+        if (new_kernels["quant_gemm_tma_kernel"] != 6 * layers
+                or new_kernels["quant_gemm_kernel"]
+                or not launches_of(rows, "quantize_rows_kernel")):
             raise AssertionError(
-                f"profile ({quantize}): the quantized kernels did not run"
+                f"profile ({quantize}): the quantized kernels {new_kernels}"
             )
     if device_ms > wall_ms * DEVICE_TIME_SLACK:
         # one stream runs one kernel at a time: more device time than
@@ -1457,16 +1579,80 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     return row
 
 
+def port_kernel(key: str):
+    """The function name of one of the port's kernels in a profile key
+    (``[void ](anonymous namespace)::[mma::]name[<...>](...)``: templates
+    carry their return type), else None."""
+    import re
+
+    found = re.match(
+        r"(?:void )?\(anonymous namespace\)::(?:\w+::)*(\w+)[<(]", key
+    )
+    return found.group(1) if found else None
+
+
+def cublas_gemms(rows) -> list:
+    """Profile keys that look like a cuBLAS GEMM and are not the port's."""
+    return [
+        key for _, _, key in rows
+        if any(pat in key.lower() for pat in CUBLAS_GEMM)
+        and port_kernel(key) not in PORT_GEMMS
+    ]
+
+
+def launches_of(rows, name: str, template: str = "") -> int:
+    """Launches of the port's kernel ``name`` (whose key holds
+    ``template``, e.g. ``<64, false>``) in a profile."""
+    return sum(count for _, count, key in rows
+               if port_kernel(key) == name and template in key)
+
+
+def profile_call(fn):
+    """(``device_table`` rows, wall ms) of one call of ``fn``.  A first
+    call runs while the profiler already traces and its events are
+    dropped (the schedule's warm-up step): a trace that starts with the
+    measured call can miss its first kernels (one layer of a dispatch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        prof.step()
+    return device_table(prof), wall_ms
+
+
+def device_ms_per_launch(fn, kernel: str, iters: int = 20) -> float:
+    """Device time of one launch of the port's kernel ``kernel`` (a
+    ``port_kernel`` name) that ``fn`` makes, averaged over ``iters``
+    calls."""
+    rows, _ = profile_call(lambda: [fn() for _ in range(iters)])
+    ms, count = next(
+        (ms, count) for ms, count, key in rows if port_kernel(key) == kernel
+    )
+    return ms / count
+
+
 def device_table(prof):
     """(device ms, count, name) per kernel from a profile, largest first:
     device kernels, memcpys and memsets only (host-side entries, launch
     calls and "Command Buffer Full" waits, carry device time of the
-    kernels they wait on)."""
+    kernels they wait on; the schedule's step annotation spans the
+    device time of the whole step)."""
     import torch
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
             continue
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -1481,9 +1667,6 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
     bucket), made from the packed traffic's candidate texts with dedup
     off; the table goes to chiprun_out/profile_packed_path.txt (or
     profile_packed_int8.txt, where a cuBLAS GEMM fails the run)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from llm_weighted_consensus_tpu_torch.serve import packing
 
     texts = [t for burst in bursts for req in burst for t in req]
@@ -1495,14 +1678,7 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
         ) if c.ids.shape == SEG_BUCKET
     )
     args = (call.ids, call.segment_ids, call.positions, call.seg_starts)
-    emb.embed_packed(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        emb.embed_packed(*args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = device_table(prof)
+    rows, wall_ms = profile_call(lambda: emb.embed_packed(*args))
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1514,11 +1690,7 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
                 f"quantize={quantize}, wall {wall_ms:.3f} ms\n")
         for ms, count, key in rows:
             f.write(f"{ms:10.3f} ms  {count:6d}  {key[:110]}\n")
-    cublas = [
-        key for _, _, key in rows
-        if any(pat in key.lower() for pat in CUBLAS_GEMM)
-        and "quant_gemm_kernel" not in key
-    ]
+    cublas = cublas_gemms(rows)
     row = {
         "phase": "profile_packed", "gpu": gpu, "quantize": quantize,
         "shape": list(call.ids.shape), "segments": len(call.slots),
@@ -1575,27 +1747,41 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         },
         {
             "name": "attention", "route": "cuda",
-            "source": csrc + "attention.cu",
+            "source": csrc + "attention_sm90.cu",
             "replaces": "llm_weighted_consensus_tpu/ops/attention.py:134",
             "launches": launches["attention"],
             "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
+            "library_ms": main["library_ms"], "kernel_route": "tma",
+            "device_ms": main["device_ms"],
+            "previous_ms": main["previous_ms"],
+            "previous_device_ms": main["previous_device_ms"],
+            "previous_source": csrc + "attention.cu",
+            "shape": main["shape"],
         },
     ]
     for name, row, path, line in (
         ("w8a8_matmul", q8_row, q8, 202), ("w4a8_matmul", q4_row, q4, 319),
     ):
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": csrc + "quant_matmul.cu",
             "replaces": f"llm_weighted_consensus_tpu/ops/kernels.py:{line}",
             "launches": path["launches"][name],
             "max_abs_err": quant["worst"][name], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "shape": row["shape"],
-        })
+            "shape": row["shape"], "kernel_route": "mma",
+        }
+        if name == "w8a8_matmul":
+            # ms keeps the row quantisation; gemm_ms is the GEMM alone
+            entry.update({
+                "source": csrc + "quant_gemm_sm90.cu", "kernel_route": "tma",
+                "gemm_ms": row["gemm_ms"], "previous_ms": row["previous_ms"],
+                "previous_gemm_ms": row["previous_gemm_ms"],
+                "previous_source": csrc + "quant_matmul.cu",
+            })
+        entries.append(entry)
     # the row quantisation: the in-kernel prologue of both TPU kernels
     entries.append({
         "name": "quantize_rows", "route": "cuda",
@@ -1644,26 +1830,37 @@ def main() -> int:
         "build_s": time.perf_counter() - t0,
     })
 
-    vote = check_vote(gpu)
-    attn_rows = check_attention(gpu)["rows"]
-    quant = check_quant(gpu)
-    seg = check_segment_attention(gpu)
-    check_bge_micro(gpu)
-    check_bge_micro_packed(gpu)
-    main_row, full, bursts, embed_texts = main_path(gpu)
-    packed = packed_path(gpu, full, seg["checked"])
-    profile_packed(gpu, full, packed["bursts"])
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    vote = timed("vote", check_vote, gpu)
+    attn_rows = timed("attention", check_attention, gpu)["rows"]
+    quant = timed("quant", check_quant, gpu)
+    seg = timed("segment_attention", check_segment_attention, gpu)
+    timed("bge_micro", check_bge_micro, gpu)
+    timed("bge_micro", check_bge_micro_packed, gpu)
+    main_row, full, bursts, embed_texts = timed("main_path", main_path, gpu)
+    packed = timed("packed_path", packed_path, gpu, full, seg["checked"])
+    timed("profiles", profile_packed, gpu, full, packed["bursts"])
     seg["rows"] = {
-        shape: time_segment_attention(gpu, *shape)
+        shape: timed("segment_attention", time_segment_attention, gpu, *shape)
         for shape in sorted(set(packed["shapes"]) | {SEG_BUCKET})
     }
-    q8 = quant_path(gpu, "int8", full, bursts, embed_texts, packed=packed)
-    q4 = quant_path(gpu, "int4-pallas", full, bursts[:1], embed_texts)
+    q8 = timed("quant_paths", quant_path, gpu, "int8", full, bursts,
+               embed_texts, packed=packed)
+    q4 = timed("quant_paths", quant_path, gpu, "int4-pallas", full,
+               bursts[:1], embed_texts)
     del full
     torch.cuda.empty_cache()
-    profile_dispatch(gpu)
-    profile_dispatch(gpu, quantize="int8")
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    timed("profiles", profile_dispatch, gpu)
+    timed("profiles", profile_dispatch, gpu, quantize="int8")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"]))
     print(gpu)

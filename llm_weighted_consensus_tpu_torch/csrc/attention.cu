@@ -24,14 +24,18 @@
 // device memory.  Key tiles whose every key is masked are still computed
 // (skipping them would change the pad query rows; later work).
 //
-// What bounds it on the H100: operations.  At the serving shape (b=64,
-// s=128, nh=16, hd=64) one call does 4 b nh s^2 hd = 4.3 GFLOP against
-// 67 MB of q/k/v/out traffic (bf16), about 64 FLOP per byte, and the
-// ratio grows with s; the tensor cores (989 TFLOP/s bf16) are the pipe
-// that matters.  Two paths, chosen from the inputs:
-//  * bf16 with hd in {16, 32, 64} and 16-byte aligned rows (every
-//    encoder call on the card): both products on the tensor cores with
-//    mma.sync (namespace mma below);
+// What bounds it on the H100: bytes.  At the main path's [b, s] = [512,
+// 128] (nh=16, hd=64, bf16) one call does 4 b nh s^2 hd = 34 GFLOP
+// (0.035 ms at 989 TFLOP/s) against 537 MB of q/k/v/out traffic (0.160 ms
+// at 3.35 TB/s): 64 FLOP per byte, below the card's bf16 ridge of about
+// 295 FLOP per byte.  The ratio grows with s (s/2 FLOP per byte), so
+// only past s ~ 600 would the tensor cores bound it.  Every bf16 hd-64
+// call in row-major order (every bge-base and bge-large encoder call)
+// takes attention_sm90.cu's TMA + wgmma kernel instead, which reads each
+// operand once; this file keeps the other cases, two paths chosen from
+// the inputs:
+//  * bf16 with hd in {16, 32, 64} and 16-byte aligned rows: both products
+//    on the tensor cores with mma.sync (namespace mma below);
 //  * f32 (no TF32: the reference keeps f32 logits exact), hd 24 and
 //    unaligned views: the same algorithm on the f32 FMA pipes
 //    (67 TFLOP/s), one query row per thread.

@@ -13,6 +13,11 @@
 // (1,979 TOPS) for the two wide shapes and device memory (x read, out
 // written) for the square one; PERF.md has the bounds beside the times.
 //
+// Routes: W8A8 with K % 16 == 0 and 16-byte aligned operands (every bge
+// layer) multiplies in quant_gemm_sm90.cu (TMA + wgmma) after this file's
+// row quantisation; quant_gemm_kernel below keeps every W4A8 call and the
+// other K.  Both share quant_epilogue.cuh.
+//
 // Design (a simple first version: mma.sync, no wgmma or TMA):
 //  * Two kernels per call.  quantize_rows_kernel reads each row of x twice
 //    (max|x|, then x / sx), one warp per row, and writes int8 rows padded
@@ -46,7 +51,12 @@
 
 #include <cstdint>
 
+#include "quant_epilogue.cuh"
+
 namespace {
+
+using quant_epilogue::dequant;
+using quant_epilogue::store2;
 
 constexpr int kTM = 128;       // output rows per block
 constexpr int kTN = 128;       // output columns per block
@@ -151,38 +161,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t unbias_nibbles(uint32_t n) {
   const uint32_t t = (n & 0x0f0f0f0fu) ^ 0x08080808u;
   return t | ((t & 0x08080808u) * 0x1eu);
-}
-
-__device__ __forceinline__ float gelu(float x, bool approx) {
-  if (!approx) return x * 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  const float z = fabsf(x) * 0.70710678118654752f;
-  const float t = 1.0f / (1.0f + 0.3275911f * z);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float half_erfc = 0.5f * poly * expf(-z * z);
-  return x * (x > 0.0f ? 1.0f - half_erfc : half_erfc);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b, bool both,
-                                       bool pair) {
-  if (pair) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    p[0] = a;
-    if (both) p[1] = b;
-  }
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
-                                       bool both, bool pair) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    p[0] = __float2bfloat16_rn(a);
-    if (both) p[1] = __float2bfloat16_rn(b);
-  }
 }
 
 // xq[M, Kp] int8 (Kp % 64 == 0) times W -> out[M, N] in T.  W4: w is
@@ -317,11 +295,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int cc = both || e == 0 ? col + e : col;
-          float y = __fmul_rn(
-              __fmul_rn(static_cast<float>(acc[mt][nt][2 * r + e]), s_row),
-              sw[cc]);
-          y = __fadd_rn(y, bias[cc]);
-          v[e] = gelu_on ? gelu(y, approx_gelu) : y;
+          v[e] = dequant(acc[mt][nt][2 * r + e], s_row, sw[cc], bias[cc],
+                         gelu_on, approx_gelu);
         }
         store2(orow + col, v[0], v[1], both, both && pair_ok);
       }

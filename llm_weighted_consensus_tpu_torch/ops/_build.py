@@ -5,7 +5,8 @@ so each compiles with ``nvcc`` in seconds.  They are compiled for
 ``sm_90a`` (Hopper), one ``nvcc`` per source started together, linked
 into ``build/kernels/liblwc_torch_kernels.so`` at the repository root,
 and loaded with ``ctypes``.  The build runs at first use, and again only
-when the library is missing or older than one of its sources.
+when the library is missing or older than one of its sources or of the
+headers (``csrc/*.cuh``) they include.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception.
@@ -23,7 +24,10 @@ from typing import Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("cosine_vote.cu", "attention.cu", "quant_matmul.cu")
+SOURCES = (
+    "cosine_vote.cu", "attention.cu", "attention_sm90.cu", "quant_matmul.cu",
+    "quant_gemm_sm90.cu",
+)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "liblwc_torch_kernels.so"
 NVCC_FLAGS = (
@@ -49,13 +53,19 @@ def _nvcc() -> str:
     )
 
 
+def _inputs() -> list:
+    """Every file the library is built from: the sources and the headers
+    under ``csrc/`` they include."""
+    return [CSRC_DIR / name for name in SOURCES] + sorted(
+        CSRC_DIR.glob("*.cuh")
+    )
+
+
 def _stale(lib_path: Path) -> bool:
     if not lib_path.exists():
         return True
     built = lib_path.stat().st_mtime
-    return any(
-        (CSRC_DIR / name).stat().st_mtime > built for name in SOURCES
-    )
+    return any(path.stat().st_mtime > built for path in _inputs())
 
 
 def build(verbose: bool = False) -> Path:
@@ -108,7 +118,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lwc_cosine_vote.argtypes = [vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.lwc_cosine_vote.restype = i32
-    for name in ("lwc_attention", "lwc_attention_seg"):
+    for name in ("lwc_attention", "lwc_attention_seg", "lwc_attention_tma"):
         fn = getattr(lib, name)
         fn.argtypes = [
             vp, vp, vp, vp, vp, i32, i32, i32, i32,
@@ -117,10 +127,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i32
     lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.lwc_quantize_rows.restype = i32
-    lib.lwc_quant_matmul.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
-    ]
-    lib.lwc_quant_matmul.restype = i32
+    for name in ("lwc_quant_matmul", "lwc_quant_matmul_tma"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
+        ]
+        fn.restype = i32
     return lib
 
 

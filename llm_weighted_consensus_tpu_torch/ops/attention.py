@@ -12,10 +12,23 @@ Counterparts of ``llm_weighted_consensus_tpu/ops/attention.py``'s
   iff ``seg[i] == seg[j] and seg[j] > 0``, and a masked logit is replaced
   by -1e9, so a pad query row softmaxes to the uniform mean of v.
 
-A CPU tensor takes the plain version; a CUDA tensor launches
-``csrc/attention.cu`` (read straight from the [b, s, nh, hd] layout, no
-head transposes) or raises.  ``attention.launches`` and
-``segment_attention.launches`` count the kernel launches.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+(read straight from the [b, s, nh, hd] layout, no head transposes) or
+raises.  ``attention_route`` picks the kernel from dtype, head dim,
+strides and alignment alone:
+
+* ``"tma"``: bf16, hd 64, every base 16-byte aligned, every stride a
+  multiple of 16 bytes and in row-major order (every encoder call of
+  bge-base and bge-large): ``csrc/attention_sm90.cu``, TMA + wgmma;
+* ``"mma"``: other aligned bf16 with hd 16 or 32: ``csrc/attention.cu``'s
+  mma.sync kernel;
+* ``"fma"``: f32, hd 24 and unaligned views: ``csrc/attention.cu``'s f32
+  FMA kernel.
+
+``segment_attention`` always launches ``lwc_attention_seg`` (the mma or
+the FMA kernel of ``csrc/attention.cu``).  ``attention.launches`` and
+``segment_attention.launches`` count the kernel launches;
+``attention.routes`` counts them by route.
 """
 
 from __future__ import annotations
@@ -97,6 +110,32 @@ def _check_qkv(what: str, q, k, v, mask, mask_dtype) -> None:
         raise ValueError(f"{what}: unsupported device {q.device}")
 
 
+def _aligned(q, k, v) -> bool:
+    """16-byte aligned bases and strides (in elements of 2 bytes: 8)."""
+    return all(
+        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+        for t in (q, k, v)
+    )
+
+
+def attention_route(q, k, v) -> str:
+    """The kernel a CUDA call of ``attention`` takes: "tma", "mma" or
+    "fma" (module docstring); a pure function of the operands' dtype,
+    shape, strides and base addresses."""
+    hd = q.shape[-1]
+    if q.dtype != torch.bfloat16 or not _aligned(q, k, v):
+        return "fma"
+    if hd != 64:
+        return "mma" if hd in (16, 32) else "fma"
+    nh, s = q.shape[2], q.shape[1]
+    row_major = all(
+        t.stride(2) >= hd and t.stride(1) >= nh * t.stride(2)
+        and t.stride(0) >= s * t.stride(1)
+        for t in (q, k, v)
+    )
+    return "tma" if row_major else "mma"
+
+
 def _launch(entry: str, q, k, v, mask, scale: float) -> torch.Tensor:
     """One launch of the C entry point ``entry`` on CUDA tensors already
     checked by ``_check_qkv``."""
@@ -146,12 +185,16 @@ def attention(
     _check_qkv("attention", q, k, v, bias, torch.float32)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias, scale)
-    out = _launch("lwc_attention", q, k, v, bias, scale)
+    route = attention_route(q, k, v)
+    entry = "lwc_attention_tma" if route == "tma" else "lwc_attention"
+    out = _launch(entry, q, k, v, bias, scale)
     attention.launches += 1
+    attention.routes[route] += 1
     return out
 
 
 attention.launches = 0
+attention.routes = {"tma": 0, "mma": 0, "fma": 0}
 
 
 def segment_attention(

@@ -19,10 +19,15 @@ accumulation, the epilogue ``acc * sx * sw + bias`` in f32, an optional
 GELU and one rounding to x's dtype; ``w4a8_matmul`` takes the weight as
 packed biased nibbles ``[N, Kp/2]`` instead.  The weight is ``[out, in]``
 (torch's ``Linear`` layout, the transpose of the JAX kernel).  On CUDA
-each call launches two kernels of ``csrc/quant_matmul.cu``: the row
-quantisation (wrapper ``quantize_rows``, counted in
+each call launches two kernels: the row quantisation of
+``csrc/quant_matmul.cu`` (wrapper ``quantize_rows``, counted in
 ``quantize_rows.launches``) and the int8 tensor-core GEMM with its fused
-epilogue (counted in ``w8a8_matmul.launches`` / ``w4a8_matmul.launches``).
+epilogue (counted in ``w8a8_matmul.launches`` / ``w4a8_matmul.launches``,
+and by route in ``.routes``).  ``quant_gemm_route`` picks the GEMM:
+``"tma"`` (``csrc/quant_gemm_sm90.cu``, TMA + wgmma) for W8A8 with
+K % 16 == 0 and 16-byte aligned operands, every bge preset's layer;
+``"mma"`` (``csrc/quant_matmul.cu``, mma.sync) for other K and every
+W4A8 call.
 The plain versions take the int8 product in f64, which is exact here
 (|acc| <= K * 127^2 < 2^53), where f32 would not be past K ~ 1040.
 """
@@ -253,6 +258,15 @@ def _check_quant_operands(name, x, w, sw, bias, int4):
         raise ValueError(f"{name}: operands on several devices: {devices}")
 
 
+def quant_gemm_route(k: int, int4: bool, *tensors) -> str:
+    """The GEMM a CUDA call takes: "tma" for W8A8 with K % 16 == 0 and
+    every operand (``xq``, ``w``, ``out``) 16-byte aligned, else "mma";
+    a pure function of K, the weight format and the base addresses."""
+    if int4 or k % 16 or any(t.data_ptr() % 16 for t in tensors):
+        return "mma"
+    return "tma"
+
+
 def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
     """Launch the row quantisation and the GEMM for ``x[..., K]``."""
     if x.device.type != "cuda":
@@ -270,7 +284,9 @@ def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
     lib = _build.library()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
-        rc = lib.lwc_quant_matmul(
+        route = quant_gemm_route(k, int4, xq, w, out)
+        entry = "lwc_quant_matmul_tma" if route == "tma" else "lwc_quant_matmul"
+        rc = getattr(lib, entry)(
             xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
             bias.data_ptr(), out.data_ptr(), m, n, k, kp, int(int4),
             int(bool(gelu)), 0 if x.dtype == torch.float32 else 1,
@@ -278,6 +294,7 @@ def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
         )
         _build.check(rc, name)
         wrapper.launches += 1
+        wrapper.routes[route] += 1
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -305,6 +322,7 @@ def w8a8_matmul(
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.routes = {"tma": 0, "mma": 0}
 
 
 def w4a8_matmul(
@@ -333,3 +351,4 @@ def w4a8_matmul(
 
 
 w4a8_matmul.launches = 0
+w4a8_matmul.routes = {"mma": 0}

@@ -403,3 +403,90 @@ def test_packed_segment_ignores_its_row_mates_on_card(card):
     for mates in (MICRO_TEXTS[1:3], MICRO_TEXTS[3:]):
         got = _packed_embed(gpu, MICRO_TEXTS[:1] + mates)[0]
         assert np.abs(got - alone).max() <= 1e-6
+
+
+# -- the TMA + wgmma routes (csrc/attention_sm90.cu, csrc/quant_gemm_sm90.cu)
+
+
+def _routed(wrapper, route, call):
+    """``call()`` with the check that it launched once, on ``route``."""
+    before = dict(wrapper.routes)
+    out = call()
+    after = dict(wrapper.routes)
+    assert {r: after[r] - before[r] for r in after if after[r] != before[r]} == {
+        route: 1
+    }
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,s",
+    [(64, 128), (512, 128), (16, 512), (32, 64), (5, 77), (4, 100), (3, 130),
+     (2, 200)],
+)
+def test_tma_attention_matches_plain(card, b, s):
+    # bge-large's heads: 16 of 64, the encoder's views of a dense output
+    q, k, v, bias = (
+        torch.from_numpy(t).to(card)
+        for t in _attention_inputs(b, s, 16, 64, seed=b + s)
+    )
+    q, k, v = (t.bfloat16().reshape(b, s, 1024).view(b, s, 16, 64)
+               for t in (q, k, v))
+    assert attention.attention_route(q, k, v) == "tma"
+    got = _routed(attention.attention, "tma",
+                  lambda: attention.attention(q, k, v, bias, 0.125))
+    want = attention.attention_plain(q, k, v, bias, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    uniform = v[-1].float().mean(dim=0)
+    assert (got[-1].float() - uniform[None]).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize(
+    "hd,dtype,route",
+    [(32, "bfloat16", "mma"), (16, "bfloat16", "mma"), (24, "bfloat16", "fma"),
+     (64, "float32", "fma")],
+)
+def test_other_attention_routes_are_counted(card, hd, dtype, route):
+    q, k, v, bias = (
+        torch.from_numpy(t).to(card) for t in _attention_inputs(3, 70, 4, hd, 2)
+    )
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    got = _routed(attention.attention, route,
+                  lambda: attention.attention(q, k, v, bias, hd ** -0.5))
+    want = attention.attention_plain(q, k, v, bias, hd ** -0.5)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024),
+     (65536, 1024, 1024), (5, 48, 24), (37, 96, 384), (130, 192, 96),
+     (300, 768, 3072)],
+)
+def test_tma_gemm_matches_plain(card, dtype, gelu, m, k, n):
+    x, wq, sw, bias = _quant_operands(m, k, n, False, m + k + n, card, dtype)
+    got = _routed(kernels.w8a8_matmul, "tma",
+                  lambda: kernels.w8a8_matmul(x, wq, sw, bias, gelu=gelu))
+    want = kernels.w8a8_matmul_plain(x, wq, sw, bias, gelu=gelu)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    err = (got.float() - want.float()).abs()
+    assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
+
+
+@pytest.mark.parametrize("int4,k", [(False, 1000), (False, 40), (True, 1024),
+                                    (True, 96)])
+def test_other_quant_gemm_calls_take_the_mma_route(card, int4, k):
+    x, wq, sw, bias = _quant_operands(33, k, 72, int4, k, card, "bfloat16")
+    wrapper = kernels.w4a8_matmul if int4 else kernels.w8a8_matmul
+    plain = kernels.w4a8_matmul_plain if int4 else kernels.w8a8_matmul_plain
+    got = _routed(wrapper, "mma", lambda: wrapper(x, wq, sw, bias))
+    want = plain(x, wq, sw, bias)
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2e-2 + 2e-2 * want.float().abs()).all(), err.max().item()

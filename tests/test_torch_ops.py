@@ -243,7 +243,9 @@ def test_build_finds_no_nvcc_here_and_says_so(monkeypatch, tmp_path):
         _build._nvcc()
 
 
-def test_build_is_stale_when_missing_or_older_than_a_source(tmp_path):
+def test_build_is_stale_when_missing_or_older_than_a_source(
+    tmp_path, monkeypatch
+):
     import os
 
     from llm_weighted_consensus_tpu_torch.ops import _build
@@ -251,9 +253,7 @@ def test_build_is_stale_when_missing_or_older_than_a_source(tmp_path):
     lib = tmp_path / _build.LIB_NAME
     assert _build._stale(lib)
     lib.write_bytes(b"")
-    newest = max(
-        (_build.CSRC_DIR / name).stat().st_mtime for name in _build.SOURCES
-    )
+    newest = max(path.stat().st_mtime for path in _build._inputs())
     os.utime(lib, (newest + 10, newest + 10))
     assert not _build._stale(lib)
     os.utime(lib, (newest - 10, newest - 10))
@@ -261,3 +261,21 @@ def test_build_is_stale_when_missing_or_older_than_a_source(tmp_path):
     assert set(_build.SOURCES) == {
         p.name for p in _build.CSRC_DIR.glob("*.cu")
     }
+    # a shared header newer than the library makes it stale too: a copy
+    # of csrc/ whose one header is edited after the build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.SOURCES:
+        os.utime(_touch(csrc / name), (100, 100))
+    header = _touch(csrc / "shared.cuh")
+    os.utime(header, (100, 100))
+    os.utime(lib, (200, 200))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert not _build._stale(lib)
+    os.utime(header, (300, 300))
+    assert _build._stale(lib)
+
+
+def _touch(path):
+    path.write_bytes(b"")
+    return path
