@@ -395,14 +395,15 @@ def check_attention(gpu: str) -> dict:
                                               f"ragged b={b} s={s}")
     # the other routes at small ragged shapes: bf16 hd 16/32 take the
     # mma.sync kernel, bf16 hd 24 and an unaligned strided view the FMA
-    # kernel, f32 always the FMA kernel (and bf16 hd 64 the TMA route)
+    # kernel, f32 always the FMA kernel (and bf16 hd 64 the TMA route, a
+    # head-major view too)
     for hd in (16, 24, 32, 64):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(5, 77, 4, hd, dtype, seed=hd)
             route = ("fma" if dtype == torch.float32 or hd == 24
                      else "tma" if hd == 64 else "mma")
-            cases = [(q, k, v, route)]
+            cases = [(q, k, v, route, route)]
             if hd == 64:
                 # every row start off 16-byte alignment
                 wide = torch.zeros(5, 77, 4, hd + 1, dtype=dtype, device="cuda")
@@ -411,14 +412,19 @@ def check_attention(gpu: str) -> dict:
                     w = wide.clone()
                     w[..., :hd] = t
                     views.append(w[..., :hd])
-                cases.append((*views, "fma"))
-            for qq, kk, vv, route in cases:
-                key = f"{name}-hd{hd}-{route}"
+                cases.append((*views, "fma", "fma"))
+                if dtype == torch.bfloat16:
+                    # [b, nh, s, hd] storage seen as [b, s, nh, hd]
+                    cases.append((*(t.transpose(1, 2).contiguous()
+                                    .transpose(1, 2) for t in (q, k, v)),
+                                  "tma", "tma-head-major"))
+            for qq, kk, vv, route, label in cases:
+                key = f"{name}-hd{hd}-{label}"
                 err, _ = attention_err(qq, kk, vv, bias, hd ** -0.5, route, key)
                 worst[key] = max(worst.get(key, 0), err)
     emit({"phase": "kernel", "kernel": "attention", "gpu": gpu,
-          "paths": "TMA at ragged s; hd 16/24/32/64, bf16/f32, aligned "
-                   "and strided, each on its route",
+          "paths": "TMA at ragged s; hd 16/24/32/64, bf16/f32, aligned, "
+                   "strided and head-major, each on its route",
           "max_abs_err": worst})
     rows.append({"max_abs_err": max(worst.values())})
     return {"rows": rows}
@@ -467,7 +473,7 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     m, k = x.shape
     n = w.shape[0]
     wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
-    xq, _ = kernels.quantize_rows(x, kp)
+    xq, sx = kernels.quantize_rows(x, kp)
     w8t = (kernels.unpack_int4_weights(wq, k) if wq.dtype == torch.uint8
            else wq).t()
     bound, by = bound_ms_ops(
@@ -475,24 +481,37 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     )
     routes = {}
     if name == "w8a8_matmul":
-        # the GEMM alone on each route, on the same quantised rows: the
-        # TMA route the wrapper takes and the mma.sync route it replaced
-        xq_k, sx = kernels.quantize_rows(x, kp)
         out = torch.empty(m, n, dtype=x.dtype, device="cuda")
         lib = _build.library()
-        runs = [("tma", "lwc_quant_matmul_tma", gelu),
-                ("mma", "lwc_quant_matmul", gelu)]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def gemm(entry, act, xq_r, sx_r):
+            # one checked launch of a GEMM entry point (bf16 out)
+            _build.check(getattr(lib, entry)(
+                xq_r.data_ptr(), wq.data_ptr(), sx_r.data_ptr(),
+                sw.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, kp,
+                0, int(act), 1, stream,
+            ), entry)
+
+        # the GEMM alone on each route, on the same quantised rows: the
+        # TMA route the wrapper takes and the mma.sync route it replaced;
+        # and the replaced route's whole call, row quantisation then GEMM
+        runs = {
+            "tma": lambda: gemm("lwc_quant_matmul_tma", gelu, xq, sx),
+            "mma": lambda: gemm("lwc_quant_matmul", gelu, xq, sx),
+            "mma_call": lambda: gemm("lwc_quant_matmul", gelu,
+                                     *kernels.quantize_rows(x, kp)),
+        }
         if gelu:
             # what the GELU costs the TMA route's epilogue
-            runs.append(("tma_without_gelu", "lwc_quant_matmul_tma", False))
-        for route, entry, act in runs:
-            fn_c = getattr(lib, entry)
-            routes[route] = time_ms(lambda: fn_c(
-                xq_k.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), m, n, k, kp, 0, int(act), 1,
-                torch.cuda.current_stream().cuda_stream,
-            ))
+            runs["tma_without_gelu"] = lambda: gemm(
+                "lwc_quant_matmul_tma", False, xq, sx)
+        routes = {route: time_ms(run) for route, run in runs.items()}
     q_bound, q_by = bound_ms(2 * m * k + m * kp + 4 * m, 2.0 * m * k, "float32")
+    # the GEMM alone: the int8 rows and their scales in, no bf16 x
+    g_bound, g_by = bound_ms_ops(
+        m * kp + 4 * m + wq.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k
+    )
     row = {
         "phase": "kernel", "kernel": name, "gpu": gpu, "shape": [m, k, n],
         "gelu": gelu, "dtype": "bfloat16",
@@ -512,8 +531,9 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     if routes:
         row["route"] = "tma"
         row["gemm_ms"] = routes["tma"]
+        row["gemm_bound_ms"], row["gemm_bound_by"] = g_bound, g_by
         row["previous_gemm_ms"] = routes["mma"]
-        row["previous_ms"] = routes["mma"] + row["quantize_rows_ms"]
+        row["previous_ms"] = routes["mma_call"]
         if gelu:
             row["gemm_without_gelu_ms"] = routes["tma_without_gelu"]
     emit(row)
@@ -1515,8 +1535,17 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     ids, mask = emb.tokenize(texts)
     tokenize_ms = (time.perf_counter() - t) * 1e3
     ids, mask = ids.reshape(r, n, -1), mask.reshape(r, n, -1)
-    rows, wall_ms = profile_call(
-        lambda: emb.consensus_confidence_tokens_many(ids, mask)
+    layers = emb.config.num_layers
+
+    def complete(rows):
+        # every layer's attention, and its six GEMMs under a quantize mode
+        return launches_of(rows, "attention_tma_kernel") == layers and (
+            quantize == "none"
+            or launches_of(rows, "quant_gemm_tma_kernel") == 6 * layers
+        )
+
+    rows, wall_ms, traces = profile_call(
+        lambda: emb.consensus_confidence_tokens_many(ids, mask), complete
     )
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -1534,7 +1563,6 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         for ms, count, key in rows[:8]
     ]
     cublas = cublas_gemms(rows)
-    layers = emb.config.num_layers
     new_kernels = {
         "attention_tma_kernel": launches_of(rows, "attention_tma_kernel"),
         "attention_mma_kernel<64, false>": launches_of(
@@ -1544,7 +1572,7 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     }
     row = {
         "phase": "profile", "gpu": gpu, "quantize": quantize,
-        "kernel_launches": new_kernels,
+        "kernel_launches": new_kernels, "traces": traces,
         "shape": list(ids.shape),
         "tokenize_ms": tokenize_ms, "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -1607,38 +1635,51 @@ def launches_of(rows, name: str, template: str = "") -> int:
                if port_kernel(key) == name and template in key)
 
 
-def profile_call(fn):
-    """(``device_table`` rows, wall ms) of one call of ``fn``.  A first
-    call runs while the profiler already traces and its events are
-    dropped (the schedule's warm-up step): a trace that starts with the
-    measured call can miss its first kernels (one layer of a dispatch)."""
+def profile_call(fn, complete=None, tries: int = 3):
+    """(``device_table`` rows, wall ms, traces taken) of one call of
+    ``fn``.  A first call runs while the profiler already traces and its
+    events are dropped (the schedule's warm-up step): a trace that starts
+    with the measured call can miss its first kernels (one layer of a
+    dispatch).  The profiler can still drop device records of the
+    measured call, so where ``complete(rows)`` is false the call is
+    traced anew, up to ``tries`` traces; the last is returned either way
+    and the caller's checks judge it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-    ) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        prof.step()
-    return device_table(prof), wall_ms
+    for traces in range(1, tries + 1):
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            prof.step()
+        rows = device_table(prof)
+        if complete is None or complete(rows):
+            break
+    return rows, wall_ms, traces
 
 
 def device_ms_per_launch(fn, kernel: str, iters: int = 20) -> float:
     """Device time of one launch of the port's kernel ``kernel`` (a
     ``port_kernel`` name) that ``fn`` makes, averaged over ``iters``
     calls."""
-    rows, _ = profile_call(lambda: [fn() for _ in range(iters)])
-    ms, count = next(
-        (ms, count) for ms, count, key in rows if port_kernel(key) == kernel
+    rows, _, traces = profile_call(
+        lambda: [fn() for _ in range(iters)],
+        lambda rows: launches_of(rows, kernel) == iters,
     )
-    return ms / count
+    count = launches_of(rows, kernel)
+    if count != iters:
+        raise AssertionError(
+            f"{kernel}: {count} of {iters} launches in {traces} traces"
+        )
+    return sum(ms for ms, _, key in rows if port_kernel(key) == kernel) / count
 
 
 def device_table(prof):
@@ -1678,7 +1719,12 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
         ) if c.ids.shape == SEG_BUCKET
     )
     args = (call.ids, call.segment_ids, call.positions, call.seg_starts)
-    rows, wall_ms = profile_call(lambda: emb.embed_packed(*args))
+    layers = emb.config.num_layers
+    rows, wall_ms, traces = profile_call(
+        lambda: emb.embed_packed(*args),
+        lambda rows: launches_of(rows, "attention_mma_kernel", ", true>")
+        == layers,
+    )
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1694,7 +1740,8 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
     row = {
         "phase": "profile_packed", "gpu": gpu, "quantize": quantize,
         "shape": list(call.ids.shape), "segments": len(call.slots),
-        "real_tokens": call.real_tokens, "wall_ms": wall_ms,
+        "real_tokens": call.real_tokens, "traces": traces,
+        "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
         "top": [{"kernel": key[:80], "ms": ms, "count": count}
@@ -1774,10 +1821,13 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
             "shape": row["shape"], "kernel_route": "mma",
         }
         if name == "w8a8_matmul":
-            # ms keeps the row quantisation; gemm_ms is the GEMM alone
+            # ms keeps the row quantisation; gemm_ms is the GEMM alone,
+            # beside the GEMM's own bound
             entry.update({
                 "source": csrc + "quant_gemm_sm90.cu", "kernel_route": "tma",
-                "gemm_ms": row["gemm_ms"], "previous_ms": row["previous_ms"],
+                "gemm_ms": row["gemm_ms"],
+                "gemm_bound_ms": row["gemm_bound_ms"],
+                "previous_ms": row["previous_ms"],
                 "previous_gemm_ms": row["previous_gemm_ms"],
                 "previous_source": csrc + "quant_matmul.cu",
             })

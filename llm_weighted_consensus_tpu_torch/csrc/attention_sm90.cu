@@ -7,8 +7,8 @@
 // padding), f32 logits and softmax, probabilities rounded to bf16 (v's
 // dtype) before P V, f32 accumulation, bf16 output.  It takes every
 // encoder call of bge-base and bge-large on the card: q/k/v are the
-// [b, s, nh, hd] views of the dense outputs (row-major order, 16-byte
-// aligned, strides multiples of 16 bytes), any s.  attention.cu keeps
+// [b, s, nh, hd] views of the dense outputs (16-byte aligned, strides
+// multiples of 16 bytes, in any order), any s.  attention.cu keeps
 // hd 16/24/32, f32, unaligned views and the segment-masked variant.
 //
 // What bounds it on the H100: bytes.  At the main path's [b, s] = [512,
@@ -326,7 +326,7 @@ int operand_map(CUtensorMap* map, const void* base, int b, int s, int nh,
 
 // As lwc_attention (attention.cu), for bf16 (dtype 1) and hd 64 only:
 // q/k/v [b, s, nh, 64] with element strides {q_b, q_s, q_h, k_b, k_s, k_h,
-// v_b, v_s, v_h}, each a multiple of 8 and in row-major order, base
+// v_b, v_s, v_h}, each a multiple of 8 (in any order), base
 // pointers 16-byte aligned; bias [b, s] f32 contiguous; out [b, s, nh, 64]
 // bf16 contiguous and 16-byte aligned.  Anything else returns
 // cudaErrorInvalidValue without a launch.  Returns cudaGetLastError()

@@ -10,20 +10,16 @@
 namespace quant_epilogue {
 
 // erf GELU for f32 outputs, A&S 7.1.26 for bf16 (the reference's
-// gelu_f32).  The bf16 branch takes the special-function unit's divide and
-// exp (__fdividef, __expf: a few f32 ulps, far below the one bf16 rounding
-// that follows): the IEEE division's slow-path branch keeps the compiler
-// from interleaving elements, and at the MLP expansion the GELU is most of
-// the epilogue's instructions.
+// gelu_f32), with IEEE division and expf on both routes
 __device__ __forceinline__ float gelu(float x, bool approx) {
   if (!approx) return x * 0.5f * (1.0f + erff(x * 0.70710678118654752f));
   const float z = fabsf(x) * 0.70710678118654752f;
-  const float t = __fdividef(1.0f, 1.0f + 0.3275911f * z);
+  const float t = 1.0f / (1.0f + 0.3275911f * z);
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f +
                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float half_erfc = 0.5f * poly * __expf(-z * z);
+  const float half_erfc = 0.5f * poly * expf(-z * z);
   return x * (x > 0.0f ? 1.0f - half_erfc : half_erfc);
 }
 

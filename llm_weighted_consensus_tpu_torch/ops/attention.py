@@ -17,9 +17,9 @@ A CPU tensor takes the plain version; a CUDA tensor launches a kernel
 raises.  ``attention_route`` picks the kernel from dtype, head dim,
 strides and alignment alone:
 
-* ``"tma"``: bf16, hd 64, every base 16-byte aligned, every stride a
-  multiple of 16 bytes and in row-major order (every encoder call of
-  bge-base and bge-large): ``csrc/attention_sm90.cu``, TMA + wgmma;
+* ``"tma"``: bf16, hd 64, every base 16-byte aligned and every stride a
+  multiple of 16 bytes (every encoder call of bge-base and bge-large):
+  ``csrc/attention_sm90.cu``, TMA + wgmma;
 * ``"mma"``: other aligned bf16 with hd 16 or 32: ``csrc/attention.cu``'s
   mma.sync kernel;
 * ``"fma"``: f32, hd 24 and unaligned views: ``csrc/attention.cu``'s f32
@@ -125,15 +125,9 @@ def attention_route(q, k, v) -> str:
     hd = q.shape[-1]
     if q.dtype != torch.bfloat16 or not _aligned(q, k, v):
         return "fma"
-    if hd != 64:
-        return "mma" if hd in (16, 32) else "fma"
-    nh, s = q.shape[2], q.shape[1]
-    row_major = all(
-        t.stride(2) >= hd and t.stride(1) >= nh * t.stride(2)
-        and t.stride(0) >= s * t.stride(1)
-        for t in (q, k, v)
-    )
-    return "tma" if row_major else "mma"
+    if hd == 64:
+        return "tma"
+    return "mma" if hd in (16, 32) else "fma"
 
 
 def _launch(entry: str, q, k, v, mask, scale: float) -> torch.Tensor:

@@ -443,6 +443,20 @@ def test_tma_attention_matches_plain(card, b, s):
     assert (got[-1].float() - uniform[None]).abs().max().item() <= 2e-2
 
 
+def test_tma_attention_takes_a_head_major_view(card):
+    # [b, nh, s, hd] storage seen as [b, s, nh, hd]
+    q, k, v, bias = (
+        torch.from_numpy(t).to(card) for t in _attention_inputs(3, 77, 4, 64, 5)
+    )
+    q, k, v = (t.bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v))
+    assert not q.is_contiguous()
+    got = _routed(attention.attention, "tma",
+                  lambda: attention.attention(q, k, v, bias, 0.125))
+    want = attention.attention_plain(q, k, v, bias, 0.125)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
 @pytest.mark.parametrize(
     "hd,dtype,route",
     [(32, "bfloat16", "mma"), (16, "bfloat16", "mma"), (24, "bfloat16", "fma"),

@@ -66,11 +66,11 @@ def test_a_view_with_65_element_rows_takes_the_fma_route():
     assert attention.attention_route(view, view, view) == "fma"
 
 
-def test_a_head_major_view_takes_the_mma_route():
+def test_a_head_major_view_takes_the_tma_route():
     # aligned but not in [b, s, nh, hd] row-major order: [b, nh, s, hd]
-    # storage seen as [b, s, nh, hd]
+    # storage seen as [b, s, nh, hd]; the tensor maps take any strides
     t = torch.zeros(2, 4, 40, 64, dtype=torch.bfloat16).transpose(1, 2)
-    assert attention.attention_route(t, t, t) == "mma"
+    assert attention.attention_route(t, t, t) == "tma"
 
 
 def test_cpu_attention_counts_no_route():
