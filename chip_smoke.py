@@ -13,20 +13,25 @@ Phases, each printing one JSON line:
    ``QUANT_SMALL_M`` rows for the W8A8 and W4A8 matmuls and their row
    quantisation, every packed call shape ``PACKED_SHAPES`` for the
    segment attention) and at odd shapes, each call held to the route it
-   must take (attention: TMA for bf16 hd 64, also at ``ATTN_RAGGED``;
-   mma.sync for bf16 hd 16/32; FMA for f32, hd 24 and unaligned views;
-   W8A8: TMA where K % 16 == 0, else mma.sync; W4A8: mma.sync), max
-   |diff| beside the stated tolerance, with the kernel's, the plain
-   version's and (for both attentions; the segment one with its boolean
-   same-segment mask) ``scaled_dot_product_attention``'s time
+   must take (both attentions: TMA for bf16 hd 64, also at
+   ``ATTN_RAGGED`` and the segment one's hard layouts; mma.sync for bf16
+   hd 16/32; FMA for f32, hd 24 and unaligned views; W8A8: TMA where
+   K % 16 == 0, else mma.sync; W4A8: TMA, and byte for byte the mma.sync
+   route's output), max |diff| beside the stated tolerance, with the
+   kernel's, the plain version's and (for both attentions; the segment
+   one with its boolean same-segment mask)
+   ``scaled_dot_product_attention``'s time
    and the least time the card could take (bytes at 3.35 TB/s or
    operations at the type's peak, whichever is larger); the quantized
    matmuls are timed beside bf16 ``F.linear`` and ``torch._int_mm`` on
    pre-quantised operands, yardsticks the port never calls; the TMA
-   attention and GEMM also beside the mma.sync kernels they replaced, on
+   attentions and GEMMs also beside the mma.sync kernels they replaced, on
    the same inputs in the same run (the attentions also by device time
    per launch from torch.profiler: at the small shapes the wrapper's host
-   time per call exceeds the kernel's);
+   time per call exceeds the kernel's; the segment one also with the
+   dense tile work the plain schedule visits, ``visited_ops``, counted
+   on the host from the ids, and its schedule read back from the kernel
+   and held to the plain one);
 3. bge_micro: the committed fixture, loaded by the port's loader, served
    through ``/consensus`` on the card and on the CPU; the confidences
    must agree, unquantized and under ``int8`` / ``int4-pallas``; packed
@@ -45,25 +50,30 @@ Phases, each printing one JSON line:
    {3, 4, 6, 8}) each with one ``/embeddings`` request of 16 texts, and
    the same traffic through a padded server; p50, answers/s, packed call
    shapes and real/slot tokens of both; segment-attention launches
-   checked against the packed calls (no padded kernel); answers held
-   against the padded path with prefix dedup off and against the dedup
-   contract with it on; then the segment kernel's times at every packed
-   shape the traffic dispatched and at the bucket;
+   checked against the packed calls (no padded kernel, every launch on
+   the TMA route); answers held against the padded path with prefix
+   dedup off and against the dedup contract with it on; then the segment
+   kernel's times at every packed shape the traffic dispatched and at
+   the bucket;
 6. quantized paths: the same server with ``quantize="int8"`` (3 bursts
    and ``/embeddings``, then one packed burst) and ``"int4-pallas"`` (1
    burst and ``/embeddings``) on the same weights; launch counts checked
-   (6 quantized matmuls per layer per encoder call, every W8A8 one on
-   the TMA route), answers held against
+   (6 quantized matmuls per layer per encoder call, every W8A8 and W4A8
+   one on the TMA route), answers held against
    the unquantized path's on the same texts (embedding cosine and
    confidence bars of the reference's own quantization tests);
 7. profiles: device time by kernel for one coalesced dispatch of the main
-   path and one packed [8, 512] call (torch.profiler), unquantized and
-   under ``int8``, the full tables in ``chiprun_out/profile_*.txt``; the
-   device's idle share as measured, failing if the summed device time
-   exceeds the wall time, if a cuBLAS GEMM runs in an int8 dispatch, or
-   unless the dispatch ran ``attention_tma_kernel`` once per layer (and no
-   ``attention_mma_kernel<64, false>``) and, under int8,
-   ``quant_gemm_tma_kernel`` six times per layer.
+   path (unquantized, ``int8`` and ``int4-pallas``) and one packed
+   [8, 512] call (unquantized and ``int8``) from torch.profiler, the full
+   tables in ``chiprun_out/profile_*.txt``; the device's idle share as
+   measured, failing if the summed device time exceeds the wall time, if
+   a cuBLAS GEMM runs in a quantized dispatch, or unless each dispatch ran
+   ``attention_tma_kernel<false>`` once per layer (and no
+   ``attention_mma_kernel<64, false>``), each packed call
+   ``attention_tma_kernel<true>`` once per layer (and no
+   ``attention_mma_kernel<64, true>``) and, quantized, the W8 or W4
+   ``quant_gemm_tma_kernel`` six times per layer (and no
+   ``quant_gemm_kernel``).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -136,6 +146,9 @@ SCHEME_TEXTS = 8
 CUBLAS_GEMM = ("nvjet", "cublas", "gemm", "xmma", "cutlass", "gemv")
 # the port's own GEMM kernels (exact function names), exempt from it
 PORT_GEMMS = ("quant_gemm_kernel", "quant_gemm_tma_kernel")
+# the template arguments that tell the instantiations apart in a profile
+# key: the padded and the segment TMA attention, the W8 and W4 TMA GEMM
+PADDED, SEG, W8, W4 = "<false>", "<true>", ", false>", ", true>"
 # the packed path (phase 5): PACKING_ENABLED with the reference's
 # defaults, and the reference's mixed-length traffic (bench_http.py,
 # --mixed-lengths, seed 11): bursts of concurrent /consensus requests
@@ -459,56 +472,74 @@ def quant_err(got, want, what: str, dtype: str) -> float:
     return diff.max().item()
 
 
+def gemm_entry(entry, xq, w, sx, sw, bias, out, k, kp, gelu):
+    """One checked launch of a GEMM entry point of the kernel library
+    (``lwc_quant_matmul`` or ``lwc_quant_matmul_tma``) on quantised rows,
+    into ``out``; a uint8 ``w`` is the packed int4 weight."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import _build
+
+    m, n = out.shape
+    _build.check(getattr(_build.library(), entry)(
+        xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), m, n, k, kp,
+        int(w.dtype == torch.uint8), int(gelu),
+        0 if out.dtype == torch.float32 else 1,
+        torch.cuda.current_stream().cuda_stream,
+    ), entry)
+    return out
+
+
 def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
     """One quantized matmul at a main-path shape, bf16: the kernel (row
     quantisation included), the row quantisation alone, the plain
-    versions, the yardsticks and the bounds; for W8A8 also the GEMM alone
-    on its TMA route and on the mma.sync route it replaced."""
+    versions, the yardsticks and the bounds; also the GEMM alone on its
+    TMA route and on the mma.sync route it replaced, and for W4A8 the
+    W8A8 TMA GEMM on the unpacked weight (the same product)."""
     import torch
     import torch.nn.functional as F
 
-    from llm_weighted_consensus_tpu_torch.ops import _build, kernels
+    from llm_weighted_consensus_tpu_torch.ops import kernels
 
     fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     m, k = x.shape
     n = w.shape[0]
     wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
     xq, sx = kernels.quantize_rows(x, kp)
-    w8t = (kernels.unpack_int4_weights(wq, k) if wq.dtype == torch.uint8
-           else wq).t()
+    int4 = wq.dtype == torch.uint8
+    w8 = kernels.unpack_int4_weights(wq, k) if int4 else wq
     bound, by = bound_ms_ops(
         2 * m * k + wq.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k
     )
-    routes = {}
-    if name == "w8a8_matmul":
-        out = torch.empty(m, n, dtype=x.dtype, device="cuda")
-        lib = _build.library()
-        stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(m, n, dtype=x.dtype, device="cuda")
 
-        def gemm(entry, act, xq_r, sx_r):
-            # one checked launch of a GEMM entry point (bf16 out)
-            _build.check(getattr(lib, entry)(
-                xq_r.data_ptr(), wq.data_ptr(), sx_r.data_ptr(),
-                sw.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, kp,
-                0, int(act), 1, stream,
-            ), entry)
+    def gemm(entry, act, xq_r, sx_r, weight=wq):
+        return gemm_entry(entry, xq_r, weight, sx_r, sw, bias, out, k, kp,
+                          act)
 
-        # the GEMM alone on each route, on the same quantised rows: the
-        # TMA route the wrapper takes and the mma.sync route it replaced;
-        # and the replaced route's whole call, row quantisation then GEMM
-        runs = {
-            "tma": lambda: gemm("lwc_quant_matmul_tma", gelu, xq, sx),
-            "mma": lambda: gemm("lwc_quant_matmul", gelu, xq, sx),
-            "mma_call": lambda: gemm("lwc_quant_matmul", gelu,
-                                     *kernels.quantize_rows(x, kp)),
-        }
-        if gelu:
-            # what the GELU costs the TMA route's epilogue
-            runs["tma_without_gelu"] = lambda: gemm(
-                "lwc_quant_matmul_tma", False, xq, sx)
-        routes = {route: time_ms(run) for route, run in runs.items()}
+    # the GEMM alone on each route, on the same quantised rows: the TMA
+    # route the wrapper takes and the mma.sync route it replaced; and the
+    # replaced route's whole call, row quantisation then GEMM
+    runs = {
+        "tma": lambda: gemm("lwc_quant_matmul_tma", gelu, xq, sx),
+        "mma": lambda: gemm("lwc_quant_matmul", gelu, xq, sx),
+        "mma_call": lambda: gemm("lwc_quant_matmul", gelu,
+                                 *kernels.quantize_rows(x, kp)),
+    }
+    if gelu:
+        # what the GELU costs the TMA route's epilogue
+        runs["tma_without_gelu"] = lambda: gemm(
+            "lwc_quant_matmul_tma", False, xq, sx)
+    if int4:
+        # the W8A8 TMA GEMM on the unpacked weight: what the unpacking
+        # costs against the product it feeds
+        runs["w8a8_tma"] = lambda: gemm("lwc_quant_matmul_tma", gelu, xq,
+                                        sx, w8)
+    routes = {route: time_ms(run) for route, run in runs.items()}
     q_bound, q_by = bound_ms(2 * m * k + m * kp + 4 * m, 2.0 * m * k, "float32")
-    # the GEMM alone: the int8 rows and their scales in, no bf16 x
+    # the GEMM alone: the int8 rows and their scales in, no bf16 x (W4:
+    # the packed weight)
     g_bound, g_by = bound_ms_ops(
         m * kp + 4 * m + wq.numel() + 8 * n + 2 * m * n, 2.0 * m * n * k
     )
@@ -526,31 +557,31 @@ def time_quant(gpu, name, x, w, wq, sw, bias, kp, gelu) -> dict:
         ),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "bf16_linear_ms": time_ms(lambda: F.linear(x, wb, bb)),
-        "int_mm_ms": time_ms(lambda: torch._int_mm(xq[:, :k], w8t)),
+        "int_mm_ms": time_ms(lambda: torch._int_mm(xq[:, :k], w8.t())),
+        "route": "tma", "gemm_ms": routes["tma"],
+        "gemm_bound_ms": g_bound, "gemm_bound_by": g_by,
+        "previous_gemm_ms": routes["mma"], "previous_ms": routes["mma_call"],
     }
-    if routes:
-        row["route"] = "tma"
-        row["gemm_ms"] = routes["tma"]
-        row["gemm_bound_ms"], row["gemm_bound_by"] = g_bound, g_by
-        row["previous_gemm_ms"] = routes["mma"]
-        row["previous_ms"] = routes["mma_call"]
-        if gelu:
-            row["gemm_without_gelu_ms"] = routes["tma_without_gelu"]
+    if gelu:
+        row["gemm_without_gelu_ms"] = routes["tma_without_gelu"]
+    if int4:
+        row["w8a8_gemm_ms"] = routes["w8a8_tma"]
     emit(row)
     return row
 
 
 def check_quant(gpu: str) -> dict:
     """W8A8 and W4A8 against their plain versions (and the row
-    quantisation byte for byte) at the main path's shapes and odd ones,
-    bf16 and f32, GELU on and off; times at the main shapes in bf16."""
+    quantisation byte for byte, and W4A8's TMA route against its mma.sync
+    route byte for byte) at the main path's shapes and odd ones, bf16 and
+    f32, GELU on and off; times at the main shapes in bf16."""
     import torch
 
     from llm_weighted_consensus_tpu_torch.ops import kernels
 
     worst = {"w8a8_matmul": 0.0, "w4a8_matmul": 0.0}
     worst_by_route = {}
-    rows, cases = [], 0
+    rows, cases, w4_equal = [], 0, 0
     # (M, K, N, the main path's GELU flag, or None at an odd shape)
     shapes = [(QUANT_M, k, n, gelu) for k, n, gelu in QUANT_MAIN_SHAPES]
     shapes += [(QUANT_SMALL_M, k, n, None) for k, n, _ in QUANT_MAIN_SHAPES]
@@ -561,8 +592,9 @@ def check_quant(gpu: str) -> dict:
         name = "w4a8_matmul" if int4 else "w8a8_matmul"
         wrapper = getattr(kernels, name)
         dname = str(dtype).split(".")[-1]
-        route = "mma" if int4 or k % 16 else "tma"
+        route = "mma" if not int4 and k % 16 else "tma"
         x, w, wq, sw, bias = quant_operands(m, k, n, int4, dtype, m + k + n)
+        kp = 2 * wq.shape[1] if int4 else -(-k // 64) * 64
         for gelu in (False, True):
             before = dict(wrapper.routes)
             got = wrapper(x, wq, sw, bias, gelu=gelu)
@@ -573,12 +605,24 @@ def check_quant(gpu: str) -> dict:
             if taken != [route]:
                 raise AssertionError(f"{what}: took {taken}, not {route}")
             err = quant_err(got, want, what, dname)
+            if int4:
+                # the same int32 sums and the shared epilogue: the mma.sync
+                # route's bytes, on the same quantised rows
+                xq, sx = kernels.quantize_rows(x, kp)
+                mma = gemm_entry("lwc_quant_matmul", xq, wq, sx, sw, bias,
+                                 torch.empty_like(got), k, kp, gelu)
+                torch.cuda.synchronize()
+                if not torch.equal(got, mma):
+                    raise AssertionError(
+                        f"{what}: the TMA route is not byte-equal to the "
+                        "mma.sync route"
+                    )
+                w4_equal += 1
             worst[name] = max(worst[name], err)
             worst_by_route[f"{name}-{route}"] = max(
                 worst_by_route.get(f"{name}-{route}", 0.0), err
             )
             cases += 1
-        kp = 2 * wq.shape[1] if int4 else -(-k // 64) * 64
         xq, sx = kernels.quantize_rows(x, kp)
         pq, ps = kernels.quantize_rows_plain(x, kp)
         torch.cuda.synchronize()
@@ -594,6 +638,7 @@ def check_quant(gpu: str) -> dict:
     emit({"phase": "kernel", "kernel": "w8a8_matmul+w4a8_matmul",
           "gpu": gpu, "cases": cases, "max_abs_err": worst,
           "max_abs_err_by_route": worst_by_route, "tolerance": QUANT_TOL,
+          "w4a8_tma_byte_equal_to_mma": w4_equal,
           "shapes": [[m, k, n] for m in (QUANT_M, QUANT_SMALL_M)
                      for k, n, _ in QUANT_MAIN_SHAPES]
           + [list(shape) for shape in QUANT_ODD_SHAPES],
@@ -607,7 +652,9 @@ def segment_ids_for(b, s, seed, hard=False):
     """Packed rows of segment ids [b, s] int32: segments of the mixed
     traffic's lengths (a few to a few hundred tokens) laid end to end,
     pad tails; ``hard`` adds an all-pad row, one-token segments, a
-    segment straddling the 64-key tile edge and one starting past 64."""
+    segment straddling the 64-row edge, one straddling the 128-key tile
+    edge (with an id out of order), one starting past 64 and, in a third
+    row, negative ids (pad slots to the reference)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -628,6 +675,11 @@ def segment_ids_for(b, s, seed, hard=False):
             if s > 70:
                 seg[1, 60:70] = 4
                 seg[1, s - 3:] = 5
+            if s > 143:
+                seg[1, 120:140] = 6
+        if b > 2:
+            seg[2, 5:9] = -2
+            seg[2, s - 2:] = -1
     return seg
 
 
@@ -643,7 +695,7 @@ def segment_bound(seg, nh, hd, itemsize):
     for row in seg:
         ids, counts = np.unique(row, return_counts=True)
         ops += 4.0 * nh * hd * float((counts[ids > 0].astype(np.float64) ** 2).sum())
-        if (row == 0).any():
+        if (row <= 0).any():
             ops += 2.0 * nh * hd * s
     nbytes = 4 * b * s * nh * hd * itemsize + 4 * b * s
     dtype = "bfloat16" if itemsize == 2 else "float32"
@@ -665,19 +717,29 @@ def segment_case(b, s, nh, hd, dtype, seed, hard=False):
     return q, k, v, seg
 
 
-def segment_err(q, k, v, seg, scale, what: str) -> float:
-    """max |kernel - plain|, failing past the tolerance, on non-finite
-    output, or where a pad query row is not the uniform mean of v."""
+def segment_err(q, k, v, seg, scale, route, what: str) -> float:
+    """max |kernel - plain| of one ``segment_attention`` call, which must
+    take ``route``, failing past the tolerance, on non-finite output, or
+    where a pad query row is not the uniform mean of v.  On the TMA route
+    also the schedule the kernel ran, read back, against the plain
+    ``segment_tile_schedule`` and the kernel's block sizes against the
+    ones it assumes."""
     import torch
 
     from llm_weighted_consensus_tpu_torch.ops import attention as attn
 
     name = str(q.dtype).split(".")[-1]
+    before = dict(attn.segment_attention.routes)
     got = attn.segment_attention(q, k, v, seg, scale)
     want = attn.segment_attention_plain(q, k, v, seg, scale)
     torch.cuda.synchronize()
+    taken = [r for r, n in attn.segment_attention.routes.items()
+             if n != before[r]]
+    if taken != [route]:
+        raise AssertionError(
+            f"segment_attention {what}: took {taken}, not {route}")
     err = (got.float() - want.float()).abs().max().item()
-    pad = (seg == 0)
+    pad = seg <= 0
     mean_v = v.float().mean(dim=1, keepdim=True).expand_as(got)
     pad_err = ((got.float() - mean_v).abs().amax(dim=(2, 3))[pad].max().item()
                if pad.any() else 0.0)
@@ -687,15 +749,30 @@ def segment_err(q, k, v, seg, scale, what: str) -> float:
             f"segment_attention {what} {name}: max|diff| {err}, pad rows "
             f"{pad_err} > {ATTN_TOL[name]}"
         )
+    if route == "tma":
+        same, ran, blocks = attn.kernel_tile_schedule(q, k, v, seg, scale)
+        plan = attn.segment_tile_schedule(seg)
+        n = plan.shape[1]
+        if (blocks != (attn.SEG_BLOCK_Q, attn.SEG_BLOCK_K)
+                or ran.shape[2] != plan.shape[2]
+                or not torch.equal(ran[:, :n], plan)
+                or bool(ran[:, n:].any())
+                or not torch.equal(same, got)):
+            raise AssertionError(
+                f"segment_attention {what}: the kernel's schedule (blocks "
+                f"{blocks}, {tuple(ran.shape)}) is not segment_tile_schedule's"
+                f" ({attn.SEG_BLOCK_Q}, {attn.SEG_BLOCK_K}, "
+                f"{tuple(plan.shape)}), or its output differs")
     return err
 
 
 def check_segment_attention(gpu: str) -> dict:
     """The segment-attention kernel against its plain version at every
     [b, L] a packed call can take at bge-large width (16 heads of 64),
-    bf16 and f32, and at odd cases; its time at the packed bucket and
-    beside SDPA with the same-segment boolean mask (built beforehand, a
-    yardstick the port never calls)."""
+    bf16 (the TMA route) and f32 (the FMA kernel), and at odd cases, each
+    call on its route; its time at the packed bucket and beside SDPA
+    with the same-segment boolean mask (built beforehand, a yardstick the
+    port never calls)."""
     import torch
 
     nh, hd = 16, 64
@@ -704,26 +781,32 @@ def check_segment_attention(gpu: str) -> dict:
         PACKED_SHAPES, (torch.bfloat16, torch.float32)
     ):
         q, k, v, seg = segment_case(b, s, nh, hd, dtype, seed=b * s)
-        worst = max(worst, segment_err(q, k, v, seg, hd ** -0.5,
+        route = "tma" if dtype == torch.bfloat16 else "fma"
+        worst = max(worst, segment_err(q, k, v, seg, hd ** -0.5, route,
                                        f"b={b} s={s}"))
         cases += 1
     odd = {}
-    # hd 16, 24 and 32; L not a multiple of 64; one-token segments, an
-    # all-pad row, segments past 64 and across the tile edge; then 8 rows
-    # of 64 segments of 8 tokens
+    # hd 16, 24 and 32; L not a multiple of 64; the hard layouts (one-token
+    # segments, an all-pad row, segments past 64 and across the 64-row and
+    # 128-key edges) at bge-large's heads too, up to the bucket; then 8
+    # rows of 64 segments of 8 tokens
     for (b, s, h, d), dtype in itertools.product(
-        ((3, 200, 4, 16), (2, 77, 4, 24), (3, 130, 4, 32), (2, 100, 16, 64)),
+        ((3, 200, 4, 16), (2, 77, 4, 24), (3, 130, 4, 32), (2, 100, 16, 64),
+         (3, 300, 16, 64), (8, 512, 16, 64)),
         (torch.bfloat16, torch.float32),
     ):
         q, k, v, seg = segment_case(b, s, h, d, dtype, seed=s, hard=True)
         key = f"{str(dtype).split('.')[-1]}-hd{d}-s{s}"
-        odd[key] = segment_err(q, k, v, seg, d ** -0.5, key)
+        route = ("fma" if dtype == torch.float32 or d == 24
+                 else "tma" if d == 64 else "mma")
+        odd[key] = segment_err(q, k, v, seg, d ** -0.5, route, key)
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, _ = segment_case(8, 512, nh, hd, dtype, seed=64)
         seg = (torch.arange(512, device="cuda", dtype=torch.int32) // 8 + 1
                ).expand(8, 512).contiguous()
         key = f"{str(dtype).split('.')[-1]}-64-segments-per-row"
-        odd[key] = segment_err(q, k, v, seg, hd ** -0.5, key)
+        route = "tma" if dtype == torch.bfloat16 else "fma"
+        odd[key] = segment_err(q, k, v, seg, hd ** -0.5, route, key)
     worst = max(worst, max(odd.values()))
     emit({"phase": "kernel", "kernel": "segment_attention", "gpu": gpu,
           "cases": cases + len(odd), "max_abs_err": worst,
@@ -732,9 +815,45 @@ def check_segment_attention(gpu: str) -> dict:
     return {"max_abs_err": worst, "checked": set(PACKED_SHAPES)}
 
 
+def tile_work(seg, block_q, block_k):
+    """(full, masked) shares of the dense [s, s] tile area per row that
+    ``segment_tile_schedule`` at these tiles gives the ids ``seg``
+    (clipped at s)."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import attention as attn
+
+    kinds = attn.segment_tile_schedule(torch.as_tensor(seg).cpu(), block_q,
+                                       block_k)
+    s = seg.shape[1]
+    full = masked = 0.0
+    for qb in range(kinds.shape[1]):
+        rows = min(block_q, s - qb * block_q)
+        for kt in range(kinds.shape[2]):
+            area = rows * min(block_k, s - kt * block_k)
+            col = kinds[:, qb, kt]
+            full += area * int((col == attn.SEG_FULL).sum())
+            masked += area * int((col == attn.SEG_MASKED).sum())
+    dense = float(seg.shape[0] * s * s)
+    return full / dense, masked / dense
+
+
+def visited_ops(seg, nh, hd) -> float:
+    """The dense tile work the TMA kernel's schedule visits on these ids,
+    clipped at s: 4 rows keys hd per head for a full tile (Q K^T and
+    P V), 2 for a masked one (P V)."""
+    from llm_weighted_consensus_tpu_torch.ops import attention as attn
+
+    full, masked = tile_work(seg, attn.SEG_BLOCK_Q, attn.SEG_BLOCK_K)
+    b, s = seg.shape
+    return (4 * full + 2 * masked) * b * s * s * hd * nh
+
+
 def time_segment_attention(gpu, b, s) -> dict:
-    """Kernel, plain and SDPA-with-mask times (bf16) at one [b, s] of
-    bge-large (16 heads of 64)."""
+    """Kernel (TMA route), plain and SDPA-with-mask times (bf16) at one
+    [b, s] of bge-large (16 heads of 64), beside the mma.sync ``SEG``
+    kernel it replaced on the same inputs, both also by device time per
+    launch."""
     import torch
     import torch.nn.functional as F
 
@@ -747,6 +866,13 @@ def time_segment_attention(gpu, b, s) -> dict:
     mask4 = same[:, None]  # [b, 1, s, s]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     bound, by, ops, dense_ops = segment_bound(seg.cpu().numpy(), nh, hd, 2)
+
+    def tma():
+        return attn._launch("lwc_attention_seg_tma", q, k, v, seg, scale)
+
+    def mma():
+        return attn._launch("lwc_attention_seg", q, k, v, seg, scale)
+
     row = {
         "phase": "kernel", "kernel": "segment_attention", "gpu": gpu,
         "shape": [b, s, nh, hd], "dtype": "bfloat16",
@@ -760,8 +886,18 @@ def time_segment_attention(gpu, b, s) -> dict:
                 qh, kh, vh, attn_mask=mask4, scale=scale
             )
         ),
-        "bound_ms": bound, "bound_by": by, "data_ops": ops,
-        "dense_ops": dense_ops,
+        "bound_ms": bound, "bound_by": by,
+        # counted on the host from the ids, not measured: what the data
+        # needs, what the plain schedule visits, the dense work
+        "host_counts": {"data_ops": ops,
+                        "visited_ops": visited_ops(seg, nh, hd),
+                        "dense_ops": dense_ops},
+        "kernel_route": attn.segment_attention_route(q, k, v),
+        "launch_ms": time_ms(tma),
+        "device_ms": device_ms_per_launch(tma, "attention_tma_kernel", SEG),
+        "previous_ms": time_ms(mma),
+        "previous_device_ms": device_ms_per_launch(
+            mma, "attention_mma_kernel", ", true>"),
     }
     emit(row)
     return row
@@ -951,7 +1087,8 @@ def _wrappers() -> dict:
 
 
 # the route every launch of these wrappers must take on bge-large
-BGE_ROUTES = {"attention": "tma", "w8a8_matmul": "tma", "w4a8_matmul": "mma"}
+BGE_ROUTES = {"attention": "tma", "segment_attention": "tma",
+              "w8a8_matmul": "tma", "w4a8_matmul": "tma"}
 
 
 def reset_launches() -> None:
@@ -1373,7 +1510,7 @@ def packed_path(gpu: str, emb, checked: set) -> dict:
         "prefix_dedup_tokens_saved": pk["prefix_dedup_tokens_saved"],
         "fallback_items": pk["fallback_items"],
         "launches": packed["launches"], "expected_launches": want,
-        "peak_mem_gib": packed["peak_mem_gib"],
+        "routes": packed["routes"], "peak_mem_gib": packed["peak_mem_gib"],
         "padded_p50_ms": padded["p50_ms"], "padded_max_ms": padded["max_ms"],
         "padded_answers_per_s": padded["answers_per_s"],
         "padded_dispatches": pad_d,
@@ -1408,6 +1545,7 @@ def packed_int8_burst(gpu: str, emb, bursts, embeds) -> dict:
         "p50_ms": out["p50_ms"], "answers_per_s": out["answers_per_s"],
         "packed_calls": calls, "call_shapes": pk["call_shapes"],
         "launches": out["launches"], "expected_launches": want,
+        "routes": out["routes"],
     }
     emit(row)
     if out["launches"] != want or pk["fallback_items"] or calls < 1:
@@ -1518,8 +1656,9 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     """Device time by kernel for one coalesced dispatch (R=8, N=64,
     s=128) of the main path, from torch.profiler, and the host time of
     tokenizing its 512 texts; the table goes to
-    chiprun_out/profile_main_path.txt, or profile_quant_path.txt under a
-    quantize mode, where a cuBLAS GEMM in the dispatch fails the run."""
+    chiprun_out/profile_main_path.txt, or profile_quant_path.txt under
+    int8 and profile_int4_path.txt under int4-pallas, where a cuBLAS GEMM
+    in the dispatch fails the run."""
     import numpy as np
 
     from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
@@ -1537,11 +1676,14 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     ids, mask = ids.reshape(r, n, -1), mask.reshape(r, n, -1)
     layers = emb.config.num_layers
 
+    # the TMA GEMM instantiation of the weight format
+    gemm = W4 if quantize.startswith("int4") else W8
+
     def complete(rows):
         # every layer's attention, and its six GEMMs under a quantize mode
-        return launches_of(rows, "attention_tma_kernel") == layers and (
+        return launches_of(rows, "attention_tma_kernel", PADDED) == layers and (
             quantize == "none"
-            or launches_of(rows, "quant_gemm_tma_kernel") == 6 * layers
+            or launches_of(rows, "quant_gemm_tma_kernel", gemm) == 6 * layers
         )
 
     rows, wall_ms, traces = profile_call(
@@ -1550,9 +1692,8 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    name = "profile_main_path.txt" if quantize == "none" else (
-        "profile_quant_path.txt"
-    )
+    name = {"none": "profile_main_path.txt", "int8": "profile_quant_path.txt",
+            "int4-pallas": "profile_int4_path.txt"}[quantize]
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(f"# {gpu}; one dispatch R=8 N=64 s={ids.shape[2]}, "
                 f"quantize={quantize}, wall {wall_ms:.3f} ms\n")
@@ -1564,10 +1705,14 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     ]
     cublas = cublas_gemms(rows)
     new_kernels = {
-        "attention_tma_kernel": launches_of(rows, "attention_tma_kernel"),
+        "attention_tma_kernel<false>": launches_of(
+            rows, "attention_tma_kernel", PADDED),
         "attention_mma_kernel<64, false>": launches_of(
             rows, "attention_mma_kernel", "<64, false>"),
-        "quant_gemm_tma_kernel": launches_of(rows, "quant_gemm_tma_kernel"),
+        "quant_gemm_tma_kernel<W8>": launches_of(
+            rows, "quant_gemm_tma_kernel", W8),
+        "quant_gemm_tma_kernel<W4>": launches_of(
+            rows, "quant_gemm_tma_kernel", W4),
         "quant_gemm_kernel": launches_of(rows, "quant_gemm_kernel"),
     }
     row = {
@@ -1581,7 +1726,7 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     }
     emit(row)
     # every layer's attention on the TMA route, none on the mma.sync one
-    if (new_kernels["attention_tma_kernel"] != layers
+    if (new_kernels["attention_tma_kernel<false>"] != layers
             or new_kernels["attention_mma_kernel<64, false>"]):
         raise AssertionError(f"profile ({quantize}): attention {new_kernels}")
     if quantize != "none":
@@ -1590,8 +1735,11 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
                 f"profile ({quantize}): cuBLAS GEMMs in the layer stack: "
                 f"{cublas}"
             )
-        # six W8A8 GEMMs per layer, all on the TMA route
-        if (new_kernels["quant_gemm_tma_kernel"] != 6 * layers
+        # six quantized GEMMs per layer, all on the TMA route of the
+        # weight format
+        want, other = (("<W4>", "<W8>") if gemm == W4 else ("<W8>", "<W4>"))
+        if (new_kernels[f"quant_gemm_tma_kernel{want}"] != 6 * layers
+                or new_kernels[f"quant_gemm_tma_kernel{other}"]
                 or new_kernels["quant_gemm_kernel"]
                 or not launches_of(rows, "quantize_rows_kernel")):
             raise AssertionError(
@@ -1666,20 +1814,26 @@ def profile_call(fn, complete=None, tries: int = 3):
     return rows, wall_ms, traces
 
 
-def device_ms_per_launch(fn, kernel: str, iters: int = 20) -> float:
+def device_ms_per_launch(fn, kernel: str, template: str = "",
+                         iters: int = 20) -> float:
     """Device time of one launch of the port's kernel ``kernel`` (a
-    ``port_kernel`` name) that ``fn`` makes, averaged over ``iters``
-    calls."""
+    ``port_kernel`` name, whose key holds ``template``) that ``fn``
+    makes, averaged over ``iters`` calls.  Up to 5 traces: a trace late
+    in a long run has lost every device record of its step three times
+    in a row on the H100."""
     rows, _, traces = profile_call(
         lambda: [fn() for _ in range(iters)],
-        lambda rows: launches_of(rows, kernel) == iters,
+        lambda rows: launches_of(rows, kernel, template) == iters,
+        tries=5,
     )
-    count = launches_of(rows, kernel)
+    count = launches_of(rows, kernel, template)
     if count != iters:
         raise AssertionError(
-            f"{kernel}: {count} of {iters} launches in {traces} traces"
+            f"{kernel}{template}: {count} of {iters} launches in {traces} "
+            "traces"
         )
-    return sum(ms for ms, _, key in rows if port_kernel(key) == kernel) / count
+    return sum(ms for ms, _, key in rows
+               if port_kernel(key) == kernel and template in key) / count
 
 
 def device_table(prof):
@@ -1722,8 +1876,7 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
     layers = emb.config.num_layers
     rows, wall_ms, traces = profile_call(
         lambda: emb.embed_packed(*args),
-        lambda rows: launches_of(rows, "attention_mma_kernel", ", true>")
-        == layers,
+        lambda rows: launches_of(rows, "attention_tma_kernel", SEG) == layers,
     )
     device_ms = sum(r[0] for r in rows)
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -1737,10 +1890,17 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
         for ms, count, key in rows:
             f.write(f"{ms:10.3f} ms  {count:6d}  {key[:110]}\n")
     cublas = cublas_gemms(rows)
+    seg_kernels = {
+        "attention_tma_kernel<true>": launches_of(
+            rows, "attention_tma_kernel", SEG),
+        "attention_mma_kernel<64, true>": launches_of(
+            rows, "attention_mma_kernel", "<64, true>"),
+    }
     row = {
         "phase": "profile_packed", "gpu": gpu, "quantize": quantize,
         "shape": list(call.ids.shape), "segments": len(call.slots),
         "real_tokens": call.real_tokens, "traces": traces,
+        "kernel_launches": seg_kernels,
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
@@ -1751,6 +1911,12 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
     emit(row)
     if quantize != "none" and cublas:
         raise AssertionError(f"packed profile ({quantize}): cuBLAS {cublas}")
+    # every layer's segment attention on the TMA route, none on the
+    # mma.sync one
+    if (seg_kernels["attention_tma_kernel<true>"] != layers
+            or seg_kernels["attention_mma_kernel<64, true>"]):
+        raise AssertionError(
+            f"packed profile ({quantize}): segment attention {seg_kernels}")
     if device_ms > wall_ms * DEVICE_TIME_SLACK:
         raise AssertionError(
             f"packed profile: device time {device_ms} ms exceeds the wall "
@@ -1811,26 +1977,24 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     for name, row, path, line in (
         ("w8a8_matmul", q8_row, q8, 202), ("w4a8_matmul", q4_row, q4, 319),
     ):
+        # ms keeps the row quantisation; gemm_ms is the GEMM alone, beside
+        # the GEMM's own bound
         entry = {
-            "name": name, "route": "cuda", "source": csrc + "quant_matmul.cu",
+            "name": name, "route": "cuda",
+            "source": csrc + "quant_gemm_sm90.cu",
             "replaces": f"llm_weighted_consensus_tpu/ops/kernels.py:{line}",
             "launches": path["launches"][name],
             "max_abs_err": quant["worst"][name], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "shape": row["shape"], "kernel_route": "mma",
+            "shape": row["shape"], "kernel_route": "tma",
+            "gemm_ms": row["gemm_ms"], "gemm_bound_ms": row["gemm_bound_ms"],
+            "previous_ms": row["previous_ms"],
+            "previous_gemm_ms": row["previous_gemm_ms"],
+            "previous_source": csrc + "quant_matmul.cu",
         }
-        if name == "w8a8_matmul":
-            # ms keeps the row quantisation; gemm_ms is the GEMM alone,
-            # beside the GEMM's own bound
-            entry.update({
-                "source": csrc + "quant_gemm_sm90.cu", "kernel_route": "tma",
-                "gemm_ms": row["gemm_ms"],
-                "gemm_bound_ms": row["gemm_bound_ms"],
-                "previous_ms": row["previous_ms"],
-                "previous_gemm_ms": row["previous_gemm_ms"],
-                "previous_source": csrc + "quant_matmul.cu",
-            })
+        if name == "w4a8_matmul":
+            entry["w8a8_gemm_ms"] = row["w8a8_gemm_ms"]
         entries.append(entry)
     # the row quantisation: the in-kernel prologue of both TPU kernels
     entries.append({
@@ -1848,13 +2012,17 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     bucket = seg["rows"][SEG_BUCKET]
     entries.append({
         "name": "segment_attention", "route": "cuda",
-        "source": csrc + "attention.cu",
+        "source": csrc + "attention_sm90.cu",
         "replaces": "llm_weighted_consensus_tpu/ops/attention.py:224",
         "launches": packed["launches"]["segment_attention"],
         "max_abs_err": seg["max_abs_err"], "ms": bucket["kernel_ms"],
         "plain_ms": bucket["plain_ms"], "bound_ms": bucket["bound_ms"],
         "bound_by": bucket["bound_by"], "library_ms": bucket["library_ms"],
-        "shape": bucket["shape"],
+        "shape": bucket["shape"], "kernel_route": "tma",
+        "device_ms": bucket["device_ms"],
+        "previous_ms": bucket["previous_ms"],
+        "previous_device_ms": bucket["previous_device_ms"],
+        "previous_source": csrc + "attention.cu",
     })
     return {"kernels": entries}
 
@@ -1909,6 +2077,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("profiles", profile_dispatch, gpu)
     timed("profiles", profile_dispatch, gpu, quantize="int8")
+    timed("profiles", profile_dispatch, gpu, quantize="int4-pallas")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,

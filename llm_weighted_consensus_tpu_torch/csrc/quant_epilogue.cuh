@@ -1,13 +1,24 @@
 // The epilogue of the quantized dense layers, shared by both GEMM routes
 // (quant_matmul.cu's mma.sync kernel and quant_gemm_sm90.cu's wgmma
 // kernel), so the two round alike: the GELU on the f32 pre-activation and
-// the store of one or two neighbouring columns in the output's dtype.
+// the store of one or two neighbouring columns in the output's dtype; and
+// the unpacking of W4A8's biased nibbles, which both routes do alike.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace quant_epilogue {
+
+// four biased nibbles (one per byte, in the low half) -> four int8 in
+// [-8, 7]: per byte n + 0x78 stays below 0x100 (no carry into the next
+// byte) and has bit 7 set iff n >= 8, so flipping bit 7 gives n - 8 mod
+// 256, the two's complement byte
+__device__ __forceinline__ uint32_t unbias_nibbles(uint32_t n) {
+  return ((n & 0x0f0f0f0fu) + 0x78787878u) ^ 0x80808080u;
+}
 
 // erf GELU for f32 outputs, A&S 7.1.26 for bf16 (the reference's
 // gelu_f32), with IEEE division and expf on both routes

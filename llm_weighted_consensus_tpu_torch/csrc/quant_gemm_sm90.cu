@@ -1,15 +1,17 @@
-// W8A8 quantized dense layer, the int8 GEMM on Hopper's TMA and wgmma
-// (sm_90a).  Entry point lwc_quant_matmul_tma.
+// W8A8 and W4A8 quantized dense layers, the int8 GEMM on Hopper's TMA and
+// wgmma (sm_90a).  Entry point lwc_quant_matmul_tma.
 //
 // Replaces: llm_weighted_consensus_tpu/ops/kernels.py::w8a8_matmul (the
-// Pallas kernel _w8a8_kernel), the product and its epilogue:
+// Pallas kernel _w8a8_kernel) and ::w4a8_matmul (_w4a8_kernel), the
+// product and its epilogue:
 //   out = act(float(xq @ W^T) * sx[row] * sw[col] + bias[col])
 // on the int8 rows xq[M, Kp] and scales sx[M] that lwc_quantize_rows
-// (quant_matmul.cu) writes, W[N, K] int8, int32 accumulation, the GELU
-// (erf for f32, A&S 7.1.26 for bf16) and one rounding to the output dtype.
-// The epilogue is quant_epilogue.cuh's, shared with the mma.sync route, so
-// both routes give the same numbers.  That route (quant_matmul.cu) keeps
-// K % 16 != 0, unaligned operands and every W4A8 call.
+// (quant_matmul.cu) writes, W[N, K] int8 (W4: [N, Kp/2] packed biased
+// nibbles, see below), int32 accumulation, the GELU (erf for f32, A&S
+// 7.1.26 for bf16) and one rounding to the output dtype.  The epilogue is
+// quant_epilogue.cuh's, shared with the mma.sync route, and int32 sums are
+// exact in any order, so both routes give the same bits.  That route
+// (quant_matmul.cu) keeps W8A8 with K % 16 != 0 and unaligned operands.
 //
 // What bounds it on the H100: operations at bge-large's wide layers
 // (M = 65536, (K, N) = (1024, 4096) and (4096, 1024): 550 G int8 ops,
@@ -46,6 +48,28 @@
 //    TMA stores, which clip the ragged edges; storing column pairs from
 //    registers (16 bytes per row per quad, eight rows per warp store)
 //    made the epilogue outlast the other consumer's main loop.
+//
+// W4 (W4A8): the weight stays packed in device memory, [N, Kp/2] uint8,
+// byte j of a row holding K index j in its low nibble and Kp/2 + j in its
+// high nibble (pack_int4_weights; Kp a multiple of 256).  So one TMA box
+// of 128 rows x 128 packed bytes at byte 128p holds the int8 W tiles of K
+// tiles p (low nibbles) and p + Kp/256 (high).  They take two consecutive
+// ring stages, with the xq tiles at K = 128p and Kp/2 + 128p; the
+// producer thread copies the packed box into the first stage's own W slot
+// (its barrier: a third per stage), as soon as that stage is free.  The
+// producer warpgroup's other three warps (idle in W8A8) wait for the box
+// and for the second stage to be free, and unpack in place: byte j of
+// each packed row becomes byte j of the two int8 rows (low, high nibble,
+// unbiased by quant_epilogue.cuh's unbias_nibbles, the mma.sync route's
+// code), so the box's 128-byte swizzle is already the swizzle of both
+// tiles; each thread reads its own 16-byte chunks before writing them.
+// They fence the writes for the async proxy and arrive on both stages'
+// full barriers, which count their arrivals beside the TMA's.  The
+// consumers and the epilogue are W8A8's, and so is the shared memory: no
+// buffer beside the ring, whose copies would have to wait for the last box
+// to be unpacked.  W4A8 moves half of W8A8's weight bytes but adds a
+// shared-memory read and two writes of each packed byte per output tile,
+// which with the unbias is what the GEMM pays over W8A8's (PERF.md).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,13 +93,16 @@ constexpr int kStageBytes = kABytes + kWBytes;
 // a bf16 output tile staged for its TMA store: two 64-column halves of
 // 128 rows x 128 bytes, 128-byte swizzled
 constexpr int kOutBytes = kBM * kBN * 2;
+// unpack threads of W4: the producer warpgroup's warps 1-3
+constexpr int kUnpackThreads = 96;
+static_assert(kStages % 2 == 0, "W4's stage pairs stay aligned in the ring");
 // tiles, each consumer's output tile (bf16 only), its column scales and
-// biases, the ring's 2 x kStages barriers and the 2 turn barriers, and
-// room to align the base to 1024
+// biases, the ring's 3 x kStages barriers (full, empty, and W4's packed
+// box landed) and the 2 turn barriers, and room to align the base to 1024
 template <typename T>
 constexpr int smem_bytes() {
   return kStages * kStageBytes + (sizeof(T) == 2 ? 2 * kOutBytes : 0) +
-         2 * 2 * kBN * 4 + (2 * kStages + 2) * 8 + 1024;
+         2 * 2 * kBN * 4 + (3 * kStages + 2) * 8 + 1024;
 }
 
 // One consumer's 128 x kBN tile from its accumulators: ((acc * sx) * sw)
@@ -119,7 +146,7 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
-template <typename T>
+template <typename T, bool W4>
 __global__ void __launch_bounds__(kThreads, 1)
     quant_gemm_tma_kernel(const __grid_constant__ CUtensorMap a_map,
                           const __grid_constant__ CUtensorMap w_map,
@@ -127,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ sx,
                           const float* __restrict__ sw,
                           const float* __restrict__ bias, T* __restrict__ out,
-                          int m, int n, int k_tiles, int gelu_on,
+                          int m, int n, int k_tiles, int half_k, int gelu_on,
                           int tma_out) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align_1024(smem_raw);
@@ -139,15 +166,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       o_s + (sizeof(T) == 2 ? 2 * kOutBytes : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(cols + 2 * 2 * kBN);
   uint64_t* empty = full + kStages;
-  uint64_t* turn = empty + kStages;  // whose main loop runs next
+  uint64_t* packed = empty + kStages;  // W4: a stage's packed box landed
+  uint64_t* turn = packed + kStages;   // whose main loop runs next
 
   const int n_tiles = (n + kBN - 1) / kBN;
   const int tiles = ((m + kBM - 1) / kBM) * n_tiles;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
+      // the TMA transaction's arrival, and under W4 one per unpack thread
+      sm90::mbar_init(&full[s], W4 ? 1 + kUnpackThreads : 1);
       sm90::mbar_init(&empty[s], 128);
     }
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&packed[s], 1);
     sm90::mbar_init(&turn[0], 128);
     sm90::mbar_init(&turn[1], 128);
     sm90::fence_barrier_init();
@@ -164,17 +194,89 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = (tile / n_tiles) * kBM;
         const int n0 = (tile % n_tiles) * kBN;
-        for (int kt = 0; kt < k_tiles; ++kt) {
-          sm90::mbar_wait(&empty[stage], phase ^ 1);
-          sm90::mbar_expect_tx(&full[stage], kStageBytes);
-          sm90::tma_load_2d(a_s + stage * kABytes, &a_map, &full[stage],
-                            kt * kBK, m0);
-          sm90::tma_load_2d(w_s + stage * kWBytes, &w_map, &full[stage],
-                            kt * kBK, n0);
-          if (++stage == kStages) {
+        if constexpr (W4) {
+          // per packed box p two stages (k_tiles is even and so is
+          // kStages, so the pairs stay aligned): the box into the first
+          // stage's W slot, the xq tiles of its low and high nibbles
+          for (int p = 0; p < k_tiles / 2; ++p) {
+            for (int hi = 0; hi < 2; ++hi) {
+              sm90::mbar_wait(&empty[stage], phase ^ 1);
+              if (hi == 0) {
+                sm90::mbar_expect_tx(&packed[stage], kWBytes);
+                sm90::tma_load_2d(w_s + stage * kWBytes, &w_map,
+                                  &packed[stage], p * kBK, n0);
+              }
+              sm90::mbar_expect_tx(&full[stage], kABytes);
+              sm90::tma_load_2d(a_s + stage * kABytes, &a_map, &full[stage],
+                                hi * half_k + p * kBK, m0);
+              if (++stage == kStages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          }
+        } else {
+          for (int kt = 0; kt < k_tiles; ++kt) {
+            sm90::mbar_wait(&empty[stage], phase ^ 1);
+            sm90::mbar_expect_tx(&full[stage], kStageBytes);
+            sm90::tma_load_2d(a_s + stage * kABytes, &a_map, &full[stage],
+                              kt * kBK, m0);
+            sm90::tma_load_2d(w_s + stage * kWBytes, &w_map, &full[stage],
+                              kt * kBK, n0);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    } else if (W4 && threadIdx.x >= 32) {
+      // W4's unpack warps: each packed box into the W tiles of its two
+      // stages, in place, byte positions kept (the swizzle carries over)
+      const int ut = threadIdx.x - 32;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int p = 0; p < k_tiles / 2; ++p, stage += 2) {
+          if (stage == kStages) {
             stage = 0;
             phase ^= 1;
           }
+          // the box has landed in the first stage (whose TMA thread
+          // waited for it to be free), and the second stage is free
+          sm90::mbar_wait(&packed[stage], phase);
+          sm90::mbar_wait(&empty[stage + 1], phase ^ 1);
+          uint4* lo = reinterpret_cast<uint4*>(w_s + stage * kWBytes);
+          uint4* hi = reinterpret_cast<uint4*>(w_s + (stage + 1) * kWBytes);
+          // two chunks per thread and round, both read before any write
+          for (int i = ut; i < kWBytes / 16; i += 2 * kUnpackThreads) {
+            const int i2 = i + kUnpackThreads;
+            const bool two = i2 < kWBytes / 16;
+            const uint4 b = lo[i];
+            const uint4 b2 = two ? lo[i2] : b;
+            lo[i] = make_uint4(quant_epilogue::unbias_nibbles(b.x),
+                               quant_epilogue::unbias_nibbles(b.y),
+                               quant_epilogue::unbias_nibbles(b.z),
+                               quant_epilogue::unbias_nibbles(b.w));
+            hi[i] = make_uint4(quant_epilogue::unbias_nibbles(b.x >> 4),
+                               quant_epilogue::unbias_nibbles(b.y >> 4),
+                               quant_epilogue::unbias_nibbles(b.z >> 4),
+                               quant_epilogue::unbias_nibbles(b.w >> 4));
+            if (two) {
+              lo[i2] = make_uint4(quant_epilogue::unbias_nibbles(b2.x),
+                                  quant_epilogue::unbias_nibbles(b2.y),
+                                  quant_epilogue::unbias_nibbles(b2.z),
+                                  quant_epilogue::unbias_nibbles(b2.w));
+              hi[i2] = make_uint4(quant_epilogue::unbias_nibbles(b2.x >> 4),
+                                  quant_epilogue::unbias_nibbles(b2.y >> 4),
+                                  quant_epilogue::unbias_nibbles(b2.z >> 4),
+                                  quant_epilogue::unbias_nibbles(b2.w >> 4));
+            }
+          }
+          // the tiles are read by wgmma (the async proxy)
+          sm90::fence_async_shared();
+          sm90::mbar_arrive(&full[stage]);
+          sm90::mbar_arrive(&full[stage + 1]);
         }
       }
     }
@@ -288,17 +390,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T>
+template <typename T, bool W4>
 int launch(const void* xq, const void* w, const void* sx, const void* sw,
            const void* bias, void* out, int m, int n, int k, int kp,
            int gelu_on, cudaStream_t stream) {
-  // xq [m, kp] and W [n, k], K innermost; boxes of 128 K bytes by 128
-  // rows, zero filled past the edges
+  // xq [m, kp] and W [n, k] (W4: [n, kp / 2] packed), K innermost; boxes
+  // of 128 K bytes by 128 rows, zero filled past the edges
   CUtensorMap a_map, w_map;
+  const int w_cols = W4 ? kp / 2 : k;
   const uint64_t a_dims[2] = {static_cast<uint64_t>(kp), static_cast<uint64_t>(m)};
   const uint64_t a_strides[1] = {static_cast<uint64_t>(kp)};
-  const uint64_t w_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(n)};
-  const uint64_t w_strides[1] = {static_cast<uint64_t>(k)};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(w_cols), static_cast<uint64_t>(n)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(w_cols)};
   const uint32_t box[2] = {kBK, kBM};
   int rc = sm90::encode_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq,
                             a_dims, a_strides, box);
@@ -320,27 +423,30 @@ int launch(const void* xq, const void* w, const void* sx, const void* sw,
   }
   constexpr int kSmem = smem_bytes<T>();
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      quant_gemm_tma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      quant_gemm_tma_kernel<T, W4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   const int tiles = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   const int sms = sm90::sm_count();
   // two tiles per block at a time, one per consumer warpgroup
   const int grid = (tiles + 1) / 2 < sms ? (tiles + 1) / 2 : sms;
-  quant_gemm_tma_kernel<T><<<grid, kThreads, kSmem, stream>>>(
+  // W4 walks Kp (xq is zero past K, the pad nibbles unbias to 0)
+  const int k_tiles = W4 ? kp / kBK : (k + kBK - 1) / kBK;
+  quant_gemm_tma_kernel<T, W4><<<grid, kThreads, kSmem, stream>>>(
       a_map, w_map, o_map, static_cast<const float*>(sx),
       static_cast<const float*>(sw), static_cast<const float*>(bias),
-      static_cast<T*>(out), m, n, (k + kBK - 1) / kBK, gelu_on, tma_out);
+      static_cast<T*>(out), m, n, k_tiles, kp / 2, gelu_on, tma_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The W8A8 GEMM on TMA + wgmma.  Arguments as lwc_quant_matmul's (the
-// int8 weight route): xq [m, kp] int8 from lwc_quantize_rows, sx [m] f32,
-// w [n, k] int8 contiguous, sw and bias [n] f32, out [m, n] contiguous in
-// dtype (0 = f32, 1 = bf16), gelu 1 applies the GELU.  Takes int4 = 0,
-// k % 16 == 0 and xq, w, out 16-byte aligned; anything else returns
+// The W8A8 / W4A8 GEMM on TMA + wgmma.  Arguments as lwc_quant_matmul's:
+// xq [m, kp] int8 from lwc_quantize_rows, sx [m] f32, w [n, k] int8
+// contiguous (int4 = 1: [n, kp / 2] uint8 biased nibbles, kp a multiple
+// of 256), sw and bias [n] f32, out [m, n] contiguous in dtype (0 = f32,
+// 1 = bf16), gelu 1 applies the GELU.  Takes xq, w, out 16-byte aligned
+// and, for int4 = 0, k % 16 == 0; anything else returns
 // cudaErrorInvalidValue without a launch.  Returns cudaGetLastError()
 // after the launch.
 extern "C" int lwc_quant_matmul_tma(const void* xq, const void* w,
@@ -352,12 +458,15 @@ extern "C" int lwc_quant_matmul_tma(const void* xq, const void* w,
   const bool aligned = reinterpret_cast<uintptr_t>(xq) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (int4 || k % 16 || kp % 64 || kp < k || !aligned)
+  if (kp % 64 || kp < k || !aligned || (int4 ? kp % 256 != 0 : k % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(xq, w, sx, sw, bias, out, m, n, k, kp, gelu, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xq, w, sx, sw, bias, out, m, n, k, kp, gelu,
-                                 st);
+#define LWC_QMM_TMA_CASE(DT, T, W4)                                          \
+  if (dtype == DT && (int4 != 0) == W4)                                      \
+    return launch<T, W4>(xq, w, sx, sw, bias, out, m, n, k, kp, gelu, st);
+  LWC_QMM_TMA_CASE(0, float, false)
+  LWC_QMM_TMA_CASE(0, float, true)
+  LWC_QMM_TMA_CASE(1, __nv_bfloat16, false)
+  LWC_QMM_TMA_CASE(1, __nv_bfloat16, true)
+#undef LWC_QMM_TMA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

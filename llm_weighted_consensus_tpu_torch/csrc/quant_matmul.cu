@@ -13,10 +13,11 @@
 // (1,979 TOPS) for the two wide shapes and device memory (x read, out
 // written) for the square one; PERF.md has the bounds beside the times.
 //
-// Routes: W8A8 with K % 16 == 0 and 16-byte aligned operands (every bge
-// layer) multiplies in quant_gemm_sm90.cu (TMA + wgmma) after this file's
-// row quantisation; quant_gemm_kernel below keeps every W4A8 call and the
-// other K.  Both share quant_epilogue.cuh.
+// Routes: 16-byte aligned operands (every bge layer), for W8A8 with
+// K % 16 == 0 and for W4A8 at any K, multiply in quant_gemm_sm90.cu
+// (TMA + wgmma) after this file's row quantisation; quant_gemm_kernel
+// below keeps the other K and unaligned operands.  Both share
+// quant_epilogue.cuh.
 //
 // Design (a simple first version: mma.sync, no wgmma or TMA):
 //  * Two kernels per call.  quantize_rows_kernel reads each row of x twice
@@ -57,6 +58,7 @@ namespace {
 
 using quant_epilogue::dequant;
 using quant_epilogue::store2;
+using quant_epilogue::unbias_nibbles;
 
 constexpr int kTM = 128;       // output rows per block
 constexpr int kTN = 128;       // output columns per block
@@ -156,16 +158,10 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four biased nibbles (one per byte, in the low half) -> four int8 in
-// [-8, 7]: n - 8 is n ^ 8 as a 4-bit two's complement, then sign-extended
-__device__ __forceinline__ uint32_t unbias_nibbles(uint32_t n) {
-  const uint32_t t = (n & 0x0f0f0f0fu) ^ 0x08080808u;
-  return t | ((t & 0x08080808u) * 0x1eu);
-}
-
 // xq[M, Kp] int8 (Kp % 64 == 0) times W -> out[M, N] in T.  W4: w is
-// [N, half] uint8 biased nibbles with Kp = 2 * half; else w is [N, K] int8
-// with row stride ldw = K, and w_vec says its rows are 16-byte aligned.
+// [N, half] uint8 biased nibbles with Kp = 2 * half (ldw = half); else w
+// is [N, K] int8 with row stride ldw = K; w_vec says w's rows are 16-byte
+// aligned.
 template <typename T, bool W4>
 __global__ void __launch_bounds__(kThreads)
     quant_gemm_kernel(const int8_t* __restrict__ xq,
@@ -202,8 +198,17 @@ __global__ void __launch_bounds__(kThreads)
       if (n0 + r < n) {
         const uint8_t* wr = w + static_cast<size_t>(n0 + r) * ldw;
         if (W4) {
+          // packed rows are ldw = Kp / 2 bytes, a multiple of 128: whole
+          // 16-byte chunks, vector loads where the base is aligned
           const int b0 = (k0 < half ? k0 : k0 - half) + ch;
-          rw[i] = *reinterpret_cast<const uint4*>(wr + b0);
+          if (w_vec) {
+            rw[i] = *reinterpret_cast<const uint4*>(wr + b0);
+          } else {
+            uint32_t v[4] = {0u, 0u, 0u, 0u};
+            for (int j = 0; j < 16; ++j)
+              v[j >> 2] |= static_cast<uint32_t>(wr[b0 + j]) << (8 * (j & 3));
+            rw[i] = make_uint4(v[0], v[1], v[2], v[3]);
+          }
         } else if (w_vec && k0 + ch + 16 <= k) {
           rw[i] = *reinterpret_cast<const uint4*>(wr + k0 + ch);
         } else {

@@ -118,13 +118,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lwc_cosine_vote.argtypes = [vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.lwc_cosine_vote.restype = i32
-    for name in ("lwc_attention", "lwc_attention_seg", "lwc_attention_tma"):
+    for name in ("lwc_attention", "lwc_attention_seg", "lwc_attention_tma",
+                 "lwc_attention_seg_tma"):
         fn = getattr(lib, name)
         fn.argtypes = [
             vp, vp, vp, vp, vp, i32, i32, i32, i32,
             ctypes.POINTER(ctypes.c_longlong), f32, i32, vp,
         ]
         fn.restype = i32
+    lib.lwc_attention_seg_tma_schedule.argtypes = (
+        lib.lwc_attention_seg_tma.argtypes + [vp])
+    lib.lwc_attention_seg_tma_schedule.restype = i32
+    lib.lwc_attention_seg_tma_tiles.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.lwc_attention_seg_tma_tiles.restype = None
     lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.lwc_quantize_rows.restype = i32
     for name in ("lwc_quant_matmul", "lwc_quant_matmul_tma"):

@@ -24,10 +24,11 @@ each call launches two kernels: the row quantisation of
 ``quantize_rows.launches``) and the int8 tensor-core GEMM with its fused
 epilogue (counted in ``w8a8_matmul.launches`` / ``w4a8_matmul.launches``,
 and by route in ``.routes``).  ``quant_gemm_route`` picks the GEMM:
-``"tma"`` (``csrc/quant_gemm_sm90.cu``, TMA + wgmma) for W8A8 with
-K % 16 == 0 and 16-byte aligned operands, every bge preset's layer;
-``"mma"`` (``csrc/quant_matmul.cu``, mma.sync) for other K and every
-W4A8 call.
+``"tma"`` (``csrc/quant_gemm_sm90.cu``, TMA + wgmma) for 16-byte aligned
+operands and, for W8A8, K % 16 == 0: every bge preset's layer, and W4A8
+at every K (its packed weight stays packed in device memory and is
+unpacked tile by tile in shared memory); ``"mma"``
+(``csrc/quant_matmul.cu``, mma.sync) for the rest.
 The plain versions take the int8 product in f64, which is exact here
 (|acc| <= K * 127^2 < 2^53), where f32 would not be past K ~ 1040.
 """
@@ -259,10 +260,11 @@ def _check_quant_operands(name, x, w, sw, bias, int4):
 
 
 def quant_gemm_route(k: int, int4: bool, *tensors) -> str:
-    """The GEMM a CUDA call takes: "tma" for W8A8 with K % 16 == 0 and
-    every operand (``xq``, ``w``, ``out``) 16-byte aligned, else "mma";
-    a pure function of K, the weight format and the base addresses."""
-    if int4 or k % 16 or any(t.data_ptr() % 16 for t in tensors):
+    """The GEMM a CUDA call takes: "tma" where every operand (``xq``,
+    ``w``, ``out``) is 16-byte aligned and, for W8A8, K % 16 == 0 (W4A8
+    reads the Kp-wide ``xq``, zero past K, so any K), else "mma"; a pure
+    function of K, the weight format and the base addresses."""
+    if (not int4 and k % 16) or any(t.data_ptr() % 16 for t in tensors):
         return "mma"
     return "tma"
 
@@ -351,4 +353,4 @@ def w4a8_matmul(
 
 
 w4a8_matmul.launches = 0
-w4a8_matmul.routes = {"mma": 0}
+w4a8_matmul.routes = {"tma": 0, "mma": 0}

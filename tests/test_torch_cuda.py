@@ -494,13 +494,166 @@ def test_tma_gemm_matches_plain(card, dtype, gelu, m, k, n):
     assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
 
 
+def _unaligned(t):
+    """A copy of ``t`` whose base is off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
 @pytest.mark.parametrize("int4,k", [(False, 1000), (False, 40), (True, 1024),
                                     (True, 96)])
 def test_other_quant_gemm_calls_take_the_mma_route(card, int4, k):
+    # W8A8 at K % 16 != 0; W4A8 (which takes the TMA route at any K) with
+    # an unaligned packed weight
     x, wq, sw, bias = _quant_operands(33, k, 72, int4, k, card, "bfloat16")
+    if int4:
+        wq = _unaligned(wq)
     wrapper = kernels.w4a8_matmul if int4 else kernels.w8a8_matmul
     plain = kernels.w4a8_matmul_plain if int4 else kernels.w8a8_matmul_plain
     got = _routed(wrapper, "mma", lambda: wrapper(x, wq, sw, bias))
     want = plain(x, wq, sw, bias)
     err = (got.float() - want.float()).abs()
     assert (err <= 2e-2 + 2e-2 * want.float().abs()).all(), err.max().item()
+
+
+# -- slice 5: the segment TMA kernel and the W4A8 TMA GEMM
+
+
+@pytest.mark.parametrize(
+    "b,s,hard",
+    [(8, 512, False), (4, 384, False), (2, 192, False), (1, 64, False),
+     (8, 512, True), (3, 300, True), (2, 100, True)],
+)
+def test_tma_segment_attention_matches_plain(card, b, s, hard):
+    # bge-large's heads (16 of 64), bf16 views of a dense output; the
+    # packed layouts and the hard ones (an all-pad row, one-token
+    # segments, segments across the 64-row and 128-key edges)
+    rng = np.random.default_rng(b * s)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, 1024)).astype(
+        np.float32)).to(card, torch.bfloat16).view(b, s, 16, 64)
+        for _ in range(3))
+    if hard:
+        seg = _segment_ids(b, s, seed=s)
+    else:
+        seg = np.zeros((b, s), np.int32)
+        for r in range(b):
+            off, slot = 0, 1
+            while off < s - 8:
+                n = int(min(rng.integers(6, 120), s - 4 - off))
+                seg[r, off: off + n] = slot
+                off, slot = off + n, slot + 1
+    seg = torch.from_numpy(seg).to(card)
+    assert attention.segment_attention_route(q, k, v) == "tma"
+    got = _routed(attention.segment_attention, "tma",
+                  lambda: attention.segment_attention(q, k, v, seg, 0.125))
+    want = attention.segment_attention_plain(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    # pad query rows are the uniform mean of v over every key
+    pads = seg == 0
+    if pads.any():
+        mean_v = v.float().mean(dim=1, keepdim=True).expand_as(got)
+        err = (got.float() - mean_v).abs().amax(dim=(2, 3))[pads]
+        assert err.max().item() <= 2e-2
+
+
+def test_tma_segment_attention_at_64_segments_per_row(card):
+    q, k, v, _ = _segment_case(card, 8, 512, 16, 64, "bfloat16", seed=4)
+    seg = torch.arange(512, device=card, dtype=torch.int32) // 8 + 1
+    seg = seg.expand(8, 512).contiguous()
+    got = _routed(attention.segment_attention, "tma",
+                  lambda: attention.segment_attention(q, k, v, seg, 0.125))
+    want = attention.segment_attention_plain(q, k, v, seg, 0.125)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_tma_segment_attention_equals_the_mma_kernel_on_an_all_pad_call(card):
+    # every logit -1e9: both kernels give the mean of v
+    q, k, v, _ = _segment_case(card, 2, 200, 16, 64, "bfloat16", seed=6)
+    seg = torch.zeros(2, 200, dtype=torch.int32, device=card)
+    got = attention._launch("lwc_attention_seg_tma", q, k, v, seg, 0.125)
+    old = attention._launch("lwc_attention_seg", q, k, v, seg, 0.125)
+    mean_v = v.float().mean(dim=1, keepdim=True).expand_as(got)
+    assert (got.float() - mean_v).abs().max().item() <= 2e-2
+    assert (got.float() - old.float()).abs().max().item() <= 2e-2
+
+
+def _schedule_layout(b, s, layout):
+    """Segment ids [b, s] for holding the kernel's schedule to the plain
+    one: the hard layouts, non-positive ids (pad slots), an all-pad call,
+    8-token segments end to end and one segment per row."""
+    if layout == "hard":
+        return _segment_ids(b, s, seed=s)
+    if layout == "negative":
+        seg = _segment_ids(b, s, seed=s + 1)
+        seg[:, 5:9] = -2
+        seg[-1, s - 3:] = -1
+        return seg
+    if layout == "all_pad":
+        return np.zeros((b, s), np.int32)
+    if layout == "8_per_segment":
+        return np.broadcast_to(np.arange(s, dtype=np.int32) // 8 + 1,
+                               (b, s)).copy()
+    return np.ones((b, s), np.int32)
+
+
+@pytest.mark.parametrize(
+    "b,s,layout",
+    [(8, 512, "hard"), (3, 300, "hard"), (2, 100, "hard"),
+     (3, 300, "negative"), (2, 200, "all_pad"), (8, 512, "8_per_segment"),
+     (2, 130, "one_segment")],
+)
+def test_the_tma_segment_kernel_runs_the_plain_schedule(card, b, s, layout):
+    # the schedule the kernel's producer ran, read back, is the plain
+    # segment_tile_schedule at the block sizes it assumes, and the
+    # output holds to the plain version (pad rows: id <= 0, the mean of v)
+    q, k, v, _ = _segment_case(card, b, s, 16, 64, "bfloat16", seed=b + s)
+    seg = torch.from_numpy(_schedule_layout(b, s, layout)).to(card)
+    launches = attention.segment_attention.launches
+    got, ran, blocks = attention.kernel_tile_schedule(q, k, v, seg, 0.125)
+    assert attention.segment_attention.launches == launches
+    assert blocks == (attention.SEG_BLOCK_Q, attention.SEG_BLOCK_K)
+    plan = attention.segment_tile_schedule(seg)
+    n = plan.shape[1]
+    assert ran.shape[2] == plan.shape[2]
+    assert torch.equal(ran[:, :n], plan) and not ran[:, n:].any()
+    want = attention.segment_attention_plain(q, k, v, seg, 0.125)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    pads = seg <= 0
+    if pads.any():
+        mean_v = v.float().mean(dim=1, keepdim=True).expand_as(got)
+        err = (got.float() - mean_v).abs().amax(dim=(2, 3))[pads]
+        assert err.max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(4096, 1024, 1024), (4096, 1024, 4096), (4096, 4096, 1024), (5, 48, 24),
+     (37, 96, 384), (130, 192, 96), (17, 1000, 40), (300, 768, 3072)],
+)
+def test_tma_w4a8_matches_plain_and_the_mma_route_byte_for_byte(
+    card, dtype, gelu, m, k, n
+):
+    x, wq, sw, bias = _quant_operands(m, k, n, True, m + k + n, card, dtype)
+    got = _routed(kernels.w4a8_matmul, "tma",
+                  lambda: kernels.w4a8_matmul(x, wq, sw, bias, gelu=gelu))
+    want = kernels.w4a8_matmul_plain(x, wq, sw, bias, gelu=gelu)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    err = (got.float() - want.float()).abs()
+    assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
+    # the mma.sync route on the same quantised rows: the same int32 sums
+    # and the same epilogue, so the same bytes
+    got_mma = _routed(kernels.w4a8_matmul, "mma",
+                      lambda: kernels.w4a8_matmul(x, _unaligned(wq), sw, bias,
+                                                  gelu=gelu))
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_mma)

@@ -4,11 +4,12 @@
 are pure functions of dtype, shape, strides and base addresses, so the
 route of every encoder call is decided here, where no kernel can run:
 
-* bge-base's and bge-large's attention (bf16, hd 64, the encoder's
-  ``.view`` of a dense output) takes the TMA + wgmma kernel; hd 16/32 the
-  mma.sync kernel; f32, hd 24 and unaligned views the FMA kernel;
-* W8A8 at every bge preset's K takes the TMA + wgmma GEMM; K % 16 != 0,
-  an unaligned weight and every W4A8 call the mma.sync GEMM.
+* bge-base's and bge-large's attention, padded and segment-masked (bf16,
+  hd 64, the encoder's ``.view`` of a dense output), takes the TMA +
+  wgmma kernel; hd 16/32 the mma.sync kernel; f32, hd 24 and unaligned
+  views the FMA kernel;
+* W8A8 and W4A8 at every bge preset's K take the TMA + wgmma GEMM;
+  W8A8 with K % 16 != 0 and an unaligned weight the mma.sync GEMM.
 
 The kernels themselves are held against their plain versions on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
@@ -73,6 +74,39 @@ def test_a_head_major_view_takes_the_tma_route():
     assert attention.attention_route(t, t, t) == "tma"
 
 
+@pytest.mark.parametrize("preset", ["bge-base-en", "bge-large-en"])
+@pytest.mark.parametrize("b,s", [(8, 512), (4, 384), (1, 64), (3, 77)])
+def test_bge_segment_attention_takes_the_tma_route(preset, b, s):
+    cfg = configs.PRESETS[preset]
+    q, k, v = _encoder_qkv(b, s, cfg.num_heads, cfg.head_dim)
+    assert attention.segment_attention_route(q, k, v) == "tma"
+
+
+@pytest.mark.parametrize(
+    "hd,dtype,want",
+    [(16, torch.bfloat16, "mma"), (32, torch.bfloat16, "mma"),
+     (24, torch.bfloat16, "fma"), (64, torch.float32, "fma"),
+     (16, torch.float32, "fma")],
+)
+def test_other_segment_attention_calls_keep_the_old_routes(hd, dtype, want):
+    q, k, v = _encoder_qkv(3, 77, 4, hd, dtype)
+    assert attention.segment_attention_route(q, k, v) == want
+
+
+def test_an_unaligned_segment_attention_view_takes_the_fma_route():
+    wide = torch.zeros(3, 50, 4, 65, dtype=torch.bfloat16)
+    view = wide[..., :64]
+    assert attention.segment_attention_route(view, view, view) == "fma"
+
+
+def test_cpu_segment_attention_counts_no_route():
+    q, k, v = _encoder_qkv(2, 8, 2, 64, torch.float32)
+    seg = torch.tensor([[1, 1, 2, 2, 2, 0, 0, 0]] * 2, dtype=torch.int32)
+    before = dict(attention.segment_attention.routes)
+    attention.segment_attention(q, k, v, seg, 0.125)
+    assert attention.segment_attention.routes == before
+
+
 def test_cpu_attention_counts_no_route():
     q, k, v = _encoder_qkv(2, 8, 2, 64, torch.float32)
     before = dict(attention.attention.routes)
@@ -99,9 +133,10 @@ def test_w8a8_at_other_k_keeps_the_mma_route(k):
     assert kernels.quant_gemm_route(k, False, *_gemm_operands(8, k, 24)) == "mma"
 
 
-@pytest.mark.parametrize("k", [96, 1024, 4096])
-def test_every_w4a8_call_keeps_the_mma_route(k):
-    assert kernels.quant_gemm_route(k, True, *_gemm_operands(8, k, 24, True)) == "mma"
+@pytest.mark.parametrize("k", [96, 384, 768, 1024, 4096])
+def test_w4a8_at_every_bge_k_takes_the_tma_route(k):
+    # xq is Kp wide (zero past K) and Kp / 2 a multiple of 128: any K
+    assert kernels.quant_gemm_route(k, True, *_gemm_operands(8, k, 24, True)) == "tma"
 
 
 def test_an_unaligned_weight_keeps_the_mma_route():
@@ -109,6 +144,22 @@ def test_an_unaligned_weight_keeps_the_mma_route():
     w = torch.zeros(24 * 96 + 1, dtype=torch.int8)[1:].view(24, 96)
     assert w.data_ptr() % 16
     assert kernels.quant_gemm_route(96, False, xq, w, out) == "mma"
+
+
+def test_an_unaligned_w4a8_weight_keeps_the_mma_route():
+    xq, _, out = _gemm_operands(8, 96, 24, int4=True)
+    kp2 = xq.shape[1] // 2
+    w = torch.zeros(24 * kp2 + 1, dtype=torch.uint8)[1:].view(24, kp2)
+    assert w.data_ptr() % 16
+    assert kernels.quant_gemm_route(96, True, xq, w, out) == "mma"
+
+
+def test_cpu_w4a8_counts_no_route():
+    x = torch.randn(4, 96)
+    wq4 = kernels.pack_int4_weights(torch.zeros(24, 96, dtype=torch.int8))
+    before = dict(kernels.w4a8_matmul.routes)
+    kernels.w4a8_matmul(x, wq4, torch.ones(24), torch.zeros(24))
+    assert kernels.w4a8_matmul.routes == before
 
 
 def test_cpu_quant_matmul_counts_no_route():
