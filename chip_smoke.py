@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
    ``ATTN_RAGGED`` and the segment one's hard layouts; mma.sync for bf16
    hd 16/32; FMA for f32, hd 24 and unaligned views; W8A8: TMA where
    K % 16 == 0, else mma.sync; W4A8: TMA, and byte for byte the mma.sync
-   route's output), max |diff| beside the stated tolerance, with the
+   route's output; the vote: the cluster kernel at every R, N, D the
+   server makes, also with padding rows and unaligned rows, bit-equal from
+   call to call, and the block kernel past the cluster plan's shared
+   memory), max |diff| beside the stated tolerance, with the
    kernel's, the plain version's and (for both attentions; the segment
    one with its boolean same-segment mask)
    ``scaled_dot_product_attention``'s time
@@ -28,7 +31,9 @@ Phases, each printing one JSON line:
    attentions and GEMMs also beside the mma.sync kernels they replaced, on
    the same inputs in the same run (the attentions also by device time
    per launch from torch.profiler: at the small shapes the wrapper's host
-   time per call exceeds the kernel's; the segment one also with the
+   time per call exceeds the kernel's; the vote's two kernels also in one
+   profile with a one-float fill, the shortest launch, and the cluster
+   kernel at every cluster size; the segment one also with the
    dense tile work the plain schedule visits, ``visited_ops``, counted
    on the host from the ids, and its schedule read back from the kernel
    and held to the plain one);
@@ -69,7 +74,8 @@ Phases, each printing one JSON line:
    measured, failing if the summed device time exceeds the wall time, if
    a cuBLAS GEMM runs in a quantized dispatch, or unless each dispatch ran
    ``attention_tma_kernel<false>`` once per layer (and no
-   ``attention_mma_kernel<64, false>``), each packed call
+   ``attention_mma_kernel<64, false>``) and ``cosine_vote_cluster_kernel``
+   once (and no ``cosine_vote_kernel``), each packed call
    ``attention_tma_kernel<true>`` once per layer (and no
    ``attention_mma_kernel<64, true>``) and, quantized, the W8 or W4
    ``quant_gemm_tma_kernel`` six times per layer (and no
@@ -206,6 +212,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
+    """Time per call of ``fn`` replayed from a CUDA graph of ``iters``
+    calls (CUDA events over ``replays`` replays): the kernels back to
+    back with no host time between them, where a short kernel's wrapper
+    would otherwise set the pace.  ``fn`` must only launch kernels on the
+    current stream into memory it already holds."""
+    import torch
+
+    fn()  # the first call sets the kernel's attributes, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -226,39 +258,221 @@ def vote_inputs(r, n, d, dtype, seed):
     return torch.tensor(x, dtype=dtype, device="cuda")
 
 
+def vote_case(r, n, d, dtype, temp, n_valid, route, seed) -> float:
+    """One wrapper call held to its route (by ``cosine_vote.routes``),
+    to the plan's shared memory as the kernel computes it (cluster), and
+    to the plain version: max |diff| <= VOTE_TOL, finite, sums 1 +- 1e-5,
+    rows past n_valid exactly 0, n_valid = 1 exactly 1."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import _build, kernels
+
+    what = f"vote r={r} n={n} d={d} n_valid={n_valid} {dtype} T={temp}"
+    if kernels.vote_route(r, n, d, dtype) != route:
+        raise AssertionError(f"{what}: route is not {route}")
+    if route == "cluster":
+        plan = kernels.vote_plan(r, n, d, dtype)
+        kernel_smem = _build.library().lwc_cosine_vote_cluster_smem(
+            n, plan.cols, plan.cluster, 0 if dtype == torch.float32 else 1)
+        if kernel_smem != plan.smem_bytes:
+            raise AssertionError(f"{what}: plan {plan}, kernel {kernel_smem}")
+    emb = vote_inputs(r, n, d, dtype, seed)
+    before = kernels.cosine_vote.routes[route]
+    got = kernels.cosine_vote(emb, n_valid, temp)
+    if kernels.cosine_vote.routes[route] != before + 1:
+        raise AssertionError(f"{what}: not launched on route {route}")
+    want = kernels.cosine_vote_plain(emb, n_valid, temp)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    sums = got.sum(-1)
+    if (not torch.isfinite(got).all()
+            or (sums - 1).abs().max().item() > 1e-5
+            or (got[:, n_valid:] != 0).any()
+            or (n_valid == 1 and (got[:, 0] != 1).any())):
+        raise AssertionError(f"{what}: bad output")
+    if err > VOTE_TOL:
+        raise AssertionError(f"{what}: max|diff| {err} > {VOTE_TOL}")
+    return err
+
+
+def vote_launchers(emb, n):
+    """The two vote kernels on ``emb`` through their C entries (T =
+    0.05): ``cluster(c, cols)`` with any partition, ``block()``."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import _build
+
+    lib = _build.library()
+    r, _, d = emb.shape
+    conf = torch.empty((r, n), dtype=torch.float32, device="cuda")
+    dtype = 0 if emb.dtype == torch.float32 else 1
+
+    def cluster(c, cols):
+        _build.check(lib.lwc_cosine_vote_cluster(
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n, 0.05, dtype, c,
+            cols, torch.cuda.current_stream().cuda_stream),
+            "lwc_cosine_vote_cluster")
+        return conf
+
+    def block():
+        _build.check(lib.lwc_cosine_vote(
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n, 0.05, dtype,
+            torch.cuda.current_stream().cuda_stream), "lwc_cosine_vote")
+        return conf
+
+    return cluster, block
+
+
+def vote_device_times(cluster, block, iters: int = 20) -> dict:
+    """Device ms per launch of the cluster and the block kernel, and of
+    the shortest kernel, in one profile of ``iters`` rounds of both
+    kernels and a one-float fill (the floor any launch pays)."""
+    import torch
+
+    one = torch.empty(1, device="cuda")
+    names = ("cosine_vote_cluster_kernel", "cosine_vote_kernel")
+
+    def rounds():
+        for _ in range(iters):
+            cluster()
+            block()
+            one.zero_()
+
+    rows, _, traces = profile_call(
+        rounds,
+        lambda rows: all(launches_of(rows, k) == iters for k in names),
+        tries=5,
+    )
+    per = {}
+    for name in names:
+        count = launches_of(rows, name)
+        if count != iters:
+            raise AssertionError(
+                f"{name}: {count} of {iters} launches in {traces} traces")
+        per[name] = sum(ms for ms, _, key in rows
+                        if port_kernel(key) == name) / count
+    return {
+        "device_ms": per[names[0]], "previous_device_ms": per[names[1]],
+        "launch_floor_ms": min(ms / count for ms, count, _ in rows),
+        "launch_floor_kernel": min(rows, key=lambda r: r[0] / r[1])[2][:80],
+    }
+
+
+def vote_cluster_sweep(r, n, d) -> list:
+    """The cluster kernel at [r, n, d] f32 with every cluster size C
+    whose blocks fit: time per launch replayed from a CUDA graph, max
+    |diff| against the plain version.  ``vote_plan``'s choice of C per R
+    rests on this turn."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    emb = vote_inputs(r, n, d, torch.float32, seed=r + n)
+    cluster, _ = vote_launchers(emb, n)
+    want = kernels.cosine_vote_plain(emb, n, 0.05)
+    sweep = []
+    for c in (1, 2, 4, 8, 16):
+        cols = -(-d // c)
+        cols += -cols % kernels.VOTE_COL_ALIGN
+        smem = kernels.vote_smem_bytes(n, cols, c, torch.float32)
+        if smem > kernels.VOTE_SMEM_LIMIT:
+            sweep.append({"cluster": c, "cols": cols, "smem_bytes": smem,
+                          "fits": False})
+            continue
+        err = (cluster(c, cols) - want).abs().max().item()
+        if err > VOTE_TOL:
+            raise AssertionError(f"vote C={c} [{r}, {n}, {d}]: {err}")
+        sweep.append({
+            "cluster": c, "cols": cols, "smem_bytes": smem, "fits": True,
+            "graph_ms": graph_ms(lambda: cluster(c, cols)),
+            "max_abs_err": err,
+        })
+    return sweep
+
+
+def time_vote(gpu, r, n, d) -> dict:
+    """At [r, n, d] f32: the wrapper (events), the cluster kernel's and
+    the block kernel's device time per launch in one profile with the
+    launch floor, both kernels replayed from a CUDA graph, the block
+    kernel by events, the plain version, and the sweep of C."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    emb = vote_inputs(r, n, d, torch.float32, seed=r + n)
+    plan = kernels.vote_plan(r, n, d, torch.float32)
+    cluster, block = vote_launchers(emb, n)
+    ms = time_ms(lambda: kernels.cosine_vote(emb, n, 0.05), iters=200)
+    plain = time_ms(lambda: kernels.cosine_vote_plain(emb, n, 0.05), iters=50)
+    previous = time_ms(block, iters=200)
+    times = vote_device_times(lambda: cluster(plan.cluster, plan.cols), block)
+    times["graph_ms"] = graph_ms(lambda: cluster(plan.cluster, plan.cols))
+    times["previous_graph_ms"] = graph_ms(block)
+    # reads each input once, writes conf; three passes of 2 r n d FLOPs
+    # (norms, column sum, dots) plus the self terms
+    bound, by = bound_ms(r * n * d * 4 + r * n * 4, 8.0 * r * n * d, "float32")
+    row = {
+        "phase": "kernel_timing", "kernel": "cosine_vote", "gpu": gpu,
+        "shape": [r, n, d], "dtype": "float32", "route": "cluster",
+        "plan": plan._asdict(), "kernel_ms": ms, **times,
+        "previous_ms": previous, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+        "cluster_sweep": vote_cluster_sweep(r, n, d),
+    }
+    emit(row)
+    return row
+
+
 def check_vote(gpu: str) -> dict:
     import torch
 
     from llm_weighted_consensus_tpu_torch.ops import kernels
 
+    f32, bf16 = torch.float32, torch.bfloat16
+    routes0 = dict(kernels.cosine_vote.routes)
     # the main path votes [1, 64], [8, 64] and [1, 16] f32 embeddings;
-    # N=2 and N=256 are the gateway's limits
-    worst, cases = 0.0, 0
-    for r in (1, BURST):
+    # N=2 and N=256 are the gateway's limits, R=16 the batcher's
+    errs = []
+    for r in (1, BURST, 16):
         for n in (2, LONG_N, N_CANDIDATES, 256):
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (f32, bf16):
                 for temp in (0.05, 0.7):
-                    emb = vote_inputs(r, n, 1024, dtype, seed=r * 1000 + n)
-                    got = kernels.cosine_vote(emb, n, temp)
-                    want = kernels.cosine_vote_plain(emb, n, temp)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    sums = got.sum(-1)
-                    if not torch.isfinite(got).all() or (
-                        (sums - 1).abs().max().item() > 1e-5
-                    ):
-                        raise AssertionError(
-                            f"vote r={r} n={n} {dtype} T={temp}: bad output"
-                        )
-                    if err > VOTE_TOL:
-                        raise AssertionError(
-                            f"vote r={r} n={n} {dtype} T={temp}: "
-                            f"max|diff| {err} > {VOTE_TOL}"
-                        )
-                    worst = max(worst, err)
-                    cases += 1
-    # padding rows: n_valid < N gives the same vote as the sliced input
-    emb = vote_inputs(8, 64, 1024, torch.float32, seed=7)
+                    errs.append(vote_case(r, n, 1024, dtype, temp, n,
+                                          "cluster", seed=r * 1000 + n))
+    # bge-small and bge-base widths, bge_micro's, and a ragged D
+    for d in (384, 768):
+        for r in (1, BURST, 16):
+            for n in (2, N_CANDIDATES, 256):
+                for dtype in (f32, bf16):
+                    errs.append(vote_case(r, n, d, dtype, 0.05, n, "cluster",
+                                          seed=d + r * 1000 + n))
+    for r, n, d in ((4, 64, 64), (3, 37, 1000), (2, 9, 100)):
+        for dtype in (f32, bf16):
+            errs.append(vote_case(r, n, d, dtype, 0.3, n, "cluster", seed=d))
+    # padding rows on the cluster route, n_valid = 1 among them
+    for r, n, d, n_valid in ((BURST, 64, 1024, 50), (16, 40, 384, 33),
+                             (1, 256, 768, 1), (2, 64, 1000, 63)):
+        for dtype in (f32, bf16):
+            errs.append(vote_case(r, n, d, dtype, 0.05, n_valid, "cluster",
+                                  seed=n_valid))
+    # past the plan's shared memory: the block route, both dtypes
+    for dtype in (f32, bf16):
+        for n_valid in (1024, 700):
+            errs.append(vote_case(2, 1024, 2048, dtype, 0.05, n_valid,
+                                  "block", seed=n_valid))
+    # rows off 16-byte alignment: the kernel's element-wise copy
+    for dtype in (f32, bf16):
+        emb = vote_inputs(BURST, 64, 1024, dtype, seed=5)
+        flat = torch.empty(emb.numel() + 1, dtype=dtype, device="cuda")
+        view = flat[1:].view(emb.shape)
+        view.copy_(emb)
+        got = kernels.cosine_vote(view, 64, 0.05)
+        err = (got - kernels.cosine_vote_plain(emb, 64, 0.05)).abs().max()
+        if err.item() > VOTE_TOL:
+            raise AssertionError(f"vote unaligned {dtype}: {err.item()}")
+        errs.append(err.item())
+    # n_valid < N gives the same vote as the sliced input
+    emb = vote_inputs(8, 64, 1024, f32, seed=7)
     got = kernels.cosine_vote(emb, 50, 0.05)
     want = kernels.cosine_vote(emb[:, :50].contiguous(), 50, 0.05)
     torch.cuda.synchronize()
@@ -268,20 +482,36 @@ def check_vote(gpu: str) -> dict:
     )
     if pad_err > VOTE_TOL:
         raise AssertionError(f"vote n_valid padding: max|diff| {pad_err}")
-    # timing at the main path's shape: R=8 requests of N=64 f32 embeddings
-    r, n, d = BURST, N_CANDIDATES, 1024
-    emb = vote_inputs(r, n, d, torch.float32, seed=1)
-    ms = time_ms(lambda: kernels.cosine_vote(emb, n, 0.05), iters=200)
-    plain = time_ms(lambda: kernels.cosine_vote_plain(emb, n, 0.05), iters=50)
-    # reads each input once, writes conf; three passes of 2 r n d FLOPs
-    # (norms, column sum, dots) plus the self terms
-    bound, by = bound_ms(r * n * d * 4 + r * n * 4, 8.0 * r * n * d, "float32")
+    # two calls, bit-equal outputs
+    for r, n, d, dtype in ((BURST, 64, 1024, f32), (16, 256, 1024, bf16),
+                           (1, 256, 768, f32)):
+        emb = vote_inputs(r, n, d, dtype, seed=n + d)
+        first = kernels.cosine_vote(emb, n, 0.05)
+        second = kernels.cosine_vote(emb, n, 0.05)
+        if not torch.equal(first, second):
+            raise AssertionError(f"vote [{r}, {n}, {d}] {dtype}: two calls "
+                                 "differ")
+    routes = {k: v - routes0[k] for k, v in kernels.cosine_vote.routes.items()}
+    # the main path's shape, then a lone request; the sweep of C at the
+    # batcher's other powers of two
+    timed = [time_vote(gpu, BURST, N_CANDIDATES, 1024),
+             time_vote(gpu, 1, N_CANDIDATES, 1024)]
+    for r in (2, 4, 16):
+        emit({"phase": "kernel_timing", "kernel": "cosine_vote", "gpu": gpu,
+              "shape": [r, N_CANDIDATES, 1024], "dtype": "float32",
+              "plan": kernels.vote_plan(r, N_CANDIDATES, 1024, f32)._asdict(),
+              "cluster_sweep": vote_cluster_sweep(r, N_CANDIDATES, 1024)})
     row = {
         "phase": "kernel", "kernel": "cosine_vote", "gpu": gpu,
-        "cases": cases, "max_abs_err": worst, "tolerance": VOTE_TOL,
-        "pad_err": pad_err, "shape": [r, n, d], "dtype": "float32",
-        "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound,
-        "bound_by": by, "library_ms": None,
+        "cases": len(errs), "routes": routes, "max_abs_err": max(errs),
+        "tolerance": VOTE_TOL, "pad_err": pad_err, "bit_equal_calls": 3,
+        **{k: timed[0][k] for k in (
+            "shape", "dtype", "kernel_ms", "device_ms", "previous_ms",
+            "previous_device_ms", "launch_floor_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "lone_request": {k: timed[1][k] for k in (
+            "shape", "kernel_ms", "device_ms", "previous_ms",
+            "previous_device_ms", "launch_floor_ms", "bound_ms")},
     }
     emit(row)
     return row
@@ -1088,7 +1318,8 @@ def _wrappers() -> dict:
 
 # the route every launch of these wrappers must take on bge-large
 BGE_ROUTES = {"attention": "tma", "segment_attention": "tma",
-              "w8a8_matmul": "tma", "w4a8_matmul": "tma"}
+              "w8a8_matmul": "tma", "w4a8_matmul": "tma",
+              "cosine_vote": "cluster"}
 
 
 def reset_launches() -> None:
@@ -1680,11 +1911,13 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     gemm = W4 if quantize.startswith("int4") else W8
 
     def complete(rows):
-        # every layer's attention, and its six GEMMs under a quantize mode
-        return launches_of(rows, "attention_tma_kernel", PADDED) == layers and (
-            quantize == "none"
-            or launches_of(rows, "quant_gemm_tma_kernel", gemm) == 6 * layers
-        )
+        # every layer's attention, the vote, and the six GEMMs of each
+        # layer under a quantize mode
+        return (launches_of(rows, "attention_tma_kernel", PADDED) == layers
+                and launches_of(rows, "cosine_vote_cluster_kernel") == 1
+                and (quantize == "none"
+                     or launches_of(rows, "quant_gemm_tma_kernel", gemm)
+                     == 6 * layers))
 
     rows, wall_ms, traces = profile_call(
         lambda: emb.consensus_confidence_tokens_many(ids, mask), complete
@@ -1714,10 +1947,16 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         "quant_gemm_tma_kernel<W4>": launches_of(
             rows, "quant_gemm_tma_kernel", W4),
         "quant_gemm_kernel": launches_of(rows, "quant_gemm_kernel"),
+        "cosine_vote_cluster_kernel": launches_of(
+            rows, "cosine_vote_cluster_kernel"),
+        "cosine_vote_kernel": launches_of(rows, "cosine_vote_kernel"),
     }
+    vote_ms = sum(ms for ms, _, key in rows
+                  if port_kernel(key) == "cosine_vote_cluster_kernel")
     row = {
         "phase": "profile", "gpu": gpu, "quantize": quantize,
-        "kernel_launches": new_kernels, "traces": traces,
+        "kernel_launches": new_kernels, "vote_device_ms": vote_ms,
+        "traces": traces,
         "shape": list(ids.shape),
         "tokenize_ms": tokenize_ms, "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -1729,6 +1968,10 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     if (new_kernels["attention_tma_kernel<false>"] != layers
             or new_kernels["attention_mma_kernel<64, false>"]):
         raise AssertionError(f"profile ({quantize}): attention {new_kernels}")
+    # the dispatch's one vote on the cluster route, none on the block one
+    if (new_kernels["cosine_vote_cluster_kernel"] != 1
+            or new_kernels["cosine_vote_kernel"]):
+        raise AssertionError(f"profile ({quantize}): vote {new_kernels}")
     if quantize != "none":
         if cublas:
             raise AssertionError(
@@ -1951,12 +2194,18 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     entries = [
         {
             "name": "cosine_vote", "route": "cuda",
-            "source": csrc + "cosine_vote.cu",
+            "source": csrc + "cosine_vote_sm90.cu",
             "replaces": "llm_weighted_consensus_tpu/ops/kernels.py:94",
             "launches": launches["cosine_vote"],
             "max_abs_err": vote["max_abs_err"], "ms": vote["kernel_ms"],
             "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
             "bound_by": vote["bound_by"], "library_ms": None,
+            "kernel_route": "cluster", "device_ms": vote["device_ms"],
+            "launch_floor_ms": vote["launch_floor_ms"],
+            "previous_ms": vote["previous_ms"],
+            "previous_device_ms": vote["previous_device_ms"],
+            "previous_source": csrc + "cosine_vote.cu",
+            "shape": vote["shape"],
         },
         {
             "name": "attention", "route": "cuda",

@@ -25,8 +25,8 @@ from typing import Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 SOURCES = (
-    "cosine_vote.cu", "attention.cu", "attention_sm90.cu", "quant_matmul.cu",
-    "quant_gemm_sm90.cu",
+    "cosine_vote.cu", "cosine_vote_sm90.cu", "attention.cu",
+    "attention_sm90.cu", "quant_matmul.cu", "quant_gemm_sm90.cu",
 )
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "liblwc_torch_kernels.so"
@@ -118,6 +118,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lwc_cosine_vote.argtypes = [vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.lwc_cosine_vote.restype = i32
+    lib.lwc_cosine_vote_cluster.argtypes = [
+        vp, vp, i32, i32, i32, i32, f32, i32, i32, i32, vp,
+    ]
+    lib.lwc_cosine_vote_cluster.restype = i32
+    lib.lwc_cosine_vote_cluster_smem.argtypes = [i32, i32, i32, i32]
+    lib.lwc_cosine_vote_cluster_smem.restype = ctypes.c_longlong
     for name in ("lwc_attention", "lwc_attention_seg", "lwc_attention_tma",
                  "lwc_attention_seg_tma"):
         fn = getattr(lib, name)

@@ -9,9 +9,15 @@ Counterpart of ``llm_weighted_consensus_tpu/ops/kernels.py``'s
 Vote: ``fused_cosine_vote``.  ``cosine_vote`` takes a leading request axis
 ``[R, N, D]`` and a run-time temperature, so one kernel serves the
 single-request and the coalesced dispatches at every temperature.  A CPU
-tensor takes the plain version; a CUDA tensor launches
-``csrc/cosine_vote.cu`` or raises.  ``cosine_vote.launches`` counts the
-kernel launches.
+tensor takes the plain version; a CUDA tensor launches the kernel that
+``vote_route`` names or raises: ``"cluster"``
+(``csrc/cosine_vote_sm90.cu``: one thread-block cluster of
+``vote_plan(...).cluster`` blocks per request, each block owning a slice
+of D in shared memory, partial sums traded through distributed shared
+memory) wherever the plan's shared memory fits a block, which is every
+shape the server makes; ``"block"`` (``csrc/cosine_vote.cu``, one block
+per request) past that.  ``cosine_vote.launches`` counts the kernel
+launches, ``cosine_vote.routes`` the launches per route.
 
 Quantized dense layers: ``w8a8_matmul(x, wq, sw, bias, gelu)`` computes
 ``x[..., K] @ wq[N, K]^T`` with per-row dynamic int8 activations, int32
@@ -35,7 +41,7 @@ The plain versions take the int8 product in f64, which is exact here
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,10 +53,78 @@ W4A8_PACK_K = 256
 # K tile of the int8 GEMM: the quantised activations are padded to it
 QUANT_K_TILE = 64
 
-# the kernel keeps 2N + D floats in shared memory; past this it would
-# need more than the 227 KB a Hopper block can have
+# the block route keeps 2N + D floats in shared memory; past this it
+# would need more than the 227 KB a Hopper block can have
 MAX_VOTE_CANDIDATES = 16384
 MAX_VOTE_DIM = 16384
+
+# the cluster route (csrc/cosine_vote_sm90.cu): the shared memory a Hopper
+# block can have, the largest cluster (above 8 a non-portable size), the
+# blocks a launch aims at (R * C), the fewest columns a block is given
+# where D allows, and the multiple its columns are rounded to (16-byte
+# rows for both dtypes)
+VOTE_SMEM_LIMIT = 232448
+VOTE_MAX_CLUSTER = 16
+VOTE_LAUNCH_BLOCKS = 64
+VOTE_MIN_COLS = 32
+VOTE_COL_ALIGN = 8
+
+
+class VotePlan(NamedTuple):
+    """The cluster route's partition of one request: ``cluster`` blocks,
+    block c owning columns ``[c * cols, min((c + 1) * cols, D))``, each
+    taking ``smem_bytes`` of dynamic shared memory."""
+
+    cluster: int
+    cols: int
+    smem_bytes: int
+
+
+def _vote_cluster_for(r: int) -> int:
+    """Blocks per request before D and shared memory are considered: the
+    largest power of two up to 16 with R * C <= 64.  From the timed turn
+    of every C at [R, 64, 1024] f32 on the H100 (``chip_smoke.py``,
+    ``PERF.md``): C = 16 is fastest up to R = 4; at R = 8, 128 blocks (C =
+    16) lose to 64 (C = 8); at R = 16, C = 4 and 8 tie."""
+    c = VOTE_MAX_CLUSTER
+    while c > 1 and r * c > VOTE_LAUNCH_BLOCKS:
+        c //= 2
+    return c
+
+
+def vote_smem_bytes(n: int, cols: int, cluster: int, dtype) -> int:
+    """A cluster block's shared memory for ``n`` rows of ``cols`` columns
+    in a cluster of ``cluster`` blocks: the tile in the input's dtype,
+    each row padded by 16 bytes, then in f32 the partial sums of squares
+    and of dot - self of every block [2, cluster, n], the inverse norms
+    and the logits [2, n] and the column sum [cols]."""
+    item = 4 if dtype == torch.float32 else 2
+    return n * (cols * item + 16) + 4 * (2 * cluster * n + 2 * n + cols)
+
+
+def vote_plan(r: int, n: int, d: int, dtype) -> VotePlan:
+    """The cluster route's partition of ``[r, n, d]`` embeddings of
+    ``dtype``: a pure function of the shape and dtype.  C starts at
+    ``_vote_cluster_for(r)``, halves while a block would get fewer than
+    ``VOTE_MIN_COLS`` columns, and doubles (up to 16) while a block's
+    shared memory would pass ``VOTE_SMEM_LIMIT``."""
+    c = _vote_cluster_for(r)
+    while c > 1 and -(-d // c) < VOTE_MIN_COLS:
+        c //= 2
+    while True:
+        cols = _round_up(-(-d // c), VOTE_COL_ALIGN)
+        plan = VotePlan(c, cols, vote_smem_bytes(n, cols, c, dtype))
+        if plan.smem_bytes <= VOTE_SMEM_LIMIT or c == VOTE_MAX_CLUSTER:
+            return plan
+        c *= 2
+
+
+def vote_route(r: int, n: int, d: int, dtype) -> str:
+    """"cluster" where ``vote_plan``'s blocks fit the card's shared
+    memory, else "block"."""
+    if vote_plan(r, n, d, dtype).smem_bytes <= VOTE_SMEM_LIMIT:
+        return "cluster"
+    return "block"
 
 
 def cosine_vote_plain(
@@ -99,23 +173,28 @@ def cosine_vote(
     conf = torch.empty((r, n), dtype=torch.float32, device=emb.device)
     if r == 0:
         return conf
-    rc = lib.lwc_cosine_vote(
-        emb.data_ptr(),
-        conf.data_ptr(),
-        r,
-        n,
-        d,
-        n_valid,
-        temperature,
-        0 if emb.dtype == torch.float32 else 1,
-        torch.cuda.current_stream(emb.device).cuda_stream,
-    )
-    _build.check(rc, "cosine_vote")
+    dtype = 0 if emb.dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    plan = vote_plan(r, n, d, emb.dtype)
+    route = "cluster" if plan.smem_bytes <= VOTE_SMEM_LIMIT else "block"
+    if route == "cluster":
+        rc = lib.lwc_cosine_vote_cluster(
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, temperature,
+            dtype, plan.cluster, plan.cols, stream,
+        )
+    else:
+        rc = lib.lwc_cosine_vote(
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, temperature,
+            dtype, stream,
+        )
+    _build.check(rc, f"cosine_vote ({route})")
     cosine_vote.launches += 1
+    cosine_vote.routes[route] += 1
     return conf
 
 
 cosine_vote.launches = 0
+cosine_vote.routes = {"cluster": 0, "block": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ port only, so it runs on the machine with the card, which has no JAX:
 (``--noconftest``: the suite's conftest prepares JAX's virtual CPU mesh
 and imports the JAX package.)
 
-Tolerances: vote 1e-5 (f32 reassociation of the column-sum identity);
+Tolerances: vote 1e-5 (f32 reassociation of the column-sum identity;
+both routes, the cluster kernel at every shape the server makes and the
+block kernel past the cluster plan's shared memory);
 attention and segment attention 1e-4 f32, 2e-2 bf16 (probabilities
 rounded to bf16 before P·V); packed bge_micro on the card against the CPU
 and against the padded path 1e-5 (f32), a segment beside other row-mates
@@ -31,7 +33,7 @@ import torch
 
 from llm_weighted_consensus_tpu_torch.models import loading, quant, tokenizer
 from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
-from llm_weighted_consensus_tpu_torch.ops import attention, kernels
+from llm_weighted_consensus_tpu_torch.ops import _build, attention, kernels
 from llm_weighted_consensus_tpu_torch.serve import packing
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +67,25 @@ def _attention_inputs(b, s, nh, hd, seed):
     return q, k, v, bias
 
 
+def _vote_on_route(x, n_valid, temperature, route):
+    """One vote launch, held to its route and to the plain version:
+    |diff| <= 1e-5, finite, sums 1 +- 1e-5, rows past n_valid exactly 0."""
+    r, n, d = x.shape
+    assert kernels.vote_route(r, n, d, x.dtype) == route
+    before = dict(kernels.cosine_vote.routes)
+    launches = kernels.cosine_vote.launches
+    got = kernels.cosine_vote(x, n_valid, temperature)
+    assert kernels.cosine_vote.launches == launches + 1
+    assert kernels.cosine_vote.routes[route] == before[route] + 1
+    want = kernels.cosine_vote_plain(x, n_valid, temperature)
+    assert got.dtype == torch.float32 and got.shape == (r, n)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (got.sum(-1) - 1).abs().max().item() <= 1e-5
+    assert (got[:, n_valid:] == 0).all()
+    return got
+
+
 @pytest.mark.parametrize("n", [2, 64, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("temperature", [0.05, 0.7])
@@ -72,21 +93,79 @@ def test_vote_kernel_matches_plain(card, n, dtype, temperature):
     x = torch.from_numpy(_embeddings((8, n, 1024), seed=n)).to(
         card, getattr(torch, dtype)
     )
-    before = kernels.cosine_vote.launches
-    got = kernels.cosine_vote(x, n, temperature)
-    assert kernels.cosine_vote.launches == before + 1
-    want = kernels.cosine_vote_plain(x, n, temperature)
-    assert got.dtype == torch.float32 and got.shape == (8, n)
-    assert (got - want).abs().max().item() <= 1e-5
-    assert (got.sum(-1) - 1).abs().max().item() <= 1e-5
+    _vote_on_route(x, n, temperature, "cluster")
+
+
+@pytest.mark.parametrize("r", [1, 8, 16])
+@pytest.mark.parametrize("n", [2, 16, 64, 256])
+@pytest.mark.parametrize("d", [64, 384, 768, 1000, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vote_cluster_route_at_served_shapes(card, r, n, d, dtype):
+    # every R the batcher makes up to 16, the gateway's N, each bge
+    # width and a ragged D: the cluster kernel
+    x = torch.from_numpy(_embeddings((r, n, d), seed=r * n + d)).to(
+        card, getattr(torch, dtype)
+    )
+    _vote_on_route(x, n, 0.05 if n % 2 else 0.3, "cluster")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_valid", [1024, 700, 1])
+def test_vote_block_route_past_the_plan(card, dtype, n_valid):
+    # [2, 1024, 2048] needs more shared memory than a cluster block has
+    x = torch.from_numpy(_embeddings((2, 1024, 2048), seed=n_valid)).to(
+        card, getattr(torch, dtype)
+    )
+    got = _vote_on_route(x, n_valid, 0.05, "block")
+    if n_valid == 1:
+        assert (got[:, 0] == 1).all()
+
+
+@pytest.mark.parametrize("r,n,d", [(8, 64, 1024), (16, 256, 1024),
+                                   (1, 37, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vote_kernel_is_bit_deterministic(card, r, n, d, dtype):
+    x = torch.from_numpy(_embeddings((r, n, d), seed=d)).to(
+        card, getattr(torch, dtype)
+    )
+    first = kernels.cosine_vote(x, n, 0.05)
+    second = kernels.cosine_vote(x, n, 0.05)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vote_kernel_reads_unaligned_rows(card, dtype):
+    # a contiguous view one element past a 16-byte boundary
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(_embeddings((8, 64, 1024), seed=3)).to(card, tdt)
+    flat = torch.empty(x.numel() + 1, device=card, dtype=tdt)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    got = _vote_on_route(view, 64, 0.05, "cluster")
+    assert (got - kernels.cosine_vote(x, 64, 0.05)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("r,n,d", [(1, 2, 64), (8, 64, 1024), (16, 256, 1024),
+                                   (3, 40, 1000), (1, 256, 768)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vote_plan_matches_the_kernels_shared_memory(card, r, n, d, dtype):
+    tdt = getattr(torch, dtype)
+    plan = kernels.vote_plan(r, n, d, tdt)
+    lib = _build.library()
+    code = 0 if tdt == torch.float32 else 1
+    assert lib.lwc_cosine_vote_cluster_smem(
+        n, plan.cols, plan.cluster, code) == plan.smem_bytes
 
 
 def test_vote_kernel_masks_padding_rows(card):
     x = torch.from_numpy(_embeddings((4, 40, 384), seed=1)).to(card)
-    got = kernels.cosine_vote(x, 33, 0.05)
+    got = _vote_on_route(x, 33, 0.05, "cluster")
     want = kernels.cosine_vote(x[:, :33].contiguous(), 33, 0.05)
     assert (got[:, :33] - want).abs().max().item() <= 1e-5
-    assert (got[:, 33:] == 0).all()
+    # one live row: a confidence of exactly 1
+    one = _vote_on_route(x, 1, 0.05, "cluster")
+    assert (one[:, 0] == 1).all()
 
 
 def test_vote_kernel_rejects_non_contiguous(card):

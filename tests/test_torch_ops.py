@@ -33,7 +33,8 @@ def _embeddings(shape, seed):
 
 
 VOTE_CASES = [
-    (n, d, t) for n in (2, 7, 64) for d in (64, 1024) for t in (0.05, 0.3)
+    (n, d, t) for n in (2, 7, 64, 256) for d in (64, 384, 1024)
+    for t in (0.05, 0.3)
 ]
 
 
