@@ -79,7 +79,29 @@ Phases, each printing one JSON line:
    ``attention_tma_kernel<true>`` once per layer (and no
    ``attention_mma_kernel<64, true>``) and, quantized, the W8 or W4
    ``quant_gemm_tma_kernel`` six times per layer (and no
-   ``quant_gemm_kernel``).
+   ``quant_gemm_kernel``);
+8. the reward-model path (``/consensus {"scorer": "rm"}``): the native
+   tokenizer library loads (512 texts through WordPiece and the unigram
+   tokenizer, native and Python, the same ids, both timed); the tiny
+   DeBERTa configs (clamp and log buckets) served on the card in f32
+   against the port on the CPU, unquantized and under ``int8`` /
+   ``int4-pallas``, with the quantized launches counted, and
+   ``reward_packed`` against per-row rewards on the card;
+   deberta-v3-base at full width (random weights from seed 0, bf16, a
+   synthetic ``spm.model`` written under ``build/rm_smoke/``) served
+   through ``build_reranker`` with BASELINE config 3's traffic (50
+   requests of N=16 in the s=128 bucket, 8 in flight) and one N=64
+   request in the s=512 bucket, answers and buckets checked, no port
+   kernel launched unquantized; one N=4 request in f32 on the card
+   against the CPU and bf16 against f32; the same server under
+   ``RM_QUANTIZE=int8`` and ``int4-pallas`` (one burst each, 72 GEMM
+   launches per reward call on the TMA route, one row quantisation per
+   GEMM, answers against the unquantized ones); device time by kernel
+   for one N=16 request unquantized and under int8
+   (``chiprun_out/profile_rm*.txt``; int8 must show
+   ``quant_gemm_tma_kernel`` 72 times and no ``quant_gemm_kernel``).
+   Phase 2 also holds and times W8A8 / W4A8 at the RM's shapes
+   (``RM_QUANT_SHAPES`` at ``RM_QUANT_M`` rows).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -175,6 +197,32 @@ PACKED_SHAPES = tuple(
     (b, l) for b in (1, 2, 4, 8) for l in (64, 128, 192, 256, 384, 512)
 )
 SEG_BUCKET = (8, 512)
+# the reward-model path (phase 8): BASELINE config 3 (bench_all.py's
+# bench_rm_reranking, n=16, seq=128, 50 requests, 8 in flight) on
+# deberta-v3-base, each candidate bench.py's 96 words and two tags after
+# a prompt (113-118 tokens: the s=128 bucket), then one request of 64
+# candidates of 440 words (the s=512 bucket)
+RM_N, RM_REQUESTS, RM_INFLIGHT, RM_WORDS = 16, 50, 8, 96
+RM_LONG_N, RM_LONG_WORDS = 64, 440
+RM_PROMPT = "we compute the final value so the answer is"
+# the RM's six dense layers per encoder layer, as (K, N, GELU): q, k, v
+# and attention output, MLP in (GELU in the epilogue), MLP out; at the
+# rows of one N=16, s=128 request and of the N=64, s=512 one
+RM_QUANT_SHAPES = ((768, 768, False), (768, 3072, True), (3072, 768, False))
+RM_QUANT_M = (RM_N * 128, RM_LONG_N * 512)
+# full width: f32 on the card against the CPU (12 layers of f32
+# summation order), and bf16 against f32 on the card: the order of every
+# pair f32 separates by more than RM_BF16_SEP, and the bar of
+# tests/test_models.py's bf16 RM test
+RM_FULL_F32_TOL, RM_BF16_SEP, RM_BF16_TOL = 1e-4, 5e-3, 0.05
+# quantized against unquantized confidences (tests/test_quant.py's int8 RM
+# bar; the int4 bar of QUANT_BARS)
+RM_QUANT_BARS = {"int8": 0.1, "int4-pallas": 0.15}
+# the tiny configs held card against CPU: DEBERTA_TEST_TINY (clamp) and
+# the same with 8 log buckets out to 32 positions, texts up to s=64
+RM_LOG_TINY = {"position_buckets": 8, "max_relative_positions": 32}
+# (candidates, prompt, temperature) of the tiny configs' requests
+RM_TINY_REQUESTS = ((6, "which", 1.0), (2, None, 0.3), (4, "t1 t2 t3", 2.0))
 # packed against padded on bge-large in bf16, the same texts: the bf16
 # rounding of another key-tile order, amplified by T = 0.05 in the vote
 PACKED_MIN_COS, PACKED_CONF_TOL = 0.999, 2e-2
@@ -815,6 +863,9 @@ def check_quant(gpu: str) -> dict:
     # (M, K, N, the main path's GELU flag, or None at an odd shape)
     shapes = [(QUANT_M, k, n, gelu) for k, n, gelu in QUANT_MAIN_SHAPES]
     shapes += [(QUANT_SMALL_M, k, n, None) for k, n, _ in QUANT_MAIN_SHAPES]
+    # the reward model's shapes (phase 8), timed too
+    shapes += [(m, k, n, gelu) for m in RM_QUANT_M
+               for k, n, gelu in RM_QUANT_SHAPES]
     shapes += [(m, k, n, None) for m, k, n in QUANT_ODD_SHAPES]
     for (m, k, n, main_gelu), int4, dtype in itertools.product(
         shapes, (False, True), (torch.bfloat16, torch.float32)
@@ -871,6 +922,7 @@ def check_quant(gpu: str) -> dict:
           "w4a8_tma_byte_equal_to_mma": w4_equal,
           "shapes": [[m, k, n] for m in (QUANT_M, QUANT_SMALL_M)
                      for k, n, _ in QUANT_MAIN_SHAPES]
+          + [[m, k, n] for m in RM_QUANT_M for k, n, _ in RM_QUANT_SHAPES]
           + [list(shape) for shape in QUANT_ODD_SHAPES],
           "note": "library_ms null: no one PyTorch call quantises, "
                   "multiplies and dequantises; int_mm_ms is torch._int_mm "
@@ -2168,25 +2220,507 @@ def profile_packed(gpu: str, emb, bursts, quantize: str = "none") -> dict:
     return row
 
 
+# -- phase 8: the reward-model path ---------------------------------------------
+
+
+def rm_spm_proto() -> bytes:
+    """The unigram SentencePiece proto of bench.py's bench_spm_tokenizer
+    (deberta id scheme: [PAD] [CLS] [SEP] [UNK] control pieces, then a
+    whole-word piece per bench word scored -len(word), then single
+    characters scored -10), serialized as a ModelProto: field 1 repeated
+    {piece (1), score (2, f32), type (3)}."""
+    import struct
+
+    from llm_weighted_consensus_tpu_torch.models import spm
+
+    pieces = [("[PAD]", 0.0, spm.CONTROL), ("[CLS]", 0.0, spm.CONTROL),
+              ("[SEP]", 0.0, spm.CONTROL), ("[UNK]", 0.0, spm.UNKNOWN)]
+    pieces += [(spm.SPACE + w, -float(len(w)), spm.NORMAL) for w in BENCH_WORDS]
+    pieces += [(ch, -10.0, spm.NORMAL)
+               for ch in "abcdefghijklmnopqrstuvwxyz0123456789" + spm.SPACE]
+
+    def varint(value: int) -> bytes:
+        out = b""
+        while True:
+            byte, value = value & 0x7F, value >> 7
+            if not value:
+                return out + bytes([byte])
+            out += bytes([byte | 0x80])
+
+    proto = b""
+    for piece, score, ptype in pieces:
+        raw = piece.encode("utf-8")
+        msg = (b"\x0a" + varint(len(raw)) + raw + b"\x15"
+               + struct.pack("<f", score) + b"\x18" + varint(ptype))
+        proto += b"\x0a" + varint(len(msg)) + msg
+    return proto
+
+
+def rm_vocab_path() -> str:
+    """Write the synthetic ``spm.model`` under the checkout's build/."""
+    path = os.path.join(REPO, "build", "rm_smoke", "spm.model")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(rm_spm_proto())
+    return path
+
+
+def rm_requests(n_requests: int, n: int, words: int, seed: int = 0) -> list:
+    """bench.py's make_requests: each candidate ``words`` bench words and
+    the tags ``v<request>`` and ``c<candidate>``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [
+        [" ".join(rng.choice(BENCH_WORDS, size=words).tolist()
+                  + [f"v{r}", f"c{i}"]) for i in range(n)]
+        for r in range(n_requests)
+    ]
+
+
+def check_native_tokenizers(gpu: str, vocab: str) -> dict:
+    """The native tokenizer library loads on the card's machine; 512
+    texts through WordPiece (bge_micro's vocab.txt) and the unigram
+    tokenizer (the synthetic spm.model), native and Python, with the same
+    ids."""
+    from llm_weighted_consensus_tpu_torch.models import spm, tokenizer
+    from llm_weighted_consensus_tpu_torch.utils import native
+
+    t = time.perf_counter()
+    lib = native.load_library()
+    load_ms = (time.perf_counter() - t) * 1e3
+    if lib is None:
+        raise AssertionError(
+            f"the native tokenizer library did not build or load "
+            f"({native.NATIVE_SO})")
+    texts = [t for req in rm_requests(32, RM_N, RM_WORDS, seed=7) for t in req]
+    fixture_vocab = os.path.join(REPO, "tests", "fixtures", "bge_micro",
+                                 "vocab.txt")
+    vocab_wp = tokenizer.WordPieceTokenizer.from_vocab_file(fixture_vocab).vocab
+    pairs = {
+        "wordpiece": (tokenizer.WordPieceTokenizer(vocab_wp),
+                      tokenizer.WordPieceTokenizer(vocab_wp, use_native=False)),
+        "unigram": (spm.UnigramTokenizer.from_model_file(vocab, "deberta"),
+                    spm.UnigramTokenizer(spm.parse_model_proto(
+                        open(vocab, "rb").read()), "deberta",
+                        use_native=False)),
+    }
+    row = {"phase": "native_tokenizers", "gpu": gpu, "library":
+           os.path.relpath(str(native.NATIVE_SO), REPO),
+           "load_ms": load_ms, "texts": len(texts)}
+    for name, (fast, slow) in pairs.items():
+        if fast._native is None:
+            raise AssertionError(f"{name}: no native path")
+        times = {}
+        for label, tok in (("native", fast), ("python", slow)):
+            t = time.perf_counter()
+            ids, mask = tok.encode_batch(texts, 512)
+            times[label] = (time.perf_counter() - t) * 1e3
+            times[label + "_ids"] = ids
+        if not (times["native_ids"] == times["python_ids"]).all():
+            raise AssertionError(f"{name}: native ids differ from Python's")
+        row[f"{name}_native_ms"] = times["native"]
+        row[f"{name}_python_ms"] = times["python"]
+        row[f"{name}_tokens"] = int(mask.sum())
+    emit(row)
+    return row
+
+
+def _rm_state(cfg, seed: int) -> dict:
+    """Random weights of ``cfg`` from ``seed`` (the port's init), f32."""
+    from llm_weighted_consensus_tpu_torch.models import deberta
+
+    model = deberta.init_params(cfg, seed=seed, device="cpu")
+    return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def _rm_on(state, cfg, device, quantize="none", tokenizer=None,
+           max_tokens=512):
+    """A reranker of ``state`` on ``device`` in f32."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import deberta
+    from llm_weighted_consensus_tpu_torch.models.reranker import TorchReranker
+
+    dtype = torch.float32
+    return TorchReranker(
+        "rm", model=deberta.from_state(state, cfg, dtype, device),
+        tokenizer=tokenizer, device=device, dtype=dtype,
+        max_tokens=max_tokens, quantize=quantize,
+    )
+
+
+def check_rm_tiny(gpu: str) -> dict:
+    """DEBERTA_TEST_TINY and its log-bucket twin in f32: /consensus
+    {"scorer": "rm"} served on the card against the port on the CPU,
+    unquantized and under int8 / int4-pallas; reward_packed on the card
+    against per-row rewards on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import configs, deberta
+    from llm_weighted_consensus_tpu_torch.serve import packing
+    from llm_weighted_consensus_tpu_torch.serve.gateway import Server
+
+    rng = np.random.default_rng(5)
+    vocab = [f"t{i}" for i in range(300)]
+    # 3 to 62 words: the s=16, 32, 48 and 64 buckets
+    texts = [" ".join(rng.choice(vocab, size=n)) for n in (3, 62, 20, 40, 9, 30)]
+    rows, worst = [], {"none": 0.0, "int8": 0.0, "int4-pallas": 0.0}
+    for name, cfg in (
+        ("clamp", configs.DEBERTA_TEST_TINY),
+        ("log", dataclasses.replace(configs.DEBERTA_TEST_TINY, **RM_LOG_TINY)),
+    ):
+        state = _rm_state(cfg, seed=3)
+        for mode in ("none", "int8", "int4-pallas"):
+            cpu = _rm_on(state, cfg, "cpu", mode, max_tokens=64)
+            card = _rm_on(state, cfg, "cuda", mode, max_tokens=64)
+            reset_launches()
+            with Server(reranker=card) as srv:
+                outs = [post(srv.port, "/consensus", {
+                    "input": texts[:k], "scorer": "rm", "prompt": p,
+                    "temperature": temp,
+                }) for k, p, temp in RM_TINY_REQUESTS]
+            launches = read_launches()
+            errs = []
+            for out, (k, p, temp) in zip(outs, RM_TINY_REQUESTS):
+                want, tokens = cpu.rerank_confidence(texts[:k], p, temp)
+                check_answer(out["confidence"], k)
+                if out["usage"]["prompt_tokens"] != tokens:
+                    raise AssertionError(f"rm tiny {name}: usage {out}")
+                errs.append(float(np.abs(np.asarray(out["confidence"])
+                                         - want).max()))
+            dense = 6 * cfg.num_layers * len(outs) if mode != "none" else 0
+            want_l = {"w8a8_matmul": dense if mode == "int8" else 0,
+                      "w4a8_matmul": dense if mode == "int4-pallas" else 0,
+                      "quantize_rows": dense}
+            if {k: launches[k] for k in want_l} != want_l:
+                raise AssertionError(
+                    f"rm tiny {name} {mode}: launches {launches}, want "
+                    f"{want_l}")
+            tol = MICRO_TOL if mode == "none" else QUANT_MICRO_TOL
+            worst[mode] = max(worst[mode], max(errs))
+            if max(errs) > tol:
+                raise AssertionError(
+                    f"rm tiny {name} {mode}: card vs CPU {errs} > {tol}")
+        # packed on the card against per-row on the card, unquantized
+        card = _rm_on(state, cfg, "cuda", max_tokens=64)
+        ids, mask = card.tokenize(texts)
+        lens = mask.sum(axis=1)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+        with torch.inference_mode():
+            per_row = deberta.reward(card.model, dev(ids), dev(mask)).cpu()
+            ragged = [ids[i, :lens[i]] for i in range(len(texts))]
+            packed_err = 0.0
+            for call in packing.build_calls(ragged, 64, 4, 8):
+                out = deberta.reward_packed(
+                    card.model, dev(call.ids), dev(call.segment_ids),
+                    dev(call.seg_starts)).cpu()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"rm tiny {name}: packed not finite")
+                for si, (r, slot) in call.slots.items():
+                    packed_err = max(packed_err,
+                                     abs(float(out[r, slot] - per_row[si])))
+        if packed_err > MICRO_TOL:
+            raise AssertionError(
+                f"rm tiny {name}: packed vs per-row {packed_err}")
+        rows.append({"config": name, "packed_vs_per_row": packed_err})
+    row = {"phase": "rm_tiny", "gpu": gpu, "dtype": "float32",
+           "max_conf_err": worst,
+           "tolerance": {"none": MICRO_TOL, "quantized": QUANT_MICRO_TOL},
+           "packed": rows, "packed_tolerance": MICRO_TOL}
+    emit(row)
+    return row
+
+
+def rm_bucket_ok(out, n: int, lo: int, hi: int) -> None:
+    check_answer(out["confidence"], n)
+    if not lo * n < out["usage"]["prompt_tokens"] <= hi * n:
+        raise AssertionError(
+            f"rm request of {n} with {out['usage']} is not in the s={hi} "
+            "bucket")
+
+
+def serve_rm(reranker, requests, long_texts=None) -> dict:
+    """``requests`` (lists of candidate texts) as /consensus {"scorer":
+    "rm", "prompt": RM_PROMPT} through the port's server, RM_INFLIGHT at
+    a time, then the optional long request; the launch counts are set to
+    0 after one warm-up request and read at the end."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.gateway import Server
+
+    def body(texts):
+        return {"input": texts, "scorer": "rm", "prompt": RM_PROMPT}
+
+    with Server(reranker=reranker) as srv:
+        post(srv.port, "/consensus", body(requests[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+
+        def call(texts):
+            t = time.perf_counter()
+            out = post(srv.port, "/consensus", body(texts))
+            return out, (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(RM_INFLIGHT) as pool:
+            results = list(pool.map(call, requests, timeout=600))
+        burst_s = time.perf_counter() - t0
+        long_out = long_ms = None
+        if long_texts is not None:
+            long_out, long_ms = call(long_texts)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        routes = {name: dict(_wrappers()[name].routes)
+                  for name in ("w8a8_matmul", "w4a8_matmul")}
+    for out, _ in results:
+        rm_bucket_ok(out, len(requests[0]), 112, 128)
+    lat = sorted(ms for _, ms in results)
+    return {
+        "answers": [np.asarray(out["confidence"]) for out, _ in results],
+        "launches": launches, "routes": routes,
+        "p50_ms": float(np.median(lat)), "max_ms": lat[-1],
+        "answers_per_s": len(results) / burst_s, "requests": len(results),
+        "long_out": long_out, "long_ms": long_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def rm_env(vocab: str, quantize: str = "none") -> dict:
+    """The server's environment for deberta-v3-base with random weights
+    from seed 0 (the opt-in) and the synthetic spm.model."""
+    return {"RM_MODEL": "deberta-v3-base", "RM_VOCAB": vocab,
+            "RM_MAX_TOKENS": "512", "RM_QUANTIZE": quantize,
+            "LWC_ALLOW_RANDOM_PARAMS": "1"}
+
+
+def rm_path(gpu: str, vocab: str) -> dict:
+    """deberta-v3-base at full width, bf16, served by the port's server
+    (``build_reranker``, the entry point a user calls): BASELINE config
+    3's traffic and one N=64 request in the s=512 bucket; then one N=4
+    request in f32 on the card against the CPU, and bf16 against f32."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import configs
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import build_reranker
+
+    t0 = time.perf_counter()
+    served = build_reranker(rm_env(vocab), device="cuda")
+    init_s = time.perf_counter() - t0
+    if served.dtype != torch.bfloat16 or served.config != configs.DEBERTA_V3_BASE:
+        raise AssertionError(f"served {served.config} in {served.dtype}")
+    requests = rm_requests(RM_REQUESTS, RM_N, RM_WORDS)
+    long_texts = rm_requests(1, RM_LONG_N, RM_LONG_WORDS, seed=1)[0]
+    out = serve_rm(served, requests, long_texts)
+    rm_bucket_ok(out["long_out"], RM_LONG_N, 384, 512)
+    if any(out["launches"].values()):
+        # the unquantized RM runs no kernel of the port: the disentangled
+        # attention and the dense layers are torch ops (cuBLAS)
+        raise AssertionError(f"rm: port kernels launched {out['launches']}")
+    # full-width numerics on one N=4 request: f32 on the card against the
+    # CPU, bf16 (the served model) against f32 on the card
+    cfg = configs.DEBERTA_V3_BASE
+    state = _rm_state(cfg, seed=0)
+    texts = requests[0][:4]
+    confs = {}
+    for key, rr in (("cpu", _rm_on(state, cfg, "cpu", tokenizer=served.tokenizer)),
+                    ("cuda_f32", _rm_on(state, cfg, "cuda",
+                                        tokenizer=served.tokenizer)),
+                    ("cuda_bf16", served)):
+        confs[key] = rr.rerank_confidence(texts, prompt=RM_PROMPT)[0]
+        del rr
+    del state
+    f32_err = float(np.abs(confs["cuda_f32"] - confs["cpu"]).max())
+    bf16_err = float(np.abs(confs["cuda_bf16"] - confs["cuda_f32"]).max())
+    cf, cb = confs["cuda_f32"], confs["cuda_bf16"]
+    pairs = [(i, j) for i in range(4) for j in range(4)
+             if cf[i] - cf[j] > RM_BF16_SEP]
+    flipped = [(i, j) for i, j in pairs if not cb[i] > cb[j]]
+    row = {
+        "phase": "rm_path", "gpu": gpu, "model": "deberta-v3-base",
+        "dtype": "bfloat16", "init_s": init_s, "requests": out["requests"],
+        "candidates": RM_N, "in_flight": RM_INFLIGHT,
+        "p50_ms": out["p50_ms"], "max_ms": out["max_ms"],
+        "answers_per_s": out["answers_per_s"],
+        "long_request_ms": out["long_ms"],
+        "long_request_tokens": out["long_out"]["usage"]["prompt_tokens"],
+        "launches": out["launches"], "peak_mem_gib": out["peak_mem_gib"],
+        "f32_card_vs_cpu": f32_err, "f32_tolerance": RM_FULL_F32_TOL,
+        "bf16_vs_f32": bf16_err, "bf16_tolerance": RM_BF16_TOL,
+        "bf16_pairs_checked": len(pairs), "bf16_pairs_flipped": flipped,
+        "confidence": {k: v.tolist() for k, v in confs.items()},
+    }
+    emit(row)
+    if f32_err > RM_FULL_F32_TOL or bf16_err > RM_BF16_TOL or flipped:
+        raise AssertionError(f"rm full-width numerics: {row}")
+    return {"row": row, "served": served, "requests": requests,
+            "answers": out["answers"]}
+
+
+def rm_quant_path(gpu: str, vocab: str, mode: str, full: dict) -> dict:
+    """The same server under RM_QUANTIZE=mode: one burst of RM_INFLIGHT
+    requests, 72 quantized GEMM launches (12 layers x 6) per reward call,
+    all on the TMA route, one row quantisation per GEMM; answers against
+    the unquantized path's on the same texts."""
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.models import quant
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import build_reranker
+
+    t0 = time.perf_counter()
+    rr = build_reranker(rm_env(vocab, mode), device="cuda")
+    init_s = time.perf_counter() - t0
+    layers = rr.config.num_layers
+    denses = [m for m in rr.model.modules() if isinstance(m, quant.QuantLinear)]
+    if len(denses) != 6 * layers:
+        raise AssertionError(f"rm {mode}: {len(denses)} quantized layers")
+    burst = full["requests"][:RM_INFLIGHT]
+    out = serve_rm(rr, burst)
+    name = "w4a8_matmul" if mode.startswith("int4") else "w8a8_matmul"
+    other = "w8a8_matmul" if name == "w4a8_matmul" else "w4a8_matmul"
+    want = 6 * layers * len(burst)
+    launches = out["launches"]
+    if (launches[name] != want or launches[other]
+            or launches["quantize_rows"] != want
+            or out["routes"][name]["tma"] != want):
+        raise AssertionError(
+            f"rm {mode}: launches {launches}, routes {out['routes']}, "
+            f"want {want} on tma")
+    diff = max(float(np.abs(got - ref).max())
+               for got, ref in zip(out["answers"], full["answers"]))
+    row = {
+        "phase": "rm_quant_path", "gpu": gpu, "model": "deberta-v3-base",
+        "quantize": mode, "dtype": "bfloat16", "init_s": init_s,
+        "requests": out["requests"], "p50_ms": out["p50_ms"],
+        "answers_per_s": out["answers_per_s"], "launches": launches,
+        "routes": out["routes"], "launches_per_reward_call":
+            launches[name] / len(burst),
+        "max_conf_diff_vs_unquantized": diff,
+        "conf_bar": RM_QUANT_BARS[mode], "peak_mem_gib": out["peak_mem_gib"],
+    }
+    emit(row)
+    if diff > RM_QUANT_BARS[mode]:
+        raise AssertionError(f"rm {mode} against unquantized: {row}")
+    row["reranker"] = rr
+    return row
+
+
+def profile_rm(gpu: str, rr, texts, quantize: str) -> dict:
+    """Device time by kernel for one full-width RM request (N=16, s=128)
+    into chiprun_out/profile_rm.txt (profile_rm_int8.txt under int8),
+    with the idle share.  cuBLAS GEMMs are expected there (the position
+    projections, the score einsums, P·V, the head, and unquantized every
+    dense layer) and are named; under int8 the profile must show
+    ``quant_gemm_tma_kernel`` 72 times and no ``quant_gemm_kernel``."""
+    texts = [f"{RM_PROMPT}\n{t}" for t in texts]
+    ids, mask = rr.tokenize(texts)
+    layers = rr.config.num_layers
+
+    def complete(rows):
+        return quantize == "none" or launches_of(
+            rows, "quant_gemm_tma_kernel", W8) == 6 * layers
+
+    rows, wall_ms, traces = profile_call(
+        lambda: rr.confidence_tokens(ids, mask), complete)
+    device_ms = sum(r[0] for r in rows)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    name = ("profile_rm.txt" if quantize == "none"
+            else f"profile_rm_{quantize}.txt")
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write(f"# {gpu}; one deberta-v3-base RM request N={ids.shape[0]} "
+                f"s={ids.shape[1]} bf16, quantize={quantize}, wall "
+                f"{wall_ms:.3f} ms\n")
+        for ms, count, key in rows:
+            f.write(f"{ms:10.3f} ms  {count:6d}  {key[:110]}\n")
+    cublas = cublas_gemms(rows)
+    cublas_ms = sum(ms for ms, _, key in rows if key in cublas)
+    gemms = {
+        "quant_gemm_tma_kernel<W8>": launches_of(
+            rows, "quant_gemm_tma_kernel", W8),
+        "quant_gemm_kernel": launches_of(rows, "quant_gemm_kernel"),
+        "quantize_rows_kernel": launches_of(rows, "quantize_rows_kernel"),
+    }
+    row = {
+        "phase": "profile_rm", "gpu": gpu, "quantize": quantize,
+        "shape": list(ids.shape), "traces": traces, "wall_ms": wall_ms,
+        "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall_ms,
+        "kernel_launches": gemms, "cublas_gemm_kernels": cublas,
+        "cublas_gemm_launches": sum(c for _, c, k in rows if k in cublas),
+        "cublas_gemm_ms": cublas_ms,
+        "top": [{"kernel": key[:80], "ms": ms, "count": count}
+                for ms, count, key in rows[:8]],
+    }
+    emit(row)
+    if quantize != "none" and (
+        gemms["quant_gemm_tma_kernel<W8>"] != 6 * layers
+        or gemms["quant_gemm_kernel"]
+    ):
+        raise AssertionError(f"rm profile ({quantize}): {gemms}")
+    if device_ms > wall_ms * DEVICE_TIME_SLACK:
+        raise AssertionError(
+            f"rm profile: device time {device_ms} ms exceeds the wall "
+            f"time {wall_ms} ms")
+    return row
+
+
+def rm_phase(gpu: str, timed) -> dict:
+    """Phase 8: native tokenizers, the tiny configs card against CPU, the
+    full-width served path, its quantized twins and two profiles."""
+    import torch
+
+    vocab = rm_vocab_path()
+    timed("rm_path", check_native_tokenizers, gpu, vocab)
+    timed("rm_path", check_rm_tiny, gpu)
+    full = timed("rm_path", rm_path, gpu, vocab)
+    timed("rm_path", profile_rm, gpu, full["served"], full["requests"][0],
+          "none")
+    del full["served"]
+    torch.cuda.empty_cache()
+    q = {}
+    for mode in ("int8", "int4-pallas"):
+        q[mode] = timed("rm_path", rm_quant_path, gpu, vocab, mode, full)
+        rr = q[mode].pop("reranker")
+        if mode == "int8":
+            timed("rm_path", profile_rm, gpu, rr, full["requests"][0], mode)
+        del rr
+        torch.cuda.empty_cache()
+    return {"row": full["row"], "int8": q["int8"], "int4": q["int4-pallas"]}
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
-                   packed) -> dict:
+                   packed, rm) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
     both quantized paths and counts both) and its numbers at the main
     path's shape (bf16; for the quantized matmuls the MLP expansion,
     K=1024, N=4096 with GELU; for the segment attention the packed
-    bucket, 8 rows of 512 tokens)."""
+    bucket, 8 rows of 512 tokens).  The reward-model path adds its own
+    entries (``"path": "rm"``) for the quantized matmuls and the row
+    quantisation, with the launches of its int8 and int4 bursts and the
+    numbers at its MLP expansion (M=2048, K=768, N=3072 with GELU)."""
     main = next(
         r for r in attn_rows
         if r.get("shape", [])[:2] == [BURST * N_CANDIDATES, 128]
         and r["dtype"] == "bfloat16"
     )
 
-    def quant_row(name):
+    def quant_row(name, shape=(QUANT_M, 1024, 4096)):
         return next(
             r for r in quant["rows"]
-            if r["kernel"] == name and r["shape"] == [QUANT_M, 1024, 4096]
+            if r["kernel"] == name and r["shape"] == list(shape)
         )
 
     q8_row, q4_row = quant_row("w8a8_matmul"), quant_row("w4a8_matmul")
@@ -2258,6 +2792,36 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         "bound_by": q8_row["quantize_rows_bound_by"], "library_ms": None,
         "shape": [QUANT_M, 1024],
     })
+    rm_shape = (RM_QUANT_M[0], 768, 3072)
+    for name, path, line in (("w8a8_matmul", rm["int8"], 202),
+                             ("w4a8_matmul", rm["int4"], 319)):
+        row = quant_row(name, rm_shape)
+        entries.append({
+            "name": name, "path": "rm", "route": "cuda",
+            "source": csrc + "quant_gemm_sm90.cu",
+            "replaces": f"llm_weighted_consensus_tpu/ops/kernels.py:{line}",
+            "launches": path["launches"][name],
+            "max_abs_err": quant["worst"][name], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"], "kernel_route": "tma",
+            "gemm_ms": row["gemm_ms"], "gemm_bound_ms": row["gemm_bound_ms"],
+            "bf16_linear_ms": row["bf16_linear_ms"],
+            "int_mm_ms": row["int_mm_ms"],
+        })
+    rm_q = quant_row("w8a8_matmul", rm_shape)
+    entries.append({
+        "name": "quantize_rows", "path": "rm", "route": "cuda",
+        "source": csrc + "quant_matmul.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/kernels.py:202",
+        "launches": rm["int8"]["launches"]["quantize_rows"]
+        + rm["int4"]["launches"]["quantize_rows"],
+        "max_abs_err": 0.0, "ms": rm_q["quantize_rows_ms"],
+        "plain_ms": rm_q["quantize_rows_plain_ms"],
+        "bound_ms": rm_q["quantize_rows_bound_ms"],
+        "bound_by": rm_q["quantize_rows_bound_by"], "library_ms": None,
+        "shape": [RM_QUANT_M[0], 768],
+    })
     bucket = seg["rows"][SEG_BUCKET]
     entries.append({
         "name": "segment_attention", "route": "cuda",
@@ -2327,10 +2891,11 @@ def main() -> int:
     timed("profiles", profile_dispatch, gpu)
     timed("profiles", profile_dispatch, gpu, quantize="int8")
     timed("profiles", profile_dispatch, gpu, quantize="int4-pallas")
+    rm = rm_phase(gpu, timed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
-                        seg, packed["row"]))
+                        seg, packed["row"], rm))
     print(gpu)
     emit({
         "ok": True,

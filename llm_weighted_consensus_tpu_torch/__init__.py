@@ -3,7 +3,8 @@
 The port serves the ``/consensus`` cosine scorer and ``/embeddings`` on
 an NVIDIA H100: a BERT-class encoder in PyTorch whose attention and
 consensus vote run in CUDA kernels written by hand for Hopper
-(``csrc/``).  It imports torch, numpy and the standard library only;
+(``csrc/``); and the ``/consensus`` reward-model scorer, a DeBERTa-v3
+encoder whose quantized dense layers run the same hand-written GEMMs.  It imports torch, numpy and the standard library only;
 nothing of JAX and nothing of the JAX package.
 
 Float32 matmuls stay at full precision: the reference computes the vote's

@@ -324,18 +324,19 @@ def default_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-def _build(
-    state: dict, config: BertConfig, dtype: Optional[torch.dtype], device
-) -> BertEncoder:
-    """A BertEncoder on ``device`` (CUDA unless ``"cpu"``) in ``dtype``
-    (by default bf16 on CUDA, f32 on the CPU) whose every parameter is
-    filled from ``state`` ({HF name: array}), gradients off.  Dense layers
-    that ``state`` carries quantized (``<name>.weight_q``, ``.scale``,
-    ``.bias``) become ``quant.QuantLinear`` modules with those bytes."""
+def build_from_state(
+    cls, state: dict, config, dtype: Optional[torch.dtype], device
+) -> nn.Module:
+    """``cls(config)`` (``BertEncoder`` or ``deberta.DebertaModel``) on
+    ``device`` (CUDA unless ``"cpu"``) in ``dtype`` (by default bf16 on
+    CUDA, f32 on the CPU) whose every parameter is filled from ``state``
+    ({parameter name: array}), gradients off.  Dense layers that ``state``
+    carries quantized (``<name>.weight_q``, ``.scale``, ``.bias``) become
+    ``quant.QuantLinear`` modules with those bytes."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     with torch.device("meta"):
-        model = BertEncoder(config)
+        model = cls(config)
     model = model.to_empty(device=device).to(dtype)
     quant.load_quantized(model, state, device)
     names = {name for name, _ in model.named_parameters()}
@@ -354,30 +355,41 @@ def _build(
     return model.requires_grad_(False).eval()
 
 
+def random_state(cls, config, seed: int) -> dict:
+    """{parameter name: array} of ``cls(config)`` from
+    ``numpy.random.default_rng(seed)``, in parameter order: unit
+    LayerNorm scales, zero biases, N(0, 0.02) for every other weight
+    (the reference's distributions, not its values)."""
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        model = cls(config)
+    norms = {
+        f"{name}.weight" for name, m in model.named_modules()
+        if isinstance(m, LayerNorm)
+    }
+    state = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if name in norms:
+            state[name] = np.ones(shape, np.float32)
+        elif name.endswith("bias"):
+            state[name] = np.zeros(shape, np.float32)
+        else:
+            state[name] = rng.standard_normal(shape, dtype=np.float32) * 0.02
+    return state
+
+
 def init_params(
     config: BertConfig,
     seed: int = 0,
     dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> BertEncoder:
-    """Random init from ``numpy.random.default_rng(seed)``: N(0, 0.02)
-    embeddings and dense weights, zero biases, unit LayerNorm scales.
-    On CUDA unless ``device="cpu"``."""
-    rng = np.random.default_rng(seed)
-    with torch.device("meta"):
-        shapes = {
-            name: tuple(p.shape)
-            for name, p in BertEncoder(config).named_parameters()
-        }
-    state = {}
-    for name, shape in shapes.items():
-        if name.endswith("LayerNorm.weight"):
-            state[name] = np.ones(shape, np.float32)
-        elif name.endswith("bias"):
-            state[name] = np.zeros(shape, np.float32)
-        else:
-            state[name] = rng.standard_normal(shape, dtype=np.float32) * 0.02
-    return _build(state, config, dtype, device)
+    """Random init (``random_state``) on CUDA unless ``device="cpu"``."""
+    return build_from_state(
+        BertEncoder, random_state(BertEncoder, config, seed), config, dtype,
+        device,
+    )
 
 
 def from_hf_state_dict(
@@ -390,4 +402,4 @@ def from_hf_state_dict(
     stripped) -> BertEncoder, on CUDA unless ``device="cpu"``.  The
     pooler and buffers such as ``embeddings.position_ids`` are
     ignored."""
-    return _build(state_dict, config, dtype, device)
+    return build_from_state(BertEncoder, state_dict, config, dtype, device)

@@ -1,10 +1,10 @@
-"""Encoder configurations: ``BertConfig`` and the BERT-family presets.
+"""Encoder configurations: ``BertConfig`` with the BERT-family presets,
+and ``DebertaConfig`` with the reward model's.
 
 Counterpart of ``llm_weighted_consensus_tpu/models/configs.py``, with the
 same field names and preset values.  Left out: ``attention_impl`` and
 ``ring_axis`` (the port's attention is the CUDA kernel on the card and
-its plain version on the CPU, nothing else) and ``DebertaConfig`` (the
-DeBERTa slice).
+its plain version on the CPU, nothing else).
 """
 
 from __future__ import annotations
@@ -158,3 +158,58 @@ def position_base(config: BertConfig) -> int:
 def usable_positions(config: BertConfig) -> int:
     """Longest sequence the position table supports."""
     return config.max_position_embeddings - position_base(config)
+
+
+@dataclass(frozen=True)
+class DebertaConfig:
+    """DeBERTa-style encoder with disentangled relative attention (the
+    reward model behind ``/consensus {"scorer": "rm"}``).
+
+    ``position_buckets > 0`` selects DeBERTa-v3's log-bucketed relative
+    positions (HF ``make_log_bucket_position``: exact within
+    +-buckets/2, log-spaced beyond, out to ``max_relative_positions``;
+    relative table rows = 2 x buckets), the scheme every released v3
+    checkpoint is trained with.  ``position_buckets = 0`` is the plain
+    clamp scheme (rows = 2 x max_relative_positions).
+    """
+
+    vocab_size: int = 128100
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_relative_positions: int = 512  # furthest distinguishable distance
+    position_buckets: int = 256  # 0 = clamp scheme
+    layer_norm_eps: float = 1e-7
+    pad_token_id: int = 0
+    # a QUANT_MODES value, stamped by models.quant.resolve_quantize: the
+    # content and MLP dense layers as W8A8 / W4A8; the position
+    # projections and the reward head stay full precision
+    quantize: str = "none"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def att_span(self) -> int:
+        """Half the relative-position table (HF ``pos_ebd_size``)."""
+        return (
+            self.position_buckets
+            if self.position_buckets > 0
+            else self.max_relative_positions
+        )
+
+
+# microsoft/deberta-v3-base shapes: max_relative_positions=-1 in HF
+# resolves to max_position_embeddings (512); position_buckets=256
+DEBERTA_V3_BASE = DebertaConfig()
+DEBERTA_TEST_TINY = DebertaConfig(
+    vocab_size=512,
+    hidden_size=64,
+    num_layers=2,
+    num_heads=4,
+    intermediate_size=128,
+    max_relative_positions=16,
+    position_buckets=0,
+)

@@ -1,8 +1,10 @@
-"""Carry the JAX package's BERT parameters into the port.
+"""Carry the JAX package's BERT and DeBERTa parameters into the port.
 
-``from_jax_params`` turns the reference's parameter pytree (already
+``from_jax_params`` turns the reference's BERT parameter pytree (already
 converted to numpy by the caller) into the port's HF-named state dict,
-so that both packages can run on the same weights:
+and ``from_jax_deberta_params`` its DeBERTa pytree into the state of
+``deberta.DebertaModel`` (the reference's names), so that both packages
+can run on the same weights:
 
 * a JAX dense ``kernel`` is ``[in, out]``; torch ``Linear`` wants
   ``[out, in]``, so it is transposed;
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .configs import BertConfig
+from .configs import BertConfig, DebertaConfig
 
 _LAYER_DENSE = {
     "attn_q": "attention.self.query",
@@ -44,6 +46,22 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def _dense_into(state: dict, name: str, p: dict, i=None) -> None:
+    """One JAX dense leaf (layer ``i`` of a stacked one) as ``name.*``:
+    ``weight`` transposed, or a quantized leaf's bytes as ``weight_q``
+    and ``scale``, and the bias."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if "kernel_q" in p:
+        kq = np.asarray(pick(p["kernel_q"]))
+        if kq.dtype not in (np.int8, np.uint8):
+            raise TypeError(f"{name}.kernel_q is {kq.dtype}")
+        state[f"{name}.weight_q"] = kq.T.copy()
+        state[f"{name}.scale"] = _f32(pick(p["scale"]))
+    else:
+        state[f"{name}.weight"] = _f32(pick(p["kernel"])).T.copy()
+    state[f"{name}.bias"] = _f32(pick(p["bias"]))
+
+
 def from_jax_params(tree: dict, config: BertConfig) -> dict:
     """JAX BERT params (nested dict of arrays) -> {HF name: np.ndarray}."""
     state = {
@@ -57,18 +75,38 @@ def from_jax_params(tree: dict, config: BertConfig) -> dict:
     for i in range(config.num_layers):
         base = f"encoder.layer.{i}"
         for jax_name, hf in _LAYER_DENSE.items():
-            p = layers[jax_name]
-            if "kernel_q" in p:
-                kq = np.asarray(p["kernel_q"][i])
-                if kq.dtype not in (np.int8, np.uint8):
-                    raise TypeError(f"{jax_name}.kernel_q is {kq.dtype}")
-                state[f"{base}.{hf}.weight_q"] = kq.T.copy()
-                state[f"{base}.{hf}.scale"] = _f32(p["scale"][i])
-            else:
-                state[f"{base}.{hf}.weight"] = _f32(p["kernel"][i]).T.copy()
-            state[f"{base}.{hf}.bias"] = _f32(p["bias"][i])
+            _dense_into(state, f"{base}.{hf}", layers[jax_name], i)
         for jax_name, hf in _LAYER_LN.items():
             p = layers[jax_name]
             state[f"{base}.{hf}.weight"] = _f32(p["scale"][i])
             state[f"{base}.{hf}.bias"] = _f32(p["bias"][i])
+    return state
+
+
+_DEBERTA_DENSE = (
+    "attn_q", "attn_k", "attn_v", "pos_q", "pos_k", "attn_out", "mlp_in",
+    "mlp_out",
+)
+
+
+def from_jax_deberta_params(tree: dict, config: DebertaConfig) -> dict:
+    """JAX DeBERTa params (``deberta.init_params`` / ``from_hf_weights`` /
+    ``quantize_deberta_params`` trees, stacked ``layers``) -> {port name:
+    np.ndarray} for ``deberta.from_state``."""
+    state = {
+        "token_embed.weight": _f32(tree["token_embed"]),
+        "rel_embed.weight": _f32(tree["rel_embed"]),
+    }
+    for ln in ("embed_ln", "rel_ln"):
+        state[f"{ln}.weight"] = _f32(tree[ln]["scale"])
+        state[f"{ln}.bias"] = _f32(tree[ln]["bias"])
+    layers = tree["layers"]
+    for i in range(config.num_layers):
+        for name in _DEBERTA_DENSE:
+            _dense_into(state, f"layers.{i}.{name}", layers[name], i)
+        for ln in ("attn_ln", "mlp_ln"):
+            state[f"layers.{i}.{ln}.weight"] = _f32(layers[ln]["scale"][i])
+            state[f"layers.{i}.{ln}.bias"] = _f32(layers[ln]["bias"][i])
+    for name in ("head_dense", "head_out"):
+        _dense_into(state, name, tree[name])
     return state

@@ -1,7 +1,8 @@
 """Offline encoder weight loading (local files only, no network).
 
-Counterpart of ``llm_weighted_consensus_tpu/models/loading.py``.  Two
-accepted layouts:
+Counterpart of ``llm_weighted_consensus_tpu/models/loading.py`` and of
+the reward model's ``load_rm_params`` (``models/reranker.py`` there).
+Two accepted layouts:
 
 * an HF snapshot directory (``model.safetensors`` or ``pytorch_model.bin``
   and usually ``vocab.txt``);
@@ -11,8 +12,10 @@ accepted layouts:
 8-byte little-endian header length, a JSON header, then the raw
 buffers), so no ``safetensors`` package is needed; ``.bin``/``.pt`` load
 with ``torch.load(weights_only=True)``.  HF state dicts may carry a
-``bert.`` prefix (task-head checkpoints); it is stripped.  The orbax
-checkpoints of the JAX trainer are not read here.
+``bert.`` (or, for the reward model, ``deberta.``) prefix from task-head
+checkpoints; it is stripped.  The orbax checkpoints of the JAX trainer
+are refused by name: they belong to the trainers' slice (``ROADMAP.md``,
+queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -25,12 +28,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .configs import BertConfig
+from .configs import BertConfig, DebertaConfig
+from .spm import SPM_FILES
 
 _HF_FILES = ("model.safetensors", "pytorch_model.bin")
-# SentencePiece protos next to XLM-R / DeBERTa checkpoints (the reference's
-# models/spm.py SPM_FILES); found but not tokenized by this slice
-_SPM_FILES = ("sentencepiece.bpe.model", "spm.model")
 
 _ST_DTYPES = {
     "F64": np.float64,
@@ -95,12 +96,26 @@ def load_state_dict(path: str) -> dict:
     return _strip_prefix(state)
 
 
+def _is_orbax_dir(path: str) -> bool:
+    entries = set(os.listdir(path))
+    return bool(
+        entries
+        & {"_METADATA", "manifest.ocdbt", "_CHECKPOINT_METADATA", "d"}
+    )
+
+
 def _weights_file(path: str) -> str:
     if os.path.isdir(path):
         for name in _HF_FILES:
             candidate = os.path.join(path, name)
             if os.path.exists(candidate):
                 return candidate
+        if _is_orbax_dir(path):
+            raise NotImplementedError(
+                f"{path!r} is an orbax checkpoint of the JAX trainer; the "
+                "PyTorch port reads HF weights only (orbax checkpoints come "
+                "with the trainers, ROADMAP.md queue 1 item 8)"
+            )
         raise FileNotFoundError(
             f"{path!r} is a directory but contains no HF weights file "
             f"({'/'.join(_HF_FILES)})"
@@ -127,17 +142,46 @@ def load_params(
 
 def find_vocab(weights_path: str) -> Optional[str]:
     """Tokenizer asset sitting next to the weights, if any (HF snapshot
-    layout): WordPiece ``vocab.txt`` or a SentencePiece model proto."""
+    layout): WordPiece ``vocab.txt`` or a SentencePiece model proto
+    (``spm.SPM_FILES``: XLM-R's ``sentencepiece.bpe.model``, DeBERTa's
+    ``spm.model``, T5-style ``spiece.model``)."""
     root = (
         weights_path
         if os.path.isdir(weights_path)
         else os.path.dirname(weights_path)
     )
-    for name in ("vocab.txt",) + _SPM_FILES:
+    for name in ("vocab.txt",) + SPM_FILES:
         candidate = os.path.join(root, name)
         if os.path.exists(candidate):
             return candidate
     return None
+
+
+def _strip_deberta_prefix(state: dict) -> dict:
+    """HF task-model checkpoints prefix the backbone with ``deberta.``;
+    the head weights (``pooler``, ``classifier``) stay unprefixed."""
+    return {
+        (key[len("deberta."):] if key.startswith("deberta.") else key): value
+        for key, value in state.items()
+    }
+
+
+def load_rm_params(
+    path: str,
+    config: DebertaConfig,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+):
+    """The reward model from a local HF DeBERTa-v2/v3 snapshot directory or
+    weights file -> ``(deberta.DebertaModel, head_loaded)``, on CUDA
+    unless ``device="cpu"``.  ``head_loaded`` is False for an
+    encoder-only checkpoint, whose reward head is random-init (and so
+    synthetic state, gated like random weights)."""
+    from . import deberta
+
+    state = _strip_deberta_prefix(load_state_dict(_weights_file(path)))
+    model = deberta.from_hf_weights(state, config, dtype=dtype, device=device)
+    return model, "pooler.dense.weight" in state
 
 
 def load_hf_config(path: str) -> BertConfig:

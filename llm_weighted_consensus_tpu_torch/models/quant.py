@@ -18,7 +18,10 @@ the reference.
 swaps the six dense layers of every encoder layer (query, key, value,
 attention output, MLP in and out) for it, and ``layers.dense_cfg`` /
 ``mlp_cfg`` route through it.  Embeddings, LayerNorm, attention and
-pooling stay in the param dtype, as in the reference.
+pooling stay in the param dtype, as in the reference.  The same six
+layers of the DeBERTa reward model (``attn_q`` ... ``mlp_out``) quantize
+alike; its position projections ``pos_q`` / ``pos_k`` and its reward
+head stay full precision (``DEBERTA_QUANT_DENSE``, ``dense_slots``).
 
 Modes: ``int8``, ``int8-pallas`` and ``int4-pallas`` run the hand-written
 kernels of ``csrc/quant_matmul.cu`` on the card and their plain versions
@@ -29,7 +32,7 @@ the port does not have; it is refused, never served by another path.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ from ..ops.kernels import (
     w4a8_matmul,
     w8a8_matmul,
 )
-from .configs import QUANT_MODES, BertConfig
+from .configs import QUANT_MODES
 
 # the six dense layers of a BertLayer that quantize, by attribute path
 QUANT_LAYER_DENSE = (
@@ -52,6 +55,10 @@ QUANT_LAYER_DENSE = (
     "attention.output.dense",
     "intermediate.dense",
     "output.dense",
+)
+# the same six of a DeBERTa layer, by attribute
+DEBERTA_QUANT_DENSE = (
+    "attn_q", "attn_k", "attn_v", "attn_out", "mlp_in", "mlp_out",
 )
 
 
@@ -147,15 +154,35 @@ class QuantLinear(nn.Module):
 
 
 
+def dense_slots(model):
+    """(parent module, attribute, state name) of every dense layer a
+    quantize mode replaces, for a ``bert.BertEncoder`` (HF names) or a
+    ``deberta.DebertaModel`` (the reference's names)."""
+    if hasattr(model, "encoder"):
+        for i, layer in enumerate(model.encoder.layer):
+            for path in QUANT_LAYER_DENSE:
+                parent_path, _, leaf = path.rpartition(".")
+                yield (layer.get_submodule(parent_path), leaf,
+                       f"encoder.layer.{i}.{path}")
+    else:
+        for i, layer in enumerate(model.layers):
+            for leaf in DEBERTA_QUANT_DENSE:
+                yield layer, leaf, f"layers.{i}.{leaf}"
+
+
+def _first_dense(model):
+    parent, leaf, _ = next(dense_slots(model))
+    return getattr(parent, leaf)
+
+
 def is_quantized(model) -> bool:
     """Whether the encoder's layer stack carries quantized dense layers."""
-    query = model.encoder.layer[0].attention.self.query
-    return isinstance(query, QuantLinear)
+    return isinstance(_first_dense(model), QuantLinear)
 
 
 def is_int4(model) -> bool:
     """Whether the quantized layer stack holds packed int4 weights."""
-    return is_quantized(model) and model.encoder.layer[0].attention.self.query.int4
+    return is_quantized(model) and _first_dense(model).int4
 
 
 def quantize_encoder(model, mode: str):
@@ -163,14 +190,9 @@ def quantize_encoder(model, mode: str):
     ``QuantLinear`` (int4 for ``int4-*`` modes, else int8), in place, and
     stamp ``mode`` on ``model.config``.  Returns the model."""
     int4 = mode.startswith("int4")
-    for layer in model.encoder.layer:
-        for path in QUANT_LAYER_DENSE:
-            parent_path, _, leaf = path.rpartition(".")
-            parent = layer.get_submodule(parent_path)
-            setattr(
-                parent, leaf,
-                QuantLinear.from_linear(getattr(parent, leaf), int4),
-            )
+    for parent, leaf, _ in list(dense_slots(model)):
+        setattr(parent, leaf,
+                QuantLinear.from_linear(getattr(parent, leaf), int4))
     model.config = dataclasses.replace(model.config, quantize=mode)
     return model
 
@@ -182,21 +204,17 @@ def load_quantized(model, state: dict, device: torch.device) -> set:
     ``device``.  Returns the state names consumed."""
     used = set()
     modes = set()
-    for i, layer in enumerate(model.encoder.layer):
-        for path in QUANT_LAYER_DENSE:
-            name = f"encoder.layer.{i}.{path}"
-            if f"{name}.weight_q" not in state:
-                continue
-            parent_path, _, leaf = path.rpartition(".")
-            parent = layer.get_submodule(parent_path)
-            tensors = [
-                torch.from_numpy(np.array(state[f"{name}.{key}"])).to(device)
-                for key in ("weight_q", "scale", "bias")
-            ]
-            q = QuantLinear(*tensors, getattr(parent, leaf).in_features)
-            setattr(parent, leaf, q)
-            modes.add("int4-pallas" if q.int4 else "int8")
-            used.update(f"{name}.{key}" for key in ("weight_q", "scale", "bias"))
+    for parent, leaf, name in list(dense_slots(model)):
+        if f"{name}.weight_q" not in state:
+            continue
+        tensors = [
+            torch.from_numpy(np.array(state[f"{name}.{key}"])).to(device)
+            for key in ("weight_q", "scale", "bias")
+        ]
+        q = QuantLinear(*tensors, getattr(parent, leaf).in_features)
+        setattr(parent, leaf, q)
+        modes.add("int4-pallas" if q.int4 else "int8")
+        used.update(f"{name}.{key}" for key in ("weight_q", "scale", "bias"))
     if len(modes) > 1:
         raise ValueError("checkpoint mixes int8 and int4 dense layers")
     if modes and model.config.quantize == "none":
@@ -204,12 +222,13 @@ def load_quantized(model, state: dict, device: torch.device) -> set:
     return used
 
 
-def resolve_quantize(model, config: Optional[BertConfig], quantize: str):
-    """The one quantize-mode entry point for the embedder: validates the
-    mode, quantizes a full-precision model in place (from its weights in
-    their current dtype) and returns the config stamped with the mode.  A
-    model that is already quantized passes through if its layout agrees
-    with the mode."""
+def resolve_quantize(model, config, quantize: str):
+    """The one quantize-mode entry point for the embedder and the
+    reranker: validates the mode, quantizes a full-precision model (a
+    ``BertEncoder`` or a ``DebertaModel``) in place, from its weights in
+    their current dtype, and returns ``config`` (by default the model's)
+    stamped with the mode.  A model that is already quantized passes
+    through if its layout agrees with the mode."""
     if quantize not in QUANT_MODES:
         raise ValueError(
             f"quantize={quantize!r}: expected one of {', '.join(QUANT_MODES)}"

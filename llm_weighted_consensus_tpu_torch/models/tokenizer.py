@@ -6,13 +6,16 @@ sees only int arrays.  Two implementations behind one interface:
 
 * ``WordPieceTokenizer`` — the real BERT algorithm (basic whitespace +
   punctuation split, greedy longest-match with ``##`` continuations) given
-  a ``vocab.txt``; loads bge vocabularies from local files (no network);
+  a ``vocab.txt``; loads bge vocabularies from local files (no network),
+  with the native C++ fast path for ASCII texts (``native/wordpiece.cpp``
+  through ``NativeTokenizerBridge``);
 * ``HashTokenizer``     — deterministic hashing into a fixed vocab so the
   whole pipeline (tests, CPU mesh, benches without downloaded assets) runs
   with identical shapes and padding behavior.
 
 Both pad/truncate to a fixed ``max_length`` and return numpy int32 arrays
-(ids, attention_mask).
+(ids, attention_mask).  SentencePiece protos tokenize through
+``spm.UnigramTokenizer`` (``load_tokenizer`` picks it by file name).
 """
 
 from __future__ import annotations
@@ -79,20 +82,34 @@ def basic_tokenize(text: str) -> list:
 
 
 class WordPieceTokenizer(BaseTokenizer):
-    """WordPiece in pure Python (Unicode NFD + combining-mark handling).
+    """WordPiece with a native (C++) ASCII fast path.
 
-    The reference's native C++ ASCII fast path (``native/wordpiece.cpp``)
-    is byte-identical to this path and is left to a later slice
-    (ROADMAP.md, queue 1 item 1).
+    Pure-ASCII texts encode through ``native/wordpiece.cpp`` when the
+    native library loads (``utils.native``; byte for byte the Python
+    path's ids); other texts take the Python path, which owns the
+    Unicode NFD + combining-mark handling.  ``use_native=False`` keeps
+    Python everywhere.
     """
 
-    def __init__(self, vocab: dict, max_chars_per_word: int = 100):
+    def __init__(
+        self,
+        vocab: dict,
+        max_chars_per_word: int = 100,
+        use_native: bool = True,
+    ):
         self.vocab = vocab
         self.max_chars_per_word = max_chars_per_word
         self.pad_id = vocab[PAD]
         self.cls_id = vocab[CLS]
         self.sep_id = vocab[SEP]
         self.unk_id = vocab[UNK]
+        # the C++ path hardcodes the default word-length cap; any other
+        # cap keeps the Python path
+        self._native = (
+            _native_wordpiece(vocab)
+            if use_native and max_chars_per_word == 100
+            else None
+        )
 
     @classmethod
     def from_vocab_file(cls, path: str, **kwargs) -> "WordPieceTokenizer":
@@ -126,6 +143,10 @@ class WordPieceTokenizer(BaseTokenizer):
         return pieces
 
     def _encode(self, text: str, max_length: int):
+        if self._native is not None and text.isascii():
+            out = self._native.encode(text, max_length)
+            if out is not None:
+                return out
         ids = [self.cls_id]
         for word in basic_tokenize(text):
             ids.extend(self._wordpiece(word))
@@ -134,6 +155,84 @@ class WordPieceTokenizer(BaseTokenizer):
         ids = ids[: max_length - 1]
         ids.append(self.sep_id)
         return ids
+
+
+class NativeTokenizerBridge:
+    """ctypes bridge to one native tokenizer (``<prefix>_new`` /
+    ``<prefix>_encode`` / ``<prefix>_free`` in the native library), shared
+    by the WordPiece ("wp") and unigram ("spm") fast paths, which expose
+    the same C ABI."""
+
+    def __init__(self, lib, prefix: str, blob: bytes):
+        import ctypes
+
+        new = getattr(lib, f"{prefix}_new")
+        new.restype = ctypes.c_void_p
+        new.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+        free = getattr(lib, f"{prefix}_free")
+        free.restype = None
+        free.argtypes = [ctypes.c_void_p]
+        encode = getattr(lib, f"{prefix}_encode")
+        encode.restype = ctypes.c_int64
+        encode.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_size_t,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        self._ctypes = ctypes
+        self._encode = encode
+        self._free = free
+        self._blob = blob
+        self._handle = new(blob, len(blob))
+        if not self._handle:
+            raise ValueError(f"native {prefix} tokenizer rejected the blob")
+
+    def encode(self, text: str, max_length: int):
+        """ASCII ``text`` -> ids (with the specials), or None where the
+        native path declines the text."""
+        # a fresh output buffer per call: ctypes releases the GIL during
+        # the call, and the server tokenizes on concurrent handler
+        # threads, so a shared buffer would race
+        buf = (self._ctypes.c_int32 * max_length)()
+        raw = text.encode("ascii")
+        n = self._encode(self._handle, raw, len(raw), max_length, buf)
+        if n < 0:
+            return None
+        return list(buf[: int(n)])
+
+    def __del__(self):
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            self._free(handle)
+
+
+def _native_wordpiece(vocab: dict):
+    """A native bridge for this vocab, or None when the native library is
+    unavailable or the vocab cannot be serialized (ids must be exactly
+    0..n-1, tokens newline-free, the specials present)."""
+    from ..utils.native import load_library
+
+    lib = load_library()
+    if lib is None:
+        return None
+    n = len(vocab)
+    lines = [None] * n
+    for token, i in vocab.items():
+        if (
+            not isinstance(i, int)
+            or not 0 <= i < n
+            or lines[i] is not None
+            or "\n" in token
+            or "\r" in token
+        ):
+            return None
+        lines[i] = token
+    if any(line is None for line in lines):
+        return None
+    blob = ("\n".join(lines) + "\n").encode("utf-8")
+    return NativeTokenizerBridge(lib, "wp", blob)
 
 
 class HashTokenizer(BaseTokenizer):
@@ -172,14 +271,17 @@ class HashTokenizer(BaseTokenizer):
 
 
 def load_tokenizer(
-    vocab_path: Optional[str] = None, vocab_size: int = 30522
+    vocab_path: Optional[str] = None,
+    vocab_size: int = 30522,
+    scheme: Optional[str] = None,
 ) -> BaseTokenizer:
     """Real tokenizer for ``vocab_path``, hash fallback when none given.
 
-    ``*.txt`` -> WordPiece.  SentencePiece protos (``*.model`` /
-    ``*.spm``) are not ported yet and raise.  A configured path that does
-    not exist is an error, not a silent hash fallback — a typo'd
-    EMBEDDER_VOCAB must not serve garbage tokenization that looks valid.
+    ``*.txt`` -> WordPiece; ``*.model`` / ``*.spm`` -> SentencePiece
+    unigram (``scheme`` picks the xlmr / deberta id convention, default
+    xlmr; see ``spm``).  A configured path that does not exist is an
+    error, not a silent hash fallback: a typo'd EMBEDDER_VOCAB must not
+    serve garbage tokenization that looks valid.
     """
     if vocab_path:
         import os
@@ -189,9 +291,10 @@ def load_tokenizer(
                 f"tokenizer vocab {vocab_path!r} does not exist"
             )
         if vocab_path.endswith((".model", ".spm")):
-            raise NotImplementedError(
-                f"SentencePiece tokenizer {vocab_path!r}: models/spm.py is "
-                "not ported yet (ROADMAP.md, queue 1 item 1)"
+            from .spm import UnigramTokenizer
+
+            return UnigramTokenizer.from_model_file(
+                vocab_path, scheme or "xlmr"
             )
         return WordPieceTokenizer.from_vocab_file(vocab_path)
     return HashTokenizer(vocab_size)

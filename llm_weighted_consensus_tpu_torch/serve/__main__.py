@@ -1,15 +1,16 @@
 """Serve the port: ``python -m llm_weighted_consensus_tpu_torch.serve
 --port P [--host H] [--device cuda|cpu]``.
 
-Environment, as the reference's server reads it:
+Environment, as the reference's server reads it.  At least one of
+``EMBEDDER_MODEL`` and ``RM_MODEL`` is required.
 
 * ``EMBEDDER_MODEL`` — encoder preset (``bge-large-en``, ``e5-base-v2``,
-  ... ``test-tiny``); required;
+  ... ``test-tiny``) behind ``/consensus`` (cosine) and ``/embeddings``;
 * ``EMBEDDER_WEIGHTS`` — an HF snapshot directory or a weights file;
   unset = random init, refused unless ``LWC_ALLOW_RANDOM_PARAMS=1``;
-* ``EMBEDDER_VOCAB`` — a WordPiece ``vocab.txt``; defaults to the one
-  beside the weights, else the hash tokenizer (also synthetic, same
-  opt-in);
+* ``EMBEDDER_VOCAB`` — a WordPiece ``vocab.txt`` or a SentencePiece
+  proto; defaults to the one beside the weights, else the hash tokenizer
+  (also synthetic, same opt-in);
 * ``EMBEDDER_MAX_TOKENS`` — truncation window (default 512);
 * ``EMBEDDER_QUANTIZE`` — ``none`` (default), ``int8`` or ``int8-pallas``
   (the encoder's dense layers as W8A8 int8 tensor-core kernels) or
@@ -29,9 +30,26 @@ Environment, as the reference's server reads it:
   candidate prefix once and compose each candidate from its prefix and
   suffix vectors (default 1, on);
 * ``PREFIX_DEDUP_MIN_CHARS`` — the shortest shared prefix worth that
-  (default 48, min 1).
+  (default 48, min 1);
+* ``RM_MODEL`` — reward-model preset (``deberta-v3-base``,
+  ``deberta-test-tiny``) behind ``/consensus {"scorer": "rm"}``;
+* ``RM_WEIGHTS`` — an HF DeBERTa-v2/v3 snapshot directory or weights
+  file; unset = random init, and an encoder-only checkpoint has a
+  random-init reward head: both refused unless
+  ``LWC_ALLOW_RANDOM_PARAMS=1``;
+* ``RM_VOCAB`` — the SentencePiece ``spm.model`` (deberta id scheme) or
+  a ``vocab.txt``; defaults to the one beside ``RM_WEIGHTS``, else the
+  hash tokenizer (synthetic, same opt-in);
+* ``RM_MAX_TOKENS`` — truncation window of a (prompt, candidate) pair
+  (default 512);
+* ``RM_QUANTIZE`` — as ``EMBEDDER_QUANTIZE``, for the reward model's
+  content and MLP dense layers (its position projections and head stay
+  full precision).
 
-The device defaults to CUDA; without a card that raises.
+The native tokenizer library (``native/*.cpp``) is built at first use
+into ``build/native/`` (``utils.native``; ``LWC_NATIVE=0`` keeps the
+Python tokenizers).  The device defaults to CUDA; without a card that
+raises.
 """
 
 from __future__ import annotations
@@ -53,7 +71,7 @@ def build_embedder(env, device=None, dtype=None):
     Synthetic state — random weights or the hash tokenizer — embeds
     garbage that looks valid, so it needs ``LWC_ALLOW_RANDOM_PARAMS``."""
     from ..models.bert import resolve_device
-    from ..models.configs import PRESETS, QUANT_MODES
+    from ..models.configs import PRESETS
     from ..models.embedder import TorchEmbedder
     from ..models.loading import find_vocab, load_params
     from ..models.tokenizer import HashTokenizer, load_tokenizer
@@ -66,11 +84,7 @@ def build_embedder(env, device=None, dtype=None):
         )
     config = PRESETS[name]
     quantize = env.get("EMBEDDER_QUANTIZE") or "none"
-    if quantize not in QUANT_MODES:
-        raise ValueError(
-            f"EMBEDDER_QUANTIZE={quantize!r} is not a quantize mode; valid "
-            "values: " + ", ".join(QUANT_MODES)
-        )
+    _check_quantize("EMBEDDER_QUANTIZE", quantize)
     device = resolve_device(device)
     model = None
     vocab = env.get("EMBEDDER_VOCAB")
@@ -107,6 +121,86 @@ def build_embedder(env, device=None, dtype=None):
     return embedder
 
 
+def _check_quantize(var: str, quantize: str) -> None:
+    from ..models.configs import QUANT_MODES
+
+    if quantize not in QUANT_MODES:
+        raise ValueError(
+            f"{var}={quantize!r} is not a quantize mode; valid values: "
+            + ", ".join(QUANT_MODES)
+        )
+
+
+def build_reranker(env, device=None, dtype=None):
+    """A ``TorchReranker`` from the environment (see module doc), or None
+    without ``RM_MODEL``.  Synthetic state — random weights, a random
+    reward head or the hash tokenizer — scores garbage that looks valid,
+    so it needs ``LWC_ALLOW_RANDOM_PARAMS``."""
+    name = env.get("RM_MODEL")
+    if not name:
+        return None
+    from ..models.bert import resolve_device
+    from ..models.loading import find_vocab, load_rm_params
+    from ..models.reranker import RM_PRESETS, TorchReranker
+    from ..models.spm import scheme_for_model
+    from ..models.tokenizer import HashTokenizer, load_tokenizer
+
+    if name not in RM_PRESETS:
+        raise ValueError(
+            f"RM_MODEL={name!r} is not a known preset; valid values: "
+            + ", ".join(sorted(RM_PRESETS))
+        )
+    quantize = env.get("RM_QUANTIZE") or "none"
+    _check_quantize("RM_QUANTIZE", quantize)
+    device = resolve_device(device)
+    model, head_loaded = None, False
+    vocab = env.get("RM_VOCAB")
+    weights = env.get("RM_WEIGHTS")
+    if weights:
+        model, head_loaded = load_rm_params(
+            weights, RM_PRESETS[name], dtype=dtype, device=device
+        )
+        vocab = vocab or find_vocab(weights)
+    reranker = TorchReranker(
+        name,
+        model=model,
+        config=RM_PRESETS[name],
+        tokenizer=(
+            load_tokenizer(vocab, scheme=scheme_for_model(name))
+            if vocab else None
+        ),
+        max_tokens=int(env.get("RM_MAX_TOKENS") or 512),
+        device=device,
+        dtype=dtype,
+        quantize=quantize,
+    )
+    synthetic = []
+    if model is None:
+        synthetic.append("random-init RM weights (no RM_WEIGHTS)")
+    elif not head_loaded:
+        synthetic.append(
+            "a random-init reward head (encoder-only checkpoint: no "
+            "pooler/classifier weights in RM_WEIGHTS)"
+        )
+    if isinstance(reranker.tokenizer, HashTokenizer):
+        synthetic.append(
+            "hash tokenizer (no RM_VOCAB and no vocab/spm file beside "
+            "RM_WEIGHTS)"
+        )
+    if synthetic:
+        detail = (
+            f"RM_MODEL={name} would serve " + " and ".join(synthetic)
+            + ": reward re-ranking would be garbage that looks valid."
+        )
+        if not _truthy(env.get("LWC_ALLOW_RANDOM_PARAMS", "")):
+            raise ValueError(
+                detail + " Point RM_WEIGHTS at a checkpoint, or opt in "
+                "with LWC_ALLOW_RANDOM_PARAMS=1."
+            )
+        log.warning("SYNTHETIC RM PARAMS: %s Serving anyway.", detail)
+    return reranker
+
+
 def packing_options(env) -> dict:
     """The batcher's packing keyword arguments from the environment, with
     the reference's defaults and clamps (``serve/config.py``)."""
@@ -136,14 +230,26 @@ def main(argv=None) -> int:
 
     from .gateway import Server
 
-    embedder = build_embedder(os.environ, device=args.device)
-    packing = packing_options(os.environ)
-    server = Server(embedder, host=args.host, port=args.port, **packing)
-    log.info(
-        "serving %s on %s:%d (%s, %s, quantize=%s, packing=%s)",
-        embedder.model_name, args.host, server.port, embedder.device,
-        embedder.dtype, embedder.config.quantize, packing["packing"],
+    env = os.environ
+    if not (env.get("EMBEDDER_MODEL") or env.get("RM_MODEL")):
+        parser.error("set EMBEDDER_MODEL, RM_MODEL or both")
+    embedder = (
+        build_embedder(env, device=args.device)
+        if env.get("EMBEDDER_MODEL") else None
     )
+    reranker = build_reranker(env, device=args.device)
+    packing = packing_options(env)
+    server = Server(embedder, host=args.host, port=args.port,
+                    reranker=reranker, **packing)
+    for what, served in (("embedder", embedder), ("reranker", reranker)):
+        if served is not None:
+            log.info(
+                "serving %s %s on %s:%d (%s, %s, quantize=%s)", what,
+                served.model_name, args.host, server.port, served.device,
+                served.dtype, served.config.quantize,
+            )
+    if embedder is not None:
+        log.info("packing=%s", packing["packing"])
     try:
         server.serve_forever()
     except KeyboardInterrupt:

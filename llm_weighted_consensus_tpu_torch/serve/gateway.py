@@ -5,16 +5,23 @@ of ``llm_weighted_consensus_tpu/serve/gateway.py``, with the same request
 bodies, responses and input validation:
 
 * ``POST /consensus`` — ``{"input": [>= 2 strings, at most 256],
-  "scorer"?: "cosine", "temperature"?: finite positive number}`` ->
+  "scorer"?: "cosine" | "rm", "prompt"?: str, "temperature"?: finite
+  positive number (default 0.05 for cosine, 1.0 for rm)}`` ->
   ``{"model", "scorer", "confidence": [...], "usage": {"prompt_tokens",
-  "total_tokens"}}``.  The ``rm`` scorer is not ported yet and gets 400;
+  "total_tokens"}}``.  ``cosine`` is the embedder's self-consistency
+  vote; ``rm`` is the reward model's ``softmax(reward / T)``, each
+  candidate scored after the prompt.  A scorer whose model is not
+  configured gets 400 naming ``EMBEDDER_MODEL`` or ``RM_MODEL``;
 * ``POST /embeddings`` — ``{"model": str, "input": str | [str]}`` -> the
-  OpenAI embeddings response; another model name gets 400;
+  OpenAI embeddings response; another model name gets 400; without an
+  embedder the route does not exist (404);
 * ``GET /healthz`` -> ``{"ok": true}``.
 
 Errors use the ``{"code", "message"}`` envelope.  Each request runs on
-its own handler thread and waits on the batcher, so concurrent requests
-coalesce into shared device dispatches.
+its own handler thread.  Cosine and embeddings requests wait on the
+batcher, so concurrent requests coalesce into shared device dispatches;
+an rm request runs its own forward on its handler thread (its softmax
+spans only its own candidates).
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ class BadRequest(ValueError):
     pass
 
 
-def parse_consensus(body) -> tuple:
-    """Validated (texts, temperature) of a /consensus body."""
+def parse_consensus(body, has_cosine: bool, has_rm: bool):
+    """Validated (texts, scorer, prompt, temperature) of a /consensus
+    body, given which scorers this server has."""
     if not isinstance(body, dict):
         raise BadRequest("body must be a JSON object")
     texts = body.get("input")
@@ -53,23 +61,24 @@ def parse_consensus(body) -> tuple:
             "candidates per request"
         )
     scorer = body.get("scorer", "cosine")
-    if scorer == "rm":
-        raise BadRequest(
-            "rm scorer unavailable: the DeBERTa reward model is not ported "
-            "to this server yet (ROADMAP.md, queue 1 item 9)"
-        )
-    if scorer != "cosine":
+    if scorer not in ("cosine", "rm"):
         raise BadRequest("`scorer` must be 'cosine' or 'rm'")
+    if scorer == "cosine" and not has_cosine:
+        raise BadRequest(
+            "cosine scorer unavailable: no EMBEDDER_MODEL configured"
+        )
+    if scorer == "rm" and not has_rm:
+        raise BadRequest("rm scorer unavailable: no RM_MODEL configured")
     prompt = body.get("prompt")
     if prompt is not None and not isinstance(prompt, str):
         raise BadRequest("`prompt` must be a string")
-    traw = body.get("temperature", 0.05)
+    traw = body.get("temperature", 0.05 if scorer == "cosine" else 1.0)
     if isinstance(traw, bool) or not isinstance(traw, (int, float)):
         raise BadRequest("`temperature` must be a number")
     temperature = float(traw)
     if not math.isfinite(temperature) or temperature <= 0:
         raise BadRequest("`temperature` must be a finite positive number")
-    return texts, temperature
+    return texts, scorer, prompt, temperature
 
 
 def parse_embeddings(body, model_name: str) -> list:
@@ -94,7 +103,7 @@ def parse_embeddings(body, model_name: str) -> list:
     return list(texts)
 
 
-def make_handler(embedder, batcher):
+def make_handler(embedder, batcher, reranker):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -138,8 +147,10 @@ def make_handler(embedder, batcher):
             try:
                 body = self._body()
                 if self.path == "/consensus":
-                    texts, temperature = parse_consensus(body)
-                elif self.path == "/embeddings":
+                    texts, scorer, prompt, temperature = parse_consensus(
+                        body, embedder is not None, reranker is not None
+                    )
+                elif self.path == "/embeddings" and embedder is not None:
                     texts = parse_embeddings(body, embedder.model_name)
                 else:
                     self._error(404, f"no route POST {self.path}")
@@ -153,10 +164,17 @@ def make_handler(embedder, batcher):
                 return
             try:
                 if self.path == "/consensus":
-                    conf, tokens = batcher.consensus(texts, temperature)
+                    if scorer == "rm":
+                        conf, tokens = reranker.rerank_confidence(
+                            texts, prompt=prompt, temperature=temperature
+                        )
+                        model_name = reranker.model_name
+                    else:
+                        conf, tokens = batcher.consensus(texts, temperature)
+                        model_name = embedder.model_name
                     obj = {
-                        "model": embedder.model_name,
-                        "scorer": "cosine",
+                        "model": model_name,
+                        "scorer": scorer,
                         "confidence": [float(c) for c in conf],
                         "usage": {
                             "prompt_tokens": tokens,
@@ -184,29 +202,40 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class Server:
-    """The HTTP server, its batcher and its serving thread.  ``port=0``
-    binds an ephemeral port (``.port`` says which).  ``packing`` options
-    (``packing``, ``packing_row_tokens``, ``packing_max_rows``,
-    ``packing_max_segments``, ``prefix_dedup``, ``prefix_dedup_min_chars``)
-    go to the ``ConsensusBatcher`` as they are."""
+    """The HTTP server, its batcher and its serving thread, for an
+    embedder (``/consensus`` cosine, ``/embeddings``), a reranker
+    (``/consensus`` rm) or both.  ``port=0`` binds an ephemeral port
+    (``.port`` says which).  ``packing`` options (``packing``,
+    ``packing_row_tokens``, ``packing_max_rows``,
+    ``packing_max_segments``, ``prefix_dedup``,
+    ``prefix_dedup_min_chars``) go to the ``ConsensusBatcher`` as they
+    are."""
 
     def __init__(
         self,
-        embedder,
+        embedder=None,
         host: str = "127.0.0.1",
         port: int = 0,
         max_batch: int = 16,
         max_wait_ms: float = 2.0,
+        reranker=None,
         **packing,
     ) -> None:
         from .batcher import ConsensusBatcher
 
+        if embedder is None and reranker is None:
+            raise ValueError("a server needs an embedder, a reranker or both")
         self.embedder = embedder
-        self.batcher = ConsensusBatcher(
-            embedder, max_batch=max_batch, max_wait_ms=max_wait_ms, **packing
+        self.reranker = reranker
+        self.batcher = (
+            ConsensusBatcher(
+                embedder, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                **packing,
+            )
+            if embedder is not None else None
         )
         self.httpd = _HTTPServer(
-            (host, port), make_handler(embedder, self.batcher)
+            (host, port), make_handler(embedder, self.batcher, reranker)
         )
         self._thread: threading.Thread = None
 
@@ -230,7 +259,8 @@ class Server:
             self.httpd.shutdown()
             self._thread.join(10)
         self.httpd.server_close()
-        self.batcher.close()
+        if self.batcher is not None:
+            self.batcher.close()
 
     def __enter__(self):
         return self.start()

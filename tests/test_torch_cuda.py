@@ -22,7 +22,9 @@ bge_micro /consensus on the card vs the CPU 1e-5 (f32); W8A8 / W4A8
 2e-5 + 2e-5 |want| (f32: erf and exp differ by ulps between the card
 and its plain version) and 2e-2 + 2e-2 |want| (bf16: one ulp at |x| ~ 4),
 quantized bge_micro confidences card vs CPU 1e-3 (an upstream ulp can
-flip one int8 rounding).
+flip one int8 rounding); the tiny DeBERTa reward model's confidences card
+vs CPU 1e-5 (f32), 1e-3 quantized, and its packed rewards against
+per-row ones on the card 1e-5.
 """
 
 import os
@@ -736,3 +738,75 @@ def test_tma_w4a8_matches_plain_and_the_mma_route_byte_for_byte(
                                                   gelu=gelu))
     torch.cuda.synchronize()
     assert torch.equal(got, got_mma)
+
+
+# -- the DeBERTa reward model (rm scorer) --------------------------------------
+
+
+def _rm_pair(card, log, quantize="none"):
+    """The same random tiny DeBERTa weights as rerankers on the CPU and
+    on the card, f32."""
+    import dataclasses
+
+    from llm_weighted_consensus_tpu_torch.models import configs, deberta
+    from llm_weighted_consensus_tpu_torch.models.reranker import TorchReranker
+
+    cfg = configs.DEBERTA_TEST_TINY
+    if log:
+        cfg = dataclasses.replace(cfg, position_buckets=8,
+                                  max_relative_positions=32)
+    state = {k: v.numpy() for k, v in deberta.init_params(
+        cfg, seed=3, device="cpu").state_dict().items()}
+    return [
+        TorchReranker("deberta-test-tiny", device=device,
+                      dtype=torch.float32, max_tokens=64, quantize=quantize,
+                      model=deberta.from_state(state, cfg, torch.float32,
+                                               device))
+        for device in ("cpu", card)
+    ]
+
+
+RM_TEXTS = [" ".join(f"t{(7 * i + j) % 300}" for j in range(n))
+            for i, n in enumerate((3, 62, 20, 40, 9, 30))]
+
+
+@pytest.mark.parametrize("log", [False, True])
+def test_rm_tiny_on_the_card_matches_the_cpu(card, log):
+    cpu, gpu = _rm_pair(card, log)
+    for prompt, temp in ((None, 1.0), ("which one", 0.3)):
+        want, tokens = cpu.rerank_confidence(RM_TEXTS, prompt, temp)
+        got, got_tokens = gpu.rerank_confidence(RM_TEXTS, prompt, temp)
+        assert got_tokens == tokens
+        assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4-pallas"])
+def test_rm_quantized_on_the_card_matches_the_cpu(card, mode):
+    cpu, gpu = _rm_pair(card, True, mode)
+    name = "w4a8_matmul" if mode.startswith("int4") else "w8a8_matmul"
+    wrapper = getattr(kernels, name)
+    launches = wrapper.launches
+    got, _ = gpu.rerank_confidence(RM_TEXTS, "which one")
+    assert wrapper.launches - launches == 6 * gpu.config.num_layers
+    want, _ = cpu.rerank_confidence(RM_TEXTS, "which one")
+    assert np.abs(got - want).max() <= 1e-3
+
+
+def test_rm_reward_packed_on_the_card_matches_per_row(card):
+    from llm_weighted_consensus_tpu_torch.models import deberta
+
+    _, gpu = _rm_pair(card, True)
+    ids, mask = gpu.tokenize(RM_TEXTS)
+    lens = mask.sum(axis=1)
+    with torch.inference_mode():
+        per_row = deberta.reward(gpu.model, torch.from_numpy(ids).to(card),
+                                 torch.from_numpy(mask).to(card)).cpu()
+        ragged = [ids[i, :lens[i]] for i in range(len(RM_TEXTS))]
+        for call in packing.build_calls(ragged, 64, 4, 8):
+            out = deberta.reward_packed(
+                gpu.model, *(torch.from_numpy(a).to(card) for a in
+                             (call.ids, call.segment_ids, call.seg_starts))
+            ).cpu()
+            assert torch.isfinite(out).all()
+            for si, (r, slot) in call.slots.items():
+                assert abs(float(out[r, slot] - per_row[si])) <= 1e-5

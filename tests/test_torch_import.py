@@ -76,6 +76,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "models.embedder", "ops.similarity", "ops.kernels",
         "ops.attention", "ops._build", "types.embeddings",
         "serve.batcher", "serve.gateway", "serve.__main__", "serve.packing",
+        "models.spm", "models.deberta", "models.reranker", "utils.native",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

@@ -106,10 +106,27 @@ def test_load_tokenizer_contract():
 
 
 def test_spm_tokenizer_is_not_ported_yet(tmp_path):
+    """Kept under its slice-1 name: SentencePiece is ported now, so a
+    ``*.model`` path loads the unigram tokenizer, and an empty proto is
+    refused as the reference refuses it (no pieces), not served."""
+    from llm_weighted_consensus_tpu.models import spm as jax_spm
+    from llm_weighted_consensus_tpu_torch.models import spm as port_spm
+    from test_spm import XLMR_PIECES, serialize_proto
+
     proto = tmp_path / "spm.model"
     proto.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no pieces"):
         port_tok.load_tokenizer(str(proto))
+    with pytest.raises(ValueError, match="no pieces"):
+        jax_tok.load_tokenizer(str(proto))
+    proto.write_bytes(serialize_proto(XLMR_PIECES))
+    tok = port_tok.load_tokenizer(str(proto))
+    assert isinstance(tok, port_spm.UnigramTokenizer)
+    ref = jax_tok.load_tokenizer(str(proto))
+    assert isinstance(ref, jax_spm.UnigramTokenizer)
+    texts = ["hello world", "ab abc", "zzz"]
+    assert tok.encode_batch(texts, 16)[0].tolist() == (
+        ref.encode_batch(texts, 16)[0].tolist())
 
 
 def test_bucket_ladders_match_jax():

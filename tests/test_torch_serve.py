@@ -201,11 +201,11 @@ def test_bad_consensus_input_gets_a_400_envelope(server, body):
     assert got["code"] == 400 and isinstance(got["message"], str)
 
 
-def test_rm_scorer_is_not_ported_yet(server):
+def test_rm_scorer_without_rm_model_is_400(server):
     status, got = _post(
         server.port, "/consensus", {"input": ["a", "b"], "scorer": "rm"}
     )
-    assert status == 400 and "not ported" in got["message"]
+    assert status == 400 and "RM_MODEL" in got["message"]
 
 
 def test_non_finite_temperature_is_refused(server):
