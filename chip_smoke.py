@@ -48,7 +48,9 @@ Phases, each printing one JSON line:
    request in the s=512 bucket and one ``/embeddings`` request; outputs
    and buckets checked, kernel launch counts checked against the
    dispatches (every attention launch on the TMA route), latency and
-   answers/s reported;
+   answers/s reported; then the same traffic with tokenization on the
+   dispatch thread (``host_tokenizer_workers=0``): the buckets each
+   setting's grouping reached, and one request's tokenization time;
 5. packed path: the main path's embedder served with ``PACKING`` (the
    ``PACKING_ENABLED`` defaults) under the reference's mixed-length
    traffic, 3 bursts of 32 concurrent ``/consensus`` requests (N in
@@ -101,9 +103,33 @@ Phases, each printing one JSON line:
    (``chiprun_out/profile_rm*.txt``; int8 must show
    ``quant_gemm_tma_kernel`` 72 times and no ``quant_gemm_kernel``).
    Phase 2 also holds and times W8A8 / W4A8 at the RM's shapes
-   (``RM_QUANT_SHAPES`` at ``RM_QUANT_M`` rows).
+   (``RM_QUANT_SHAPES`` at ``RM_QUANT_M`` rows);
+9. serving: every served path through the port's own server and full
+   batcher, built by the entry points a user calls (``build_embedder``,
+   ``build_reranker``, ``build_server``, ``warm_up``): bge-large padded
+   (the main path's traffic, ``WARMUP=64x128,16x512,32x64``,
+   ``WARMUP_R=2,4,8``), packed (the mixed traffic, every packed [b, L]
+   warmed), ``int8`` (3 bursts) and ``int4-pallas`` (1 burst), and
+   deberta-v3-base (BASELINE config 3, ``RM_WARMUP=16x128``) unquantized
+   and under ``int8`` (one burst).  Each path is served eagerly first,
+   then by a new server that answers ``/readyz`` 503 until its CUDA
+   graphs are captured and 200 after; the graphed run's launch counts
+   are set to 0 before its traffic and read after, and it fails unless
+   no graph was captured after warmup, the counts (replays included)
+   equal the dispatches' and every launch took its ``tma`` / ``cluster``
+   route, each dispatch's output equals an eager call's at the same
+   bucket on the same inputs within ``GRAPH_TOL`` (a planted cross-talk
+   fault, another dispatch's inputs at that bucket, must read over
+   ``FAULT_MARGIN`` times that), its answers equal the eager run's
+   within ``RUN_TOL`` (the batcher may group the two runs apart), and a
+   ``/metrics`` scrape parses as JSON and as OpenMetrics text with the
+   kernels' own counts.  Each row gives p50, answers/s and one call's
+   wall, device time and idle share, eager against graphed, and the
+   graph pool's bytes; on the main path a drain with a burst in flight
+   must finish every admitted request while new ones shed 503.
 
-Then one JSON line with every kernel's numbers, the nvidia-smi line, and
+Then one JSON line with every kernel's numbers (phase 9's graphed
+launches beside the earlier paths'), the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero before that line.  Without a CUDA device the script exits 2.
 """
@@ -229,6 +255,17 @@ PACKED_MIN_COS, PACKED_CONF_TOL = 0.999, 2e-2
 # bge_micro in f32 on the card: packed against the CPU and against the
 # padded path, and a segment beside other row-mates
 PACKED_MICRO_TOL, ROW_MATE_TOL = 1e-5, 1e-6
+# phase 9: each graphed dispatch's output against an eager call at the
+# same bucket on the same staged inputs (the same kernels; only cuBLAS's
+# algorithm choice under capture could differ), and the least a planted
+# cross-talk fault (another dispatch's inputs at that bucket) moves it,
+# which must exceed the limit FAULT_MARGIN times over
+GRAPH_TOL, FAULT_MARGIN = 1e-6, 10.0
+# phase 9: the graphed run's served answers against the eager run's: the
+# batcher may group (or pack) the same traffic differently in the two
+# runs, and another grouping changes the bf16 rounding as PACKED_CONF_TOL
+# allows
+RUN_TOL = PACKED_CONF_TOL
 
 
 def emit(obj) -> None:
@@ -1194,15 +1231,35 @@ def bound_ms_ops(nbytes: float, int8_ops: float):
 # -- phase 3: bge_micro on the card against the CPU ---------------------------
 
 
-def post(port: int, path: str, body: dict):
+def http(port: int, path: str, body=None):
+    """(status, headers, JSON or text body) of a GET (``body`` None) or a
+    POST, error statuses included."""
+    import urllib.error
     import urllib.request
 
+    data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        f"http://127.0.0.1:{port}{path}", data=data,
         headers={"content-type": "application/json"},
     )
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        return json.loads(resp.read())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, headers, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        status, headers, raw = err.code, dict(err.headers), err.read()
+    text = raw.decode()
+    try:
+        return status, headers, json.loads(text)
+    except ValueError:
+        return status, headers, text
+
+
+def post(port: int, path: str, body: dict):
+    """The JSON answer of a POST that must succeed."""
+    status, _, out = http(port, path, body)
+    if status != 200:
+        raise AssertionError(f"POST {path}: {status} {out}")
+    return out
 
 
 MICRO_TEXTS = [
@@ -1398,11 +1455,13 @@ def read_routes() -> dict:
     return routes
 
 
-def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
+def serve_traffic(emb, bursts, long_texts, embed_texts, model_name,
+                  host_tokenizer_workers=2) -> dict:
     """Serve ``bursts`` (lists of concurrent /consensus bodies' texts),
     then the optional long request and one /embeddings request, through
     the port's HTTP server; the launch counts are set to 0 after a
-    warm-up request and read at the end."""
+    warm-up request and read at the end, and the dispatches per bucket
+    are counted over the same span."""
     import threading
 
     import numpy as np
@@ -1411,13 +1470,15 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
     from llm_weighted_consensus_tpu_torch.serve.gateway import Server
 
     r = len(bursts[0])
-    with Server(emb, max_batch=r, max_wait_ms=100) as srv:
+    with Server(emb, max_batch=r, window_ms=100,
+                host_tokenizer_workers=host_tokenizer_workers) as srv:
         # warm-up: cuBLAS handles, allocator pools, the kernel library
         post(srv.port, "/consensus", {"input": bursts[0][0]})
         torch.cuda.synchronize()
         stats0 = srv.batcher.stats()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        records, unwrap = record_dispatches(emb)
 
         latencies, results = [], {}
 
@@ -1452,6 +1513,7 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
         )
         embed_ms = (time.perf_counter() - t) * 1e3
         torch.cuda.synchronize()
+        unwrap()
         launches = read_launches()
         routes = read_routes()
         stats1 = srv.batcher.stats()
@@ -1478,6 +1540,7 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name) -> dict:
                         - stats0["dispatches"]["consensus"]),
         "embed_d": stats1["dispatches"]["embed"] - stats0["dispatches"]["embed"],
         "largest_group": stats1["largest_group"],
+        "buckets": bucket_counts(records),
         "p50_ms": float(np.median(lat_ms)), "max_ms": lat_ms[-1],
         "requests": len(latencies), "answers_per_s": len(latencies) / burst_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1534,15 +1597,29 @@ def main_path(gpu: str):
         raise AssertionError(
             f"kernel launches {out['launches']} != expected {want}"
         )
+    # the same traffic with tokenization on the dispatch thread: how the
+    # submit-time tokenizer pool changes the grouping of each burst; and
+    # what one request's tokenization holds the interpreter lock for
+    inline = serve_traffic(emb, bursts, long_texts, embed_texts,
+                           "bge-large-en", host_tokenizer_workers=0)
+    tokenize_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        emb.tokenize(bursts[0][0])
+        tokenize_ms.append((time.perf_counter() - t) * 1e3)
     row = {
         "phase": "main_path", "gpu": gpu, "model": "bge-large-en",
         "dtype": "bfloat16", "init_s": init_s,
         "requests": out["requests"], "candidates": n,
         "consensus_dispatches": out["consensus_d"],
         "embed_dispatches": out["embed_d"],
-        "largest_group": out["largest_group"],
+        "largest_group": out["largest_group"], "buckets": out["buckets"],
         "p50_ms": out["p50_ms"], "max_ms": out["max_ms"],
         "answers_per_s": out["answers_per_s"],
+        "host_tokenizer_workers_0": {
+            k: inline[k] for k in ("consensus_d", "largest_group", "buckets",
+                                   "p50_ms", "max_ms", "answers_per_s")},
+        "tokenize_ms_per_request": float(np.median(tokenize_ms)),
         "long_request_ms": out["long_ms"], "long_request_tokens":
             long_out["usage"]["prompt_tokens"],
         "embeddings_ms": out["embed_ms"], "launches": out["launches"],
@@ -1622,7 +1699,7 @@ def serve_mixed(emb, bursts, embeds, **options) -> dict:
     from llm_weighted_consensus_tpu_torch.serve.gateway import Server
 
     model_name = emb.model_name
-    with Server(emb, max_batch=PACKED_BURST, max_wait_ms=100,
+    with Server(emb, max_batch=PACKED_BURST, window_ms=100,
                 **options) as srv:
         post(srv.port, "/consensus", {"input": bursts[0][0]})
         post(srv.port, "/embeddings", {"model": model_name,
@@ -2699,8 +2776,497 @@ def rm_phase(gpu: str, timed) -> dict:
     return {"row": full["row"], "int8": q["int8"], "int4": q["int4-pallas"]}
 
 
+# -- phase 9: the served paths through the full batcher, eager and graphed ----
+
+
+def serving_env(**extra) -> dict:
+    """The server's environment for bge-large with random weights from
+    seed 0 (the opt-in), and the earlier phases' 100 ms window."""
+    env = {"EMBEDDER_MODEL": "bge-large-en", "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "BATCH_WINDOW_MS": "100",
+           "BATCH_MAX": str(BURST)}
+    env.update(extra)
+    return env
+
+
+def drive_bursts(port, bursts, model_name=None, embeds=(),
+                 long_texts=None) -> dict:
+    """Each burst's /consensus requests at once, with the /embeddings
+    request ``embeds[k]`` of burst k where there is one, then the optional
+    long request; -> every answer in order, p50 and answers/s of the
+    bursts."""
+    import threading
+
+    import numpy as np
+
+    results, latencies = {}, []
+
+    def call(key, path, body):
+        t = time.perf_counter()
+        status, _, out = http(port, path, body)
+        if status != 200:
+            raise AssertionError(f"{path} {key}: {status} {out}")
+        if path == "/consensus":
+            latencies.append((time.perf_counter() - t) * 1e3)
+        results[key] = out
+
+    t0 = time.perf_counter()
+    for k, burst in enumerate(bursts):
+        threads = [threading.Thread(target=call, args=(
+            (k, i), "/consensus", {"input": texts}))
+            for i, texts in enumerate(burst)]
+        if k < len(embeds):
+            threads.append(threading.Thread(target=call, args=(
+                (k, "embed"), "/embeddings",
+                {"model": model_name, "input": embeds[k]})))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a request did not return")
+    burst_s = time.perf_counter() - t0
+    if long_texts is not None:
+        call("long", "/consensus", {"input": long_texts})
+    answers = []
+    for k, burst in enumerate(bursts):
+        for i, texts in enumerate(burst):
+            check_answer(results[(k, i)]["confidence"], len(texts))
+            answers.append(np.asarray(results[(k, i)]["confidence"]))
+        if k < len(embeds):
+            vecs = np.asarray(
+                [r["embedding"] for r in results[(k, "embed")]["data"]])
+            if vecs.shape[0] != len(embeds[k]) or not np.isfinite(vecs).all():
+                raise AssertionError(f"/embeddings burst {k}: {vecs.shape}")
+            answers.append(vecs)
+    if long_texts is not None:
+        check_answer(results["long"]["confidence"], len(long_texts))
+        answers.append(np.asarray(results["long"]["confidence"]))
+    return {"answers": answers, "p50_ms": float(np.median(latencies)),
+            "answers_per_s": len(latencies) / burst_s,
+            "requests": len(latencies)}
+
+
+def drive_rm(port, requests) -> dict:
+    """``requests`` as /consensus {"scorer": "rm"} RM_INFLIGHT at a time;
+    -> answers, p50 and answers/s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    def call(texts):
+        t = time.perf_counter()
+        status, _, out = http(port, "/consensus", {
+            "input": texts, "scorer": "rm", "prompt": RM_PROMPT})
+        if status != 200:
+            raise AssertionError(f"rm request: {status} {out}")
+        rm_bucket_ok(out, len(texts), 112, 128)
+        return np.asarray(out["confidence"]), (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(RM_INFLIGHT) as pool:
+        results = list(pool.map(call, requests, timeout=600))
+    burst_s = time.perf_counter() - t0
+    return {"answers": [a for a, _ in results],
+            "p50_ms": float(np.median([ms for _, ms in results])),
+            "answers_per_s": len(results) / burst_s,
+            "requests": len(results)}
+
+
+def profile_one(fn, want_launches=None) -> dict:
+    """Wall, device time and idle share of one synchronous call: the
+    profiler's sum over the call's device records, traced again (up to 3
+    traces) while fewer than ``want_launches`` records came back (a
+    replay runs the eager call's kernels, so the eager count is the
+    want).  Where every trace lost records, the device time and the idle
+    share are None: the profiler is their one source."""
+
+    def count(rows):
+        return sum(c for _, c, _ in rows)
+
+    rows, wall_ms, traces = profile_call(
+        fn, None if want_launches is None
+        else lambda rows: count(rows) >= want_launches)
+    device_ms = sum(r[0] for r in rows)
+    if want_launches is not None and count(rows) < want_launches:
+        device_ms = None
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": None if device_ms is None
+            else 1.0 - device_ms / wall_ms,
+            "device_records": count(rows), "traces": traces}
+
+
+def scrape_metrics(port) -> dict:
+    """/metrics as JSON and as OpenMetrics text; fails unless both parse
+    and the text's kernel counters are the wrappers' own."""
+    import re
+
+    status, _, snap = http(port, "/metrics")
+    if status != 200 or not isinstance(snap, dict):
+        raise AssertionError(f"/metrics: {status}")
+    status, headers, text = http(port, "/metrics?format=prometheus")
+    lines = text.splitlines()
+    sample = re.compile(r'^([a-z_]+)(\{[^{}]*\})? (-?[0-9.e+-]+|[+-]?Inf)$')
+    bad = [ln for ln in lines[:-1]
+           if not ln.startswith("# ") and not sample.match(ln)]
+    if status != 200 or lines[-1] != "# EOF" or bad or not headers.get(
+            "Content-Type", headers.get("content-type", "")).startswith(
+                "application/openmetrics-text"):
+        raise AssertionError(f"/metrics?format=prometheus: {status} {bad[:3]}")
+    counts = {
+        m.group(1): int(m.group(2)) for m in (
+            re.match(r'lwc_kernel_launches_total\{kernel="(\w+)"\} (\d+)$', ln)
+            for ln in lines) if m
+    }
+    if counts != read_launches():
+        raise AssertionError(f"/metrics kernels {counts} != {read_launches()}")
+    return {"sections": sorted(snap), "prometheus_lines": len(lines),
+            "kernel_launches": counts}
+
+
+def drain_check(srv, burst) -> dict:
+    """A burst in flight, then the drain: every admitted request finishes
+    200, a new one sheds 503 ``draining``, ``/readyz`` turns 503."""
+    import threading
+
+    statuses = []
+
+    def call(texts):
+        statuses.append(http(srv.port, "/consensus", {"input": texts})[0])
+
+    threads = [threading.Thread(target=call, args=(t,)) for t in burst]
+    for t in threads:
+        t.start()
+    for _ in range(2000):
+        if srv.admission.inflight == len(burst):
+            break
+        time.sleep(0.001)
+    inflight = srv.admission.inflight
+    drained = srv.lifecycle.begin_drain()
+    while srv.lifecycle.state == "ready":
+        time.sleep(0.001)
+    shed = http(srv.port, "/consensus", {"input": burst[0]})
+    readyz = http(srv.port, "/readyz")[0]
+    clean = drained.result(120)
+    for t in threads:
+        t.join(600)
+    row = {"in_flight_at_drain": inflight, "statuses": sorted(statuses),
+           "shed_status": shed[0],
+           "shed_reason": shed[2]["message"]["shed_reason"]
+           if shed[0] == 503 else None,
+           "readyz_while_draining": readyz, "drained_clean": clean,
+           "drain_ms": srv.lifecycle.drain_elapsed_ms}
+    if (statuses != [200] * len(burst) or inflight < 1 or shed[0] != 503
+            or row["shed_reason"] != "draining" or readyz != 503
+            or not clean):
+        raise AssertionError(f"drain: {row}")
+    return row
+
+
+def answers_diff(a: list, b: list) -> float:
+    import numpy as np
+
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def record_dispatches(model):
+    """Wrap ``model.graphs.dispatch`` (every dispatch the model makes,
+    replayed or eager) so each one's bucket, staged host inputs (copied),
+    forward, post step and returned value are kept; -> (the records, a
+    function that removes the wrap)."""
+    import threading
+
+    import numpy as np
+
+    table = model.graphs
+    inner = table.dispatch
+    records, lock = [], threading.Lock()
+
+    def dispatch(key, label, arrays, forward, post, pool, timed=True):
+        kept = {name: np.array(a, copy=True) for name, a in arrays.items()}
+        out = inner(key, label, arrays, forward, post, pool, timed)
+        with lock:
+            records.append((key, kept, forward, post, out))
+        return out
+
+    table.dispatch = dispatch
+    return records, lambda: delattr(table, "dispatch")
+
+
+def bucket_counts(records) -> dict:
+    """Dispatches per bucket label, e.g. ``{"many(4,64,128)": 3}``."""
+    from llm_weighted_consensus_tpu_torch.models.graphs import key_label
+
+    counts = {}
+    for key, *_ in records:
+        counts[key_label(key)] = counts.get(key_label(key), 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def same_bucket_check(model, records) -> dict:
+    """Each recorded (graphed) dispatch's output against an eager call at
+    the same bucket on the same inputs: the forward the graph captured,
+    run without it, then the same post step.  Then, once per bucket, the
+    planted fault a shared static input makes possible: the post step of
+    one dispatch on another dispatch's inputs at that bucket (or, with
+    no other dispatch there, its own token ids shifted by one place),
+    read against the first dispatch's output."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.graphs import key_label
+
+    table = model.graphs
+
+    def eager(arrays, forward, post):
+        with table.lock, torch.inference_mode():
+            out = post(forward(**{
+                name: torch.from_numpy(a).to(table.device)
+                for name, a in arrays.items()}))
+            return out.float().cpu().numpy()
+
+    def served(out):
+        result = getattr(out, "result", None)
+        return np.asarray(result() if result is not None else out,
+                          np.float32)
+
+    worst, bit_equal, faults = 0.0, 0, {}
+    for i, (key, arrays, forward, post, out) in enumerate(records):
+        got = served(out)
+        diff = float(np.abs(got - eager(arrays, forward, post)).max())
+        worst = max(worst, diff)
+        bit_equal += diff == 0.0
+        if key_label(key) in faults:
+            continue
+        other = next((a for k, a, *_ in records if k == key and any(
+            not np.array_equal(a[n], arrays[n]) for n in arrays)), None)
+        source = "other_dispatch"
+        if other is None:
+            other = dict(arrays, ids=np.roll(arrays["ids"], 1))
+            source = "rolled_ids"
+        faults[key_label(key)] = {
+            "max_abs": float(np.abs(got - eager(other, forward, post)).max()),
+            "inputs": source}
+    return {"dispatches": len(records), "bit_equal": bit_equal,
+            "max_abs": worst, "faults": faults,
+            "fault_min_abs": min(f["max_abs"] for f in faults.values())}
+
+
+def graphed_path(gpu, name, model, start_server, warm, drive, profile,
+                 expected, drain_burst=None) -> dict:
+    """One served path eager, then graphed, in this run: ``start_server()``
+    starts the port's server (not ready), ``warm(server)`` captures its
+    buckets, ``drive(server)`` sends the path's traffic, ``profile()``
+    makes one call at the path's main bucket, ``expected(stats delta)``
+    gives the launches the traffic must make.  Fails unless the graphed
+    run captured nothing, replayed, launched every kernel ``expected``
+    names on its route (counted through replays), gave at every dispatch
+    what an eager call at the same bucket on the same inputs gives
+    (``GRAPH_TOL``, while a planted cross-talk fault reads at least
+    ``FAULT_MARGIN`` times that), answered as the eager run did
+    (``RUN_TOL``), and ``/readyz`` flipped from 503 to 200 at warmup."""
+    import torch
+
+    srv = start_server()
+    srv.lifecycle.mark_ready()  # eager: no graphs
+    eager_records, unwrap = record_dispatches(model)
+    try:
+        eager = drive(srv)
+    finally:
+        unwrap()
+    eager_prof = profile_one(profile)
+    srv.close()
+    if model.graph_stats()["graphs"]:
+        raise AssertionError(f"{name}: graphs before warmup")
+    srv = start_server()
+    try:
+        readyz_before = http(srv.port, "/readyz")[0]
+        t = time.perf_counter()
+        timings = warm(srv)
+        warmup_s = time.perf_counter() - t
+        readyz_after = http(srv.port, "/readyz")[0]
+        torch.cuda.synchronize()
+        stats0 = model.graph_stats()
+        batch0 = srv.batcher.stats() if srv.batcher is not None else {}
+        reset_launches()
+        records, unwrap = record_dispatches(model)
+        try:
+            graphed = drive(srv)
+        finally:
+            unwrap()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        routes = read_routes()
+        stats1 = model.graph_stats()
+        batch = _delta(srv.batcher.stats(), batch0) if batch0 else {}
+        scrape = scrape_metrics(srv.port)
+        graphed_prof = profile_one(profile, eager_prof["device_records"])
+        drain = drain_check(srv, drain_burst) if drain_burst else None
+    finally:
+        srv.close()
+    same = same_bucket_check(model, records)
+    want = expected(batch)
+    diff = answers_diff(graphed["answers"], eager["answers"])
+    row = {
+        "phase": "serving", "path": name, "gpu": gpu,
+        "warmup_s": warmup_s, "graphs": stats1["graphs"],
+        "captures_at_warmup": stats0["captures"],
+        "captures_after_warmup": stats1["captures"] - stats0["captures"],
+        "replays": stats1["replays"] - stats0["replays"],
+        "eager_dispatches": stats1["eager_dispatches"]
+        - stats0["eager_dispatches"],
+        "pool_bytes": stats1["pool_bytes"],
+        "buckets": {"eager": bucket_counts(eager_records),
+                    "graphed": bucket_counts(records)},
+        "launches": launches, "expected_launches": want, "routes": routes,
+        "same_bucket": same, "tolerance": GRAPH_TOL,
+        "fault_margin": FAULT_MARGIN,
+        "runs_max_abs": diff, "runs_tolerance": RUN_TOL,
+        "readyz": [readyz_before, readyz_after],
+        "eager": {k: eager[k] for k in ("p50_ms", "answers_per_s",
+                                        "requests")} | {"call": eager_prof},
+        "graphed": {k: graphed[k] for k in ("p50_ms", "answers_per_s",
+                                            "requests")}
+        | {"call": graphed_prof},
+        "metrics": scrape, "drain": drain,
+        "warmed": [label for label, _ in timings],
+    }
+    emit(row)
+    launched = {k: v for k, v in want.items() if v}
+    if (row["captures_after_warmup"] or row["replays"] < 1
+            or readyz_before != 503 or readyz_after != 200
+            or same["max_abs"] > GRAPH_TOL
+            or same["fault_min_abs"] <= FAULT_MARGIN * GRAPH_TOL
+            or diff > RUN_TOL or launches != want
+            or any(launches[k] < 1 for k in launched)):
+        raise AssertionError(f"serving {name}: {row}")
+    return row
+
+
+def serving_phase(gpu: str, timed) -> dict:
+    """Phase 9: every served path through the port's server and the full
+    batcher (``build_server``, ``warm_up``), eager and then replayed from
+    CUDA graphs captured at warmup, in one run."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.serve import packing
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_reranker,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    rows = {}
+
+    def starter(emb, rr, env):
+        config = ServeConfig.from_env(env)
+
+        def start():
+            return build_server(emb, rr, config).start()
+
+        return start, config
+
+    # main: bge-large padded, the main path's traffic
+    env = serving_env(WARMUP="64x128,16x512,32x64", WARMUP_R="2,4,8")
+    main = build_embedder(env, device="cuda")
+    layers = main.config.num_layers
+    rng = np.random.default_rng(0)
+    bursts = [[candidate_texts(rng, N_CANDIDATES, BURST_WORDS)
+               for _ in range(BURST)] for _ in range(3)]
+    long_texts = candidate_texts(rng, LONG_N, LONG_WORDS)
+    embeds = [candidate_texts(rng, EMBED_N, EMBED_WORDS)]
+    ids, mask = main.tokenize([t for r in bursts[0] for t in r])
+    ids, mask = ids.reshape(BURST, N_CANDIDATES, -1), mask.reshape(
+        BURST, N_CANDIDATES, -1)
+    start, config = starter(main, None, env)
+
+    def padded_expected(quantize):
+        return lambda d: expected_launches(
+            layers, d["dispatches"]["consensus"], d["dispatches"]["embed"],
+            quantize)
+
+    rows["main"] = timed("serving", graphed_path, gpu, "main", main, start,
+                         lambda srv: warm_up(srv, config),
+                         lambda srv: drive_bursts(
+                             srv.port, bursts, "bge-large-en", embeds,
+                             long_texts),
+                         lambda: main.consensus_confidence_tokens_many(
+                             ids, mask),
+                         padded_expected("none"), drain_burst=bursts[0])
+    # packed: the same weights, PACKING defaults, the mixed traffic; every
+    # packed [b, L] the traffic can take is warmed
+    packed = TorchEmbedder("bge-large-en", model=main.model,
+                           config=main.config, tokenizer=main.tokenizer,
+                           max_tokens=512, device="cuda",
+                           dtype=torch.bfloat16)
+    penv = serving_env(PACKING_ENABLED="1", BATCH_MAX="64", WARMUP="8x128")
+    pstart, pconfig = starter(packed, None, penv)
+    buckets = [(b, l, PACKING["packing_max_segments"])
+               for b, l in PACKED_SHAPES]
+    mixed, membeds = mixed_traffic()
+    calls = packing.build_calls(
+        packed.tokenize_ragged([t for b in mixed for r in b for t in r],
+                               PACKING["packing_row_tokens"]),
+        PACKING["packing_row_tokens"], PACKING["packing_max_rows"],
+        PACKING["packing_max_segments"])
+    call = next(c for c in calls if c.ids.shape == SEG_BUCKET)
+    rows["packed"] = timed(
+        "serving", graphed_path, gpu, "packed", packed, pstart,
+        lambda srv: srv.warmup([], [], buckets),
+        lambda srv: drive_bursts(srv.port, mixed, "bge-large-en", membeds),
+        lambda: packed.embed_packed(call.ids, call.segment_ids,
+                                    call.positions, call.seg_starts),
+        lambda d: expected_launches(
+            layers, 0, 0, packed_calls=sum(d["packing"]["call_shapes"].values())),
+    )
+    del packed, main
+    torch.cuda.empty_cache()
+    # quantized: int8 (3 bursts) and int4 (1 burst), fresh weights
+    for mode, n_bursts in (("int8", 3), ("int4-pallas", 1)):
+        qenv = serving_env(WARMUP="64x128,32x64", WARMUP_R="2,4,8",
+                           EMBEDDER_QUANTIZE=mode)
+        emb = build_embedder(qenv, device="cuda")
+        qstart, qconfig = starter(emb, None, qenv)
+        rows[mode] = timed(
+            "serving", graphed_path, gpu, mode, emb, qstart,
+            lambda srv, qconfig=qconfig: warm_up(srv, qconfig),
+            lambda srv, n=n_bursts: drive_bursts(
+                srv.port, bursts[:n], "bge-large-en", embeds),
+            lambda emb=emb: emb.consensus_confidence_tokens_many(ids, mask),
+            padded_expected(mode))
+        del emb
+        torch.cuda.empty_cache()
+    # the reward model: BASELINE config 3, unquantized and under int8
+    vocab = rm_vocab_path()
+    requests = rm_requests(RM_REQUESTS, RM_N, RM_WORDS)
+    for mode, reqs in (("none", requests), ("int8", requests[:RM_INFLIGHT])):
+        renv = dict(rm_env(vocab, mode), RM_WARMUP="16x128")
+        rr = build_reranker(renv, device="cuda")
+        rids, rmask = rr.tokenize([f"{RM_PROMPT}\n{t}" for t in requests[0]])
+        rstart, rconfig = starter(None, rr, renv)
+        dense = 6 * rr.config.num_layers * len(reqs) if mode != "none" else 0
+        rows["rm" if mode == "none" else "rm_int8"] = timed(
+            "serving", graphed_path, gpu, "rm" if mode == "none" else
+            "rm_int8", rr, rstart,
+            lambda srv, rconfig=rconfig: warm_up(srv, rconfig),
+            lambda srv, reqs=reqs: drive_rm(srv.port, reqs),
+            lambda rr=rr, rids=rids, rmask=rmask: rr.confidence_tokens(
+                rids, rmask),
+            lambda d, dense=dense: {
+                "cosine_vote": 0, "attention": 0, "segment_attention": 0,
+                "quantize_rows": dense, "w8a8_matmul": dense,
+                "w4a8_matmul": 0})
+        del rr
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
-                   packed, rm) -> dict:
+                   packed, rm, serving) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -2710,7 +3276,13 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     bucket, 8 rows of 512 tokens).  The reward-model path adds its own
     entries (``"path": "rm"``) for the quantized matmuls and the row
     quantisation, with the launches of its int8 and int4 bursts and the
-    numbers at its MLP expansion (M=2048, K=768, N=3072 with GELU)."""
+    numbers at its MLP expansion (M=2048, K=768, N=3072 with GELU).
+    Each entry also gives ``graphed_launches``: its launches in phase 9's
+    graphed run of the path that takes it, every one of them replayed
+    from a CUDA graph or eager at a bucket not warmed (the vote and the
+    padded attention on the main path, the segment attention on the
+    packed path, W8A8 and the row quantisation on the int8 path, W4A8 on
+    the int4 path; the RM entries on ``rm_int8``)."""
     main = next(
         r for r in attn_rows
         if r.get("shape", [])[:2] == [BURST * N_CANDIDATES, 128]
@@ -2837,6 +3409,17 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         "previous_device_ms": bucket["previous_device_ms"],
         "previous_source": csrc + "attention.cu",
     })
+    graphed = {"cosine_vote": "main", "attention": "main",
+               "segment_attention": "packed", "quantize_rows": "int8",
+               "w8a8_matmul": "int8", "w4a8_matmul": "int4-pallas"}
+    for entry in entries:
+        path = graphed[entry["name"]]
+        if entry.get("path") == "rm":  # no graphed int4 reward-model run
+            path = None if entry["name"] == "w4a8_matmul" else "rm_int8"
+        entry["graphed_path"] = path
+        entry["graphed_launches"] = (
+            None if path is None else serving[path]["launches"][entry["name"]]
+        )
     return {"kernels": entries}
 
 
@@ -2892,10 +3475,11 @@ def main() -> int:
     timed("profiles", profile_dispatch, gpu, quantize="int8")
     timed("profiles", profile_dispatch, gpu, quantize="int4-pallas")
     rm = rm_phase(gpu, timed)
+    serving = serving_phase(gpu, timed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
-                        seg, packed["row"], rm))
+                        seg, packed["row"], rm, serving))
     print(gpu)
     emit({
         "ok": True,

@@ -23,6 +23,15 @@ T=0.05 for one request, the jnp vote otherwise).
 The packed path (``tokenize_ragged``, ``embed_packed``) takes the ragged
 layout of ``serve/packing.py``: one upload and one forward per packed
 call, one pooled vector per segment.
+
+``warmup`` is the counterpart of the reference's ``aot_warmup``: it
+captures one CUDA graph per serving bucket under the reference's keys
+(``models/graphs.py``), and every dispatch at a warmed bucket replays
+it; ``graph_stats`` is the counterpart of ``jit_stats``.  Every dispatch
+stages its rows in pinned host buffers (``staging_pool``), and under the
+batcher's deferred-readiness sink (``models/dispatch_seam.py``) returns
+a ``graphs.Dispatch`` handle at enqueue, materialized by the batcher's
+waiter thread; a direct call waits for its own result.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ import torch
 from ..ops.kernels import cosine_vote
 from ..types.embeddings import CreateEmbeddingResponse, Embedding, Usage
 from . import bert
+from .dispatch_seam import StagingPool, deferred_readiness
+from .graphs import GraphTable, warm_rows
 from .configs import PRESETS, BertConfig, usable_positions
 from .quant import resolve_quantize
 from .tokenizer import BaseTokenizer, load_tokenizer
@@ -81,7 +92,8 @@ class TorchEmbedder:
     bf16 on CUDA and f32 on the CPU.  ``quantize`` (``configs.QUANT_MODES``,
     ``EMBEDDER_QUANTIZE``) quantizes the layer stack's dense layers once,
     after the model is placed and cast, from its weights in the serving
-    dtype (``models.quant.resolve_quantize``).
+    dtype (``models.quant.resolve_quantize``).  ``staging_buffers``
+    (``STAGING_BUFFERS``) caps the pinned staging buffers kept per bucket.
     """
 
     MAX_DEVICE_BATCH = 4096
@@ -99,6 +111,7 @@ class TorchEmbedder:
         seed: int = 0,
         device=None,
         quantize: str = "none",
+        staging_buffers: int = 2,
     ) -> None:
         self.model_name = model_name
         self.device = bert.resolve_device(device)
@@ -120,6 +133,84 @@ class TorchEmbedder:
         # it, from the serving dtype, as the reference does
         self.model = model.to(device=self.device, dtype=self.dtype)
         self.config = resolve_quantize(self.model, self.config, quantize)
+        # CUDA graphs per warmed bucket (``warmup``); launches of every
+        # dispatch, eager or replayed, under the device's launch lock
+        self.graphs = GraphTable(self.device)
+        # pinned host staging buffers per bucket; the batcher's waiter
+        # hands them back at readiness
+        self.staging_pool = StagingPool(
+            per_bucket=staging_buffers, pin=self.device.type == "cuda"
+        )
+        # per-bucket device timing (METRICS_DEVICE_TIMING=0 clears it)
+        self.device_timing = True
+
+    # -- CUDA graphs per bucket (the reference's aot_warmup) -----------------
+
+    def _forward(self, ids, mask):
+        return bert.embed(
+            self.model, ids, mask, pooling=self.pooling, normalize=True
+        )
+
+    def _forward_packed(self, ids, segment_ids, positions, seg_starts):
+        return bert.embed_packed(
+            self.model, ids, segment_ids, positions, seg_starts,
+            pooling=self.pooling, normalize=True,
+        )
+
+    def warmup(
+        self, specs: list, r_buckets: list = (), packed_buckets: list = ()
+    ) -> list:
+        """Capture a CUDA graph for every serving bucket up front: per
+        (N, S) spec the single-request consensus forward ``("vote1", N,
+        S)``, the embed forward at its padded batch ``("embed", pad_b,
+        S)``, and per ``r_buckets`` entry >= 2 the grouped forward
+        ``("many", R, N, S)``; per packed (B, L, K) the packed forward
+        ``("packed", B, L, K)``.  S snaps to the serving sequence bucket.
+        Traffic at a warmed bucket replays its graph and captures
+        nothing; the vote stays outside every graph (one launch after the
+        replay, its temperature a run-time value).  On the CPU the keys
+        are recorded and nothing is captured.  Returns [(label, seconds)]
+        for the buckets warmed by this call."""
+        warm = self.graphs.warm
+        timings = []
+        for n, s in specs:
+            s = _seq_bucket(s, self.max_tokens)
+            pad_b = _bucket(n, self.MAX_DEVICE_BATCH)
+            timings.append(warm(("vote1", n, s), warm_rows(n, s),
+                                self._forward))
+            timings.append(warm(("embed", pad_b, s), warm_rows(pad_b, s),
+                                self._forward))
+            timings += [
+                warm(("many", r, n, s), warm_rows(r * n, s), self._forward)
+                for r in r_buckets
+                if r >= 2  # R=1 groups dispatch the single-request path
+            ]
+        for b, l, k in packed_buckets:
+            col = np.arange(l, dtype=np.int32)
+            width = min(l, self.max_tokens)
+            inputs = {
+                "ids": np.zeros((b, l), np.int32),
+                "segment_ids": np.tile(col // width + 1, (b, 1)),
+                "positions": np.tile(col % width, (b, 1)),
+                "seg_starts": np.zeros((b, k), np.int32),
+            }
+            timings.append(warm(("packed", b, l, k), inputs,
+                                self._forward_packed))
+        return [t for t in timings if t is not None]
+
+    def graph_stats(self) -> dict:
+        """The counterpart of the reference's ``jit_stats``: ``graphs``,
+        ``captures``, ``replays``, ``eager_dispatches`` and
+        ``pool_bytes`` (``models.graphs.GraphTable.stats``)."""
+        return self.graphs.stats()
+
+    def _dispatch(self, key, label, arrays, forward, post):
+        """One dispatch at bucket ``key`` (``GraphTable.dispatch``): a
+        handle under the batcher's sink, the numpy result otherwise."""
+        return self.graphs.dispatch(
+            key, label, arrays, forward, post, self.staging_pool,
+            timed=self.device_timing,
+        )
 
     # -- core ----------------------------------------------------------------
 
@@ -129,22 +220,6 @@ class TorchEmbedder:
         seq = _seq_bucket(int(mask.sum(axis=1).max(initial=1)), cap)
         return ids[:, :seq], mask[:, :seq]
 
-    def _upload(self, ids: np.ndarray, mask: np.ndarray):
-        return (
-            torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(
-                self.device
-            ),
-            torch.from_numpy(np.ascontiguousarray(mask, np.int32)).to(
-                self.device
-            ),
-        )
-
-    def _embed_device(self, ids: np.ndarray, mask: np.ndarray):
-        dev_ids, dev_mask = self._upload(ids, mask)
-        return bert.embed(
-            self.model, dev_ids, dev_mask, pooling=self.pooling, normalize=True
-        )
-
     def embed_texts(
         self, texts: list, max_tokens: Optional[int] = None
     ) -> np.ndarray:
@@ -152,26 +227,34 @@ class TorchEmbedder:
         ids, mask = self.tokenize(texts, max_tokens)
         return self.embed_tokens(ids, mask)
 
-    @torch.inference_mode()
-    def embed_tokens(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    def embed_tokens(self, ids: np.ndarray, mask: np.ndarray):
+        """ids/mask[B, S] -> embeddings[B, H] f32 (a handle under the
+        batcher's sink).  Batches past ``MAX_DEVICE_BATCH`` run in chunks,
+        each waited for here."""
         b = ids.shape[0]
         if b > self.MAX_DEVICE_BATCH:
-            return np.concatenate(
-                [
-                    self.embed_tokens(
-                        ids[i : i + self.MAX_DEVICE_BATCH],
-                        mask[i : i + self.MAX_DEVICE_BATCH],
-                    )
-                    for i in range(0, b, self.MAX_DEVICE_BATCH)
-                ],
-                axis=0,
-            )
+            with deferred_readiness(None):
+                return np.concatenate(
+                    [
+                        self.embed_tokens(
+                            ids[i : i + self.MAX_DEVICE_BATCH],
+                            mask[i : i + self.MAX_DEVICE_BATCH],
+                        )
+                        for i in range(0, b, self.MAX_DEVICE_BATCH)
+                    ],
+                    axis=0,
+                )
         pad_b = _bucket(b, self.MAX_DEVICE_BATCH)
-        if pad_b != b:
-            ids = np.pad(np.asarray(ids), ((0, pad_b - b), (0, 0)))
-            mask = np.pad(np.asarray(mask), ((0, pad_b - b), (0, 0)))
-        emb = self._embed_device(ids, mask)
-        return emb[:b].cpu().numpy()
+        s = ids.shape[1]
+        pids = np.zeros((pad_b, s), np.int32)
+        pmask = np.zeros((pad_b, s), np.int32)
+        pids[:b] = ids
+        pmask[:b] = mask
+        return self._dispatch(
+            ("embed", pad_b, s), f"embed(b={pad_b},s={s})",
+            {"ids": pids, "mask": pmask}, self._forward,
+            lambda emb: emb[:b],
+        )
 
     def consensus_confidence(
         self,
@@ -184,25 +267,29 @@ class TorchEmbedder:
         ids, mask = self.tokenize(texts, max_tokens)
         return self.consensus_confidence_tokens(ids, mask, temperature)
 
-    @torch.inference_mode()
     def consensus_confidence_tokens(
         self,
         ids: np.ndarray,
         mask: np.ndarray,
         temperature: float = DEFAULT_VOTE_TEMPERATURE,
-    ) -> np.ndarray:
-        n = ids.shape[0]
-        emb = self._embed_device(ids, mask)
-        conf = cosine_vote(emb[:n].reshape(1, n, -1), n, float(temperature))
-        return conf[0].cpu().numpy()
+    ):
+        """ids/mask[N, S] -> confidence[N]: the forward at ``("vote1", N,
+        S)`` and one vote launch after it."""
+        n, s = ids.shape
+        temperature = float(temperature)
+        return self._dispatch(
+            ("vote1", n, s), f"vote1(n={n},s={s})",
+            {"ids": ids, "mask": mask}, self._forward,
+            lambda emb: cosine_vote(emb[:n].reshape(1, n, -1), n,
+                                    temperature)[0],
+        )
 
-    @torch.inference_mode()
     def consensus_confidence_tokens_many(
         self,
         ids: np.ndarray,
         mask: np.ndarray,
         temperature: float = DEFAULT_VOTE_TEMPERATURE,
-    ) -> np.ndarray:
+    ):
         """ids/mask[R, N, S] (R coalesced requests) -> confidence[R, N] in
         one forward and one vote launch.  R pads to the next power of two;
         pad rows attend to one token and are sliced off before the
@@ -214,11 +301,13 @@ class TorchEmbedder:
         flat_ids[: r * n] = ids.reshape(r * n, s)
         flat_mask[: r * n] = mask.reshape(r * n, s)
         flat_mask[r * n :, 0] = 1
-        emb = self._embed_device(flat_ids, flat_mask)
-        conf = cosine_vote(
-            emb[: r * n].reshape(r, n, -1), n, float(temperature)
+        temperature = float(temperature)
+        return self._dispatch(
+            ("many", r_bucket, n, s), f"many(r={r_bucket},n={n},s={s})",
+            {"ids": flat_ids, "mask": flat_mask}, self._forward,
+            lambda emb: cosine_vote(emb[: r * n].reshape(r, n, -1), n,
+                                    temperature),
         )
-        return conf.cpu().numpy()
 
     # -- packed (continuous-batching) path ------------------------------------
 
@@ -241,39 +330,32 @@ class TorchEmbedder:
             for i in range(ids.shape[0])
         ]
 
-    @torch.inference_mode()
     def embed_packed(
         self,
         ids: np.ndarray,
         segment_ids: np.ndarray,
         positions: np.ndarray,
         seg_starts: np.ndarray,
-    ) -> np.ndarray:
+    ):
         """Packed layout ids/segment_ids/positions[B, L] and
         seg_starts[B, K] -> per-slot embeddings[B, K, H] (f32,
-        L2-normalised).  The segments are bounded by the position table
-        here, on the host copy, before one int32 upload and one forward."""
+        L2-normalised), one forward at ``("packed", B, L, K)``.  The
+        segments are bounded by the position table here, on the host
+        copy, before the upload."""
         positions = np.asarray(positions)
         if positions.size:
             last = int(positions.max())
             bert.check_positions(
                 self.config, last, f"a segment of {last + 1} tokens"
             )
-        parts = [np.ascontiguousarray(a, np.int32).ravel()
-                 for a in (ids, segment_ids, positions, seg_starts)]
-        flat = torch.from_numpy(np.concatenate(parts)).to(self.device)
         b, l = np.shape(ids)
-        dev_ids, dev_seg, dev_pos, dev_starts = (
-            t.view(shape) for t, shape in zip(
-                torch.split(flat, [p.size for p in parts]),
-                ((b, l), (b, l), (b, l), np.shape(seg_starts)),
-            )
+        k = np.shape(seg_starts)[1]
+        return self._dispatch(
+            ("packed", b, l, k), f"packed(b={b},l={l},k={k})",
+            {"ids": ids, "segment_ids": segment_ids, "positions": positions,
+             "seg_starts": seg_starts},
+            self._forward_packed, lambda out: out,
         )
-        out = bert.embed_packed(
-            self.model, dev_ids, dev_seg, dev_pos, dev_starts,
-            pooling=self.pooling, normalize=True,
-        )
-        return out.cpu().numpy()
 
     # -- wire contract --------------------------------------------------------
 

@@ -9,16 +9,22 @@ confidence, in the same forward.
 
 There is no micro-batching: the softmax normalizes over exactly one
 request's candidates, so each request runs on its own, on the server's
-handler thread.  One forward issues its launches at a time: eager
-launches from concurrent threads contend for the interpreter lock at
-every op, which cost more than half the served throughput on an H100
+handler thread.  One forward issues its launches at a time, under the
+device's launch lock (``models.graphs.launch_lock``): eager launches
+from concurrent threads contend for the interpreter lock at every op,
+which cost more than half the served throughput on an H100
 (``PERF.md``).  Under a quantize mode the six content and MLP dense
 layers of every layer run the W8A8 / W4A8 kernels (``models.quant``).
+
+``warmup`` captures one CUDA graph of ``deberta.reward`` per (N, S)
+bucket (``RM_WARMUP``), where the reference jit-compiles per static N; a
+request at a warmed bucket then holds the lock for one copy-in, one
+replay, the softmax (outside the graph: its temperature is a run-time
+value) and the copy back, and ``graph_stats`` counts it.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Iterable, Optional
 
 import numpy as np
@@ -27,7 +33,9 @@ import torch
 from . import deberta
 from .bert import default_dtype, resolve_device
 from .configs import DEBERTA_TEST_TINY, DEBERTA_V3_BASE, DebertaConfig
+from .dispatch_seam import StagingPool
 from .embedder import _seq_bucket
+from .graphs import GraphTable, warm_rows
 from .quant import resolve_quantize
 from .tokenizer import BaseTokenizer, load_tokenizer
 
@@ -48,7 +56,8 @@ class TorchReranker:
     weights.  Runs on CUDA unless ``device="cpu"``; the dtype defaults to
     bf16 on CUDA and f32 on the CPU.  ``quantize`` (``configs.QUANT_MODES``,
     ``RM_QUANTIZE``) quantizes the layer stack once, after the model is
-    placed and cast."""
+    placed and cast.  ``staging_buffers`` (``STAGING_BUFFERS``) caps the
+    pinned staging buffers kept per bucket."""
 
     def __init__(
         self,
@@ -62,6 +71,7 @@ class TorchReranker:
         max_tokens: int = 512,
         seed: int = 0,
         quantize: str = "none",
+        staging_buffers: int = 2,
     ) -> None:
         self.model_name = model_name
         self.device = resolve_device(device)
@@ -79,7 +89,27 @@ class TorchReranker:
             )
         self.model = model.to(device=self.device, dtype=self.dtype)
         self.config = resolve_quantize(self.model, self.config, quantize)
-        self._launch_lock = threading.Lock()
+        self.graphs = GraphTable(self.device)
+        self.staging_pool = StagingPool(
+            per_bucket=staging_buffers, pin=self.device.type == "cuda"
+        )
+        self.device_timing = True
+
+    def _forward(self, ids, mask):
+        return deberta.reward(self.model, ids, mask)
+
+    def warmup(self, specs: list) -> list:
+        """Capture the reward forward ``("rm", N, S)`` for every (N, S)
+        spec, S snapped to the serving sequence bucket (on the CPU the
+        keys are recorded, nothing is captured).  Returns [(label,
+        seconds)] for the buckets warmed by this call."""
+        buckets = [(n, _seq_bucket(s, self.max_tokens)) for n, s in specs]
+        timings = [self.graphs.warm(("rm", n, s), warm_rows(n, s),
+                                    self._forward) for n, s in buckets]
+        return [t for t in timings if t is not None]
+
+    def graph_stats(self) -> dict:
+        return self.graphs.stats()
 
     def tokenize(self, texts: Iterable[str]):
         """texts -> ids/mask[N, S], S the ``_seq_bucket`` of the longest
@@ -88,7 +118,6 @@ class TorchReranker:
         seq = _seq_bucket(int(mask.sum(axis=1).max(initial=1)), self.max_tokens)
         return ids[:, :seq], mask[:, :seq]
 
-    @torch.inference_mode()
     def confidence_tokens(
         self,
         ids: np.ndarray,
@@ -96,17 +125,19 @@ class TorchReranker:
         temperature: float = DEFAULT_RM_TEMPERATURE,
     ) -> np.ndarray:
         """ids/mask[N, S] -> confidence[N] = softmax(reward / T): the
-        reward and the vote in one forward, one upload and one copy
-        back.  The copy back waits outside the launch lock, so the next
-        request's launches queue behind this one's on the card."""
-        flat = torch.from_numpy(
-            np.ascontiguousarray(np.stack([ids, mask]), np.int32)
+        reward (a graph replay at a warmed ``("rm", N, S)``) and the vote
+        in one dispatch, one upload and one copy back.  The copy back is
+        waited for outside the launch lock, so the next request's
+        launches queue behind this one's on the card."""
+        n, s = ids.shape
+        temperature = float(temperature)
+        return self.graphs.dispatch(
+            ("rm", n, s), f"rm(n={n},s={s})", {"ids": ids, "mask": mask},
+            self._forward,
+            lambda rewards: deberta.reward_consensus_vote(rewards,
+                                                          temperature),
+            self.staging_pool, timed=self.device_timing,
         )
-        with self._launch_lock:
-            flat = flat.to(self.device)
-            rewards = deberta.reward(self.model, flat[0], flat[1])
-            conf = deberta.reward_consensus_vote(rewards, float(temperature))
-        return conf.cpu().numpy()
 
     def rerank_confidence(
         self,

@@ -30,7 +30,8 @@ kernel from dtype, head dim, strides and alignment alone:
 
 ``attention.launches`` and ``segment_attention.launches`` count the
 kernel launches, ``attention.routes`` and ``segment_attention.routes``
-count them by route.
+count them by route (``ops.launches``: a CUDA graph's launches count at
+each replay, not at its capture).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, launches
 
 KERNEL_HEAD_DIMS = (16, 24, 32, 64)
 
@@ -266,8 +267,7 @@ def attention(
     route = attention_route(q, k, v)
     entry = "lwc_attention_tma" if route == "tma" else "lwc_attention"
     out = _launch(entry, q, k, v, bias, scale)
-    attention.launches += 1
-    attention.routes[route] += 1
+    launches.count(attention, route)
     return out
 
 
@@ -288,8 +288,7 @@ def segment_attention(
     route = segment_attention_route(q, k, v)
     entry = "lwc_attention_seg_tma" if route == "tma" else "lwc_attention_seg"
     out = _launch(entry, q, k, v, segment_ids, scale)
-    segment_attention.launches += 1
-    segment_attention.routes[route] += 1
+    launches.count(segment_attention, route)
     return out
 
 

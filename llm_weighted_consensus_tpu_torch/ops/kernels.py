@@ -17,7 +17,8 @@ of D in shared memory, partial sums traded through distributed shared
 memory) wherever the plan's shared memory fits a block, which is every
 shape the server makes; ``"block"`` (``csrc/cosine_vote.cu``, one block
 per request) past that.  ``cosine_vote.launches`` counts the kernel
-launches, ``cosine_vote.routes`` the launches per route.
+launches, ``cosine_vote.routes`` the launches per route (``ops.launches``:
+a CUDA graph's launches count at each replay, not at its capture).
 
 Quantized dense layers: ``w8a8_matmul(x, wq, sw, bias, gelu)`` computes
 ``x[..., K] @ wq[N, K]^T`` with per-row dynamic int8 activations, int32
@@ -45,7 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .similarity import masked_cosine_vote
 
 # K of the split-K int4 packing: Kp is K rounded up to a multiple of this
@@ -188,8 +189,7 @@ def cosine_vote(
             dtype, stream,
         )
     _build.check(rc, f"cosine_vote ({route})")
-    cosine_vote.launches += 1
-    cosine_vote.routes[route] += 1
+    launches.count(cosine_vote, route)
     return conf
 
 
@@ -284,7 +284,7 @@ def quantize_rows(x: torch.Tensor, kp: int):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "quantize_rows")
-    quantize_rows.launches += 1
+    launches.count(quantize_rows)
     return xq, sx
 
 
@@ -374,8 +374,7 @@ def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         _build.check(rc, name)
-        wrapper.launches += 1
-        wrapper.routes[route] += 1
+        launches.count(wrapper, route)
     return out.reshape(*x.shape[:-1], n)
 
 

@@ -46,6 +46,16 @@ Environment, as the reference's server reads it.  At least one of
   content and MLP dense layers (its position projections and head stay
   full precision).
 
+The batching, warmup, overload and timing knobs (``BATCH_*``,
+``HOST_TOKENIZER_WORKERS``, ``STAGING_BUFFERS``, ``WARMUP``,
+``WARMUP_R``, ``RM_WARMUP``, ``ADMISSION_*``, ``DRAIN_TIMEOUT_MILLIS``,
+``DEVICE_WATCHDOG_MILLIS``, ``METRICS_DEVICE_TIMING``) are documented in
+``serve/config.py``.  The server listens at once and answers ``/livez``;
+``/readyz`` turns 200 once the CUDA graphs of the ``WARMUP`` and
+``RM_WARMUP`` buckets are captured.  SIGTERM or SIGINT drains it: new
+requests shed with 503, in-flight ones finish within
+``DRAIN_TIMEOUT_MILLIS``, then the process exits 0.
+
 The native tokenizer library (``native/*.cpp``) is built at first use
 into ``build/native/`` (``utils.native``; ``LWC_NATIVE=0`` keeps the
 Python tokenizers).  The device defaults to CUDA; without a card that
@@ -57,13 +67,14 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import signal
 import sys
+import threading
+
+from .config import ServeConfig, env_truthy, staging_buffers
+from .config import packing_options  # noqa: F401  (the server's env API)
 
 log = logging.getLogger("lwc.torch.serve")
-
-
-def _truthy(value) -> bool:
-    return str(value).lower() in ("1", "true", "yes", "on")
 
 
 def build_embedder(env, device=None, dtype=None):
@@ -102,6 +113,7 @@ def build_embedder(env, device=None, dtype=None):
         device=device,
         dtype=dtype,
         quantize=quantize,
+        staging_buffers=staging_buffers(env),
     )
     synthetic = []
     if model is None:
@@ -112,7 +124,7 @@ def build_embedder(env, device=None, dtype=None):
         detail = f"EMBEDDER_MODEL={name} would serve " + " and ".join(
             synthetic
         )
-        if not _truthy(env.get("LWC_ALLOW_RANDOM_PARAMS", "")):
+        if not env_truthy(env.get("LWC_ALLOW_RANDOM_PARAMS", "")):
             raise ValueError(
                 detail + ". Point EMBEDDER_WEIGHTS at a checkpoint, or opt "
                 "into synthetic params with LWC_ALLOW_RANDOM_PARAMS=1."
@@ -173,6 +185,7 @@ def build_reranker(env, device=None, dtype=None):
         device=device,
         dtype=dtype,
         quantize=quantize,
+        staging_buffers=staging_buffers(env),
     )
     synthetic = []
     if model is None:
@@ -192,7 +205,7 @@ def build_reranker(env, device=None, dtype=None):
             f"RM_MODEL={name} would serve " + " and ".join(synthetic)
             + ": reward re-ranking would be garbage that looks valid."
         )
-        if not _truthy(env.get("LWC_ALLOW_RANDOM_PARAMS", "")):
+        if not env_truthy(env.get("LWC_ALLOW_RANDOM_PARAMS", "")):
             raise ValueError(
                 detail + " Point RM_WEIGHTS at a checkpoint, or opt in "
                 "with LWC_ALLOW_RANDOM_PARAMS=1."
@@ -201,21 +214,39 @@ def build_reranker(env, device=None, dtype=None):
     return reranker
 
 
-def packing_options(env) -> dict:
-    """The batcher's packing keyword arguments from the environment, with
-    the reference's defaults and clamps (``serve/config.py``)."""
-    return {
-        "packing": _truthy(env.get("PACKING_ENABLED", "0")),
-        "packing_row_tokens": max(16, int(env.get("PACKING_ROW_TOKENS", 512))),
-        "packing_max_rows": max(1, int(env.get("PACKING_MAX_ROWS", 8))),
-        "packing_max_segments": max(
-            1, int(env.get("PACKING_MAX_SEGMENTS", 64))
+def build_server(embedder, reranker, config: ServeConfig,
+                 host: str = "127.0.0.1", port: int = 0):
+    """The ``Server`` the configuration describes, not ready until
+    ``warm_up``."""
+    from ..resilience.admission import AdmissionConfig
+    from .gateway import Server
+
+    return Server(
+        embedder, host=host, port=port, reranker=reranker,
+        max_batch=config.batch_max, window_ms=config.batch_window_ms,
+        pipeline_depth=config.batch_pipeline,
+        max_rows=config.batch_max_rows,
+        host_tokenizer_workers=config.host_tokenizer_workers,
+        admission=AdmissionConfig(
+            max_inflight=config.admission_max_inflight,
+            max_queue_depth=config.admission_max_queue_depth,
         ),
-        "prefix_dedup": _truthy(env.get("PREFIX_DEDUP", "1")),
-        "prefix_dedup_min_chars": max(
-            1, int(env.get("PREFIX_DEDUP_MIN_CHARS", 48))
-        ),
-    }
+        drain_timeout_ms=config.drain_timeout_millis,
+        watchdog_ms=config.device_watchdog_millis,
+        device_timing=config.metrics_device_timing,
+        ready=False,
+        **config.packing,
+    )
+
+
+def warm_up(server, config: ServeConfig) -> list:
+    """Capture the configured buckets' CUDA graphs, then turn the server
+    ready (``/readyz`` 200).  Returns [(label, seconds)]."""
+    timings = server.warmup(config.warmup, config.warmup_r,
+                            config.packed_buckets(), config.rm_warmup)
+    for label, seconds in timings:
+        log.info("warmup %s in %.2fs", label, seconds)
+    return timings
 
 
 def main(argv=None) -> int:
@@ -228,19 +259,16 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    from .gateway import Server
-
     env = os.environ
     if not (env.get("EMBEDDER_MODEL") or env.get("RM_MODEL")):
         parser.error("set EMBEDDER_MODEL, RM_MODEL or both")
+    config = ServeConfig.from_env(env)
     embedder = (
         build_embedder(env, device=args.device)
         if env.get("EMBEDDER_MODEL") else None
     )
     reranker = build_reranker(env, device=args.device)
-    packing = packing_options(env)
-    server = Server(embedder, host=args.host, port=args.port,
-                    reranker=reranker, **packing)
+    server = build_server(embedder, reranker, config, args.host, args.port)
     for what, served in (("embedder", embedder), ("reranker", reranker)):
         if served is not None:
             log.info(
@@ -249,11 +277,18 @@ def main(argv=None) -> int:
                 served.dtype, served.config.quantize,
             )
     if embedder is not None:
-        log.info("packing=%s", packing["packing"])
+        log.info("packing=%s", config.packing["packing"])
+    stop = threading.Event()
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(signum, lambda *_: stop.set())
+    server.start()
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        warm_up(server, config)
+        log.info("ready")
+        stop.wait()
+        log.info("draining (budget %.0f ms)", config.drain_timeout_millis)
+        clean = server.drain()
+        log.info("drained %s", "clean" if clean else "past its budget")
     finally:
         server.close()
     return 0

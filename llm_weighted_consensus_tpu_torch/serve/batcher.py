@@ -1,28 +1,58 @@
-"""A small micro-batcher in front of the device.
+"""Dynamic micro-batching in front of the device.
 
-Counterpart, in part, of ``llm_weighted_consensus_tpu/serve/batcher.py``'s
-``DeviceBatcher``: concurrent requests of the same kind coalesce into one
-device dispatch.  One worker thread owns the device; callers block on a
-``concurrent.futures.Future`` that the worker resolves.
+Counterpart of ``llm_weighted_consensus_tpu/serve/batcher.py``'s
+``DeviceBatcher``, for the ``embed`` and ``consensus`` kinds and the
+packed path, on threads and ``concurrent.futures.Future``s where the
+reference runs an asyncio loop.  Callers submit device work and block on
+a future; concurrent work of one key coalesces into one dispatch:
 
-* Padded (the default): consensus requests group by ``(N, temperature)``
-  and run ``consensus_confidence_tokens_many``; embedding requests group
-  together and run ``embed_tokens``.
-* Packed (``packing=True``, ``PACKING_ENABLED``): every request groups
+* padded (the default): consensus requests group by ``(N,
+  temperature)`` and run ``consensus_confidence_tokens_many`` (one
+  request: ``consensus_confidence_tokens``); embedding requests group by
+  their token cap and run ``embed_tokens``;
+* packed (``packing=True``, ``PACKING_ENABLED``): every request groups
   under one key, capped by its estimated segments (``packing_max_rows``
-  x ``packing_max_segments``).  The group's texts are laid end to end in
-  rows of ``packing_row_tokens`` (``serve/packing.py``) and embedded by
-  one ``embed_packed`` per packed call; embedding requests gather their
-  vectors, consensus requests of any N and temperature vote on the host
+  x ``packing_max_segments``; ``max_batch`` does not cap it).  The
+  group's texts are laid end to end in rows of ``packing_row_tokens``
+  (``serve/packing.py``) and embedded by one ``embed_packed`` per packed
+  call; embedding requests gather their vectors, consensus requests of
+  any N and temperature vote on the host
   (``packing.consensus_vote_np``).  With ``prefix_dedup`` a consensus
   request whose candidates share a prefix of at least
   ``prefix_dedup_min_chars`` embeds it once and composes each candidate
-  from its prefix and suffix vectors (``packing.compose_prefix_suffix``,
-  the reference's defined contract).
+  from its prefix and suffix vectors (``packing.compose_prefix_suffix``).
 
-Submit-time planning on a host pool, admission control, priority lanes,
-deadlines and the watchdog of the reference's batcher are later slices
-(ROADMAP.md).
+The pipeline, as in the reference:
+
+* **submit time**: the caller's thread checks the queue bound
+  (``max_queue_depth``; past it ``OverloadedError``, a 503) and captures
+  its deadline (``resilience.deadline``); the item's tokenization, or its
+  packed plan, starts on a host pool (``host_tokenizer_workers``) at
+  once;
+* **the flusher thread** waits ``window_ms`` for company when the
+  device path is idle (less when a full group is already queued), then
+  takes a pipeline slot (``pipeline_depth``) and plans ONE group from
+  what is queued at that moment: the head item's key, up to
+  ``max_batch`` items and ``max_rows`` encoder rows, consensus groups cut
+  into power-of-two chunks where padding would waste over a quarter of
+  the rows.  Before dispatch it drops items whose caller cancelled and
+  fails with 504 items whose deadline cannot cover the kind's EWMA
+  dispatch time; the latency lane is always planned before the offline
+  lane;
+* **a dispatch thread** stages the group in pinned buffers and launches
+  it (a CUDA graph replay at a warmed bucket) under the embedder's
+  deferred-readiness sink (``models/dispatch_seam.py``) and returns at
+  enqueue, so the next group stages while this one runs;
+* **a waiter thread** waits on the group's CUDA events, records its
+  device time per bucket and its interval (``obs/phases.py``), recycles
+  the staging buffers and resolves the futures.  The slot frees here.
+
+Every dispatch is bracketed by the watchdog (``begin`` at its start,
+``end`` at readiness).  ``utilization()`` and ``lane_occupancy()`` have
+the reference's keys; ``close()`` drains before it stops.  Left for
+later: the ``stream`` kind, ring and mesh dispatch, the CPU fallback and
+the per-row embedding cache; the reference's ``fallback_*`` and
+``shed_redispatch_limit`` keys read as their idle values.
 """
 
 from __future__ import annotations
@@ -31,61 +61,114 @@ import logging
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 
+from ..errors import DeadlineExceededError, OverloadedError
+from ..models import dispatch_seam as _seam
 from ..models.embedder import _bucket, next_pow2
+from ..obs import phases as _phases
+from ..resilience.deadline import current_deadline
 from . import packing as _packing
 
 log = logging.getLogger("lwc.torch.batcher")
 
 PACKED_KEY = ("packed",)
+LANES = ("latency", "offline")
 
 
 class _Item:
-    __slots__ = ("kind", "key", "payload", "future", "t_enq")
+    __slots__ = (
+        "kind", "key", "payload", "future", "deadline", "submitted",
+        "prepared", "lane",
+    )
 
-    def __init__(self, kind, key, payload):
+    def __init__(self, kind, key, payload, deadline=None, lane="latency"):
         self.kind = kind  # "consensus" or "embed"
         self.key = key
-        # consensus: (texts, temperature); embed: texts
+        # consensus: (texts, temperature); embed: (texts, max_tokens)
         self.payload = payload
         self.future: Future = Future()
-        self.t_enq = time.perf_counter()
+        self.deadline = deadline
+        self.submitted = time.perf_counter()
+        # the submit-time tokenization (a host-pool future), or None
+        self.prepared = None
+        self.lane = lane
 
     @property
     def texts(self) -> list:
-        return self.payload[0] if self.kind == "consensus" else self.payload
+        return self.payload[0]
 
 
-class ConsensusBatcher:
-    """Coalesces same-key requests into one dispatch.  A padded group
-    holds at most ``max_batch`` requests; a packed group at most
-    ``packing_max_rows * packing_max_segments`` estimated segments (one
-    per text, the first request always fits).  A group leaves when it is
-    full or when its oldest request has waited ``max_wait_ms``.
-    ``close()`` stops the worker."""
+class _StagedGroup:
+    """What the dispatch hop hands the waiter hop: the group's sink and
+    the closure that makes its results after readiness."""
+
+    __slots__ = ("sink", "finalize")
+
+    def __init__(self, sink, finalize) -> None:
+        self.sink = sink
+        self.finalize = finalize
+
+
+def _value(out) -> np.ndarray:
+    """A dispatch's output on the host: a ``models.graphs.Dispatch``
+    handle's result (after readiness), or an array as it is."""
+    result = getattr(out, "result", None)
+    return result() if result is not None else np.asarray(out)
+
+
+def _resolve(future: Future, result=None, exc=None) -> None:
+    """Set a future that its caller may have cancelled meanwhile."""
+    try:
+        if exc is not None:
+            future.set_exception(exc)
+        else:
+            future.set_result(result)
+    except InvalidStateError:
+        pass
+
+
+class DeviceBatcher:
+    """Collects concurrent device work and dispatches it in batches.
+
+    ``window_ms`` bounds the extra latency a lone request pays waiting for
+    company; ``max_batch`` bounds padded items per dispatch and
+    ``max_rows`` encoder rows.
+    ``window_ms=0`` still batches whatever accumulates behind an in-flight
+    dispatch."""
 
     def __init__(
         self,
         embedder,
-        max_batch: int = 16,
-        max_wait_ms: float = 2.0,
+        metrics=None,
         *,
+        window_ms: float = 3.0,
+        max_batch: int = 64,
+        pipeline_depth: int = 2,
+        max_rows: int = 512,
+        max_queue_depth: int = 0,
+        watchdog=None,
         packing: bool = False,
         packing_row_tokens: int = 512,
         packing_max_rows: int = 8,
         packing_max_segments: int = 64,
         prefix_dedup: bool = True,
         prefix_dedup_min_chars: int = 48,
+        host_tokenizer_workers: int = 2,
     ) -> None:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.embedder = embedder
-        self.max_batch = max_batch
-        self.max_wait_s = max_wait_ms / 1e3
+        self.metrics = metrics
+        self.window_ms = float(window_ms)
+        self.max_batch = int(max_batch)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.max_rows = max(1, int(max_rows))
+        self.max_queue_depth = max(0, int(max_queue_depth))
+        self.watchdog = watchdog
         # the reference's clamps (serve/config.py)
         self.packing = bool(packing) and bool(
             getattr(embedder, "supports_packing", lambda: False)()
@@ -95,12 +178,28 @@ class ConsensusBatcher:
         self.packing_max_segments = max(1, int(packing_max_segments))
         self.prefix_dedup = bool(prefix_dedup)
         self.prefix_dedup_min_chars = max(1, int(prefix_dedup_min_chars))
+        self.host_tokenizer_workers = max(0, int(host_tokenizer_workers))
+        # one condition guards the queues, the in-flight table and every
+        # counter below; the dispatch and waiter threads take it briefly
         self._cond = threading.Condition()
-        self._queue: deque = deque()
+        self._pending: list = []
+        self._pending_offline: list = []
+        self._inflight: dict = {}  # token -> (start, lane)
         self._closed = False
-        # counters, read by stats(); guarded by _cond (the worker thread
-        # writes the token counters, stats() reads them from others)
-        self._dispatches = {"consensus": 0, "embed": 0}
+        self._slots = threading.Semaphore(self.pipeline_depth)
+        self._started = time.perf_counter()
+        self._ewma_ms: dict = {}
+        self.shed_queue_full = 0
+        self.shed_deadline = 0
+        self.cancelled_items = 0
+        self._busy: deque = deque(maxlen=1024)
+        self._dispatches = 0
+        self._items = 0
+        self._lane_dispatches = {lane: 0 for lane in LANES}
+        self._lane_items = {lane: 0 for lane in LANES}
+        self._lane_busy = {lane: deque(maxlen=1024) for lane in LANES}
+        # the port's per-kind view (stats())
+        self._kind_dispatches = {"consensus": 0, "embed": 0}
         self._requests = {"consensus": 0, "embed": 0}
         self._largest_group = 0
         self._packed_dispatches = 0
@@ -113,262 +212,567 @@ class ConsensusBatcher:
         self._fallback_items = 0
         self._occupancy: dict = {}  # packed call rows B -> calls
         self._call_shapes: dict = {}  # "BxL" -> packed calls
-        self._worker = threading.Thread(
-            target=self._run, name="lwc-torch-device", daemon=True
+        self._dispatchers = ThreadPoolExecutor(
+            self.pipeline_depth, thread_name_prefix="lwc-torch-device"
         )
-        self._worker.start()
+        self._waiters = ThreadPoolExecutor(
+            self.pipeline_depth, thread_name_prefix="lwc-torch-waiter"
+        )
+        self._tok_pool = (
+            ThreadPoolExecutor(self.host_tokenizer_workers,
+                               thread_name_prefix="lwc-torch-hosttok")
+            if self.host_tokenizer_workers else None
+        )
+        self._flusher = threading.Thread(
+            target=self._flush_loop, name="lwc-torch-flusher", daemon=True
+        )
+        self._flusher.start()
+        if metrics is not None:
+            metrics.register_provider("device_batcher", self.utilization)
 
     # -- caller side ---------------------------------------------------------
 
-    def submit_consensus(self, texts, temperature: float = 0.05) -> Future:
+    def submit_consensus(
+        self, texts, temperature: float = 0.05, priority: str = "latency"
+    ) -> Future:
         """-> Future of (confidence[N] np.ndarray, prompt token count)."""
         texts = list(texts)
         key = (
             PACKED_KEY if self.packing
             else ("consensus", len(texts), float(temperature))
         )
-        return self._submit("consensus", key, (texts, float(temperature)))
+        return self._submit(
+            "consensus", key, (texts, float(temperature)), priority
+        )
 
-    def submit_embed(self, texts) -> Future:
-        """-> Future of (embeddings[B, H] np.ndarray, prompt token count)."""
-        key = PACKED_KEY if self.packing else ("embed",)
-        return self._submit("embed", key, list(texts))
+    def submit_embed(
+        self, texts, max_tokens: Optional[int] = None,
+        priority: str = "latency",
+    ) -> Future:
+        """-> Future of (embeddings[B, H] np.ndarray, prompt token
+        count).  Padded embedding requests group by ``max_tokens``."""
+        key = PACKED_KEY if self.packing else ("embed", max_tokens)
+        return self._submit("embed", key, (list(texts), max_tokens), priority)
 
-    def consensus(self, texts, temperature: float = 0.05):
-        return self.submit_consensus(texts, temperature).result()
+    def consensus(self, texts, temperature: float = 0.05,
+                  priority: str = "latency"):
+        return self._wait(self.submit_consensus(texts, temperature, priority))
 
-    def embed(self, texts):
-        return self.submit_embed(texts).result()
+    def embed(self, texts, max_tokens: Optional[int] = None,
+              priority: str = "latency"):
+        return self._wait(self.submit_embed(texts, max_tokens, priority))
 
-    def _submit(self, kind, key, payload) -> Future:
-        item = _Item(kind, key, payload)
+    @staticmethod
+    def _wait(future: Future):
+        """The caller's wait; a caller that leaves (an exception in its
+        thread) cancels its item, which is then dropped before dispatch."""
+        try:
+            return future.result()
+        except BaseException:
+            future.cancel()
+            raise
+
+    def _submit(self, kind, key, payload, priority) -> Future:
+        offline = priority == "offline"
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
-            self._queue.append(item)
-            self._cond.notify()
+            # the queue bound guards the latency lane only: offline feeds
+            # limit themselves by waiting on their futures
+            shed = (not offline and self.max_queue_depth
+                    and len(self._pending) >= self.max_queue_depth)
+            if shed:
+                self.shed_queue_full += 1
+        if shed:
+            if self.metrics is not None:
+                self.metrics.observe("device:shed:queue_full", 0.0,
+                                     error=True)
+            raise OverloadedError("batcher_queue_full")
+        item = _Item(kind, key, payload, current_deadline(),
+                     lane="offline" if offline else "latency")
+        if self._tok_pool is not None:
+            # submit-time tokenization: the rows (or the packed plan)
+            # build now, overlapping earlier groups' device time
+            item.prepared = self._tok_pool.submit(
+                self._prepare_item, kind, key, payload
+            )
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            (self._pending_offline if offline else self._pending).append(item)
+            self._cond.notify_all()
         return item.future
 
-    def stats(self) -> dict:
-        """Dispatch and request counts, and the reference's packing
-        efficiency counters: real tokens embedded against the token slots
-        dispatched, per path."""
-        with self._cond:
-            pack_real, pack_slot = self._pack_real_tokens, self._pack_slot_tokens
-            pad_real, pad_slot = self._pad_real_tokens, self._pad_slot_tokens
-            return {
-                "dispatches": dict(self._dispatches),
-                "requests": dict(self._requests),
-                "largest_group": self._largest_group,
-                "queued": len(self._queue),
-                "packing": {
-                    "enabled": self.packing,
-                    "dispatches": self._packed_dispatches,
-                    "real_tokens": pack_real,
-                    "slot_tokens": pack_slot,
-                    "padding_waste": round(1.0 - pack_real / pack_slot, 4)
-                    if pack_slot else 0.0,
-                    "prefix_dedup_hits": self._dedup_hits,
-                    "prefix_dedup_tokens_saved": self._dedup_tokens_saved,
-                    "fallback_items": self._fallback_items,
-                    # packed call rows B -> calls at that B
-                    "bucket_occupancy": {
-                        str(b): c for b, c in sorted(self._occupancy.items())
-                    },
-                    "call_shapes": dict(self._call_shapes),
-                },
-                "padded": {
-                    "real_tokens": pad_real,
-                    "slot_tokens": pad_slot,
-                    "padding_waste": round(1.0 - pad_real / pad_slot, 4)
-                    if pad_slot else 0.0,
-                },
-            }
+    # -- the flusher ---------------------------------------------------------
 
-    def close(self, timeout: float = 10.0) -> None:
-        with self._cond:
-            self._closed = True
-            self._cond.notify_all()
-        self._worker.join(timeout)
+    def _has_pending(self) -> bool:
+        return bool(self._pending or self._pending_offline)
 
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
-
-    # -- worker side ---------------------------------------------------------
-
-    def _candidates(self, key) -> tuple:
-        """(the queued items with ``key`` that fit one group, in arrival
-        order; whether the group is full).  Caller holds ``_cond``."""
-        same = [it for it in self._queue if it.key == key]
-        if key != PACKED_KEY:
-            return same[: self.max_batch], len(same) >= self.max_batch
-        budget = self.packing_max_rows * self.packing_max_segments
-        take, segments = [], 0
-        for item in same:
-            n = max(1, len(item.texts))
-            if take and segments + n > budget:
-                return take, True  # later items must not jump this one
-            take.append(item)
-            segments += n
-        return take, segments >= budget
-
-    def _next_group(self) -> Optional[list]:
-        """Block until a group is ready: the oldest item's key and the
-        queued items with that key that fit one group."""
-        with self._cond:
-            while True:
-                if not self._queue:
-                    if self._closed:
-                        return None
-                    self._cond.wait()
-                    continue
-                key = self._queue[0].key
-                group, full = self._candidates(key)
-                waited = time.perf_counter() - self._queue[0].t_enq
-                if full or waited >= self.max_wait_s or self._closed:
-                    taken = set(map(id, group))
-                    self._queue = deque(
-                        it for it in self._queue if id(it) not in taken
-                    )
-                    if key == PACKED_KEY:
-                        self._packed_dispatches += 1
-                    else:
-                        self._dispatches[key[0]] += 1
-                    for item in group:
-                        self._requests[item.kind] += 1
-                    self._largest_group = max(self._largest_group, len(group))
-                    return group
-                self._cond.wait(self.max_wait_s - waited)
-
-    def _run(self) -> None:
+    def _flush_loop(self) -> None:
         while True:
-            group = self._next_group()
-            if group is None:
-                return
-            try:
-                if group[0].key == PACKED_KEY:
-                    results = self._dispatch_packed(group)
-                elif group[0].kind == "consensus":
-                    results = self._dispatch_consensus(group)
-                else:
-                    results = self._dispatch_embed(group)
-            except Exception as exc:  # the worker must outlive a bad group
-                log.exception("device dispatch failed")
-                for item in group:
-                    item.future.set_exception(exc)
+            with self._cond:
+                while not self._has_pending() and not self._closed:
+                    self._cond.wait()
+                if not self._has_pending():
+                    return  # closed and empty
+                if self.window_ms > 0 and not self._inflight:
+                    # the accumulation window: a lone arrival waits for
+                    # company, arrivals behind in-flight work do not
+                    end = time.perf_counter() + self.window_ms / 1e3
+                    while not self._closed and not self._head_group_full():
+                        left = end - time.perf_counter()
+                        if left <= 0:
+                            break
+                        self._cond.wait(left)
+            self._plan_round()
+
+    def _plan_round(self) -> None:
+        """Dispatch groups, one per pipeline slot, while items are
+        queued: each group is planned only once its slot is free, from
+        whatever is queued then."""
+        while True:
+            self._slots.acquire()
+            with self._cond:
+                # shed after the slot wait: that queueing delay is where
+                # deadlines die under overload
+                group = self._shed_group(self._next_group())
+                if group:
+                    token, t0 = object(), time.perf_counter()
+                    self._inflight[token] = (t0, group[0].lane)
+                    self._count_group(group)
+            if group:
+                self._dispatchers.submit(self._run_group, group, token, t0)
+            else:
+                self._slots.release()
+            with self._cond:
+                if not self._has_pending():
+                    return
+
+    # caller holds self._cond
+    def _count_group(self, group: list) -> None:
+        key = group[0].key
+        if key == PACKED_KEY:
+            self._packed_dispatches += 1
+        else:
+            self._kind_dispatches[key[0]] += 1
+        for item in group:
+            self._requests[item.kind] += 1
+        self._largest_group = max(self._largest_group, len(group))
+
+    @staticmethod
+    def _est_kind(item) -> str:
+        """The EWMA and metrics series of an item's dispatch: packed
+        groups mix kinds and report as one "packed" series."""
+        return "packed" if item.key == PACKED_KEY else item.kind
+
+    @staticmethod
+    def _rows(item) -> int:
+        """Encoder rows (packed: estimated segments) one item adds."""
+        return max(1, len(item.payload[0]))
+
+    def _budget(self, key) -> int:
+        if key == PACKED_KEY:
+            return self.packing_max_rows * self.packing_max_segments
+        return self.max_rows
+
+    # caller holds self._cond
+    def _head_group_full(self) -> bool:
+        """Whether the head key already fills a group, so the window need
+        not run out."""
+        pending = self._pending or self._pending_offline
+        key = pending[0].key
+        budget, rows, count = self._budget(key), 0, 0
+        for item in pending:
+            if item.key != key:
                 continue
-            for item, result in zip(group, results):
-                item.future.set_result(result)
+            rows += self._rows(item)
+            count += 1
+            if rows >= budget or (key != PACKED_KEY
+                                  and count >= self.max_batch):
+                return True
+        return False
+
+    # caller holds self._cond
+    def _next_group(self) -> list:
+        """Plan ONE group from the live queue: the head item's key,
+        joined by every same-key item in arrival order up to
+        ``max_batch`` items (padded only) and the row budget; the rest
+        stays queued.  The latency lane is planned first; the offline lane
+        only when the latency lane is empty.  A consensus group keeps the
+        power-of-two chunk policy: the first chunk dispatches now, the
+        rest returns to the front of the queue."""
+        from_latency = bool(self._pending)
+        pending = self._pending if from_latency else self._pending_offline
+        if not pending:
+            return []
+        key = pending[0].key
+        budget = self._budget(key)
+        take, rest, rows = [], [], 0
+        closed = False  # per-key FIFO: once one item misses, later ones wait
+        for item in pending:
+            r = self._rows(item)
+            if (
+                item.key == key
+                and not closed
+                and (key == PACKED_KEY or len(take) < self.max_batch)
+                and (not take or rows + r <= budget)
+            ):
+                take.append(item)
+                rows += r
+            else:
+                if item.key == key:
+                    closed = True
+                rest.append(item)
+        if take and key[0] == "consensus":
+            chunks = list(self._pow2_chunks(take))
+            if len(chunks) > 1:
+                rest = [i for c in chunks[1:] for i in c] + rest
+                take = chunks[0]
+        if from_latency:
+            self._pending = rest
+        else:
+            self._pending_offline = rest
+        return take
+
+    @staticmethod
+    def _pow2_chunks(group: list):
+        """Split a consensus group into power-of-two chunks wherever its
+        padded dispatch would waste over a quarter of the rows; otherwise
+        pass it through whole."""
+        if group[0].kind != "consensus":
+            yield group
+            return
+        start, remaining = 0, len(group)
+        while remaining:
+            bucket = next_pow2(remaining)
+            if (bucket - remaining) * 4 <= bucket:
+                yield group[start:]
+                return
+            size = bucket // 2
+            yield group[start : start + size]
+            start += size
+            remaining -= size
+
+    # caller holds self._cond
+    def _shed_group(self, group: list) -> list:
+        """The items still worth dispatching: items whose caller cancelled
+        are dropped; items whose deadline has expired, or has less left
+        than the kind's EWMA dispatch time, fail with 504."""
+        live = []
+        for item in group:
+            if item.future.done():
+                self.cancelled_items += 1
+                continue
+            deadline = item.deadline
+            if deadline is not None:
+                estimate = self._ewma_ms.get(self._est_kind(item))
+                if deadline.expired() or (
+                    estimate is not None
+                    and deadline.remaining() * 1e3 < estimate
+                ):
+                    _resolve(item.future, exc=DeadlineExceededError(
+                        "shed before device dispatch"))
+                    self.shed_deadline += 1
+                    if self.metrics is not None:
+                        self.metrics.observe("device:shed:deadline", 0.0,
+                                             error=True)
+                    continue
+            live.append(item)
+        return live
+
+    # -- the dispatch and waiter hops ------------------------------------------
+
+    def _run_group(self, group: list, token, t0: float) -> None:
+        for item in group:
+            _phases.observe_phase(
+                "batcher_queue", (t0 - item.submitted) * 1e3
+            )
+        wd = (self.watchdog.begin(self._est_kind(group[0]))
+              if self.watchdog is not None else None)
+        try:
+            staged = self._dispatch(group)
+            self._waiters.submit(self._await_group, group, staged, t0,
+                                 token, wd)
+        except Exception as exc:
+            log.exception("device dispatch failed")
+            for item in group:
+                _resolve(item.future, exc=exc)
+            self._finish(group, t0, token, wd, error=True)
+
+    def _await_group(self, group, staged, t0, token, wd) -> None:
+        try:
+            results = self._finalize_group(staged)
+        except Exception as exc:
+            log.exception("device dispatch failed at readiness")
+            for item in group:
+                _resolve(item.future, exc=exc)
+            self._finish(group, t0, token, wd, error=True)
+            return
+        for item, result in zip(group, results):
+            _resolve(item.future, result)
+        self._finish(group, t0, token, wd, error=False)
+
+    def _finish(self, group, t0, token, wd, *, error: bool) -> None:
+        self._observe(group, t0, token, error=error)
+        if wd is not None:
+            self.watchdog.end(wd)
+        self._slots.release()
+        with self._cond:
+            self._cond.notify_all()
+
+    def _observe(self, group, t0, token, *, error: bool) -> None:
+        end = time.perf_counter()
+        series = self._est_kind(group[0])
+        lane = group[0].lane
+        with self._cond:
+            self._inflight.pop(token, None)
+            self._busy.append((t0, end))
+            self._dispatches += 1
+            self._items += len(group)
+            self._lane_dispatches[lane] += 1
+            self._lane_items[lane] += len(group)
+            self._lane_busy[lane].append((t0, end))
+            if not error:
+                ms = (end - t0) * 1e3
+                prev = self._ewma_ms.get(series)
+                self._ewma_ms[series] = (
+                    ms if prev is None else 0.8 * prev + 0.2 * ms
+                )
+        if self.metrics is not None:
+            self.metrics.observe(f"device:batch:{series}", (end - t0) * 1e3,
+                                 error=error)
+
+    def _dispatch(self, group: list) -> _StagedGroup:
+        """Stage and enqueue the group under a deferred-readiness sink;
+        the returned closure makes its results after readiness."""
+        if group[0].key == PACKED_KEY:
+            fn = self._dispatch_packed
+        else:
+            fn = getattr(self, "_dispatch_" + group[0].kind)
+        sink = _seam.DispatchSink()
+        with _seam.deferred_readiness(sink):
+            finalize = fn(group, self.embedder)
+        return _StagedGroup(sink, finalize)
+
+    def _finalize_group(self, staged: _StagedGroup) -> list:
+        """Waiter hop: wait on the group's dispatches, record device time
+        and intervals, recycle the staging buffers, make the results."""
+        pool = getattr(self.embedder, "staging_pool", None)
+        _seam.drain_sink(
+            staged.sink,
+            observe_device=_phases.observe_device,
+            observe_interval=_phases.observe_device_interval,
+            release=pool.release if pool is not None else None,
+        )
+        return staged.finalize()
+
+    # -- submit-time host work -------------------------------------------------
+
+    def _prepare_item(self, kind, key, payload):
+        """An item's padded rows, or its packed plan (host pool)."""
+        if key == PACKED_KEY:
+            return self._plan_packed_payload(kind, payload, self.embedder)
+        if kind == "embed":
+            texts, cap = payload
+            return self.embedder.tokenize(texts, cap)
+        return self.embedder.tokenize(payload[0])
+
+    def _prepared_rows(self, group: list, embedder):
+        """The group's submit-time rows concatenated into the batch one
+        group-level ``tokenize`` would give: each item's rows padded from
+        its own sequence bucket to the group's (pad id, mask 0).  None
+        when an item has no prepared rows."""
+        rows = []
+        for item in group:
+            if item.prepared is None:
+                return None
+            rows.append(item.prepared.result())  # re-raises its errors
+        if len(rows) == 1:
+            return rows[0]
+        width = max(ids.shape[1] for ids, _ in rows)
+        pad_id = int(
+            getattr(getattr(embedder, "tokenizer", None), "pad_id", 0) or 0
+        )
+        ids_parts, mask_parts = [], []
+        for ids, mask in rows:
+            gap = width - ids.shape[1]
+            if gap:
+                ids = np.pad(ids, ((0, 0), (0, gap)), constant_values=pad_id)
+                mask = np.pad(mask, ((0, 0), (0, gap)))
+            ids_parts.append(ids)
+            mask_parts.append(mask)
+        return np.concatenate(ids_parts), np.concatenate(mask_parts)
+
+    # -- padded dispatches ------------------------------------------------------
 
     def _count(self, **deltas) -> None:
         with self._cond:
             for name, delta in deltas.items():
                 setattr(self, name, getattr(self, name) + int(delta))
 
-    def _dispatch_consensus(self, group: list) -> list:
-        emb = self.embedder
+    def _dispatch_embed(self, group: list, embedder):
+        max_tokens = group[0].payload[1]
+        counts = [len(item.texts) for item in group]
+        prepared = self._prepared_rows(group, embedder)
+        if prepared is not None:
+            ids, mask = prepared
+        else:
+            texts = [t for item in group for t in item.texts]
+            ids, mask = embedder.tokenize(texts, max_tokens)
+        self._count(
+            _pad_real_tokens=mask.sum(),
+            _pad_slot_tokens=_bucket(ids.shape[0], embedder.MAX_DEVICE_BATCH)
+            * ids.shape[1],
+        )
+        emb = embedder.embed_tokens(ids, mask)
+        row_tokens = mask.sum(axis=1)
+
+        def finalize() -> list:
+            vecs = _value(emb)
+            out, start = [], 0
+            for count in counts:
+                stop = start + count
+                out.append((vecs[start:stop],
+                            int(row_tokens[start:stop].sum())))
+                start = stop
+            return out
+
+        return finalize
+
+    def _dispatch_consensus(self, group: list, embedder):
         texts0, temperature = group[0].payload
         n = len(texts0)
-        texts = [t for item in group for t in item.payload[0]]
-        ids, mask = emb.tokenize(texts)
+        prepared = self._prepared_rows(group, embedder)
+        if prepared is not None:
+            ids, mask = prepared
+        else:
+            ids, mask = embedder.tokenize(
+                [t for item in group for t in item.texts]
+            )
         r, s = len(group), ids.shape[1]
-        # the dispatch pads the request axis to its power-of-two bucket
+        if r == 1:
+            self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)
+            conf = embedder.consensus_confidence_tokens(ids, mask, temperature)
+            tok = int(mask.sum())
+            return lambda: [(_value(conf), tok)]
+        # the grouped dispatch pads the request axis to its pow2 bucket
         self._count(_pad_real_tokens=mask.sum(),
                     _pad_slot_tokens=next_pow2(r) * n * s)
-        conf = emb.consensus_confidence_tokens_many(
+        conf = embedder.consensus_confidence_tokens_many(
             ids.reshape(r, n, s), mask.reshape(r, n, s), temperature
         )
         tokens = mask.reshape(r, n * s).sum(axis=1)
-        return [(np.asarray(conf[i]), int(tokens[i])) for i in range(r)]
 
-    def _dispatch_embed(self, group: list) -> list:
-        emb = self.embedder
-        texts = [t for item in group for t in item.payload]
-        ids, mask = emb.tokenize(texts)
-        self._count(
-            _pad_real_tokens=mask.sum(),
-            _pad_slot_tokens=_bucket(ids.shape[0], emb.MAX_DEVICE_BATCH)
-            * ids.shape[1],
-        )
-        vecs = emb.embed_tokens(ids, mask)
-        row_tokens = mask.sum(axis=1)
-        out, start = [], 0
-        for item in group:
-            stop = start + len(item.payload)
-            out.append((vecs[start:stop], int(row_tokens[start:stop].sum())))
-            start = stop
-        return out
+        def finalize() -> list:
+            conf_np = _value(conf)
+            return [(conf_np[i], int(tokens[i])) for i in range(r)]
 
-    # -- packed (continuous-batching) dispatch --------------------------------
+        return finalize
 
-    def _dispatch_packed(self, group: list) -> list:
+    # -- packed (continuous-batching) dispatch ----------------------------------
+
+    def _dispatch_packed(self, group: list, embedder):
         """One mixed group (embedding and consensus requests, any N, any
         temperature) -> per-request results through the ragged layout:
-        plan every request's segments, pack the group's segments into
-        ("packed", B, L, K) calls (``packing.build_calls``), one
-        ``embed_packed`` per call, then assemble each request.  A request
-        whose pieces do not fit a packed row takes its padded dispatch."""
-        segments: list = []  # the group's ragged int32 token rows
-        plans = []
-        for item in group:
-            plan, rows, hits, saved = self._plan_packed(item)
+        each request's plan (built at submit time when the host pool is
+        on), every segment packed into ("packed", B, L, K) calls
+        (``packing.build_calls``), one ``embed_packed`` per call,
+        enqueued here; reassembly and the host vote run after readiness.
+        A request whose pieces do not fit a packed row takes its padded
+        dispatch in the same group."""
+        t_plan = time.perf_counter()
+        segments: list = []
+        plans = [self._plan_packed_item(item, embedder, segments)
+                 for item in group]
+        plan_ms = (time.perf_counter() - t_plan) * 1e3
+        fallback = {}
+        for i, plan in enumerate(plans):
             if plan[0] == "fallback":
-                plans.append(plan)
-                continue
-            plans.append(self._rebase(plan, len(segments)))
-            segments.extend(rows)
-            self._count(_dedup_hits=hits, _dedup_tokens_saved=saved)
-        seg_vecs: list = [None] * len(segments)
+                self._count(_fallback_items=1)
+                fallback[i] = self._packed_item_fallback(group[i], embedder)
+        call_outs = []
         if segments:
+            t_plan = time.perf_counter()
             calls = _packing.build_calls(
                 segments, self.packing_row_tokens, self.packing_max_rows,
                 self.packing_max_segments,
             )
+            plan_ms += (time.perf_counter() - t_plan) * 1e3
             for call in calls:
-                out = self.embedder.embed_packed(
+                out = embedder.embed_packed(
                     call.ids, call.segment_ids, call.positions,
                     call.seg_starts,
                 )
-                for si, (r, slot) in call.slots.items():
-                    seg_vecs[si] = out[r, slot]
                 b, l = call.ids.shape
                 with self._cond:
                     self._pack_real_tokens += call.real_tokens
                     self._pack_slot_tokens += call.slot_tokens
                     self._occupancy[b] = self._occupancy.get(b, 0) + 1
                     shape = f"{b}x{l}"
-                    self._call_shapes[shape] = self._call_shapes.get(shape, 0) + 1
-        results = []
-        for item, plan in zip(group, plans):
-            if plan[0] == "fallback":
-                self._count(_fallback_items=1)
-                results.append(self._packed_item_fallback(item))
-            else:
-                results.append(self._assemble(plan, segments, seg_vecs))
-        return results
+                    self._call_shapes[shape] = (
+                        self._call_shapes.get(shape, 0) + 1
+                    )
+                call_outs.append((call, out))
+        _phases.observe_phase("pack_plan", plan_ms)
 
-    def _plan_packed(self, item) -> tuple:
-        """One request's plan over its own segments (indices from 0),
-        its ragged token rows, and its prefix-dedup hits and tokens
-        saved.  Each segment is capped at ``min(row_tokens, max_tokens)``
-        tokens; a plan of ("fallback",) sends the request to its padded
-        dispatch (the reference's ``_plan_packed_payload``)."""
-        emb = self.embedder
+        def finalize() -> list:
+            seg_vecs: list = [None] * len(segments)
+            for call, out in call_outs:
+                out_np = _value(out)
+                for si, (r, slot) in call.slots.items():
+                    seg_vecs[si] = out_np[r, slot]
+            t_tally = time.perf_counter()
+            results = []
+            for i, (item, plan) in enumerate(zip(group, plans)):
+                if plan[0] == "fallback":
+                    out, tokens = fallback[i]
+                    results.append((_value(out), tokens))
+                else:
+                    results.append(self._assemble(plan, segments, seg_vecs))
+            _phases.observe_phase(
+                "host_tally", (time.perf_counter() - t_tally) * 1e3
+            )
+            return results
+
+        return finalize
+
+    def _plan_packed_item(self, item, embedder, segments: list):
+        """One item's group-wide plan: its submit-time plan when there is
+        one, else planned here; its rows join the group's segments and
+        its dedup counters apply now."""
+        if item.prepared is not None:
+            plan, rows, stats = item.prepared.result()
+        else:
+            plan, rows, stats = self._plan_packed_payload(
+                item.kind, item.payload, embedder
+            )
+        base = len(segments)
+        segments.extend(rows)
+        if stats is not None:
+            _, hits, saved = stats
+            self._count(_dedup_hits=hits, _dedup_tokens_saved=saved)
+        return self._rebase(plan, base)
+
+    def _plan_packed_payload(self, kind, payload, embedder):
+        """Pure planning of one payload -> (plan over its own segments,
+        its ragged token rows, dedup stats or None).  Each segment is
+        capped at ``min(row_tokens, max_tokens)`` tokens; a plan of
+        ("fallback",) sends the request to its padded dispatch."""
         row_tokens = self.packing_row_tokens
-        seg_cap = min(row_tokens, emb.max_tokens)
+        seg_cap = min(row_tokens, embedder.max_tokens)
 
         def fits(rows):
             return all(0 < len(r) <= row_tokens for r in rows)
 
-        if item.kind == "embed":
-            rows = emb.tokenize_ragged(item.payload, seg_cap)
+        if kind == "embed":
+            texts, cap = payload
+            rows = embedder.tokenize_ragged(
+                texts, min(cap, seg_cap) if cap else seg_cap
+            )
             if not fits(rows):
-                return ("fallback",), [], 0, 0
-            return ("embed", list(range(len(rows)))), rows, 0, 0
-        texts, temperature = item.payload
+                return ("fallback",), [], None
+            return ("embed", list(range(len(rows)))), rows, None
+        texts, temperature = payload
         prefix = (
             _packing.shared_prefix(texts, self.prefix_dedup_min_chars)
             if self.prefix_dedup else None
@@ -377,7 +781,7 @@ class ConsensusBatcher:
             parts = [prefix] + [t[len(prefix):] for t in texts]
             # an empty suffix (candidate == prefix) embeds nothing: its
             # candidate vector is the prefix vector
-            rows = emb.tokenize_ragged(
+            rows = embedder.tokenize_ragged(
                 [parts[0]] + [p for p in parts[1:] if p], seg_cap
             )
             # a prefix this short is all [CLS]/[SEP]: vote on full texts
@@ -387,12 +791,12 @@ class ConsensusBatcher:
                 n = len(texts)
                 return (
                     ("consensus_dedup", 0, suffixes, temperature), rows,
-                    n - 1, (n - 1) * len(rows[0]),
+                    ("dedup", n - 1, (n - 1) * len(rows[0])),
                 )
-        rows = emb.tokenize_ragged(texts, seg_cap)
+        rows = embedder.tokenize_ragged(texts, seg_cap)
         if not fits(rows):
-            return ("fallback",), [], 0, 0
-        return ("consensus", list(range(len(rows))), temperature), rows, 0, 0
+            return ("fallback",), [], None
+        return ("consensus", list(range(len(rows))), temperature), rows, None
 
     @staticmethod
     def _rebase(plan, base: int):
@@ -402,11 +806,14 @@ class ConsensusBatcher:
             return ("embed", [base + i for i in plan[1]])
         if plan[0] == "consensus":
             return ("consensus", [base + i for i in plan[1]], plan[2])
-        _, prefix, suffixes, temperature = plan
-        return (
-            "consensus_dedup", base + prefix,
-            [None if i is None else base + i for i in suffixes], temperature,
-        )
+        if plan[0] == "consensus_dedup":
+            _, prefix, suffixes, temperature = plan
+            return (
+                "consensus_dedup", base + prefix,
+                [None if i is None else base + i for i in suffixes],
+                temperature,
+            )
+        return plan  # ("fallback",)
 
     def _assemble(self, plan, segments: list, seg_vecs: list) -> tuple:
         if plan[0] == "embed":
@@ -440,8 +847,201 @@ class ConsensusBatcher:
             int(sum(len(segments[i]) for i in idxs)),
         )
 
-    def _packed_item_fallback(self, item) -> tuple:
-        """One packed-key request through its padded dispatch."""
+    def _packed_item_fallback(self, item, embedder) -> tuple:
+        """Stage one packed-key request through its padded dispatch ->
+        (its output or handle, its token count)."""
         if item.kind == "embed":
-            return self._dispatch_embed([item])[0]
-        return self._dispatch_consensus([item])[0]
+            texts, cap = item.payload
+            ids, mask = embedder.tokenize(texts, cap)
+            self._count(
+                _pad_real_tokens=mask.sum(),
+                _pad_slot_tokens=_bucket(ids.shape[0],
+                                         embedder.MAX_DEVICE_BATCH)
+                * ids.shape[1],
+            )
+            return embedder.embed_tokens(ids, mask), int(mask.sum())
+        texts, temperature = item.payload
+        ids, mask = embedder.tokenize(texts)
+        self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)
+        conf = embedder.consensus_confidence_tokens(ids, mask, temperature)
+        return conf, int(mask.sum())
+
+    # -- lifecycle ---------------------------------------------------------------
+
+    def idle(self) -> bool:
+        """No queued item in either lane and no dispatch in flight."""
+        with self._cond:
+            return not self._has_pending() and not self._inflight
+
+    def drain(self, timeout_sec: float) -> bool:
+        """Wait (bounded) for every queued item to dispatch and every
+        dispatch to finish; True if the batcher drained clean."""
+        end = time.perf_counter() + max(0.0, float(timeout_sec))
+        with self._cond:
+            while self._has_pending() or self._inflight:
+                left = end - time.perf_counter()
+                if left <= 0:
+                    return False
+                self._cond.wait(min(left, 0.05))
+        return True
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Drain (bounded by ``timeout``), then stop the threads; work
+        still queued after that fails with ``RuntimeError``."""
+        self.drain(timeout)
+        with self._cond:
+            self._closed = True
+            left = self._pending + self._pending_offline
+            self._pending, self._pending_offline = [], []
+            self._cond.notify_all()
+        for item in left:
+            _resolve(item.future, exc=RuntimeError("batcher is closed"))
+        self._flusher.join(timeout)
+        self._dispatchers.shutdown(wait=False)
+        self._waiters.shutdown(wait=False)
+        if self._tok_pool is not None:
+            self._tok_pool.shutdown(wait=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- observability -----------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Dispatches and requests per kind, and the packing efficiency
+        counters: real tokens embedded against the token slots
+        dispatched, per path."""
+        with self._cond:
+            pack_real, pack_slot = self._pack_real_tokens, self._pack_slot_tokens
+            pad_real, pad_slot = self._pad_real_tokens, self._pad_slot_tokens
+            return {
+                "dispatches": dict(self._kind_dispatches),
+                "requests": dict(self._requests),
+                "largest_group": self._largest_group,
+                "queued": len(self._pending) + len(self._pending_offline),
+                "packing": {
+                    "enabled": self.packing,
+                    "dispatches": self._packed_dispatches,
+                    "real_tokens": pack_real,
+                    "slot_tokens": pack_slot,
+                    "padding_waste": round(1.0 - pack_real / pack_slot, 4)
+                    if pack_slot else 0.0,
+                    "prefix_dedup_hits": self._dedup_hits,
+                    "prefix_dedup_tokens_saved": self._dedup_tokens_saved,
+                    "fallback_items": self._fallback_items,
+                    "bucket_occupancy": {
+                        str(b): c for b, c in sorted(self._occupancy.items())
+                    },
+                    "call_shapes": dict(self._call_shapes),
+                },
+                "padded": {
+                    "real_tokens": pad_real,
+                    "slot_tokens": pad_slot,
+                    "padding_waste": round(1.0 - pad_real / pad_slot, 4)
+                    if pad_slot else 0.0,
+                },
+            }
+
+    def utilization(self, window_sec: float = 60.0) -> dict:
+        """The reference's ``device_batcher`` section: queue depth, busy
+        fraction (overall and per lane), dispatch and item counts, the
+        knobs, the sheds, and the packing counters."""
+        now = time.perf_counter()
+        lo = now - window_sec
+        with self._cond:
+            span = max(min(window_sec, now - self._started), 1e-9)
+            inflight = list(self._inflight.values())
+
+            def busy_fraction(intervals, lane=None):
+                busy = sum(
+                    max(0.0, min(end, now) - max(start, lo))
+                    for start, end in intervals
+                )
+                for start, in_lane in inflight:
+                    if lane is None or in_lane == lane:
+                        busy += now - max(start, lo)
+                return round(min(busy / span, 1.0), 4)
+
+            stats = self.stats()
+            out = {
+                "queue_depth": len(self._pending),
+                "busy_fraction": busy_fraction(self._busy),
+                "lanes": {
+                    lane: {
+                        "queue_depth": len(
+                            self._pending if lane == "latency"
+                            else self._pending_offline
+                        ),
+                        "dispatches": self._lane_dispatches[lane],
+                        "items": self._lane_items[lane],
+                        "busy_fraction": busy_fraction(
+                            self._lane_busy[lane], lane
+                        ),
+                    }
+                    for lane in LANES
+                },
+                "dispatches": self._dispatches,
+                "items": self._items,
+                "items_per_dispatch": round(
+                    self._items / self._dispatches, 2
+                ) if self._dispatches else 0.0,
+                "window_ms": self.window_ms,
+                "max_batch": self.max_batch,
+                "host_tokenizer_workers": self.host_tokenizer_workers,
+                "max_queue_depth": self.max_queue_depth,
+                "shed_queue_full": self.shed_queue_full,
+                "shed_deadline": self.shed_deadline,
+                "shed_redispatch_limit": 0,
+                "cancelled_items": self.cancelled_items,
+                "fallback_active": False,
+                "fallback_dispatches": 0,
+            }
+        pool = getattr(self.embedder, "staging_pool", None)
+        out["staging"] = pool.stats() if pool is not None else None
+        packing = dict(stats["packing"])
+        packing.pop("dispatches")
+        packing.pop("call_shapes")
+        out["packing"] = packing
+        out["padded"] = stats["padded"]
+        return out
+
+    def lane_occupancy(
+        self, lane: str, since: float, until: Optional[float] = None
+    ) -> float:
+        """Fraction of ``[since, until]`` the device path had ``lane``
+        work in flight, overlapping pipelined intervals merged."""
+        now = time.perf_counter() if until is None else until
+        window = now - since
+        if window <= 0:
+            return 0.0
+        with self._cond:
+            intervals = [
+                (max(start, since), min(end, now))
+                for start, end in self._lane_busy.get(lane, ())
+                if end > since and start < now
+            ]
+            intervals += [
+                (max(start, since), now)
+                for start, in_lane in self._inflight.values()
+                if in_lane == lane and start < now
+            ]
+        if not intervals:
+            return 0.0
+        intervals.sort()
+        covered = 0.0
+        cur_lo, cur_hi = intervals[0]
+        for lo, hi in intervals[1:]:
+            if lo > cur_hi:
+                covered += cur_hi - cur_lo
+                cur_lo, cur_hi = lo, hi
+            else:
+                cur_hi = max(cur_hi, hi)
+        covered += cur_hi - cur_lo
+        return round(min(covered / window, 1.0), 4)
+
+
+# the name the port's server and tests have used since its first slice
+ConsensusBatcher = DeviceBatcher

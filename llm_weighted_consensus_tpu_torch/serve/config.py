@@ -1,0 +1,227 @@
+"""The serving knobs, read from the environment.
+
+Counterpart of the batching, warmup, overload and timing knobs of
+``llm_weighted_consensus_tpu/serve/config.py``, with its defaults,
+clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
+
+* ``BATCH_WINDOW_MS`` — the batcher's accumulation window: a lone
+  request waits this long for company (``0``: no idle wait; work still
+  batches behind an in-flight dispatch).  Default 3;
+* ``BATCH_MAX`` — items per padded dispatch.  Default 64;
+* ``BATCH_PIPELINE`` — dispatches in flight at once (staging of group
+  k+1 overlaps group k on the card).  Default 2, min 1;
+* ``BATCH_MAX_ROWS`` — encoder rows per padded dispatch.  Default 512,
+  min 1;
+* ``HOST_TOKENIZER_WORKERS`` — host threads tokenizing (and packing)
+  each item when it is submitted; ``0`` tokenizes on the dispatch
+  thread.  Default 2;
+* ``STAGING_BUFFERS`` — pinned host staging buffers kept per bucket by
+  the embedder and by the reward model (``0``: no reuse).  Default 2;
+* ``WARMUP`` — consensus shapes to capture CUDA graphs for at startup,
+  ``NxS`` pairs (``64x128,16x512``); each warms the single-request and
+  the embed forward of that shape, and with ``PACKING_ENABLED`` the
+  packed buckets (every power-of-two row count up to
+  ``PACKING_MAX_ROWS`` at full row width, one row at each narrower width).
+  ``/readyz`` answers 503 until warmup has finished;
+* ``WARMUP_R`` — request counts whose grouped forward is also captured
+  per ``WARMUP`` shape (``8``), snapped to powers of two;
+* ``RM_WARMUP`` — the reward model's ``NxS`` buckets to capture
+  (``16x128``);
+* ``ADMISSION_MAX_INFLIGHT`` — the hard cap on admitted requests (503
+  past it; ``0``: no shedding).  Default 0;
+* ``ADMISSION_MAX_QUEUE_DEPTH`` — the batcher's queue bound (503 past
+  it; ``0``: unbounded).  Default 0;
+* ``DRAIN_TIMEOUT_MILLIS`` — the SIGTERM/SIGINT drain budget.  Default
+  10000;
+* ``DEVICE_WATCHDOG_MILLIS`` — a dispatch past this marks the device
+  unhealthy (``/readyz`` 503, device routes shed) until it completes;
+  ``0`` disables the watchdog.  Default 0;
+* ``METRICS_DEVICE_TIMING`` — per-bucket device time from CUDA events
+  and the overlap gauge (``0`` skips the recording).  Default 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+def env_truthy(value) -> bool:
+    return str(value).lower() in ("1", "true", "yes", "on")
+
+
+def _non_negative_int(env: dict, name: str, default: int) -> int:
+    value = int(env.get(name, default))
+    if value < 0:
+        raise ValueError(f"{name}={value} must be >= 0 (0 = unbounded)")
+    return value
+
+
+def staging_buffers(env: dict) -> int:
+    """``STAGING_BUFFERS``: the models' pinned staging buffers per
+    bucket (``build_embedder`` and ``build_reranker`` size both pools)."""
+    return _non_negative_int(env, "STAGING_BUFFERS", 2)
+
+
+def _parse_warmup(raw, var: str = "WARMUP") -> list:
+    """"64x112,64x128" -> [(64, 112), (64, 128)].  Raises on malformed
+    specs: a silently dropped warmup defeats its purpose."""
+    if not raw:
+        return []
+    from .gateway import MAX_CONSENSUS_CANDIDATES
+
+    out = []
+    for part in str(raw).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            n_s = part.split("x")
+            n, s = int(n_s[0]), int(n_s[1])
+            if (
+                len(n_s) != 2
+                or not 2 <= n <= MAX_CONSENSUS_CANDIDATES
+                or s < 1
+            ):
+                raise ValueError
+        except (ValueError, IndexError):
+            raise ValueError(
+                f"{var} spec {part!r}: expected NxS with 2 <= N <= "
+                f"{MAX_CONSENSUS_CANDIDATES} candidates (the /consensus "
+                "request ceiling — warming an unreachable shape burns "
+                "startup time for nothing) and S >= 1 tokens (e.g. 64x112)"
+            ) from None
+        out.append((n, s))
+    return out
+
+
+def _parse_warmup_r(raw) -> list:
+    """"2,4" -> [2, 4], snapped to the runtime's power-of-two R buckets
+    and deduped ("3" warms the same bucket as "4").  Raises on malformed
+    or non-positive values."""
+    if not raw:
+        return []
+    buckets = []
+    for part in str(raw).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            r = int(part)
+            if r < 1:
+                raise ValueError
+        except ValueError:
+            raise ValueError(
+                f"WARMUP_R value {part!r}: expected a positive integer "
+                "concurrency bucket (e.g. 2)"
+            ) from None
+        from ..models.embedder import next_pow2
+
+        bucket = next_pow2(r)
+        if bucket not in buckets:
+            buckets.append(bucket)
+    return buckets
+
+
+def packing_options(env) -> dict:
+    """The batcher's packing keyword arguments, with the reference's
+    defaults and clamps."""
+    return {
+        "packing": env_truthy(env.get("PACKING_ENABLED", "0")),
+        "packing_row_tokens": max(16, int(env.get("PACKING_ROW_TOKENS", 512))),
+        "packing_max_rows": max(1, int(env.get("PACKING_MAX_ROWS", 8))),
+        "packing_max_segments": max(
+            1, int(env.get("PACKING_MAX_SEGMENTS", 64))
+        ),
+        "prefix_dedup": env_truthy(env.get("PREFIX_DEDUP", "1")),
+        "prefix_dedup_min_chars": max(
+            1, int(env.get("PREFIX_DEDUP_MIN_CHARS", 48))
+        ),
+    }
+
+
+@dataclass
+class ServeConfig:
+    batch_window_ms: float = 3.0
+    batch_max: int = 64
+    batch_pipeline: int = 2
+    batch_max_rows: int = 512
+    host_tokenizer_workers: int = 2
+    warmup: list = field(default_factory=list)
+    warmup_r: list = field(default_factory=list)
+    rm_warmup: list = field(default_factory=list)
+    admission_max_inflight: int = 0
+    admission_max_queue_depth: int = 0
+    drain_timeout_millis: float = 10000.0
+    device_watchdog_millis: float = 0.0
+    metrics_device_timing: bool = True
+    packing: dict = field(default_factory=lambda: packing_options({}))
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
+        import os
+
+        env = dict(os.environ if env is None else env)
+
+        def get_f(name, default):
+            return float(env.get(name, default))
+
+        config = cls(
+            batch_window_ms=get_f("BATCH_WINDOW_MS", 3.0),
+            batch_max=int(env.get("BATCH_MAX", 64)),
+            batch_pipeline=max(1, int(env.get("BATCH_PIPELINE", 2))),
+            batch_max_rows=max(1, int(env.get("BATCH_MAX_ROWS", 512))),
+            host_tokenizer_workers=_non_negative_int(
+                env, "HOST_TOKENIZER_WORKERS", 2
+            ),
+            warmup=_parse_warmup(env.get("WARMUP")),
+            warmup_r=_parse_warmup_r(env.get("WARMUP_R")),
+            rm_warmup=_parse_warmup(env.get("RM_WARMUP"), "RM_WARMUP"),
+            admission_max_inflight=_non_negative_int(
+                env, "ADMISSION_MAX_INFLIGHT", 0
+            ),
+            admission_max_queue_depth=_non_negative_int(
+                env, "ADMISSION_MAX_QUEUE_DEPTH", 0
+            ),
+            drain_timeout_millis=get_f("DRAIN_TIMEOUT_MILLIS", 10000),
+            device_watchdog_millis=get_f("DEVICE_WATCHDOG_MILLIS", 0),
+            metrics_device_timing=env_truthy(
+                env.get("METRICS_DEVICE_TIMING", "1")
+            ),
+            packing=packing_options(env),
+        )
+        if config.drain_timeout_millis < 0:
+            raise ValueError(
+                f"DRAIN_TIMEOUT_MILLIS={config.drain_timeout_millis} "
+                "must be >= 0 (0 = shed immediately, no drain wait)"
+            )
+        if config.device_watchdog_millis < 0:
+            raise ValueError(
+                f"DEVICE_WATCHDOG_MILLIS={config.device_watchdog_millis} "
+                "must be >= 0 (0 = watchdog disabled)"
+            )
+        if config.warmup_r and not config.warmup:
+            raise ValueError(
+                "WARMUP_R is set but WARMUP is empty: the grouped-path "
+                "warmup needs NxS shapes to compile (set WARMUP, e.g. "
+                "WARMUP=64x112 WARMUP_R=2)"
+            )
+        return config
+
+    def packed_buckets(self) -> list:
+        """The packed (B, L, K) buckets to warm, as the reference picks
+        them: with ``WARMUP`` set and packing on, every power-of-two row
+        count up to the per-call cap at full row width, then one row at
+        each narrower width of the L ladder."""
+        if not (self.warmup and self.packing["packing"]):
+            return []
+        from .packing import _L_BUCKETS
+
+        l_top = self.packing["packing_row_tokens"]
+        k = self.packing["packing_max_segments"]
+        buckets, b = [], 1
+        while b <= self.packing["packing_max_rows"]:
+            buckets.append((b, l_top, k))
+            b *= 2
+        buckets.extend((1, l, k) for l in _L_BUCKETS if l < l_top)
+        return buckets

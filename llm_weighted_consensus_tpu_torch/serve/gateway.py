@@ -15,13 +15,25 @@ bodies, responses and input validation:
 * ``POST /embeddings`` — ``{"model": str, "input": str | [str]}`` -> the
   OpenAI embeddings response; another model name gets 400; without an
   embedder the route does not exist (404);
-* ``GET /healthz`` -> ``{"ok": true}``.
+* ``GET /healthz`` -> ``{"ok": true}``;
+* ``GET /livez`` -> ``{"ok": true}`` while the process answers;
+* ``GET /readyz`` -> 200 ``{"ready": true}`` once warmup has finished
+  and while the device is healthy, else 503 ``{"ready": false,
+  "reason": ...}`` (``serve/lifecycle.py``);
+* ``GET /metrics`` -> the JSON snapshot (``serve/metrics.py``), or
+  OpenMetrics text with ``?format=prometheus``.
 
 Errors use the ``{"code", "message"}`` envelope.  Each request runs on
-its own handler thread.  Cosine and embeddings requests wait on the
-batcher, so concurrent requests coalesce into shared device dispatches;
-an rm request runs its own forward on its handler thread (its softmax
-spans only its own candidates).
+its own handler thread.  Before a device route runs, the admission gate
+(``resilience/admission.py``) admits it or sheds it with 503 and
+``Retry-After`` (the probes above are exempt); device routes also shed
+while the server is still warming its CUDA graphs or the watchdog holds
+the device unhealthy.  An ``x-deadline-ms`` header sets the request's
+deadline (``resilience/deadline.py``): the batcher sheds its work with
+504 once the deadline cannot cover the dispatch.  Cosine and embeddings
+requests wait on the batcher, so concurrent requests coalesce into
+shared device dispatches; an rm request runs its own forward on its
+handler thread (its softmax spans only its own candidates).
 """
 
 from __future__ import annotations
@@ -30,7 +42,27 @@ import json
 import logging
 import math
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
+
+from ..errors import OverloadedError, StatusError, to_response_error
+from ..resilience.admission import (
+    AdmissionConfig,
+    AdmissionController,
+    retry_after_seconds,
+    shed_response,
+)
+from ..resilience.deadline import Deadline
+from .lifecycle import READY, STARTING, Lifecycle
+from .metrics import (
+    PROM_CONTENT_TYPE,
+    Metrics,
+    register_graphs,
+    register_overload,
+    register_performance,
+    render_prometheus,
+)
 
 log = logging.getLogger("lwc.torch.gateway")
 
@@ -103,20 +135,54 @@ def parse_embeddings(body, model_name: str) -> list:
     return list(texts)
 
 
-def make_handler(embedder, batcher, reranker):
+def error_response(exc: Exception):
+    """(status, headers, body) of an exception from the device path, as
+    the reference renders it: an ``OverloadedError`` is a 503 with
+    ``Retry-After`` in the ``{code, message}`` envelope, another
+    ``StatusError`` its status and its JSON message, anything else a
+    masked 500 envelope (detail to the log)."""
+    if isinstance(exc, OverloadedError):
+        body = {"code": 503, "message": exc.message()}
+        headers = {"Retry-After": retry_after_seconds(
+            exc.retry_after_ms or 1000.0)}
+        return 503, headers, json.dumps(body).encode()
+    if isinstance(exc, StatusError):
+        return exc.status(), {}, json.dumps(exc.message()).encode()
+    err = to_response_error(exc)
+    return err.code, {}, json.dumps(err.to_json_obj()).encode()
+
+
+def make_handler(embedder, batcher, reranker, metrics, admission,
+                 lifecycle):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt, *args):  # quiet by default
             log.debug("%s - " + fmt, self.address_string(), *args)
 
-        def _send(self, status: int, obj) -> None:
-            data = json.dumps(obj).encode()
+        # a POST route's series and start time, observed as its response
+        # goes out (before the body: a client holding the answer sees it
+        # in /metrics)
+        _series = None
+
+        def _send_raw(self, status: int, body: bytes, headers=None,
+                      content_type: str = "application/json") -> None:
+            self._status = status
+            if self._series is not None:
+                series, t0 = self._series
+                self._series = None
+                metrics.observe(series, (time.perf_counter() - t0) * 1e3,
+                                error=status >= 400)
             self.send_response(status)
-            self.send_header("content-type", "application/json")
-            self.send_header("content-length", str(len(data)))
+            self.send_header("content-type", content_type)
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
+            self.send_header("content-length", str(len(body)))
             self.end_headers()
-            self.wfile.write(data)
+            self.wfile.write(body)
+
+        def _send(self, status: int, obj) -> None:
+            self._send_raw(status, json.dumps(obj).encode())
 
         def _error(self, status: int, message: str) -> None:
             self._send(status, {"code": status, "message": message})
@@ -138,23 +204,62 @@ def make_handler(embedder, batcher, reranker):
                 raise BadRequest(f"malformed JSON body: {exc}") from exc
 
         def do_GET(self):
-            if self.path == "/healthz":
+            url = urlsplit(self.path)
+            path = url.path
+            if path in ("/healthz", "/livez"):
                 self._send(200, {"ok": True})
+            elif path == "/readyz":
+                ok, reason = lifecycle.ready()
+                if ok:
+                    self._send(200, {"ready": True})
+                else:
+                    self._send(503, {"ready": False, "reason": reason})
+            elif path == "/metrics":
+                if parse_qs(url.query).get("format") == ["prometheus"]:
+                    self._send_raw(
+                        200, render_prometheus(metrics).encode(),
+                        content_type=PROM_CONTENT_TYPE,
+                    )
+                else:
+                    self._send(200, metrics.snapshot())
             else:
                 self._error(404, f"no route GET {self.path}")
 
         def do_POST(self):
+            t0 = time.perf_counter()
+            path = self.path
+            if not (path == "/consensus" or (
+                    path == "/embeddings" and embedder is not None)):
+                self.close_connection = True  # its body stays unread
+                self._error(404, f"no route POST {path}")
+                return
+            self._series = (f"http:{path}", t0)
+            # every POST route needs the device: admitted or shed here
+            reason = admission.try_acquire(device_work=True)
+            if reason is not None:
+                status, headers, body = shed_response(
+                    reason, admission.config.retry_after_ms
+                )
+                self._send_raw(status, body, headers)
+                return
+            try:
+                self._post(path)
+            finally:
+                self._series = None
+                admission.release(
+                    (time.perf_counter() - t0) * 1e3,
+                    error=getattr(self, "_status", 500) >= 500,
+                )
+
+        def _post(self, path: str) -> None:
             try:
                 body = self._body()
-                if self.path == "/consensus":
+                if path == "/consensus":
                     texts, scorer, prompt, temperature = parse_consensus(
                         body, embedder is not None, reranker is not None
                     )
-                elif self.path == "/embeddings" and embedder is not None:
-                    texts = parse_embeddings(body, embedder.model_name)
                 else:
-                    self._error(404, f"no route POST {self.path}")
-                    return
+                    texts = parse_embeddings(body, embedder.model_name)
             except OverflowError:
                 self.close_connection = True
                 self._error(413, "payload too large")
@@ -162,12 +267,26 @@ def make_handler(embedder, batcher, reranker):
             except BadRequest as exc:
                 self._error(400, str(exc))
                 return
+            token = None
+            header = self.headers.get("x-deadline-ms")
+            if header:
+                try:
+                    ms = float(header)
+                except ValueError:
+                    ms = 0.0
+                if ms > 0:
+                    token = Deadline(ms / 1000.0).activate()
             try:
-                if self.path == "/consensus":
+                if path == "/consensus":
                     if scorer == "rm":
+                        t_rm = time.perf_counter()
                         conf, tokens = reranker.rerank_confidence(
                             texts, prompt=prompt, temperature=temperature
                         )
+                        metrics.observe(
+                                "device:rm_vote",
+                                (time.perf_counter() - t_rm) * 1e3,
+                            )
                         model_name = reranker.model_name
                     else:
                         conf, tokens = batcher.consensus(texts, temperature)
@@ -184,10 +303,17 @@ def make_handler(embedder, batcher, reranker):
                 else:
                     emb, tokens = batcher.embed(texts)
                     obj = embedder.wire_response(emb, tokens).to_json_obj()
+            except StatusError as exc:
+                status, headers, raw = error_response(exc)
+                self._send_raw(status, raw, headers)
+                return
             except Exception:  # the server keeps serving; detail to the log
-                log.exception("request failed: POST %s", self.path)
+                log.exception("request failed: POST %s", path)
                 self._error(500, "internal server error")
                 return
+            finally:
+                if token is not None:
+                    Deadline.deactivate(token)
             self._send(200, obj)
 
     return Handler
@@ -202,46 +328,109 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class Server:
-    """The HTTP server, its batcher and its serving thread, for an
-    embedder (``/consensus`` cosine, ``/embeddings``), a reranker
-    (``/consensus`` rm) or both.  ``port=0`` binds an ephemeral port
-    (``.port`` says which).  ``packing`` options (``packing``,
-    ``packing_row_tokens``, ``packing_max_rows``,
-    ``packing_max_segments``, ``prefix_dedup``,
-    ``prefix_dedup_min_chars``) go to the ``ConsensusBatcher`` as they
-    are."""
+    """The HTTP server, its batcher, admission gate, lifecycle and
+    metrics, and its serving thread, for an embedder (``/consensus``
+    cosine, ``/embeddings``), a reranker (``/consensus`` rm) or both.
+    ``port=0`` binds an ephemeral port (``.port`` says which).
+
+    Batching options go to the ``DeviceBatcher`` as they are
+    (``window_ms``, ``max_batch``, ``pipeline_depth``, ``max_rows``,
+    ``host_tokenizer_workers``, ``max_queue_depth`` and the packing
+    options).
+    ``admission`` is an ``AdmissionConfig``; ``drain_timeout_ms`` bounds
+    ``drain()``; ``watchdog_ms`` > 0 starts a ``DeviceWatchdog``;
+    ``device_timing=False`` turns off per-bucket device timing.  With
+    ``ready=False`` the server answers ``/readyz`` 503 and sheds device
+    routes until ``warmup`` (or ``lifecycle.mark_ready()``)."""
 
     def __init__(
         self,
         embedder=None,
         host: str = "127.0.0.1",
         port: int = 0,
-        max_batch: int = 16,
-        max_wait_ms: float = 2.0,
+        max_batch: int = 64,
+        window_ms: float = 3.0,
         reranker=None,
-        **packing,
+        *,
+        admission: AdmissionConfig = None,
+        drain_timeout_ms: float = 10000.0,
+        watchdog_ms: float = 0.0,
+        device_timing: bool = True,
+        ready: bool = True,
+        **batching,
     ) -> None:
-        from .batcher import ConsensusBatcher
+        from ..resilience.watchdog import DeviceWatchdog
+        from .batcher import DeviceBatcher
 
         if embedder is None and reranker is None:
             raise ValueError("a server needs an embedder, a reranker or both")
         self.embedder = embedder
         self.reranker = reranker
+        for model in (embedder, reranker):
+            if model is not None:
+                model.device_timing = bool(device_timing)
+        self.metrics = Metrics()
+        self.watchdog = (
+            DeviceWatchdog(watchdog_ms) if watchdog_ms > 0 else None
+        )
+        admission = admission or AdmissionConfig()
+        if admission.max_queue_depth:
+            batching.setdefault("max_queue_depth", admission.max_queue_depth)
         self.batcher = (
-            ConsensusBatcher(
-                embedder, max_batch=max_batch, max_wait_ms=max_wait_ms,
-                **packing,
+            DeviceBatcher(
+                embedder, self.metrics, max_batch=max_batch,
+                window_ms=window_ms, watchdog=self.watchdog,
+                **batching,
             )
             if embedder is not None else None
         )
+        self.lifecycle = Lifecycle(
+            batcher=self.batcher, watchdog=self.watchdog,
+            drain_timeout_ms=drain_timeout_ms,
+            state=READY if ready else STARTING,
+        )
+        self.admission = AdmissionController(
+            admission, device_gate=self._device_gate
+        )
+        self.lifecycle.admission = self.admission
+        register_performance(self.metrics)
+        register_overload(self.metrics, self.admission, self.watchdog,
+                          self.lifecycle)
+        register_graphs(self.metrics, embedder=embedder, reranker=reranker)
         self.httpd = _HTTPServer(
-            (host, port), make_handler(embedder, self.batcher, reranker)
+            (host, port),
+            make_handler(embedder, self.batcher, reranker, self.metrics,
+                         self.admission, self.lifecycle),
         )
         self._thread: threading.Thread = None
+        if self.watchdog is not None:
+            self.watchdog.start()
+
+    def _device_gate(self):
+        """Shed device routes while the graphs are still being captured
+        (a capture must own the card) or the device is unhealthy."""
+        if self.lifecycle.state == STARTING:
+            return "warming"
+        if self.watchdog is not None and not self.watchdog.healthy():
+            return "device_unhealthy"
+        return None
 
     @property
     def port(self) -> int:
         return self.httpd.server_address[1]
+
+    def warmup(self, specs=(), r_buckets=(), packed_buckets=(),
+               rm_specs=()) -> list:
+        """Capture the CUDA graphs of every configured bucket
+        (``TorchEmbedder.warmup``, ``TorchReranker.warmup``), then turn
+        ready.  Returns [(label, seconds)]."""
+        timings = []
+        if self.embedder is not None:
+            timings += self.embedder.warmup(specs, r_buckets, packed_buckets)
+        if self.reranker is not None:
+            timings += self.reranker.warmup(rm_specs)
+        self.lifecycle.mark_ready()
+        return timings
 
     def start(self) -> "Server":
         self._thread = threading.Thread(
@@ -251,8 +440,11 @@ class Server:
         self._thread.start()
         return self
 
-    def serve_forever(self) -> None:
-        self.httpd.serve_forever()
+    def drain(self) -> bool:
+        """Stop admitting, let in-flight requests finish and the batcher
+        empty, within the drain budget; True if it drained clean.  A
+        second call joins the first."""
+        return self.lifecycle.begin_drain().result()
 
     def close(self) -> None:
         if self._thread is not None:
@@ -261,6 +453,8 @@ class Server:
         self.httpd.server_close()
         if self.batcher is not None:
             self.batcher.close()
+        if self.watchdog is not None:
+            self.watchdog.stop()
 
     def __enter__(self):
         return self.start()

@@ -1,0 +1,133 @@
+"""Serving lifecycle: liveness/readiness split and graceful drain.
+
+Counterpart of ``llm_weighted_consensus_tpu/serve/lifecycle.py`` on
+threads:
+
+* ``GET /livez``: 200 while the process answers;
+* ``GET /readyz``: 200 only while the service is ``READY`` and the
+  device watchdog (when configured) holds the device healthy.  A server
+  starts ``STARTING`` and turns ``READY`` once its CUDA graphs are
+  captured (``mark_ready``), so a load balancer sends no traffic to a
+  replica still warming;
+* SIGTERM/SIGINT -> ``begin_drain()``: readiness flips, admission stops
+  (new requests shed with ``shed_reason: "draining"``), in-flight
+  requests finish and the batcher's queue empties, all bounded by
+  ``DRAIN_TIMEOUT_MILLIS``.
+
+State machine: STARTING -> READY -> DRAINING -> STOPPED, one way.
+``begin_drain`` is idempotent: a repeated SIGTERM joins the drain in
+progress.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+from typing import Callable, Optional
+
+STARTING = "starting"
+READY = "ready"
+DRAINING = "draining"
+STOPPED = "stopped"
+
+
+class Lifecycle:
+    def __init__(
+        self,
+        *,
+        admission=None,
+        batcher=None,
+        watchdog=None,
+        drain_timeout_ms: float = 10000.0,
+        clock: Callable[[], float] = time.monotonic,
+        state: str = READY,
+    ) -> None:
+        self.admission = admission
+        self.batcher = batcher
+        self.watchdog = watchdog
+        self.drain_timeout_ms = float(drain_timeout_ms)
+        self.clock = clock
+        self.state = state
+        self.drained_clean: Optional[bool] = None
+        self.drain_elapsed_ms: Optional[float] = None
+        self._lock = threading.Lock()
+        self._drain: Optional[Future] = None
+
+    # -- readiness ------------------------------------------------------------
+
+    def mark_ready(self) -> None:
+        """STARTING -> READY (warmup finished); no effect in other
+        states."""
+        with self._lock:
+            if self.state == STARTING:
+                self.state = READY
+
+    def ready(self):
+        """(is_ready, reason): the /readyz decision."""
+        if self.state != READY:
+            return False, self.state
+        if self.watchdog is not None and not self.watchdog.healthy():
+            return False, "device_unhealthy"
+        return True, None
+
+    # -- drain ----------------------------------------------------------------
+
+    def begin_drain(self) -> Future:
+        """Start (or join) the drain on its own thread; the returned
+        future resolves to whether it drained clean."""
+        with self._lock:
+            if self._drain is None:
+                self._drain = Future()
+                threading.Thread(
+                    target=self._run_drain, name="lwc-torch-drain",
+                    daemon=True,
+                ).start()
+            return self._drain
+
+    def _run_drain(self) -> None:
+        try:
+            self._drain.set_result(self.drain())
+        except BaseException as exc:  # the waiter sees it
+            self._drain.set_exception(exc)
+
+    def drain(self) -> bool:
+        t0 = self.clock()
+        deadline = t0 + self.drain_timeout_ms / 1e3
+        # 1. stop admitting BEFORE waiting: readiness flips and the gate
+        #    sheds everything new, so the in-flight set only shrinks
+        with self._lock:
+            self.state = DRAINING
+        if self.admission is not None:
+            self.admission.draining = True
+        # 2. in-flight requests run to completion
+        clean = True
+        if self.admission is not None:
+            while self.admission.inflight > 0:
+                if self.clock() >= deadline:
+                    clean = False
+                    break
+                time.sleep(0.01)
+        # 3. the batcher's queue empties (nothing refills it)
+        if self.batcher is not None:
+            remaining = max(0.0, deadline - self.clock())
+            clean = self.batcher.drain(remaining) and clean
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        with self._lock:
+            self.state = STOPPED
+        self.drained_clean = clean
+        self.drain_elapsed_ms = (self.clock() - t0) * 1e3
+        return clean
+
+    # -- observability --------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        out = {
+            "state": self.state,
+            "drain_timeout_ms": self.drain_timeout_ms,
+        }
+        if self.drained_clean is not None:
+            out["drained_clean"] = self.drained_clean
+            out["drain_elapsed_ms"] = round(self.drain_elapsed_ms, 1)
+        return out

@@ -1,0 +1,374 @@
+"""Out-of-band service metrics behind ``GET /metrics``.
+
+Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
+(``Metrics``, ``register_provider``, ``snapshot``,
+``render_prometheus``) for the families the port serves:
+
+* the request series (``http:<route>``, ``device:batch:<kind>``,
+  ``device:rm_vote``, the batcher's ``device:shed:*``): count, errors
+  and a latency histogram each;
+* ``phases``: the phase and per-bucket device-time histograms
+  (``obs/phases.py``);
+* ``device_batcher``: the batcher's ``utilization()``, lanes included;
+* ``graphs``: each model's ``graph_stats()`` (the counterpart of the
+  reference's ``jit`` section);
+* ``admission``, ``device_watchdog`` and ``lifecycle`` (overload);
+* ``kernels``: the kernel wrappers' launch and route counters
+  (``ops/launches.py``), replays included.
+
+Two expositions off one store: the JSON snapshot (the reference's shape)
+and, with ``?format=prometheus``, OpenMetrics text whose shared families
+(uptime, series, phase, device, lanes) render as the reference renders
+them.  One lock guards the series: the handler, dispatch and waiter
+threads all observe.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Tuple
+
+from ..obs.histogram import Histogram
+
+# every provider section the snapshot may carry
+KNOWN_SECTIONS = (
+    "admission",
+    "device_watchdog",
+    "lifecycle",
+    "device_batcher",
+    "phases",
+    "graphs",
+    "kernels",
+)
+
+PROM_CONTENT_TYPE = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8"
+)
+
+
+class _Series:
+    __slots__ = ("count", "errors", "hist")
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.errors = 0
+        self.hist = Histogram()
+
+
+class Metrics:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._series_store: Dict[str, _Series] = {}
+        self._providers: dict = {}
+        self._started = time.monotonic()
+
+    def observe(self, series: str, ms: float, *, error: bool = False) -> None:
+        with self._lock:
+            s = self._series_store.get(series)
+            if s is None:
+                s = self._series_store[series] = _Series()
+            s.count += 1
+            if error:
+                s.errors += 1
+            s.hist.observe(ms)
+
+    def register_provider(self, name: str, fn) -> None:
+        """Attach a live section (``KNOWN_SECTIONS``) to the snapshot."""
+        if name not in KNOWN_SECTIONS:
+            raise ValueError(
+                f"unknown metrics section {name!r}; known: "
+                + ", ".join(KNOWN_SECTIONS)
+            )
+        self._providers[name] = fn
+
+    def snapshot(self) -> dict:
+        out = {}
+        for series, s in self.series_items():
+            entry = {"count": s.count, "errors": s.errors}
+            if s.hist.count:
+                entry["p50_ms"] = round(s.hist.quantile(0.5), 2)
+                entry["p99_ms"] = round(s.hist.quantile(0.99), 2)
+            out[series] = entry
+        snap = {
+            "uptime_sec": round(time.monotonic() - self._started, 1),
+            "series": out,
+        }
+        for name, fn in list(self._providers.items()):
+            try:
+                snap[name] = fn()
+            except Exception as e:  # a broken gauge must not break /metrics
+                snap[name] = {"error": str(e)}
+        return snap
+
+    def provider_section(self, name: str):
+        """One provider section by name (None when absent or broken)."""
+        fn = self._providers.get(name)
+        if fn is None:
+            return None
+        try:
+            return fn()
+        except Exception:
+            return None
+
+    def uptime_sec(self) -> float:
+        return time.monotonic() - self._started
+
+    def series_items(self) -> List[Tuple[str, _Series]]:
+        """Sorted (name, copy of the series): a copy, so that rendering
+        never races an observe."""
+        with self._lock:
+            items = []
+            for name, s in sorted(self._series_store.items()):
+                c = _Series()
+                c.count, c.errors = s.count, s.errors
+                c.hist.merge(s.hist)
+                items.append((name, c))
+        return items
+
+
+def register_performance(metrics: Metrics) -> None:
+    """The ``phases`` section (per-phase histograms, device share,
+    overlap) and the ``kernels`` section (launch and route counters)."""
+    from ..obs import phases as _phases
+
+    metrics.register_provider("phases", _phases.phases_snapshot)
+    metrics.register_provider("kernels", kernel_counters)
+
+
+def register_overload(metrics: Metrics, admission=None, watchdog=None,
+                      lifecycle=None) -> None:
+    """The ``admission``, ``device_watchdog`` and ``lifecycle``
+    sections."""
+    if admission is not None:
+        metrics.register_provider("admission", admission.snapshot)
+    if watchdog is not None:
+        metrics.register_provider("device_watchdog", watchdog.snapshot)
+    if lifecycle is not None:
+        metrics.register_provider("lifecycle", lifecycle.snapshot)
+
+
+def register_graphs(metrics: Metrics, **models) -> None:
+    """The ``graphs`` section: ``graph_stats()`` of each named model
+    (``embedder=``, ``reranker=``; None entries skipped)."""
+    served = {name: m for name, m in models.items() if m is not None}
+    metrics.register_provider(
+        "graphs", lambda: {name: m.graph_stats() for name, m in served.items()}
+    )
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launches and launches per route."""
+    from ..ops import attention, kernels
+
+    out = {}
+    for fn in (kernels.cosine_vote, attention.attention,
+               attention.segment_attention, kernels.quantize_rows,
+               kernels.w8a8_matmul, kernels.w4a8_matmul):
+        row = {"launches": fn.launches}
+        routes = getattr(fn, "routes", None)
+        if routes is not None:
+            row["routes"] = dict(routes)
+        out[fn.__name__] = row
+    return out
+
+
+# -- Prometheus exposition -----------------------------------------------------
+
+
+def prom_family(name: str, typ: str, help_text: str) -> List[str]:
+    return [f"# HELP {name} {help_text}", f"# TYPE {name} {typ}"]
+
+
+def _esc(label_value: str) -> str:
+    return (
+        label_value.replace("\\", "\\\\").replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _render_hist(name: str, label: str, value: str,
+                 hist: Histogram) -> List[str]:
+    """One labelled histogram as ``_bucket``/``_sum``/``_count`` lines."""
+    sel = f'{label}="{_esc(value)}"'
+    lines = [f'{name}_bucket{{{sel},le="{le}"}} {cum}'
+             for le, cum in hist.cumulative()]
+    lines.append(f"{name}_sum{{{sel}}} {hist.sum:.6g}")
+    lines.append(f"{name}_count{{{sel}}} {hist.count}")
+    return lines
+
+
+def render_prometheus(metrics: Metrics) -> str:
+    """The process as OpenMetrics text: uptime, per-series counters and
+    latency histograms, the phase and per-bucket device histograms, the
+    lanes of the batcher, the graphs, the overload counters and the
+    kernel counters.  Ends with ``# EOF``."""
+    from ..obs import phases as _phases
+
+    lines: List[str] = []
+    lines += prom_family("lwc_uptime_seconds", "gauge",
+                         "Process uptime (monotonic).")
+    lines.append(f"lwc_uptime_seconds {metrics.uptime_sec():.3f}")
+
+    items = metrics.series_items()
+    lines += prom_family(
+        "lwc_series_requests", "counter", "Requests observed per series."
+    )
+    for series, s in items:
+        lines.append(
+            f'lwc_series_requests_total{{series="{_esc(series)}"}} {s.count}'
+        )
+    lines += prom_family(
+        "lwc_series_errors", "counter", "Errored requests per series."
+    )
+    for series, s in items:
+        lines.append(
+            f'lwc_series_errors_total{{series="{_esc(series)}"}} {s.errors}'
+        )
+    lines += prom_family(
+        "lwc_series_latency_ms",
+        "histogram",
+        "Per-series latency, fixed log buckets (obs/histogram.py).",
+    )
+    for series, s in items:
+        lines += _render_hist("lwc_series_latency_ms", "series", series,
+                              s.hist)
+
+    phase_hists, device_hists = _phases.aggregator().raw_histograms()
+    lines += prom_family(
+        "lwc_phase_latency_ms",
+        "histogram",
+        "Request time attributed per phase (admission_wait .. upstream_judge).",
+    )
+    for phase in _phases.PHASES:
+        hist = phase_hists.get(phase)
+        if hist is not None:
+            lines += _render_hist("lwc_phase_latency_ms", "phase", phase, hist)
+    lines += prom_family(
+        "lwc_device_latency_ms",
+        "histogram",
+        "Enqueue-to-ready device time per (mesh-shape, bucket).",
+    )
+    for bucket, hist in sorted(device_hists.items()):
+        lines += _render_hist("lwc_device_latency_ms", "bucket", bucket, hist)
+
+    batcher = metrics.provider_section("device_batcher")
+    if isinstance(batcher, dict) and isinstance(batcher.get("lanes"), dict):
+        lanes = sorted(batcher["lanes"].items())
+        lines += prom_family(
+            "lwc_lane_dispatches",
+            "counter",
+            "Device dispatches per priority class (latency/offline).",
+        )
+        for lane, row in lanes:
+            lines.append(
+                f'lwc_lane_dispatches_total{{lane="{_esc(lane)}"}} '
+                f"{row.get('dispatches', 0)}"
+            )
+        lines += prom_family(
+            "lwc_lane_items", "counter", "Items dispatched per priority class."
+        )
+        for lane, row in lanes:
+            lines.append(
+                f'lwc_lane_items_total{{lane="{_esc(lane)}"}} '
+                f"{row.get('items', 0)}"
+            )
+        lines += prom_family(
+            "lwc_lane_busy_fraction",
+            "gauge",
+            "Device busy fraction attributed per priority class.",
+        )
+        for lane, row in lanes:
+            lines.append(
+                f'lwc_lane_busy_fraction{{lane="{_esc(lane)}"}} '
+                f"{row.get('busy_fraction', 0.0):.6g}"
+            )
+        lines += prom_family(
+            "lwc_batcher_shed", "counter",
+            "Batcher sheds by reason (queue_full 503, deadline 504) and "
+            "cancelled items dropped before dispatch.",
+        )
+        for reason, key in (("queue_full", "shed_queue_full"),
+                            ("deadline", "shed_deadline"),
+                            ("cancelled", "cancelled_items")):
+            lines.append(
+                f'lwc_batcher_shed_total{{reason="{reason}"}} '
+                f"{batcher.get(key, 0)}"
+            )
+
+    graphs = metrics.provider_section("graphs")
+    if isinstance(graphs, dict):
+        lines += prom_family(
+            "lwc_graph_events", "counter",
+            "CUDA graph captures and replays, and eager dispatches at "
+            "buckets not warmed, per model.",
+        )
+        for model, row in sorted(graphs.items()):
+            for event in ("captures", "replays", "eager_dispatches"):
+                lines.append(
+                    f'lwc_graph_events_total{{model="{_esc(model)}",'
+                    f'event="{event}"}} {row.get(event, 0)}'
+                )
+        lines += prom_family(
+            "lwc_graphs", "gauge", "Warmed buckets per model."
+        )
+        for model, row in sorted(graphs.items()):
+            lines.append(
+                f'lwc_graphs{{model="{_esc(model)}"}} {row.get("graphs", 0)}'
+            )
+        lines += prom_family(
+            "lwc_graph_pool_bytes", "gauge",
+            "Device bytes of each model's shared CUDA graph memory pool.",
+        )
+        for model, row in sorted(graphs.items()):
+            lines.append(
+                f'lwc_graph_pool_bytes{{model="{_esc(model)}"}} '
+                f'{row.get("pool_bytes", 0)}'
+            )
+
+    admission = metrics.provider_section("admission")
+    if isinstance(admission, dict):
+        lines += prom_family(
+            "lwc_admission_inflight", "gauge", "Requests admitted and running."
+        )
+        lines.append(f"lwc_admission_inflight {admission.get('inflight', 0)}")
+        lines += prom_family(
+            "lwc_admission_shed", "counter", "Admission sheds by reason."
+        )
+        for reason, count in sorted(admission.get("shed", {}).items()):
+            lines.append(
+                f'lwc_admission_shed_total{{reason="{_esc(reason)}"}} {count}'
+            )
+    watchdog = metrics.provider_section("device_watchdog")
+    if isinstance(watchdog, dict):
+        lines += prom_family(
+            "lwc_device_healthy", "gauge",
+            "1 while the watchdog holds the device healthy.",
+        )
+        lines.append(f"lwc_device_healthy {int(bool(watchdog['healthy']))}")
+
+    kernels = metrics.provider_section("kernels")
+    if isinstance(kernels, dict):
+        lines += prom_family(
+            "lwc_kernel_launches", "counter",
+            "Launches of each hand-written kernel, CUDA graph replays "
+            "included.",
+        )
+        for name, row in sorted(kernels.items()):
+            lines.append(
+                f'lwc_kernel_launches_total{{kernel="{_esc(name)}"}} '
+                f"{row['launches']}"
+            )
+        lines += prom_family(
+            "lwc_kernel_route_launches", "counter",
+            "Launches of each kernel per route.",
+        )
+        for name, row in sorted(kernels.items()):
+            for route, count in sorted(row.get("routes", {}).items()):
+                lines.append(
+                    f'lwc_kernel_route_launches_total{{kernel="{_esc(name)}",'
+                    f'route="{_esc(route)}"}} {count}'
+                )
+
+    lines.append("# EOF")
+    return "\n".join(lines) + "\n"

@@ -810,3 +810,251 @@ def test_rm_reward_packed_on_the_card_matches_per_row(card):
             assert torch.isfinite(out).all()
             for si, (r, slot) in call.slots.items():
                 assert abs(float(out[r, slot] - per_row[si])) <= 1e-5
+
+
+# -- CUDA graphs per bucket (models/graphs.py) and the served pipeline -------
+#
+# A replay runs the kernels its capture recorded on the inputs copied into
+# the graph's static tensors, so against the eager forward at the same
+# bucket on the same inputs its output (f32 confidences or embeddings, in
+# bf16 and f32 models alike) is held to GRAPH_TOL: only cuBLAS's choice of
+# algorithm inside a capture could differ.  Where a test pits two groups
+# or two temperatures against each other, their eager answers must differ
+# by more than CROSS_TALK_MARGIN times that, so a swap would fail it.
+
+GRAPH_TOL, CROSS_TALK_MARGIN = 1e-6, 10.0
+
+
+def _max_abs(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def _apart(answers) -> float:
+    """The least max-abs difference between any two of ``answers``."""
+    return min(_max_abs(a, b) for i, a in enumerate(answers)
+               for b in answers[i + 1:])
+
+
+@pytest.fixture(scope="module")
+def base_model():
+    """bge-base-en (bf16, hd 64: every attention on the tma route),
+    random weights from seed 0, shared by the graph tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return TorchEmbedder("bge-base-en", seed=0, dtype=torch.bfloat16,
+                         max_tokens=128, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def base_int8(base_model):
+    """bge-base-en under int8 (W8A8 on the tma route), same seed."""
+    return TorchEmbedder("bge-base-en", seed=0, dtype=torch.bfloat16,
+                         max_tokens=128, device="cuda", quantize="int8")
+
+
+def _fresh(emb):
+    """An embedder over ``emb``'s weights with no graphs of its own."""
+    return TorchEmbedder(emb.model_name, model=emb.model, config=emb.config,
+                         tokenizer=emb.tokenizer, max_tokens=emb.max_tokens,
+                         device=emb.device, dtype=emb.dtype,
+                         quantize=emb.config.quantize)
+
+
+def _texts(n, words, seed):
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(400)]
+    stem = list(rng.choice(vocab, size=words // 2))
+    return [" ".join(stem + list(rng.choice(vocab, size=words - len(stem))))
+            for _ in range(n)]
+
+
+def _bucket_call(emb, kind, seed=0, temperature=0.05):
+    """(warmup arguments, a call at that bucket) for one bucket kind."""
+    if kind == "vote1":
+        ids, mask = emb.tokenize(_texts(8, 40, seed))
+        return (([(8, 48)],), lambda: emb.consensus_confidence_tokens(
+            ids, mask, temperature))
+    if kind == "many":
+        ids, mask = emb.tokenize(_texts(3 * 8, 40, seed))
+        ids, mask = ids.reshape(3, 8, -1), mask.reshape(3, 8, -1)
+        return (([(8, 48)], [4]), lambda: emb.consensus_confidence_tokens_many(
+            ids, mask, temperature))
+    if kind == "embed":
+        ids, mask = emb.tokenize(_texts(5, 40, seed))
+        return (([(5, 48)],), lambda: emb.embed_tokens(ids, mask))
+    texts = _texts(9, 30, seed) + _texts(4, 12, seed + 1)
+    calls = packing.build_calls(emb.tokenize_ragged(texts), 128, 4, 8)
+    call = calls[0]
+    bucket = (*call.ids.shape, call.seg_starts.shape[1])
+    return (([], [], [bucket]), lambda: emb.embed_packed(
+        call.ids, call.segment_ids, call.positions, call.seg_starts))
+
+
+@pytest.mark.parametrize("kind", ["vote1", "many", "embed", "packed"])
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_graph_replay_equals_eager(request, kind, quantize):
+    emb = _fresh(request.getfixturevalue(
+        "base_model" if quantize == "none" else "base_int8"))
+    wrapper = kernels.w8a8_matmul
+    launches = wrapper.launches
+    warm_args, call = _bucket_call(emb, kind)
+    eager = call()
+    assert emb.graph_stats()["eager_dispatches"] == 1
+    timings = emb.warmup(*warm_args)
+    assert timings and emb.graph_stats()["captures"] == len(timings)
+    got = call()
+    stats = emb.graph_stats()
+    assert stats["replays"] == 1 and stats["eager_dispatches"] == 1
+    assert stats["pool_bytes"] > 0
+    assert got.shape == eager.shape and np.isfinite(got).all()
+    assert _max_abs(got, eager) <= GRAPH_TOL
+    if quantize == "int8":
+        # the eager call, one eager run per warmed bucket before its
+        # capture, the replay; the capture itself launches nothing
+        runs = 2 + len(timings)
+        assert wrapper.launches - launches == runs * 6 * emb.config.num_layers
+
+
+def test_graph_replay_equals_eager_in_f32_on_bge_micro(card):
+    emb = _micro("cuda")
+    ids, mask = emb.tokenize(MICRO_TEXTS)
+    many = (np.stack([ids, ids[::-1]]), np.stack([mask, mask[::-1]]))
+    eager = (emb.consensus_confidence_tokens(ids, mask, 0.1),
+             emb.consensus_confidence_tokens_many(*many, 0.1),
+             emb.embed_tokens(ids, mask))
+    emb.warmup([(len(MICRO_TEXTS), ids.shape[1])], [2])
+    got = (emb.consensus_confidence_tokens(ids, mask, 0.1),
+           emb.consensus_confidence_tokens_many(*many, 0.1),
+           emb.embed_tokens(ids, mask))
+    assert emb.graph_stats()["replays"] == 3
+    for g, e in zip(got, eager):
+        assert _max_abs(g, e) <= GRAPH_TOL
+
+
+def test_rm_graph_replay_equals_eager(card):
+    _, gpu = _rm_pair(card, True)
+    eager, _ = gpu.rerank_confidence(RM_TEXTS, "which one", 0.7)
+    ids, _ = gpu.tokenize([f"which one\n{t}" for t in RM_TEXTS])
+    assert gpu.warmup([ids.shape]) and gpu.graph_stats()["captures"] == 1
+    got, _ = gpu.rerank_confidence(RM_TEXTS, "which one", 0.7)
+    assert gpu.graph_stats()["replays"] == 1
+    assert _max_abs(got, eager) <= GRAPH_TOL
+
+
+def test_one_graph_serves_two_temperatures(base_model):
+    emb = _fresh(base_model)
+    eager = {t: _bucket_call(emb, "vote1", temperature=t)[1]()
+             for t in (0.05, 0.7)}
+    emb.warmup([(8, 48)])
+    for t in (0.05, 0.7):
+        got = _bucket_call(emb, "vote1", temperature=t)[1]()
+        assert _max_abs(got, eager[t]) <= GRAPH_TOL
+    assert _apart(list(eager.values())) > CROSS_TALK_MARGIN * GRAPH_TOL
+    assert emb.graph_stats()["replays"] == 2
+
+
+def test_kernel_counters_advance_per_replay(base_model):
+    emb = _fresh(base_model)
+    warm_args, call = _bucket_call(emb, "many")
+    emb.warmup(*warm_args)
+    layers = emb.config.num_layers
+    before = (attention.attention.launches, dict(attention.attention.routes),
+              kernels.cosine_vote.launches, dict(kernels.cosine_vote.routes))
+    for _ in range(3):
+        call()
+    assert attention.attention.launches - before[0] == 3 * layers
+    assert attention.attention.routes["tma"] - before[1]["tma"] == 3 * layers
+    assert kernels.cosine_vote.launches - before[2] == 3
+    assert kernels.cosine_vote.routes["cluster"] - before[3]["cluster"] == 3
+
+
+def test_no_capture_after_warmup_under_mixed_load(base_model):
+    emb = _fresh(base_model)
+    emb.warmup([(8, 48), (5, 48)], [2, 4])
+    stats0 = emb.graph_stats()
+    calls = [_bucket_call(emb, "vote1", seed, t)[1]
+             for seed, t in ((1, 0.05), (2, 0.3))]
+    calls.append(_bucket_call(emb, "many", 3, 0.2)[1])
+    calls.append(_bucket_call(emb, "embed", 4)[1])
+    for r in (2, 4):
+        ids, mask = emb.tokenize(_texts(r * 8, 40, r))
+        calls.append(lambda ids=ids, mask=mask, r=r:
+                     emb.consensus_confidence_tokens_many(
+                         ids.reshape(r, 8, -1), mask.reshape(r, 8, -1)))
+    for call in calls * 2:
+        call()
+    stats1 = emb.graph_stats()
+    assert stats1["captures"] == stats0["captures"] == stats0["graphs"]
+    assert stats1["eager_dispatches"] == 0
+    assert stats1["replays"] == 2 * len(calls)
+    assert stats1["pool_bytes"] == stats0["pool_bytes"]
+
+
+def test_two_dispatches_in_flight_on_one_graph(base_model):
+    """Two groups of one bucket launched back to back, neither waited
+    for: each copy-out lands in its own pinned buffer before the next
+    replay overwrites the graph's static tensors."""
+    from llm_weighted_consensus_tpu_torch.models import dispatch_seam
+
+    emb = _fresh(base_model)
+    ids = [emb.tokenize(_texts(8, 40, seed)) for seed in (5, 6)]
+    eager = [emb.consensus_confidence_tokens(i, m) for i, m in ids]
+    emb.warmup([(8, 48)])
+    sink = dispatch_seam.DispatchSink()
+    with dispatch_seam.deferred_readiness(sink):
+        handles = [emb.consensus_confidence_tokens(i, m) for i, m in ids]
+    dispatch_seam.drain_sink(sink, release=emb.staging_pool.release)
+    for h, e in zip(handles, eager):
+        assert _max_abs(h.result(), e) <= GRAPH_TOL
+    assert _apart(eager) > CROSS_TALK_MARGIN * GRAPH_TOL
+    assert emb.graph_stats()["replays"] == 2
+
+
+def test_pipelined_batcher_on_warmed_graphs(base_model):
+    """The batcher at pipeline depth 2 over warmed buckets: every
+    dispatch's output is the eager forward's at the same bucket on the
+    same inputs, and every request's answer is its own rows' output."""
+    import concurrent.futures
+
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+
+    emb = _fresh(base_model)
+    reqs = [_texts(8, 40, 10 + i) for i in range(12)]
+    rows = [emb.tokenize(t)[0] for t in reqs]
+    assert _apart([emb.consensus_confidence(t) for t in reqs]) > (
+        CROSS_TALK_MARGIN * GRAPH_TOL)
+    emb.warmup([(8, 48)], [2, 4])
+    table, records = emb.graphs, []
+    inner = table.dispatch
+
+    def recording(key, label, arrays, forward, post, pool, timed=True):
+        kept = {name: np.array(a, copy=True) for name, a in arrays.items()}
+        out = inner(key, label, arrays, forward, post, pool, timed)
+        records.append((key, kept, forward, post, out))
+        return out
+
+    table.dispatch = recording
+    try:
+        with DeviceBatcher(emb, window_ms=0.0, max_batch=2,
+                           pipeline_depth=2) as batcher:
+            with concurrent.futures.ThreadPoolExecutor(12) as pool:
+                got = list(pool.map(batcher.consensus, reqs))
+            util = batcher.utilization()
+    finally:
+        del table.dispatch
+    served = {}
+    for key, kept, forward, post, out in records:
+        with table.lock, torch.inference_mode():
+            eager = post(forward(**{n: torch.from_numpy(a).to(emb.device)
+                                    for n, a in kept.items()}))
+        value = out.result()
+        assert _max_abs(value, eager.float().cpu().numpy()) <= GRAPH_TOL
+        ids = kept["ids"].astype(np.int32)
+        for g, conf in enumerate(value.reshape(-1, 8)):
+            served[ids[g * 8:(g + 1) * 8].tobytes()] = conf
+    for (conf, _), ids in zip(got, rows):
+        assert np.array_equal(conf, served[ids.astype(np.int32).tobytes()])
+    assert len(records) == util["dispatches"] >= 6
+    stats = emb.graph_stats()
+    assert stats["eager_dispatches"] == len(reqs)  # the eager answers above
+    assert stats["replays"] == util["dispatches"]

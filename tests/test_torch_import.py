@@ -77,6 +77,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "ops.attention", "ops._build", "types.embeddings",
         "serve.batcher", "serve.gateway", "serve.__main__", "serve.packing",
         "models.spm", "models.deberta", "models.reranker", "utils.native",
+        "errors", "models.dispatch_seam", "models.graphs", "obs.histogram",
+        "obs.phases", "ops.launches", "resilience.admission",
+        "resilience.deadline", "resilience.watchdog", "serve.config",
+        "serve.lifecycle", "serve.metrics",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

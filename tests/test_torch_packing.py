@@ -561,7 +561,7 @@ EMBED = ["alpha beta", "gamma delta epsilon", "z " * 50]
 def _port_results(port, **options):
     """The mixed traffic through the port's batcher in one group (every
     request queued before the group's wait ends); -> (results, stats)."""
-    with ConsensusBatcher(port, max_wait_ms=300, **options) as batcher:
+    with ConsensusBatcher(port, window_ms=300, **options) as batcher:
         futures = [
             batcher.submit_embed(EMBED),
             batcher.submit_consensus(CONS_A, 0.05),
@@ -682,7 +682,7 @@ def test_packed_group_is_capped_by_segments(port_tiny):
     # the third (3 more) waits for the next group
     options = dict(packing=True, packing_row_tokens=64, packing_max_rows=2,
                    packing_max_segments=4)
-    with ConsensusBatcher(port_tiny, max_batch=1, max_wait_ms=300,
+    with ConsensusBatcher(port_tiny, max_batch=1, window_ms=300,
                           **options) as batcher:
         futures = [batcher.submit_consensus(["a", "b", "c"]) for _ in range(3)]
         for f in futures:
@@ -695,7 +695,7 @@ def test_packed_group_is_capped_by_segments(port_tiny):
 
 def test_a_long_request_is_capped_per_segment_and_stays_packed(port_tiny):
     # each segment is capped at min(row_tokens, max_tokens) = 16 tokens
-    with ConsensusBatcher(port_tiny, max_wait_ms=100, packing=True,
+    with ConsensusBatcher(port_tiny, window_ms=100, packing=True,
                           packing_row_tokens=16) as batcher:
         conf, tokens = batcher.consensus(["w " * 30, "v " * 30])
         stats = batcher.stats()
@@ -715,7 +715,7 @@ def test_a_request_that_does_not_fit_takes_the_padded_dispatch(
         port_tiny, "tokenize_ragged",
         lambda texts, cap=None: [np.zeros(0, np.int32) for _ in texts],
     )
-    with ConsensusBatcher(port_tiny, max_wait_ms=1, packing=True) as batcher:
+    with ConsensusBatcher(port_tiny, window_ms=1, packing=True) as batcher:
         conf, tokens = batcher.consensus(texts)
         stats = batcher.stats()
     assert stats["packing"]["fallback_items"] == 1
@@ -727,7 +727,7 @@ def test_a_request_that_does_not_fit_takes_the_padded_dispatch(
 def test_an_empty_embeddings_request_is_answered_as_padded(port_tiny):
     results = []
     for packing in (False, True):
-        with ConsensusBatcher(port_tiny, max_wait_ms=300,
+        with ConsensusBatcher(port_tiny, window_ms=300,
                               packing=packing) as batcher:
             # it shares a group with a real request, which still answers
             empty = batcher.submit_embed([])
@@ -740,7 +740,7 @@ def test_an_empty_embeddings_request_is_answered_as_padded(port_tiny):
 
 
 def test_packing_off_is_the_padded_batcher(port_tiny):
-    with ConsensusBatcher(port_tiny, max_batch=8, max_wait_ms=50) as batcher:
+    with ConsensusBatcher(port_tiny, max_batch=8, window_ms=50) as batcher:
         assert not batcher.packing
         futures = [
             batcher.submit_consensus(["a", "b"], 0.05),
@@ -770,7 +770,7 @@ def test_packed_server_answers_over_http(embedders):
     bodies = [{"input": CONS_A}, {"input": CONS_B, "temperature": 0.07},
               {"input": CONS_P}]
     out = [None] * 4
-    with Server(port, max_wait_ms=300, **_packed_options()) as srv:
+    with Server(port, window_ms=300, **_packed_options()) as srv:
 
         def call(i, path, body):
             req = urllib.request.Request(

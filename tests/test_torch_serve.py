@@ -140,7 +140,7 @@ def test_concurrent_equal_n_requests_coalesce(embedders):
     ]
     results = [None] * n_req
     # a group leaves when full: all six wait for each other
-    with Server(port, max_batch=n_req, max_wait_ms=30000) as srv:
+    with Server(port, max_batch=n_req, window_ms=30000) as srv:
 
         def call(i):
             results[i] = _post(srv.port, "/consensus", bodies[i])
@@ -165,7 +165,7 @@ def test_batcher_groups_by_n_and_temperature(embedders):
     from llm_weighted_consensus_tpu_torch.serve.batcher import ConsensusBatcher
 
     _, port = embedders
-    with ConsensusBatcher(port, max_batch=8, max_wait_ms=50) as batcher:
+    with ConsensusBatcher(port, max_batch=8, window_ms=50) as batcher:
         futures = [
             batcher.submit_consensus(["a", "b"], 0.05),
             batcher.submit_consensus(["c", "d"], 0.05),
