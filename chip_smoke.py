@@ -20,7 +20,11 @@ Phases, each printing one JSON line:
    route's output; the vote: the cluster kernel at every R, N, D the
    server makes, also with padding rows and unaligned rows, bit-equal from
    call to call, and the block kernel past the cluster plan's shared
-   memory), max |diff| beside the stated tolerance, with the
+   memory; and with a count per request, ``STREAM_RS`` x
+   ``STREAM_CAPS`` at D=1024, f32 and bf16, mixed counts from 1 to CAP,
+   on both routes, the scalar count bit-equal to a tensor of equal
+   counts, a count of 0 a request of zeros), max |diff| beside the
+   stated tolerance, with the
    kernel's, the plain version's and (for both attentions; the segment
    one with its boolean same-segment mask)
    ``scaled_dot_product_attention``'s time
@@ -41,7 +45,11 @@ Phases, each printing one JSON line:
    through ``/consensus`` on the card and on the CPU; the confidences
    must agree, unquantized and under ``int8`` / ``int4-pallas``; packed
    embeddings on the card against the CPU's and the padded path's, and
-   a segment beside row-mates against itself alone (f32);
+   a segment beside row-mates against itself alone (f32); and the
+   streaming consensus (``StreamingSelfConsistency``) on the card against
+   the CPU over one arrival order of 20 candidates (the buffer grows past
+   16), and one grouped ``stream_vote_update_many`` of 5 streams against
+   5 single ones (f32, ``MICRO_TOL``);
 4. main path: the port's HTTP server on the card at full bge-large width
    (random weights from a fixed seed, bf16): bursts of 8 concurrent
    ``/consensus`` requests of 64 candidates in the s=128 bucket, one
@@ -126,7 +134,27 @@ Phases, each printing one JSON line:
    kernels' own counts.  Each row gives p50, answers/s and one call's
    wall, device time and idle share, eager against graphed, and the
    graph pool's bytes; on the main path a drain with a burst in flight
-   must finish every admitted request while new ones shed 503.
+   must finish every admitted request while new ones shed 503;
+10. multichat path: BASELINE config 5 (streaming multichat with
+   incremental consensus) through ``build_embedder``, ``build_server``
+   and ``warm_up`` at bge-large width (``WARMUP=16x112,16x128,32x128``), the
+   generators a scripted stdlib SSE server on loopback
+   (``ScriptedGenerators``): a panel of 32 slots over 3 backends, 16
+   streaming ``/multichat/completions`` requests with ``"consensus":
+   true``, 8 in flight, candidates of 100-120 words from 4 answer
+   families, then 2 unary requests with consensus, one streamed
+   ``/chat/completions`` and one stream whose fifth update meets a
+   planted embed failure.  It fails unless every stream ends with
+   ``[DONE]`` and carries 31 consensus frames, the last one summing to 1
+   within 1e-3 and within ``STREAM_CONF_TOL`` of an eager vote over the
+   same 32 texts embedded in one call (the unary answers too), every
+   vote launch took ``cluster`` and every attention launch ``tma``, the
+   vote launches equal the stream and unary dispatches, no graph was
+   captured after warmup, and the planted failure left its stream plain
+   multichat (3 frames, every candidate, ``[DONE]``).  It prints
+   updates/s, the server's per-update p50, the dispatches, the largest
+   group, replays against eager dispatches, and one grouped update
+   dispatch's wall and device idle share, eager and replayed.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -163,6 +191,9 @@ MAIN_PATH_ATTENTION_SHAPES = (
     (N_CANDIDATES, 128), (BURST * N_CANDIDATES, 128), (LONG_N, 512),
     (EMBED_N, 64),
 )
+# the multichat path's stream dispatch: up to 16 new candidates padded to
+# the embed bucket of 16 rows at s=128
+STREAM_ATTENTION_SHAPE = (16, 128)
 # the device time summed from the profile may exceed the wall time it
 # was taken in by this much (timer skew) before the sum counts as wrong
 DEVICE_TIME_SLACK = 1.01
@@ -266,6 +297,25 @@ GRAPH_TOL, FAULT_MARGIN = 1e-6, 10.0
 # runs, and another grouping changes the bf16 rounding as PACKED_CONF_TOL
 # allows
 RUN_TOL = PACKED_CONF_TOL
+# the streaming consensus (phases 2, 3 and 10): the vote with a count per
+# request at every R a stream dispatch can hold and every capacity a
+# stream's buffer grows through, D of bge-large
+STREAM_RS, STREAM_CAPS = (1, 2, 8, 16), (16, 32, 64, 128)
+STREAM_MICRO_N = 20  # bge_micro candidates: the buffer grows past 16
+# BASELINE config 5 (bench_all.py:130-143, 406-495): a panel of 32
+# generator slots over 3 backends, weights 1 + i % 3; 16 streaming
+# requests with consensus, 8 in flight; candidates of 100-120 words (the
+# s=128 bucket) from 4 answer families; then 2 unary requests and one
+# streamed /chat/completions
+STREAM_SLOTS, STREAM_BACKENDS, STREAM_FAMILIES = 32, 3, 4
+STREAM_REQUESTS, STREAM_INFLIGHT, STREAM_WORDS = 16, 8, (100, 120)
+# the stream dispatches pad to the embed bucket of 16 rows, at s=112 (a
+# group whose longest candidate has at most 110 words) or s=128; the
+# unary consensus is one request of 32 candidates at s=128
+STREAM_WARMUP = "16x112,16x128,32x128"
+# the last frame's confidences against one eager vote over the same
+# texts embedded in one call (bf16 rows of other batches)
+STREAM_CONF_TOL = PACKED_CONF_TOL
 
 
 def emit(obj) -> None:
@@ -380,29 +430,33 @@ def vote_case(r, n, d, dtype, temp, n_valid, route, seed) -> float:
     return err
 
 
-def vote_launchers(emb, n):
+def vote_launchers(emb, n, counts=None):
     """The two vote kernels on ``emb`` through their C entries (T =
-    0.05): ``cluster(c, cols)`` with any partition, ``block()``."""
+    0.05): ``cluster(c, cols)`` with any partition, ``block()``; with
+    ``counts`` (int32 [R] on the card) a count per request, else ``n``
+    for every request."""
     import torch
 
     from llm_weighted_consensus_tpu_torch.ops import _build
 
     lib = _build.library()
-    r, _, d = emb.shape
-    conf = torch.empty((r, n), dtype=torch.float32, device="cuda")
+    r, width, d = emb.shape
+    conf = torch.empty((r, width), dtype=torch.float32, device="cuda")
     dtype = 0 if emb.dtype == torch.float32 else 1
+    ptr = None if counts is None else counts.data_ptr()
 
     def cluster(c, cols):
         _build.check(lib.lwc_cosine_vote_cluster(
-            emb.data_ptr(), conf.data_ptr(), r, n, d, n, 0.05, dtype, c,
-            cols, torch.cuda.current_stream().cuda_stream),
+            emb.data_ptr(), conf.data_ptr(), r, width, d, n, ptr, 0.05,
+            dtype, c, cols, torch.cuda.current_stream().cuda_stream),
             "lwc_cosine_vote_cluster")
         return conf
 
     def block():
         _build.check(lib.lwc_cosine_vote(
-            emb.data_ptr(), conf.data_ptr(), r, n, d, n, 0.05, dtype,
-            torch.cuda.current_stream().cuda_stream), "lwc_cosine_vote")
+            emb.data_ptr(), conf.data_ptr(), r, width, d, n, ptr, 0.05,
+            dtype, torch.cuda.current_stream().cuda_stream),
+            "lwc_cosine_vote")
         return conf
 
     return cluster, block
@@ -602,6 +656,151 @@ def check_vote(gpu: str) -> dict:
     return row
 
 
+def stream_counts(r, cap, seed):
+    """Counts of live rows per request, mixed: the first request 1, the
+    last ``cap`` (a lone request takes 1 or ``cap`` by seed)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, cap + 1, r)
+    counts[0] = 1 if r > 1 or seed % 2 else cap
+    counts[-1] = cap if r > 1 else counts[0]
+    return torch.tensor(counts, dtype=torch.int32, device="cuda")
+
+
+def vote_counts_case(r, cap, d, dtype, counts, route, seed) -> float:
+    """One call with a count per request, held to the plain version
+    (max |diff| <= VOTE_TOL), finite, each live request summing to 1 +-
+    1e-5, rows at and past its count exactly 0, a count of 1 exactly 1.
+    ``cluster`` goes through the wrapper (held to its route); ``block``
+    through the block kernel's C entry at the same shape."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    what = (f"vote counts r={r} cap={cap} d={d} {dtype} {route} "
+            f"{counts.tolist()}")
+    emb = vote_inputs(r, cap, d, dtype, seed)
+    if route == "cluster":
+        if kernels.vote_route(r, cap, d, dtype) != "cluster":
+            raise AssertionError(f"{what}: route is not cluster")
+        before = kernels.cosine_vote.routes["cluster"]
+        got = kernels.cosine_vote(emb, counts, 0.05)
+        if kernels.cosine_vote.routes["cluster"] != before + 1:
+            raise AssertionError(f"{what}: not launched on route cluster")
+    else:
+        _, block = vote_launchers(emb, cap, counts)
+        got = block()
+    want = kernels.cosine_vote_plain(emb, counts, 0.05)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rows = torch.arange(cap, device="cuda")[None, :]
+    live = rows < counts.clamp(0, cap)[:, None].long()
+    sums = got.sum(-1)
+    ones = counts == 1
+    if (not torch.isfinite(got).all()
+            or (got[~live] != 0).any()
+            or ((sums - 1).abs() > 1e-5)[counts > 0].any()
+            or (ones.any() and (got[ones, 0] != 1).any())):
+        raise AssertionError(f"{what}: bad output")
+    if err > VOTE_TOL:
+        raise AssertionError(f"{what}: max|diff| {err} > {VOTE_TOL}")
+    return err
+
+
+def check_vote_counts(gpu: str) -> dict:
+    """The vote with a count per request (the streaming consensus: one
+    dispatch holds streams of different lengths) on both routes against
+    the plain version; the scalar count bit-equal to a tensor of equal
+    counts on both routes; a count of 0 gives zeros; then the wrapper at
+    the multichat path's shape, [8, 32, 1024] f32 with mixed counts."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    routes0 = dict(kernels.cosine_vote.routes)
+    errs = []
+    for r in STREAM_RS:
+        for cap in STREAM_CAPS:
+            for dtype in (f32, bf16):
+                for route in ("cluster", "block"):
+                    seed = r * 1000 + cap
+                    cases = [stream_counts(r, cap, seed)]
+                    if r == 1:  # a lone request at both ends
+                        cases.append(stream_counts(r, cap, seed + 1))
+                    for counts in cases:
+                        errs.append(vote_counts_case(
+                            r, cap, 1024, dtype, counts, route, seed))
+    # the wrapper's block route (past the plan's shared memory) with counts
+    for dtype in (f32, bf16):
+        counts = torch.tensor([700, 1], dtype=torch.int32, device="cuda")
+        emb = vote_inputs(2, 1024, 2048, dtype, seed=3)
+        before = kernels.cosine_vote.routes["block"]
+        got = kernels.cosine_vote(emb, counts, 0.05)
+        if kernels.cosine_vote.routes["block"] != before + 1:
+            raise AssertionError("vote counts [2, 1024, 2048]: not block")
+        err = (got - kernels.cosine_vote_plain(emb, counts, 0.05)).abs().max()
+        if err.item() > VOTE_TOL or (got[0, 700:] != 0).any():
+            raise AssertionError(f"vote counts block wrapper: {err.item()}")
+        errs.append(err.item())
+    # the scalar count against a tensor of equal counts, bit for bit, and
+    # a count of 0, on both routes
+    for dtype in (f32, bf16):
+        emb = vote_inputs(BURST, 64, 1024, dtype, seed=17)
+        plan = kernels.vote_plan(BURST, 64, 1024, dtype)
+        for n in (1, 40, 64):
+            same = torch.full((BURST,), n, dtype=torch.int32, device="cuda")
+            for label, pick in (("cluster", 0), ("block", 1)):
+                scalar = vote_launchers(emb, n)[pick]
+                vector = vote_launchers(emb, n, same)[pick]
+                call = ((lambda f: f(plan.cluster, plan.cols))
+                        if label == "cluster" else (lambda f: f()))
+                a, b = call(scalar).clone(), call(vector).clone()
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"vote {label} {dtype} n={n}: the scalar count and "
+                        "a vector of it differ")
+        zero = torch.tensor([0, 64, 5] + [64] * (BURST - 3),
+                            dtype=torch.int32, device="cuda")
+        for label, pick in (("cluster", 0), ("block", 1)):
+            launch = vote_launchers(emb, 64, zero)[pick]
+            got = (launch(plan.cluster, plan.cols) if label == "cluster"
+                   else launch())
+            torch.cuda.synchronize()
+            if (got[0] != 0).any() or (got[2, 5:] != 0).any():
+                raise AssertionError(f"vote {label} {dtype}: count 0 or 5 "
+                                     "left live rows")
+    routes = {k: v - routes0[k] for k, v in kernels.cosine_vote.routes.items()}
+    # the multichat path's dispatch shape: 8 streams of capacity 32
+    r, cap, d = STREAM_INFLIGHT, 32, 1024
+    emb = vote_inputs(r, cap, d, f32, seed=23)
+    counts = stream_counts(r, cap, seed=23)
+    live = int(counts.sum().item())
+    ms = time_ms(lambda: kernels.cosine_vote(emb, counts, 0.05), iters=200)
+    plain = time_ms(lambda: kernels.cosine_vote_plain(emb, counts, 0.05),
+                    iters=50)
+    device = device_ms_per_launch(
+        lambda: kernels.cosine_vote(emb, counts, 0.05),
+        "cosine_vote_cluster_kernel")
+    # this data's work: the live rows read once, the counts read, conf
+    # written; three passes of 2 FLOPs per live element and the self terms
+    bound, by = bound_ms(live * d * 4 + r * 4 + r * cap * 4, 8.0 * live * d,
+                         "float32")
+    row = {
+        "phase": "kernel", "kernel": "cosine_vote", "variant": "counts",
+        "gpu": gpu, "cases": len(errs), "routes": routes,
+        "max_abs_err": max(errs), "tolerance": VOTE_TOL,
+        "scalar_bit_equal": True, "shape": [r, cap, d], "dtype": "float32",
+        "counts": counts.tolist(), "kernel_ms": ms, "device_ms": device,
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+    }
+    emit(row)
+    return row
+
+
 def attention_inputs(b, s, nh, hd, dtype, seed):
     import numpy as np
     import torch
@@ -664,7 +863,7 @@ def check_attention(gpu: str) -> dict:
     # /consensus request of 64 candidates at s=128 (the warm-up), 8 such
     # requests coalesced (the bursts), 16 candidates in the s=512 bucket
     # and the /embeddings batch of 32 texts at s=64
-    for b, s in MAIN_PATH_ATTENTION_SHAPES:
+    for b, s in MAIN_PATH_ATTENTION_SHAPES + (STREAM_ATTENTION_SHAPE,):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(b, s, nh, hd, dtype, seed=b + s)
@@ -3265,8 +3464,436 @@ def serving_phase(gpu: str, timed) -> dict:
     return rows
 
 
+# -- the streaming consensus (slice 9) ----------------------------------------
+
+
+def stream_chunk(slot: int, text: str, finish="stop"):
+    """A multichat chunk that finishes ``slot`` with ``text``."""
+    from llm_weighted_consensus_tpu_torch.types import (
+        chat_response as cr,
+        multichat_response as mr,
+    )
+
+    return mr.ChatCompletionChunk(
+        id="mchcpl-smoke", created=0, model="panel", usage=None,
+        choices=[mr.StreamingChoice(
+            delta=cr.Delta(content=text), finish_reason=finish, index=slot,
+            logprobs=None, error=None, model="g", model_index=slot,
+            completion_metadata=None)],
+    )
+
+
+def check_stream_bge_micro(gpu: str) -> dict:
+    """bge_micro in f32: the card's ``StreamingSelfConsistency`` against
+    the port's CPU run over one arrival order of ``STREAM_MICRO_N``
+    candidates (the buffer grows past 16), every update within
+    ``MICRO_TOL``; one grouped ``stream_vote_update_many`` of 5 streams
+    against the 5 single-stream updates, on the card and against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.clients.multichat import (
+        StreamingSelfConsistency,
+    )
+    from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "bge_micro")
+    cfg = loading.load_hf_config(fixture)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(fixture))
+    words = " ".join(MICRO_TEXTS).replace(",", "").split()
+    rng = np.random.default_rng(9)
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(3, 14))))
+             for _ in range(STREAM_MICRO_N)]
+    order = [int(i) for i in rng.permutation(STREAM_MICRO_N)]
+    embs, updates = {}, {}
+    for device in ("cpu", "cuda"):
+        model = loading.load_params(fixture, cfg, dtype=torch.float32,
+                                    device=device)
+        embs[device] = TorchEmbedder(
+            "bge-micro", model=model, config=cfg, tokenizer=tok,
+            max_tokens=64, device=device, dtype=torch.float32)
+        sc = StreamingSelfConsistency(embs[device])
+        before = kernels.cosine_vote.routes["cluster"]
+        updates[device] = [sc.push_chunk(stream_chunk(slot, texts[slot]))
+                           for slot in order]
+        if device == "cuda":
+            if kernels.cosine_vote.routes["cluster"] != before + len(order):
+                raise AssertionError("stream_bge_micro: a vote off cluster")
+            if sc._buf.device.type != "cuda" or sc._buf.shape[0] != 32:
+                raise AssertionError(f"stream buffer {sc._buf.shape} on "
+                                     f"{sc._buf.device}")
+    worst = 0.0
+    for want, got in zip(updates["cpu"], updates["cuda"]):
+        if (want is None) != (got is None) or (
+                want is not None and want.keys() != got.keys()):
+            raise AssertionError("stream_bge_micro: updates differ in shape")
+        if want is not None:
+            worst = max(worst, max(abs(want[k] - got[k]) for k in want))
+    # one grouped update of 5 streams against 5 single ones
+    r, cap, hidden = 5, 16, cfg.hidden_size
+    counts = [1, 4, 0, 9, 15]
+    base = rng.normal(size=(r, cap, hidden)).astype(np.float32)
+    for i, c in enumerate(counts):
+        base[i, c:] = 0.0
+    group_texts = texts[:r]
+    grouped = {}
+    for device, emb in embs.items():
+        bufs = [torch.tensor(base[i], device=device) for i in range(r)]
+        grouped[device] = (emb.stream_vote_update_many(
+            group_texts, bufs, counts, 0.05), bufs)
+    singles = []
+    for i in range(r):
+        buf = torch.tensor(base[i], device="cuda")
+        singles.append(embs["cuda"].stream_vote_update(
+            group_texts[i], buf, counts[i], 0.05))
+    many, bufs = grouped["cuda"]
+    many_err = float(np.abs(many - np.stack(singles)).max())
+    cpu_err = float(np.abs(many - grouped["cpu"][0]).max())
+    buf_err = max(
+        float((bufs[i].cpu() - grouped["cpu"][1][i]).abs().max())
+        for i in range(r))
+    row = {
+        "phase": "stream_bge_micro", "gpu": gpu, "updates": len(order),
+        "capacity": 32, "max_abs_err": worst, "tolerance": MICRO_TOL,
+        "grouped_vs_single_err": many_err, "grouped_card_vs_cpu_err": cpu_err,
+        "buffer_card_vs_cpu_err": buf_err,
+    }
+    emit(row)
+    if max(worst, many_err, cpu_err, buf_err) > MICRO_TOL:
+        raise AssertionError(f"stream_bge_micro: {row}")
+    return row
+
+
+def stream_candidate(request: int, slot: int) -> str:
+    """Slot ``slot``'s answer to request ``request``: 100-120 words, most
+    from one of ``STREAM_FAMILIES`` answer families (so the vote has a
+    structure), the rest from bench.py's vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(request * 1000 + slot)
+    family = (7 * slot + request) % STREAM_FAMILIES
+    own = [f"f{family}w{j}" for j in range(25)]
+    n = int(rng.integers(STREAM_WORDS[0], STREAM_WORDS[1] + 1))
+    return " ".join(
+        own[int(rng.integers(0, 25))] if rng.random() < 0.8
+        else BENCH_WORDS[int(rng.integers(0, len(BENCH_WORDS)))]
+        for _ in range(n)
+    )
+
+
+class ScriptedGenerators:
+    """The generator models on loopback (a stdlib SSE server, as
+    bench_all.py's FakeTransport scripts stand in for them): an upstream
+    chat request with seed ``1000 k + slot`` streams
+    ``stream_candidate(k, slot)`` in three chunked frames, starting
+    2 ms x slot (plus up to 10 ms) after it arrives, 5 ms apart."""
+
+    def __init__(self) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                import numpy as np
+
+                body = json.loads(self.rfile.read(
+                    int(self.headers["content-length"])))
+                request, slot = divmod(int(body.get("seed") or 0), 1000)
+                text = stream_candidate(request, slot)
+                rng = np.random.default_rng(int(body.get("seed") or 0))
+                time.sleep(0.002 * slot + 0.01 * rng.random())
+                words = text.split(" ")
+                cut = [0, len(words) // 3, 2 * len(words) // 3, len(words)]
+                parts = [" ".join(words[a:b]) + (" " if i < 2 else "")
+                         for i, (a, b) in enumerate(zip(cut, cut[1:]))]
+                self.send_response(200)
+                self.send_header("content-type", "text/event-stream")
+                self.send_header("transfer-encoding", "chunked")
+                self.end_headers()
+                for i, part in enumerate(parts):
+                    chunk = {
+                        "id": f"gen-{body.get('seed')}", "created": 1,
+                        "object": "chat.completion.chunk",
+                        "model": body.get("model"),
+                        "choices": [{"index": 0, "delta": {"content": part},
+                                     "finish_reason": "stop" if i == 2
+                                     else None}],
+                    }
+                    frame = f"data: {json.dumps(chunk)}\n\n".encode()
+                    if i == 2:
+                        frame += b"data: [DONE]\n\n"
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+                    self.wfile.flush()
+                    time.sleep(0.005)
+                self.wfile.write(b"0\r\n\r\n")
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+            request_queue_size = 1024
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/v1"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def stream_panel() -> dict:
+    return {"llms": [
+        {"model": f"backend-{i % STREAM_BACKENDS}",
+         "weight": {"type": "static", "weight": 1 + i % 3}}
+        for i in range(STREAM_SLOTS)
+    ]}
+
+
+def sse_post(port: int, path: str, body: dict):
+    """(status, the ``data:`` payloads parsed, seconds) of one POST."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        status = resp.status
+    finally:
+        conn.close()
+    events = [blk[len(b"data: "):].decode() for blk in raw.split(b"\n\n")
+              if blk.startswith(b"data: ")]
+    return status, events, time.perf_counter() - t0
+
+
+def read_stream(events: list) -> dict:
+    """A multichat stream's texts by slot, its consensus frames, and
+    whether it ended with [DONE]."""
+    texts, frames = {}, []
+    for ev in events:
+        if ev == "[DONE]":
+            continue
+        obj = json.loads(ev)
+        if obj.get("object") == "multichat.consensus":
+            frames.append(obj["confidence"])
+            continue
+        for choice in obj.get("choices", []):
+            if choice.get("error") is not None:
+                raise AssertionError(f"slot error: {choice['error']}")
+            content = choice.get("delta", {}).get("content") or ""
+            texts[choice["index"]] = texts.get(choice["index"], "") + content
+    return {"texts": texts, "frames": frames,
+            "done": bool(events) and events[-1] == "[DONE]"}
+
+
+def eager_vote(emb, texts: list):
+    """One eager vote over ``texts`` embedded in one call."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    vecs = torch.tensor(emb.embed_texts(texts), device="cuda")
+    return kernels.cosine_vote(vecs[None], len(texts), 0.05)[0].cpu().numpy()
+
+
+def multichat_path(gpu: str) -> dict:
+    """Phase 10: BASELINE config 5 through the port's server at full
+    bge-large width (random weights from seed 0, bf16), built by the
+    entry points (``build_embedder``, ``build_server``, ``warm_up``),
+    the generators a scripted loopback server: 16 streaming
+    ``/multichat/completions`` requests with consensus, 8 in flight, then
+    2 unary ones, one streamed ``/chat/completions`` and one stream whose
+    fifth update meets a planted embed failure.  Launch counts are set to
+    0 before that traffic and read after it."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    gens = ScriptedGenerators()
+    env = {"EMBEDDER_MODEL": "bge-large-en", "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "WARMUP": STREAM_WARMUP,
+           "OPENAI_API_BASE": gens.url, "OPENAI_API_KEY": "smoke-key"}
+    config = ServeConfig.from_env(env)
+    emb = build_embedder(env, device="cuda")
+    layers = emb.config.num_layers
+    srv = build_server(emb, None, config).start()
+    try:
+        t0 = time.perf_counter()
+        warm_up(srv, config)
+        warm_s = time.perf_counter() - t0
+        port, batcher = srv.port, srv.batcher
+
+        def body(k, stream=True):
+            return {"messages": [{"role": "user", "content": f"question {k}"}],
+                    "model": stream_panel(), "seed": 1000 * k,
+                    "stream": stream, "consensus": True}
+
+        graphs0, stats0 = emb.graph_stats(), batcher.stats()
+        snap0 = srv.metrics.snapshot()["series"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(STREAM_INFLIGHT) as pool:
+            answers = list(pool.map(
+                lambda k: sse_post(port, "/multichat/completions", body(k)),
+                range(1, STREAM_REQUESTS + 1)))
+        stream_s = time.perf_counter() - t0
+        unary = [post(port, "/multichat/completions", body(k, stream=False))
+                 for k in (101, 102)]
+        chat_status, chat_events, _ = sse_post(port, "/chat/completions", {
+            "model": "backend-0", "seed": 99000, "stream": True,
+            "messages": [{"role": "user", "content": "question 99"}]})
+        # the planted failure: the fifth stream update of one more request
+        real = batcher.submit_stream
+        calls = {"n": 0}
+
+        def planted(*args, **kwargs):
+            calls["n"] += 1
+            if calls["n"] == 5:
+                failed = concurrent.futures.Future()
+                failed.set_exception(RuntimeError("planted embed failure"))
+                return failed
+            return real(*args, **kwargs)
+
+        batcher.submit_stream = planted
+        try:
+            fail_status, fail_events, _ = sse_post(
+                port, "/multichat/completions", body(200))
+        finally:
+            del batcher.submit_stream
+        torch.cuda.synchronize()
+        launches, routes = read_launches(), read_routes()
+        graphs1, stats1 = emb.graph_stats(), batcher.stats()
+        snap1 = srv.metrics.snapshot()["series"]
+        # every stream: [DONE], 31 frames, the last one a distribution
+        # that an eager vote over the same texts gives
+        worst, sums = 0.0, 0.0
+        frames = 0
+        for k, (status, events, _) in zip(range(1, STREAM_REQUESTS + 1),
+                                          answers):
+            out = read_stream(events)
+            if status != 200 or not out["done"]:
+                raise AssertionError(f"stream {k}: {status}, no [DONE]")
+            if len(out["frames"]) != STREAM_SLOTS - 1:
+                raise AssertionError(
+                    f"stream {k}: {len(out['frames'])} consensus frames")
+            texts = [out["texts"][s] for s in range(STREAM_SLOTS)]
+            if texts != [stream_candidate(k, s) for s in range(STREAM_SLOTS)]:
+                raise AssertionError(f"stream {k}: candidates garbled")
+            last = out["frames"][-1]
+            got = np.array([last[str(s)] for s in range(STREAM_SLOTS)])
+            sums = max(sums, abs(got.sum() - 1.0))
+            worst = max(worst, float(np.abs(got - eager_vote(emb, texts))
+                                     .max()))
+            frames += len(out["frames"])
+        for k, out in zip((101, 102), unary):
+            texts = {c["index"]: c["message"]["content"]
+                     for c in out["choices"]}
+            conf = np.array([out["consensus"][str(s)]
+                             for s in range(STREAM_SLOTS)])
+            sums = max(sums, abs(conf.sum() - 1.0))
+            worst = max(worst, float(np.abs(conf - eager_vote(
+                emb, [texts[s] for s in range(STREAM_SLOTS)])).max()))
+        chat = read_stream(chat_events)
+        if chat_status != 200 or not chat["done"] or chat["texts"].get(0) \
+                != stream_candidate(99, 0):
+            raise AssertionError(f"/chat/completions: {chat_status}")
+        failed = read_stream(fail_events)
+        if fail_status != 200 or not failed["done"] or len(
+                failed["texts"]) != STREAM_SLOTS or len(failed["frames"]) != 3:
+            raise AssertionError(
+                f"planted failure: {fail_status}, {len(failed['frames'])} "
+                f"frames, {len(failed['texts'])} slots")
+        if sums > 1e-3 or worst > STREAM_CONF_TOL:
+            raise AssertionError(f"multichat confidences: sum off by {sums}, "
+                                 f"{worst} from the eager vote")
+        stream_d = stats1["stream"]["dispatches"] - stats0["stream"][
+            "dispatches"]
+        unary_d = (stats1["dispatches"]["consensus"]
+                   - stats0["dispatches"]["consensus"])
+        embed_d = stats1["dispatches"]["embed"] - stats0["dispatches"]["embed"]
+        want = {"cosine_vote": stream_d + unary_d,
+                "attention": layers * (stream_d + unary_d + embed_d)}
+        if any(launches[name] != n for name, n in want.items()):
+            raise AssertionError(f"multichat launches {launches} != {want}")
+        captures = graphs1["captures"] - graphs0["captures"]
+        if captures:
+            raise AssertionError(f"{captures} captures after warmup")
+        updates = snap1["device:consensus_update"]
+        errors = updates["errors"] - snap0.get(
+            "device:consensus_update", {}).get("errors", 0)
+        if errors != 1:
+            raise AssertionError(f"{errors} failed updates, want the planted 1")
+        # one grouped update dispatch (8 streams at capacity 32, s=128):
+        # replayed from the warmed embed graph, and eager on a twin
+        # embedder that warmed nothing
+        rng = np.random.default_rng(31)
+        counts = [int(c) for c in rng.integers(1, 32, STREAM_INFLIGHT)]
+        group_texts = [stream_candidate(300, s) for s in range(STREAM_INFLIGHT)]
+        ids, mask = emb.tokenize(group_texts)
+        twin = TorchEmbedder("bge-large-en", model=emb.model,
+                             config=emb.config, tokenizer=emb.tokenizer,
+                             max_tokens=512, device="cuda",
+                             dtype=torch.bfloat16)
+        profiles = {}
+        for label, model in (("eager", twin), ("replayed", emb)):
+            bufs = [model.stream_buffer(32) for _ in counts]
+            profiles[label] = profile_one(
+                lambda model=model, bufs=bufs: model.stream_vote_update_tokens(
+                    ids, mask, bufs, counts, 0.05),
+                None if label == "eager"
+                else profiles["eager"]["device_records"])
+        del twin
+        row = {
+            "phase": "multichat_path", "gpu": gpu, "nvidia_smi": gpu,
+            "model": "bge-large-en", "dtype": "bfloat16", "layers": layers,
+            "slots": STREAM_SLOTS, "requests": STREAM_REQUESTS,
+            "in_flight": STREAM_INFLIGHT, "warmup": STREAM_WARMUP,
+            "warmup_s": warm_s, "stream_s": stream_s,
+            "updates": frames, "updates_per_s": frames / stream_s,
+            "update_p50_ms": updates.get("p50_ms"),
+            "stream_dispatches": stream_d, "unary_dispatches": unary_d,
+            "largest_group": stats1["stream"]["largest_group"],
+            "replays": graphs1["replays"] - graphs0["replays"],
+            "eager_dispatches": (graphs1["eager_dispatches"]
+                                 - graphs0["eager_dispatches"]),
+            "captures_after_warmup": captures, "launches": launches,
+            "routes": routes, "max_conf_err": worst,
+            "conf_tolerance": STREAM_CONF_TOL, "max_sum_err": sums,
+            "planted_failure_frames": len(failed["frames"]),
+            "dispatch_profile": profiles,
+        }
+        emit(row)
+        return row
+    finally:
+        srv.close()
+        gens.close()
+        del emb
+        torch.cuda.empty_cache()
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
-                   packed, rm, serving) -> dict:
+                   packed, rm, serving, counts, multichat) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -3276,7 +3903,11 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     bucket, 8 rows of 512 tokens).  The reward-model path adds its own
     entries (``"path": "rm"``) for the quantized matmuls and the row
     quantisation, with the launches of its int8 and int4 bursts and the
-    numbers at its MLP expansion (M=2048, K=768, N=3072 with GELU).
+    numbers at its MLP expansion (M=2048, K=768, N=3072 with GELU).  The
+    multichat path adds the vote with a count per request
+    (``"path": "multichat"``, at [8, 32, 1024] f32 with this run's mixed
+    counts) and the attention at its dispatch shape [16, 128] (bf16),
+    with that path's launches.
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -3409,6 +4040,33 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         "previous_device_ms": bucket["previous_device_ms"],
         "previous_source": csrc + "attention.cu",
     })
+    stream = next(
+        r for r in attn_rows
+        if r.get("shape", [])[:2] == list(STREAM_ATTENTION_SHAPE)
+        and r["dtype"] == "bfloat16"
+    )
+    entries.append({
+        "name": "cosine_vote", "path": "multichat", "route": "cuda",
+        "source": csrc + "cosine_vote_sm90.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/kernels.py:94",
+        "launches": multichat["launches"]["cosine_vote"],
+        "max_abs_err": counts["max_abs_err"], "ms": counts["kernel_ms"],
+        "plain_ms": counts["plain_ms"], "bound_ms": counts["bound_ms"],
+        "bound_by": counts["bound_by"], "library_ms": None,
+        "kernel_route": "cluster", "device_ms": counts["device_ms"],
+        "shape": counts["shape"], "counts": counts["counts"],
+    })
+    entries.append({
+        "name": "attention", "path": "multichat", "route": "cuda",
+        "source": csrc + "attention_sm90.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/attention.py:134",
+        "launches": multichat["launches"]["attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": stream["kernel_ms"], "plain_ms": stream["plain_ms"],
+        "bound_ms": stream["bound_ms"], "bound_by": stream["bound_by"],
+        "library_ms": stream["library_ms"], "kernel_route": "tma",
+        "device_ms": stream["device_ms"], "shape": stream["shape"],
+    })
     graphed = {"cosine_vote": "main", "attention": "main",
                "segment_attention": "packed", "quantize_rows": "int8",
                "w8a8_matmul": "int8", "w4a8_matmul": "int4-pallas"}
@@ -3416,6 +4074,10 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         path = graphed[entry["name"]]
         if entry.get("path") == "rm":  # no graphed int4 reward-model run
             path = None if entry["name"] == "w4a8_matmul" else "rm_int8"
+        if entry.get("path") == "multichat":  # served graphed: its own run
+            entry["graphed_path"] = "multichat"
+            entry["graphed_launches"] = entry["launches"]
+            continue
         entry["graphed_path"] = path
         entry["graphed_launches"] = (
             None if path is None else serving[path]["launches"][entry["name"]]
@@ -3453,11 +4115,13 @@ def main() -> int:
         return out
 
     vote = timed("vote", check_vote, gpu)
+    counts = timed("vote", check_vote_counts, gpu)
     attn_rows = timed("attention", check_attention, gpu)["rows"]
     quant = timed("quant", check_quant, gpu)
     seg = timed("segment_attention", check_segment_attention, gpu)
     timed("bge_micro", check_bge_micro, gpu)
     timed("bge_micro", check_bge_micro_packed, gpu)
+    timed("bge_micro", check_stream_bge_micro, gpu)
     main_row, full, bursts, embed_texts = timed("main_path", main_path, gpu)
     packed = timed("packed_path", packed_path, gpu, full, seg["checked"])
     timed("profiles", profile_packed, gpu, full, packed["bursts"])
@@ -3476,10 +4140,11 @@ def main() -> int:
     timed("profiles", profile_dispatch, gpu, quantize="int4-pallas")
     rm = rm_phase(gpu, timed)
     serving = serving_phase(gpu, timed)
+    multichat = timed("multichat_path", multichat_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
-                        seg, packed["row"], rm, serving))
+                        seg, packed["row"], rm, serving, counts, multichat))
     print(gpu)
     emit({
         "ok": True,

@@ -18,6 +18,12 @@
 // the same as the Gram's row sum up to f32 reassociation (absolute error
 // ~1e-7 * n before the division by n-1).
 //
+// Per-request counts: with `counts` (int32 [r] on the device) request r
+// votes over its own first counts[r] rows (clamped to [0, n]; 0 gives a
+// request of zeros), so one launch serves streams of different lengths;
+// with `counts` null every request takes the scalar `n_valid`, bit for bit
+// as before the pointer existed.
+//
 // Layout: one block per request r.  Shared memory holds 2N + D floats
 // (row inverse norms, logits, the column sum), never N x D; the loops over
 // N and D run inside the block, so any N and D fit.  The input is read
@@ -70,7 +76,9 @@ __device__ float block_reduce(float v, float* scratch) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cosine_vote_kernel(const T* __restrict__ emb, float* __restrict__ conf,
-                       int n, int d, int n_valid, float temperature) {
+                       int n, int d, int n_valid,
+                       const int* __restrict__ counts, float temperature) {
+  if (counts != nullptr) n_valid = min(max(counts[blockIdx.x], 0), n);
   extern __shared__ float smem[];
   float* inv_norm = smem;       // [n]
   float* logits = smem + n;     // [n]
@@ -124,6 +132,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // 4. softmax over the valid rows (max subtracted); invalid rows get 0
+  //    (and every row of a request with no valid row)
   float m = -CUDART_INF_F;
   for (int i = threadIdx.x; i < n_valid; i += kThreads)
     m = fmaxf(m, logits[i]);
@@ -135,16 +144,19 @@ __global__ void __launch_bounds__(kThreads)
     s += e;
   }
   s = block_reduce<false>(s, scratch);
-  for (int i = threadIdx.x; i < n; i += kThreads) out[i] = logits[i] / s;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    out[i] = i < n_valid ? logits[i] / s : 0.0f;
 }
 
 }  // namespace
 
-// emb: [r, n, d] contiguous, dtype 0 = f32, 1 = bf16; conf: [r, n] f32.
+// emb: [r, n, d] contiguous, dtype 0 = f32, 1 = bf16; conf: [r, n] f32;
+// counts: int32 [r] on the device, or null for the scalar n_valid.
 // Returns cudaGetLastError() after the launch.
 extern "C" int lwc_cosine_vote(const void* emb, void* conf, int r, int n,
-                               int d, int n_valid, float temperature,
-                               int dtype, void* stream) {
+                               int d, int n_valid, const void* counts,
+                               float temperature, int dtype, void* stream) {
+  const int* cnt = static_cast<const int*>(counts);
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(n) + d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -154,7 +166,7 @@ extern "C" int lwc_cosine_vote(const void* emb, void* conf, int r, int n,
                            static_cast<int>(smem));
     cosine_vote_kernel<float><<<r, kThreads, smem, st>>>(
         static_cast<const float*>(emb), static_cast<float*>(conf), n, d,
-        n_valid, temperature);
+        n_valid, cnt, temperature);
   } else if (dtype == 1) {
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(cosine_vote_kernel<__nv_bfloat16>,
@@ -162,7 +174,7 @@ extern "C" int lwc_cosine_vote(const void* emb, void* conf, int r, int n,
                            static_cast<int>(smem));
     cosine_vote_kernel<__nv_bfloat16><<<r, kThreads, smem, st>>>(
         static_cast<const __nv_bfloat16*>(emb), static_cast<float*>(conf), n,
-        d, n_valid, temperature);
+        d, n_valid, cnt, temperature);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -51,6 +51,12 @@
 //      runs the softmax over the live rows in one warp.  Rows past
 //      n_valid get exactly 0 (no -inf is ever formed); one live row is a
 //      softmax of one term, a confidence of exactly 1.
+// Per-request counts: with `counts` (int32 [R] on the device) cluster r
+// reads its own count counts[r] (clamped to [0, N]) in place of the
+// scalar n_valid, so one launch votes over streams of different lengths
+// (the streaming consensus); a count of 0 gives a row of zeros and no
+// barrier after the first.  With `counts` null the kernel is the scalar
+// one, bit for bit.
 // One read of the input, two exchanges of N floats per block, no atomics:
 // the result is deterministic, bit for bit, from call to call.
 
@@ -217,8 +223,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cosine_vote_cluster_kernel(const T* __restrict__ emb,
                                float* __restrict__ conf, int n, int d,
-                               int n_valid, float temperature, int cols,
-                               int vec) {
+                               int n_valid, const int* __restrict__ counts,
+                               float temperature, int cols, int vec) {
   // elements per 16 bytes; a tile row is cols + kVec elements long
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -226,6 +232,15 @@ __global__ void __launch_bounds__(kThreads)
   const int blocks = cluster_blocks();
   // barrier phase 0: this block has started (its shared memory exists)
   cluster_arrive_relaxed();
+  if (counts != nullptr) n_valid = min(max(__ldg(counts + blockIdx.y), 0), n);
+  if (n_valid == 0) {
+    // every block of the cluster reads the same count and leaves here, so
+    // no block waits on another; nothing touches distributed memory
+    if (rank == 0)
+      for (int i = threadIdx.x; i < n; i += kThreads)
+        conf[static_cast<size_t>(blockIdx.y) * n + i] = 0.0f;
+    return;
+  }
 
   const int ld = cols + kVec;
   T* tile = reinterpret_cast<T*>(smem);  // [n_valid][ld]
@@ -391,10 +406,12 @@ bool plan_ok(int n, int d, int cluster, int cols, size_t smem) {
 
 template <typename T>
 int launch(const void* emb, void* conf, int r, int n, int d, int n_valid,
-           float temperature, int cluster, int cols, cudaStream_t st) {
+           const int* counts, float temperature, int cluster, int cols,
+           cudaStream_t st) {
   const size_t smem = smem_bytes(n, cols, cluster, sizeof(T));
-  if (!plan_ok(n, d, cluster, cols, smem) || n_valid < 1 || n_valid > n ||
-      r < 1 || r > 65535)
+  if (!plan_ok(n, d, cluster, cols, smem) ||
+      (counts == nullptr && (n_valid < 1 || n_valid > n)) || r < 1 ||
+      r > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t rc = configure<T>();
   if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -414,7 +431,7 @@ int launch(const void* emb, void* conf, int r, int n, int d, int n_valid,
                   reinterpret_cast<uintptr_t>(emb) % 16 == 0;
   rc = cudaLaunchKernelEx(&cfg, cosine_vote_cluster_kernel<T>,
                           static_cast<const T*>(emb),
-                          static_cast<float*>(conf), n, d, n_valid,
+                          static_cast<float*>(conf), n, d, n_valid, counts,
                           temperature, cols, vec);
   if (rc != cudaSuccess) {
     cudaGetLastError();  // clear it: the return value reports it
@@ -425,21 +442,24 @@ int launch(const void* emb, void* conf, int r, int n, int d, int n_valid,
 
 }  // namespace
 
-// emb: [r, n, d] contiguous, dtype 0 = f32, 1 = bf16; conf: [r, n] f32.
+// emb: [r, n, d] contiguous, dtype 0 = f32, 1 = bf16; conf: [r, n] f32;
+// counts: int32 [r] on the device, or null for the scalar n_valid.
 // `cluster` blocks per request, `cols` columns per block (a multiple of 8,
 // cluster * cols >= d): ops/kernels.py::vote_plan.  Returns the launch's
 // error, else cudaGetLastError() after it.
 extern "C" int lwc_cosine_vote_cluster(const void* emb, void* conf, int r,
                                        int n, int d, int n_valid,
-                                       float temperature, int dtype,
-                                       int cluster, int cols, void* stream) {
+                                       const void* counts, float temperature,
+                                       int dtype, int cluster, int cols,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* cnt = static_cast<const int*>(counts);
   if (dtype == 0)
-    return launch<float>(emb, conf, r, n, d, n_valid, temperature, cluster,
-                         cols, st);
+    return launch<float>(emb, conf, r, n, d, n_valid, cnt, temperature,
+                         cluster, cols, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(emb, conf, r, n, d, n_valid, temperature,
-                                 cluster, cols, st);
+    return launch<__nv_bfloat16>(emb, conf, r, n, d, n_valid, cnt,
+                                 temperature, cluster, cols, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

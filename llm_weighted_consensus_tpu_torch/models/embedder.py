@@ -20,6 +20,10 @@ One vote kernel serves the single-request and the coalesced dispatch at
 every temperature; the reference splits them (fused Pallas vote only at
 T=0.05 for one request, the jnp vote otherwise).
 
+The streaming consensus (``stream_vote_update``, ``_many``, ``_tokens``)
+embeds each stream's newly finished candidate at the embed bucket and
+votes over the stream's device-resident buffer with a per-stream count.
+
 The packed path (``tokenize_ragged``, ``embed_packed``) takes the ragged
 layout of ``serve/packing.py``: one upload and one forward per packed
 call, one pooled vector per segment.
@@ -42,7 +46,9 @@ import numpy as np
 import torch
 
 from ..ops.kernels import cosine_vote
-from ..types.embeddings import CreateEmbeddingResponse, Embedding, Usage
+from ..types.chat_response import Usage
+from ..types.embeddings import CreateEmbeddingResponse, Embedding
+from ..utils import next_pow2
 from . import bert
 from .dispatch_seam import StagingPool, deferred_readiness
 from .graphs import GraphTable, warm_rows
@@ -51,14 +57,6 @@ from .quant import resolve_quantize
 from .tokenizer import BaseTokenizer, load_tokenizer
 
 DEFAULT_VOTE_TEMPERATURE = 0.05
-
-
-def next_pow2(n: int) -> int:
-    """Smallest power of two >= n (n >= 1): the R-bucketing rule."""
-    bucket = 1
-    while bucket < n:
-        bucket *= 2
-    return bucket
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -307,6 +305,113 @@ class TorchEmbedder:
             {"ids": flat_ids, "mask": flat_mask}, self._forward,
             lambda emb: cosine_vote(emb[: r * n].reshape(r, n, -1), n,
                                     temperature),
+        )
+
+    # -- streaming consensus ---------------------------------------------------
+
+    def stream_buffer(self, capacity: int) -> torch.Tensor:
+        """A stream's device-resident consensus state: zeros[capacity, H]
+        f32 on the embedder's device (``clients.multichat``)."""
+        return torch.zeros(
+            (capacity, self.config.hidden_size), dtype=torch.float32,
+            device=self.device,
+        )
+
+    def stream_vote_update(
+        self,
+        text: str,
+        buf: torch.Tensor,
+        position: int,
+        temperature: float = DEFAULT_VOTE_TEMPERATURE,
+    ) -> np.ndarray:
+        """One streaming-consensus step: embed ``text``, write its vector
+        into ``buf[position]`` in place and vote over ``buf``'s first
+        ``position + 1`` rows -> confidence[CAP] on the host.  The
+        counterpart of the reference's ``TpuEmbedder.stream_vote_update``;
+        one dispatch (``stream_vote_update_many`` with one stream)."""
+        return self.stream_vote_update_many(
+            [text], [buf], [position], temperature
+        )[0]
+
+    def stream_vote_update_many(
+        self,
+        texts: list,
+        bufs: list,
+        positions: list,
+        temperature: float = DEFAULT_VOTE_TEMPERATURE,
+    ) -> np.ndarray:
+        """R streaming-consensus steps (one per stream, buffers of one
+        capacity) in one dispatch -> confidences[R, CAP] on the host."""
+        ids, mask = self.tokenize(texts)
+        return self.stream_vote_update_tokens(
+            ids, mask, bufs, positions, temperature
+        )
+
+    def stream_vote_update_tokens(
+        self,
+        ids: np.ndarray,
+        mask: np.ndarray,
+        bufs: list,
+        positions: list,
+        temperature: float = DEFAULT_VOTE_TEMPERATURE,
+        wanted: Optional[list] = None,
+    ):
+        """ids/mask[R, S] (one new candidate per stream) -> the
+        confidences of the streams in ``wanted`` (row indexes, default
+        all), [len(wanted), CAP], in one dispatch: the forward at the
+        embed bucket ``("embed", pad_b, S)`` (a warmed graph replays),
+        each vector written into its stream's ``bufs[i][positions[i]]``
+        in place, then one ``cosine_vote`` launch over the stacked buffers
+        with ``n_valid = positions + 1`` per stream (a stream's live rows
+        are always a prefix), and one copy back of the wanted rows.
+
+        A buffer row is live only below its stream's count: a dispatch
+        that fails after the write leaves a row the next update of that
+        stream overwrites (its position is the same count again)."""
+        r = len(bufs)
+        cap = int(bufs[0].shape[0])
+        for buf in bufs:
+            if tuple(buf.shape) != (cap, self.config.hidden_size) or (
+                buf.dtype != torch.float32
+                or buf.device.type != self.device.type
+            ):
+                raise ValueError(
+                    f"stream buffers must be f32 [{cap}, "
+                    f"{self.config.hidden_size}] on {self.device}"
+                )
+        for position in positions:
+            if not 0 <= int(position) < cap:
+                raise ValueError(f"position {position} outside [0, {cap})")
+        wanted = list(range(r)) if wanted is None else list(wanted)
+        pad_b = _bucket(r, self.MAX_DEVICE_BATCH)
+        s = ids.shape[1]
+        pids = np.zeros((pad_b, s), np.int32)
+        pmask = np.zeros((pad_b, s), np.int32)
+        pids[:r] = ids
+        pmask[:r] = mask
+        pmask[r:, 0] = 1
+        # the per-stream counts and the wanted rows, one upload (pinned on
+        # the card, so the copy is asynchronous like the staged rows)
+        index = torch.tensor(
+            [int(p) + 1 for p in positions] + wanted, dtype=torch.int32
+        )
+        if self.device.type == "cuda":
+            index = index.pin_memory()
+        temperature = float(temperature)
+
+        def post(emb: torch.Tensor) -> torch.Tensor:
+            dev_index = index.to(self.device, non_blocking=True)
+            vecs = emb[:r].float()
+            for i, (buf, position) in enumerate(zip(bufs, positions)):
+                buf[int(position)].copy_(vecs[i])
+            conf = cosine_vote(torch.stack(bufs), dev_index[:r], temperature)
+            if wanted == list(range(r)):
+                return conf
+            return conf.index_select(0, dev_index[r:].long())
+
+        return self._dispatch(
+            ("embed", pad_b, s), f"stream(r={r},cap={cap},s={s})",
+            {"ids": pids, "mask": pmask}, self._forward, post,
         )
 
     # -- packed (continuous-batching) path ------------------------------------

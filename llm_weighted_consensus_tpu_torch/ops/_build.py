@@ -116,10 +116,14 @@ def build(verbose: bool = False) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lwc_cosine_vote.argtypes = [vp, vp, i32, i32, i32, i32, f32, i32, vp]
+    # the fourth int is the scalar n_valid, the pointer after it the
+    # per-request counts (null: the scalar)
+    lib.lwc_cosine_vote.argtypes = [
+        vp, vp, i32, i32, i32, i32, vp, f32, i32, vp,
+    ]
     lib.lwc_cosine_vote.restype = i32
     lib.lwc_cosine_vote_cluster.argtypes = [
-        vp, vp, i32, i32, i32, i32, f32, i32, i32, i32, vp,
+        vp, vp, i32, i32, i32, i32, vp, f32, i32, i32, i32, vp,
     ]
     lib.lwc_cosine_vote_cluster.restype = i32
     lib.lwc_cosine_vote_cluster_smem.argtypes = [i32, i32, i32, i32]

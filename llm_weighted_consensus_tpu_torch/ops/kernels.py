@@ -128,43 +128,70 @@ def vote_route(r: int, n: int, d: int, dtype) -> str:
     return "block"
 
 
-def cosine_vote_plain(
-    emb: torch.Tensor, n_valid: int, temperature: float
-) -> torch.Tensor:
+def cosine_vote_plain(emb: torch.Tensor, n_valid, temperature: float):
     """emb[R, N, D] -> conf[R, N] f32: ``similarity.masked_cosine_vote``
-    with rows at and past ``n_valid`` masked out (they get 0)."""
+    with rows at and past ``n_valid`` masked out (they get 0).
+    ``n_valid`` is an int, or int32 [R] (one count per request, taken as
+    clamped to [0, N]: a request with no live row gets zeros)."""
     n = emb.shape[-2]
-    valid = torch.arange(n, device=emb.device) < n_valid
+    rows = torch.arange(n, device=emb.device)
+    if isinstance(n_valid, torch.Tensor):
+        valid = rows[None, :] < n_valid.to(emb.device)[:, None]
+    else:
+        valid = rows < n_valid
     return masked_cosine_vote(emb, valid, temperature)
 
 
 def cosine_vote(
     emb: torch.Tensor,
-    n_valid: Optional[int] = None,
+    n_valid=None,
     temperature: float = 0.05,
 ) -> torch.Tensor:
     """emb[R, N, D] (f32 or bf16) -> confidence[R, N] f32.
 
-    ``n_valid`` (default N) is the count of live rows per request; rows
-    past it are padding, excluded from the vote and given 0.
+    ``n_valid`` is the count of live rows: an int shared by every request
+    (default N), or an int32 tensor [R] on ``emb``'s device, one count per
+    request (the streaming consensus, whose streams differ in length).
+    Rows at and past a request's count are padding, excluded from the vote
+    and given 0.  A tensor is not read on the host: the kernel clamps each
+    count to [0, N] (0 gives a request of zeros), and so does the plain
+    version.  One launch either way.
     """
     if emb.ndim != 3:
         raise ValueError(f"cosine_vote wants emb[R, N, D], got {emb.shape}")
     if emb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"cosine_vote takes f32 or bf16, got {emb.dtype}")
     r, n, d = emb.shape
-    n_valid = n if n_valid is None else int(n_valid)
-    if not 1 <= n_valid <= n:
-        raise ValueError(f"n_valid={n_valid} outside [1, {n}]")
+    counts = None
+    if isinstance(n_valid, torch.Tensor):
+        counts = n_valid
+        if counts.dtype != torch.int32 or tuple(counts.shape) != (r,):
+            raise ValueError(
+                f"cosine_vote wants n_valid as int32 [{r}], got "
+                f"{counts.dtype} {tuple(counts.shape)}"
+            )
+        if counts.device != emb.device:
+            raise ValueError(
+                f"n_valid on {counts.device}, emb on {emb.device}"
+            )
+        n_valid = n
+    else:
+        n_valid = n if n_valid is None else int(n_valid)
+        if not 1 <= n_valid <= n:
+            raise ValueError(f"n_valid={n_valid} outside [1, {n}]")
     temperature = float(temperature)
     if not temperature > 0:
         raise ValueError(f"temperature must be positive, got {temperature}")
     if emb.device.type == "cpu":
-        return cosine_vote_plain(emb, n_valid, temperature)
+        return cosine_vote_plain(
+            emb, n_valid if counts is None else counts, temperature
+        )
     if emb.device.type != "cuda":
         raise ValueError(f"cosine_vote: unsupported device {emb.device}")
     if not emb.is_contiguous():
         raise ValueError("cosine_vote wants a contiguous emb")
+    if counts is not None and not counts.is_contiguous():
+        raise ValueError("cosine_vote wants a contiguous n_valid")
     if n > MAX_VOTE_CANDIDATES or d > MAX_VOTE_DIM:
         raise ValueError(
             f"cosine_vote kernel takes N <= {MAX_VOTE_CANDIDATES} and "
@@ -175,18 +202,19 @@ def cosine_vote(
     if r == 0:
         return conf
     dtype = 0 if emb.dtype == torch.float32 else 1
+    counts_ptr = None if counts is None else counts.data_ptr()
     stream = torch.cuda.current_stream(emb.device).cuda_stream
     plan = vote_plan(r, n, d, emb.dtype)
     route = "cluster" if plan.smem_bytes <= VOTE_SMEM_LIMIT else "block"
     if route == "cluster":
         rc = lib.lwc_cosine_vote_cluster(
-            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, temperature,
-            dtype, plan.cluster, plan.cols, stream,
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, counts_ptr,
+            temperature, dtype, plan.cluster, plan.cols, stream,
         )
     else:
         rc = lib.lwc_cosine_vote(
-            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, temperature,
-            dtype, stream,
+            emb.data_ptr(), conf.data_ptr(), r, n, d, n_valid, counts_ptr,
+            temperature, dtype, stream,
         )
     _build.check(rc, f"cosine_vote ({route})")
     launches.count(cosine_vote, route)

@@ -1,8 +1,13 @@
 """Serve the port: ``python -m llm_weighted_consensus_tpu_torch.serve
---port P [--host H] [--device cuda|cpu]``.
+--port P [--host H] [--device cuda|cpu] [--fake-upstream]``.
 
-Environment, as the reference's server reads it.  At least one of
-``EMBEDDER_MODEL`` and ``RM_MODEL`` is required.
+Environment, as the reference's server reads it.  ``/chat/completions``
+and ``/multichat/completions`` are always served, through the upstream
+endpoints of ``OPENAI_APIS`` / ``OPENAI_API_BASE`` (``serve/config.py``);
+``--fake-upstream`` starts a scripted loopback provider
+(``serve/fake_upstream.py``) and sends them there, and, as the
+reference's demo mode, allows synthetic model params.  The device routes
+need a model:
 
 * ``EMBEDDER_MODEL`` — encoder preset (``bge-large-en``, ``e5-base-v2``,
   ... ``test-tiny``) behind ``/consensus`` (cosine) and ``/embeddings``;
@@ -49,7 +54,10 @@ Environment, as the reference's server reads it.  At least one of
 The batching, warmup, overload and timing knobs (``BATCH_*``,
 ``HOST_TOKENIZER_WORKERS``, ``STAGING_BUFFERS``, ``WARMUP``,
 ``WARMUP_R``, ``RM_WARMUP``, ``ADMISSION_*``, ``DRAIN_TIMEOUT_MILLIS``,
-``DEVICE_WATCHDOG_MILLIS``, ``METRICS_DEVICE_TIMING``) are documented in
+``DEVICE_WATCHDOG_MILLIS``, ``METRICS_DEVICE_TIMING``) and the upstream
+knobs (``OPENAI_*``, ``*_CHUNK_TIMEOUT_MILLIS``, ``BACKOFF_*``,
+``CONNECT_TIMEOUT_MILLIS``, ``JUDGE_STREAM_MAX_BYTES``,
+``SSE_MAX_EVENT_BYTES``, ``FAKE_UPSTREAM_DELAY_MS``) are documented in
 ``serve/config.py``.  The server listens at once and answers ``/livez``;
 ``/readyz`` turns 200 once the CUDA graphs of the ``WARMUP`` and
 ``RM_WARMUP`` buckets are captured.  SIGTERM or SIGINT drains it: new
@@ -214,15 +222,55 @@ def build_reranker(env, device=None, dtype=None):
     return reranker
 
 
+def build_chat_clients(config: ServeConfig):
+    """The chat client over the configured upstream endpoints (the stdlib
+    transport), and the multichat client over it.  Panels resolve
+    through an empty model registry (inline panels only) and archive
+    references through an empty archive, as the reference's service
+    starts."""
+    from ..archive import InMemoryArchive
+    from ..clients.chat import (
+        ApiBase,
+        BackoffPolicy,
+        DefaultChatClient,
+        StdlibTransport,
+    )
+    from ..clients.multichat import MultichatClient
+    from ..registry import InMemoryModelRegistry
+
+    up = config.upstream
+    store = InMemoryArchive()
+    chat_client = DefaultChatClient(
+        StdlibTransport(connect_timeout_ms=up["connect_timeout_ms"]),
+        [ApiBase.from_json_obj(a) for a in up["api_bases"]],
+        backoff=BackoffPolicy(**up["backoff"]),
+        user_agent=up["user_agent"],
+        x_title=up["x_title"],
+        referer=up["referer"],
+        first_chunk_timeout_ms=up["first_chunk_timeout_ms"],
+        other_chunk_timeout_ms=up["other_chunk_timeout_ms"],
+        archive_fetcher=store,
+        judge_stream_max_bytes=up["judge_stream_max_bytes"],
+        sse_max_event_bytes=up["sse_max_event_bytes"],
+    )
+    multichat_client = MultichatClient(
+        chat_client, InMemoryModelRegistry(), archive_fetcher=store
+    )
+    return chat_client, multichat_client
+
+
 def build_server(embedder, reranker, config: ServeConfig,
                  host: str = "127.0.0.1", port: int = 0):
-    """The ``Server`` the configuration describes, not ready until
+    """The ``Server`` the configuration describes (the device routes of
+    its models, the chat routes over its upstream), not ready until
     ``warm_up``."""
     from ..resilience.admission import AdmissionConfig
     from .gateway import Server
 
+    chat_client, multichat_client = build_chat_clients(config)
     return Server(
         embedder, host=host, port=port, reranker=reranker,
+        chat_client=chat_client, multichat_client=multichat_client,
         max_batch=config.batch_max, window_ms=config.batch_window_ms,
         pipeline_depth=config.batch_pipeline,
         max_rows=config.batch_max_rows,
@@ -256,13 +304,26 @@ def main(argv=None) -> int:
     parser.add_argument("--port", type=int, default=5000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument(
+        "--fake-upstream", action="store_true",
+        help="serve the chat routes from a scripted loopback provider",
+    )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    env = os.environ
-    if not (env.get("EMBEDDER_MODEL") or env.get("RM_MODEL")):
-        parser.error("set EMBEDDER_MODEL, RM_MODEL or both")
+    env = dict(os.environ)
+    fake = None
+    if args.fake_upstream:
+        from .fake_upstream import FakeUpstream
+
+        fake = FakeUpstream()
+        env["LWC_ALLOW_RANDOM_PARAMS"] = "1"  # the reference's demo mode
+        log.info("fake upstream at %s", fake.url)
     config = ServeConfig.from_env(env)
+    if fake is not None:
+        config.upstream["api_bases"] = [
+            {"api_base": fake.url, "api_key": "fake-key"}
+        ]
     embedder = (
         build_embedder(env, device=args.device)
         if env.get("EMBEDDER_MODEL") else None
@@ -278,6 +339,13 @@ def main(argv=None) -> int:
             )
     if embedder is not None:
         log.info("packing=%s", config.packing["packing"])
+    log.info(
+        "serving /chat/completions and /multichat/completions on %s:%d "
+        "(%d upstream endpoints)%s", args.host, server.port,
+        len(config.upstream["api_bases"]),
+        "" if embedder or reranker
+        else "; no EMBEDDER_MODEL or RM_MODEL: the chat routes only",
+    )
     stop = threading.Event()
     for signum in (signal.SIGTERM, signal.SIGINT):
         signal.signal(signum, lambda *_: stop.set())
@@ -291,6 +359,8 @@ def main(argv=None) -> int:
         log.info("drained %s", "clean" if clean else "past its budget")
     finally:
         server.close()
+        if fake is not None:
+            fake.close()
     return 0
 
 

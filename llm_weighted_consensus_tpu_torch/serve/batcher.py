@@ -49,8 +49,17 @@ The pipeline, as in the reference:
 
 Every dispatch is bracketed by the watchdog (``begin`` at its start,
 ``end`` at readiness).  ``utilization()`` and ``lane_occupancy()`` have
-the reference's keys; ``close()`` drains before it stops.  Left for
-later: the ``stream`` kind, ring and mesh dispatch, the CPU fallback and
+the reference's keys; ``close()`` drains before it stops.
+
+The ``stream`` kind (``submit_stream``, the reference's ``stream_update``)
+carries one streaming-consensus update: a live stream's newly finished
+candidate, its device-resident buffer and its position.  Updates group by
+``("stream", capacity, temperature)`` (packing on or off) and one group is
+one ``stream_vote_update_tokens``: one encoder forward at the embed
+bucket, each vector written into its stream's buffer on the device, one
+vote launch with a count per stream, and one copy back of the wanted
+confidences; the buffers never leave the device.  Its counters are
+``stats()["stream"]``.  Left for later: ring and mesh dispatch, the CPU fallback and
 the per-row embedding cache; the reference's ``fallback_*`` and
 ``shed_redispatch_limit`` keys read as their idle values.
 """
@@ -86,9 +95,10 @@ class _Item:
     )
 
     def __init__(self, kind, key, payload, deadline=None, lane="latency"):
-        self.kind = kind  # "consensus" or "embed"
+        self.kind = kind  # "consensus", "embed" or "stream"
         self.key = key
-        # consensus: (texts, temperature); embed: (texts, max_tokens)
+        # consensus: (texts, temperature); embed: (texts, max_tokens);
+        # stream: (text, buf, position, temperature, want_conf)
         self.payload = payload
         self.future: Future = Future()
         self.deadline = deadline
@@ -99,6 +109,8 @@ class _Item:
 
     @property
     def texts(self) -> list:
+        if self.kind == "stream":
+            return [self.payload[0]]
         return self.payload[0]
 
 
@@ -202,6 +214,9 @@ class DeviceBatcher:
         self._kind_dispatches = {"consensus": 0, "embed": 0}
         self._requests = {"consensus": 0, "embed": 0}
         self._largest_group = 0
+        self._stream_dispatches = 0
+        self._stream_requests = 0
+        self._stream_largest_group = 0
         self._packed_dispatches = 0
         self._pack_real_tokens = 0
         self._pack_slot_tokens = 0
@@ -253,6 +268,24 @@ class DeviceBatcher:
         count).  Padded embedding requests group by ``max_tokens``."""
         key = PACKED_KEY if self.packing else ("embed", max_tokens)
         return self._submit("embed", key, (list(texts), max_tokens), priority)
+
+    def submit_stream(
+        self, text: str, buf, position: int, temperature: float = 0.05,
+        want_conf: bool = True,
+    ) -> Future:
+        """One streaming-consensus update -> Future of confidence[CAP]
+        (np.ndarray; None with ``want_conf=False``: a stream folding K
+        candidates at once reads only the last, so the others skip the
+        copy back).  Groups with other live streams' updates at the same
+        capacity and temperature; ``buf`` stays on the device and is
+        written in place."""
+        temperature = float(temperature)
+        key = ("stream", int(buf.shape[0]), temperature)
+        return self._submit(
+            "stream", key,
+            (text, buf, int(position), temperature, bool(want_conf)),
+            "latency",
+        )
 
     def consensus(self, texts, temperature: float = 0.05,
                   priority: str = "latency"):
@@ -353,6 +386,12 @@ class DeviceBatcher:
         key = group[0].key
         if key == PACKED_KEY:
             self._packed_dispatches += 1
+        elif key[0] == "stream":
+            self._stream_dispatches += 1
+            self._stream_requests += len(group)
+            self._stream_largest_group = max(self._stream_largest_group,
+                                             len(group))
+            return
         else:
             self._kind_dispatches[key[0]] += 1
         for item in group:
@@ -368,7 +407,7 @@ class DeviceBatcher:
     @staticmethod
     def _rows(item) -> int:
         """Encoder rows (packed: estimated segments) one item adds."""
-        return max(1, len(item.payload[0]))
+        return max(1, len(item.texts))
 
     def _budget(self, key) -> int:
         if key == PACKED_KEY:
@@ -575,6 +614,8 @@ class DeviceBatcher:
         if kind == "embed":
             texts, cap = payload
             return self.embedder.tokenize(texts, cap)
+        if kind == "stream":
+            return self.embedder.tokenize([payload[0]])
         return self.embedder.tokenize(payload[0])
 
     def _prepared_rows(self, group: list, embedder):
@@ -666,6 +707,33 @@ class DeviceBatcher:
         def finalize() -> list:
             conf_np = _value(conf)
             return [(conf_np[i], int(tokens[i])) for i in range(r)]
+
+        return finalize
+
+    def _dispatch_stream(self, group: list, embedder):
+        """R streams' updates in one dispatch; only the wanted
+        confidences come back, in one copy."""
+        prepared = self._prepared_rows(group, embedder)
+        if prepared is not None:
+            ids, mask = prepared
+        else:
+            ids, mask = embedder.tokenize([item.payload[0] for item in group])
+        bufs = [item.payload[1] for item in group]
+        positions = [item.payload[2] for item in group]
+        temperature = group[0].payload[3]
+        wanted = [i for i, item in enumerate(group) if item.payload[4]]
+        self._count(
+            _pad_real_tokens=mask.sum(),
+            _pad_slot_tokens=_bucket(ids.shape[0], embedder.MAX_DEVICE_BATCH)
+            * ids.shape[1],
+        )
+        conf = embedder.stream_vote_update_tokens(
+            ids, mask, bufs, positions, temperature, wanted=wanted
+        )
+
+        def finalize() -> list:
+            rows = dict(zip(wanted, _value(conf)))
+            return [rows.get(i) for i in range(len(group))]
 
         return finalize
 
@@ -921,6 +989,11 @@ class DeviceBatcher:
                 "dispatches": dict(self._kind_dispatches),
                 "requests": dict(self._requests),
                 "largest_group": self._largest_group,
+                "stream": {
+                    "dispatches": self._stream_dispatches,
+                    "requests": self._stream_requests,
+                    "largest_group": self._stream_largest_group,
+                },
                 "queued": len(self._pending) + len(self._pending_offline),
                 "packing": {
                     "enabled": self.packing,

@@ -1,0 +1,376 @@
+"""The chat routes of the port's server: ``POST /chat/completions`` and
+``POST /multichat/completions``, on the stdlib server's threads.
+
+Counterpart of the chat and multichat parts of
+``llm_weighted_consensus_tpu/serve/gateway.py`` (``_make_handler``,
+``_respond_streaming``, ``_with_consensus_frames``,
+``_multichat_streaming``, ``_multichat_unary``, ``_error_response``,
+``_parse_error_response``), with the same bodies, frames and errors:
+
+* the body parses with the reference's JSON reader into the request type;
+  a ``SchemaError`` or malformed JSON is a 400 whose message names the
+  JSON path, anything else a masked 400;
+* ``"stream": true`` answers ``text/event-stream``: one ``data:`` frame
+  per item in the reference's compact JSON, an error item as its
+  ``{code, message}`` envelope, then ``data: [DONE]``; otherwise the
+  folded unary body;
+* ``/multichat/completions`` with ``"consensus": true`` and an embedder
+  interleaves ``multichat.consensus`` frames as candidates finish
+  (``clients.multichat.StreamingSelfConsistency`` through the batcher's
+  ``stream`` kind), or, unary, votes once over the finished candidates
+  (the batcher's ``consensus``); an embedder failure degrades to plain
+  multichat in both;
+* an error before the stream opens is the reference's error response
+  (503 with ``Retry-After`` for a shed, a ``StatusError``'s status and
+  message, else the masked 500 envelope).
+
+The clients are asyncio code.  One event loop on a daemon thread
+(``EventLoop``, owned by the ``Server``) runs every client coroutine; a
+handler thread submits its request's coroutine there, which puts frames
+on a queue the handler thread drains onto the socket.  A client that goes
+away (a write fails, or, while the stream is quiet, its socket reads as
+closed) cancels the coroutine, whose cleanup closes the upstream streams
+and drops the request's queued device work.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import logging
+import queue
+import select
+import socket
+import threading
+import time
+
+from ..clients.multichat import ConsensusUpdate, StreamingSelfConsistency
+from ..errors import (
+    MASKING_LOGGER,
+    OverloadedError,
+    StatusError,
+    to_response_error,
+)
+from ..resilience.admission import retry_after_seconds
+from ..types.chat_request import ChatCompletionCreateParams as ChatParams
+from ..types.multichat_request import (
+    ChatCompletionCreateParams as MultichatParams,
+)
+from ..utils import jsonutil
+
+log = logging.getLogger("lwc.torch.gateway")
+
+DONE = b"data: [DONE]\n\n"
+SSE_HEADERS = {"content-type": "text/event-stream", "cache-control": "no-cache"}
+
+
+def frame_bytes(obj) -> bytes:
+    """One SSE ``data:`` frame around a JSON object (compact)."""
+    return b"data: " + jsonutil.dumps(obj).encode("utf-8") + b"\n\n"
+
+
+def encode_item(item) -> bytes:
+    """The frame of one stream item: a chunk or a consensus update, or an
+    error item as its envelope."""
+    if isinstance(item, Exception):
+        return frame_bytes(to_response_error(item).to_json_obj())
+    return frame_bytes(item.to_json_obj())
+
+
+def error_response(exc: Exception):
+    """(status, headers, body) of an error raised before a response
+    started, as the reference's ``_error_response`` renders it."""
+    if isinstance(exc, OverloadedError):
+        body = {"code": 503, "message": exc.message()}
+        headers = {"Retry-After": retry_after_seconds(
+            exc.retry_after_ms or 1000.0)}
+        return 503, headers, jsonutil.dumps(body).encode()
+    if isinstance(exc, StatusError):
+        return exc.status(), {}, jsonutil.dumps(exc.message()).encode()
+    err = to_response_error(exc)
+    return err.code, {}, jsonutil.dumps(err.to_json_obj()).encode()
+
+
+def parse_error_response(exc: Exception):
+    """(status, body) of the parse phase's 400: a ``ValueError``'s text
+    (a ``SchemaError`` with its JSON path, or the JSON decoder's) is the
+    client's input and safe to echo; anything else is masked."""
+    if isinstance(exc, ValueError):
+        message: object = str(exc)
+    else:
+        logging.getLogger(MASKING_LOGGER).error(
+            "unexpected parse-phase error", exc_info=exc
+        )
+        message = "malformed request body"
+    return 400, jsonutil.dumps({"code": 400, "message": message}).encode()
+
+
+class EventLoop:
+    """One asyncio loop on a daemon thread, for every client coroutine of
+    the chat routes."""
+
+    def __init__(self) -> None:
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(
+            target=self.loop.run_forever, name="lwc-torch-aio", daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, coro) -> concurrent.futures.Future:
+        return asyncio.run_coroutine_threadsafe(coro, self.loop)
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Cancel what still runs, then stop and close the loop."""
+
+        async def cancel_all():
+            tasks = [t for t in asyncio.all_tasks()
+                     if t is not asyncio.current_task()]
+            for task in tasks:
+                task.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+        if self.loop.is_closed():
+            return
+        try:
+            self.submit(cancel_all()).result(timeout)
+        except concurrent.futures.TimeoutError:
+            log.warning("chat coroutines still running at close")
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(timeout)
+        if not self._thread.is_alive():
+            self.loop.close()
+
+
+# ---------------------------------------------------------------------------
+# The multichat consensus overlay
+# ---------------------------------------------------------------------------
+
+
+async def with_consensus_frames(stream, embedder, metrics=None, batcher=None):
+    """Interleave live ``multichat.consensus`` frames into a multichat
+    stream; each update's embed + vote goes through the batcher (shared
+    dispatches across concurrent streams) when one is attached."""
+    sc = StreamingSelfConsistency(embedder, batcher=batcher)
+    try:
+        async for chunk in stream:
+            yield chunk
+            if isinstance(chunk, Exception) or sc is None:
+                continue
+            t0 = time.perf_counter()
+            try:
+                update = await sc.push_chunk_async(chunk)
+            except Exception:
+                # consensus frames are an overlay on the multichat stream:
+                # an embedder failure degrades to plain multichat (no more
+                # consensus frames) rather than tearing the stream down
+                log.warning("consensus update failed; the stream goes on "
+                            "without consensus frames", exc_info=True)
+                if metrics is not None:
+                    metrics.observe(
+                        "device:consensus_update",
+                        (time.perf_counter() - t0) * 1e3, error=True,
+                    )
+                sc = None
+                continue
+            if update is not None:
+                if metrics is not None:
+                    metrics.observe(
+                        "device:consensus_update",
+                        (time.perf_counter() - t0) * 1e3,
+                    )
+                yield ConsensusUpdate(update)
+    finally:
+        # a client disconnect surfaces here as GeneratorExit or a
+        # cancellation; the inner stream's cleanup must still run
+        aclose = getattr(stream, "aclose", None)
+        if aclose is not None:
+            await aclose()
+
+
+def multichat_streaming(multichat_client, embedder, metrics, batcher=None):
+    async def create_streaming(ctx, params):
+        stream = await multichat_client.create_streaming(ctx, params)
+        if params.consensus and embedder is not None:
+            return with_consensus_frames(stream, embedder, metrics, batcher)
+        return stream
+
+    return create_streaming
+
+
+def multichat_unary(multichat_client, embedder, batcher):
+    """Unary multichat with ``consensus: true``: after the fold, embed the
+    finished candidates and vote once (the batcher's ``consensus``, which
+    groups concurrent requests of one candidate count), and attach the
+    distribution by slot."""
+
+    async def create_unary(ctx, params):
+        result = await multichat_client.create_unary(ctx, params)
+        if not (params.consensus and embedder is not None and batcher):
+            return result
+        slots, texts = [], []
+        for choice in result.choices:
+            content = getattr(choice.message, "content", None)
+            if choice.error is None and isinstance(content, str) and content:
+                slots.append(choice.index)
+                texts.append(content)
+        if len(texts) >= 2:
+            try:
+                conf, _tokens = await asyncio.wrap_future(
+                    batcher.submit_consensus(texts)
+                )
+            except Exception:
+                # the consensus is an overlay: an embedder failure keeps
+                # the N completed generations (no `consensus` field)
+                log.warning("unary consensus failed; answering without it",
+                            exc_info=True)
+                return result
+            result.consensus = {
+                str(slot): float(c) for slot, c in zip(slots, conf)
+            }
+        return result
+
+    return create_unary
+
+
+# stream pump -> handler thread messages
+_OPENED, _OPEN_FAILED, _FRAME, _FAILED, _END = range(5)
+
+
+async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
+    """Open the stream and put its frames on ``frames`` (runs on the
+    loop; the deadline is activated in this task's own context, so the
+    tasks it spawns inherit it)."""
+    if deadline is not None:
+        deadline.activate()
+    try:
+        stream = await create_streaming(ctx, params)
+    except Exception as exc:
+        frames.put((_OPEN_FAILED, exc))
+        return
+    frames.put((_OPENED, None))
+    try:
+        async for item in stream:
+            frames.put((_FRAME, encode_item(item)))
+    except asyncio.CancelledError:
+        # the client left, or the server is closing: end the response
+        frames.put((_FAILED, None))
+        raise
+    except Exception as exc:
+        frames.put((_FAILED, exc))
+        return
+    finally:
+        aclose = getattr(stream, "aclose", None)
+        if aclose is not None:
+            await aclose()
+    frames.put((_END, None))
+
+
+async def _unary(create_unary, ctx, params, deadline):
+    if deadline is not None:
+        deadline.activate()
+    return await create_unary(ctx, params)
+
+
+class ChatRoutes:
+    """The routes a chat client (and a multichat client) serve: path ->
+    (request type, create_streaming, create_unary), and the loop their
+    coroutines run on."""
+
+    def __init__(self, chat_client, multichat_client=None, embedder=None,
+                 batcher=None, metrics=None) -> None:
+        self.loop = EventLoop()
+        self.routes = {
+            "/chat/completions": (
+                ChatParams, chat_client.create_streaming,
+                chat_client.create_unary,
+            ),
+        }
+        if multichat_client is not None:
+            self.routes["/multichat/completions"] = (
+                MultichatParams,
+                multichat_streaming(multichat_client, embedder, metrics,
+                                    batcher),
+                multichat_unary(multichat_client, embedder, batcher),
+            )
+
+    def close(self) -> None:
+        self.loop.close()
+
+    def serve(self, handler, path: str, raw: bytes, deadline,
+              metrics) -> None:
+        """Answer one chat-route request on ``handler`` (the stdlib request
+        handler) from its raw body."""
+        params_cls, create_streaming, create_unary = self.routes[path]
+        try:
+            params = params_cls.from_json_obj(jsonutil.loads(raw.decode("utf-8")))
+        except Exception as exc:  # the parse phase is side-effect free
+            status, body = parse_error_response(exc)
+            handler._send_raw(status, body)
+            return
+        ctx = handler.headers.get("authorization")
+        if not params.stream:
+            future = self.loop.submit(
+                _unary(create_unary, ctx, params, deadline)
+            )
+            try:
+                result = future.result()
+            except Exception as exc:
+                handler._send_raw(*_status_body_headers(exc))
+                return
+            handler._send_raw(200, result.to_json().encode())
+            return
+        frames: queue.Queue = queue.Queue()
+        future = self.loop.submit(
+            _pump(create_streaming, ctx, params, deadline, frames)
+        )
+        kind, value = frames.get()
+        if kind == _OPEN_FAILED:
+            handler._send_raw(*_status_body_headers(value))
+            return
+        try:
+            handler._start_chunked(200, SSE_HEADERS)
+            while True:
+                try:
+                    kind, value = frames.get(timeout=_IDLE_CHECK_S)
+                except queue.Empty:
+                    if _client_gone(handler.connection):
+                        raise ConnectionResetError("client closed") from None
+                    continue
+                if kind == _FRAME:
+                    handler._write_chunk(value)
+                elif kind == _END:
+                    handler._observe(200)
+                    handler._write_chunk(DONE)
+                    handler._end_chunked()
+                    return
+                else:  # raised or cancelled: end the response unterminated
+                    log.error("stream ended early: POST %s", path,
+                              exc_info=value)
+                    handler.close_connection = True
+                    return
+        except (ConnectionError, OSError):
+            # the client went away mid-stream: tear the pipeline down now
+            # (upstream streams closed, queued device work dropped)
+            future.cancel()
+            handler.close_connection = True
+            if metrics is not None:
+                metrics.observe("http:client_disconnect", 0.0, error=True)
+
+
+# how often a quiet stream checks whether its client is still there
+_IDLE_CHECK_S = 0.25
+
+
+def _client_gone(conn) -> bool:
+    """True when the client's end of ``conn`` has closed (readable, and
+    a peek reads end of file)."""
+    try:
+        readable, _, _ = select.select([conn], [], [], 0)
+        return bool(readable) and conn.recv(1, socket.MSG_PEEK) == b""
+    except (OSError, ValueError):
+        return True
+
+
+def _status_body_headers(exc):
+    status, headers, body = error_response(exc)
+    return status, body, headers

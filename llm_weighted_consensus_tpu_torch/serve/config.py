@@ -38,6 +38,34 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
   ``0`` disables the watchdog.  Default 0;
 * ``METRICS_DEVICE_TIMING`` — per-bucket device time from CUDA events
   and the overlap gauge (``0`` skips the recording).  Default 1.
+
+The upstream knobs of ``/chat/completions`` and ``/multichat/completions``
+(the reference's, with its defaults; ``upstream_options``):
+
+* ``OPENAI_APIS`` — a JSON list of ``{"api_base", "api_key"}``
+  endpoints, tried in order; else ``OPENAI_API_BASE`` with
+  ``OPENAI_API_KEY`` (both set) is the one endpoint.  None configured:
+  the chat routes answer the client's 500 ``no api endpoints to
+  attempt`` (``--fake-upstream`` supplies a loopback one);
+* ``OPENAI_USER_AGENT``, ``OPENAI_X_TITLE``, ``OPENAI_REFERER`` — sent
+  upstream as ``user-agent``, ``x-title`` and ``referer`` +
+  ``http-referer``;
+* ``FIRST_CHUNK_TIMEOUT_MILLIS`` (10000) and ``OTHER_CHUNK_TIMEOUT_MILLIS``
+  (60000) — the two-tier stream timeouts;
+* ``BACKOFF_INITIAL_INTERVAL_MILLIS`` (100), ``BACKOFF_RANDOMIZATION_FACTOR``
+  (0.5), ``BACKOFF_MULTIPLIER`` (1.5), ``BACKOFF_MAX_INTERVAL_MILLIS``
+  (1000), ``BACKOFF_MAX_ELAPSED_TIME_MILLIS`` (40000) — the retry backoff
+  over the attempt matrix;
+* ``CONNECT_TIMEOUT_MILLIS`` — TCP connect timeout of the upstream
+  transport.  Default 30000;
+* ``JUDGE_STREAM_MAX_BYTES`` — cumulative byte budget of one upstream
+  stream, also the cap of a non-200 body read.  Default 33554432
+  (32 MiB); ``0`` = uncapped;
+* ``SSE_MAX_EVENT_BYTES`` — byte cap on one SSE event's ``data:`` payload
+  and on the parser's newline-less residue.  Default 4194304 (4 MiB);
+  ``0`` = uncapped;
+* ``FAKE_UPSTREAM_DELAY_MS`` — with ``--fake-upstream``, a sleep before
+  the scripted provider's first frame (read per request).
 """
 
 from __future__ import annotations
@@ -45,9 +73,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-
-def env_truthy(value) -> bool:
-    return str(value).lower() in ("1", "true", "yes", "on")
+from ..utils import env_truthy
 
 
 def _non_negative_int(env: dict, name: str, default: int) -> int:
@@ -140,6 +166,48 @@ def packing_options(env) -> dict:
     }
 
 
+def upstream_options(env) -> dict:
+    """The chat client's settings from the upstream knobs (see module
+    doc): ``api_bases`` (a list of ``{"api_base", "api_key"}``), then
+    ``DefaultChatClient``'s keyword arguments, with ``backoff`` as
+    ``BackoffPolicy``'s."""
+    from ..utils import jsonutil
+
+    def get_f(name, default):
+        return float(env.get(name, default))
+
+    apis_json = env.get("OPENAI_APIS")
+    if apis_json:
+        apis = jsonutil.loads(apis_json)
+    else:
+        base, key = env.get("OPENAI_API_BASE"), env.get("OPENAI_API_KEY")
+        apis = [{"api_base": base, "api_key": key}] if base and key else []
+    return {
+        "api_bases": apis,
+        "backoff": {
+            "initial_interval_ms": get_f("BACKOFF_INITIAL_INTERVAL_MILLIS",
+                                         100),
+            "randomization_factor": get_f("BACKOFF_RANDOMIZATION_FACTOR",
+                                          0.5),
+            "multiplier": get_f("BACKOFF_MULTIPLIER", 1.5),
+            "max_interval_ms": get_f("BACKOFF_MAX_INTERVAL_MILLIS", 1000),
+            "max_elapsed_ms": get_f("BACKOFF_MAX_ELAPSED_TIME_MILLIS", 40000),
+        },
+        "user_agent": env.get("OPENAI_USER_AGENT"),
+        "x_title": env.get("OPENAI_X_TITLE"),
+        "referer": env.get("OPENAI_REFERER"),
+        "first_chunk_timeout_ms": get_f("FIRST_CHUNK_TIMEOUT_MILLIS", 10000),
+        "other_chunk_timeout_ms": get_f("OTHER_CHUNK_TIMEOUT_MILLIS", 60000),
+        "connect_timeout_ms": get_f("CONNECT_TIMEOUT_MILLIS", 30000),
+        "judge_stream_max_bytes": _non_negative_int(
+            env, "JUDGE_STREAM_MAX_BYTES", 32 * 1024 * 1024
+        ),
+        "sse_max_event_bytes": _non_negative_int(
+            env, "SSE_MAX_EVENT_BYTES", 4 * 1024 * 1024
+        ),
+    }
+
+
 @dataclass
 class ServeConfig:
     batch_window_ms: float = 3.0
@@ -156,6 +224,7 @@ class ServeConfig:
     device_watchdog_millis: float = 0.0
     metrics_device_timing: bool = True
     packing: dict = field(default_factory=lambda: packing_options({}))
+    upstream: dict = field(default_factory=lambda: upstream_options({}))
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
@@ -189,6 +258,7 @@ class ServeConfig:
                 env.get("METRICS_DEVICE_TIMING", "1")
             ),
             packing=packing_options(env),
+            upstream=upstream_options(env),
         )
         if config.drain_timeout_millis < 0:
             raise ValueError(

@@ -15,6 +15,11 @@ bodies, responses and input validation:
 * ``POST /embeddings`` — ``{"model": str, "input": str | [str]}`` -> the
   OpenAI embeddings response; another model name gets 400; without an
   embedder the route does not exist (404);
+* ``POST /chat/completions`` and ``POST /multichat/completions`` — the
+  reference's chat and multichat routes (``serve/chat_routes.py``), when
+  the server has a chat client: streamed as SSE ``data:`` frames (with
+  live ``multichat.consensus`` frames for ``"consensus": true`` when an
+  embedder is configured) or unary;
 * ``GET /healthz`` -> ``{"ok": true}``;
 * ``GET /livez`` -> ``{"ok": true}`` while the process answers;
 * ``GET /readyz`` -> 200 ``{"ready": true}`` once warmup has finished
@@ -24,16 +29,19 @@ bodies, responses and input validation:
   OpenMetrics text with ``?format=prometheus``.
 
 Errors use the ``{"code", "message"}`` envelope.  Each request runs on
-its own handler thread.  Before a device route runs, the admission gate
+its own handler thread.  Before a POST route runs, the admission gate
 (``resilience/admission.py``) admits it or sheds it with 503 and
-``Retry-After`` (the probes above are exempt); device routes also shed
-while the server is still warming its CUDA graphs or the watchdog holds
-the device unhealthy.  An ``x-deadline-ms`` header sets the request's
-deadline (``resilience/deadline.py``): the batcher sheds its work with
-504 once the deadline cannot cover the dispatch.  Cosine and embeddings
-requests wait on the batcher, so concurrent requests coalesce into
-shared device dispatches; an rm request runs its own forward on its
-handler thread (its softmax spans only its own candidates).
+``Retry-After`` (the probes above are exempt), and holds its slot until
+the response (a stream included) is done; the device routes
+(``/consensus``, ``/embeddings``) also shed while the server is still
+warming its CUDA graphs or the watchdog holds the device unhealthy, as
+the reference's ``DEVICE_PATHS`` do.  An ``x-deadline-ms`` header sets
+the request's deadline (``resilience/deadline.py``): the batcher sheds
+its work with 504 once the deadline cannot cover the dispatch, and the
+chat clients clamp their waits to it.  Cosine and embeddings requests
+wait on the batcher, so concurrent requests coalesce into shared device
+dispatches; an rm request runs its own forward on its handler thread
+(its softmax spans only its own candidates).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..resilience.admission import (
     shed_response,
 )
 from ..resilience.deadline import Deadline
+from ..utils import jsonutil
 from .lifecycle import READY, STARTING, Lifecycle
 from .metrics import (
     PROM_CONTENT_TYPE,
@@ -153,7 +162,14 @@ def error_response(exc: Exception):
 
 
 def make_handler(embedder, batcher, reranker, metrics, admission,
-                 lifecycle):
+                 lifecycle, chat_routes=None):
+    device_routes = set()
+    if embedder is not None or reranker is not None:
+        device_routes.add("/consensus")
+    if embedder is not None:
+        device_routes.add("/embeddings")
+    host_routes = set(chat_routes.routes) if chat_routes is not None else set()
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -161,18 +177,21 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             log.debug("%s - " + fmt, self.address_string(), *args)
 
         # a POST route's series and start time, observed as its response
-        # goes out (before the body: a client holding the answer sees it
-        # in /metrics)
+        # goes out (before the body, or a stream's last frame: a client
+        # holding the answer sees it in /metrics)
         _series = None
 
-        def _send_raw(self, status: int, body: bytes, headers=None,
-                      content_type: str = "application/json") -> None:
-            self._status = status
+        def _observe(self, status: int) -> None:
             if self._series is not None:
                 series, t0 = self._series
                 self._series = None
                 metrics.observe(series, (time.perf_counter() - t0) * 1e3,
                                 error=status >= 400)
+
+        def _send_raw(self, status: int, body: bytes, headers=None,
+                      content_type: str = "application/json") -> None:
+            self._status = status
+            self._observe(status)
             self.send_response(status)
             self.send_header("content-type", content_type)
             for name, value in (headers or {}).items():
@@ -180,6 +199,24 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self.send_header("content-length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _start_chunked(self, status: int, headers: dict) -> None:
+            """Start a streamed response (chunked transfer encoding)."""
+            self._status = status
+            self.send_response(status)
+            for name, value in headers.items():
+                self.send_header(name, value)
+            self.send_header("transfer-encoding", "chunked")
+            self.end_headers()
+            self.wfile.flush()
+
+        def _write_chunk(self, data: bytes) -> None:
+            self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+            self.wfile.flush()
+
+        def _end_chunked(self) -> None:
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
 
         def _send(self, status: int, obj) -> None:
             self._send_raw(status, json.dumps(obj).encode())
@@ -228,14 +265,15 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
         def do_POST(self):
             t0 = time.perf_counter()
             path = self.path
-            if not (path == "/consensus" or (
-                    path == "/embeddings" and embedder is not None)):
+            if path not in device_routes and path not in host_routes:
                 self.close_connection = True  # its body stays unread
                 self._error(404, f"no route POST {path}")
                 return
             self._series = (f"http:{path}", t0)
-            # every POST route needs the device: admitted or shed here
-            reason = admission.try_acquire(device_work=True)
+            # admitted or shed here; the device routes also pass the
+            # device gate (warming, watchdog)
+            reason = admission.try_acquire(
+                device_work=path in device_routes)
             if reason is not None:
                 status, headers, body = shed_response(
                     reason, admission.config.retry_after_ms
@@ -243,13 +281,49 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 self._send_raw(status, body, headers)
                 return
             try:
-                self._post(path)
+                if path in host_routes:
+                    self._post_chat(path)
+                else:
+                    self._post(path)
             finally:
-                self._series = None
+                # a stream cut short is observed here
+                self._observe(getattr(self, "_status", 500))
                 admission.release(
                     (time.perf_counter() - t0) * 1e3,
                     error=getattr(self, "_status", 500) >= 500,
                 )
+
+        def _deadline(self):
+            """The request's deadline from ``x-deadline-ms``, or None."""
+            header = self.headers.get("x-deadline-ms")
+            if header:
+                try:
+                    ms = float(header)
+                except ValueError:
+                    ms = 0.0
+                if ms > 0:
+                    return Deadline(ms / 1000.0)
+            return None
+
+        def _post_chat(self, path: str) -> None:
+            try:
+                length = int(self.headers.get("content-length") or 0)
+            except ValueError:
+                length = -1
+            if length < 0:
+                self.close_connection = True
+                self._send_raw(400, jsonutil.dumps({
+                    "code": 400, "message": "malformed content-length",
+                }).encode())
+                return
+            if length > MAX_BODY_BYTES:
+                self.close_connection = True
+                self._send_raw(413, jsonutil.dumps({
+                    "code": 413, "message": {"kind": "payload_too_large"},
+                }).encode())
+                return
+            raw = self.rfile.read(length) if length else b""
+            chat_routes.serve(self, path, raw, self._deadline(), metrics)
 
         def _post(self, path: str) -> None:
             try:
@@ -267,15 +341,8 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             except BadRequest as exc:
                 self._error(400, str(exc))
                 return
-            token = None
-            header = self.headers.get("x-deadline-ms")
-            if header:
-                try:
-                    ms = float(header)
-                except ValueError:
-                    ms = 0.0
-                if ms > 0:
-                    token = Deadline(ms / 1000.0).activate()
+            deadline = self._deadline()
+            token = deadline.activate() if deadline is not None else None
             try:
                 if path == "/consensus":
                     if scorer == "rm":
@@ -330,7 +397,12 @@ class _HTTPServer(ThreadingHTTPServer):
 class Server:
     """The HTTP server, its batcher, admission gate, lifecycle and
     metrics, and its serving thread, for an embedder (``/consensus``
-    cosine, ``/embeddings``), a reranker (``/consensus`` rm) or both.
+    cosine, ``/embeddings``), a reranker (``/consensus`` rm), a chat
+    client (``/chat/completions``; with a multichat client also
+    ``/multichat/completions``, whose consensus needs the embedder), or
+    any mix; a server with a chat client only serves the host routes, as
+    the reference can.  The chat routes' coroutines run on one asyncio
+    loop the server owns (``serve/chat_routes.py``).
     ``port=0`` binds an ephemeral port (``.port`` says which).
 
     Batching options go to the ``DeviceBatcher`` as they are
@@ -357,13 +429,20 @@ class Server:
         watchdog_ms: float = 0.0,
         device_timing: bool = True,
         ready: bool = True,
+        chat_client=None,
+        multichat_client=None,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
         from .batcher import DeviceBatcher
+        from .chat_routes import ChatRoutes
 
-        if embedder is None and reranker is None:
-            raise ValueError("a server needs an embedder, a reranker or both")
+        if embedder is None and reranker is None and chat_client is None:
+            raise ValueError(
+                "a server needs an embedder, a reranker or a chat client"
+            )
+        if multichat_client is not None and chat_client is None:
+            raise ValueError("a multichat client needs the chat client")
         self.embedder = embedder
         self.reranker = reranker
         for model in (embedder, reranker):
@@ -397,10 +476,15 @@ class Server:
         register_overload(self.metrics, self.admission, self.watchdog,
                           self.lifecycle)
         register_graphs(self.metrics, embedder=embedder, reranker=reranker)
+        self.chat_routes = (
+            ChatRoutes(chat_client, multichat_client, embedder, self.batcher,
+                       self.metrics)
+            if chat_client is not None else None
+        )
         self.httpd = _HTTPServer(
             (host, port),
             make_handler(embedder, self.batcher, reranker, self.metrics,
-                         self.admission, self.lifecycle),
+                         self.admission, self.lifecycle, self.chat_routes),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:
@@ -451,6 +535,8 @@ class Server:
             self.httpd.shutdown()
             self._thread.join(10)
         self.httpd.server_close()
+        if self.chat_routes is not None:
+            self.chat_routes.close()
         if self.batcher is not None:
             self.batcher.close()
         if self.watchdog is not None:

@@ -1,57 +1,39 @@
-"""The ``/embeddings`` response shape (OpenAI ``CreateEmbeddingResponse``).
+"""Embedding wire types (OpenAI ``CreateEmbeddingResponse`` shape).
 
-This package's own minimal copy of the wire shape that
-``llm_weighted_consensus_tpu/types/embeddings.py`` describes:
-``{"object": "list", "data": [{"object": "embedding", "index": i,
-"embedding": [...]}], "model": ..., "usage": {"prompt_tokens",
-"completion_tokens", "total_tokens"}}``.
+Parity target: reference src/embeddings/response.rs:4-30 — types only in the
+reference; this framework implements the request side and a real on-TPU
+encoder behind them (models/encoder.py, serve/gateway.py ``/embeddings``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List
+from typing import Optional
+
+from .base import Const, List, Struct, Union, field
+from .chat_response import Usage
 
 
-@dataclass
-class Usage:
-    prompt_tokens: int = 0
-    completion_tokens: int = 0
-    total_tokens: int = 0
-
-    def to_json_obj(self) -> dict:
-        return {
-            "completion_tokens": self.completion_tokens,
-            "prompt_tokens": self.prompt_tokens,
-            "total_tokens": self.total_tokens,
-        }
+class Embedding(Struct):
+    embedding: list = field(List(float))
+    index: int = field(int, default=0, skip_if_none=False)
+    object: str = field(Const("embedding"), default="embedding")
 
 
-@dataclass
-class Embedding:
-    embedding: List[float]
-    index: int = 0
-    object: str = "embedding"
-
-    def to_json_obj(self) -> dict:
-        return {
-            "embedding": self.embedding,
-            "index": self.index,
-            "object": self.object,
-        }
+class CreateEmbeddingResponse(Struct):
+    data: list = field(List(Embedding), default_factory=list, skip_if_none=False)
+    model: str = field(str, default="", skip_if_none=False)
+    object: str = field(Const("list"), default="list")
+    usage: Optional[Usage] = field(Usage, default=None)
 
 
-@dataclass
-class CreateEmbeddingResponse:
-    data: List[Embedding] = field(default_factory=list)
-    model: str = ""
-    object: str = "list"
-    usage: Usage = field(default_factory=Usage)
+class CreateEmbeddingParams(Struct):
+    """Request side (not present in the reference crate; OpenAI-compatible)."""
 
-    def to_json_obj(self) -> dict:
-        return {
-            "data": [row.to_json_obj() for row in self.data],
-            "model": self.model,
-            "object": self.object,
-            "usage": self.usage.to_json_obj(),
-        }
+    input: object = field(Union(str, List(str)))
+    model: str = field(str)
+    encoding_format: Optional[str] = field(str, default=None)
+    dimensions: Optional[int] = field(int, default=None)
+    user: Optional[str] = field(str, default=None)
+
+    def inputs(self) -> list:
+        return [self.input] if isinstance(self.input, str) else list(self.input)

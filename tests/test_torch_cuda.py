@@ -13,7 +13,10 @@ and imports the JAX package.)
 
 Tolerances: vote 1e-5 (f32 reassociation of the column-sum identity;
 both routes, the cluster kernel at every shape the server makes and the
-block kernel past the cluster plan's shared memory);
+block kernel past the cluster plan's shared memory; also with an int32
+count per request, where the scalar count is bit-equal to a tensor of
+equal counts); the grouped stream update on bge-base against single
+updates 1e-5;
 attention and segment attention 1e-4 f32, 2e-2 bf16 (probabilities
 rounded to bf16 before P·V); packed bge_micro on the card against the CPU
 and against the padded path 1e-5 (f32), a segment beside other row-mates
@@ -1058,3 +1061,129 @@ def test_pipelined_batcher_on_warmed_graphs(base_model):
     stats = emb.graph_stats()
     assert stats["eager_dispatches"] == len(reqs)  # the eager answers above
     assert stats["replays"] == util["dispatches"]
+
+
+# -- the vote with a count per request, and the stream update ------------------
+#
+# The streaming consensus votes R streams of different lengths in one
+# launch: ``cosine_vote(emb, n_valid)`` with ``n_valid`` an int32 tensor
+# [R] on the card.  Both routes against the plain version (1e-5), the
+# scalar count bit-equal to a tensor of equal counts, a count of 0 a row
+# of zeros; the grouped stream update on bge-base against single updates.
+
+
+def _counts(r, cap, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, cap + 1, r)
+    counts[0] = 1
+    counts[-1] = cap
+    return torch.tensor(counts, dtype=torch.int32, device="cuda")
+
+
+def _vote_entry(x, counts, route):
+    """One launch of ``route``'s kernel through its C entry."""
+    r, n, d = x.shape
+    conf = torch.empty((r, n), dtype=torch.float32, device="cuda")
+    lib, dtype = _build.library(), 0 if x.dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = None if counts is None else counts.data_ptr()
+    if route == "cluster":
+        plan = kernels.vote_plan(r, n, d, x.dtype)
+        rc = lib.lwc_cosine_vote_cluster(
+            x.data_ptr(), conf.data_ptr(), r, n, d, n, ptr, 0.05, dtype,
+            plan.cluster, plan.cols, stream)
+    else:
+        rc = lib.lwc_cosine_vote(x.data_ptr(), conf.data_ptr(), r, n, d, n,
+                                 ptr, 0.05, dtype, stream)
+    _build.check(rc, route)
+    return conf
+
+
+@pytest.mark.parametrize("r", [1, 2, 8, 16])
+@pytest.mark.parametrize("cap", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["cluster", "block"])
+def test_vote_with_a_count_per_request_matches_plain(card, r, cap, dtype,
+                                                     route):
+    x = torch.tensor(_embeddings((r, cap, 1024), seed=r + cap),
+                     dtype=getattr(torch, dtype), device=card)
+    counts = _counts(r, cap, seed=cap)
+    if route == "cluster":
+        before = kernels.cosine_vote.routes["cluster"]
+        got = kernels.cosine_vote(x, counts, 0.05)
+        assert kernels.cosine_vote.routes["cluster"] == before + 1
+    else:
+        got = _vote_entry(x, counts, "block")
+    want = kernels.cosine_vote_plain(x, counts, 0.05)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    for i, c in enumerate(counts.tolist()):
+        assert (got[i, c:] == 0).all()
+        assert abs(got[i].sum().item() - 1.0) <= 1e-5
+    ones = counts == 1
+    assert (got[ones, 0] == 1).all()  # a count of 1: exactly 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["cluster", "block"])
+def test_vote_scalar_count_is_bit_equal_to_a_constant_vector(card, dtype,
+                                                             route):
+    x = torch.tensor(_embeddings((8, 64, 1024), seed=3),
+                     dtype=getattr(torch, dtype), device=card)
+    for n in (1, 40, 64):
+        same = torch.full((8,), n, dtype=torch.int32, device=card)
+        lib, dt = _build.library(), 0 if x.dtype == torch.float32 else 1
+        stream = torch.cuda.current_stream().cuda_stream
+        outs = []
+        for ptr in (None, same.data_ptr()):
+            conf = torch.empty((8, 64), dtype=torch.float32, device=card)
+            if route == "cluster":
+                plan = kernels.vote_plan(8, 64, 1024, x.dtype)
+                rc = lib.lwc_cosine_vote_cluster(
+                    x.data_ptr(), conf.data_ptr(), 8, 64, 1024, n, ptr, 0.05,
+                    dt, plan.cluster, plan.cols, stream)
+            else:
+                rc = lib.lwc_cosine_vote(x.data_ptr(), conf.data_ptr(), 8, 64,
+                                         1024, n, ptr, 0.05, dt, stream)
+            _build.check(rc, route)
+            outs.append(conf)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("route", ["cluster", "block"])
+def test_vote_count_of_zero_gives_zeros(card, route):
+    x = torch.tensor(_embeddings((3, 32, 1024), seed=5), device=card)
+    counts = torch.tensor([0, 32, 7], dtype=torch.int32, device=card)
+    got = _vote_entry(x, counts, route)
+    want = kernels.cosine_vote_plain(x, counts, 0.05)
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all() and (got[2, 7:] == 0).all()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_stream_vote_update_many_matches_single_updates(base_model):
+    """bge-base: one grouped update of 5 streams (mixed counts, one
+    capacity) against 5 single-stream updates on copies of the same
+    buffers: confidences within 1e-5 and each buffer's new row the
+    stream's own vector (f32 buffers; bf16 rows of the same padded
+    batch of 16)."""
+    emb = _fresh(base_model)
+    r, cap = 5, 32
+    counts = [1, 4, 0, 17, 31]
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(r, cap, emb.config.hidden_size)).astype(
+        np.float32)
+    for i, c in enumerate(counts):
+        base[i, c:] = 0.0
+    texts = _texts(r, 40, 12)
+    bufs = [torch.tensor(base[i], device="cuda") for i in range(r)]
+    launches = kernels.cosine_vote.launches
+    many = emb.stream_vote_update_many(texts, bufs, counts, 0.05)
+    assert kernels.cosine_vote.launches == launches + 1
+    for i in range(r):
+        buf = torch.tensor(base[i], device="cuda")
+        single = emb.stream_vote_update(texts[i], buf, counts[i], 0.05)
+        assert _max_abs(single, many[i]) <= 1e-5
+        assert _max_abs(buf.cpu(), bufs[i].cpu()) <= 1e-5
+        assert (many[i][counts[i] + 1:] == 0).all()
+        assert abs(float(many[i].sum()) - 1.0) <= 1e-5

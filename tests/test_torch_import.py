@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
-the JAX package.
+the JAX package, nor ``xxhash`` or ``aiohttp``, which the card's machine
+does not have.
 
 A subprocess imports every module of ``llm_weighted_consensus_tpu_torch``
-(and ``chip_smoke.py``) with ``jax``, ``jaxlib`` and
-``llm_weighted_consensus_tpu`` poisoned, and an AST scan shows that no
-file of the port names those modules.
+(and ``chip_smoke.py``) with ``jax``, ``jaxlib``,
+``llm_weighted_consensus_tpu``, ``xxhash`` and ``aiohttp`` poisoned, and
+an AST scan shows that no file of the port names those modules.
 """
 
 import ast
@@ -17,7 +18,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "llm_weighted_consensus_tpu_torch"
-BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu")
+BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp")
 
 _PROBE = r"""
 import importlib
@@ -25,7 +26,7 @@ import json
 import pkgutil
 import sys
 
-BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu")
+BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp")
 
 
 class _Poison:
@@ -80,7 +81,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "errors", "models.dispatch_seam", "models.graphs", "obs.histogram",
         "obs.phases", "ops.launches", "resilience.admission",
         "resilience.deadline", "resilience.watchdog", "serve.config",
-        "serve.lifecycle", "serve.metrics",
+        "serve.lifecycle", "serve.metrics", "utils.jsonutil", "types.base",
+        "types.chat_request", "types.chat_response", "types.score_request",
+        "types.score_response", "types.multichat_request",
+        "types.multichat_response", "identity", "identity.llm",
+        "identity.model", "identity.xxh3", "registry", "archive",
+        "resilience.budget", "clients.sse", "clients.chat", "clients.params",
+        "clients.score", "clients.multichat", "serve.chat_routes",
+        "serve.fake_upstream",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

@@ -398,9 +398,40 @@ def test_concurrent_rm_requests_each_get_their_own_answer(rerankers):
 
 
 def test_server_needs_a_model_and_main_says_which(monkeypatch):
-    with pytest.raises(ValueError, match="embedder, a reranker"):
+    """A ``Server`` with nothing to serve is refused, naming what it
+    takes.  ``main`` with neither ``EMBEDDER_MODEL`` nor ``RM_MODEL``
+    serves the chat routes only, as the reference's server does, says so,
+    and drains clean on SIGTERM."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    with pytest.raises(ValueError,
+                       match="embedder, a reranker or a chat client"):
         Server()
-    monkeypatch.delenv("EMBEDDER_MODEL", raising=False)
-    monkeypatch.delenv("RM_MODEL", raising=False)
-    with pytest.raises(SystemExit):
-        serve_main.main(["--device", "cpu", "--port", "0"])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EMBEDDER_MODEL", "RM_MODEL")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.serve",
+         "--device", "cpu", "--port", "0"],
+        env=env, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        lines = []
+        for line in proc.stderr:
+            lines.append(line)
+            if line.rstrip().endswith("ready"):
+                break
+        said = "".join(lines)
+        assert "no EMBEDDER_MODEL or RM_MODEL: the chat routes only" in said
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.stderr.read()
+        assert proc.wait(timeout=60) == 0
+        assert "drained clean" in rest
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
