@@ -154,7 +154,33 @@ Phases, each printing one JSON line:
    multichat (3 frames, every candidate, ``[DONE]``).  It prints
    updates/s, the server's per-update p50, the dispatches, the largest
    group, replays against eager dispatches, and one grouped update
-   dispatch's wall and device idle share, eager and replayed.
+   dispatch's wall and device idle share, eager and replayed;
+11. score path (``/score/completions``): ``training_table_weights_batched``
+   on the card against float64 on the host at full width (32 judges, 256
+   rows of 1024, padded rows, k past the rows, exact ties at the k-th
+   place; ``LOOKUP_F64_TOL``); bge_micro in f32 through the port's
+   ``ScoreClient`` on the card and on the CPU with the same scripted
+   judges, seeded ballots and training tables (static-weight frames byte
+   for byte, training-table weights and confidences within
+   ``MICRO_TOL``); then BASELINE config 2's panel (32 judges over 3
+   backends, soft votes from 8 ``top_logprobs``) at bge-large width
+   through ``build_embedder``, ``build_server`` and ``warm_up``, the
+   judges a scripted stdlib SSE server on loopback (``ScriptedJudges``),
+   the training tables (256 prompts embedded on the card) from
+   ``TABLES_PATH``: 16 training-table requests of 8 candidates, 8 in
+   flight, then 4 static-weight requests, and a second server with
+   ``SCORE_CACHE_TTL=60`` (one request, 2 repeats, one identical
+   concurrent pair).  It fails unless every final frame's confidences
+   sum to 1 within ``SCORE_SUM_TOL``, every trained weight lies in
+   [1, 5], no graph was captured and no prompt embed ran eagerly after
+   warmup (``WARMUP`` covers 16 rows at every sequence bucket the prompts
+   fall in), the attention launches equal 24 per prompt-embed dispatch,
+   all ``tma``, with no vote launch, the repeats make no upstream call
+   and no dispatch, and the pair makes one fan-out of 32 judge calls and
+   one collapse.  It prints requests/s and client p50 for both weight
+   kinds, the server's weight-fetch p50, one fetch by part (prompt embed,
+   host padding, upload, lookup) and under torch.profiler, the embed
+   dispatches and rows per dispatch, upstream calls, hits and collapses.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -316,6 +342,23 @@ STREAM_WARMUP = "16x112,16x128,32x128"
 # the last frame's confidences against one eager vote over the same
 # texts embedded in one call (bf16 rows of other batches)
 STREAM_CONF_TOL = PACKED_CONF_TOL
+# the score path (phase 11): BASELINE config 2's panel (bench_all.py
+# _make_panel(32, 3)) with soft votes (8 top_logprobs) and training-table
+# weights (top 16, the prompt embedded at 128 tokens) from 256 table rows;
+# 16 requests of 8 candidates of 100-120 words, 8 in flight, prompts of
+# 80-110 words; then 4 static-weight requests; judges answer after 20-40 ms
+SCORE_JUDGES, SCORE_BACKENDS, SCORE_TOP_LOGPROBS = 32, 3, 8
+SCORE_TABLE_ROWS, SCORE_TOP, SCORE_MAX_TOKENS = 256, 16, 128
+SCORE_REQUESTS, SCORE_INFLIGHT, SCORE_N = 16, 8, 8
+SCORE_STATIC_REQUESTS = 4
+SCORE_PROMPT_WORDS, SCORE_JUDGE_MS = (80, 110), (20, 40)
+# a final frame's candidate confidences (exact Decimal shares) sum to 1
+SCORE_SUM_TOL = 1e-6
+# the lookup on the card (f32) against float64 on the host
+LOOKUP_F64_TOL = 1e-5
+# the prompt embed's dispatch shapes: 16 rows at the sequence buckets the
+# prompts fall in (phase 2 holds and times the attention there)
+SCORE_ATTENTION_SHAPES = ((16, 96), (16, 112))
 
 
 def emit(obj) -> None:
@@ -863,7 +906,8 @@ def check_attention(gpu: str) -> dict:
     # /consensus request of 64 candidates at s=128 (the warm-up), 8 such
     # requests coalesced (the bursts), 16 candidates in the s=512 bucket
     # and the /embeddings batch of 32 texts at s=64
-    for b, s in MAIN_PATH_ATTENTION_SHAPES + (STREAM_ATTENTION_SHAPE,):
+    for b, s in (MAIN_PATH_ATTENTION_SHAPES + (STREAM_ATTENTION_SHAPE,)
+                 + SCORE_ATTENTION_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(b, s, nh, hd, dtype, seed=b + s)
@@ -3892,8 +3936,700 @@ def multichat_path(gpu: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- the score path -----------------------------------------------------------
+
+
+def ballot_keys_of(body: dict) -> tuple:
+    """(ballot text, its keys in ballot order) of a judge's upstream chat
+    request: the JSON map in its last system message."""
+    text = body["messages"][-1]["content"]
+    ballot = text.split("Select the response:\n\n", 1)[1].split(
+        "\n\nOutput", 1)[0]
+    return ballot, list(json.loads(ballot))
+
+
+def judge_answer(body: dict) -> tuple:
+    """A scripted judge's answer to one ballot: (content, logprobs).  It
+    names one key of its own ballot, chosen from a hash of the ballot, and
+    gives ``top_logprobs`` alternatives on the key's letter token (soft
+    votes) when the request asks for logprobs."""
+    import zlib
+
+    import numpy as np
+
+    ballot, keys = ballot_keys_of(body)
+    rng = np.random.default_rng(zlib.crc32(ballot.encode()))
+    pick = keys[int(rng.integers(0, len(keys)))]
+    content = f"I select {pick}"
+    top = body.get("top_logprobs")
+    if not body.get("logprobs") or not top:
+        return content, None
+    letters = [k[-2] for k in keys if k[:-2] == pick[:-2]][:top]
+    lps = rng.normal(size=len(letters)) * 1.5
+    lps = lps - np.log(np.exp(lps).sum())
+    alts = [{"token": c, "logprob": float(lp)}
+            for c, lp in zip(letters, lps)]
+    chosen = next(a["logprob"] for a in alts if a["token"] == pick[-2])
+    return content, {"content": [
+        {"token": "I select ", "logprob": -0.01, "top_logprobs": []},
+        {"token": pick[:-2], "logprob": -0.01, "top_logprobs": []},
+        {"token": pick[-2], "logprob": chosen, "top_logprobs": alts},
+        {"token": "`", "logprob": -0.01, "top_logprobs": []},
+    ]}
+
+
+def judge_frames(body: dict) -> bytes:
+    """The SSE body a scripted judge answers ``body`` with."""
+    content, logprobs = judge_answer(body)
+    choice = {"index": 0, "delta": {"role": "assistant", "content": content},
+              "finish_reason": "stop"}
+    if logprobs is not None:
+        choice["logprobs"] = logprobs
+    chunk = {"id": "judge-1", "object": "chat.completion.chunk",
+             "created": 1, "model": body.get("model"), "choices": [choice],
+             "usage": {"prompt_tokens": 100, "completion_tokens": 4,
+                       "total_tokens": 104}}
+    return f"data: {json.dumps(chunk)}\n\ndata: [DONE]\n\n".encode()
+
+
+class ScriptedJudges:
+    """The judge models on loopback (a stdlib SSE server): each answers
+    ``judge_frames`` of its request after a scripted ``SCORE_JUDGE_MS``
+    delay (drawn from the ballot's hash), and counts the calls."""
+
+    def __init__(self) -> None:
+        import threading
+        import zlib
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        judges = self
+        self.calls = 0
+        self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["content-length"])))
+                with judges.lock:
+                    judges.calls += 1
+                ballot, _ = ballot_keys_of(body)
+                lo, hi = SCORE_JUDGE_MS
+                time.sleep((lo + zlib.crc32(ballot.encode()) % (hi - lo + 1))
+                           / 1e3)
+                frame = judge_frames(body)
+                self.send_response(200)
+                self.send_header("content-type", "text/event-stream")
+                self.send_header("transfer-encoding", "chunked")
+                self.end_headers()
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+                self.wfile.write(b"0\r\n\r\n")
+                self.wfile.flush()
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+            request_queue_size = 1024
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/v1"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def score_prompt(k: int) -> str:
+    """Request ``k``'s question: ``SCORE_PROMPT_WORDS`` words of
+    bench.py's vocabulary and a topic of its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(50000 + k)
+    n = int(rng.integers(SCORE_PROMPT_WORDS[0], SCORE_PROMPT_WORDS[1] + 1))
+    topic = [f"t{k % 13}w{j}" for j in range(20)]
+    return " ".join(
+        topic[int(rng.integers(0, 20))] if rng.random() < 0.5
+        else BENCH_WORDS[int(rng.integers(0, len(BENCH_WORDS)))]
+        for _ in range(n))
+
+
+def score_panel(weight: str, n_judges: int = SCORE_JUDGES,
+                backends: int = SCORE_BACKENDS,
+                top_logprobs: int = SCORE_TOP_LOGPROBS, top: int = SCORE_TOP,
+                max_tokens: int = SCORE_MAX_TOKENS) -> dict:
+    """BASELINE config 2's panel (``_make_panel(32, 3)``) with soft votes:
+    training-table weights in [1, 5] (base 1), or static ``1 + i % 3``."""
+    llms = []
+    for i in range(n_judges):
+        llm = {"model": f"backend-{i % backends}",
+               "top_logprobs": top_logprobs}
+        llm["weight"] = (
+            {"type": "training_table", "base_weight": 1, "min_weight": 1,
+             "max_weight": 5} if weight == "training_table"
+            else {"type": "static", "weight": 1 + i % 3})
+        llms.append(llm)
+    panel = {"llms": llms}
+    if weight == "training_table":
+        panel["weight"] = {"type": "training_table", "top": top,
+                           "embeddings": {"model": "bge-large-en",
+                                          "max_tokens": max_tokens}}
+    return panel
+
+
+def score_body(k: int, weight: str, **panel) -> dict:
+    return {"messages": [{"role": "user", "content": score_prompt(k)}],
+            "model": score_panel(weight, **panel),
+            "choices": [stream_candidate(2000 + k, s)
+                        for s in range(SCORE_N)]}
+
+
+def lookup_f64(tables, mask, scores, query, lo, hi, k):
+    """``training_table_weights_batched`` in float64 numpy: the plain
+    math of the reference, ties broken toward the lower index."""
+    import numpy as np
+
+    t64 = tables.astype(np.float64)
+    q = query.astype(np.float64)
+    nt = t64 / np.maximum(np.linalg.norm(t64, axis=-1, keepdims=True), 1e-12)
+    nq = q / max(np.linalg.norm(q), 1e-12)
+    sims = np.where(mask > 0, nt @ nq, -np.inf)
+    k = min(k, sims.shape[1])
+    idx = np.argsort(-sims, axis=-1, kind="stable")[:, :k]
+    top = np.take_along_axis(sims, idx, -1)
+    valid = np.isfinite(top)
+    logits = np.where(valid, top / 0.05, -np.inf)
+    mx = np.max(np.where(valid, logits, -1e30), axis=-1, keepdims=True)
+    e = np.where(valid, np.exp(logits - mx), 0.0)
+    attn = e / np.maximum(e.sum(-1, keepdims=True), 1e-30)
+    quality = (attn * np.take_along_axis(scores.astype(np.float64), idx,
+                                         -1)).sum(-1)
+    return lo + (hi - lo) * quality
+
+
+def lookup_inputs(seed: int):
+    """Full-width lookup inputs: 32 judges, 256 rows of D=1024 padded to
+    280, judge 1 with 10 rows (fewer than k) and judge 2 with 1, a zero
+    row, and six identical nearest rows with different scores in judge 4
+    (exact ties across the k-th place at k = 3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    j, t, d = SCORE_JUDGES, SCORE_TABLE_ROWS + 24, 1024
+    q = rng.normal(size=d).astype(np.float32)
+    tables = rng.normal(size=(j, t, d)).astype(np.float32)
+    mask = np.ones((j, t), np.float32)
+    mask[:, SCORE_TABLE_ROWS:] = 0
+    mask[1, 10:] = 0
+    mask[2, 1:] = 0
+    tables[3, 7] = 0.0
+    near = q + 0.5 * rng.normal(size=d).astype(np.float32)
+    for r in (0, 1, 2, 3, 4, 200):
+        tables[4, r] = near
+    tables[mask == 0] = 0.0
+    scores = rng.random((j, t)).astype(np.float32)
+    lo = np.ones(j, np.float32)
+    hi = np.full(j, 5.0, np.float32)
+    return tables, mask, scores, q, lo, hi
+
+
+def check_lookup(gpu: str) -> dict:
+    """``training_table_weights_batched`` on the card against the f64
+    numpy computation on the same arrays, at k = 3 (ties straddle the
+    k-th place), 16 (the panel's top) and 300 (past every table)."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import similarity
+
+    worst = 0.0
+    for seed in (1, 2):
+        args = lookup_inputs(seed)
+        dev = [torch.from_numpy(a).cuda() for a in args]
+        for k in (3, SCORE_TOP, 300):
+            got = similarity.training_table_weights_batched(*dev, k)
+            got = got.cpu().numpy()
+            want = lookup_f64(*args, k)
+            if got.dtype != np.float32 or not np.isfinite(got).all():
+                raise AssertionError(f"lookup k={k}: {got.dtype}, not finite")
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                             / np.abs(want))))
+    row = {"phase": "score_lookup", "gpu": gpu,
+           "shape": [SCORE_JUDGES, SCORE_TABLE_ROWS + 24, 1024],
+           "ks": [3, SCORE_TOP, 300], "max_rel_err_vs_f64": worst,
+           "tolerance": LOOKUP_F64_TOL}
+    emit(row)
+    if worst > LOOKUP_F64_TOL:
+        raise AssertionError(f"score_lookup: {row}")
+    return row
+
+
+class InProcessJudges:
+    """``judge_frames`` as a port ``Transport``, in process (the bge_micro
+    comparison's judges)."""
+
+    def __new__(cls):
+        from llm_weighted_consensus_tpu_torch.clients import chat
+
+        class Transport(chat.Transport):
+            async def post_sse(self, url, headers, body):
+                frames = judge_frames(json.loads(body))
+
+                class Resp(chat.TransportResponse):
+                    status = 200
+
+                    async def read_body(self):
+                        return b""
+
+                    async def byte_stream(self):
+                        yield frames
+
+                return Resp()
+
+        return Transport()
+
+
+def frames_close(want: list, got: list, tol: float) -> float:
+    """Largest relative difference of the ``weight`` / ``confidence``
+    numbers of two frame lists whose other values must be equal; raises
+    where anything else differs."""
+    worst = 0.0
+
+    def walk(a, b, key=None):
+        nonlocal worst
+        if key in ("weight", "confidence") and a is not None:
+            a, b = float(a), float(b)
+            worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+            return
+        if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+            for name in a:
+                walk(a[name], b[name], name)
+        elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+            for x, y in zip(a, b):
+                walk(x, y, key)
+        elif key == "embedding":
+            worst = max(worst, abs(float(a) - float(b)))
+        elif a != b:
+            raise AssertionError(f"frames differ at {key}: {a!r} != {b!r}")
+
+    if len(want) != len(got):
+        raise AssertionError(f"{len(got)} frames, want {len(want)}")
+    for a, b in zip(want, got):
+        walk(json.loads(a), json.loads(b))
+    return worst
+
+
+def check_score_bge_micro(gpu: str) -> dict:
+    """bge_micro in f32: the same scripted judges, seeded ballots and
+    training tables through the port's ``ScoreClient`` (the fetcher
+    through a batcher) on the card and on the CPU.  Static-weight frames
+    byte-equal once id and created are masked; training-table frames
+    equal but for the weights and confidences, which agree within
+    ``MICRO_TOL`` relative (and the echoed embedding, absolute)."""
+    import asyncio
+    import random
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import archive, registry
+    from llm_weighted_consensus_tpu_torch.clients import chat
+    from llm_weighted_consensus_tpu_torch.clients.score import ScoreClient
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+    from llm_weighted_consensus_tpu_torch.types.score_request import (
+        ChatCompletionCreateParams,
+    )
+    from llm_weighted_consensus_tpu_torch.utils import jsonutil
+    from llm_weighted_consensus_tpu_torch.weights import WeightFetchers
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TorchTrainingTableFetcher,
+        TrainingTableStore,
+    )
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "bge_micro")
+    cfg = loading.load_hf_config(fixture)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(fixture))
+    micro = dict(n_judges=5, backends=5, top_logprobs=4, top=3,
+                 max_tokens=32)
+    bodies = []
+    for k in range(3):
+        for weight in ("static", "training_table"):
+            bodies.append((weight, {
+                "messages": [{"role": "user", "content": MICRO_TEXTS[k]}],
+                "model": score_panel(weight, **micro),
+                "choices": MICRO_TEXTS[k:] + MICRO_TEXTS[:k], "stream": True,
+            }))
+    model = ModelBase.from_json_obj(
+        score_panel("training_table", **micro)).into_model_validate()
+    frames = {}
+    table_rows = None
+    for device in ("cpu", "cuda"):
+        emb = TorchEmbedder(
+            "bge-micro", model=loading.load_params(
+                fixture, cfg, dtype=torch.float32, device=device),
+            config=cfg, tokenizer=tok, max_tokens=64, device=device,
+            dtype=torch.float32)
+        if table_rows is None:
+            table_rows = emb.embed_texts(MICRO_TEXTS * 2, max_tokens=32)
+        store = TrainingTableStore()
+        rng = np.random.default_rng(3)
+        for llm in model.llms:
+            store.add_rows(llm.training_table_id, table_rows,
+                           rng.random(len(table_rows)))
+        with DeviceBatcher(emb, window_ms=1) as batcher:
+            client = ScoreClient(
+                chat.DefaultChatClient(
+                    InProcessJudges(), [chat.ApiBase("https://judges", "k")],
+                    backoff=chat.BackoffPolicy(max_elapsed_ms=0)),
+                registry.InMemoryModelRegistry(),
+                archive_fetcher=archive.InMemoryArchive(),
+                weight_fetchers=WeightFetchers(
+                    training_table_fetcher=TorchTrainingTableFetcher(
+                        emb, store, batcher=batcher)),
+                rng_factory=lambda: random.Random(5))
+
+            async def run(body):
+                params = ChatCompletionCreateParams.from_json_obj(body)
+                stream = await client.create_streaming(None, params)
+                out = []
+                async for item in stream:
+                    obj = item.to_json_obj()
+                    obj["id"], obj["created"] = "scrcpl", 0
+                    out.append(jsonutil.dumps(obj))
+                return out
+
+            loop = asyncio.new_event_loop()
+            frames[device] = [loop.run_until_complete(run(b))
+                              for _, b in bodies]
+            loop.close()
+            if device == "cuda" and batcher.stats()["dispatches"][
+                    "embed"] != 3:
+                raise AssertionError("score_bge_micro: prompt embeds "
+                                     f"{batcher.stats()['dispatches']}")
+        del emb
+    worst, static_equal = 0.0, True
+    for (weight, _), want, got in zip(bodies, frames["cpu"], frames["cuda"]):
+        if weight == "static":
+            static_equal &= want == got
+        else:
+            worst = max(worst, frames_close(want, got, MICRO_TOL))
+    row = {"phase": "score_bge_micro", "gpu": gpu, "requests": len(bodies),
+           "static_frames_byte_equal": static_equal,
+           "trained_max_rel_err": worst, "tolerance": MICRO_TOL}
+    emit(row)
+    if not static_equal or worst > MICRO_TOL:
+        raise AssertionError(f"score_bge_micro: {row}")
+    return row
+
+
+def read_score_stream(events: list) -> dict:
+    """A /score/completions stream's final frame, checked: it ends with
+    [DONE], carries no error item, and its candidates' confidences sum to
+    1 within ``SCORE_SUM_TOL``; -> its judge weights and the sum's
+    error."""
+    if not events or events[-1] != "[DONE]":
+        raise AssertionError("score stream without [DONE]")
+    final = json.loads(events[-2])
+    if "code" in final or final.get("weight_data") is None:
+        raise AssertionError(f"score stream ended with {events[-2][:300]}")
+    conf = [float(c["confidence"]) for c in final["choices"]
+            if c["index"] < SCORE_N]
+    if len(conf) != SCORE_N or abs(sum(conf) - 1.0) > SCORE_SUM_TOL:
+        raise AssertionError(f"score confidences {conf}")
+    weights = [float(c["weight"]) for c in final["choices"]
+               if c["index"] >= SCORE_N]
+    if len(weights) != SCORE_JUDGES:
+        raise AssertionError(f"{len(weights)} judge choices")
+    return {"weights": weights, "sum_err": abs(sum(conf) - 1.0),
+            "final": final}
+
+
+def drive_score(port: int, bodies: list, inflight: int) -> dict:
+    """Stream ``bodies`` through /score/completions, ``inflight`` at a
+    time -> checked final frames, per-request seconds and the wall."""
+    import concurrent.futures
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(inflight) as pool:
+        answers = list(pool.map(
+            lambda b: sse_post(port, "/score/completions",
+                               {**b, "stream": True}), bodies))
+    wall = time.perf_counter() - t0
+    outs = []
+    for status, events, _ in answers:
+        if status != 200:
+            raise AssertionError(f"/score/completions: {status} {events[:1]}")
+        outs.append(read_score_stream(events))
+    return {"outs": outs, "seconds": [s for _, _, s in answers],
+            "wall_s": wall}
+
+
+def score_path(gpu: str) -> dict:
+    """Phase 11: ``/score/completions`` at full bge-large width (random
+    weights from seed 0, bf16) through ``build_embedder``,
+    ``build_server`` and ``warm_up``, the judges a scripted stdlib SSE
+    server on loopback (``ScriptedJudges``): BASELINE config 2's panel of
+    32 judges over 3 backends with soft votes (``top_logprobs`` 8),
+    training-table weights from ``TABLES_PATH`` (256 prompts embedded on
+    the card, seeded scores per table), 16 requests of 8 candidates, 8 in
+    flight, then 4 static-weight requests; one weight fetch by part and
+    under torch.profiler; then a second server with ``SCORE_CACHE_TTL=60``:
+    one request, 2 repeats, one identical concurrent pair."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.obs import phases
+    from llm_weighted_consensus_tpu_torch.ops.similarity import (
+        training_table_weights_batched,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.types.score_request import (
+        ChatCompletionCreateParams,
+    )
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TrainingTableStore,
+    )
+
+    judges = ScriptedJudges()
+    work = os.path.join(REPO, "build", "score_smoke")
+    os.makedirs(work, exist_ok=True)
+    tables_path = os.path.join(work, "tables.npz")
+    env = {"EMBEDDER_MODEL": "bge-large-en", "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "OPENAI_API_BASE": judges.url,
+           "OPENAI_API_KEY": "smoke-key", "TABLES_PATH": tables_path}
+    emb = build_embedder(env, device="cuda")
+    layers = emb.config.num_layers
+    srv = srv2 = None
+    try:
+        # the tables: 256 prompts embedded once on the card, each of the
+        # panel's distinct tables with its own seeded scores
+        tt_bodies = [score_body(k, "training_table")
+                     for k in range(1, SCORE_REQUESTS + 1)]
+        static_bodies = [score_body(100 + k, "static")
+                         for k in range(SCORE_STATIC_REQUESTS)]
+        model = ModelBase.from_json_obj(
+            tt_bodies[0]["model"]).into_model_validate()
+        rows = emb.embed_texts(
+            [f"user: {score_prompt(10000 + i)}"
+             for i in range(SCORE_TABLE_ROWS)], max_tokens=SCORE_MAX_TOKENS)
+        store = TrainingTableStore()
+        rng = np.random.default_rng(17)
+        table_ids = sorted({llm.training_table_id for llm in model.llms})
+        for tid in table_ids:
+            store.add_rows(tid, rows, rng.random(SCORE_TABLE_ROWS))
+        store.save(tables_path)
+        # warm the prompt embed's buckets: 16 rows at every sequence
+        # bucket the prompts fall in
+        seqs = sorted({_seq_bucket(int(emb.tokenize(
+            [f"user: {score_prompt(k)}"], SCORE_MAX_TOKENS)[1].sum()),
+            SCORE_MAX_TOKENS) for k in list(range(1, SCORE_REQUESTS + 1))
+            + [101, 102, 103]})
+        env["WARMUP"] = ",".join(f"16x{s}" for s in seqs)
+        config = ServeConfig.from_env(env)
+        srv = build_server(emb, None, config).start()
+        t0 = time.perf_counter()
+        warm_up(srv, config)
+        warm_s = time.perf_counter() - t0
+        port, batcher = srv.port, srv.batcher
+        fetcher = srv.score_client.weight_fetchers.training_table
+        if len(fetcher.store) != len(table_ids):
+            raise AssertionError("TABLES_PATH did not load")
+        fetch_ms = []
+        real_fetch = fetcher.fetch
+
+        async def timed_fetch(ctx, request, model):
+            t = time.perf_counter()
+            out = await real_fetch(ctx, request, model)
+            fetch_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        fetcher.fetch = timed_fetch
+        graphs0, stats0 = emb.graph_stats(), batcher.stats()
+        calls0 = judges.calls
+        phases.reset_phases()
+        reset_launches()
+        tt = drive_score(port, tt_bodies, SCORE_INFLIGHT)
+        torch.cuda.synchronize()
+        launches, routes = read_launches(), read_routes()
+        graphs1, stats1 = emb.graph_stats(), batcher.stats()
+        # the server's view of the training-table traffic (its first
+        # score requests): a judge's ballot-stream lifetime, the tally,
+        # the prompt embed's queue and device time, the route's latency
+        snap = srv.metrics.snapshot()
+        server_view = {
+            "phases": {name: snap["phases"].get(name) for name in (
+                "upstream_judge", "host_tally", "batcher_queue",
+                "device_dispatch")},
+            "route": snap["series"].get("http:/score/completions"),
+        }
+        static = drive_score(port, static_bodies, SCORE_STATIC_REQUESTS)
+        calls = judges.calls - calls0
+        fetcher.fetch = real_fetch
+        embed_d = stats1["dispatches"]["embed"] - stats0["dispatches"][
+            "embed"]
+        embed_rows = stats1["requests"]["embed"] - stats0["requests"]["embed"]
+        captures = graphs1["captures"] - graphs0["captures"]
+        eager = graphs1["eager_dispatches"] - graphs0["eager_dispatches"]
+        weights = [w for out in tt["outs"] for w in out["weights"]]
+        sums = max(o["sum_err"] for o in tt["outs"] + static["outs"])
+        want = {"attention": layers * embed_d, "cosine_vote": 0}
+        if captures or eager:
+            raise AssertionError(f"score path: {captures} captures, {eager} "
+                                 "eager embed dispatches after warmup")
+        if embed_rows != SCORE_REQUESTS or not embed_d:
+            raise AssertionError(f"score path: {embed_rows} prompt rows in "
+                                 f"{embed_d} dispatches")
+        if any(launches[name] != n for name, n in want.items()):
+            raise AssertionError(f"score launches {launches} != {want}")
+        if not all(1.0 <= w <= 5.0 for w in weights) or len(weights) != \
+                SCORE_REQUESTS * SCORE_JUDGES:
+            raise AssertionError("a training-table weight outside [1, 5]")
+        if calls != SCORE_JUDGES * (SCORE_REQUESTS + SCORE_STATIC_REQUESTS):
+            raise AssertionError(f"{calls} upstream judge calls")
+        want_w = sorted(float(1 + i % 3) for i in range(SCORE_JUDGES))
+        if any(sorted(out["weights"]) != want_w for out in static["outs"]):
+            raise AssertionError("static weights garbled")
+        # one weight fetch by part, then whole under the profiler
+        body = tt_bodies[0]
+        params = ChatCompletionCreateParams.from_json_obj(body)
+        text = params.template_content()
+        parts = {}
+        for _ in range(3):  # the last of three, each part synchronized
+            t = time.perf_counter()
+            vec, _tokens = batcher.submit_embed(
+                [text], max_tokens=SCORE_MAX_TOKENS).result()
+            parts["prompt_embed_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            padded = fetcher.pad_tables(model)
+            parts["host_padding_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            args = fetcher.upload(padded, np.asarray(vec[0], np.float32))
+            torch.cuda.synchronize()
+            parts["upload_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            training_table_weights_batched(*args, padded.k).cpu()
+            parts["lookup_ms"] = (time.perf_counter() - t) * 1e3
+        parts["padded_tables_bytes"] = int(padded.tables.nbytes)
+
+        def one_fetch():
+            import asyncio
+
+            loop = asyncio.new_event_loop()
+            try:
+                loop.run_until_complete(fetcher.fetch(None, params, model))
+            finally:
+                loop.run_until_complete(loop.shutdown_default_executor())
+                loop.close()
+
+        fetch_profile = profile_one(one_fetch)
+        # the cache: a second server, SCORE_CACHE_TTL=60
+        srv.close()
+        srv = None
+        config2 = ServeConfig.from_env({**env, "SCORE_CACHE_TTL": "60"})
+        srv2 = build_server(emb, None, config2).start()
+        warm_up(srv2, config2)
+        port2, batcher2 = srv2.port, srv2.batcher
+
+        def cache_counts():
+            snap = http(port2, "/metrics")[2]
+            return (judges.calls, batcher2.stats()["dispatches"]["embed"],
+                    snap["score_cache"])
+
+        first_body = score_body(101, "training_table")
+        c0 = cache_counts()
+        first = drive_score(port2, [first_body], 1)
+        c1 = cache_counts()
+        repeats = drive_score(port2, [first_body, first_body], 1)
+        c2 = cache_counts()
+        pair = drive_score(port2, [score_body(102, "training_table")] * 2, 2)
+        c3 = cache_counts()
+        if c1[0] - c0[0] != SCORE_JUDGES or c1[1] - c0[1] != 1:
+            raise AssertionError(f"cache miss: {c0[:2]} -> {c1[:2]}")
+        if c2[:2] != c1[:2] or c2[2]["hits"] - c1[2]["hits"] != 2:
+            raise AssertionError(f"cache repeats: {c1} -> {c2}")
+        repeat_frames = [json.dumps(o["final"], sort_keys=True)
+                         for o in first["outs"] + repeats["outs"]]
+        if len({f.replace(first["outs"][0]["final"]["id"], "")
+                for f in repeat_frames}) != 1:
+            raise AssertionError("a cache repeat differs from its miss")
+        collapses = (c3[2]["inflight_collapses"]
+                     - c2[2]["inflight_collapses"])
+        if c3[0] - c2[0] != SCORE_JUDGES or collapses != 1:
+            raise AssertionError(f"concurrent pair: {c3[0] - c2[0]} upstream "
+                                 f"calls, {collapses} collapses")
+        if pair["outs"][0]["final"]["id"] != pair["outs"][1]["final"]["id"]:
+            raise AssertionError("the pair's follower did not replay")
+
+        def p50(xs):
+            return statistics.median(xs) * 1e3
+
+        row = {
+            "phase": "score_path", "gpu": gpu, "nvidia_smi": gpu,
+            "model": "bge-large-en", "dtype": "bfloat16", "layers": layers,
+            "judges": SCORE_JUDGES, "backends": SCORE_BACKENDS,
+            "distinct_tables": len(table_ids),
+            "table_rows": SCORE_TABLE_ROWS, "candidates": SCORE_N,
+            "requests": SCORE_REQUESTS, "in_flight": SCORE_INFLIGHT,
+            "static_requests": SCORE_STATIC_REQUESTS,
+            "judge_delay_ms": list(SCORE_JUDGE_MS),
+            "warmup": env["WARMUP"], "warmup_s": warm_s,
+            "training_table": {
+                "requests_per_s": SCORE_REQUESTS / tt["wall_s"],
+                "client_p50_ms": p50(tt["seconds"]),
+                "wall_s": tt["wall_s"]},
+            "static": {
+                "requests_per_s": SCORE_STATIC_REQUESTS / static["wall_s"],
+                "client_p50_ms": p50(static["seconds"]),
+                "wall_s": static["wall_s"]},
+            "server": server_view,
+            "weight_fetch_p50_ms": statistics.median(fetch_ms),
+            "weight_fetches": len(fetch_ms),
+            "weight_fetch_parts": parts,
+            "weight_fetch_profile": fetch_profile,
+            "embed_dispatches": embed_d, "embed_rows": embed_rows,
+            "rows_per_dispatch": embed_rows / embed_d,
+            "replays": graphs1["replays"] - graphs0["replays"],
+            "eager_dispatches": eager, "captures_after_warmup": captures,
+            "launches": launches, "routes": routes,
+            "weights_min_max": [min(weights), max(weights)],
+            "max_sum_err": sums, "upstream_calls": calls,
+            "cache": {"miss_upstream_calls": c1[0] - c0[0],
+                      "repeat_upstream_calls": c2[0] - c1[0],
+                      "repeat_dispatches": c2[1] - c1[1],
+                      "hits": c3[2]["hits"], "pair_upstream_calls":
+                      c3[0] - c2[0], "collapses": collapses},
+        }
+        emit(row)
+        return row
+    finally:
+        for s in (srv, srv2):
+            if s is not None:
+                s.close()
+        judges.close()
+        del emb
+        torch.cuda.empty_cache()
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
-                   packed, rm, serving, counts, multichat) -> dict:
+                   packed, rm, serving, counts, multichat, score) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -3907,7 +4643,10 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     multichat path adds the vote with a count per request
     (``"path": "multichat"``, at [8, 32, 1024] f32 with this run's mixed
     counts) and the attention at its dispatch shape [16, 128] (bf16),
-    with that path's launches.
+    with that path's launches.  The score path adds the attention at its
+    prompt embed's dispatch shape [16, 112] (bf16, ``"path": "score"``)
+    with that path's launches, which the main attention entry also
+    carries as ``score_path_launches``.
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -4067,6 +4806,23 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         "library_ms": stream["library_ms"], "kernel_route": "tma",
         "device_ms": stream["device_ms"], "shape": stream["shape"],
     })
+    prompt = next(
+        r for r in attn_rows
+        if r.get("shape", [])[:2] == list(SCORE_ATTENTION_SHAPES[-1])
+        and r["dtype"] == "bfloat16"
+    )
+    entries.append({
+        "name": "attention", "path": "score", "route": "cuda",
+        "source": csrc + "attention_sm90.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/attention.py:134",
+        "launches": score["launches"]["attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": prompt["kernel_ms"], "plain_ms": prompt["plain_ms"],
+        "bound_ms": prompt["bound_ms"], "bound_by": prompt["bound_by"],
+        "library_ms": prompt["library_ms"], "kernel_route": "tma",
+        "device_ms": prompt["device_ms"], "shape": prompt["shape"],
+    })
+    entries[1]["score_path_launches"] = score["launches"]["attention"]
     graphed = {"cosine_vote": "main", "attention": "main",
                "segment_attention": "packed", "quantize_rows": "int8",
                "w8a8_matmul": "int8", "w4a8_matmul": "int4-pallas"}
@@ -4074,8 +4830,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         path = graphed[entry["name"]]
         if entry.get("path") == "rm":  # no graphed int4 reward-model run
             path = None if entry["name"] == "w4a8_matmul" else "rm_int8"
-        if entry.get("path") == "multichat":  # served graphed: its own run
-            entry["graphed_path"] = "multichat"
+        if entry.get("path") in ("multichat", "score"):  # served graphed
+            entry["graphed_path"] = entry["path"]
             entry["graphed_launches"] = entry["launches"]
             continue
         entry["graphed_path"] = path
@@ -4141,10 +4897,14 @@ def main() -> int:
     rm = rm_phase(gpu, timed)
     serving = serving_phase(gpu, timed)
     multichat = timed("multichat_path", multichat_path, gpu)
+    timed("score_path", check_lookup, gpu)
+    timed("score_path", check_score_bge_micro, gpu)
+    score = timed("score_path", score_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
-                        seg, packed["row"], rm, serving, counts, multichat))
+                        seg, packed["row"], rm, serving, counts, multichat,
+                        score))
     print(gpu)
     emit({
         "ok": True,

@@ -4,9 +4,9 @@ The port's copy of ``llm_weighted_consensus_tpu/errors.py``: ``StatusError``
 (an error that knows its HTTP status and JSON message), ``OverloadedError``
 (503, a load shed, with a retry hint), the chat client's errors
 (``ChatError`` and its kinds, ``DeadlineExceededError`` 504 among them, and
-``IngestCapError`` 502 for the byte caps), the score-side errors the
-multichat fan-out raises and wraps (``ScoreChatError``, ``FetchModelError``,
-``InvalidModelError``, ...), and ``to_response_error``, which folds any
+``IngestCapError`` 502 for the byte caps), the score engine's errors
+(``ScoreChatError``, ``FetchModelError``, ``FetchModelWeightsError``,
+``InvalidContentError``, ``AllVotesFailed``, ...), and ``to_response_error``, which folds any
 exception into the envelope and sends the detail of an unexpected one to
 the server log.  ``ResponseError`` is the wire type of
 ``types/base.py``.  Left for later: the reference's ``with_trace_id``
@@ -262,9 +262,47 @@ class FetchModelError(ScoreError):
         return {"kind": "score", "error": self.error}
 
 
+class FetchModelWeightsError(ScoreError):
+    def __init__(self, inner: ResponseError):
+        super().__init__("fetch_model_weights", inner.message, inner.code)
+
+    def message(self):
+        return {"kind": "score", "error": self.error}
+
+
 class InvalidModelError(ScoreError):
     def __init__(self, error: str):
         super().__init__("invalid_model", error, 400)
+
+
+class ExpectedTwoOrMoreChoices(ScoreError):
+    def __init__(self, got: int):
+        super().__init__(
+            "expected_two_or_more_choices",
+            f"expected 2 or more provided choices but got {got}",
+            400,
+        )
+
+
+class InvalidContentError(ScoreError):
+    """No parseable ballot key in a judge's output.
+
+    ``detail`` refines the diagnostic for logs; the wire message stays the
+    reference's fixed string (score/completions/error.rs:12-13).
+    """
+
+    def __init__(self, detail: Optional[str] = None):
+        super().__init__("invalid_content", "expected a valid response key", 500)
+        self.detail = detail
+
+
+class AllVotesFailed(ScoreError):
+    def __init__(self, code: Optional[int]):
+        super().__init__(
+            "all_votes_failed",
+            "all votes failed, see choices for further details",
+            code if code is not None else 500,
+        )
 
 
 class ScoreArchiveError(ScoreError):
@@ -284,3 +322,12 @@ class ScoreChatError(ScoreError):
 
     def message(self):
         return {"kind": "score", "error": self.chat_error.message()}
+
+
+class ScoreInvalidCompletionChoiceIndex(ScoreError):
+    def __init__(self, completion_id: str, choice_index: int):
+        super().__init__(
+            "invalid_completion_choice_index",
+            f"invalid choice_index for completion {completion_id}: {choice_index}",
+            400,
+        )

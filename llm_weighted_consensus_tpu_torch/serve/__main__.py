@@ -1,9 +1,10 @@
 """Serve the port: ``python -m llm_weighted_consensus_tpu_torch.serve
 --port P [--host H] [--device cuda|cpu] [--fake-upstream]``.
 
-Environment, as the reference's server reads it.  ``/chat/completions``
-and ``/multichat/completions`` are always served, through the upstream
-endpoints of ``OPENAI_APIS`` / ``OPENAI_API_BASE`` (``serve/config.py``);
+Environment, as the reference's server reads it.  ``/chat/completions``,
+``/multichat/completions`` and ``/score/completions`` are always served,
+through the upstream endpoints of ``OPENAI_APIS`` / ``OPENAI_API_BASE``
+(``serve/config.py``);
 ``--fake-upstream`` starts a scripted loopback provider
 (``serve/fake_upstream.py``) and sends them there, and, as the
 reference's demo mode, allows synthetic model params.  The device routes
@@ -54,11 +55,15 @@ need a model:
 The batching, warmup, overload and timing knobs (``BATCH_*``,
 ``HOST_TOKENIZER_WORKERS``, ``STAGING_BUFFERS``, ``WARMUP``,
 ``WARMUP_R``, ``RM_WARMUP``, ``ADMISSION_*``, ``DRAIN_TIMEOUT_MILLIS``,
-``DEVICE_WATCHDOG_MILLIS``, ``METRICS_DEVICE_TIMING``) and the upstream
+``DEVICE_WATCHDOG_MILLIS``, ``METRICS_DEVICE_TIMING``), the upstream
 knobs (``OPENAI_*``, ``*_CHUNK_TIMEOUT_MILLIS``, ``BACKOFF_*``,
 ``CONNECT_TIMEOUT_MILLIS``, ``JUDGE_STREAM_MAX_BYTES``,
-``SSE_MAX_EVENT_BYTES``, ``FAKE_UPSTREAM_DELAY_MS``) are documented in
-``serve/config.py``.  The server listens at once and answers ``/livez``;
+``SSE_MAX_EVENT_BYTES``, ``FAKE_UPSTREAM_DELAY_MS``) and the score
+route's knobs (``TABLES_PATH``, ``HOST_FASTPATH``, ``SCORE_CACHE_*``) are
+documented in ``serve/config.py``.  With an embedder, a training-table
+panel's weights come from ``TorchTrainingTableFetcher`` on the served
+embedder and batcher (the tables loaded from ``TABLES_PATH``); without
+one such a panel is a 501.  The server listens at once and answers ``/livez``;
 ``/readyz`` turns 200 once the CUDA graphs of the ``WARMUP`` and
 ``RM_WARMUP`` buckets are captured.  SIGTERM or SIGINT drains it: new
 requests shed with 503, in-flight ones finish within
@@ -222,12 +227,14 @@ def build_reranker(env, device=None, dtype=None):
     return reranker
 
 
-def build_chat_clients(config: ServeConfig):
+def build_chat_clients(config: ServeConfig, score_cache=None):
     """The chat client over the configured upstream endpoints (the stdlib
-    transport), and the multichat client over it.  Panels resolve
-    through an empty model registry (inline panels only) and archive
-    references through an empty archive, as the reference's service
-    starts."""
+    transport), and the multichat and score clients over it.  Panels
+    resolve through an empty model registry (inline panels only) and
+    archive references through an empty archive, as the reference's
+    service starts.  The score client answers a training-table panel
+    with 501 until ``build_server`` plugs the training-table fetcher
+    in."""
     from ..archive import InMemoryArchive
     from ..clients.chat import (
         ApiBase,
@@ -236,6 +243,7 @@ def build_chat_clients(config: ServeConfig):
         StdlibTransport,
     )
     from ..clients.multichat import MultichatClient
+    from ..clients.score import ScoreClient
     from ..registry import InMemoryModelRegistry
 
     up = config.upstream
@@ -253,24 +261,61 @@ def build_chat_clients(config: ServeConfig):
         judge_stream_max_bytes=up["judge_stream_max_bytes"],
         sse_max_event_bytes=up["sse_max_event_bytes"],
     )
+    models = InMemoryModelRegistry()
     multichat_client = MultichatClient(
-        chat_client, InMemoryModelRegistry(), archive_fetcher=store
+        chat_client, models, archive_fetcher=store
     )
-    return chat_client, multichat_client
+    score_client = ScoreClient(
+        chat_client, models, archive_fetcher=store, cache=score_cache,
+        host_fastpath=config.host_fastpath,
+    )
+    return chat_client, multichat_client, score_client
+
+
+def load_tables(config: ServeConfig):
+    """The training tables: ``TABLES_PATH``'s snapshot when it exists,
+    else empty; a set path must be writable (it is saved at close)."""
+    from ..weights.training_table import TrainingTableStore
+
+    path = config.tables_path
+    tables = (
+        TrainingTableStore.load(path)
+        if path and os.path.exists(path) else TrainingTableStore()
+    )
+    if path:
+        from ..utils.io import probe_writable_config
+
+        probe_writable_config(
+            path, "TABLES_PATH", "learned weights would be lost at shutdown"
+        )
+    return tables
 
 
 def build_server(embedder, reranker, config: ServeConfig,
                  host: str = "127.0.0.1", port: int = 0):
     """The ``Server`` the configuration describes (the device routes of
-    its models, the chat routes over its upstream), not ready until
-    ``warm_up``."""
+    its models, the chat and score routes over its upstream), not ready
+    until ``warm_up``.  With an embedder the score client's training-table
+    weights come from ``TorchTrainingTableFetcher`` on the server's
+    embedder and batcher (``server.tables``, saved to ``TABLES_PATH`` at
+    close); without one a training-table panel is a 501."""
     from ..resilience.admission import AdmissionConfig
+    from ..weights import WeightFetchers
+    from .config import score_caches
     from .gateway import Server
 
-    chat_client, multichat_client = build_chat_clients(config)
-    return Server(
+    score_cache, embed_cache = score_caches(config)
+    chat_client, multichat_client, score_client = build_chat_clients(
+        config, score_cache
+    )
+    tables = load_tables(config) if embedder is not None else None
+    batching = dict(config.packing)
+    if embedder is not None:
+        batching["embed_cache"] = embed_cache
+    server = Server(
         embedder, host=host, port=port, reranker=reranker,
         chat_client=chat_client, multichat_client=multichat_client,
+        score_client=score_client,
         max_batch=config.batch_max, window_ms=config.batch_window_ms,
         pipeline_depth=config.batch_pipeline,
         max_rows=config.batch_max_rows,
@@ -283,8 +328,23 @@ def build_server(embedder, reranker, config: ServeConfig,
         watchdog_ms=config.device_watchdog_millis,
         device_timing=config.metrics_device_timing,
         ready=False,
-        **config.packing,
+        **batching,
     )
+    server.tables = tables
+    if embedder is not None:
+        from ..weights.training_table import TorchTrainingTableFetcher
+
+        score_client.weight_fetchers = WeightFetchers(
+            training_table_fetcher=TorchTrainingTableFetcher(
+                embedder, tables, batcher=server.batcher
+            )
+        )
+        if config.tables_path:
+            server.on_close.append(
+                lambda: tables.save(config.tables_path))
+    if score_cache is not None:
+        server.on_close.append(score_cache.flush)
+    return server
 
 
 def warm_up(server, config: ServeConfig) -> list:
@@ -340,8 +400,9 @@ def main(argv=None) -> int:
     if embedder is not None:
         log.info("packing=%s", config.packing["packing"])
     log.info(
-        "serving /chat/completions and /multichat/completions on %s:%d "
-        "(%d upstream endpoints)%s", args.host, server.port,
+        "serving /chat/completions, /multichat/completions and "
+        "/score/completions on %s:%d (%d upstream endpoints)%s",
+        args.host, server.port,
         len(config.upstream["api_bases"]),
         "" if embedder or reranker
         else "; no EMBEDDER_MODEL or RM_MODEL: the chat routes only",

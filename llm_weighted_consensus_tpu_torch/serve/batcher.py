@@ -59,9 +59,22 @@ one ``stream_vote_update_tokens``: one encoder forward at the embed
 bucket, each vector written into its stream's buffer on the device, one
 vote launch with a count per stream, and one copy back of the wanted
 confidences; the buffers never leave the device.  Its counters are
-``stats()["stream"]``.  Left for later: ring and mesh dispatch, the CPU fallback and
-the per-row embedding cache; the reference's ``fallback_*`` and
-``shed_redispatch_limit`` keys read as their idle values.
+``stats()["stream"]``.
+
+With an ``embed_cache`` (a ``cache.EmbeddingCache``, ``SCORE_CACHE_EMBED``)
+an embedding request resolves its rows one by one before it queues, as
+the reference's ``embed`` does: a cached row skips the device, a row that
+a concurrent request is already computing is joined (the ``embed_cache``
+section of ``/metrics`` counts these ``inflight_collapses``), and only
+new rows ride a dispatch.  The join table is guarded by a lock, since
+callers are threads here.  A row whose peer's dispatch failed (or was
+cancelled by its caller) is computed again for this caller rather than
+inheriting the failure, and a caller's cancellation never cancels a row
+future that a peer has joined: it fails it, and the peer recomputes.
+
+Left for later: ring and mesh dispatch and the CPU fallback; the
+reference's ``fallback_*`` and ``shed_redispatch_limit`` keys read as
+their idle values.
 """
 
 from __future__ import annotations
@@ -70,7 +83,12 @@ import logging
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
+from concurrent.futures import (
+    CancelledError,
+    Future,
+    InvalidStateError,
+    ThreadPoolExecutor,
+)
 from typing import Optional
 
 import numpy as np
@@ -91,10 +109,11 @@ LANES = ("latency", "offline")
 class _Item:
     __slots__ = (
         "kind", "key", "payload", "future", "deadline", "submitted",
-        "prepared", "lane",
+        "prepared", "lane", "per_row",
     )
 
-    def __init__(self, kind, key, payload, deadline=None, lane="latency"):
+    def __init__(self, kind, key, payload, deadline=None, lane="latency",
+                 per_row=False):
         self.kind = kind  # "consensus", "embed" or "stream"
         self.key = key
         # consensus: (texts, temperature); embed: (texts, max_tokens);
@@ -106,6 +125,9 @@ class _Item:
         # the submit-time tokenization (a host-pool future), or None
         self.prepared = None
         self.lane = lane
+        # embed: resolve with the token count of each row (the row cache
+        # keeps them), not their sum
+        self.per_row = per_row
 
     @property
     def texts(self) -> list:
@@ -170,6 +192,7 @@ class DeviceBatcher:
         prefix_dedup: bool = True,
         prefix_dedup_min_chars: int = 48,
         host_tokenizer_workers: int = 2,
+        embed_cache=None,
     ) -> None:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -191,6 +214,12 @@ class DeviceBatcher:
         self.prefix_dedup = bool(prefix_dedup)
         self.prefix_dedup_min_chars = max(1, int(prefix_dedup_min_chars))
         self.host_tokenizer_workers = max(0, int(host_tokenizer_workers))
+        self.embed_cache = embed_cache
+        # row fingerprint -> the Future of the request computing it; the
+        # lock guards this table, the cache and the collapse counter
+        self._embed_lock = threading.Lock()
+        self._embed_inflight: dict = {}
+        self._embed_collapses = 0
         # one condition guards the queues, the in-flight table and every
         # counter below; the dispatch and waiter threads take it briefly
         self._cond = threading.Condition()
@@ -244,6 +273,16 @@ class DeviceBatcher:
         self._flusher.start()
         if metrics is not None:
             metrics.register_provider("device_batcher", self.utilization)
+            if embed_cache is not None:
+                metrics.register_provider(
+                    "embed_cache", self._embed_cache_stats
+                )
+
+    def _embed_cache_stats(self) -> dict:
+        with self._embed_lock:
+            stats = self.embed_cache.stats()
+            stats["inflight_collapses"] = self._embed_collapses
+        return stats
 
     # -- caller side ---------------------------------------------------------
 
@@ -265,9 +304,142 @@ class DeviceBatcher:
         priority: str = "latency",
     ) -> Future:
         """-> Future of (embeddings[B, H] np.ndarray, prompt token
-        count).  Padded embedding requests group by ``max_tokens``."""
-        key = PACKED_KEY if self.packing else ("embed", max_tokens)
-        return self._submit("embed", key, (list(texts), max_tokens), priority)
+        count).  Padded embedding requests group by ``max_tokens``.  With
+        an ``embed_cache``, rows resolve through it first (module doc)."""
+        texts = list(texts)
+        cache = self.embed_cache
+        if cache is None or not cache.enabled or not texts:
+            return self._submit("embed", self._embed_key(max_tokens),
+                                (texts, max_tokens), priority)
+        return self._submit_embed_cached(texts, max_tokens, priority)
+
+    def _embed_key(self, max_tokens):
+        return PACKED_KEY if self.packing else ("embed", max_tokens)
+
+    def _submit_embed_cached(self, texts, max_tokens, priority) -> Future:
+        """The reference's per-row cache path of ``embed`` on threads:
+        cached rows, joined rows and this call's own rows, combined into
+        one Future when the last of them resolves."""
+        from ..cache.fingerprint import embed_fingerprint
+
+        model_id = getattr(self.embedder, "model_name", "") or ""
+        fps = [embed_fingerprint(model_id, t, max_tokens) for t in texts]
+        rows: list = [None] * len(texts)
+        joins: list = []  # (row position, row Future: ours or a peer's)
+        own: list = []  # (fingerprint, row Future) this call computes
+        own_texts: list = []
+        with self._embed_lock:
+            for i, fp in enumerate(fps):
+                hit = self.embed_cache.get(fp)
+                if hit is not None:
+                    rows[i] = hit
+                    continue
+                fut = self._embed_inflight.get(fp)
+                if fut is None:
+                    fut = Future()
+                    self._embed_inflight[fp] = fut
+                    own.append((fp, fut))
+                    own_texts.append(texts[i])
+                else:
+                    # identical row already being computed (by a
+                    # concurrent request, or earlier in THIS text list)
+                    self._embed_collapses += 1
+                joins.append((i, fut))
+        out: Future = Future()
+        if own:
+            try:
+                inner = self._submit(
+                    "embed", self._embed_key(max_tokens),
+                    (own_texts, max_tokens),
+                    priority, per_row=True,
+                )
+            except BaseException as exc:
+                self._settle_rows(own, exc=exc)
+                raise
+            inner.add_done_callback(
+                lambda f: self._settle_rows(own, done=f))
+            # the caller leaving drops its dispatch; rows a peer joined
+            # fail (they are never cancelled) and the peer recomputes them
+            out.add_done_callback(
+                lambda f: inner.cancel() if f.cancelled() else None)
+        mine = {id(fut) for _, fut in own}
+        pending = [len(joins)]
+        lock = threading.Lock()
+
+        def combine() -> None:
+            retry = []
+            for i, fut in joins:
+                exc = (CancelledError() if fut.cancelled()
+                       else fut.exception())
+                if exc is None:
+                    rows[i] = fut.result()
+                elif id(fut) in mine:
+                    _resolve(out, exc=exc)  # this call's own dispatch
+                    return
+                else:
+                    retry.append(i)  # a peer's dispatch failed: recompute
+            if not retry:
+                _resolve(out, self._stack_rows(rows))
+                return
+            try:
+                again = self._submit(
+                    "embed", self._embed_key(max_tokens),
+                    ([texts[i] for i in retry], max_tokens), priority,
+                    per_row=True,
+                )
+            except BaseException as exc:
+                _resolve(out, exc=exc)
+                return
+
+            def refill(f: Future) -> None:
+                if f.cancelled() or f.exception() is not None:
+                    _resolve(out, exc=CancelledError() if f.cancelled()
+                             else f.exception())
+                    return
+                vecs, row_tokens = f.result()
+                for j, i in enumerate(retry):
+                    rows[i] = (vecs[j], int(row_tokens[j]))
+                _resolve(out, self._stack_rows(rows))
+
+            again.add_done_callback(refill)
+
+        def joined(_f) -> None:
+            with lock:
+                pending[0] -= 1
+                last = pending[0] == 0
+            if last:
+                combine()
+
+        if not joins:
+            _resolve(out, self._stack_rows(rows))
+        for _, fut in joins:
+            fut.add_done_callback(joined)
+        return out
+
+    def _settle_rows(self, own: list, done: Future = None, exc=None) -> None:
+        """Resolve this call's row Futures from its dispatch ``done`` (or
+        fail them with ``exc``), caching the rows of a success and
+        freeing their join-table entries."""
+        if done is not None:
+            exc = CancelledError() if done.cancelled() else done.exception()
+        values = None
+        if exc is None:
+            vecs, row_tokens = done.result()
+            values = [(np.array(vecs[j], dtype=np.float32),
+                       int(row_tokens[j])) for j in range(len(own))]
+        with self._embed_lock:
+            for j, (fp, _) in enumerate(own):
+                if self._embed_inflight.get(fp) is own[j][1]:
+                    del self._embed_inflight[fp]
+                if values is not None:
+                    self.embed_cache.put_row(fp, *values[j])
+        for j, (_, fut) in enumerate(own):
+            _resolve(fut, None if values is None else values[j], exc=exc)
+
+    @staticmethod
+    def _stack_rows(rows: list) -> tuple:
+        return (np.stack([r[0] for r in rows]).astype(np.float32, copy=False),
+                int(sum(r[1] for r in rows)))
 
     def submit_stream(
         self, text: str, buf, position: int, temperature: float = 0.05,
@@ -305,7 +477,8 @@ class DeviceBatcher:
             future.cancel()
             raise
 
-    def _submit(self, kind, key, payload, priority) -> Future:
+    def _submit(self, kind, key, payload, priority,
+                per_row: bool = False) -> Future:
         offline = priority == "offline"
         with self._cond:
             if self._closed:
@@ -322,7 +495,8 @@ class DeviceBatcher:
                                      error=True)
             raise OverloadedError("batcher_queue_full")
         item = _Item(kind, key, payload, current_deadline(),
-                     lane="offline" if offline else "latency")
+                     lane="offline" if offline else "latency",
+                     per_row=per_row)
         if self._tok_pool is not None:
             # submit-time tokenization: the rows (or the packed plan)
             # build now, overlapping earlier groups' device time
@@ -548,6 +722,8 @@ class DeviceBatcher:
             self._finish(group, t0, token, wd, error=True)
             return
         for item, result in zip(group, results):
+            if item.kind == "embed" and not item.per_row:
+                result = (result[0], int(np.sum(result[1])))
             _resolve(item.future, result)
         self._finish(group, t0, token, wd, error=False)
 
@@ -673,8 +849,7 @@ class DeviceBatcher:
             out, start = [], 0
             for count in counts:
                 stop = start + count
-                out.append((vecs[start:stop],
-                            int(row_tokens[start:stop].sum())))
+                out.append((vecs[start:stop], row_tokens[start:stop]))
                 start = stop
             return out
 
@@ -892,7 +1067,7 @@ class DeviceBatcher:
             )
             for row, i in enumerate(idxs):
                 vecs[row] = seg_vecs[i]
-            return vecs, int(sum(len(segments[i]) for i in idxs))
+            return vecs, [len(segments[i]) for i in idxs]
         if plan[0] == "consensus_dedup":
             _, prefix, suffixes, temperature = plan
             p_tok = len(segments[prefix])
@@ -927,7 +1102,7 @@ class DeviceBatcher:
                                          embedder.MAX_DEVICE_BATCH)
                 * ids.shape[1],
             )
-            return embedder.embed_tokens(ids, mask), int(mask.sum())
+            return embedder.embed_tokens(ids, mask), mask.sum(axis=1)
         texts, temperature = item.payload
         ids, mask = embedder.tokenize(texts)
         self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)

@@ -1,7 +1,8 @@
-"""The chat routes of the port's server: ``POST /chat/completions`` and
-``POST /multichat/completions``, on the stdlib server's threads.
+"""The chat routes of the port's server: ``POST /chat/completions``,
+``POST /multichat/completions`` and ``POST /score/completions``, on the
+stdlib server's threads.
 
-Counterpart of the chat and multichat parts of
+Counterpart of the chat, score and multichat parts of
 ``llm_weighted_consensus_tpu/serve/gateway.py`` (``_make_handler``,
 ``_respond_streaming``, ``_with_consensus_frames``,
 ``_multichat_streaming``, ``_multichat_unary``, ``_error_response``,
@@ -20,6 +21,9 @@ Counterpart of the chat and multichat parts of
   ``stream`` kind), or, unary, votes once over the finished candidates
   (the batcher's ``consensus``); an embedder failure degrades to plain
   multichat in both;
+* ``/score/completions`` is the score client's (``clients/score.py``):
+  chunk frames and, when every judge failed, the ``AllVotesFailed``
+  envelope as the last frame; unary, that error's status and message;
 * an error before the stream opens is the reference's error response
   (503 with ``Retry-After`` for a shed, a ``StatusError``'s status and
   message, else the masked 500 envelope).
@@ -30,13 +34,17 @@ handler thread submits its request's coroutine there, which puts frames
 on a queue the handler thread drains onto the socket.  A client that goes
 away (a write fails, or, while the stream is quiet, its socket reads as
 closed) cancels the coroutine, whose cleanup closes the upstream streams
-and drops the request's queued device work.
+and drops the request's queued device work.  Each coroutine starts from a
+fresh default ``decimal`` context (28 digits, as on the reference's loop):
+``asyncio`` copies the submitting thread's context into the task, and the
+score tally's fast lane reads ``decimal.getcontext().prec``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import decimal
 import logging
 import queue
 import select
@@ -56,6 +64,7 @@ from ..types.chat_request import ChatCompletionCreateParams as ChatParams
 from ..types.multichat_request import (
     ChatCompletionCreateParams as MultichatParams,
 )
+from ..types.score_request import ChatCompletionCreateParams as ScoreParams
 from ..utils import jsonutil
 
 log = logging.getLogger("lwc.torch.gateway")
@@ -240,6 +249,7 @@ async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
     """Open the stream and put its frames on ``frames`` (runs on the
     loop; the deadline is activated in this task's own context, so the
     tasks it spawns inherit it)."""
+    decimal.setcontext(decimal.Context())
     if deadline is not None:
         deadline.activate()
     try:
@@ -266,18 +276,19 @@ async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
 
 
 async def _unary(create_unary, ctx, params, deadline):
+    decimal.setcontext(decimal.Context())
     if deadline is not None:
         deadline.activate()
     return await create_unary(ctx, params)
 
 
 class ChatRoutes:
-    """The routes a chat client (and a multichat client) serve: path ->
-    (request type, create_streaming, create_unary), and the loop their
-    coroutines run on."""
+    """The routes a chat client (and a multichat client, and a score
+    client) serve: path -> (request type, create_streaming,
+    create_unary), and the loop their coroutines run on."""
 
     def __init__(self, chat_client, multichat_client=None, embedder=None,
-                 batcher=None, metrics=None) -> None:
+                 batcher=None, metrics=None, score_client=None) -> None:
         self.loop = EventLoop()
         self.routes = {
             "/chat/completions": (
@@ -291,6 +302,11 @@ class ChatRoutes:
                 multichat_streaming(multichat_client, embedder, metrics,
                                     batcher),
                 multichat_unary(multichat_client, embedder, batcher),
+            )
+        if score_client is not None:
+            self.routes["/score/completions"] = (
+                ScoreParams, score_client.create_streaming,
+                score_client.create_unary,
             )
 
     def close(self) -> None:

@@ -66,6 +66,34 @@ The upstream knobs of ``/chat/completions`` and ``/multichat/completions``
   ``0`` = uncapped;
 * ``FAKE_UPSTREAM_DELAY_MS`` — with ``--fake-upstream``, a sleep before
   the scripted provider's first frame (read per request).
+
+The score route's knobs (``/score/completions``), with the reference's
+names and defaults:
+
+* ``TABLES_PATH`` — ``.npz`` snapshot of the judges' training tables
+  (``weights/training_table.py``, the reference's layout): loaded at
+  startup when present, probed for writability at startup, saved when
+  the server closes;
+* ``HOST_FASTPATH`` — fold the tally on scaled-int64 vectors
+  (``clients/tally.py``) with the Decimal fold as the authority; the
+  bytes are the same either way.  Default ``0``;
+* ``SCORE_CACHE_TTL`` — seconds a cached consensus result stays
+  servable; ``0`` (the default) disables the result cache.  When > 0,
+  identical score requests within the TTL replay the recorded frames,
+  and identical concurrent requests collapse onto one judge fan-out
+  (``"cache_bypass": true`` opts a request out);
+* ``SCORE_CACHE_MAX_BYTES`` — byte budget of the score result LRU.
+  Default 67108864 (64 MiB);
+* ``SCORE_CACHE_DIR`` — append-only JSONL disk tier of the score cache;
+  unset = memory only;
+* ``SCORE_CACHE_EMBED`` — also memoize embedding rows per (model,
+  truncation window, text) in the batcher.  Defaults on whenever
+  ``SCORE_CACHE_TTL`` > 0; ``0`` disables;
+* ``SCORE_CACHE_EMBED_MAX_BYTES`` — byte budget of the embedding row
+  cache.  Default 33554432 (32 MiB).
+
+The caches' counters are the ``score_cache`` and ``embed_cache`` sections
+of ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -225,6 +253,13 @@ class ServeConfig:
     metrics_device_timing: bool = True
     packing: dict = field(default_factory=lambda: packing_options({}))
     upstream: dict = field(default_factory=lambda: upstream_options({}))
+    tables_path: Optional[str] = None
+    host_fastpath: bool = False
+    score_cache_ttl_sec: float = 0.0
+    score_cache_max_bytes: int = 64 * 1024 * 1024
+    score_cache_dir: Optional[str] = None
+    score_cache_embed: bool = False
+    score_cache_embed_max_bytes: int = 32 * 1024 * 1024
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
@@ -259,6 +294,23 @@ class ServeConfig:
             ),
             packing=packing_options(env),
             upstream=upstream_options(env),
+            tables_path=env.get("TABLES_PATH"),
+            host_fastpath=env_truthy(env.get("HOST_FASTPATH", "0")),
+            score_cache_ttl_sec=max(0.0, get_f("SCORE_CACHE_TTL", 0)),
+            score_cache_max_bytes=_non_negative_int(
+                env, "SCORE_CACHE_MAX_BYTES", 64 * 1024 * 1024
+            ),
+            score_cache_dir=env.get("SCORE_CACHE_DIR"),
+            score_cache_embed=env_truthy(
+                env.get(
+                    "SCORE_CACHE_EMBED",
+                    "1" if float(env.get("SCORE_CACHE_TTL", 0) or 0) > 0
+                    else "0",
+                )
+            ),
+            score_cache_embed_max_bytes=_non_negative_int(
+                env, "SCORE_CACHE_EMBED_MAX_BYTES", 32 * 1024 * 1024
+            ),
         )
         if config.drain_timeout_millis < 0:
             raise ValueError(
@@ -295,3 +347,23 @@ class ServeConfig:
             b *= 2
         buckets.extend((1, l, k) for l in _L_BUCKETS if l < l_top)
         return buckets
+
+
+def score_caches(config: ServeConfig) -> tuple:
+    """(score cache, embedding row cache) of the configuration, each None
+    when off, as the reference's server builds them."""
+    if config.score_cache_ttl_sec <= 0:
+        return None, None
+    from ..cache import EmbeddingCache, ScoreCache
+
+    score_cache = ScoreCache(
+        config.score_cache_ttl_sec,
+        config.score_cache_max_bytes,
+        config.score_cache_dir,
+    )
+    embed_cache = None
+    if config.score_cache_embed:
+        embed_cache = EmbeddingCache(
+            config.score_cache_ttl_sec, config.score_cache_embed_max_bytes
+        )
+    return score_cache, embed_cache

@@ -20,6 +20,9 @@ bodies, responses and input validation:
   the server has a chat client: streamed as SSE ``data:`` frames (with
   live ``multichat.consensus`` frames for ``"consensus": true`` when an
   embedder is configured) or unary;
+* ``POST /score/completions`` — the weighted-consensus judge panel
+  (``clients/score.py``), when the server has a score client, streamed or
+  unary as the chat routes are;
 * ``GET /healthz`` -> ``{"ok": true}``;
 * ``GET /livez`` -> ``{"ok": true}`` while the process answers;
 * ``GET /readyz`` -> 200 ``{"ready": true}`` once warmup has finished
@@ -399,10 +402,14 @@ class Server:
     metrics, and its serving thread, for an embedder (``/consensus``
     cosine, ``/embeddings``), a reranker (``/consensus`` rm), a chat
     client (``/chat/completions``; with a multichat client also
-    ``/multichat/completions``, whose consensus needs the embedder), or
-    any mix; a server with a chat client only serves the host routes, as
-    the reference can.  The chat routes' coroutines run on one asyncio
-    loop the server owns (``serve/chat_routes.py``).
+    ``/multichat/completions``, whose consensus needs the embedder; with
+    a score client also ``/score/completions``, and the ``score_cache``
+    section of ``/metrics`` when it has a cache), or any mix; a server
+    with a chat client only serves the host routes, as the reference
+    can.  The chat routes' coroutines run on one asyncio loop the server
+    owns (``serve/chat_routes.py``).  ``on_close`` hooks run after the
+    batcher stops (``build_server`` saves the training tables and
+    flushes the score cache's disk tier there).
     ``port=0`` binds an ephemeral port (``.port`` says which).
 
     Batching options go to the ``DeviceBatcher`` as they are
@@ -431,6 +438,7 @@ class Server:
         ready: bool = True,
         chat_client=None,
         multichat_client=None,
+        score_client=None,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -441,8 +449,10 @@ class Server:
             raise ValueError(
                 "a server needs an embedder, a reranker or a chat client"
             )
-        if multichat_client is not None and chat_client is None:
-            raise ValueError("a multichat client needs the chat client")
+        if (multichat_client is not None or score_client is not None) \
+                and chat_client is None:
+            raise ValueError(
+                "a multichat or score client needs the chat client")
         self.embedder = embedder
         self.reranker = reranker
         for model in (embedder, reranker):
@@ -478,9 +488,23 @@ class Server:
         register_graphs(self.metrics, embedder=embedder, reranker=reranker)
         self.chat_routes = (
             ChatRoutes(chat_client, multichat_client, embedder, self.batcher,
-                       self.metrics)
+                       self.metrics, score_client=score_client)
             if chat_client is not None else None
         )
+        self.score_client = score_client
+        cache = getattr(score_client, "cache", None)
+        if cache is not None:
+            flights = score_client.flights
+
+            def score_cache_stats():
+                stats = cache.stats()
+                stats["inflight_collapses"] = flights.collapses
+                return stats
+
+            self.metrics.register_provider("score_cache", score_cache_stats)
+        # run at close, after the batcher stops (the training tables'
+        # snapshot, the score cache's disk flush)
+        self.on_close: list = []
         self.httpd = _HTTPServer(
             (host, port),
             make_handler(embedder, self.batcher, reranker, self.metrics,
@@ -541,6 +565,12 @@ class Server:
             self.batcher.close()
         if self.watchdog is not None:
             self.watchdog.stop()
+        hooks, self.on_close = self.on_close, []
+        for hook in hooks:
+            try:
+                hook()
+            except Exception:
+                log.exception("close hook failed")
 
     def __enter__(self):
         return self.start()

@@ -14,7 +14,10 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
   reference's ``jit`` section);
 * ``admission``, ``device_watchdog`` and ``lifecycle`` (overload);
 * ``kernels``: the kernel wrappers' launch and route counters
-  (``ops/launches.py``), replays included.
+  (``ops/launches.py``), replays included;
+* ``score_cache`` and ``embed_cache``: the caches' counters
+  (``cache/store.py``) with their in-flight collapses, when
+  ``SCORE_CACHE_TTL`` turns them on.
 
 Two expositions off one store: the JSON snapshot (the reference's shape)
 and, with ``?format=prometheus``, OpenMetrics text whose shared families
@@ -40,6 +43,8 @@ KNOWN_SECTIONS = (
     "phases",
     "graphs",
     "kernels",
+    "score_cache",
+    "embed_cache",
 )
 
 PROM_CONTENT_TYPE = (

@@ -27,7 +27,10 @@ and its plain version) and 2e-2 + 2e-2 |want| (bf16: one ulp at |x| ~ 4),
 quantized bge_micro confidences card vs CPU 1e-3 (an upstream ulp can
 flip one int8 rounding); the tiny DeBERTa reward model's confidences card
 vs CPU 1e-5 (f32), 1e-3 quantized, and its packed rewards against
-per-row ones on the card 1e-5.
+per-row ones on the card 1e-5; the training-table lookup on the card
+against the CPU 1e-6 relative (ties in index order), and one
+trained-weight score request on bge_micro card vs CPU 1e-5 relative on
+the weights, the rest of its final frame equal.
 """
 
 import os
@@ -1187,3 +1190,152 @@ def test_stream_vote_update_many_matches_single_updates(base_model):
         assert _max_abs(buf.cpu(), bufs[i].cpu()) <= 1e-5
         assert (many[i][counts[i] + 1:] == 0).all()
         assert abs(float(many[i].sum()) - 1.0) <= 1e-5
+
+
+# -- the score path: the training-table lookup and one request --------------
+
+
+def _tie_tables(seed=3, j=5, t=12, d=24):
+    """Per-judge tables with padded rows and, in judge 4, six identical
+    nearest rows with different scores (exact ties at the k-th place)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=d).astype(np.float32)
+    tables = rng.normal(size=(j, t, d)).astype(np.float32)
+    mask = np.ones((j, t), np.float32)
+    mask[1, 3:] = 0
+    mask[2, 1:] = 0
+    near = q + 0.3 * rng.normal(size=d).astype(np.float32)
+    for r in (0, 1, 2, 3, 4, 10):
+        tables[4, r] = near
+    tables[mask == 0] = 0.0
+    scores = rng.random((j, t)).astype(np.float32)
+    lo = np.ones(j, np.float32)
+    hi = np.full(j, 5.0, np.float32)
+    return tables, mask, scores, q, lo, hi
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 12, 40])
+def test_lookup_tie_order_and_weights_on_the_card(card, k):
+    """The stable top-k picks the lower index among ties on the card as
+    on the CPU (``jax.lax.top_k``'s order), and the weights match the
+    CPU's within 1e-6 relative."""
+    from llm_weighted_consensus_tpu_torch.ops import similarity
+
+    args = _tie_tables()
+    sims = torch.tensor(args[0][4] @ args[3], device=card)
+    sims[:] = sims[0]  # every row tied
+    _, idx = similarity._top_k(sims, min(k, sims.shape[0]))
+    assert idx.tolist() == list(range(min(k, sims.shape[0])))
+    want = similarity.training_table_weights_batched(
+        *map(torch.from_numpy, args), k).numpy()
+    got = similarity.training_table_weights_batched(
+        *(torch.from_numpy(a).to(card) for a in args), k).cpu().numpy()
+    assert got.dtype == np.float32
+    assert np.max(np.abs(got - want) / np.abs(want)) <= 1e-6
+
+
+def test_one_score_request_with_trained_weights_on_the_card(card):
+    """One training-table score request on bge_micro through the port's
+    ScoreClient and the batcher on the card, against the same request on
+    the CPU: weights within 1e-5 relative, the rest of the final frame
+    equal."""
+    import asyncio
+    import random
+
+    from llm_weighted_consensus_tpu_torch import archive, registry
+    from llm_weighted_consensus_tpu_torch.clients import chat as chat_mod
+    from llm_weighted_consensus_tpu_torch.clients.score import ScoreClient
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+    from llm_weighted_consensus_tpu_torch.types.score_request import (
+        ChatCompletionCreateParams,
+    )
+    from llm_weighted_consensus_tpu_torch.weights import WeightFetchers
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TorchTrainingTableFetcher,
+        TrainingTableStore,
+    )
+
+    class Upstream(chat_mod.Transport):
+        """Every judge picks the ballot's first key."""
+
+        async def post_sse(self, url, headers, body):
+            import json
+
+            req = json.loads(body)
+            ballot = req["messages"][-1]["content"]
+            key = ballot.split('"', 2)[1]
+
+            class Resp(chat_mod.TransportResponse):
+                status = 200
+
+                async def read_body(self):
+                    return b""
+
+                async def byte_stream(self):
+                    chunk = {"id": "u", "object": "chat.completion.chunk",
+                             "created": 1, "model": req["model"],
+                             "choices": [{"index": 0, "delta": {
+                                 "content": f"pick {key}"},
+                                 "finish_reason": "stop"}]}
+                    yield f"data: {json.dumps(chunk)}\n\n".encode()
+                    yield b"data: [DONE]\n\n"
+
+            return Resp()
+
+    body = {
+        "messages": [{"role": "user", "content": "the capital of france"}],
+        "model": {"llms": [{"model": f"judge-{i}", "weight": {
+            "type": "training_table", "base_weight": 1, "min_weight": 1,
+            "max_weight": 5}} for i in range(3)],
+            "weight": {"type": "training_table",
+                       "embeddings": {"model": "bge-micro",
+                                      "max_tokens": 32}, "top": 2}},
+        "choices": ["paris", "lyon", "nice"],
+    }
+    model = ModelBase.from_json_obj(body["model"]).into_model_validate()
+    finals = {}
+    for device in ("cpu", "cuda"):
+        emb = _micro_embedder(device)
+        store = TrainingTableStore()
+        rows = emb.embed_texts(["paris is in france", "lyon", "rivers",
+                                "france", "capital cities"])
+        for llm in model.llms[:2]:
+            store.add_rows(llm.training_table_id, rows,
+                           np.random.default_rng(7).random(len(rows)))
+        with DeviceBatcher(emb, window_ms=1) as batcher:
+            client = ScoreClient(
+                chat_mod.DefaultChatClient(
+                    Upstream(), [chat_mod.ApiBase("https://u", "k")],
+                    backoff=chat_mod.BackoffPolicy(max_elapsed_ms=0)),
+                registry.InMemoryModelRegistry(),
+                archive_fetcher=archive.InMemoryArchive(),
+                weight_fetchers=WeightFetchers(
+                    training_table_fetcher=TorchTrainingTableFetcher(
+                        emb, store, batcher=batcher)),
+                rng_factory=lambda: random.Random(5))
+            params = ChatCompletionCreateParams.from_json_obj(body)
+            result = asyncio.new_event_loop().run_until_complete(
+                client.create_unary(None, params))
+        finals[device] = result.to_json_obj()
+    got, want = finals["cuda"], finals["cpu"]
+    w_got = [float(c["weight"]) for c in got["choices"]]
+    w_want = [float(c["weight"]) for c in want["choices"]]
+    assert np.max(np.abs(np.subtract(w_got, w_want))
+                  / np.maximum(np.abs(w_want), 1e-30)) <= 1e-5
+    for obj in (got, want):
+        obj["id"] = obj["created"] = None
+        obj.pop("weight_data")
+        for c in obj["choices"]:
+            c["weight"] = c["confidence"] = None
+    assert got == want
+
+
+def _micro_embedder(device):
+    cfg = loading.load_hf_config(FIXTURE)
+    model = loading.load_params(FIXTURE, cfg, dtype=torch.float32,
+                                device=device)
+    return TorchEmbedder("bge-micro", model=model, config=cfg,
+                         tokenizer=tokenizer.load_tokenizer(
+                             loading.find_vocab(FIXTURE)),
+                         max_tokens=64, device=device, dtype=torch.float32)

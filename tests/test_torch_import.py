@@ -88,7 +88,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "identity.model", "identity.xxh3", "registry", "archive",
         "resilience.budget", "clients.sse", "clients.chat", "clients.params",
         "clients.score", "clients.multichat", "serve.chat_routes",
-        "serve.fake_upstream",
+        "serve.fake_upstream", "utils.io", "ballot", "ballot.tree",
+        "ballot.vote", "ballot.prompting", "clients.tally", "weights",
+        "weights.training_table", "cache", "cache.fingerprint",
+        "cache.singleflight", "cache.store", "cache.replay",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 
