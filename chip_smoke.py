@@ -180,7 +180,33 @@ Phases, each printing one JSON line:
    one collapse.  It prints requests/s and client p50 for both weight
    kinds, the server's weight-fetch p50, one fetch by part (prompt embed,
    host padding, upload, lookup) and under torch.profiler, the embed
-   dispatches and rows per dispatch, upstream calls, hits and collapses.
+   dispatches and rows per dispatch, upstream calls, hits and collapses;
+12. archive path (``/archive/rescore``, ``/weights/learn``): the device
+   tally (``tally``, ``tally_batch``, ``judge_confidence``,
+   ``incremental_tally``) on the card against the exact Decimal host
+   tally and float64 (``TALLY_TOL``), with failed judges and an
+   all-failed request, TF32 off, and ``softmax_votes`` against its CPU
+   run with ids of -1 and past N and rows without a valid alternative;
+   BASELINE config 4 (``bench_all.py:374-402``: 10,000 completions of
+   M = 8, N = 4, seed 0) through ``rescore_batch`` on prebuilt arrays and
+   through ``rescore_archive`` over an archive of 10,000 wire-type
+   completions, completions/s with the host's extraction time and the
+   device's (CUDA events) apart; bge_micro completions re-scored
+   (plain, ``revote``, an override) and learned from on the card and on
+   the CPU; then phase 11's panel at bge-large width through
+   ``build_embedder``, ``build_server`` and ``warm_up`` with
+   ``ARCHIVE_PATH``, ``TABLES_PATH`` and ``ARCHIVE_STREAMING=1``: 16
+   streamed and 4 unary training-table requests, one taking an archived
+   choice by id; ``/archive/rescore`` plain, with ``revote`` (and every
+   judge's soft vote re-extracted on the card against its stored one),
+   with a weight override (against an exact Decimal re-tally) and with
+   ``apply`` (the next fetch sees it); ``/weights/learn`` twice (the
+   rows against the archive's count, then 0; 24 ``tma`` attention
+   launches per embed dispatch, none captured after warmup; the rows
+   against ``embed_texts`` of the same prompts within ``LEARN_ROW_TOL``);
+   the snapshot saved at close loaded anew.  It prints the rescore
+   route's wall with its host and device parts and the learn pass's
+   wall, embed device time and dispatches (eager ones apart).
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -359,6 +385,20 @@ LOOKUP_F64_TOL = 1e-5
 # the prompt embed's dispatch shapes: 16 rows at the sequence buckets the
 # prompts fall in (phase 2 holds and times the attention there)
 SCORE_ATTENTION_SHAPES = ((16, 96), (16, 112))
+# the archive path (phase 12): BASELINE config 4 (bench_all.py:374-402),
+# 10,000 archived completions of M = 8 judges and N = 4 candidates from
+# seed 0; then the served loop on phase 11's panel: 16 streamed and 4
+# unary training-table requests, 8 in flight
+ARCHIVE_B, ARCHIVE_M, ARCHIVE_N = 10000, 8, 4
+ARCHIVE_STREAMED, ARCHIVE_UNARY = 16, 4
+# the device tally (f32) against the exact Decimal host tally and float64:
+# absolute on confidences, relative past 1 on choice weights
+TALLY_TOL = 1e-6
+# learned table rows against embed_texts of the same prompts on the card
+LEARN_ROW_TOL = 1e-5
+# the learn pass embeds the 20 archived prompts in one dispatch: the embed
+# bucket of 32 rows at s=112 (phase 2 holds and times the attention there)
+ARCHIVE_ATTENTION_SHAPE = (32, 112)
 
 
 def emit(obj) -> None:
@@ -907,7 +947,7 @@ def check_attention(gpu: str) -> dict:
     # requests coalesced (the bursts), 16 candidates in the s=512 bucket
     # and the /embeddings batch of 32 texts at s=64
     for b, s in (MAIN_PATH_ATTENTION_SHAPES + (STREAM_ATTENTION_SHAPE,)
-                 + SCORE_ATTENTION_SHAPES):
+                 + SCORE_ATTENTION_SHAPES + (ARCHIVE_ATTENTION_SHAPE,)):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, bias = attention_inputs(b, s, nh, hd, dtype, seed=b + s)
@@ -4628,8 +4668,744 @@ def score_path(gpu: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# -- phase 12: the archive path ---------------------------------------------------
+
+
+def tally_votes(rng, shape):
+    """Soft-vote rows summing to 1, every third row one-hot."""
+    import numpy as np
+
+    v = rng.random(shape).astype(np.float32) ** 3
+    v /= v.sum(axis=-1, keepdims=True)
+    flat = v.reshape(-1, shape[-1])
+    for r in range(0, len(flat), 3):
+        flat[r] = 0.0
+        flat[r, rng.integers(0, shape[-1])] = 1.0
+    return flat.reshape(shape)
+
+
+def decimal_tally(votes, weights, mask=None) -> tuple:
+    """The host tally's arithmetic in exact Decimal on the same f32
+    values: (choice weight, confidence) as floats."""
+    from decimal import Decimal
+
+    m, n = votes.shape
+    cw = [Decimal(0)] * n
+    for j in range(m):
+        w = Decimal(repr(float(weights[j])))
+        if mask is not None:
+            w *= Decimal(repr(float(mask[j])))
+        for i in range(n):
+            cw[i] += Decimal(repr(float(votes[j, i]))) * w
+    total = sum(cw)
+    return ([float(c) for c in cw],
+            [float(c / total) if total > 0 else 0.0 for c in cw])
+
+
+def tally_f64(votes, weights, mask=None) -> tuple:
+    """(choice weight, confidence) in float64 numpy over the last two
+    axes."""
+    import numpy as np
+
+    w = weights.astype(np.float64)
+    if mask is not None:
+        w = w * mask
+    cw = np.einsum("...m,...mn->...n", w, votes.astype(np.float64))
+    total = cw.sum(axis=-1, keepdims=True)
+    conf = np.divide(cw, total, out=np.zeros_like(cw), where=total > 0)
+    return cw, conf
+
+
+def weight_err(got, want) -> float:
+    """Largest difference of choice weights, relative past 1 (a weight of
+    32 judges holds f32 ulps of 4e-6)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want)),
+                        initial=0.0))
+
+
+def soft_vote_inputs(rng, m, k, n):
+    """``softmax_votes`` inputs with an id of -1, ids of n and past it
+    (``jax.nn.one_hot``'s zero rows), a row without a valid alternative
+    and a row of invalid ids."""
+    import numpy as np
+
+    lp = np.log(rng.random((m, k)).astype(np.float32) + 1e-3)
+    ids = rng.integers(0, n, (m, k)).astype(np.int64)
+    valid = (rng.random((m, k)) > 0.3).astype(np.float32)
+    ids[0, 0], valid[0, 0] = -1, 1.0
+    ids[1, :2], valid[1, :2] = [n, n + 7], 1.0
+    valid[2] = 0.0
+    ids[3], valid[3] = -1, 1.0
+    return lp, ids, valid
+
+
+def check_device_tally(gpu: str) -> dict:
+    """The device tally on the card against the Decimal host tally and
+    float64 numpy (``TALLY_TOL`` absolute on confidences, relative past 1
+    on choice weights), with failed judges (``vote_mask`` 0) and an
+    all-failed request (zeros, not NaN); ``softmax_votes`` on the card
+    against its CPU run."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.ops import consensus, votes
+
+    rng = np.random.default_rng(12)
+    worst = {"tally_vs_f64": 0.0, "tally_vs_decimal": 0.0,
+             "judge_confidence": 0.0, "tally_batch": 0.0,
+             "judge_confidence_batch": 0.0, "incremental_tally": 0.0,
+             "softmax_votes_vs_cpu": 0.0, "sum_err": 0.0}
+
+    def upd(key, err):
+        worst[key] = max(worst[key], float(err))
+
+    for m, n in ((ARCHIVE_M, ARCHIVE_N), (SCORE_JUDGES, SCORE_N), (5, 3)):
+        v = tally_votes(rng, (m, n))
+        w = rng.uniform(0.5, 3.0, m).astype(np.float32)
+        mask = (rng.random(m) > 0.25).astype(np.float32)
+        mask[0] = 0.0
+        cw, conf = consensus.tally(v, w, mask, device="cuda")
+        if cw.device.type != "cuda":
+            raise AssertionError("tally left the card")
+        cw, conf = cw.cpu().numpy(), conf.cpu().numpy()
+        cw64, conf64 = tally_f64(v, w, mask)
+        dcw, dconf = decimal_tally(v, w, mask)
+        upd("tally_vs_f64", max(weight_err(cw, cw64),
+                                np.abs(conf - conf64).max()))
+        upd("tally_vs_decimal", max(weight_err(cw, dcw),
+                                    np.abs(conf - dconf).max()))
+        upd("sum_err", abs(float(conf.sum(dtype=np.float64)) - 1.0))
+        jc = consensus.judge_confidence(v, conf, device="cuda").cpu().numpy()
+        upd("judge_confidence", np.abs(jc - v.astype(np.float64) @ conf64)
+            .max())
+        # every judge failed: zeros, not NaN
+        cw0, conf0 = consensus.tally(v, w, np.zeros(m, np.float32),
+                                     device="cuda")
+        if cw0.abs().sum() or conf0.abs().sum() or not bool(
+                consensus.all_failed(np.zeros(m), device="cuda")):
+            raise AssertionError("an all-failed tally is not zero")
+    b, m, n = 64, ARCHIVE_M, ARCHIVE_N
+    v = tally_votes(rng, (b, m, n))
+    w = rng.uniform(0.5, 3.0, (b, m)).astype(np.float32)
+    mask = (rng.random((b, m)) > 0.25).astype(np.float32)
+    mask[5] = 0.0
+    cw, conf = consensus.tally_batch(v, w, mask, device="cuda")
+    jc = consensus.judge_confidence_batch(v, conf, device="cuda")
+    cw, conf, jc = (t.cpu().numpy() for t in (cw, conf, jc))
+    cw64, conf64 = tally_f64(v, w, mask)
+    upd("tally_batch", max(weight_err(cw, cw64), np.abs(conf - conf64).max()))
+    upd("judge_confidence_batch", np.abs(
+        jc - np.einsum("bmn,bn->bm", v.astype(np.float64), conf64)).max())
+    sums = conf.sum(axis=1, dtype=np.float64)
+    if not np.isfinite(conf).all() or sums[5] != 0.0:
+        raise AssertionError("tally_batch: the all-failed row is not zero")
+    upd("sum_err", np.abs(np.delete(sums, 5) - 1.0).max())
+    running = torch.zeros(n, device="cuda")
+    for j in range(m):
+        running, conf = consensus.incremental_tally(running, v[0, j],
+                                                    float(w[0, j]))
+    cw64, conf64 = tally_f64(v[0], w[0])
+    upd("incremental_tally", max(weight_err(running.cpu().numpy(), cw64),
+                                 np.abs(conf.cpu().numpy() - conf64).max()))
+    for m, k, n in ((ARCHIVE_M * 64, 20, ARCHIVE_N), (SCORE_JUDGES, 8,
+                                                       SCORE_N), (5, 3, 2)):
+        lp, ids, valid = soft_vote_inputs(rng, m, k, n)
+        got = votes.softmax_votes(lp, ids, valid, n, device="cuda")
+        want = votes.softmax_votes(lp, ids, valid, n, device="cpu")
+        got = got.cpu().numpy()
+        upd("softmax_votes_vs_cpu", np.abs(got - want.numpy()).max())
+        if got[2].any() or got[3].any() or not np.isfinite(got).all():
+            raise AssertionError("softmax_votes: an invalid row is not zero")
+    row = {"phase": "device_tally", "gpu": gpu, "max_err": worst,
+           "tolerance": TALLY_TOL,
+           "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32]}
+    emit(row)
+    if max(worst.values()) > TALLY_TOL or any(row["tf32"]):
+        raise AssertionError(f"device_tally: {row}")
+    return row
+
+
+class CallTimer:
+    """Wraps ``owner.name`` while it lives: each call's wall ms and, on
+    the card, the device ms between CUDA events recorded before and after
+    it on the calling thread's stream (None on the CPU)."""
+
+    def __init__(self, owner, name: str, device: str = "cuda") -> None:
+        import torch
+
+        self.owner, self.name = owner, name
+        self.real = getattr(owner, name)
+        self.calls = []
+        on_card = device == "cuda"
+
+        def timed(*args, **kwargs):
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            device_ms = None
+            if on_card:
+                end.record()
+                end.synchronize()
+                device_ms = start.elapsed_time(end)
+            self.calls.append(((time.perf_counter() - t) * 1e3, device_ms))
+            return out
+
+        setattr(owner, name, timed)
+
+    def close(self) -> None:
+        setattr(self.owner, self.name, self.real)
+
+    def totals(self) -> tuple:
+        """(calls, wall ms, device ms) summed."""
+        device = [c[1] for c in self.calls]
+        return (len(self.calls), sum(c[0] for c in self.calls),
+                None if None in device else sum(device))
+
+
+def wire_completion(k: int, votes, weights) -> dict:
+    """An archived score completion as the port's wire type holds it:
+    N candidates, then M judges with their stored vote and weight."""
+    from decimal import Decimal
+
+    m, n = votes.shape
+    choices = [{"index": i, "finish_reason": "stop", "message": {
+        "role": "assistant", "content": f"candidate {i} of {k}",
+        "vote": None}, "weight": None, "confidence": None, "model": None,
+        "model_index": None} for i in range(n)]
+    for j in range(m):
+        choices.append({
+            "index": n + j, "finish_reason": "stop",
+            "message": {"role": "assistant", "content": "I select `AB`",
+                        "vote": [Decimal(repr(float(x))) for x in votes[j]]},
+            "weight": Decimal(repr(float(weights[j]))), "confidence": None,
+            "model": f"judge-{j}", "model_index": j})
+    return {"id": f"scrcpl-{k:05d}", "choices": choices, "created": 0,
+            "model": "panel", "object": "chat.completion",
+            "weight_data": {"type": "static"}}
+
+
+def config4_rescore(gpu: str, total: int = ARCHIVE_B,
+                    device: str = "cuda") -> dict:
+    """BASELINE config 4 (bench_all.py:374-402) at its published scale:
+    ``total`` archived completions of M = 8 judges and N = 4 candidates
+    from seed 0, re-tallied (1) by ``rescore_batch`` on prebuilt arrays,
+    the median of 5 calls, and (2) by ``rescore_archive`` over an
+    ``InMemoryArchive`` of ``total`` completions built from the port's
+    wire types; each against float64 numpy (``TALLY_TOL``), with the
+    host's extraction time and the device's (CUDA events around each
+    ``rescore_batch`` call) apart."""
+    import statistics
+
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch import archive
+    from llm_weighted_consensus_tpu_torch.archive.rescore import (
+        rescore_archive,
+    )
+    from llm_weighted_consensus_tpu_torch.parallel import batch
+    from llm_weighted_consensus_tpu_torch.types import score_response
+
+    m, n = ARCHIVE_M, ARCHIVE_N
+    rng = np.random.default_rng(0)
+    votes = rng.random((total, m, n)).astype(np.float32)
+    votes /= votes.sum(axis=2, keepdims=True)
+    weights = rng.random((total, m)).astype(np.float32)
+    cw64, conf64 = tally_f64(votes, weights)
+    batch.rescore_batch(votes, weights, device=device)  # first call
+    timer = CallTimer(batch, "rescore_batch", device)
+    walls = []
+    try:
+        for _ in range(5):
+            t = time.perf_counter()
+            cw, conf = batch.rescore_batch(votes, weights, device=device)
+            walls.append(time.perf_counter() - t)
+        device_ms = [c[1] for c in timer.calls]
+        arrays = {"wall_ms": statistics.median(walls) * 1e3,
+                  "device_ms": None if None in device_ms
+                  else statistics.median(device_ms),
+                  "max_weight_err": weight_err(cw, cw64),
+                  "max_conf_err": float(np.abs(conf - conf64).max()),
+                  "sum_err": float(np.abs(conf.sum(1, dtype=np.float64)
+                                          - 1.0).max())}
+        arrays["completions_per_s"] = total / (arrays["wall_ms"] / 1e3)
+    finally:
+        timer.close()
+    t = time.perf_counter()
+    store = archive.InMemoryArchive()
+    for k in range(total):
+        store.put_score(score_response.ChatCompletion.from_json_obj(
+            wire_completion(k, votes[k], weights[k])))
+    build_s = time.perf_counter() - t
+    timer = CallTimer(batch, "rescore_batch", device)
+    try:
+        t = time.perf_counter()
+        results = rescore_archive(store, device=device)
+        wall = time.perf_counter() - t
+    finally:
+        timer.close()
+    got_cw = np.array([[float(x) for x in results[f"scrcpl-{k:05d}"][
+        "weight"]] for k in range(total)])
+    got_conf = np.array([[float(x) for x in results[f"scrcpl-{k:05d}"][
+        "confidence"]] for k in range(total)])
+    calls, batch_wall, device_ms = timer.totals()
+    through = {
+        "wall_ms": wall * 1e3,
+        "completions_per_s": total / wall,
+        "rescore_batch_calls": calls,
+        "rescore_batch_wall_ms": batch_wall,
+        "host_extraction_ms": wall * 1e3 - batch_wall,
+        "device_ms": device_ms,
+        "max_weight_err": weight_err(got_cw, cw64),
+        "max_conf_err": float(np.abs(got_conf - conf64).max()),
+        "archive_build_s": build_s,
+    }
+    row = {"phase": "config4_rescore", "gpu": gpu, "device": device,
+           "completions": total, "judges": m, "candidates": n, "seed": 0,
+           "rescore_batch": arrays, "rescore_archive": through,
+           "tolerance": TALLY_TOL}
+    emit(row)
+    errs = [arrays["max_weight_err"], arrays["max_conf_err"],
+            arrays["sum_err"], through["max_weight_err"],
+            through["max_conf_err"]]
+    if max(errs) > TALLY_TOL or len(results) != total or calls != 1:
+        raise AssertionError(f"config4_rescore: {row}")
+    return row
+
+
+def stored_scores(completion) -> tuple:
+    """(candidate weights, candidate confidences, judge choices) of an
+    archived score completion, as floats."""
+    cands = sorted((c for c in completion.choices if c.model_index is None),
+                   key=lambda c: c.index)
+    judges = [c for c in completion.choices if c.model_index is not None]
+    return ([float(c.weight) for c in cands],
+            [float(c.confidence) for c in cands], judges)
+
+
+def override_recompute(completion, judge_id: str, weight) -> tuple:
+    """The host's exact Decimal re-tally of an archived completion with
+    judge ``judge_id``'s weight replaced: (weights, confidences)."""
+    from decimal import Decimal
+
+    _, _, judges = stored_scores(completion)
+    n = len(completion.choices) - len(judges)
+    cw = [Decimal(0)] * n
+    for choice in judges:
+        if choice.message.vote is None:
+            continue
+        w = Decimal(str(weight)) if choice.model == judge_id else choice.weight
+        for i, v in enumerate(choice.message.vote[:n]):
+            cw[i] += v * w
+    total = sum(cw)
+    return ([float(c) for c in cw],
+            [float(c / total) if total > 0 else 0.0 for c in cw])
+
+
+def results_err(results: dict, want: dict) -> tuple:
+    """(weight err, confidence err) of /archive/rescore ``results``
+    against {id: (weights, confidences)}."""
+    import numpy as np
+
+    w_err = c_err = 0.0
+    if results.keys() != want.keys():
+        raise AssertionError("rescore results cover other ids")
+    for cid, (weights, conf) in want.items():
+        w_err = max(w_err, weight_err(results[cid]["weight"], weights))
+        c_err = max(c_err, float(np.max(np.abs(
+            np.asarray(results[cid]["confidence"]) - conf))))
+    return w_err, c_err
+
+
+def archive_path(gpu: str, device: str = "cuda",
+                 model_name: str = "bge-large-en") -> dict:
+    """Phase 12 (c): the served loop at full bge-large width through
+    ``build_embedder``, ``build_server`` and ``warm_up``, with
+    ``ARCHIVE_PATH`` and ``TABLES_PATH`` under ``build/`` and
+    ``ARCHIVE_STREAMING=1``, the judges phase 11's ``ScriptedJudges``:
+    16 streamed and 4 unary training-table score requests of 8
+    candidates (32 judges over 3 backends, 8 ``top_logprobs``), one
+    request that takes an archived choice by id; ``POST /archive/rescore``
+    plain, with ``revote``, with a ``weight_overrides`` on one judge and
+    with ``apply``; ``POST /weights/learn`` with the panel, twice; the
+    snapshot saved at close loaded anew.  (``device="cpu"`` with a small
+    model rehearses the control flow; the kernel counters count only on
+    the card.)"""
+    import asyncio
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import archive
+    from llm_weighted_consensus_tpu_torch.archive.rescore import (
+        revote_inputs,
+        vote_matrix,
+    )
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.models.graphs import launch_lock
+    from llm_weighted_consensus_tpu_torch.ops import votes as votes_mod
+    from llm_weighted_consensus_tpu_torch.parallel import batch
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TrainingTableStore,
+    )
+
+    judges = ScriptedJudges()
+    work = os.path.join(REPO, "build", "archive_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    archive_file = os.path.join(work, "archive.json")
+    tables_file = os.path.join(work, "tables.npz")
+    env = {"EMBEDDER_MODEL": model_name, "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "OPENAI_API_BASE": judges.url,
+           "OPENAI_API_KEY": "smoke-key", "ARCHIVE_PATH": archive_file,
+           "TABLES_PATH": tables_file, "ARCHIVE_STREAMING": "1"}
+    on_card = device == "cuda"
+    emb = build_embedder(env, device=device)
+    layers = emb.config.num_layers
+    srv = None
+    timers = []
+    try:
+        n_req = ARCHIVE_STREAMED + ARCHIVE_UNARY
+        bodies = [score_body(300 + k, "training_table") for k in range(n_req)]
+        prompts = [f"user: {score_prompt(300 + k)}" for k in range(n_req)]
+        seqs = sorted({_seq_bucket(int(emb.tokenize([p], SCORE_MAX_TOKENS)[
+            1].sum()), SCORE_MAX_TOKENS) for p in prompts})
+        env["WARMUP"] = ",".join(f"16x{s}" for s in seqs)
+        learn_shape = (32, emb.tokenize(prompts, SCORE_MAX_TOKENS)[0].shape[1])
+        if on_card and learn_shape != ARCHIVE_ATTENTION_SHAPE:
+            raise AssertionError(f"the learn pass embeds at {learn_shape}, "
+                                 f"not {ARCHIVE_ATTENTION_SHAPE}")
+        config = ServeConfig.from_env(env)
+        srv = build_server(emb, None, config).start()
+        warm_up(srv, config)
+        port, store = srv.port, srv.archive
+        graphs0 = emb.graph_stats()
+        # 1. 16 streamed (8 in flight) and 4 unary requests, then one that
+        # takes an archived choice as a candidate by id
+        t = time.perf_counter()
+        streamed = drive_score(port, bodies[:ARCHIVE_STREAMED], SCORE_INFLIGHT)
+        unary = []
+        for body in bodies[ARCHIVE_STREAMED:]:
+            status, _, out = http(port, "/score/completions", body)
+            if status != 200:
+                raise AssertionError(f"unary score: {status} {out}")
+            unary.append(out)
+        serve_s = time.perf_counter() - t
+        served_ids = [o["final"]["id"] for o in streamed["outs"]] + [
+            o["id"] for o in unary]
+        ids = store.score_ids()
+        if sorted(ids) != sorted(served_ids):
+            raise AssertionError(f"archived {len(ids)} of {n_req} completions")
+        for cid in ids:
+            if store.score_request(cid) is None or len(
+                    store.score_ballots(cid) or {}) != SCORE_JUDGES:
+                raise AssertionError(f"{cid}: request or ballots not archived")
+        ref_body = score_body(400, "static")
+        ref_body["choices"][0] = {"type": "score_completion", "id": ids[0],
+                                  "choice_index": 0}
+        status, _, ref_out = http(port, "/score/completions", ref_body)
+        if status != 200 or ref_out["id"] not in store.score_ids():
+            raise AssertionError(f"the archived reference: {status} {ref_out}")
+        ids = store.score_ids()
+        stored = {cid: stored_scores(store.score_completion(cid))
+                  for cid in ids}
+        # 2. /archive/rescore
+        timers = [CallTimer(batch, "rescore_batch", device),
+                  CallTimer(votes_mod, "softmax_votes", device)]
+
+        def rescore(body):
+            for timer in timers:
+                timer.calls.clear()
+            t = time.perf_counter()
+            status, _, out = http(port, "/archive/rescore",
+                                  {**body, "include_results": True})
+            wall = (time.perf_counter() - t) * 1e3
+            if status != 200 or out["rescored"] != len(ids):
+                raise AssertionError(f"/archive/rescore {body}: {status} "
+                                     f"{str(out)[:300]}")
+            spans = [timer.totals()[2] for timer in timers]
+            device_ms = None if None in spans else sum(spans)
+            calls = [timer.totals()[0] for timer in timers]
+            return out, {"wall_ms": wall, "device_ms": device_ms,
+                         "host_ms": None if device_ms is None
+                         else wall - device_ms,
+                         "rescore_batch_calls": calls[0],
+                         "softmax_votes_calls": calls[1]}
+
+        plain, plain_t = rescore({})
+        stored_want = {cid: (s[0], s[1]) for cid, s in stored.items()}
+        plain_err = results_err(plain["results"], stored_want)
+        revote, revote_t = rescore({"revote": True})
+        revote_err = results_err(revote["results"], stored_want)
+        # every judge's soft vote re-extracted on the card against its
+        # stored exact vote
+        vote_err, reextracted = 0.0, 0
+        for cid in ids:
+            completion = store.score_completion(cid)
+            v, _, _ = vote_matrix(completion)
+            m, n = v.shape
+            lp, cidx, valid, use = revote_inputs(
+                completion, store.score_ballots(cid), m, n)
+            with launch_lock(device):
+                got = votes_mod.softmax_votes(lp, cidx, valid, n,
+                                              device=device).cpu().numpy()
+            reextracted += int(use.sum())
+            if use.any():
+                vote_err = max(vote_err, float(np.abs(got[use] - v[use])
+                                               .max()))
+        judge_id = stored[ids[0]][2][0].model
+        override = {judge_id: 2.5}
+        over, over_t = rescore({"weight_overrides": override})
+        over_want = {cid: override_recompute(store.score_completion(cid),
+                                             judge_id, 2.5) for cid in ids}
+        over_err = results_err(over["results"], over_want)
+        applied, apply_t = rescore({"weight_overrides": override,
+                                    "apply": True})
+        if applied["applied"] != len(ids):
+            raise AssertionError(f"applied {applied['applied']}")
+        loop = asyncio.new_event_loop()
+        try:
+            fetched = {cid: loop.run_until_complete(
+                store.fetch_score_completion(None, cid)) for cid in ids}
+        finally:
+            loop.close()
+        for cid in ids:
+            w, c, _ = stored_scores(fetched[cid])
+            if (w != applied["results"][cid]["weight"]
+                    or c != applied["results"][cid]["confidence"]):
+                raise AssertionError(f"{cid}: apply did not write back")
+        for timer in timers:
+            timer.close()
+        timers = []
+        # 3. /weights/learn with the panel, twice
+        panel = score_panel("training_table")
+        model = ModelBase.from_json_obj(panel).into_model_validate()
+        table_of = {llm.id: llm.training_table_id for llm in model.llms}
+        learned = {}  # table id -> the prompts of its rows, in order
+        for cid in ids:
+            completion = store.score_completion(cid)
+            tids = {table_of.get(c.model) for c in completion.choices
+                    if c.model_index is not None
+                    and c.message.vote is not None} - {None}
+            for tid in sorted(tids):
+                learned.setdefault(tid, []).append(
+                    store.score_request(cid).template_content())
+        want_rows = sum(len(p) for p in learned.values())
+        embed_timer = CallTimer(emb, "embed_texts", device)
+        timers = [embed_timer]
+        g0 = emb.graph_stats()
+        reset_launches()
+        t = time.perf_counter()
+        first = post(port, "/weights/learn", {"model": panel})
+        learn_ms = (time.perf_counter() - t) * 1e3
+        if on_card:
+            torch.cuda.synchronize()
+        launches, routes = read_launches(), read_routes()
+        g1 = emb.graph_stats()
+        again = post(port, "/weights/learn", {"model": panel})
+        embed_calls, embed_wall, embed_device = embed_timer.totals()
+        embed_timer.close()
+        timers = []
+        dispatches = (g1["replays"] - g0["replays"]
+                      + g1["eager_dispatches"] - g0["eager_dispatches"])
+        if first != {"rows_added": want_rows} or again != {"rows_added": 0}:
+            raise AssertionError(f"learn: {first} then {again}, want "
+                                 f"{want_rows} then 0")
+        if (embed_calls != 1 or dispatches != 1
+                or launches["attention"] != layers * dispatches * on_card
+                or launches["cosine_vote"] or g1["captures"]
+                != g0["captures"]):
+            raise AssertionError(f"learn dispatches {dispatches}, launches "
+                                 f"{launches}, embeds {embed_calls}")
+        rows_err = 0.0
+        tables = srv.tables
+        for tid, texts in learned.items():
+            rows = emb.embed_texts(texts, max_tokens=SCORE_MAX_TOKENS)
+            rows_err = max(rows_err, float(np.abs(tables.get(tid)[0] - rows)
+                                           .max()))
+        if rows_err > LEARN_ROW_TOL:
+            raise AssertionError(f"learned rows off by {rows_err}")
+        graphs1 = emb.graph_stats()
+        # 4. close: the snapshots load anew
+        srv.close()
+        srv = None
+        reloaded = archive.InMemoryArchive.load(archive_file)
+        if reloaded.score_ids() != ids:
+            raise AssertionError("the saved archive holds other ids")
+        saved_tables = TrainingTableStore.load(tables_file)
+        if sorted(saved_tables._tables) != sorted(learned):
+            raise AssertionError("the saved tables differ")
+        errs = {"plain": plain_err, "revote": revote_err,
+                "overrides": over_err, "revote_votes": vote_err,
+                "learned_rows": rows_err}
+        row = {
+            "phase": "archive_path", "gpu": gpu, "nvidia_smi": gpu,
+            "model": model_name, "dtype": str(emb.dtype).split(".")[-1],
+            "layers": layers,
+            "judges": SCORE_JUDGES, "backends": SCORE_BACKENDS,
+            "candidates": SCORE_N, "streamed": ARCHIVE_STREAMED,
+            "unary": ARCHIVE_UNARY, "archived": len(ids),
+            "warmup": env["WARMUP"], "serve_s": serve_s,
+            "client_p50_ms": statistics.median(streamed["seconds"]) * 1e3,
+            "rescore": {"plain": plain_t, "revote": revote_t,
+                        "overrides": over_t, "apply": apply_t},
+            "reextracted_votes": reextracted,
+            "learn": {"wall_ms": learn_ms, "rows_added": first["rows_added"],
+                      "tables": len(learned), "embed_calls": embed_calls,
+                      "embed_wall_ms": embed_wall,
+                      "embed_device_ms": embed_device,
+                      "dispatches": dispatches,
+                      "eager_dispatches": g1["eager_dispatches"]
+                      - g0["eager_dispatches"],
+                      "replays": g1["replays"] - g0["replays"],
+                      "shape": list(learn_shape)},
+            "captures_after_warmup": graphs1["captures"] - graphs0["captures"],
+            "launches": launches, "routes": routes, "max_err": errs,
+            "tolerance": {"confidence": TALLY_TOL, "rows": LEARN_ROW_TOL},
+        }
+        emit(row)
+        if (max(e if isinstance(e, float) else max(e)
+                for k, e in errs.items() if k != "learned_rows") > TALLY_TOL
+                or reextracted != len(ids) * SCORE_JUDGES
+                or row["captures_after_warmup"]):
+            raise AssertionError(f"archive_path: {row}")
+        return row
+    finally:
+        for timer in timers:
+            timer.close()
+        if srv is not None:
+            srv.close()
+        judges.close()
+        del emb
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+def check_archive_bge_micro(gpu: str, devices=("cpu", "cuda")) -> dict:
+    """Phase 12 (d): one archive of bge_micro score completions (the port's
+    ``ScoreClient`` on the CPU with ``InProcessJudges``, seeded ballots,
+    static and training-table panels, ballots and requests archived),
+    re-scored (plain, ``revote``, a weight override) and learned from
+    (``populate_from_archive``, f32) on the card and on the CPU:
+    confidences within ``TALLY_TOL``, table rows within ``MICRO_TOL``."""
+    import asyncio
+    import random
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import archive, registry
+    from llm_weighted_consensus_tpu_torch.archive.rescore import (
+        rescore_archive,
+    )
+    from llm_weighted_consensus_tpu_torch.clients import chat
+    from llm_weighted_consensus_tpu_torch.clients.score import ScoreClient
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.types.score_request import (
+        ChatCompletionCreateParams,
+    )
+    from llm_weighted_consensus_tpu_torch.weights import WeightFetchers
+    from llm_weighted_consensus_tpu_torch.weights.learning import (
+        populate_from_archive,
+    )
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TorchTrainingTableFetcher,
+        TrainingTableStore,
+    )
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "bge_micro")
+    cfg = loading.load_hf_config(fixture)
+    tok = tokenizer.load_tokenizer(loading.find_vocab(fixture))
+    embs = {device: TorchEmbedder(
+        "bge-micro", model=loading.load_params(
+            fixture, cfg, dtype=torch.float32, device=device),
+        config=cfg, tokenizer=tok, max_tokens=64, device=device,
+        dtype=torch.float32) for device in devices}
+    micro = dict(n_judges=5, backends=5, top_logprobs=4, top=3,
+                 max_tokens=32)
+    store = archive.InMemoryArchive()
+    client = ScoreClient(
+        chat.DefaultChatClient(
+            InProcessJudges(), [chat.ApiBase("https://judges", "k")],
+            backoff=chat.BackoffPolicy(max_elapsed_ms=0)),
+        registry.InMemoryModelRegistry(), archive_fetcher=store,
+        weight_fetchers=WeightFetchers(
+            training_table_fetcher=TorchTrainingTableFetcher(
+                embs["cpu"], TrainingTableStore())),
+        rng_factory=lambda: random.Random(5), ballot_sink=store.put_ballot)
+    loop = asyncio.new_event_loop()
+    try:
+        for k in range(3):
+            for weight in ("static", "training_table"):
+                params = ChatCompletionCreateParams.from_json_obj({
+                    "messages": [{"role": "user",
+                                  "content": MICRO_TEXTS[k]}],
+                    "model": score_panel(weight, **micro),
+                    "choices": MICRO_TEXTS[k:] + MICRO_TEXTS[:k]})
+                result = loop.run_until_complete(
+                    client.create_unary(None, params))
+                store.put_score(result)
+                store.put_score_request(result.id, params)
+    finally:
+        loop.close()
+    judge_id = next(c.model for c in store.score_completion(
+        store.score_ids()[0]).choices if c.model_index is not None)
+    modes = {"plain": {}, "revote": {"revote": True},
+             "overrides": {"weight_overrides": {judge_id: 2.0}}}
+    results = {(d, mode): rescore_archive(store, device=d, **kw)
+               for d in devices for mode, kw in modes.items()}
+    conf_err = 0.0
+    for mode in modes:
+        a, b = results[(devices[0], mode)], results[(devices[-1], mode)]
+        for cid in a:
+            conf_err = max(conf_err, float(np.max(np.abs(
+                np.array(a[cid]["confidence"], float)
+                - np.array(b[cid]["confidence"], float)))))
+    model = ModelBase.from_json_obj(
+        score_panel("training_table", **micro)).into_model_validate()
+    learned = {}
+    for d in devices:
+        tables = TrainingTableStore()
+        learned[d] = (populate_from_archive(store, embs[d], model, tables),
+                      tables)
+    (n_a, t_a), (n_b, t_b) = learned[devices[0]], learned[devices[-1]]
+    rows_err = 0.0
+    same = n_a == n_b > 0 and sorted(t_a._tables) == sorted(t_b._tables)
+    for tid in t_a._tables:
+        rows_err = max(rows_err, float(np.abs(t_a.get(tid)[0]
+                                              - t_b.get(tid)[0]).max()))
+        same &= bool(np.array_equal(t_a.get(tid)[1], t_b.get(tid)[1]))
+    row = {"phase": "archive_bge_micro", "gpu": gpu,
+           "completions": len(store.score_ids()), "modes": sorted(modes),
+           "conf_max_abs_err": conf_err, "rows_added": n_a,
+           "rows_max_abs_err": rows_err, "same_tables_and_scores": same,
+           "tolerance": {"confidence": TALLY_TOL, "rows": MICRO_TOL}}
+    emit(row)
+    if conf_err > TALLY_TOL or rows_err > MICRO_TOL or not same:
+        raise AssertionError(f"archive_bge_micro: {row}")
+    return row
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
-                   packed, rm, serving, counts, multichat, score) -> dict:
+                   packed, rm, serving, counts, multichat, score,
+                   archived) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -4646,7 +5422,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     with that path's launches.  The score path adds the attention at its
     prompt embed's dispatch shape [16, 112] (bf16, ``"path": "score"``)
     with that path's launches, which the main attention entry also
-    carries as ``score_path_launches``.
+    carries as ``score_path_launches``; the archive path likewise adds
+    the attention at its learn pass's dispatch shape [32, 112]
+    (``"path": "archive"``, ``archive_path_launches``).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -4823,6 +5601,25 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         "device_ms": prompt["device_ms"], "shape": prompt["shape"],
     })
     entries[1]["score_path_launches"] = score["launches"]["attention"]
+    learn = next(
+        r for r in attn_rows
+        if r.get("shape", [])[:2] == list(ARCHIVE_ATTENTION_SHAPE)
+        and r["dtype"] == "bfloat16"
+    )
+    entries.append({
+        "name": "attention", "path": "archive", "route": "cuda",
+        "source": csrc + "attention_sm90.cu",
+        "replaces": "llm_weighted_consensus_tpu/ops/attention.py:134",
+        "launches": archived["launches"]["attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": learn["kernel_ms"], "plain_ms": learn["plain_ms"],
+        "bound_ms": learn["bound_ms"], "bound_by": learn["bound_by"],
+        "library_ms": learn["library_ms"], "kernel_route": "tma",
+        "device_ms": learn["device_ms"], "shape": learn["shape"],
+        "eager_launches": archived["learn"]["eager_dispatches"]
+        * archived["layers"],
+    })
+    entries[1]["archive_path_launches"] = archived["launches"]["attention"]
     graphed = {"cosine_vote": "main", "attention": "main",
                "segment_attention": "packed", "quantize_rows": "int8",
                "w8a8_matmul": "int8", "w4a8_matmul": "int4-pallas"}
@@ -4830,9 +5627,12 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         path = graphed[entry["name"]]
         if entry.get("path") == "rm":  # no graphed int4 reward-model run
             path = None if entry["name"] == "w4a8_matmul" else "rm_int8"
-        if entry.get("path") in ("multichat", "score"):  # served graphed
+        if entry.get("path") in ("multichat", "score", "archive"):
+            # served graphed; a learn pass may dispatch eagerly at a bucket
+            # no warmup covers
             entry["graphed_path"] = entry["path"]
-            entry["graphed_launches"] = entry["launches"]
+            entry["graphed_launches"] = (entry["launches"]
+                                         - entry.get("eager_launches", 0))
             continue
         entry["graphed_path"] = path
         entry["graphed_launches"] = (
@@ -4900,11 +5700,15 @@ def main() -> int:
     timed("score_path", check_lookup, gpu)
     timed("score_path", check_score_bge_micro, gpu)
     score = timed("score_path", score_path, gpu)
+    timed("archive_path", check_device_tally, gpu)
+    timed("archive_path", config4_rescore, gpu)
+    timed("archive_path", check_archive_bge_micro, gpu)
+    archived = timed("archive_path", archive_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score))
+                        score, archived))
     print(gpu)
     emit({
         "ok": True,

@@ -414,7 +414,10 @@ class ScoreClient:
     requests onto one fan-out.  ``host_fastpath`` (``HOST_FASTPATH``)
     folds the tally on scaled-int64 vectors (``clients/tally.py``) and
     divides each candidate's share once; the bytes are the Decimal
-    loop's either way."""
+    loop's either way.  ``ballot_sink(response_id, judge_index,
+    key_indices)``, when set, records each judge's ballot as it is built
+    (``archive.InMemoryArchive.put_ballot``: the archived ballots let
+    ``archive/rescore.py`` re-extract votes from stored logprobs)."""
 
     def __init__(
         self,
@@ -426,6 +429,7 @@ class ScoreClient:
         cache=None,
         flights=None,
         host_fastpath: bool = False,
+        ballot_sink=None,
     ) -> None:
         self.chat_client = chat_client
         self.model_fetcher = model_fetcher
@@ -441,6 +445,7 @@ class ScoreClient:
             flights = SingleFlight()
         self.flights = flights
         self.host_fastpath = host_fastpath
+        self.ballot_sink = ballot_sink
 
     # -- unary (client.rs:71-91) --------------------------------------------
 
@@ -790,6 +795,8 @@ class ScoreClient:
             # bytes) are identical either way
             with_ticks = re.compile(with_ticks)
             without_ticks = re.compile(without_ticks)
+        if self.ballot_sink is not None:
+            self.ballot_sink(resp_id, llm.index, list(key_indices))
 
         chat_params = self._judge_chat_params(llm, request, ballot_json, keys)
 

@@ -1,7 +1,10 @@
 """Serve the port: ``python -m llm_weighted_consensus_tpu_torch.serve
---port P [--host H] [--device cuda|cpu] [--fake-upstream]``.
+[--port P] [--address A] [--device cuda|cpu] [--fake-upstream]``.
 
-Environment, as the reference's server reads it.  ``/chat/completions``,
+Environment, as the reference's server reads it (a ``.env`` file in the
+working directory is loaded first; ``ADDRESS`` and ``PORT``, default
+``0.0.0.0:5000``, are where it listens unless ``--address``/``--port``
+say otherwise).  ``/chat/completions``,
 ``/multichat/completions`` and ``/score/completions`` are always served,
 through the upstream endpoints of ``OPENAI_APIS`` / ``OPENAI_API_BASE``
 (``serve/config.py``);
@@ -60,12 +63,17 @@ knobs (``OPENAI_*``, ``*_CHUNK_TIMEOUT_MILLIS``, ``BACKOFF_*``,
 ``CONNECT_TIMEOUT_MILLIS``, ``JUDGE_STREAM_MAX_BYTES``,
 ``SSE_MAX_EVENT_BYTES``, ``FAKE_UPSTREAM_DELAY_MS``) and the score
 route's knobs (``TABLES_PATH``, ``HOST_FASTPATH``, ``SCORE_CACHE_*``) are
-documented in ``serve/config.py``.  With an embedder, a training-table
-panel's weights come from ``TorchTrainingTableFetcher`` on the served
-embedder and batcher (the tables loaded from ``TABLES_PATH``); without
-one such a panel is a 501.  The server listens at once and answers ``/livez``;
-``/readyz`` turns 200 once the CUDA graphs of the ``WARMUP`` and
-``RM_WARMUP`` buckets are captured.  SIGTERM or SIGINT drains it: new
+documented in ``serve/config.py``, and so are the archive's
+(``ARCHIVE_PATH``, ``ARCHIVE_WRITE``, ``ARCHIVE_STREAMING``,
+``ARCHIVE_MAX_COMPLETIONS``) and ``MAX_BODY_BYTES``.  With an embedder, a
+training-table panel's weights come from ``TorchTrainingTableFetcher``
+on the served embedder and batcher (the tables loaded from
+``TABLES_PATH``), and ``POST /weights/learn`` learns table rows from the
+archive; without one such a panel is a 501.  ``POST /archive/rescore``
+re-tallies the archive on the device (``serve/archive_routes.py``).  The
+server listens at once and answers ``/livez``; ``/readyz`` turns 200 once
+the CUDA graphs of the ``WARMUP`` and ``RM_WARMUP`` buckets are
+captured.  SIGTERM or SIGINT drains it: new
 requests shed with 503, in-flight ones finish within
 ``DRAIN_TIMEOUT_MILLIS``, then the process exits 0.
 
@@ -78,13 +86,14 @@ raises.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import logging
 import os
 import signal
 import sys
 import threading
 
-from .config import ServeConfig, env_truthy, staging_buffers
+from .config import ServeConfig, env_truthy, load_dotenv, staging_buffers
 from .config import packing_options  # noqa: F401  (the server's env API)
 
 log = logging.getLogger("lwc.torch.serve")
@@ -227,14 +236,14 @@ def build_reranker(env, device=None, dtype=None):
     return reranker
 
 
-def build_chat_clients(config: ServeConfig, score_cache=None):
+def build_chat_clients(config: ServeConfig, score_cache=None, store=None):
     """The chat client over the configured upstream endpoints (the stdlib
     transport), and the multichat and score clients over it.  Panels
     resolve through an empty model registry (inline panels only) and
-    archive references through an empty archive, as the reference's
-    service starts.  The score client answers a training-table panel
-    with 501 until ``build_server`` plugs the training-table fetcher
-    in."""
+    archive references through ``store`` (an empty archive when None);
+    with ``ARCHIVE_WRITE`` the score client records its ballots there.
+    The score client answers a training-table panel with 501 until
+    ``build_server`` plugs the training-table fetcher in."""
     from ..archive import InMemoryArchive
     from ..clients.chat import (
         ApiBase,
@@ -247,7 +256,8 @@ def build_chat_clients(config: ServeConfig, score_cache=None):
     from ..registry import InMemoryModelRegistry
 
     up = config.upstream
-    store = InMemoryArchive()
+    if store is None:
+        store = InMemoryArchive()
     chat_client = DefaultChatClient(
         StdlibTransport(connect_timeout_ms=up["connect_timeout_ms"]),
         [ApiBase.from_json_obj(a) for a in up["api_bases"]],
@@ -268,8 +278,35 @@ def build_chat_clients(config: ServeConfig, score_cache=None):
     score_client = ScoreClient(
         chat_client, models, archive_fetcher=store, cache=score_cache,
         host_fastpath=config.host_fastpath,
+        # the archived ballots let /archive/rescore re-extract votes
+        ballot_sink=store.put_ballot if config.archive_write else None,
     )
     return chat_client, multichat_client, score_client
+
+
+def load_archive(config: ServeConfig):
+    """The completions archive: ``ARCHIVE_PATH``'s snapshot when it
+    exists, else empty, capped at ``ARCHIVE_MAX_COMPLETIONS``; a set path
+    must be writable (it is saved at close), and is written at once when
+    it does not exist yet."""
+    from ..archive import InMemoryArchive
+
+    path = config.archive_path
+    store = (
+        InMemoryArchive.load(path)
+        if path and os.path.exists(path) else InMemoryArchive()
+    )
+    store.max_completions = config.archive_max_completions or None
+    store.enforce_cap()  # an over-cap snapshot trims at startup
+    if path:
+        from ..utils.io import probe_writable_config
+
+        probe_writable_config(
+            path, "ARCHIVE_PATH", "snapshots would be lost at shutdown"
+        )
+        if not os.path.exists(path):
+            store.save(path)
+    return store
 
 
 def load_tables(config: ServeConfig):
@@ -292,45 +329,67 @@ def load_tables(config: ServeConfig):
 
 
 def build_server(embedder, reranker, config: ServeConfig,
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0, device=None):
     """The ``Server`` the configuration describes (the device routes of
-    its models, the chat and score routes over its upstream), not ready
-    until ``warm_up``.  With an embedder the score client's training-table
-    weights come from ``TorchTrainingTableFetcher`` on the server's
-    embedder and batcher (``server.tables``, saved to ``TABLES_PATH`` at
-    close); without one a training-table panel is a 501."""
-    from ..resilience.admission import AdmissionConfig
+    its models, the chat and score routes over its upstream, the archive
+    and ``/archive/rescore``), not ready until ``warm_up``.  With an
+    embedder the score client's training-table weights come from
+    ``TorchTrainingTableFetcher`` on the server's embedder and batcher
+    (``server.tables``, saved to ``TABLES_PATH`` at close) and
+    ``/weights/learn`` learns their rows; without one a training-table
+    panel is a 501.  ``server.archive`` is the archive (saved to
+    ``ARCHIVE_PATH`` at close).  Re-scoring runs on the embedder's (or
+    the reranker's) device, else on ``device`` (the card unless
+    ``"cpu"``)."""
     from ..weights import WeightFetchers
+    from .archive_routes import (
+        archiving_clients,
+        learn_handler,
+        rescore_handler,
+    )
     from .config import score_caches
     from .gateway import Server
 
     score_cache, embed_cache = score_caches(config)
+    store = load_archive(config)
     chat_client, multichat_client, score_client = build_chat_clients(
-        config, score_cache
+        config, score_cache, store
     )
+    served = (chat_client, multichat_client, score_client)
+    if config.archive_write:
+        served = archiving_clients(store, config, *served)
     tables = load_tables(config) if embedder is not None else None
     batching = dict(config.packing)
     if embedder is not None:
         batching["embed_cache"] = embed_cache
     server = Server(
         embedder, host=host, port=port, reranker=reranker,
-        chat_client=chat_client, multichat_client=multichat_client,
-        score_client=score_client,
+        chat_client=served[0], multichat_client=served[1],
+        score_client=served[2],
         max_batch=config.batch_max, window_ms=config.batch_window_ms,
         pipeline_depth=config.batch_pipeline,
         max_rows=config.batch_max_rows,
         host_tokenizer_workers=config.host_tokenizer_workers,
-        admission=AdmissionConfig(
-            max_inflight=config.admission_max_inflight,
-            max_queue_depth=config.admission_max_queue_depth,
-        ),
+        admission=config.admission_config(),
         drain_timeout_ms=config.drain_timeout_millis,
         watchdog_ms=config.device_watchdog_millis,
+        watchdog_interval_ms=config.device_watchdog_interval_millis,
+        max_body_bytes=config.max_body_bytes,
         device_timing=config.metrics_device_timing,
         ready=False,
         **batching,
     )
     server.tables = tables
+    server.archive = store
+    model = embedder if embedder is not None else reranker
+    # one lock for every handler that mutates the archive or the tables
+    lock = asyncio.Lock()
+    routes = server.chat_routes
+    routes.add_json_route("/archive/rescore", rescore_handler(
+        store, lock, model.device if model is not None else device))
+    if tables is not None:
+        routes.add_json_route(
+            "/weights/learn", learn_handler(store, embedder, tables, lock))
     if embedder is not None:
         from ..weights.training_table import TorchTrainingTableFetcher
 
@@ -342,6 +401,8 @@ def build_server(embedder, reranker, config: ServeConfig,
         if config.tables_path:
             server.on_close.append(
                 lambda: tables.save(config.tables_path))
+    if config.archive_path:
+        server.on_close.append(lambda: store.save(config.archive_path))
     if score_cache is not None:
         server.on_close.append(score_cache.flush)
     return server
@@ -361,8 +422,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m llm_weighted_consensus_tpu_torch.serve"
     )
-    parser.add_argument("--port", type=int, default=5000)
-    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--address", default=None)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument(
         "--fake-upstream", action="store_true",
@@ -371,6 +432,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    load_dotenv()
     env = dict(os.environ)
     fake = None
     if args.fake_upstream:
@@ -380,6 +442,10 @@ def main(argv=None) -> int:
         env["LWC_ALLOW_RANDOM_PARAMS"] = "1"  # the reference's demo mode
         log.info("fake upstream at %s", fake.url)
     config = ServeConfig.from_env(env)
+    if args.port is not None:
+        config.port = args.port
+    if args.address is not None:
+        config.address = args.address
     if fake is not None:
         config.upstream["api_bases"] = [
             {"api_base": fake.url, "api_key": "fake-key"}
@@ -389,20 +455,21 @@ def main(argv=None) -> int:
         if env.get("EMBEDDER_MODEL") else None
     )
     reranker = build_reranker(env, device=args.device)
-    server = build_server(embedder, reranker, config, args.host, args.port)
+    server = build_server(embedder, reranker, config, config.address,
+                          config.port, device=args.device)
     for what, served in (("embedder", embedder), ("reranker", reranker)):
         if served is not None:
             log.info(
                 "serving %s %s on %s:%d (%s, %s, quantize=%s)", what,
-                served.model_name, args.host, server.port, served.device,
-                served.dtype, served.config.quantize,
+                served.model_name, config.address, server.port,
+                served.device, served.dtype, served.config.quantize,
             )
     if embedder is not None:
         log.info("packing=%s", config.packing["packing"])
     log.info(
         "serving /chat/completions, /multichat/completions and "
         "/score/completions on %s:%d (%d upstream endpoints)%s",
-        args.host, server.port,
+        config.address, server.port,
         len(config.upstream["api_bases"]),
         "" if embedder or reranker
         else "; no EMBEDDER_MODEL or RM_MODEL: the chat routes only",

@@ -282,10 +282,18 @@ async def _unary(create_unary, ctx, params, deadline):
     return await create_unary(ctx, params)
 
 
+async def _json_call(handler, raw: bytes):
+    decimal.setcontext(decimal.Context())
+    return await handler(raw)
+
+
 class ChatRoutes:
     """The routes a chat client (and a multichat client, and a score
     client) serve: path -> (request type, create_streaming,
-    create_unary), and the loop their coroutines run on."""
+    create_unary), and the loop their coroutines run on.  Plain JSON
+    routes (``/archive/rescore``, ``/weights/learn``) are coroutines
+    ``raw body -> (status, body bytes)`` on the same loop
+    (``add_json_route``)."""
 
     def __init__(self, chat_client, multichat_client=None, embedder=None,
                  batcher=None, metrics=None, score_client=None) -> None:
@@ -308,6 +316,13 @@ class ChatRoutes:
                 ScoreParams, score_client.create_streaming,
                 score_client.create_unary,
             )
+        self.json_routes: dict = {}
+
+    def add_json_route(self, path: str, handler) -> None:
+        self.json_routes[path] = handler
+
+    def serves(self, path: str) -> bool:
+        return path in self.routes or path in self.json_routes
 
     def close(self) -> None:
         self.loop.close()
@@ -316,6 +331,16 @@ class ChatRoutes:
               metrics) -> None:
         """Answer one chat-route request on ``handler`` (the stdlib request
         handler) from its raw body."""
+        json_route = self.json_routes.get(path)
+        if json_route is not None:
+            try:
+                status, body = self.loop.submit(
+                    _json_call(json_route, raw)).result()
+            except Exception as exc:
+                handler._send_raw(*_status_body_headers(exc))
+                return
+            handler._send_raw(status, body)
+            return
         params_cls, create_streaming, create_unary = self.routes[path]
         try:
             params = params_cls.from_json_obj(jsonutil.loads(raw.decode("utf-8")))

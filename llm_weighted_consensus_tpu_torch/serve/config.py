@@ -31,13 +31,33 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
   past it; ``0``: no shedding).  Default 0;
 * ``ADMISSION_MAX_QUEUE_DEPTH`` — the batcher's queue bound (503 past
   it; ``0``: unbounded).  Default 0;
+* ``ADMISSION_ADAPTIVE`` — an AIMD limit under ``ADMISSION_MAX_INFLIGHT``
+  (which must then be > 0) that shrinks while latency runs past
+  ``ADMISSION_LATENCY_FACTOR`` (> 1, default 2) times its baseline and
+  grows back while healthy, never below ``ADMISSION_MIN_LIMIT`` (default
+  2, min 1).  Default 0;
+* ``ADMISSION_RETRY_AFTER_MILLIS`` — the ``Retry-After`` hint of a shed.
+  Default 1000;
 * ``DRAIN_TIMEOUT_MILLIS`` — the SIGTERM/SIGINT drain budget.  Default
   10000;
 * ``DEVICE_WATCHDOG_MILLIS`` — a dispatch past this marks the device
   unhealthy (``/readyz`` 503, device routes shed) until it completes;
   ``0`` disables the watchdog.  Default 0;
+* ``DEVICE_WATCHDOG_INTERVAL_MILLIS`` — the watchdog's check period
+  (``0``: a quarter of ``DEVICE_WATCHDOG_MILLIS``, at least 10).
+  Default 0;
 * ``METRICS_DEVICE_TIMING`` — per-bucket device time from CUDA events
-  and the overlap gauge (``0`` skips the recording).  Default 1.
+  and the overlap gauge (``0`` skips the recording).  Default 1;
+* ``MAX_BODY_BYTES`` — the request-body cap of every route: a body of
+  this many bytes or more is refused with ``413 {"code": 413,
+  "message": {"kind": "payload_too_large"}}``, as the reference's
+  aiohttp cap does.  Default 1048576 (1 MiB); ``0`` keeps that default;
+* ``ADDRESS`` / ``PORT`` — where the server listens (``--address`` and
+  ``--port`` override them).  Default ``0.0.0.0:5000``.
+
+``python -m llm_weighted_consensus_tpu_torch.serve`` first loads a
+``.env`` file from the working directory into the environment
+(``load_dotenv``; variables already set win).
 
 The upstream knobs of ``/chat/completions`` and ``/multichat/completions``
 (the reference's, with its defaults; ``upstream_options``):
@@ -94,10 +114,29 @@ names and defaults:
 
 The caches' counters are the ``score_cache`` and ``embed_cache`` sections
 of ``GET /metrics``.
+
+The completions archive (``archive/``), with the reference's names and
+defaults:
+
+* ``ARCHIVE_PATH`` — JSON snapshot of the archive: loaded at startup when
+  the file exists (written there at once when it does not: the path must
+  be writable), saved when the server closes.  Unset = in memory only;
+* ``ARCHIVE_WRITE`` — archive every unary completion the server answers
+  (a score completion with its judges' ballots and its request), so its
+  id can be referenced by later requests, ``POST /archive/rescore`` can
+  re-tally it and ``POST /weights/learn`` learn from it.  Defaults on
+  when ``ARCHIVE_PATH`` is set;
+* ``ARCHIVE_STREAMING`` — with ``ARCHIVE_WRITE``, also archive streamed
+  completions: each stream is folded as it is served and archived at its
+  clean end (an abandoned or failed stream archives nothing).  Default 0;
+* ``ARCHIVE_MAX_COMPLETIONS`` — FIFO cap of each archive table (a score
+  completion leaves with its ballots and request).  Default 65536; ``0``
+  = unbounded.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -109,6 +148,29 @@ def _non_negative_int(env: dict, name: str, default: int) -> int:
     if value < 0:
         raise ValueError(f"{name}={value} must be >= 0 (0 = unbounded)")
     return value
+
+
+def load_dotenv(path: str = ".env") -> None:
+    """Load ``KEY=value`` lines of ``path`` into ``os.environ`` (the
+    reference's reader: ``#`` comments, ``export`` prefixes, quoted
+    values, inline `` #`` comments on unquoted ones); variables already
+    set win.  No file, no change."""
+    if not os.path.exists(path):
+        return
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#") or "=" not in line:
+                continue
+            if line.startswith("export "):
+                line = line[len("export "):]
+            key, _, value = line.partition("=")
+            value = value.strip()
+            if len(value) >= 2 and value[0] == value[-1] and value[0] in "'\"":
+                value = value[1:-1]
+            elif " #" in value:
+                value = value.split(" #", 1)[0].rstrip()
+            os.environ.setdefault(key.strip(), value)
 
 
 def staging_buffers(env: dict) -> int:
@@ -248,9 +310,17 @@ class ServeConfig:
     rm_warmup: list = field(default_factory=list)
     admission_max_inflight: int = 0
     admission_max_queue_depth: int = 0
+    admission_adaptive: bool = False
+    admission_min_limit: int = 2
+    admission_latency_factor: float = 2.0
+    admission_retry_after_millis: float = 1000.0
     drain_timeout_millis: float = 10000.0
     device_watchdog_millis: float = 0.0
+    device_watchdog_interval_millis: float = 0.0
     metrics_device_timing: bool = True
+    max_body_bytes: int = 1024 * 1024
+    address: str = "0.0.0.0"
+    port: int = 5000
     packing: dict = field(default_factory=lambda: packing_options({}))
     upstream: dict = field(default_factory=lambda: upstream_options({}))
     tables_path: Optional[str] = None
@@ -260,11 +330,13 @@ class ServeConfig:
     score_cache_dir: Optional[str] = None
     score_cache_embed: bool = False
     score_cache_embed_max_bytes: int = 32 * 1024 * 1024
+    archive_path: Optional[str] = None
+    archive_write: bool = False
+    archive_streaming: bool = False
+    archive_max_completions: int = 65536
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
-        import os
-
         env = dict(os.environ if env is None else env)
 
         def get_f(name, default):
@@ -287,11 +359,27 @@ class ServeConfig:
             admission_max_queue_depth=_non_negative_int(
                 env, "ADMISSION_MAX_QUEUE_DEPTH", 0
             ),
+            admission_adaptive=env_truthy(env.get("ADMISSION_ADAPTIVE", "0")),
+            admission_min_limit=max(
+                1, int(env.get("ADMISSION_MIN_LIMIT", 2))
+            ),
+            admission_latency_factor=get_f("ADMISSION_LATENCY_FACTOR", 2.0),
+            admission_retry_after_millis=get_f(
+                "ADMISSION_RETRY_AFTER_MILLIS", 1000
+            ),
             drain_timeout_millis=get_f("DRAIN_TIMEOUT_MILLIS", 10000),
             device_watchdog_millis=get_f("DEVICE_WATCHDOG_MILLIS", 0),
+            device_watchdog_interval_millis=get_f(
+                "DEVICE_WATCHDOG_INTERVAL_MILLIS", 0
+            ),
             metrics_device_timing=env_truthy(
                 env.get("METRICS_DEVICE_TIMING", "1")
             ),
+            max_body_bytes=_non_negative_int(
+                env, "MAX_BODY_BYTES", 1024 * 1024
+            ),
+            address=env.get("ADDRESS", "0.0.0.0"),
+            port=int(env.get("PORT", 5000)),
             packing=packing_options(env),
             upstream=upstream_options(env),
             tables_path=env.get("TABLES_PATH"),
@@ -311,7 +399,28 @@ class ServeConfig:
             score_cache_embed_max_bytes=_non_negative_int(
                 env, "SCORE_CACHE_EMBED_MAX_BYTES", 32 * 1024 * 1024
             ),
+            archive_path=env.get("ARCHIVE_PATH"),
+            archive_write=env_truthy(
+                env.get("ARCHIVE_WRITE", "1" if env.get("ARCHIVE_PATH")
+                        else "0")
+            ),
+            archive_streaming=env_truthy(env.get("ARCHIVE_STREAMING", "0")),
+            archive_max_completions=_non_negative_int(
+                env, "ARCHIVE_MAX_COMPLETIONS", 65536
+            ),
         )
+        if config.admission_adaptive and config.admission_max_inflight <= 0:
+            raise ValueError(
+                "ADMISSION_ADAPTIVE=1 needs ADMISSION_MAX_INFLIGHT > 0: "
+                "the adaptive limit operates UNDER the hard cap (set e.g. "
+                "ADMISSION_MAX_INFLIGHT=64 ADMISSION_ADAPTIVE=1)"
+            )
+        if config.admission_latency_factor <= 1.0:
+            raise ValueError(
+                f"ADMISSION_LATENCY_FACTOR={config.admission_latency_factor} "
+                "must be > 1 (it multiplies the latency baseline to form "
+                "the congestion threshold)"
+            )
         if config.drain_timeout_millis < 0:
             raise ValueError(
                 f"DRAIN_TIMEOUT_MILLIS={config.drain_timeout_millis} "
@@ -329,6 +438,19 @@ class ServeConfig:
                 "WARMUP=64x112 WARMUP_R=2)"
             )
         return config
+
+    def admission_config(self):
+        """The ``AdmissionConfig`` of the gateway's admission gate."""
+        from ..resilience.admission import AdmissionConfig
+
+        return AdmissionConfig(
+            max_inflight=self.admission_max_inflight,
+            max_queue_depth=self.admission_max_queue_depth,
+            adaptive=self.admission_adaptive,
+            min_limit=self.admission_min_limit,
+            latency_factor=self.admission_latency_factor,
+            retry_after_ms=self.admission_retry_after_millis,
+        )
 
     def packed_buckets(self) -> list:
         """The packed (B, L, K) buckets to warm, as the reference picks

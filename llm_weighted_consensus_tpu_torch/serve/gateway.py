@@ -23,6 +23,9 @@ bodies, responses and input validation:
 * ``POST /score/completions`` — the weighted-consensus judge panel
   (``clients/score.py``), when the server has a score client, streamed or
   unary as the chat routes are;
+* ``POST /archive/rescore`` and ``POST /weights/learn`` — the archive's
+  re-tally and training-table learning (``serve/archive_routes.py``), as
+  ``build_server`` registers them on the chat routes' loop;
 * ``GET /healthz`` -> ``{"ok": true}``;
 * ``GET /livez`` -> ``{"ok": true}`` while the process answers;
 * ``GET /readyz`` -> 200 ``{"ready": true}`` once warmup has finished
@@ -31,7 +34,10 @@ bodies, responses and input validation:
 * ``GET /metrics`` -> the JSON snapshot (``serve/metrics.py``), or
   OpenMetrics text with ``?format=prometheus``.
 
-Errors use the ``{"code", "message"}`` envelope.  Each request runs on
+Errors use the ``{"code", "message"}`` envelope; a request body of
+``max_body_bytes`` (``MAX_BODY_BYTES``) or more is refused on every route
+with the reference's ``413 {"code": 413, "message": {"kind":
+"payload_too_large"}}``, before it is read.  Each request runs on
 its own handler thread.  Before a POST route runs, the admission gate
 (``resilience/admission.py``) admits it or sheds it with 503 and
 ``Retry-After`` (the probes above are exempt), and holds its slot until
@@ -80,7 +86,12 @@ log = logging.getLogger("lwc.torch.gateway")
 
 # the reference's request-size ceiling on /consensus
 MAX_CONSENSUS_CANDIDATES = 256
-MAX_BODY_BYTES = 16 * 1024 * 1024
+# the default request-body cap (``MAX_BODY_BYTES``; aiohttp's own default,
+# which the reference keeps when the knob is 0)
+MAX_BODY_BYTES = 1024 * 1024
+PAYLOAD_TOO_LARGE = jsonutil.dumps(
+    {"code": 413, "message": {"kind": "payload_too_large"}}
+).encode()
 
 
 class BadRequest(ValueError):
@@ -165,13 +176,15 @@ def error_response(exc: Exception):
 
 
 def make_handler(embedder, batcher, reranker, metrics, admission,
-                 lifecycle, chat_routes=None):
+                 lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
     if embedder is not None:
         device_routes.add("/embeddings")
-    host_routes = set(chat_routes.routes) if chat_routes is not None else set()
+    # the reference's aiohttp cap: a body of the cap's size or more is
+    # refused (0 keeps the default)
+    body_cap = max_body_bytes if max_body_bytes > 0 else MAX_BODY_BYTES
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -235,7 +248,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             if length < 0:
                 self.close_connection = True
                 raise BadRequest("malformed content-length")
-            if length > MAX_BODY_BYTES:
+            if length >= body_cap:
                 raise OverflowError
             raw = self.rfile.read(length) if length else b""
             try:
@@ -268,7 +281,8 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
         def do_POST(self):
             t0 = time.perf_counter()
             path = self.path
-            if path not in device_routes and path not in host_routes:
+            host_route = chat_routes is not None and chat_routes.serves(path)
+            if path not in device_routes and not host_route:
                 self.close_connection = True  # its body stays unread
                 self._error(404, f"no route POST {path}")
                 return
@@ -284,7 +298,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 self._send_raw(status, body, headers)
                 return
             try:
-                if path in host_routes:
+                if host_route:
                     self._post_chat(path)
                 else:
                     self._post(path)
@@ -319,11 +333,9 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     "code": 400, "message": "malformed content-length",
                 }).encode())
                 return
-            if length > MAX_BODY_BYTES:
+            if length >= body_cap:
                 self.close_connection = True
-                self._send_raw(413, jsonutil.dumps({
-                    "code": 413, "message": {"kind": "payload_too_large"},
-                }).encode())
+                self._send_raw(413, PAYLOAD_TOO_LARGE)
                 return
             raw = self.rfile.read(length) if length else b""
             chat_routes.serve(self, path, raw, self._deadline(), metrics)
@@ -339,7 +351,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     texts = parse_embeddings(body, embedder.model_name)
             except OverflowError:
                 self.close_connection = True
-                self._error(413, "payload too large")
+                self._send_raw(413, PAYLOAD_TOO_LARGE)
                 return
             except BadRequest as exc:
                 self._error(400, str(exc))
@@ -417,7 +429,9 @@ class Server:
     ``host_tokenizer_workers``, ``max_queue_depth`` and the packing
     options).
     ``admission`` is an ``AdmissionConfig``; ``drain_timeout_ms`` bounds
-    ``drain()``; ``watchdog_ms`` > 0 starts a ``DeviceWatchdog``;
+    ``drain()``; ``watchdog_ms`` > 0 starts a ``DeviceWatchdog`` that
+    checks every ``watchdog_interval_ms`` (0: a quarter of its timeout);
+    ``max_body_bytes`` caps every route's request body (413 past it);
     ``device_timing=False`` turns off per-bucket device timing.  With
     ``ready=False`` the server answers ``/readyz`` 503 and sheds device
     routes until ``warmup`` (or ``lifecycle.mark_ready()``)."""
@@ -434,6 +448,8 @@ class Server:
         admission: AdmissionConfig = None,
         drain_timeout_ms: float = 10000.0,
         watchdog_ms: float = 0.0,
+        watchdog_interval_ms: float = 0.0,
+        max_body_bytes: int = MAX_BODY_BYTES,
         device_timing: bool = True,
         ready: bool = True,
         chat_client=None,
@@ -460,7 +476,8 @@ class Server:
                 model.device_timing = bool(device_timing)
         self.metrics = Metrics()
         self.watchdog = (
-            DeviceWatchdog(watchdog_ms) if watchdog_ms > 0 else None
+            DeviceWatchdog(watchdog_ms, interval_ms=watchdog_interval_ms)
+            if watchdog_ms > 0 else None
         )
         admission = admission or AdmissionConfig()
         if admission.max_queue_depth:
@@ -508,7 +525,8 @@ class Server:
         self.httpd = _HTTPServer(
             (host, port),
             make_handler(embedder, self.batcher, reranker, self.metrics,
-                         self.admission, self.lifecycle, self.chat_routes),
+                         self.admission, self.lifecycle, self.chat_routes,
+                         max_body_bytes),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:

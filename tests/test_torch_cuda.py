@@ -1339,3 +1339,75 @@ def _micro_embedder(device):
                          tokenizer=tokenizer.load_tokenizer(
                              loading.find_vocab(FIXTURE)),
                          max_tokens=64, device=device, dtype=torch.float32)
+
+
+# -- the device tally and soft votes (archive re-scoring) -------------------
+
+
+def _tally_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.random(shape).astype(np.float32) ** 3
+    v /= v.sum(axis=-1, keepdims=True)
+    w = rng.uniform(0.5, 3.0, shape[:-1]).astype(np.float32)
+    mask = (rng.random(shape[:-1]) > 0.25).astype(np.float32)
+    return v, w, mask
+
+
+@pytest.mark.parametrize("m,n", [(8, 4), (32, 8), (1, 2)])
+def test_device_tally_on_the_card_matches_the_cpu(card, m, n):
+    """``tally`` / ``judge_confidence`` / ``incremental_tally`` on the card
+    against the CPU at 1e-6 (f32, TF32 off), an all-failed mask zeros."""
+    from llm_weighted_consensus_tpu_torch.ops import consensus
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    v, w, mask = _tally_inputs((m, n), m + n)
+    for d_mask in (None, mask, np.zeros(m, np.float32)):
+        got = consensus.tally(v, w, d_mask, device=card)
+        want = consensus.tally(v, w, d_mask, device="cpu")
+        for g, x in zip(got, want):
+            assert g.device.type == "cuda"
+            assert float((g.cpu() - x).abs().max()) <= 1e-6
+    _, conf = consensus.tally(v, w, mask, device=card)
+    jc = consensus.judge_confidence(v, conf, device=card).cpu()
+    jc_cpu = consensus.judge_confidence(v, conf.cpu(), device="cpu")
+    assert float((jc - jc_cpu).abs().max()) <= 1e-6
+    running = torch.zeros(n, device=card)
+    for j in range(m):
+        running, conf = consensus.incremental_tally(running, v[j], float(w[j]))
+    _, full = consensus.tally(v, w, device="cpu")
+    assert float((conf.cpu() - full).abs().max()) <= 1e-6
+
+
+def test_tally_batch_and_rescore_batch_on_the_card_match_the_cpu(card):
+    from llm_weighted_consensus_tpu_torch.ops import consensus
+    from llm_weighted_consensus_tpu_torch.parallel.batch import rescore_batch
+
+    v, w, mask = _tally_inputs((10000, 8, 4), 0)
+    mask[3] = 0.0
+    cw, conf = rescore_batch(v, w, mask, device=card)
+    cw_cpu, conf_cpu = rescore_batch(v, w, mask, device="cpu")
+    assert np.abs(cw - cw_cpu).max() <= 1e-6 * max(1.0, np.abs(cw_cpu).max())
+    assert np.abs(conf - conf_cpu).max() <= 1e-6
+    assert (conf[3] == 0).all() and np.isfinite(conf).all()
+    got = consensus.judge_confidence_batch(v, conf, device=card).cpu()
+    want = consensus.judge_confidence_batch(v, conf, device="cpu")
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_softmax_votes_on_the_card_match_the_cpu(card):
+    """Ids of -1 and of n or more give zero rows (``jax.nn.one_hot``'s),
+    as does a row without a valid alternative."""
+    from llm_weighted_consensus_tpu_torch.ops import votes
+
+    rng = np.random.default_rng(3)
+    m, k, n = 512, 20, 4
+    lp = np.log(rng.random((m, k)).astype(np.float32) + 1e-3)
+    ids = rng.integers(-1, n + 2, (m, k))
+    valid = (rng.random((m, k)) > 0.3).astype(np.float32)
+    valid[2] = 0.0
+    ids[3] = -1
+    got = votes.softmax_votes(lp, ids, valid, n, device=card)
+    want = votes.softmax_votes(lp, ids, valid, n, device="cpu")
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    assert not got[2].any() and not got[3].any()

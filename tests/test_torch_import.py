@@ -92,6 +92,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "ballot.vote", "ballot.prompting", "clients.tally", "weights",
         "weights.training_table", "cache", "cache.fingerprint",
         "cache.singleflight", "cache.store", "cache.replay",
+        "ops.consensus", "ops.votes", "parallel", "parallel.batch",
+        "archive.rescore", "weights.learning", "serve.archive_routes",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

@@ -420,7 +420,7 @@ def test_sigterm_drains_the_server_process():
                LWC_NATIVE="0")
     with subprocess.Popen(
         [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.serve",
-         "--port", "0", "--device", "cpu"],
+         "--port", "0", "--address", "127.0.0.1", "--device", "cpu"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     ) as proc:
         port = None
