@@ -206,7 +206,42 @@ Phases, each printing one JSON line:
    against ``embed_texts`` of the same prompts within ``LEARN_ROW_TOL``);
    the snapshot saved at close loaded anew.  It prints the rescore
    route's wall with its host and device parts and the learn pass's
-   wall, embed device time and dispatches (eager ones apart).
+   wall, embed device time and dispatches (eager ones apart);
+13. traced serving (``obs/``): one bge-large build through
+   ``build_embedder``, ``build_server`` and ``warm_up``.  (a) Phase 1's
+   bursts (3 x 8 ``/consensus`` of N=64 at s=128, a 1 s window so each
+   burst is one R=8 group) through a server per tracing mode: off,
+   ``TRACE_ENABLED=1`` at rate 0, and ``TRACE_SAMPLE_RATE=1`` with
+   ``TRACE_DIR`` and ``LEDGER_DIR``, half of those requests carrying a
+   caller's ``traceparent``.  It fails unless every traced answer has
+   ``x-trace-id`` (the caller's trace adopted), ``/v1/traces/{id}``
+   returns the tree ``gateway:POST /consensus`` -> ``batcher:consensus``
+   -> ``device:dispatch`` with every parent resolved, the named phases
+   hold 90% of ``e2e_ms``, the answers equal the untraced server's
+   (bit-equal at the same bucket, 1e-6 otherwise), and every mode made
+   the same launches per dispatch on ``tma`` / ``cluster``, all replayed,
+   none captured or eager.  (b) One burst of the mixed-length traffic
+   packed, untraced then traced: each item's ``batcher:*`` span carries
+   ``pack_plan_ms`` and ``host_tally_ms``, the same segment-attention
+   launches per packed call on ``tma``, the 90% bar on every
+   ``/consensus`` trace and over the burst (the ``/embeddings`` answer's
+   JSON encode of 16 x 1024 floats is host time no phase names; its
+   share is printed).  The load comes from a client process of its own
+   (``LOAD_CLIENT``), so client threads do not share the server's
+   interpreter lock.  (c) Phase 11's
+   panel with training-table weights at rate 1 with ``LEDGER_DIR``: 8
+   streamed and 4 unary requests, 8 in flight; every judge call's
+   ``traceparent`` names its request's trace and its ``judge:attempt``
+   span, the final frame's ``trace_id`` is ``x-trace-id``,
+   ``consensus:tally`` carries the explain record, ``/v1/judges`` counts
+   12 ballots per panel slot on each distinct judge id (the aggregator
+   is process-global: it is reset first), the ledger holds
+   12 records that ``load_ledger_records`` reads back; an all-failed
+   panel at rate 0 (``TRACE_ENABLED=1``) is kept with ``force_reason``
+   ``all_failed`` while a healthy request is dropped.  It prints p50 and
+   answers/s per mode, and the median of each named phase and of
+   ``other`` for (a), (b) and (c), and the garbage collector's pauses
+   during (a) and (b), beside the nvidia-smi line.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -399,6 +434,19 @@ LEARN_ROW_TOL = 1e-5
 # the learn pass embeds the 20 archived prompts in one dispatch: the embed
 # bucket of 32 rows at s=112 (phase 2 holds and times the attention there)
 ARCHIVE_ATTENTION_SHAPE = (32, 112)
+# traced serving (phase 13): phase 1's bursts (3 x 8 /consensus of N=64
+# at s=128) through one server per tracing mode; a 1 s window, so each
+# burst of 8 is one R=8 group in every mode (the same bucket, so the
+# traced and untraced answers must be bit-equal), half of the traced
+# requests carrying a caller's traceparent; the score path's 8 streamed
+# and 4 unary requests of phase 11's panel, 8 in flight
+TRACED_WINDOW_MS = 1000
+TRACED_SCORE_STREAMED, TRACED_SCORE_UNARY = 8, 4
+# the reference's bar (tests/test_perfobs.py:478): the named phases of a
+# traced request account for >= 90% of its end-to-end latency
+PHASE_BAR = 0.9
+# traced and untraced answers at different buckets
+TRACED_ANSWER_TOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -4035,7 +4083,9 @@ def judge_frames(body: dict) -> bytes:
 class ScriptedJudges:
     """The judge models on loopback (a stdlib SSE server): each answers
     ``judge_frames`` of its request after a scripted ``SCORE_JUDGE_MS``
-    delay (drawn from the ballot's hash), and counts the calls."""
+    delay (drawn from the ballot's hash), counts the calls and keeps each
+    call's ``traceparent`` header (None when absent); a model named
+    ``broken-*`` answers 418 at once."""
 
     def __init__(self) -> None:
         import threading
@@ -4044,6 +4094,7 @@ class ScriptedJudges:
 
         judges = self
         self.calls = 0
+        self.traceparents = []
         self.lock = threading.Lock()
 
         class Handler(BaseHTTPRequestHandler):
@@ -4057,6 +4108,15 @@ class ScriptedJudges:
                     int(self.headers["content-length"])))
                 with judges.lock:
                     judges.calls += 1
+                    judges.traceparents.append(
+                        self.headers.get("traceparent"))
+                if str(body.get("model", "")).startswith("broken-"):
+                    self.send_response(418)
+                    self.send_header("content-type", "application/json")
+                    self.send_header("content-length", "2")
+                    self.end_headers()
+                    self.wfile.write(b"{}")
+                    return
                 ballot, _ = ballot_keys_of(body)
                 lo, hi = SCORE_JUDGE_MS
                 time.sleep((lo + zlib.crc32(ballot.encode()) % (hi - lo + 1))
@@ -4371,6 +4431,28 @@ def check_score_bge_micro(gpu: str) -> dict:
     return row
 
 
+def score_tables(emb, model, path: str) -> list:
+    """The panel's training tables saved to ``path``: 256 prompts
+    embedded once, each distinct table with its own seeded scores;
+    -> the table ids."""
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.weights.training_table import (
+        TrainingTableStore,
+    )
+
+    rows = emb.embed_texts(
+        [f"user: {score_prompt(10000 + i)}"
+         for i in range(SCORE_TABLE_ROWS)], max_tokens=SCORE_MAX_TOKENS)
+    store = TrainingTableStore()
+    rng = np.random.default_rng(17)
+    table_ids = sorted({llm.training_table_id for llm in model.llms})
+    for tid in table_ids:
+        store.add_rows(tid, rows, rng.random(SCORE_TABLE_ROWS))
+    store.save(path)
+    return table_ids
+
+
 def read_score_stream(events: list) -> dict:
     """A /score/completions stream's final frame, checked: it ends with
     [DONE], carries no error item, and its candidates' confidences sum to
@@ -4444,9 +4526,6 @@ def score_path(gpu: str) -> dict:
     from llm_weighted_consensus_tpu_torch.types.score_request import (
         ChatCompletionCreateParams,
     )
-    from llm_weighted_consensus_tpu_torch.weights.training_table import (
-        TrainingTableStore,
-    )
 
     judges = ScriptedJudges()
     work = os.path.join(REPO, "build", "score_smoke")
@@ -4467,15 +4546,7 @@ def score_path(gpu: str) -> dict:
                          for k in range(SCORE_STATIC_REQUESTS)]
         model = ModelBase.from_json_obj(
             tt_bodies[0]["model"]).into_model_validate()
-        rows = emb.embed_texts(
-            [f"user: {score_prompt(10000 + i)}"
-             for i in range(SCORE_TABLE_ROWS)], max_tokens=SCORE_MAX_TOKENS)
-        store = TrainingTableStore()
-        rng = np.random.default_rng(17)
-        table_ids = sorted({llm.training_table_id for llm in model.llms})
-        for tid in table_ids:
-            store.add_rows(tid, rows, rng.random(SCORE_TABLE_ROWS))
-        store.save(tables_path)
+        table_ids = score_tables(emb, model, tables_path)
         # warm the prompt embed's buckets: 16 rows at every sequence
         # bucket the prompts fall in
         seqs = sorted({_seq_bucket(int(emb.tokenize(
@@ -5403,9 +5474,706 @@ def check_archive_bge_micro(gpu: str, devices=("cpu", "cuda")) -> dict:
     return row
 
 
+# -- phase 13: traced serving -----------------------------------------------------
+
+
+# the load generator of phase 13, run in a process of its own: client
+# threads in the server's process would wait on the server's interpreter
+# lock, and the server's threads on theirs.  Stdlib only; reads a job
+# {"port", "groups": [{"inflight", "calls": [[path, body, headers]]}]}
+# on stdin, runs the groups in turn (each call of a group on a pool of
+# "inflight" threads) and prints [[status, headers, body text, ms]] per
+# call and each group's wall seconds.
+LOAD_CLIENT = r"""
+import concurrent.futures, http.client, json, sys, time
+job = json.load(sys.stdin)
+
+def call(c):
+    path, body, headers = c
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", job["port"], timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"content-type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read()
+        out = [resp.status, {k.lower(): v for k, v in resp.getheaders()},
+               raw.decode()]
+    finally:
+        conn.close()
+    return out + [(time.perf_counter() - t0) * 1e3]
+
+results, walls = [], []
+for group in job["groups"]:
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(group["inflight"]) as pool:
+        results += list(pool.map(call, group["calls"]))
+    walls.append(time.perf_counter() - t0)
+print(json.dumps({"results": results, "walls": walls}))
+"""
+
+
+def run_load(port: int, groups: list) -> tuple:
+    """``groups`` [(inflight, [(path, body, headers)])] through
+    ``LOAD_CLIENT`` in a child process -> ([(status, headers, JSON body
+    or SSE ``data:`` payloads, ms)] in order, [wall seconds] per group)."""
+    import subprocess
+
+    job = {"port": port, "groups": [
+        {"inflight": inflight, "calls": [list(c) for c in calls]}
+        for inflight, calls in groups]}
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_CLIENT], input=json.dumps(job),
+        capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise AssertionError(f"load client: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    calls = []
+    for status, headers, text, ms in out["results"]:
+        if headers.get("content-type", "").startswith("text/event-stream"):
+            body = [blk[len("data: "):] for blk in text.split("\n\n")
+                    if blk.startswith("data: ")]
+        else:
+            body = json.loads(text)
+        calls.append((status, headers, body, ms))
+    return calls, out["walls"]
+
+
+class GcPauses:
+    """The interpreter's garbage collections while the block runs: a
+    collection stops every thread of the server, so a long one shows as
+    unattributed time in a trace."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t = [], None
+        gc.callbacks.append(self._on)
+        return self
+
+    def _on(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.pauses.append((info["generation"],
+                                (time.perf_counter() - self._t) * 1e3))
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on)
+
+    def summary(self) -> dict:
+        return {"collections": len(self.pauses),
+                "full": sum(1 for g, _ in self.pauses if g == 2),
+                "max_ms": max((ms for _, ms in self.pauses), default=0.0)}
+
+
+def drive_traced(port, bursts, parents=None, embeds=(), model_name=None):
+    """Each burst's /consensus requests at once (with the /embeddings
+    request ``embeds[k]`` of burst k where there is one), from the load
+    client's process; request i of the run carries ``traceparent:
+    parents[i]`` where that is not None.  -> the calls [(path, texts,
+    headers, body, ms)] in order, p50 and answers/s of the /consensus
+    requests."""
+    import numpy as np
+
+    groups, order, i = [], [], 0
+    for k, burst in enumerate(bursts):
+        calls = []
+        for texts in burst:
+            parent = parents[i] if parents is not None else None
+            calls.append(("/consensus", {"input": texts},
+                          {"traceparent": parent} if parent else None))
+            order.append(("/consensus", texts))
+            i += 1
+        if k < len(embeds):
+            calls.append(("/embeddings",
+                          {"model": model_name, "input": embeds[k]}, None))
+            order.append(("/embeddings", embeds[k]))
+            i += 1
+        groups.append((len(calls), calls))
+    results, walls = run_load(port, groups)
+    out, ms = [], []
+    for (path, texts), (status, headers, body, took) in zip(order, results):
+        if status != 200:
+            raise AssertionError(f"{path}: {status} {body}")
+        if path == "/consensus":
+            check_answer(body["confidence"], len(texts))
+            ms.append(took)
+        out.append((path, texts, headers, body, took))
+    return {"calls": out, "p50_ms": float(np.median(ms)),
+            "answers_per_s": len(ms) / sum(walls), "requests": len(ms)}
+
+
+def request_buckets(emb, records, calls) -> list:
+    """The bucket label each /consensus call of ``calls`` was served at,
+    matched by its token ids against the recorded dispatches."""
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.models.graphs import key_label
+
+    served = {}
+    for key, kept, *_ in records:
+        ids = np.asarray(kept["ids"]).astype(np.int32)
+        n = key[2] if key[0] == "many" else ids.shape[0]
+        rows = ids.reshape(-1, ids.shape[-1])
+        for g in range(rows.shape[0] // n):
+            served[rows[g * n:(g + 1) * n].tobytes()] = key_label(key)
+    out = []
+    for path, texts, *_ in calls:
+        if path != "/consensus":
+            continue
+        ids = emb.tokenize(texts)[0].astype(np.int32)
+        out.append(served.get(ids.tobytes()))
+    return out
+
+
+def check_trace(record: dict, root: str, chains: list,
+                caller_parent=None) -> dict:
+    """A kept trace's record, checked: its root span is ``root`` (its
+    parent the caller's span or None), every other span's parent id
+    resolves inside the trace, every span finished, and each chain of
+    names ([root, child, grandchild]) hangs together.  -> its
+    ``phase_breakdown``, with ``named_share`` (the named phases over
+    ``e2e_ms``; ``phase_bar`` holds them to ``PHASE_BAR``) and where the
+    root's unattributed time sits."""
+    from llm_weighted_consensus_tpu_torch.obs import PHASES
+
+    spans = record["spans"]
+    ids = {s["span_id"]: s for s in spans}
+    first = spans[0]
+    if first["name"] != root or first["parent_id"] != caller_parent:
+        raise AssertionError(f"trace root {first['name']} "
+                             f"{first['parent_id']}")
+    for s in spans[1:]:
+        if s["parent_id"] not in ids:
+            raise AssertionError(f"{s['name']}: parent {s['parent_id']} "
+                                 "is not in the trace")
+    if any(s["duration_ms"] is None for s in spans):
+        raise AssertionError("a span of a kept trace never finished")
+    for chain in chains:
+        ok = any(
+            s["name"] == chain[-1] and all(
+                ids.get(_ancestor(ids, s, up), {}).get("name") == name
+                for up, name in enumerate(reversed(chain[:-1]), 1))
+            for s in spans)
+        if not ok:
+            raise AssertionError(f"no span chain {chain}")
+    breakdown = dict(first["attributes"]["phase_breakdown"])
+    breakdown["named_share"] = sum(
+        breakdown[p] for p in PHASES) / breakdown["e2e_ms"]
+    # where the root's unattributed time sits: before its first child
+    # span opens, and after its last one closes
+    if len(spans) > 1:
+        breakdown["root_before_children_ms"] = min(
+            s["start_ms"] for s in spans[1:]) - first["start_ms"]
+        breakdown["root_after_children_ms"] = (
+            first["start_ms"] + first["duration_ms"] - max(
+                s["start_ms"] + s["duration_ms"] for s in spans[1:]))
+    return breakdown
+
+
+def _ancestor(ids: dict, span: dict, up: int):
+    """The span id ``up`` generations above ``span``."""
+    sid = span["span_id"]
+    for _ in range(up):
+        sid = ids[sid]["parent_id"] if sid in ids else None
+    return sid
+
+
+def phase_bar(breakdowns: list, what: str) -> None:
+    """Fails unless every traced request's named phases hold
+    ``PHASE_BAR`` of its ``e2e_ms`` (called after the row is printed)."""
+    short = [b for b in breakdowns if b["named_share"] < PHASE_BAR]
+    if short:
+        worst = min(short, key=lambda b: b["named_share"])
+        raise AssertionError(f"{what}: {len(short)} of {len(breakdowns)} "
+                             f"traces under the phase bar; worst {worst}")
+
+
+def phase_medians(breakdowns: list) -> dict:
+    """The median of each named phase, of ``other_ms`` and of ``e2e_ms``,
+    over ``breakdowns``; ``named_share`` the least named share seen."""
+    import statistics
+
+    from llm_weighted_consensus_tpu_torch.obs import PHASES
+
+    keys = list(PHASES) + ["other_ms", "e2e_ms", "root_before_children_ms",
+                           "root_after_children_ms"]
+    out = {k: statistics.median(b[k] for b in breakdowns) for k in keys
+           if all(k in b for b in breakdowns)}
+    out["other_ms_max"] = max(b["other_ms"] for b in breakdowns)
+    out["after_children_ms_max"] = max(
+        b.get("root_after_children_ms", 0.0) for b in breakdowns)
+    out["before_children_ms_max"] = max(
+        b.get("root_before_children_ms", 0.0) for b in breakdowns)
+    out["named_share_min"] = min(b["named_share"] for b in breakdowns)
+    out["requests"] = len(breakdowns)
+    return out
+
+
+def get_trace(port: int, trace_id: str) -> dict:
+    status, _, record = http(port, f"/v1/traces/{trace_id}")
+    if status != 200:
+        raise AssertionError(f"/v1/traces/{trace_id}: {status} {record}")
+    return record
+
+
+def traced_main(gpu, emb, work, on_card) -> dict:
+    """(a) the main path under each tracing mode on one build: off,
+    ``TRACE_ENABLED=1`` at rate 0, then rate 1 with half the requests
+    carrying a caller's ``traceparent``."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    layers = emb.config.num_layers
+    rng = np.random.default_rng(0)  # phase 1's bursts
+    bursts = [[candidate_texts(rng, N_CANDIDATES, BURST_WORDS)
+               for _ in range(BURST)] for _ in range(3)]
+    requests = sum(len(b) for b in bursts)
+    prng = np.random.default_rng(13)
+    parents = [
+        f"00-{prng.bytes(16).hex()}-{prng.bytes(8).hex()}-01"
+        if i % 2 else None for i in range(requests)]
+    base = serving_env(EMBEDDER_MODEL=emb.model_name,
+                       WARMUP=f"{N_CANDIDATES}x128", WARMUP_R="2,4,8",
+                       BATCH_WINDOW_MS=str(TRACED_WINDOW_MS))
+    modes = (
+        ("off", {}),
+        ("enabled_rate_0", {"TRACE_ENABLED": "1"}),
+        ("rate_1", {"TRACE_SAMPLE_RATE": "1",
+                    "TRACE_DIR": os.path.join(work, "traces"),
+                    "LEDGER_DIR": os.path.join(work, "ledger")}),
+    )
+    runs = {}
+    for mode, extra in modes:
+        config = ServeConfig.from_env({**base, **extra})
+        srv = build_server(emb, None, config).start()
+        try:
+            warm_up(srv, config)
+            if on_card:
+                torch.cuda.synchronize()
+            graphs0, stats0 = emb.graph_stats(), srv.batcher.stats()
+            reset_launches()
+            records, unwrap = record_dispatches(emb)
+            try:
+                with GcPauses() as gc_pauses:
+                    out = drive_traced(srv.port, bursts,
+                                       parents if mode == "rate_1" else None)
+            finally:
+                unwrap()
+            if on_card:
+                torch.cuda.synchronize()
+            launches = read_launches()
+            routes = read_routes() if on_card else None
+            graphs1, stats1 = emb.graph_stats(), srv.batcher.stats()
+            run = {
+                "mode": mode, "p50_ms": out["p50_ms"],
+                "answers_per_s": out["answers_per_s"],
+                "requests": out["requests"], "launches": launches,
+                "routes": routes,
+                "consensus_dispatches": stats1["dispatches"]["consensus"]
+                - stats0["dispatches"]["consensus"],
+                "captures_after_warmup": graphs1["captures"]
+                - graphs0["captures"],
+                "replays": graphs1["replays"] - graphs0["replays"],
+                "eager_dispatches": graphs1["eager_dispatches"]
+                - graphs0["eager_dispatches"],
+                "buckets": bucket_counts(records),
+                "gc": gc_pauses.summary(),
+                "calls": out["calls"],
+                "request_buckets": request_buckets(emb, records,
+                                                   out["calls"]),
+            }
+            if mode == "rate_1":
+                breakdowns, adopted = [], 0
+                for (path, texts, headers, body, _), parent in zip(
+                        out["calls"], parents):
+                    tid = headers.get("x-trace-id")
+                    if not tid:
+                        raise AssertionError("a traced answer without "
+                                             "x-trace-id")
+                    caller = None
+                    if parent is not None:
+                        caller = parent.split("-")[2]
+                        if tid != parent.split("-")[1]:
+                            raise AssertionError(
+                                f"caller's trace not adopted: {tid}")
+                        adopted += 1
+                    breakdowns.append(check_trace(
+                        get_trace(srv.port, tid), "gateway:POST /consensus",
+                        [["gateway:POST /consensus", "batcher:consensus",
+                          "device:dispatch"]], caller))
+                run["phase_split"] = phase_medians(breakdowns)
+                run["breakdowns"] = breakdowns
+                run["adopted_traceparents"] = adopted
+                run["sink"] = http(srv.port, "/metrics")[2]["traces"]
+        finally:
+            srv.close()
+        runs[mode] = run
+    # the same launches per dispatch on the same routes in every mode, all
+    # from replays; the answers the untraced server's
+    off, traced = runs["off"], runs["rate_1"]
+    worst, bit_equal, apart = 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(off["calls"], traced["calls"])):
+        diff = float(np.abs(np.asarray(a[3]["confidence"])
+                            - np.asarray(b[3]["confidence"])).max())
+        if off["request_buckets"][i] == traced["request_buckets"][i]:
+            bit_equal += diff == 0.0
+            if diff != 0.0:
+                raise AssertionError(f"request {i}: traced answer differs "
+                                     f"by {diff} at the same bucket")
+        else:
+            apart += 1
+            worst = max(worst, diff)
+            if diff > TRACED_ANSWER_TOL:
+                raise AssertionError(f"request {i}: {diff} apart")
+    for run in runs.values():
+        want = expected_launches(layers, run["consensus_dispatches"], 0)
+        if on_card and (run["launches"] != want
+                        or run["captures_after_warmup"]
+                        or run["eager_dispatches"]
+                        or run["replays"] != run["consensus_dispatches"]):
+            raise AssertionError(f"traced main path {run['mode']}: "
+                                 f"{run['launches']} != {want}, {run}")
+    row = {
+        "phase": "traced_path", "part": "main", "gpu": gpu,
+        "nvidia_smi": gpu, "model": emb.model_name, "layers": layers,
+        "window_ms": TRACED_WINDOW_MS,
+        "modes": {m: {k: r[k] for k in (
+            "p50_ms", "answers_per_s", "requests", "consensus_dispatches",
+            "buckets", "launches", "routes", "captures_after_warmup",
+            "replays", "eager_dispatches", "gc")} for m, r in runs.items()},
+        "tracing_overhead_p50": {
+            m: runs[m]["p50_ms"] / off["p50_ms"] - 1.0
+            for m in ("enabled_rate_0", "rate_1")},
+        "answers_bit_equal": bit_equal, "answers_at_other_buckets": apart,
+        "answers_max_abs_apart": worst,
+        "phase_split": traced["phase_split"],
+        "adopted_traceparents": traced["adopted_traceparents"],
+        "traces": traced["sink"],
+    }
+    emit(row)
+    phase_bar(traced["breakdowns"], "traced main path")
+    row["launches"] = traced["launches"]
+    return row
+
+
+def traced_packed(gpu, emb, on_card) -> dict:
+    """(b) one burst of the mixed-length traffic under the
+    ``PACKING_ENABLED`` defaults, untraced then traced on one build."""
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import build_server
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    packed = TorchEmbedder(emb.model_name, model=emb.model,
+                           config=emb.config, tokenizer=emb.tokenizer,
+                           max_tokens=emb.max_tokens, device=emb.device,
+                           dtype=emb.dtype)
+    layers = packed.config.num_layers
+    buckets = [(b, l, PACKING["packing_max_segments"])
+               for b, l in PACKED_SHAPES]
+    mixed, membeds = mixed_traffic()
+    runs = {}
+    for mode, extra in (("off", {}), ("rate_1", {"TRACE_SAMPLE_RATE": "1"})):
+        env = serving_env(EMBEDDER_MODEL=emb.model_name, PACKING_ENABLED="1",
+                          BATCH_MAX="64", **extra)
+        srv = build_server(packed, None, ServeConfig.from_env(env)).start()
+        try:
+            srv.warmup([], [], buckets)
+            graphs0, stats0 = packed.graph_stats(), srv.batcher.stats()
+            reset_launches()
+            with GcPauses() as gc_pauses:
+                out = drive_traced(srv.port, mixed[:1], embeds=membeds[:1],
+                                   model_name=emb.model_name)
+            launches = read_launches()
+            routes = read_routes() if on_card else None
+            graphs1, stats1 = packed.graph_stats(), srv.batcher.stats()
+            calls = sum(stats1["packing"]["call_shapes"].values()) - sum(
+                stats0["packing"]["call_shapes"].values())
+            run = {"p50_ms": out["p50_ms"], "answers_per_s":
+                   out["answers_per_s"], "packed_calls": calls,
+                   "launches": launches, "routes": routes,
+                   "captures_after_warmup": graphs1["captures"]
+                   - graphs0["captures"],
+                   "eager_dispatches": graphs1["eager_dispatches"]
+                   - graphs0["eager_dispatches"],
+                   "gc": gc_pauses.summary()}
+            if mode == "rate_1":
+                breakdowns, items, scored = [], 0, []
+                for path, _, headers, _, _ in out["calls"]:
+                    record = get_trace(srv.port, headers["x-trace-id"])
+                    kind = "consensus" if path == "/consensus" else "embed"
+                    breakdowns.append(check_trace(
+                        record, f"gateway:POST {path}",
+                        [[f"gateway:POST {path}", f"batcher:{kind}",
+                          "device:dispatch"]]))
+                    if kind == "consensus":
+                        scored.append(breakdowns[-1])
+                    else:
+                        run["embeddings_request"] = breakdowns[-1]
+                    for s in record["spans"]:
+                        if s["name"].startswith("batcher:"):
+                            attrs = s["attributes"]
+                            if not ("pack_plan_ms" in attrs
+                                    and "host_tally_ms" in attrs):
+                                raise AssertionError(
+                                    f"packed item span {attrs}")
+                            items += 1
+                run["phase_split"] = phase_medians(breakdowns)
+                run["traced_items"] = items
+                run["shares"] = sorted(round(b["named_share"], 4)
+                                       for b in breakdowns)
+                # the burst as a whole: the /embeddings answer's JSON
+                # encode (16 x 1024 floats) is host time no phase names
+                run["burst_named_share"] = sum(
+                    b["named_share"] * b["e2e_ms"] for b in breakdowns
+                ) / sum(b["e2e_ms"] for b in breakdowns)
+                bars = scored
+        finally:
+            srv.close()
+        want = expected_launches(layers, 0, 0, packed_calls=calls)
+        if on_card and (launches != want or run["captures_after_warmup"]):
+            raise AssertionError(f"traced packed {mode}: {launches} != "
+                                 f"{want} ({run})")
+        runs[mode] = run
+    per_call = {m: r["launches"]["segment_attention"] / max(
+        1, r["packed_calls"]) for m, r in runs.items()}
+    if on_card and per_call["off"] != per_call["rate_1"]:
+        raise AssertionError(f"segment launches per call {per_call}")
+    row = {"phase": "traced_path", "part": "packed", "gpu": gpu,
+           "nvidia_smi": gpu, "modes": runs,
+           "segment_launches_per_call": per_call}
+    emit(row)
+    phase_bar(bars, "traced packed burst, /consensus")
+    if runs["rate_1"]["burst_named_share"] < PHASE_BAR:
+        raise AssertionError(f"traced packed burst: named phases "
+                             f"{runs['rate_1']['burst_named_share']}")
+    row["launches"] = runs["rate_1"]["launches"]
+    return row
+
+
+def traced_score(gpu, emb, work, on_card) -> dict:
+    """(c) phase 11's panel with training-table weights, traced at rate 1
+    with ``LEDGER_DIR``: 8 streamed and 4 unary requests, 8 in flight;
+    then an all-failed panel at rate 0 with ``TRACE_ENABLED=1``."""
+    import statistics
+
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.obs import (
+        load_ledger_records,
+        parse_traceparent,
+        reset_quality,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    judges = ScriptedJudges()
+    ledger_dir = os.path.join(work, "score_ledger")
+    tables_path = os.path.join(work, "tables.npz")
+    n_req = TRACED_SCORE_STREAMED + TRACED_SCORE_UNARY
+    bodies = [score_body(200 + k, "training_table") for k in range(n_req)]
+    model = ModelBase.from_json_obj(bodies[0]["model"]).into_model_validate()
+    slots = {}
+    for llm in model.llms:
+        slots[llm.id] = slots.get(llm.id, 0) + 1
+    env = {"EMBEDDER_MODEL": emb.model_name, "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "OPENAI_API_BASE": judges.url,
+           "OPENAI_API_KEY": "smoke-key", "TABLES_PATH": tables_path,
+           "TRACE_SAMPLE_RATE": "1", "LEDGER_DIR": ledger_dir}
+    srv = srv2 = None
+    try:
+        score_tables(emb, model, tables_path)
+        seqs = sorted({_seq_bucket(int(emb.tokenize(
+            [f"user: {score_prompt(200 + k)}"], SCORE_MAX_TOKENS)[1].sum()),
+            SCORE_MAX_TOKENS) for k in range(n_req)})
+        env["WARMUP"] = ",".join(f"16x{s}" for s in seqs)
+        config = ServeConfig.from_env(env)
+        srv = build_server(emb, None, config).start()
+        warm_up(srv, config)
+        graphs0 = emb.graph_stats()
+        calls0 = len(judges.traceparents)
+        # the scorecards are process-global: count this phase's ballots
+        reset_quality()
+        reset_launches()
+
+        answers, (wall,) = run_load(srv.port, [(SCORE_INFLIGHT, [
+            ("/score/completions",
+             {**bodies[k], "stream": k < TRACED_SCORE_STREAMED}, None)
+            for k in range(n_req)])])
+        launches = read_launches()
+        graphs1 = emb.graph_stats()
+        traces, response_ids, breakdowns, kept = {}, [], [], []
+        for k, (status, headers, out, _) in enumerate(answers):
+            if status != 200:
+                raise AssertionError(f"score request {k}: {status}")
+            final = (read_score_stream(out)["final"]
+                     if k < TRACED_SCORE_STREAMED else out)
+            tid = headers.get("x-trace-id")
+            if not tid or final.get("trace_id") != tid:
+                raise AssertionError(f"final frame trace_id "
+                                     f"{final.get('trace_id')} != {tid}")
+            response_ids.append(final["id"])
+            record = get_trace(srv.port, tid)
+            kept.append(record)
+            breakdowns.append(check_trace(
+                record, "gateway:POST /score/completions",
+                [["gateway:POST /score/completions", "judge:stream",
+                  "judge:attempt"],
+                 ["gateway:POST /score/completions", "batcher:embed",
+                  "device:dispatch"],
+                 ["gateway:POST /score/completions", "consensus:tally"],
+                 ["gateway:POST /score/completions", "cache:lookup"]]))
+            tally = next(s for s in record["spans"]
+                         if s["name"] == "consensus:tally")["attributes"]
+            if (len(tally["judges"]) != SCORE_JUDGES
+                    or len(tally["candidates"]) != SCORE_N
+                    or not {"weight_sum", "winner", "degraded",
+                            "n_judges"} <= set(tally)):
+                raise AssertionError(f"consensus:tally attributes {tally}")
+            traces[tid] = {s["span_id"] for s in record["spans"]
+                           if s["name"] == "judge:attempt"}
+        # each judge call names its request's trace and its attempt span
+        by_trace = {}
+        for header in judges.traceparents[calls0:]:
+            parsed = parse_traceparent(header)
+            if parsed is None or parsed[0] not in traces:
+                raise AssertionError(f"judge call traceparent {header}")
+            by_trace.setdefault(parsed[0], []).append(parsed[1])
+        for tid, attempts in traces.items():
+            if sorted(by_trace.get(tid, [])) != sorted(attempts) or len(
+                    attempts) != SCORE_JUDGES:
+                raise AssertionError(f"trace {tid}: upstream parents "
+                                     f"{by_trace.get(tid)} != {attempts}")
+        # scorecards: one per distinct judge id, 12 ballots per slot
+        status, _, cards = http(srv.port, "/v1/judges")
+        got = {c["model"]: c["ballots"] for c in cards["judges"]}
+        want = {jid: n_req * n for jid, n in slots.items()}
+        if status != 200 or got != want:
+            raise AssertionError(f"/v1/judges ballots {got} != {want}")
+        # the ledger: the ring, the disk file, read back
+        ledger = srv.ledger.snapshot()
+        records, torn = load_ledger_records(ledger_dir)
+        if (ledger["kept"] != n_req or ledger["size"] != n_req or torn
+                or sorted(r["id"] for r in records) != sorted(response_ids)
+                or sorted(r["trace_id"] for r in records) != sorted(traces)):
+            raise AssertionError(f"ledger {ledger}, {len(records)} records "
+                                 f"read back, {torn} torn")
+        metrics = http(srv.port, "/metrics")[2]
+        # the span trees, for reading where a request's time goes
+        out_dir = os.path.join(REPO, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "traces_score.jsonl"), "w") as f:
+            for record in kept:
+                f.write(json.dumps(record) + "\n")
+        captures = graphs1["captures"] - graphs0["captures"]
+        eager = graphs1["eager_dispatches"] - graphs0["eager_dispatches"]
+        if on_card and (captures or eager or launches["cosine_vote"]):
+            raise AssertionError(f"traced score path: {captures} captures, "
+                                 f"{eager} eager, {launches}")
+        srv.close()
+        srv = None
+        # an all-failed panel at rate 0: kept, forced "all_failed"
+        env2 = {**env, "TRACE_SAMPLE_RATE": "0", "TRACE_ENABLED": "1",
+                "BACKOFF_MAX_ELAPSED_TIME_MILLIS": "0", "WARMUP": ""}
+        env2.pop("LEDGER_DIR")
+        config2 = ServeConfig.from_env(env2)
+        srv2 = build_server(emb, None, config2).start()
+        warm_up(srv2, config2)
+        broken = {"messages": [{"role": "user", "content": "q"}],
+                  "model": {"llms": [{"model": f"broken-{i}"}
+                                     for i in range(3)]},
+                  "choices": ["a", "b"]}
+        ((status, headers, body, _), healthy), _ = run_load(srv2.port, [
+            (1, [("/score/completions", broken, None),
+                 ("/score/completions", {**bodies[0], "stream": False},
+                  None)])])
+        record = get_trace(srv2.port, headers["x-trace-id"])
+        dropped = http(srv2.port, f"/v1/traces/{healthy[1]['x-trace-id']}")
+        sink2 = http(srv2.port, "/metrics")[2]["traces"]
+        if (record["force_reason"] != "all_failed" or record["sampled"]
+                or body.get("trace_id") != headers["x-trace-id"]
+                or healthy[0] != 200 or dropped[0] != 404):
+            raise AssertionError(f"all-failed at rate 0: {status} {body} "
+                                 f"{record['force_reason']} {dropped[0]}")
+        row = {
+            "phase": "traced_path", "part": "score", "gpu": gpu,
+            "nvidia_smi": gpu, "requests": n_req,
+            "streamed": TRACED_SCORE_STREAMED, "unary": TRACED_SCORE_UNARY,
+            "in_flight": SCORE_INFLIGHT, "judges": SCORE_JUDGES,
+            "distinct_judge_ids": len(slots),
+            "requests_per_s": n_req / wall,
+            "client_p50_ms": statistics.median(a[3] for a in answers),
+            "phase_split": phase_medians(breakdowns),
+            "upstream_calls_traced": sum(len(v) for v in by_trace.values()),
+            "scorecards": got, "ledger": ledger,
+            "ledger_read_back": len(records),
+            "traces": metrics["traces"], "launches": launches,
+            "captures_after_warmup": captures, "eager_dispatches": eager,
+            "all_failed": {"status": status,
+                           "force_reason": record["force_reason"],
+                           "healthy_dropped": dropped[0] == 404,
+                           "sink": sink2},
+        }
+        emit(row)
+        return row
+    finally:
+        for s in (srv, srv2):
+            if s is not None:
+                s.close()
+        judges.close()
+
+
+def traced_path(gpu: str, device: str = "cuda",
+                model_name: str = "bge-large-en") -> dict:
+    """Phase 13: request tracing on the served paths at full bge-large
+    width (random weights from seed 0, bf16) through ``build_embedder``,
+    ``build_server`` and ``warm_up``: (a) the main path's bursts under
+    each tracing mode, (b) one packed burst traced, (c) phase 11's score
+    panel traced, with the outcome ledger.  (``device="cpu"`` with a
+    small model rehearses the control flow; the kernel counters count
+    only on the card.)"""
+    import shutil
+
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+    )
+
+    work = os.path.join(REPO, "build", "traced_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    on_card = device == "cuda"
+    emb = build_embedder(serving_env(EMBEDDER_MODEL=model_name),
+                         device=device)
+    try:
+        main = traced_main(gpu, emb, work, on_card)
+        packed = traced_packed(gpu, emb, on_card)
+        score = traced_score(gpu, emb, work, on_card)
+    finally:
+        del emb
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"main": main, "packed": packed, "score": score}
+
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
-                   archived) -> dict:
+                   archived, traced) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -5424,7 +6192,10 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     with that path's launches, which the main attention entry also
     carries as ``score_path_launches``; the archive path likewise adds
     the attention at its learn pass's dispatch shape [32, 112]
-    (``"path": "archive"``, ``archive_path_launches``).
+    (``"path": "archive"``, ``archive_path_launches``).  Phase 13's
+    traced runs add ``traced_path_launches`` to the main vote and
+    attention entries (the rate-1 main run) and to the segment
+    attention's (the traced packed burst).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -5620,6 +6391,15 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         * archived["layers"],
     })
     entries[1]["archive_path_launches"] = archived["launches"]["attention"]
+    for entry in entries:
+        if entry.get("path") is not None:
+            continue
+        if entry["name"] in ("cosine_vote", "attention"):
+            entry["traced_path_launches"] = traced["main"]["launches"][
+                entry["name"]]
+        elif entry["name"] == "segment_attention":
+            entry["traced_path_launches"] = traced["packed"]["launches"][
+                "segment_attention"]
     graphed = {"cosine_vote": "main", "attention": "main",
                "segment_attention": "packed", "quantize_rows": "int8",
                "w8a8_matmul": "int8", "w4a8_matmul": "int4-pallas"}
@@ -5704,11 +6484,12 @@ def main() -> int:
     timed("archive_path", config4_rescore, gpu)
     timed("archive_path", check_archive_bge_micro, gpu)
     archived = timed("archive_path", archive_path, gpu)
+    traced = timed("traced_path", traced_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score, archived))
+                        score, archived, traced))
     print(gpu)
     emit({
         "ok": True,

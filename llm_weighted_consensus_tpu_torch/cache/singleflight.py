@@ -19,9 +19,10 @@ Cancellation safety:
 
 Single event loop assumed (the chat routes' one loop thread); no locks
 needed — all table mutations happen synchronously between awaits.  The
-port's copy of ``llm_weighted_consensus_tpu/cache/singleflight.py``,
-without the reference's ``singleflight:wait`` trace span (tracing is not
-ported) and its ``do(key, factory)`` shape, which nothing here calls.
+port's copy of ``llm_weighted_consensus_tpu/cache/singleflight.py``: a
+traced follower's wait is a ``singleflight:wait`` span
+(``leader_abandoned`` when the leader left).  The reference's
+``do(key, factory)`` shape is left out: nothing here calls it.
 """
 
 from __future__ import annotations
@@ -80,12 +81,19 @@ class SingleFlight:
         caller's cancellation cannot poison the shared flight.  Returns
         ``(ok, value)``: ``ok`` False means the leader was cancelled and
         the caller should retry ``claim`` (likely becoming the leader)."""
-        try:
-            return True, await asyncio.shield(future)
-        except asyncio.CancelledError:
-            if future.cancelled() or (
-                future.done()
-                and isinstance(future.exception(), asyncio.CancelledError)
-            ):
-                return False, None  # leader abandoned; caller retries
-            raise  # caller itself was cancelled
+        from ..obs import span
+
+        with span("singleflight:wait") as s:
+            try:
+                return True, await asyncio.shield(future)
+            except asyncio.CancelledError:
+                if future.cancelled() or (
+                    future.done()
+                    and isinstance(
+                        future.exception(), asyncio.CancelledError
+                    )
+                ):
+                    if s is not None:
+                        s.annotate(leader_abandoned=True)
+                    return False, None  # leader abandoned; caller retries
+                raise  # caller itself was cancelled

@@ -29,9 +29,11 @@ real transport is ``StdlibTransport`` (HTTP/1.1 over
 ``asyncio.open_connection``, ``ssl`` for https, chunked decoding, a connect
 timeout) in place of the reference's ``AiohttpTransport``: the card's
 machine has no ``aiohttp``.  The client is the reference's with
-``resilience=None`` (its default): breakers, hedging, fault injection,
-the ``obs`` spans and ``traceparent`` injection wait for their slices;
-``_open_committed`` is the seam where breakers and hedging go.
+``resilience=None`` (its default): breakers, hedging and fault injection
+wait for their slice; ``_open_committed`` is the seam where they go.
+Traced, each attempt is a ``judge:attempt`` span (gate -> open ->
+first-chunk commit) and its upstream request carries the W3C
+``traceparent`` naming that span as the upstream's parent.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import AsyncIterator, Optional
 from urllib.parse import urlsplit
 
 from .. import archive as archive_mod
+from .. import obs
 from ..errors import (
     BadStatusError,
     ChatError,
@@ -426,6 +429,7 @@ class DefaultChatClient(ChatClient):
             deadline = current_deadline()
             if deadline is not None:
                 if deadline.expired():
+                    obs.annotate(deadline_expired="retry loop")
                     raise DeadlineExceededError("retry loop")
                 # never sleep past the deadline: wake with whatever budget
                 # is left and let the next attempt's clamped timeouts decide
@@ -434,6 +438,7 @@ class DefaultChatClient(ChatClient):
             if budget is not None and not budget.try_acquire():
                 # the fan-out's shared retry budget is dry: fail this judge
                 # over to its error path instead of joining a retry storm
+                obs.annotate(retry_denied=True)
                 raise last_error if last_error is not None else EmptyStreamError()
             await asyncio.sleep(sleep)
 
@@ -443,19 +448,44 @@ class DefaultChatClient(ChatClient):
         """One attempt end to end: open, first-chunk peek.  Returns
         ``(stream, api_base)`` on commit or the ``ChatError`` that felled
         it (the reference's ``_open_committed`` with no resilience
-        policy)."""
-        req = request.clone()
-        req.model = attempt.model
-        stream = self._open_event_stream(attempt.api_base, req)
-        # first-chunk peek: commit only on a good first chunk
+        policy).
+
+        The attempt span (a child of the ambient judge span) covers open
+        -> first-chunk commit; its activation makes the outgoing
+        ``traceparent`` name THIS attempt as the upstream's parent."""
+        aspan = obs.child_span(
+            "judge:attempt",
+            api_base=attempt.api_base.api_base,
+            model=attempt.model,
+        )
+        atoken = aspan.activate() if aspan is not None else None
         try:
-            first = await stream.__anext__()
-        except StopAsyncIteration:
-            first = EmptyStreamError()
-        if isinstance(first, ChatError):
-            await stream.aclose()
-            return first
-        return _prepend(first, stream), attempt.api_base
+            req = request.clone()
+            req.model = attempt.model
+            start = time.monotonic()
+            stream = self._open_event_stream(attempt.api_base, req)
+            # first-chunk peek: commit only on a good first chunk
+            try:
+                first = await stream.__anext__()
+            except StopAsyncIteration:
+                first = EmptyStreamError()
+            if isinstance(first, ChatError):
+                await stream.aclose()
+                if aspan is not None:
+                    # attempt-level failures are routine (the retry loop
+                    # may still commit): mark the span errored without
+                    # forcing trace retention
+                    aspan.annotate(error=str(first))
+                    aspan.finish("error")
+                return first
+            if aspan is not None:
+                aspan.annotate(first_chunk_ms=round(
+                    (time.monotonic() - start) * 1000.0, 3))
+            return _prepend(first, stream), attempt.api_base
+        finally:
+            if aspan is not None:
+                obs.Span.deactivate(atoken)
+                aspan.finish()
 
     # -- stream machinery ---------------------------------------------------
 
@@ -471,6 +501,9 @@ class DefaultChatClient(ChatClient):
         if self.referer:
             headers["referer"] = self.referer
             headers["http-referer"] = self.referer
+        # W3C traceparent: the ambient span (the attempt span, when one
+        # is active) becomes the upstream's parent; no-op untraced
+        obs.inject(headers)
         return headers
 
     async def _open_event_stream(self, api_base: ApiBase, request):
@@ -592,6 +625,9 @@ class DefaultChatClient(ChatClient):
                 event = pending.pop(0)
                 first = False
                 if event == DONE_FRAME:
+                    # annotates the ambient judge span (this generator
+                    # body runs in the judge's pump task)
+                    obs.annotate(sse_events=parser.events_parsed)
                     return
                 if not event or event.startswith(":"):
                     continue

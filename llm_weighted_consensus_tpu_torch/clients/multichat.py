@@ -320,7 +320,7 @@ class StreamingSelfConsistency:
         conf = None
         for i, slot in enumerate(slots):
             position = self._next_position()
-            conf = await asyncio.wrap_future(self.batcher.submit_stream(
+            conf = await self.batcher.wait_async(self.batcher.submit_stream(
                 self.texts.get(slot, ""),
                 self._buf,
                 position,

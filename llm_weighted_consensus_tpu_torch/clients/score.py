@@ -34,11 +34,21 @@ per-choice chunks are ordered; each judge's last frame carries its
 weights/confidences/usage; errors are per-choice and never abort other
 judges.
 
-Not ported yet, each with its own slice: the reference's trace spans,
-quality aggregates and outcome ledger, live weights, the fleet, the
-judge bias plan, the resilience quorum and retry budget, and the ballot
-sink of the archive's write side.  The reference's client with each of
-those at its default (None) is what this client computes.
+Observability, as the reference's: traced, the request's tree holds a
+``cache:lookup`` span (the front door's routing decision), one
+``judge:stream`` span per judge (the chat client's ``judge:attempt``
+spans under it) and a ``consensus:tally`` span whose attributes are the
+explain record (per-judge vote, weight and contribution, per-candidate
+weight and confidence, the winner, the weight sum); the final frame
+carries ``trace_id``, and an all-failed panel forces the trace's
+retention.  Traced or not, every tally feeds the process-global quality
+aggregator (``obs/quality.py``) and, with a ``ledger``
+(``obs/ledger.py``), one outcome record.
+
+Not ported yet, each with its own slice: live weights, the fleet, the
+judge bias plan, and the resilience quorum and retry budget.  The
+reference's client with each of those at its default (None) is what this
+client computes.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from decimal import Decimal
 from typing import AsyncIterator, Optional
 
 from .. import archive as archive_mod
+from .. import obs
 from ..ballot import (
     PrefixTree,
     ballot_instruction,
@@ -430,6 +441,7 @@ class ScoreClient:
         flights=None,
         host_fastpath: bool = False,
         ballot_sink=None,
+        ledger=None,
     ) -> None:
         self.chat_client = chat_client
         self.model_fetcher = model_fetcher
@@ -446,6 +458,8 @@ class ScoreClient:
         self.flights = flights
         self.host_fastpath = host_fastpath
         self.ballot_sink = ballot_sink
+        # one outcome record per scored request (obs/ledger.py), or None
+        self.ledger = ledger
 
     # -- unary (client.rs:71-91) --------------------------------------------
 
@@ -481,24 +495,42 @@ class ScoreClient:
         leader streams live while recording, concurrent identical
         requests await the leader's recording and replay it."""
         fp = self._cache_key(ctx, params)
+        # front-door span: one per request, closed at the routing decision
+        # (hit / leader / follower / bypass); the streaming itself is
+        # covered by the judge and tally spans downstream
+        cspan = obs.child_span("cache:lookup")
+
+        def _decide(outcome: str) -> None:
+            if cspan is not None:
+                cspan.annotate(outcome=outcome)
+                cspan.finish()
+
         if fp is None:
+            _decide("bypass")
             return await self._create_streaming_live(ctx, params)
         from ..cache import replay_stream
 
+        waits = 0
         while True:
             record = self.cache.get(fp)
             if record is not None:
+                _decide("hit" if waits == 0 else "follower")
                 return replay_stream(record)
             future = self.flights.claim(fp)
             if future is None:  # leader
+                _decide("leader")
                 try:
                     live = await self._create_streaming_live(ctx, params)
                 except BaseException as e:
                     self.flights.fail(fp, e)
                     raise
                 return self._record_and_stream(fp, live)
+            waits += 1
+            if cspan is not None:
+                cspan.annotate(singleflight_waits=waits)
             ok, record = await self.flights.wait(future)
             if ok:
+                _decide("follower")
                 return replay_stream(record)
             # leader abandoned (disconnect) or produced an uncacheable
             # stream: retry — this caller likely becomes the new leader
@@ -658,9 +690,15 @@ class ScoreClient:
             c.error is not None and _is_ingest_cap_error(c.error)
             for c in tail
         ) and any(c.delta.vote is not None for c in tail)
+        if degraded:
+            obs.annotate(ingest_cap_degraded=True)
 
         # tally + all-error detection (client.rs:384-416)
+        # the tally span's attributes are the consensus "explain" record:
+        # per-judge vote/weight/contribution plus per-candidate results,
+        # built only when a trace is live (None otherwise, zero cost)
         t_tally = time.perf_counter()
+        tspan = obs.child_span("consensus:tally", n_judges=len(model.llms))
         choice_weight = None
         if self.host_fastpath:
             # the weighted-vote fold on scaled-int64 vectors: byte-identical
@@ -699,6 +737,22 @@ class ScoreClient:
         if degraded:
             aggregate.degraded = True
         all_failed = all_error and len(model.llms) > 0
+        # winner + confidence margin (top1 - top2) are consensus-health
+        # facts, computed Decimal-exact whether or not a trace is live:
+        # the quality aggregates must not depend on sampling
+        winner = None
+        margin = None
+        if weight_sum > 0:
+            winner = max(range(n_choices), key=lambda i: choice_weight[i])
+            ranked = sorted(choice_weight, reverse=True)
+            top2 = ranked[1] if len(ranked) > 1 else Decimal(0)
+            margin = float((ranked[0] - top2) / weight_sum)
+        explain_candidates: list = []
+        explain_judges: list = []
+        quality_ballots: list = []
+        want_ledger = self.ledger is not None
+        conf_vec = [0.0] * n_choices
+        ledger_judges: list = []
         # HOST_FASTPATH: the share choice_weight[i]/weight_sum is divided
         # out once per candidate instead of once per judge per candidate
         # (the division is deterministic, so hoisting it is byte-identical)
@@ -726,13 +780,22 @@ class ScoreClient:
                     choice.confidence = (
                         w / weight_sum if weight_sum > 0 else Decimal(0)
                     )
+                if want_ledger:
+                    conf_vec[choice.index] = float(choice.confidence)
+                if tspan is not None:
+                    explain_candidates.append({
+                        "index": choice.index,
+                        "weight": float(w),
+                        "confidence": float(choice.confidence),
+                    })
             elif choice.delta.vote is not None:
+                vote = choice.delta.vote
                 confidence = Decimal(0)
                 if shares is not None:
-                    for i, v in enumerate(choice.delta.vote):
+                    for i, v in enumerate(vote):
                         confidence += shares[i] * v
                 else:
-                    for i, v in enumerate(choice.delta.vote):
+                    for i, v in enumerate(vote):
                         share = (
                             choice_weight[i] / weight_sum
                             if weight_sum > 0
@@ -740,6 +803,71 @@ class ScoreClient:
                         )
                         confidence += share * v
                 choice.confidence = confidence
+                judge_weight = (
+                    choice.weight if choice.weight is not None else Decimal(0)
+                )
+                # one Decimal->float pass per ballot, shared by the
+                # quality ballot and the ledger record (the weight itself
+                # stays Decimal for the exact weight share)
+                fvote = [float(v) for v in vote]
+                quality_ballots.append(obs.JudgeBallot(
+                    choice.model or "", choice.model_index, judge_weight,
+                    fvote,
+                ))
+                if want_ledger:
+                    ledger_judges.append({
+                        "model": choice.model,
+                        "model_index": choice.model_index,
+                        "weight": float(judge_weight),
+                        "vote": fvote,
+                        "error": None,
+                        # the judge's vote-mass-weighted share of the final
+                        # confidence vector: the alignment score learning
+                        # trains on
+                        "alignment": float(confidence),
+                    })
+                if tspan is not None:
+                    explain_judges.append({
+                        "model": choice.model,
+                        "model_index": choice.model_index,
+                        "weight": float(choice.weight)
+                        if choice.weight is not None else None,
+                        "vote": fvote,
+                        "confidence_contribution": float(confidence),
+                        "error": choice.error.code
+                        if choice.error is not None else None,
+                    })
+            else:
+                # voteless judge choice: errored or cancelled
+                error_code = (
+                    choice.error.code if choice.error is not None else None
+                )
+                quality_ballots.append(obs.JudgeBallot(
+                    choice.model or "", choice.model_index,
+                    choice.weight if choice.weight is not None
+                    else Decimal(0),
+                    None, error_code,
+                ))
+                if want_ledger:
+                    ledger_judges.append({
+                        "model": choice.model,
+                        "model_index": choice.model_index,
+                        "weight": float(choice.weight)
+                        if choice.weight is not None else None,
+                        "vote": None,
+                        "error": error_code,
+                        "alignment": None,
+                    })
+                if tspan is not None:
+                    explain_judges.append({
+                        "model": choice.model,
+                        "model_index": choice.model_index,
+                        "weight": float(choice.weight)
+                        if choice.weight is not None else None,
+                        "vote": None,
+                        "confidence_contribution": 0.0,
+                        "error": error_code,
+                    })
             choice.delta = Delta()
             choice.finish_reason = None
             choice.logprobs = None
@@ -747,8 +875,60 @@ class ScoreClient:
                 choice.error = None
             # degraded: keep per-judge failure detail on the final frame so
             # unary consumers see WHY the panel is partial
+        if tspan is not None:
+            tspan.annotate(
+                judges=explain_judges,
+                candidates=explain_candidates,
+                weight_sum=float(weight_sum),
+                winner=winner,
+                degraded=degraded,
+            )
+            tspan.finish()
+        trace_id = obs.current_trace_id()
+        # consensus-quality aggregates (obs/quality.py): always on, like
+        # the phase aggregate below
+        obs.observe_outcome(obs.Outcome(
+            winner=winner,
+            margin=margin,
+            weight_sum=weight_sum if weight_sum > 0 else Decimal(0),
+            n_choices=n_choices,
+            degraded=degraded,
+            quorum_degraded=False,
+            all_failed=all_failed,
+            trace_id=trace_id,
+            judges=quality_ballots,
+        ))
+        if self.ledger is not None:
+            # one record per scored request: the persistent training
+            # substrate for weight learning and archive re-scoring
+            self.ledger.offer({
+                "id": resp_id,
+                "created": created,
+                "panel": model.id,
+                "n_choices": n_choices,
+                "winner": winner,
+                "confidence": conf_vec,
+                "margin": margin,
+                "weight_sum": float(weight_sum),
+                "degraded": degraded,
+                "quorum_degraded": False,
+                "all_failed": all_failed,
+                "trace_id": trace_id,
+                # no live weight table in the port: the version is None,
+                # as the reference's record says without one
+                "weights_version": None,
+                "judges": ledger_judges,
+            })
         # host_tally phase: the weighted-vote fold + final-frame build
         observe_phase("host_tally", (time.perf_counter() - t_tally) * 1e3)
+        if all_failed:
+            # an all-judges-failed tally is as diagnosis-worthy as a 5xx;
+            # the unary surface can be a merged 4xx, below the gateway's
+            # >= 500 forcing
+            obs.force_keep("all_failed")
+        # the final frame carries the trace id, so SSE consumers can fetch
+        # the explain trace from /v1/traces/{trace_id}
+        aggregate.trace_id = trace_id
         yield aggregate
 
         if all_failed:
@@ -760,10 +940,20 @@ class ScoreClient:
         self, ctx, resp_id, created, indexer, llm, weight, request
     ):
         """The ballot stream proper, timed as the ``upstream_judge``
-        phase: this judge's whole ballot-stream lifetime."""
+        phase: this judge's whole ballot-stream lifetime.  Traced, a
+        ``judge:stream`` span: this generator is driven by exactly one
+        pump task (``merge_streams``), so the span lives in the pump's
+        context and the chat client's attempt spans land under it."""
         inner = self._judge_stream_inner(
             ctx, resp_id, created, indexer, llm, weight, request
         )
+        jspan = obs.child_span(
+            "judge:stream",
+            model=llm.id,
+            judge_index=llm.index,
+            weight=float(weight),
+        )
+        token = jspan.activate() if jspan is not None else None
         t_judge = time.perf_counter()
         try:
             async for item in inner:
@@ -773,6 +963,9 @@ class ScoreClient:
             observe_phase(
                 "upstream_judge", (time.perf_counter() - t_judge) * 1e3
             )
+            if jspan is not None:
+                obs.Span.deactivate(token)
+                jspan.finish()
 
     async def _judge_stream_inner(
         self, ctx, resp_id, created, indexer, llm, weight, request
@@ -801,6 +994,8 @@ class ScoreClient:
         chat_params = self._judge_chat_params(llm, request, ballot_json, keys)
 
         def error_chunk(err) -> ChatCompletionChunk:
+            # lands on the ambient judge span (we run in the pump task)
+            obs.annotate(judge_error=str(err))
             return ChatCompletionChunk(
                 id=resp_id,
                 choices=[
@@ -941,7 +1136,7 @@ class ScoreClient:
                     and agg_choice.logprobs.content is not None
                 ):
                     logprob_tokens = agg_choice.logprobs.content
-                choice.delta.vote = extract_vote(
+                vote = extract_vote(
                     tree,
                     with_ticks,
                     without_ticks,
@@ -949,7 +1144,10 @@ class ScoreClient:
                     agg_choice.delta.content,
                     logprob_tokens,
                 )
+                choice.delta.vote = vote
+                obs.annotate(vote=[float(v) for v in vote])
             except InvalidContentError as e:
+                obs.annotate(vote_error=str(e))
                 if choice.error is None:
                     choice.error = to_response_error(e)
                     choice.finish_reason = "error"

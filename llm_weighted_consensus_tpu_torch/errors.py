@@ -9,8 +9,8 @@ The port's copy of ``llm_weighted_consensus_tpu/errors.py``: ``StatusError``
 ``InvalidContentError``, ``AllVotesFailed``, ...), and ``to_response_error``, which folds any
 exception into the envelope and sends the detail of an unexpected one to
 the server log.  ``ResponseError`` is the wire type of
-``types/base.py``.  Left for later: the reference's ``with_trace_id``
-(tracing is not ported).
+``types/base.py``.  ``with_trace_id`` stamps the traced request's id on an
+error envelope.
 """
 
 from __future__ import annotations
@@ -24,6 +24,19 @@ from .types.base import ResponseError  # noqa: F401  (canonical home: type core)
 # every site that folds internal detail into the uniform envelope logs
 # under this name
 MASKING_LOGGER = "lwc.torch.serve"
+
+
+def with_trace_id(envelope: dict) -> dict:
+    """Stamp the ambient request's trace id onto an error envelope (the
+    ``{code, message}`` dict or a mid-stream SSE error frame) so a
+    client holding a failure can hand the operator the exact trace.
+    No-op (and allocation-free) when tracing is off or inactive."""
+    from .obs.span import current_trace_id
+
+    trace_id = current_trace_id()
+    if trace_id is not None:
+        envelope["trace_id"] = trace_id
+    return envelope
 
 
 def _status_phrase(code: int) -> str:

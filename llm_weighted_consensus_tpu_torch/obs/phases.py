@@ -1,9 +1,9 @@
 """Phase-attributed request timing.
 
-Counterpart of ``llm_weighted_consensus_tpu/obs/phases.py``'s aggregate
-half: every served request's time is observed into one process-global
-aggregator of mergeable log-bucket histograms (``obs/histogram.py``)
-under a fixed phase vocabulary:
+Counterpart of ``llm_weighted_consensus_tpu/obs/phases.py``: every
+served request's time is observed into one process-global aggregator
+of mergeable log-bucket histograms (``obs/histogram.py``) under a fixed
+phase vocabulary:
 
 * ``admission_wait``  — gateway door to admission slot held
 * ``batcher_queue``   — item submitted to its group taking the device
@@ -11,15 +11,20 @@ under a fixed phase vocabulary:
 * ``device_dispatch`` — one dispatch's device time, per bucket: CUDA
   events recorded on the stream before the copy-in and after the copy-out
   (``models/dispatch_seam.py``), read by the batcher's waiter thread
-* ``host_tally``      — the packed path's reassembly and host vote
-* ``upstream_judge``  — judge LLM streaming (no route of the port yet)
+* ``host_tally``      — the packed path's reassembly and host vote, and
+  the score route's weighted-vote fold
+* ``upstream_judge``  — a judge's ballot stream, door to last frame
 
 ``observe_device_interval`` keeps each dispatch's (enqueue, ready) host
 interval for the ``overlap`` gauge: the union of the intervals over the
 wall time they span.  One lock guards the aggregator: the gateway's
 handler threads, the batcher's dispatch and waiter threads all observe.
-The reference's per-request breakdown from a span tree waits for the
-port's tracing.
+
+``phase_breakdown(trace)`` re-derives the same vocabulary for one
+request from its finished span tree (``obs/span.py``), as the
+reference's does: interval unions, so concurrent judge streams count
+their wall time once.  The gateway stamps it on every traced request's
+root span.
 """
 
 from __future__ import annotations
@@ -202,18 +207,61 @@ def _union_ms(intervals: List[Tuple[float, float]]) -> float:
     return total + (cur_end - cur_start)
 
 
-def _union_ms(intervals: List[Tuple[float, float]]) -> float:
-    """Total length of the union of (start, end) intervals — concurrent
-    judge streams (or pipelined dispatches) attribute wall time once."""
-    if not intervals:
-        return 0.0
-    intervals.sort()
-    total = 0.0
-    cur_start, cur_end = intervals[0]
-    for start, end in intervals[1:]:
-        if start > cur_end:
-            total += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    return total + (cur_end - cur_start)
+def phase_breakdown(trace) -> dict:
+    """Attribute one finished trace's wall time to the phase vocabulary.
+
+    Span-derived: ``batcher:*`` minus its ``device:dispatch`` children
+    is queue time; the dispatch bracket minus the batcher span's
+    annotated host sub-costs (``pack_plan_ms`` / ``host_tally_ms``,
+    stamped per item by the packed dispatch) is device time;
+    ``consensus:tally`` and ``judge:stream`` map directly;
+    ``admission_wait_ms`` rides a root annotation (the admission
+    middleware runs before any child span exists).  Returns
+    ``{phase: ms}`` plus ``e2e_ms`` and the unattributed ``other_ms``
+    remainder — the acceptance bar is that the named phases sum to
+    within 10% of ``e2e_ms`` on a served request."""
+    batcher: List[Tuple[float, float]] = []
+    device: List[Tuple[float, float]] = []
+    tally: List[Tuple[float, float]] = []
+    judge: List[Tuple[float, float]] = []
+    pack_plan_ms = 0.0
+    tally_attr_ms = 0.0
+    root = trace.spans[0] if trace.spans else None
+    for span in trace.spans:
+        dur = span.duration_ms()
+        if dur is None:
+            continue
+        start = span.start_ms()
+        interval = (start, start + dur)
+        name = span.name
+        if name.startswith("batcher:"):
+            batcher.append(interval)
+            pack_plan_ms += float(span.attributes.get("pack_plan_ms", 0.0))
+            tally_attr_ms += float(span.attributes.get("host_tally_ms", 0.0))
+        elif name == "device:dispatch":
+            device.append(interval)
+        elif name == "consensus:tally":
+            tally.append(interval)
+        elif name == "judge:stream":
+            judge.append(interval)
+    device_ms = _union_ms(device)
+    batcher_ms = max(0.0, _union_ms(batcher) - device_ms)
+    out = {
+        "admission_wait": float(
+            root.attributes.get("admission_wait_ms", 0.0)
+        )
+        if root is not None
+        else 0.0,
+        "batcher_queue": batcher_ms,
+        "pack_plan": pack_plan_ms,
+        "device_dispatch": max(0.0, device_ms - pack_plan_ms - tally_attr_ms),
+        "host_tally": _union_ms(tally) + tally_attr_ms,
+        "upstream_judge": _union_ms(judge),
+    }
+    out = {k: round(v, 3) for k, v in out.items()}
+    e2e = root.duration_ms() if root is not None else None
+    if e2e is not None:
+        attributed = sum(out.values())
+        out["e2e_ms"] = e2e
+        out["other_ms"] = round(max(0.0, e2e - attributed), 3)
+    return out

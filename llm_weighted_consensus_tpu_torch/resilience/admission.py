@@ -161,7 +161,9 @@ def shed_response(reason: str, retry_after_ms: float):
     """The uniform 503 shed as (status, headers, body bytes): a
     ``Retry-After`` header and the ``{code, message}`` envelope with a
     machine-readable ``shed_reason`` (the body ``OverloadedError`` gives
-    on the batcher path)."""
+    on the batcher path), with the trace id of a traced request."""
+    from ..errors import with_trace_id
+
     body = {
         "code": 503,
         "message": {"kind": "overloaded", "shed_reason": reason},
@@ -169,5 +171,5 @@ def shed_response(reason: str, retry_after_ms: float):
     return (
         503,
         {"Retry-After": retry_after_seconds(retry_after_ms)},
-        json.dumps(body).encode(),
+        json.dumps(with_trace_id(body)).encode(),
     )

@@ -65,9 +65,13 @@ knobs (``OPENAI_*``, ``*_CHUNK_TIMEOUT_MILLIS``, ``BACKOFF_*``,
 route's knobs (``TABLES_PATH``, ``HOST_FASTPATH``, ``SCORE_CACHE_*``) are
 documented in ``serve/config.py``, and so are the archive's
 (``ARCHIVE_PATH``, ``ARCHIVE_WRITE``, ``ARCHIVE_STREAMING``,
-``ARCHIVE_MAX_COMPLETIONS``) and ``MAX_BODY_BYTES``.  With an embedder, a
-training-table panel's weights come from ``TorchTrainingTableFetcher``
-on the served embedder and batcher (the tables loaded from
+``ARCHIVE_MAX_COMPLETIONS``), ``MAX_BODY_BYTES``, request tracing
+(``TRACE_SAMPLE_RATE``, ``TRACE_ENABLED``, ``TRACE_RING``, ``TRACE_DIR``:
+``GET /v1/traces``), judge quality (``QUALITY_WINDOW``,
+``QUALITY_DRIFT_THRESHOLD``: ``GET /v1/judges``) and the outcome ledger
+(``LEDGER_RING``, ``LEDGER_DIR``, ``LEDGER_ROTATE_BYTES``).  With an
+embedder, a training-table panel's weights come from
+``TorchTrainingTableFetcher`` on the served embedder and batcher (the tables loaded from
 ``TABLES_PATH``), and ``POST /weights/learn`` learns table rows from the
 archive; without one such a panel is a 501.  ``POST /archive/rescore``
 re-tallies the archive on the device (``serve/archive_routes.py``).  The
@@ -236,12 +240,14 @@ def build_reranker(env, device=None, dtype=None):
     return reranker
 
 
-def build_chat_clients(config: ServeConfig, score_cache=None, store=None):
+def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
+                       ledger=None):
     """The chat client over the configured upstream endpoints (the stdlib
     transport), and the multichat and score clients over it.  Panels
     resolve through an empty model registry (inline panels only) and
     archive references through ``store`` (an empty archive when None);
-    with ``ARCHIVE_WRITE`` the score client records its ballots there.
+    with ``ARCHIVE_WRITE`` the score client records its ballots there, and
+    with an outcome ``ledger`` one record per scored request.
     The score client answers a training-table panel with 501 until
     ``build_server`` plugs the training-table fetcher in."""
     from ..archive import InMemoryArchive
@@ -280,6 +286,7 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None):
         host_fastpath=config.host_fastpath,
         # the archived ballots let /archive/rescore re-extract votes
         ballot_sink=store.put_ballot if config.archive_write else None,
+        ledger=ledger,
     )
     return chat_client, multichat_client, score_client
 
@@ -340,7 +347,11 @@ def build_server(embedder, reranker, config: ServeConfig,
     panel is a 501.  ``server.archive`` is the archive (saved to
     ``ARCHIVE_PATH`` at close).  Re-scoring runs on the embedder's (or
     the reranker's) device, else on ``device`` (the card unless
-    ``"cpu"``)."""
+    ``"cpu"``).  ``TRACE_*`` give the server its trace sink
+    (``server.trace_sink``), ``LEDGER_*`` the score client its outcome
+    ledger (``server.ledger``), and ``QUALITY_*`` configure the
+    process-global quality aggregator."""
+    from ..obs import configure_quality
     from ..weights import WeightFetchers
     from .archive_routes import (
         archiving_clients,
@@ -352,8 +363,16 @@ def build_server(embedder, reranker, config: ServeConfig,
 
     score_cache, embed_cache = score_caches(config)
     store = load_archive(config)
+    # QUALITY_*: the drift knobs of the always-on quality aggregator
+    configure_quality(
+        window=config.quality_window,
+        drift_threshold=config.quality_drift_threshold,
+    )
+    # LEDGER_*: one outcome record per scored request; None keeps the
+    # tally ledger-free
+    ledger = config.outcome_ledger()
     chat_client, multichat_client, score_client = build_chat_clients(
-        config, score_cache, store
+        config, score_cache, store, ledger
     )
     served = (chat_client, multichat_client, score_client)
     if config.archive_write:
@@ -377,9 +396,13 @@ def build_server(embedder, reranker, config: ServeConfig,
         max_body_bytes=config.max_body_bytes,
         device_timing=config.metrics_device_timing,
         ready=False,
+        # TRACE_*: None keeps every instrumentation site on its no-op path
+        trace_sink=config.trace_sink(),
+        ledger=ledger,
         **batching,
     )
     server.tables = tables
+    server.ledger = ledger
     server.archive = store
     model = embedder if embedder is not None else reranker
     # one lock for every handler that mutates the archive or the tables

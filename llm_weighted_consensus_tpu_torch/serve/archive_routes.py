@@ -33,6 +33,7 @@ import json
 import logging
 from decimal import Decimal
 
+from .. import obs
 from ..utils import jsonutil
 from .chat_routes import parse_error_response
 
@@ -192,7 +193,9 @@ def rescore_handler(store, lock: asyncio.Lock, device=None):
                 revote=revote, device=device,
             )
 
-        results = await asyncio.get_running_loop().run_in_executor(None, run)
+        # the executor thread has no ambient context: carry the span
+        results = await asyncio.get_running_loop().run_in_executor(
+            None, obs.carry(run))
         applied = 0
         if apply:
             # on the loop and locked: atomic for the loop's readers,
@@ -241,9 +244,9 @@ def learn_handler(store, embedder, tables, lock: asyncio.Lock):
         async with lock:
             added = await asyncio.get_running_loop().run_in_executor(
                 None,
-                lambda: populate_from_archive(
+                obs.carry(lambda: populate_from_archive(
                     store, embedder, model, tables, ids=ids, labels=labels
-                ),
+                )),
             )
         # the reference answers through aiohttp's json_response
         # (``json.dumps``, default separators)

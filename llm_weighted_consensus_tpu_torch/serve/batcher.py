@@ -72,6 +72,23 @@ cancelled by its caller) is computed again for this caller rather than
 inheriting the failure, and a caller's cancellation never cancels a row
 future that a peer has joined: it fails it, and the peer recomputes.
 
+Tracing (``obs/``): contextvars do not reach the flusher, dispatch and
+waiter threads, so each item carries its request's span explicitly, as
+the reference's does.  ``_submit`` makes the ``batcher:{kind}`` child of
+the ambient span (``queue_depth``, ``lane`` on the offline lane,
+``shed="queue_full"`` or ``"deadline"`` on a shed), each dispatch gives
+every traced item of its group a ``device:dispatch`` child (``kind``,
+``batch_size``) bracketing what the watchdog brackets, and the packed
+path stamps each item's share of the group's ``pack_plan_ms`` and
+``host_tally_ms``.  The device span finishes on the waiter thread before
+the item's future resolves; the batcher span finishes when the caller
+that reads the result resumes (``consensus``/``embed`` on the caller's
+thread, ``wait_async`` on the chat routes' loop), as the reference's
+``_submit`` finishes it after its ``await``: the caller's wake-up is queue
+time, not time outside every span.  A failed, shed or cancelled item
+finishes its span at once, errored.  An untraced item carries None and
+costs nothing.
+
 Left for later: ring and mesh dispatch and the CPU fallback; the
 reference's ``fallback_*`` and ``shed_redispatch_limit`` keys read as
 their idle values.
@@ -79,6 +96,7 @@ their idle values.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import threading
 import time
@@ -97,6 +115,7 @@ from ..errors import DeadlineExceededError, OverloadedError
 from ..models import dispatch_seam as _seam
 from ..models.embedder import _bucket, next_pow2
 from ..obs import phases as _phases
+from ..obs.span import child_span
 from ..resilience.deadline import current_deadline
 from . import packing as _packing
 
@@ -106,20 +125,33 @@ PACKED_KEY = ("packed",)
 LANES = ("latency", "offline")
 
 
+class _ItemFuture(Future):
+    """An item's future; ``span`` is its batcher span, finished by the
+    caller that reads the result (``_caller_done``)."""
+
+    span = None
+
+
+def _caller_done(future: Future) -> None:
+    span = getattr(future, "span", None)
+    if span is not None:
+        span.finish()
+
+
 class _Item:
     __slots__ = (
         "kind", "key", "payload", "future", "deadline", "submitted",
-        "prepared", "lane", "per_row",
+        "prepared", "lane", "per_row", "span", "dspan",
     )
 
     def __init__(self, kind, key, payload, deadline=None, lane="latency",
-                 per_row=False):
+                 per_row=False, span=None):
         self.kind = kind  # "consensus", "embed" or "stream"
         self.key = key
         # consensus: (texts, temperature); embed: (texts, max_tokens);
         # stream: (text, buf, position, temperature, want_conf)
         self.payload = payload
-        self.future: Future = Future()
+        self.future: Future = _ItemFuture()
         self.deadline = deadline
         self.submitted = time.perf_counter()
         # the submit-time tokenization (a host-pool future), or None
@@ -128,6 +160,10 @@ class _Item:
         # embed: resolve with the token count of each row (the row cache
         # keeps them), not their sum
         self.per_row = per_row
+        # the request's batcher:{kind} span and, once its group
+        # dispatches, that span's device:dispatch child; None untraced
+        self.span = span
+        self.dspan = None
 
     @property
     def texts(self) -> list:
@@ -163,6 +199,28 @@ def _resolve(future: Future, result=None, exc=None) -> None:
             future.set_result(result)
     except InvalidStateError:
         pass
+
+
+def _settle(item, result=None, exc=None) -> None:
+    """Finish the item's device span (and, on an error, its batcher
+    span), then resolve it."""
+    if item.span is not None:
+        status = "error" if exc is not None else None
+        if item.dspan is not None:
+            item.dspan.finish(status)
+        if exc is not None:
+            item.span.finish(status)
+    _resolve(item.future, result, exc)
+
+
+def _finish_if_cancelled(span):
+    """The caller left: its batcher span ends there, errored."""
+
+    def done(future: Future) -> None:
+        if future.cancelled():
+            span.finish("error")
+
+    return done
 
 
 class DeviceBatcher:
@@ -422,6 +480,7 @@ class DeviceBatcher:
         freeing their join-table entries."""
         if done is not None:
             exc = CancelledError() if done.cancelled() else done.exception()
+            _caller_done(done)  # the rows' consumer is this callback
         values = None
         if exc is None:
             vecs, row_tokens = done.result()
@@ -472,14 +531,30 @@ class DeviceBatcher:
         """The caller's wait; a caller that leaves (an exception in its
         thread) cancels its item, which is then dropped before dispatch."""
         try:
-            return future.result()
+            out = future.result()
         except BaseException:
             future.cancel()
             raise
+        _caller_done(future)
+        return out
+
+    @staticmethod
+    async def wait_async(future: Future):
+        """A submitted item's result, awaited from a coroutine; a
+        cancelled caller cancels the item."""
+        out = await asyncio.wrap_future(future)
+        _caller_done(future)
+        return out
 
     def _submit(self, kind, key, payload, priority,
                 per_row: bool = False) -> Future:
         offline = priority == "offline"
+        # submit -> result for THIS request's item, a child of the caller's
+        # ambient span (made here, on the caller's thread)
+        span = child_span(
+            f"batcher:{kind}", queue_depth=len(self._pending),
+            **({"lane": "offline"} if offline else {}),
+        )
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -493,10 +568,16 @@ class DeviceBatcher:
             if self.metrics is not None:
                 self.metrics.observe("device:shed:queue_full", 0.0,
                                      error=True)
+            if span is not None:
+                span.annotate(shed="queue_full")
+                span.finish("error")
             raise OverloadedError("batcher_queue_full")
         item = _Item(kind, key, payload, current_deadline(),
                      lane="offline" if offline else "latency",
-                     per_row=per_row)
+                     per_row=per_row, span=span)
+        if span is not None:
+            item.future.span = span
+            item.future.add_done_callback(_finish_if_cancelled(span))
         if self._tok_pool is not None:
             # submit-time tokenization: the rows (or the packed plan)
             # build now, overlapping earlier groups' device time
@@ -683,7 +764,9 @@ class DeviceBatcher:
                     estimate is not None
                     and deadline.remaining() * 1e3 < estimate
                 ):
-                    _resolve(item.future, exc=DeadlineExceededError(
+                    if item.span is not None:
+                        item.span.annotate(shed="deadline")
+                    _settle(item, exc=DeadlineExceededError(
                         "shed before device dispatch"))
                     self.shed_deadline += 1
                     if self.metrics is not None:
@@ -700,6 +783,13 @@ class DeviceBatcher:
             _phases.observe_phase(
                 "batcher_queue", (t0 - item.submitted) * 1e3
             )
+        # one device child per traced item, bracketing what the watchdog
+        # brackets: staging, the launch and readiness on the waiter
+        for item in group:
+            if item.span is not None:
+                item.dspan = item.span.child(
+                    "device:dispatch", kind=item.kind,
+                    batch_size=len(group))
         wd = (self.watchdog.begin(self._est_kind(group[0]))
               if self.watchdog is not None else None)
         try:
@@ -709,7 +799,7 @@ class DeviceBatcher:
         except Exception as exc:
             log.exception("device dispatch failed")
             for item in group:
-                _resolve(item.future, exc=exc)
+                _settle(item, exc=exc)
             self._finish(group, t0, token, wd, error=True)
 
     def _await_group(self, group, staged, t0, token, wd) -> None:
@@ -718,13 +808,13 @@ class DeviceBatcher:
         except Exception as exc:
             log.exception("device dispatch failed at readiness")
             for item in group:
-                _resolve(item.future, exc=exc)
+                _settle(item, exc=exc)
             self._finish(group, t0, token, wd, error=True)
             return
         for item, result in zip(group, results):
             if item.kind == "embed" and not item.per_row:
                 result = (result[0], int(np.sum(result[1])))
-            _resolve(item.future, result)
+            _settle(item, result)
         self._finish(group, t0, token, wd, error=False)
 
     def _finish(self, group, t0, token, wd, *, error: bool) -> None:
@@ -754,8 +844,12 @@ class DeviceBatcher:
                     ms if prev is None else 0.8 * prev + 0.2 * ms
                 )
         if self.metrics is not None:
+            # exemplar: the first traced item links the series to a span
+            # tree (the explicit handle: this thread has no ambient span)
+            trace_id = next((item.span.trace.trace_id for item in group
+                             if item.span is not None), None)
             self.metrics.observe(f"device:batch:{series}", (end - t0) * 1e3,
-                                 error=error)
+                                 error=error, trace_id=trace_id)
 
     def _dispatch(self, group: list) -> _StagedGroup:
         """Stage and enqueue the group under a deferred-readiness sink;
@@ -957,6 +1051,10 @@ class DeviceBatcher:
                     )
                 call_outs.append((call, out))
         _phases.observe_phase("pack_plan", plan_ms)
+        share_plan = plan_ms / len(group)
+        for item in group:
+            if item.span is not None:
+                item.span.annotate(pack_plan_ms=round(share_plan, 3))
 
         def finalize() -> list:
             seg_vecs: list = [None] * len(segments)
@@ -972,9 +1070,12 @@ class DeviceBatcher:
                     results.append((_value(out), tokens))
                 else:
                     results.append(self._assemble(plan, segments, seg_vecs))
-            _phases.observe_phase(
-                "host_tally", (time.perf_counter() - t_tally) * 1e3
-            )
+            tally_ms = (time.perf_counter() - t_tally) * 1e3
+            _phases.observe_phase("host_tally", tally_ms)
+            share_tally = tally_ms / len(group)
+            for item in group:
+                if item.span is not None:
+                    item.span.annotate(host_tally_ms=round(share_tally, 3))
             return results
 
         return finalize
@@ -1138,7 +1239,7 @@ class DeviceBatcher:
             self._pending, self._pending_offline = [], []
             self._cond.notify_all()
         for item in left:
-            _resolve(item.future, exc=RuntimeError("batcher is closed"))
+            _settle(item, exc=RuntimeError("batcher is closed"))
         self._flusher.join(timeout)
         self._dispatchers.shutdown(wait=False)
         self._waiters.shutdown(wait=False)

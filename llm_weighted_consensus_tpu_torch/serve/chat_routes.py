@@ -38,6 +38,14 @@ and drops the request's queued device work.  Each coroutine starts from a
 fresh default ``decimal`` context (28 digits, as on the reference's loop):
 ``asyncio`` copies the submitting thread's context into the task, and the
 score tally's fast lane reads ``decimal.getcontext().prec``.
+
+Traced requests: that copy of the handler thread's context also carries
+its root span (``obs/span.py``), so the client coroutines, and every task
+they start, build their spans under their own request's root, and two
+concurrent requests never share one.  An error envelope or mid-stream
+error frame of a traced request carries its ``trace_id``, a mid-stream
+error forces the trace's retention (``stream_error``), and a client that
+leaves is annotated ``client_disconnect`` on the root.
 """
 
 from __future__ import annotations
@@ -52,12 +60,14 @@ import socket
 import threading
 import time
 
+from .. import obs
 from ..clients.multichat import ConsensusUpdate, StreamingSelfConsistency
 from ..errors import (
     MASKING_LOGGER,
     OverloadedError,
     StatusError,
     to_response_error,
+    with_trace_id,
 )
 from ..resilience.admission import retry_after_seconds
 from ..types.chat_request import ChatCompletionCreateParams as ChatParams
@@ -80,24 +90,33 @@ def frame_bytes(obj) -> bytes:
 
 def encode_item(item) -> bytes:
     """The frame of one stream item: a chunk or a consensus update, or an
-    error item as its envelope."""
+    error item as its envelope (with the trace id of a traced request,
+    whose retention a mid-stream error forces)."""
     if isinstance(item, Exception):
-        return frame_bytes(to_response_error(item).to_json_obj())
+        obs.force_keep("stream_error")
+        return frame_bytes(
+            with_trace_id(to_response_error(item).to_json_obj()))
     return frame_bytes(item.to_json_obj())
 
 
 def error_response(exc: Exception):
     """(status, headers, body) of an error raised before a response
-    started, as the reference's ``_error_response`` renders it."""
+    started, as the reference's ``_error_response`` renders it (a traced
+    request's envelope, and a dict-shaped StatusError message, carry its
+    ``trace_id``)."""
     if isinstance(exc, OverloadedError):
-        body = {"code": 503, "message": exc.message()}
+        body = with_trace_id({"code": 503, "message": exc.message()})
         headers = {"Retry-After": retry_after_seconds(
             exc.retry_after_ms or 1000.0)}
         return 503, headers, jsonutil.dumps(body).encode()
     if isinstance(exc, StatusError):
-        return exc.status(), {}, jsonutil.dumps(exc.message()).encode()
+        message = exc.message()
+        if isinstance(message, dict):
+            message = with_trace_id(dict(message))
+        return exc.status(), {}, jsonutil.dumps(message).encode()
     err = to_response_error(exc)
-    return err.code, {}, jsonutil.dumps(err.to_json_obj()).encode()
+    return err.code, {}, jsonutil.dumps(
+        with_trace_id(err.to_json_obj())).encode()
 
 
 def parse_error_response(exc: Exception):
@@ -111,7 +130,8 @@ def parse_error_response(exc: Exception):
             "unexpected parse-phase error", exc_info=exc
         )
         message = "malformed request body"
-    return 400, jsonutil.dumps({"code": 400, "message": message}).encode()
+    return 400, jsonutil.dumps(
+        with_trace_id({"code": 400, "message": message})).encode()
 
 
 class EventLoop:
@@ -224,7 +244,7 @@ def multichat_unary(multichat_client, embedder, batcher):
                 texts.append(content)
         if len(texts) >= 2:
             try:
-                conf, _tokens = await asyncio.wrap_future(
+                conf, _tokens = await batcher.wait_async(
                     batcher.submit_consensus(texts)
                 )
             except Exception:
@@ -394,6 +414,7 @@ class ChatRoutes:
             # (upstream streams closed, queued device work dropped)
             future.cancel()
             handler.close_connection = True
+            obs.annotate(client_disconnect=True)
             if metrics is not None:
                 metrics.observe("http:client_disconnect", 0.0, error=True)
 

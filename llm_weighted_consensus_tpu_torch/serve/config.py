@@ -132,6 +132,48 @@ defaults:
 * ``ARCHIVE_MAX_COMPLETIONS`` — FIFO cap of each archive table (a score
   completion leaves with its ballots and request).  Default 65536; ``0``
   = unbounded.
+
+Tracing (``obs/``; all opt-in — with every ``TRACE_*`` knob unset no root
+span is ever created and the hot path pays one contextvar read), the
+reference's knobs and defaults:
+
+* ``TRACE_SAMPLE_RATE`` — head-based sampling probability in [0, 1]:
+  the gateway flips this coin once per request at the door.  Shed,
+  errored (5xx) and all-judges-failed requests are ALWAYS captured once
+  tracing is enabled, whatever the rate.  ``> 0`` enables tracing;
+* ``TRACE_ENABLED`` — ``1`` enables tracing even at rate 0 (capture only
+  the forced traces — the cheapest useful setting);
+* ``TRACE_RING`` — completed traces kept in memory for ``GET
+  /v1/traces`` (index, newest first) and ``GET /v1/traces/{trace_id}``
+  (the span tree); oldest evicted first.  Default 256;
+* ``TRACE_DIR`` — JSONL disk tier: one JSON line per kept trace appended
+  to ``traces-<pid>.jsonl`` under this directory (setting it also
+  enables tracing).
+
+A traced response carries ``x-trace-id``; a caller's ``traceparent`` is
+adopted (its trace id, its span as the root's parent) and every upstream
+judge call carries the request's.  The ``traces`` section of ``/metrics``
+counts kept, forced and dropped traces.
+
+Consensus quality and the outcome ledger (``obs/quality.py``,
+``obs/ledger.py``; the scorecards are always on, like the phase
+histograms, and ``GET /v1/judges`` / ``/v1/judges/{id}`` serve them):
+
+* ``QUALITY_WINDOW`` — ballots in each judge's sliding drift window; a
+  judge is flagged only once both the window and its pre-window baseline
+  hold a full window.  Default 64;
+* ``QUALITY_DRIFT_THRESHOLD`` — how far a judge's windowed agreement
+  rate or vote mass on the winner may fall below its baseline before it
+  is flagged, an absolute rate drop in (0, 1].  Default 0.25;
+* ``LEDGER_RING`` — outcome records kept in memory (one per scored
+  request: panel id, per-judge votes and weights, the confidence vector,
+  the degraded verdict, the trace id).  ``0`` (the default) disables the
+  ledger unless ``LEDGER_DIR`` is set (which implies a ring of 256);
+* ``LEDGER_DIR`` — append-only JSONL disk tier of the ledger,
+  ``ledger-<pid>.jsonl`` (setting it also enables the ledger);
+* ``LEDGER_ROTATE_BYTES`` — seal the active ledger file under a
+  timestamped name (``ledger-<pid>-<ts>-<seq>.jsonl``) once it reaches
+  this size; ``0`` (the default) keeps one growing file.
 """
 
 from __future__ import annotations
@@ -334,6 +376,15 @@ class ServeConfig:
     archive_write: bool = False
     archive_streaming: bool = False
     archive_max_completions: int = 65536
+    trace_sample_rate: float = 0.0
+    trace_enabled: bool = False
+    trace_ring: int = 256
+    trace_dir: Optional[str] = None
+    quality_window: int = 64
+    quality_drift_threshold: float = 0.25
+    ledger_ring: int = 0
+    ledger_dir: Optional[str] = None
+    ledger_rotate_bytes: int = 0
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
@@ -408,7 +459,33 @@ class ServeConfig:
             archive_max_completions=_non_negative_int(
                 env, "ARCHIVE_MAX_COMPLETIONS", 65536
             ),
+            trace_sample_rate=get_f("TRACE_SAMPLE_RATE", 0),
+            trace_enabled=env_truthy(env.get("TRACE_ENABLED", "0")),
+            trace_ring=max(1, int(env.get("TRACE_RING", 256))),
+            trace_dir=env.get("TRACE_DIR"),
+            quality_window=int(env.get("QUALITY_WINDOW", 64)),
+            quality_drift_threshold=get_f("QUALITY_DRIFT_THRESHOLD", 0.25),
+            ledger_ring=_non_negative_int(env, "LEDGER_RING", 0),
+            ledger_dir=env.get("LEDGER_DIR"),
+            ledger_rotate_bytes=_non_negative_int(
+                env, "LEDGER_ROTATE_BYTES", 0
+            ),
         )
+        if config.quality_window < 1:
+            raise ValueError(
+                f"QUALITY_WINDOW={config.quality_window} must be >= 1 "
+                "(ballots per judge in the sliding drift window)"
+            )
+        if not 0 < config.quality_drift_threshold <= 1:
+            raise ValueError(
+                f"QUALITY_DRIFT_THRESHOLD={config.quality_drift_threshold} "
+                "must be an absolute rate drop in (0, 1]"
+            )
+        if not 0 <= config.trace_sample_rate <= 1:
+            raise ValueError(
+                f"TRACE_SAMPLE_RATE={config.trace_sample_rate} must be a "
+                "probability in [0, 1]"
+            )
         if config.admission_adaptive and config.admission_max_inflight <= 0:
             raise ValueError(
                 "ADMISSION_ADAPTIVE=1 needs ADMISSION_MAX_INFLIGHT > 0: "
@@ -450,6 +527,38 @@ class ServeConfig:
             min_limit=self.admission_min_limit,
             latency_factor=self.admission_latency_factor,
             retry_after_ms=self.admission_retry_after_millis,
+        )
+
+    def trace_sink(self):
+        """The configured ``TraceSink``, or None when nothing enables
+        tracing (None keeps every instrumentation site on its
+        one-contextvar-read no-op path)."""
+        if not (
+            self.trace_enabled
+            or self.trace_sample_rate > 0
+            or self.trace_dir
+        ):
+            return None
+        from ..obs import TraceSink
+
+        return TraceSink(
+            capacity=self.trace_ring,
+            sample_rate=self.trace_sample_rate,
+            disk_dir=self.trace_dir,
+        )
+
+    def outcome_ledger(self):
+        """The configured ``OutcomeLedger``, or None when nothing enables
+        it (None keeps the tally seam ledger-free).  ``LEDGER_DIR`` alone
+        implies the default ring of 256."""
+        if self.ledger_ring <= 0 and not self.ledger_dir:
+            return None
+        from ..obs import OutcomeLedger
+
+        return OutcomeLedger(
+            capacity=self.ledger_ring if self.ledger_ring > 0 else 256,
+            disk_dir=self.ledger_dir,
+            rotate_bytes=self.ledger_rotate_bytes,
         )
 
     def packed_buckets(self) -> list:

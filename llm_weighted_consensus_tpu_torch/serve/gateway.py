@@ -32,7 +32,28 @@ bodies, responses and input validation:
   and while the device is healthy, else 503 ``{"ready": false,
   "reason": ...}`` (``serve/lifecycle.py``);
 * ``GET /metrics`` -> the JSON snapshot (``serve/metrics.py``), or
-  OpenMetrics text with ``?format=prometheus``.
+  OpenMetrics text with ``?format=prometheus``;
+* ``GET /v1/judges`` -> ``{"window", "drift_threshold", "judges": [...]}``
+  and ``GET /v1/judges/{judge_id}`` -> one judge's scorecard
+  (``obs/quality.py``, always served; 404 ``unknown judge id``);
+* ``GET /v1/traces`` -> ``{"traces": [...]}`` (newest first, ``?limit=``,
+  default 50) and ``GET /v1/traces/{trace_id}`` -> the span tree, when
+  the server has a trace sink (``TRACE_*``; 404 ``unknown trace_id``).
+  Both families answer through ``json.dumps``, as the reference's
+  aiohttp ``json_response`` does.
+
+Tracing (``obs/``, when the server has a trace sink): each request but
+the probes, ``/metrics``, ``/v1/traces`` and ``/v1/judges`` is traced on
+its handler thread, as the reference's trace middleware does: a
+caller's ``traceparent`` is adopted, the head-sampling coin is flipped,
+the root span ``gateway:{METHOD} {path}`` is active while the route
+runs, the response carries ``x-trace-id`` (a stream too), a status of
+500 or more forces the trace's retention, and the finished root carries
+``http_status`` and its ``phase_breakdown`` before the sink is offered
+the trace.  Error envelopes then carry ``trace_id``.  The admission gate
+is timed: ``admission_wait`` is observed once per admitted request, and
+a traced request's root carries ``admission_wait_ms`` and
+``admission_inflight``, or ``shed_reason`` when it is shed.
 
 Errors use the ``{"code", "message"}`` envelope; a request body of
 ``max_body_bytes`` (``MAX_BODY_BYTES``) or more is refused on every route
@@ -61,9 +82,16 @@ import math
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, unquote, urlsplit
 
-from ..errors import OverloadedError, StatusError, to_response_error
+from .. import obs
+from ..errors import (
+    OverloadedError,
+    StatusError,
+    to_response_error,
+    with_trace_id,
+)
+from ..obs.phases import observe_phase
 from ..resilience.admission import (
     AdmissionConfig,
     AdmissionController,
@@ -79,6 +107,7 @@ from .metrics import (
     register_graphs,
     register_overload,
     register_performance,
+    register_quality,
     render_prometheus,
 )
 
@@ -92,6 +121,27 @@ MAX_BODY_BYTES = 1024 * 1024
 PAYLOAD_TOO_LARGE = jsonutil.dumps(
     {"code": 413, "message": {"kind": "payload_too_large"}}
 ).encode()
+
+# the probes and the trace and scorecard reads are never themselves
+# traced: a poller scraping /metrics must not churn the sampling budget,
+# and reading traces must not mint traces
+TRACE_EXEMPT_PATHS = frozenset({"/healthz", "/livez", "/readyz", "/metrics"})
+
+
+def trace_exempt(path: str) -> bool:
+    return path in TRACE_EXEMPT_PATHS or path.startswith(
+        ("/v1/traces", "/v1/judges")
+    )
+
+
+def payload_too_large() -> bytes:
+    """The 413 envelope, with the trace id of a traced request."""
+    if obs.current_span() is None:
+        return PAYLOAD_TOO_LARGE
+    obs.annotate(payload_too_large=True)
+    return jsonutil.dumps(with_trace_id(
+        {"code": 413, "message": {"kind": "payload_too_large"}}
+    )).encode()
 
 
 class BadRequest(ValueError):
@@ -163,20 +213,75 @@ def error_response(exc: Exception):
     the reference renders it: an ``OverloadedError`` is a 503 with
     ``Retry-After`` in the ``{code, message}`` envelope, another
     ``StatusError`` its status and its JSON message, anything else a
-    masked 500 envelope (detail to the log)."""
+    masked 500 envelope (detail to the log); a traced request's envelope
+    carries its ``trace_id`` (a StatusError's only when its message is a
+    dict)."""
     if isinstance(exc, OverloadedError):
-        body = {"code": 503, "message": exc.message()}
+        body = with_trace_id({"code": 503, "message": exc.message()})
         headers = {"Retry-After": retry_after_seconds(
             exc.retry_after_ms or 1000.0)}
         return 503, headers, json.dumps(body).encode()
     if isinstance(exc, StatusError):
-        return exc.status(), {}, json.dumps(exc.message()).encode()
+        message = exc.message()
+        if isinstance(message, dict):
+            message = with_trace_id(dict(message))
+        return exc.status(), {}, json.dumps(message).encode()
     err = to_response_error(exc)
-    return err.code, {}, json.dumps(err.to_json_obj()).encode()
+    return err.code, {}, json.dumps(with_trace_id(err.to_json_obj())).encode()
+
+
+def embeddings_body(obj: dict) -> bytes:
+    """``json.dumps(obj).encode()`` of an embeddings response, its rows
+    encoded one call each: the C encoder holds the interpreter lock for a
+    whole call, and one call over 16 rows of 1024 floats stalls every
+    other handler thread for tens of milliseconds."""
+    head = json.dumps({**obj, "data": []})
+    cut = head.index('"data": []') + len('"data": [')
+    rows = ", ".join(json.dumps(row) for row in obj["data"])
+    return (head[:cut] + rows + head[cut:]).encode()
+
+
+def traces_response(sink, path: str, query: str):
+    """(status, body obj) of ``GET /v1/traces`` and ``/v1/traces/{id}``,
+    or None for another path."""
+    if path == "/v1/traces":
+        try:
+            limit = int(parse_qs(query).get("limit", ["50"])[0])
+        except ValueError:
+            limit = 50
+        return 200, {"traces": sink.index(
+            limit=max(1, min(limit, sink.capacity)))}
+    trace_id = unquote(path[len("/v1/traces/"):])
+    if not path.startswith("/v1/traces/") or not trace_id:
+        return None
+    record = sink.get(trace_id)
+    if record is None:
+        return 404, {"code": 404, "message": "unknown trace_id"}
+    return 200, record
+
+
+def judges_response(path: str):
+    """(status, body obj) of ``GET /v1/judges`` and ``/v1/judges/{id}``
+    (the process-global quality aggregator), or None for another path."""
+    from ..obs import quality as _quality
+
+    agg = _quality.quality_aggregator()
+    if path == "/v1/judges":
+        return 200, {"window": agg.window,
+                     "drift_threshold": agg.drift_threshold,
+                     "judges": agg.scorecards()}
+    judge_id = unquote(path[len("/v1/judges/"):])
+    if not path.startswith("/v1/judges/") or not judge_id:
+        return None
+    card = agg.scorecard(judge_id)
+    if card is None:
+        return 404, {"code": 404, "message": "unknown judge id"}
+    return 200, card
 
 
 def make_handler(embedder, batcher, reranker, metrics, admission,
-                 lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES):
+                 lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES,
+                 trace_sink=None):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
@@ -188,6 +293,12 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # a buffered writer: a unary answer's status line, headers and
+        # body leave in one send when the handler returns (streams flush
+        # each chunk themselves); two sends per answer cost a handler
+        # thread two waits for the interpreter lock while a burst's other
+        # handlers run, the phase split's unattributed time on the card
+        wbufsize = 64 * 1024
 
         def log_message(self, fmt, *args):  # quiet by default
             log.debug("%s - " + fmt, self.address_string(), *args)
@@ -196,13 +307,20 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
         # goes out (before the body, or a stream's last frame: a client
         # holding the answer sees it in /metrics)
         _series = None
+        # the traced request's root span (None untraced)
+        _root = None
 
         def _observe(self, status: int) -> None:
             if self._series is not None:
                 series, t0 = self._series
                 self._series = None
                 metrics.observe(series, (time.perf_counter() - t0) * 1e3,
-                                error=status >= 400)
+                                error=status >= 400,
+                                trace_id=obs.current_trace_id())
+
+        def _trace_header(self) -> None:
+            if self._root is not None:
+                self.send_header("x-trace-id", self._root.trace.trace_id)
 
         def _send_raw(self, status: int, body: bytes, headers=None,
                       content_type: str = "application/json") -> None:
@@ -212,6 +330,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self.send_header("content-type", content_type)
             for name, value in (headers or {}).items():
                 self.send_header(name, value)
+            self._trace_header()
             self.send_header("content-length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -222,9 +341,60 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self.send_response(status)
             for name, value in headers.items():
                 self.send_header(name, value)
+            self._trace_header()
             self.send_header("transfer-encoding", "chunked")
             self.end_headers()
             self.wfile.flush()
+
+        def _traced(self, method: str, route) -> None:
+            """Run ``route`` (the request's handling) under its root span
+            when the server traces this path: the reference's trace
+            middleware on the handler thread."""
+            self._root = None
+            self._status = None
+            if trace_sink is None:
+                route()
+                return
+            path = urlsplit(self.path).path
+            if trace_exempt(path):
+                route()
+                return
+            upstream = obs.extract(self.headers)
+            if upstream is not None:
+                trace_id, parent_span_id, caller_sampled = upstream
+                sampled = caller_sampled or trace_sink.sample()
+            else:
+                trace_id = parent_span_id = None
+                sampled = trace_sink.sample()
+            root = obs.start_trace(
+                f"gateway:{method} {path}", sampled=sampled,
+                trace_id=trace_id, parent_span_id=parent_span_id,
+            )
+            self._root = root
+            token = root.activate()
+            try:
+                route()
+            except Exception as exc:
+                root.set_error(exc)
+                raise
+            finally:
+                status = self._status
+                if status is not None:
+                    root.annotate(http_status=status)
+                    if status >= 500:
+                        # sheds answer 503 rather than raising; the gate
+                        # annotated shed_reason already
+                        root.status = "error"
+                        root.trace.force(f"http_{status}")
+                obs.Span.deactivate(token)
+                root.finish()
+                self._root = None
+                try:
+                    root.annotate(
+                        phase_breakdown=obs.phase_breakdown(root.trace))
+                except Exception:
+                    log.exception("phase breakdown failed")
+                trace_sink.offer(root.trace)
 
         def _write_chunk(self, data: bytes) -> None:
             self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
@@ -238,7 +408,8 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self._send_raw(status, json.dumps(obj).encode())
 
         def _error(self, status: int, message: str) -> None:
-            self._send(status, {"code": status, "message": message})
+            self._send(status, with_trace_id(
+                {"code": status, "message": message}))
 
         def _body(self):
             try:
@@ -257,9 +428,19 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 raise BadRequest(f"malformed JSON body: {exc}") from exc
 
         def do_GET(self):
+            self._traced("GET", self._get)
+
+        def _get(self):
             url = urlsplit(self.path)
             path = url.path
-            if path in ("/healthz", "/livez"):
+            answer = None
+            if trace_sink is not None and path.startswith("/v1/traces"):
+                answer = traces_response(trace_sink, path, url.query)
+            elif path.startswith("/v1/judges"):
+                answer = judges_response(path)
+            if answer is not None:
+                self._send(*answer)
+            elif path in ("/healthz", "/livez"):
                 self._send(200, {"ok": True})
             elif path == "/readyz":
                 ok, reason = lifecycle.ready()
@@ -279,6 +460,9 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 self._error(404, f"no route GET {self.path}")
 
         def do_POST(self):
+            self._traced("POST", self._post_route)
+
+        def _post_route(self):
             t0 = time.perf_counter()
             path = self.path
             host_route = chat_routes is not None and chat_routes.serves(path)
@@ -289,14 +473,23 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self._series = (f"http:{path}", t0)
             # admitted or shed here; the device routes also pass the
             # device gate (warming, watchdog)
+            t_wait = time.perf_counter()
             reason = admission.try_acquire(
                 device_work=path in device_routes)
             if reason is not None:
+                # lands on the root span; the 503 forces its retention
+                obs.annotate(shed_reason=reason)
                 status, headers, body = shed_response(
                     reason, admission.config.retry_after_ms
                 )
                 self._send_raw(status, body, headers)
                 return
+            # door -> slot held; the gate is admit-or-shed (no queueing),
+            # so this phase reads ~0, recorded so the breakdown is whole
+            wait_ms = (time.perf_counter() - t_wait) * 1e3
+            observe_phase("admission_wait", wait_ms)
+            obs.annotate(admission_inflight=admission.inflight,
+                         admission_wait_ms=round(wait_ms, 3))
             try:
                 if host_route:
                     self._post_chat(path)
@@ -304,10 +497,10 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     self._post(path)
             finally:
                 # a stream cut short is observed here
-                self._observe(getattr(self, "_status", 500))
+                status = self._status or 500  # None: nothing was sent
+                self._observe(status)
                 admission.release(
-                    (time.perf_counter() - t0) * 1e3,
-                    error=getattr(self, "_status", 500) >= 500,
+                    (time.perf_counter() - t0) * 1e3, error=status >= 500,
                 )
 
         def _deadline(self):
@@ -329,13 +522,13 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 length = -1
             if length < 0:
                 self.close_connection = True
-                self._send_raw(400, jsonutil.dumps({
+                self._send_raw(400, jsonutil.dumps(with_trace_id({
                     "code": 400, "message": "malformed content-length",
-                }).encode())
+                })).encode())
                 return
             if length >= body_cap:
                 self.close_connection = True
-                self._send_raw(413, PAYLOAD_TOO_LARGE)
+                self._send_raw(413, payload_too_large())
                 return
             raw = self.rfile.read(length) if length else b""
             chat_routes.serve(self, path, raw, self._deadline(), metrics)
@@ -351,7 +544,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     texts = parse_embeddings(body, embedder.model_name)
             except OverflowError:
                 self.close_connection = True
-                self._send_raw(413, PAYLOAD_TOO_LARGE)
+                self._send_raw(413, payload_too_large())
                 return
             except BadRequest as exc:
                 self._error(400, str(exc))
@@ -373,7 +566,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     else:
                         conf, tokens = batcher.consensus(texts, temperature)
                         model_name = embedder.model_name
-                    obj = {
+                    answer = json.dumps({
                         "model": model_name,
                         "scorer": scorer,
                         "confidence": [float(c) for c in conf],
@@ -381,10 +574,11 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                             "prompt_tokens": tokens,
                             "total_tokens": tokens,
                         },
-                    }
+                    }).encode()
                 else:
                     emb, tokens = batcher.embed(texts)
-                    obj = embedder.wire_response(emb, tokens).to_json_obj()
+                    answer = embeddings_body(
+                        embedder.wire_response(emb, tokens).to_json_obj())
             except StatusError as exc:
                 status, headers, raw = error_response(exc)
                 self._send_raw(status, raw, headers)
@@ -396,7 +590,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             finally:
                 if token is not None:
                     Deadline.deactivate(token)
-            self._send(200, obj)
+            self._send_raw(200, answer)
 
     return Handler
 
@@ -434,7 +628,11 @@ class Server:
     ``max_body_bytes`` caps every route's request body (413 past it);
     ``device_timing=False`` turns off per-bucket device timing.  With
     ``ready=False`` the server answers ``/readyz`` 503 and sheds device
-    routes until ``warmup`` (or ``lifecycle.mark_ready()``)."""
+    routes until ``warmup`` (or ``lifecycle.mark_ready()``).
+    ``trace_sink`` (an ``obs.TraceSink``) turns request tracing and
+    ``/v1/traces`` on, with the ``traces`` section of ``/metrics``;
+    ``ledger`` (the score client's ``obs.OutcomeLedger``) adds the
+    ``ledger`` section beside the always-on ``quality`` one."""
 
     def __init__(
         self,
@@ -455,6 +653,8 @@ class Server:
         chat_client=None,
         multichat_client=None,
         score_client=None,
+        trace_sink=None,
+        ledger=None,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -503,6 +703,10 @@ class Server:
         register_overload(self.metrics, self.admission, self.watchdog,
                           self.lifecycle)
         register_graphs(self.metrics, embedder=embedder, reranker=reranker)
+        register_quality(self.metrics, ledger)
+        self.trace_sink = trace_sink
+        if trace_sink is not None:
+            self.metrics.register_provider("traces", trace_sink.snapshot)
         self.chat_routes = (
             ChatRoutes(chat_client, multichat_client, embedder, self.batcher,
                        self.metrics, score_client=score_client)
@@ -526,7 +730,7 @@ class Server:
             (host, port),
             make_handler(embedder, self.batcher, reranker, self.metrics,
                          self.admission, self.lifecycle, self.chat_routes,
-                         max_body_bytes),
+                         max_body_bytes, trace_sink),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:

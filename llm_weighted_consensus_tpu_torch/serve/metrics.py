@@ -17,12 +17,22 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
   (``ops/launches.py``), replays included;
 * ``score_cache`` and ``embed_cache``: the caches' counters
   (``cache/store.py``) with their in-flight collapses, when
-  ``SCORE_CACHE_TTL`` turns them on.
+  ``SCORE_CACHE_TTL`` turns them on;
+* ``traces``: the trace sink's counters (``obs/sink.py``), when tracing
+  is on;
+* ``quality``: judge scorecards, pairwise kappa, drift flags, the margin
+  histogram and outcome rates (``obs/quality.py``, always on), and
+  ``ledger``: the outcome ledger's counters, when ``LEDGER_*`` turns it
+  on (``register_quality``).
+
+A series observed with a ``trace_id`` keeps the newest as its exemplar:
+the JSON snapshot names it, and the Prometheus text attaches it to the
+bucket line its latency falls in.
 
 Two expositions off one store: the JSON snapshot (the reference's shape)
 and, with ``?format=prometheus``, OpenMetrics text whose shared families
-(uptime, series, phase, device, lanes) render as the reference renders
-them.  One lock guards the series: the handler, dispatch and waiter
+(uptime, series, phase, device, the quality families, lanes) render as
+the reference renders them.  One lock guards the series: the handler, dispatch and waiter
 threads all observe.
 """
 
@@ -30,9 +40,9 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from ..obs.histogram import Histogram
+from ..obs.histogram import Histogram, le_for
 
 # every provider section the snapshot may carry
 KNOWN_SECTIONS = (
@@ -45,6 +55,9 @@ KNOWN_SECTIONS = (
     "kernels",
     "score_cache",
     "embed_cache",
+    "traces",
+    "quality",
+    "ledger",
 )
 
 PROM_CONTENT_TYPE = (
@@ -53,12 +66,14 @@ PROM_CONTENT_TYPE = (
 
 
 class _Series:
-    __slots__ = ("count", "errors", "hist")
+    __slots__ = ("count", "errors", "hist", "exemplar")
 
     def __init__(self) -> None:
         self.count = 0
         self.errors = 0
         self.hist = Histogram()
+        # (trace_id, latency_ms, unix_ts): the newest traced observation
+        self.exemplar: Optional[Tuple[str, float, float]] = None
 
 
 class Metrics:
@@ -68,7 +83,10 @@ class Metrics:
         self._providers: dict = {}
         self._started = time.monotonic()
 
-    def observe(self, series: str, ms: float, *, error: bool = False) -> None:
+    def observe(self, series: str, ms: float, *, error: bool = False,
+                trace_id: Optional[str] = None) -> None:
+        """One observation; ``trace_id`` (passed explicitly by the call
+        site that knows its request's trace) becomes the exemplar."""
         with self._lock:
             s = self._series_store.get(series)
             if s is None:
@@ -77,6 +95,8 @@ class Metrics:
             if error:
                 s.errors += 1
             s.hist.observe(ms)
+            if trace_id is not None:
+                s.exemplar = (trace_id, ms, time.time())
 
     def register_provider(self, name: str, fn) -> None:
         """Attach a live section (``KNOWN_SECTIONS``) to the snapshot."""
@@ -94,6 +114,8 @@ class Metrics:
             if s.hist.count:
                 entry["p50_ms"] = round(s.hist.quantile(0.5), 2)
                 entry["p99_ms"] = round(s.hist.quantile(0.99), 2)
+            if s.exemplar is not None:
+                entry["trace_id"] = s.exemplar[0]
             out[series] = entry
         snap = {
             "uptime_sec": round(time.monotonic() - self._started, 1),
@@ -128,6 +150,7 @@ class Metrics:
                 c = _Series()
                 c.count, c.errors = s.count, s.errors
                 c.hist.merge(s.hist)
+                c.exemplar = s.exemplar
                 items.append((name, c))
         return items
 
@@ -151,6 +174,17 @@ def register_overload(metrics: Metrics, admission=None, watchdog=None,
         metrics.register_provider("device_watchdog", watchdog.snapshot)
     if lifecycle is not None:
         metrics.register_provider("lifecycle", lifecycle.snapshot)
+
+
+def register_quality(metrics: Metrics, ledger=None) -> None:
+    """The ``quality`` section (the process-global judge scorecards,
+    pairwise kappa, drift flags, margin histogram and outcome rates) and,
+    with an outcome ledger, its ``ledger`` section."""
+    from ..obs import quality as _quality
+
+    metrics.register_provider("quality", _quality.quality_snapshot)
+    if ledger is not None:
+        metrics.register_provider("ledger", ledger.snapshot)
 
 
 def register_graphs(metrics: Metrics, **models) -> None:
@@ -192,12 +226,22 @@ def _esc(label_value: str) -> str:
     )
 
 
-def _render_hist(name: str, label: str, value: str,
-                 hist: Histogram) -> List[str]:
-    """One labelled histogram as ``_bucket``/``_sum``/``_count`` lines."""
+def _render_hist(name: str, label: str, value: str, hist: Histogram,
+                 exemplar: Optional[Tuple[str, float, float]] = None
+                 ) -> List[str]:
+    """One labelled histogram as ``_bucket``/``_sum``/``_count`` lines,
+    with the exemplar (when given) on the first bucket line whose range
+    holds the exemplar's own latency."""
     sel = f'{label}="{_esc(value)}"'
-    lines = [f'{name}_bucket{{{sel},le="{le}"}} {cum}'
-             for le, cum in hist.cumulative()]
+    lines = []
+    ex_le = le_for(exemplar[1]) if exemplar is not None else None
+    for le, cum in hist.cumulative():
+        line = f'{name}_bucket{{{sel},le="{le}"}} {cum}'
+        if ex_le is not None and le == ex_le:
+            trace_id, ms, ts = exemplar
+            line += f' # {{trace_id="{_esc(trace_id)}"}} {ms:.6g} {ts:.3f}'
+            ex_le = None
+        lines.append(line)
     lines.append(f"{name}_sum{{{sel}}} {hist.sum:.6g}")
     lines.append(f"{name}_count{{{sel}}} {hist.count}")
     return lines
@@ -237,7 +281,7 @@ def render_prometheus(metrics: Metrics) -> str:
     )
     for series, s in items:
         lines += _render_hist("lwc_series_latency_ms", "series", series,
-                              s.hist)
+                              s.hist, s.exemplar)
 
     phase_hists, device_hists = _phases.aggregator().raw_histograms()
     lines += prom_family(
@@ -256,6 +300,8 @@ def render_prometheus(metrics: Metrics) -> str:
     )
     for bucket, hist in sorted(device_hists.items()):
         lines += _render_hist("lwc_device_latency_ms", "bucket", bucket, hist)
+
+    lines += _render_quality()
 
     batcher = metrics.provider_section("device_batcher")
     if isinstance(batcher, dict) and isinstance(batcher.get("lanes"), dict):
@@ -377,3 +423,44 @@ def render_prometheus(metrics: Metrics) -> str:
 
     lines.append("# EOF")
     return "\n".join(lines) + "\n"
+
+
+def _render_quality() -> List[str]:
+    """The consensus-quality families, as the reference renders them:
+    the margin histogram (with the newest traced request as its
+    exemplar), outcome counters, and per-judge agreement and drift."""
+    from ..obs import quality as _quality
+
+    qsnap = _quality.quality_aggregator().prom_snapshot()
+    lines = prom_family(
+        "lwc_confidence_margin",
+        "histogram",
+        "Consensus confidence margin (top1 - top2) per scored request.",
+    )
+    lines += _render_hist("lwc_confidence_margin", "kind", "margin",
+                          qsnap["margin"], qsnap["exemplar"])
+    lines += prom_family(
+        "lwc_consensus_outcomes",
+        "counter",
+        "Scored requests by consensus outcome (scored/degraded/...).",
+    )
+    for outcome, count in qsnap["outcomes"].items():
+        lines.append(
+            f'lwc_consensus_outcomes_total{{outcome="{_esc(outcome)}"}} '
+            f"{count}"
+        )
+    lines += prom_family(
+        "lwc_judge_agreement",
+        "gauge",
+        "Per-judge agreement-with-final-consensus rate.",
+    )
+    for judge, rate in qsnap["agreement"].items():
+        lines.append(f'lwc_judge_agreement{{judge="{_esc(judge)}"}} {rate:.6g}')
+    lines += prom_family(
+        "lwc_judge_drift",
+        "gauge",
+        "1 when the drift detector currently flags the judge, else 0.",
+    )
+    for judge, flagged in qsnap["drift_flagged"].items():
+        lines.append(f'lwc_judge_drift{{judge="{_esc(judge)}"}} {flagged:.0f}')
+    return lines

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..types.score_response import TrainingTableData
 from . import TrainingTableWeightFetcher
 
@@ -146,20 +147,24 @@ class TorchTrainingTableFetcher(TrainingTableWeightFetcher):
         loop, where every judge stream of every request also runs: the
         prompt embed is awaited as the batcher's future, and the embed
         without a batcher and the lookup run in the loop's executor, so
-        no device wait blocks the loop."""
+        no device wait blocks the loop.  A traced request's span goes
+        along into the executor (``obs.carry``); the batcher's item
+        carries its own."""
         loop = asyncio.get_running_loop()
         max_tokens = getattr(model.weight.embeddings, "max_tokens", None)
         text = request.template_content()
         if self.batcher is None:
             response = await loop.run_in_executor(
-                None, self.embedder.embeddings_response, [text], max_tokens
+                None, obs.carry(self.embedder.embeddings_response), [text],
+                max_tokens,
             )
         else:
-            emb, tokens = await asyncio.wrap_future(
+            emb, tokens = await self.batcher.wait_async(
                 self.batcher.submit_embed([text], max_tokens=max_tokens)
             )
             response = self.embedder.wire_response(emb, tokens)
-        return await loop.run_in_executor(None, self._lookup, response, model)
+        return await loop.run_in_executor(
+            None, obs.carry(self._lookup), response, model)
 
     def _lookup(self, response, model):
         query = np.asarray(response.data[0].embedding, dtype=np.float32)

@@ -1066,6 +1066,62 @@ def test_pipelined_batcher_on_warmed_graphs(base_model):
     assert stats["replays"] == util["dispatches"]
 
 
+@pytest.mark.parametrize("kind", ["consensus", "embed"])
+def test_traced_graphed_dispatch_matches_the_untraced_one(base_model, kind):
+    """A traced request through the batcher at a warmed bucket: the same
+    launches on the same routes as untraced, every one from a replay, no
+    capture and no eager dispatch, the answer bit-equal to the untraced
+    one, and its ``batcher:*`` -> ``device:dispatch`` spans finished by
+    the time the caller holds the answer."""
+    from llm_weighted_consensus_tpu_torch import obs
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+
+    emb = _fresh(base_model)
+    texts = _texts(8, 40, 21)
+    emb.warmup([(8, 48)])
+    stats0 = emb.graph_stats()
+    wrappers = (attention.attention, kernels.cosine_vote)
+    runs = []
+    with DeviceBatcher(emb, window_ms=0.0) as batcher:
+        for traced in (False, True, False, True):
+            before = [(w.launches, dict(w.routes)) for w in wrappers]
+            root = obs.start_trace("test", sampled=True) if traced else None
+            token = root.activate() if root is not None else None
+            try:
+                if kind == "consensus":
+                    answer, _ = batcher.consensus(texts)
+                else:
+                    answer, _ = batcher.embed(texts)
+            finally:
+                if token is not None:
+                    obs.Span.deactivate(token)
+            deltas = [
+                (w.launches - n, {r: c - routes.get(r, 0)
+                                  for r, c in w.routes.items()
+                                  if c - routes.get(r, 0)})
+                for w, (n, routes) in zip(wrappers, before)
+            ]
+            runs.append((answer, deltas, root))
+    layers = emb.config.num_layers
+    votes = 1 if kind == "consensus" else 0
+    for answer, deltas, root in runs:
+        assert np.array_equal(answer, runs[0][0])
+        assert deltas == runs[0][1]
+        assert deltas[0] == (layers, {"tma": layers})
+        assert deltas[1][0] == votes
+        if root is not None:
+            spans = {s.name: s for s in root.trace.spans}
+            queued, device = spans[f"batcher:{kind}"], spans["device:dispatch"]
+            assert device.parent_id == queued.span_id
+            assert queued.duration_ms() is not None
+            assert device.duration_ms() is not None
+            assert device.attributes == {"kind": kind, "batch_size": 1}
+    stats = emb.graph_stats()
+    assert stats["captures"] == stats0["captures"]
+    assert stats["eager_dispatches"] == stats0["eager_dispatches"]
+    assert stats["replays"] - stats0["replays"] == 4
+
+
 # -- the vote with a count per request, and the stream update ------------------
 #
 # The streaming consensus votes R streams of different lengths in one

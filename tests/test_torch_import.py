@@ -94,6 +94,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "cache.singleflight", "cache.store", "cache.replay",
         "ops.consensus", "ops.votes", "parallel", "parallel.batch",
         "archive.rescore", "weights.learning", "serve.archive_routes",
+        "obs", "obs.span", "obs.sink", "obs.propagate", "obs.quality",
+        "obs.ledger",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

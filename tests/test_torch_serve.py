@@ -129,6 +129,22 @@ def test_embeddings_match_the_jax_gateway(embedders, server, inputs):
         np.testing.assert_allclose(g["embedding"], w["embedding"], atol=1e-5)
 
 
+@pytest.mark.parametrize("rows,model", [
+    (0, "test-tiny"), (1, "test-tiny"), (16, "test-tiny"),
+    (3, 'odd "data": [] name'),
+])
+def test_embeddings_body_is_the_json_of_the_response(embedders, rows, model):
+    """The gateway encodes an embeddings answer row by row; its bytes are
+    one ``json.dumps`` of the whole response's."""
+    from llm_weighted_consensus_tpu_torch.serve.gateway import embeddings_body
+
+    emb = np.random.default_rng(rows).standard_normal((rows, 64))
+    response = embedders[1].wire_response(emb.astype(np.float32), 11)
+    response.model = model
+    obj = response.to_json_obj()
+    assert embeddings_body(obj) == json.dumps(obj).encode()
+
+
 def test_concurrent_equal_n_requests_coalesce(embedders):
     _, port = embedders
     n_req = 6
@@ -782,7 +798,10 @@ KNOBS = ("max_body_bytes", "admission_max_inflight",
          "admission_retry_after_millis", "device_watchdog_millis",
          "device_watchdog_interval_millis", "address", "port",
          "archive_path", "archive_write", "archive_streaming",
-         "archive_max_completions")
+         "archive_max_completions", "trace_sample_rate", "trace_enabled",
+         "trace_ring", "trace_dir", "quality_window",
+         "quality_drift_threshold", "ledger_ring", "ledger_dir",
+         "ledger_rotate_bytes")
 
 KNOB_ENVS = [
     {},
@@ -796,6 +815,12 @@ KNOB_ENVS = [
     {"ARCHIVE_PATH": "/tmp/a.json", "ARCHIVE_WRITE": "0",
      "ARCHIVE_STREAMING": "1", "ARCHIVE_MAX_COMPLETIONS": "0"},
     {"ARCHIVE_WRITE": "1", "ARCHIVE_MAX_COMPLETIONS": "10"},
+    {"TRACE_SAMPLE_RATE": "0.25", "TRACE_RING": "0", "TRACE_DIR": "/tmp/t"},
+    {"TRACE_ENABLED": "1", "TRACE_RING": "16"},
+    {"QUALITY_WINDOW": "8", "QUALITY_DRIFT_THRESHOLD": "1"},
+    {"LEDGER_RING": "32", "LEDGER_DIR": "/tmp/l",
+     "LEDGER_ROTATE_BYTES": "4096"},
+    {"LEDGER_DIR": "/tmp/l"},
 ]
 
 BAD_KNOB_ENVS = [
@@ -807,6 +832,15 @@ BAD_KNOB_ENVS = [
     {"PORT": "http"},
     {"ADMISSION_RETRY_AFTER_MILLIS": "soon"},
     {"DEVICE_WATCHDOG_INTERVAL_MILLIS": "x"},
+    {"TRACE_SAMPLE_RATE": "1.5"},
+    {"TRACE_SAMPLE_RATE": "-0.1"},
+    {"TRACE_SAMPLE_RATE": "often"},
+    {"TRACE_RING": "many"},
+    {"QUALITY_WINDOW": "0"},
+    {"QUALITY_DRIFT_THRESHOLD": "0"},
+    {"QUALITY_DRIFT_THRESHOLD": "1.5"},
+    {"LEDGER_RING": "-1"},
+    {"LEDGER_ROTATE_BYTES": "-4096"},
 ]
 
 
@@ -841,6 +875,47 @@ def test_the_server_takes_the_knobs(tmp_path):
         assert server.watchdog.timeout_ms == 400.0
     finally:
         server.close()
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"TRACE_ENABLED": "1", "LEDGER_RING": "4"},
+    {"TRACE_SAMPLE_RATE": "0.5", "TRACE_RING": "7", "QUALITY_WINDOW": "9",
+     "QUALITY_DRIFT_THRESHOLD": "0.5", "LEDGER_ROTATE_BYTES": "512"},
+])
+def test_the_server_takes_the_trace_quality_and_ledger_knobs(tmp_path,
+                                                             extra):
+    from llm_weighted_consensus_tpu import obs as ref_obs
+    from llm_weighted_consensus_tpu.serve.config import Config
+    from llm_weighted_consensus_tpu_torch import obs as port_obs
+
+    env = {**UPSTREAM, **extra}
+    if "LEDGER_ROTATE_BYTES" in extra:
+        env["LEDGER_DIR"] = str(tmp_path / "ledger")
+        env["TRACE_DIR"] = str(tmp_path / "traces")
+    ref, config = Config.from_env(env), ServeConfig.from_env(env)
+    for name in ("trace_sink", "outcome_ledger"):
+        got, want = getattr(config, name)(), getattr(ref, name)()
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got.snapshot() == want.snapshot()
+    server = serve_main.build_server(None, None, config, device="cpu")
+    try:
+        sink, ledger = server.trace_sink, server.ledger
+        assert (sink is None) == (config.trace_sink() is None)
+        assert (ledger is None) == (config.outcome_ledger() is None)
+        assert server.score_client.ledger is ledger
+        agg = port_obs.quality_aggregator()
+        assert (agg.window, agg.drift_threshold) == (
+            config.quality_window, config.quality_drift_threshold)
+        snap = server.metrics.snapshot()
+        assert "quality" in snap
+        assert ("traces" in snap) == (sink is not None)
+        assert ("ledger" in snap) == (ledger is not None)
+    finally:
+        server.close()
+        for obs in (port_obs, ref_obs):
+            obs.configure_quality(window=64, drift_threshold=0.25)
 
 
 def test_dotenv_is_loaded_and_set_variables_win(tmp_path, monkeypatch):
