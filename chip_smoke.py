@@ -241,7 +241,39 @@ Phases, each printing one JSON line:
    ``all_failed`` while a healthy request is dropped.  It prints p50 and
    answers/s per mode, and the median of each named phase and of
    ``other`` for (a), (b) and (c), and the garbage collector's pauses
-   during (a) and (b), beside the nvidia-smi line.
+   during (a) and (b), beside the nvidia-smi line;
+14. resilient path (``resilience/``, ``serve/frames.py``): one bge-large
+   build through ``build_embedder``, ``build_server`` and ``warm_up``
+   (``WARMUP`` at the prompts' 16-row buckets and the 64-candidate
+   ``/consensus`` bucket), phase 11's panel with training-table weights
+   on ``ScriptedJudges`` whose judges mostly agree
+   (``RESILIENT_AGREEMENT``), behind three endpoints: one answering 503,
+   then the judges' server twice.  The same 16 streamed and 4 unary
+   requests (8 in flight, ``LOAD_CLIENT``) through a server with every
+   knob unset, then through one with ``RESILIENT_ENV`` (the splice lane,
+   quorum 0.5, breakers, retry budget 8, 150 ms hedges, a 5 s default
+   deadline, ``FAULT_PLAN`` stalling 35% of first chunks for 20 s),
+   ``SCORE_CACHE_TTL=60`` and ``TRACE_ENABLED=1``.  It fails unless
+   every stream ends ``[DONE]``, no request outlives the deadline by
+   more than ``RESILIENT_DEADLINE_MARGIN_MS``, every final frame's
+   confidences sum to 1 within ``SCORE_SUM_TOL``, a degraded answer's
+   judge errors are 499 or 504 entries, ``resilience`` counts quorum
+   degrades, hedges and breaker rejections, the 503 endpoint's breaker
+   is open and took fewer calls than the attempts routed to it, no
+   splice frame fell back and each is the slow lane's bytes for its item
+   and the bytes the client read, every prompt embed was 24 ``tma``
+   launches replayed (none captured or eager), a repeated degraded
+   request fans out again, and the sockets the stragglers and hedge
+   losers held are closed.  Then the memory drill on the same server:
+   the governor's watermarks lowered under the RSS, ``/consensus`` (N=64,
+   s=128) sheds 503 ``shed_reason: memory``, ``/livez`` and ``/readyz``
+   (``degraded_mem``) answer 200, the trace ring and cache budgets are
+   halved; the watermarks raised, everything is restored and
+   ``/consensus`` answers bit-equal to before, with one ``cluster``
+   vote.  It prints both servers' requests/s and client p50, µs per frame
+   of the splice and slow lanes over the served items, the counters, the
+   breaker states, the RSS and the watermarks, beside the nvidia-smi
+   line.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -447,6 +479,25 @@ TRACED_SCORE_STREAMED, TRACED_SCORE_UNARY = 8, 4
 PHASE_BAR = 0.9
 # traced and untraced answers at different buckets
 TRACED_ANSWER_TOL = 1e-6
+# judge-side resilience (phase 14): phase 11's panel, 16 streamed and 4
+# unary requests, 8 in flight, behind the reference's resilience drive
+# (the verify skill's FAULT_PLAN and RESILIENCE_QUORUM) with breakers,
+# hedges, a shared retry budget, a default deadline and the splice lane
+RESILIENT_STREAMED, RESILIENT_UNARY = 16, 4
+RESILIENT_ENV = {
+    "HOST_FASTPATH": "1", "RESILIENCE_QUORUM": "0.5",
+    "RESILIENCE_BREAKER_THRESHOLD": "0.5", "RESILIENCE_RETRY_BUDGET": "8",
+    "RESILIENCE_HEDGE_MILLIS": "150", "RESILIENCE_DEADLINE_MILLIS": "5000",
+    "FAULT_PLAN": "seed=7,stall_first=0.35,stall_ms=20000",
+}
+# a request may outlive its deadline by what runs after the deadline
+# fires: the handler's stamp is taken after its body is read, and the
+# final frame is built and written once the late judges have failed
+RESILIENT_DEADLINE_MARGIN_MS = 2000
+# the judges mostly agree, as a panel on an easy question does: each
+# names the candidate whose text sorts first with this probability (its
+# soft vote peaked there), else a key of its own ballot's hash
+RESILIENT_AGREEMENT = 0.8
 
 
 def emit(obj) -> None:
@@ -4036,11 +4087,13 @@ def ballot_keys_of(body: dict) -> tuple:
     return ballot, list(json.loads(ballot))
 
 
-def judge_answer(body: dict) -> tuple:
+def judge_answer(body: dict, agree: float = 0.0) -> tuple:
     """A scripted judge's answer to one ballot: (content, logprobs).  It
     names one key of its own ballot, chosen from a hash of the ballot, and
     gives ``top_logprobs`` alternatives on the key's letter token (soft
-    votes) when the request asks for logprobs."""
+    votes) when the request asks for logprobs.  With ``agree`` > 0 it
+    names, with that probability, the candidate whose text sorts first,
+    its letter's logit raised by 4 (the soft vote peaked there)."""
     import zlib
 
     import numpy as np
@@ -4048,12 +4101,18 @@ def judge_answer(body: dict) -> tuple:
     ballot, keys = ballot_keys_of(body)
     rng = np.random.default_rng(zlib.crc32(ballot.encode()))
     pick = keys[int(rng.integers(0, len(keys)))]
+    favored = False
+    if agree and rng.random() < agree:
+        texts = json.loads(ballot)
+        pick, favored = min(keys, key=lambda k: texts[k]), True
     content = f"I select {pick}"
     top = body.get("top_logprobs")
     if not body.get("logprobs") or not top:
         return content, None
     letters = [k[-2] for k in keys if k[:-2] == pick[:-2]][:top]
     lps = rng.normal(size=len(letters)) * 1.5
+    if favored and pick[-2] in letters:
+        lps[letters.index(pick[-2])] += 4.0
     lps = lps - np.log(np.exp(lps).sum())
     alts = [{"token": c, "logprob": float(lp)}
             for c, lp in zip(letters, lps)]
@@ -4066,9 +4125,9 @@ def judge_answer(body: dict) -> tuple:
     ]}
 
 
-def judge_frames(body: dict) -> bytes:
+def judge_frames(body: dict, agree: float = 0.0) -> bytes:
     """The SSE body a scripted judge answers ``body`` with."""
-    content, logprobs = judge_answer(body)
+    content, logprobs = judge_answer(body, agree)
     choice = {"index": 0, "delta": {"role": "assistant", "content": content},
               "finish_reason": "stop"}
     if logprobs is not None:
@@ -4085,15 +4144,19 @@ class ScriptedJudges:
     ``judge_frames`` of its request after a scripted ``SCORE_JUDGE_MS``
     delay (drawn from the ballot's hash), counts the calls and keeps each
     call's ``traceparent`` header (None when absent); a model named
-    ``broken-*`` answers 418 at once."""
+    ``broken-*`` answers 418 at once.  Any path under ``/down`` is a
+    browned-out backend: 503 at once, counted in ``down_calls``.
+    ``agree`` is ``judge_answer``'s."""
 
-    def __init__(self) -> None:
+    def __init__(self, agree: float = 0.0) -> None:
         import threading
         import zlib
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         judges = self
         self.calls = 0
+        self.down_calls = 0
+        self.agree = agree
         self.traceparents = []
         self.lock = threading.Lock()
 
@@ -4106,6 +4169,16 @@ class ScriptedJudges:
             def do_POST(self):
                 body = json.loads(self.rfile.read(
                     int(self.headers["content-length"])))
+                if self.path.startswith("/down"):
+                    with judges.lock:
+                        judges.down_calls += 1
+                    raw = b'{"error":{"code":503,"message":"unavailable"}}'
+                    self.send_response(503)
+                    self.send_header("content-type", "application/json")
+                    self.send_header("content-length", str(len(raw)))
+                    self.end_headers()
+                    self.wfile.write(raw)
+                    return
                 with judges.lock:
                     judges.calls += 1
                     judges.traceparents.append(
@@ -4121,14 +4194,19 @@ class ScriptedJudges:
                 lo, hi = SCORE_JUDGE_MS
                 time.sleep((lo + zlib.crc32(ballot.encode()) % (hi - lo + 1))
                            / 1e3)
-                frame = judge_frames(body)
-                self.send_response(200)
-                self.send_header("content-type", "text/event-stream")
-                self.send_header("transfer-encoding", "chunked")
-                self.end_headers()
-                self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
-                self.wfile.write(b"0\r\n\r\n")
-                self.wfile.flush()
+                frame = judge_frames(body, judges.agree)
+                try:
+                    self.send_response(200)
+                    self.send_header("content-type", "text/event-stream")
+                    self.send_header("transfer-encoding", "chunked")
+                    self.end_headers()
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    # the client hung up first: a cancelled straggler or
+                    # a hedge loser
+                    self.close_connection = True
 
         class Server(ThreadingHTTPServer):
             daemon_threads = True
@@ -6171,9 +6249,420 @@ def traced_path(gpu: str, device: str = "cuda",
 
 
 
+# -- phase 14: judge-side resilience and the memory governor ----------------------
+
+
+def socket_fds() -> int:
+    """Sockets this process holds open."""
+    count = 0
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            if os.readlink(f"/proc/self/fd/{fd}").startswith("socket:"):
+                count += 1
+        except OSError:
+            pass
+    return count
+
+
+class RecordingEncoders:
+    """``ChatRoutes.new_encoder`` that keeps every stream's encoder and
+    each (item, frame) it encoded."""
+
+    def __init__(self, fastpath: bool) -> None:
+        self.fastpath = fastpath
+        self.streams = []
+
+    def __call__(self):
+        from llm_weighted_consensus_tpu_torch.serve.frames import FrameEncoder
+
+        sent = []
+
+        class Recording(FrameEncoder):
+            __slots__ = ()
+
+            def encode(self, item):
+                frame = FrameEncoder.encode(self, item)
+                sent.append((item, frame))
+                return frame
+
+        enc = Recording(self.fastpath)
+        self.streams.append((enc, sent))
+        return enc
+
+
+def lane_us_per_frame(streams, fastpath: bool, rounds: int = 5) -> float:
+    """µs per frame to encode the recorded streams' items again, one fresh
+    encoder per stream, on one lane (the least of ``rounds`` passes)."""
+    from llm_weighted_consensus_tpu_torch.serve.frames import FrameEncoder
+
+    frames = sum(len(sent) for _, sent in streams)
+    best = None
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _, sent in streams:
+            enc = FrameEncoder(fastpath)
+            for item, _ in sent:
+                enc.encode(item)
+        dt = time.perf_counter() - t
+        best = dt if best is None else min(best, dt)
+    return best / max(frames, 1) * 1e6
+
+
+def read_resilient_answer(k: int, streamed: bool, out, ms: float) -> dict:
+    """One phase-14 answer, checked: a stream ends [DONE]; the candidate
+    confidences sum to 1 within ``SCORE_SUM_TOL``; a degraded answer's
+    judge errors are 499 (quorum) or 504 (deadline) entries, a healthy
+    one has none; no request outlives the deadline by more than
+    ``RESILIENT_DEADLINE_MARGIN_MS`` -> its final frame and verdict."""
+    if streamed:
+        final = read_score_stream(out)["final"]
+        degraded = final.get("degraded") is True
+    else:
+        final = out
+        conf = [float(c["confidence"]) for c in final["choices"]
+                if c["index"] < SCORE_N]
+        if abs(sum(conf) - 1.0) > SCORE_SUM_TOL:
+            raise AssertionError(f"unary {k}: confidences {conf}")
+        degraded = None  # the unary fold drops the flag, keeps the entries
+    codes = sorted(c["error"]["code"] for c in final["choices"]
+                   if c.get("error"))
+    if degraded is None:
+        degraded = bool(codes)
+    if degraded and (not codes or set(codes) - {499, 504}):
+        raise AssertionError(f"request {k}: degraded with errors {codes}")
+    if not degraded and codes:
+        raise AssertionError(f"request {k}: errors {codes}, not degraded")
+    deadline = float(RESILIENT_ENV["RESILIENCE_DEADLINE_MILLIS"])
+    if ms > deadline + RESILIENT_DEADLINE_MARGIN_MS:
+        raise AssertionError(f"request {k} took {ms:.0f} ms")
+    return {"final": final, "degraded": degraded, "codes": codes}
+
+
+def memory_drill(srv, texts, layers, on_card) -> dict:
+    """The governor under pressure on the live server: watermarks lowered
+    under the current RSS, one ``check()`` -> hard: ``/consensus`` sheds
+    503 ``shed_reason: memory`` with ``Retry-After``, ``/livez`` 200,
+    ``/readyz`` 200 with ``degraded_mem``, the ``memguard`` section at
+    level 2, the trace ring and the cache budgets halved; watermarks
+    raised, one ``check()`` -> level 0, the budgets restored, and
+    ``/consensus`` answers bit-equal to its answer before the pressure,
+    with one ``cluster`` vote launch."""
+    from llm_weighted_consensus_tpu_torch.resilience.memguard import (
+        read_rss_bytes,
+    )
+
+    mg = srv.memguard
+    sink = srv.trace_sink
+    caches = {"score_cache": srv.score_client.cache,
+              "embed_cache": srv.batcher.embed_cache}
+    budgets0 = {name: c.max_bytes for name, c in caches.items()}
+    ring0 = sink.capacity
+    before = post(srv.port, "/consensus", {"input": texts})
+    snap0 = mg.snapshot()
+    if snap0["level"] != "ok" or snap0["soft_trips"]:
+        raise AssertionError(f"the governor fired on its own: {snap0}")
+    rss = read_rss_bytes()
+    marks = (mg.soft_bytes, mg.hard_bytes)
+    mg.soft_bytes, mg.hard_bytes = rss // 4, rss // 2
+    level = mg.check()
+    shed = http(srv.port, "/consensus", {"input": texts})
+    livez = http(srv.port, "/livez")
+    readyz = http(srv.port, "/readyz")
+    section = http(srv.port, "/metrics")[2]["memguard"]
+    halved = {name: c.max_bytes for name, c in caches.items()}
+    ring_halved = sink.capacity
+    mg.soft_bytes, mg.hard_bytes = marks
+    recovered = mg.check()
+    restored = {name: c.max_bytes for name, c in caches.items()}
+    l0, g0 = read_launches(), srv.embedder.graph_stats()
+    after = post(srv.port, "/consensus", {"input": texts})
+    l1, g1 = read_launches(), srv.embedder.graph_stats()
+    launches = {name: l1[name] - l0[name] for name in l1}
+    if on_card and (g1["eager_dispatches"] != g0["eager_dispatches"]
+                    or g1["replays"] != g0["replays"] + 1):
+        raise AssertionError(f"the drill's /consensus was not replayed: "
+                             f"{g0} -> {g1}")
+    if level != 2 or section["level"] != "hard" or recovered != 0:
+        raise AssertionError(f"levels {level} {section} -> {recovered}")
+    if (shed[0] != 503 or shed[1].get("Retry-After") != "1"
+            or shed[2]["message"] != {"kind": "overloaded",
+                                      "shed_reason": "memory"}):
+        raise AssertionError(f"shed under hard pressure: {shed}")
+    if livez[0] != 200 or readyz[0] != 200 or readyz[2] != {
+            "ready": True, "degraded_mem": True, "mem_level": "hard"}:
+        raise AssertionError(f"probes under pressure: {livez} {readyz}")
+    if (halved != {n: max(1, b // 2) for n, b in budgets0.items()}
+            or ring_halved != ring0 // 2 or restored != budgets0
+            or sink.capacity != ring0):
+        raise AssertionError(f"budgets {budgets0} -> {halved} -> {restored}"
+                             f", ring {ring0} -> {ring_halved}")
+    if before["confidence"] != after["confidence"]:
+        raise AssertionError("/consensus after the pressure differs")
+    if on_card and launches != {**{n: 0 for n in launches},
+                                "attention": layers, "cosine_vote": 1}:
+        raise AssertionError(f"drill launches {launches}")
+    return {"rss_bytes": rss, "lowered_watermarks": [rss // 4, rss // 2],
+            "watermarks": list(marks), "level_under_pressure": level,
+            "level_after": recovered, "shed_status": shed[0],
+            "readyz": readyz[2], "budgets": budgets0, "halved": halved,
+            "trace_ring": [ring0, ring_halved], "launches_after": launches,
+            "bit_equal": True}
+
+
+def resilient_path(gpu: str, device: str = "cuda",
+                   model_name: str = "bge-large-en") -> dict:
+    """Phase 14: judge-side resilience, the memory governor and the
+    ``HOST_FASTPATH`` splice lane at full bge-large width (random weights
+    from seed 0, bf16) through ``build_embedder``, ``build_server`` and
+    ``warm_up``.  Phase 11's panel (32 judges over 3 backends, soft
+    votes, training-table weights from ``TABLES_PATH``) on
+    ``ScriptedJudges`` with agreeing judges, behind three endpoints: a
+    browned-out one (503) first, then the judges' server twice (a hedge
+    races the next endpoint).  The same 20 requests (16 streamed, 4
+    unary, 8 in flight, from the load-client process) go through a server
+    with every knob unset, then through one with ``RESILIENT_ENV``,
+    ``SCORE_CACHE_TTL=60`` and ``TRACE_ENABLED=1``; then a degraded
+    request is repeated, and the memory drill runs on the same server.
+    (``device="cpu"`` with a small model rehearses the control flow; the
+    kernel counters count only on the card.)"""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.resilience.memguard import (
+        read_rss_bytes,
+        resolve_watermarks,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.serve.frames import FrameEncoder
+
+    on_card = device == "cuda"
+    rss0, auto = read_rss_bytes(), resolve_watermarks(0, 0)
+    emit({"phase": "resilient_path", "part": "start", "nvidia_smi": gpu,
+          "rss_bytes": rss0, "auto_watermarks": auto})
+    if auto is not None and rss0 >= auto[0]:
+        raise AssertionError(f"RSS {rss0} is past the auto soft watermark")
+    work = os.path.join(REPO, "build", "resilient_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    judges = ScriptedJudges(agree=RESILIENT_AGREEMENT)
+    down = judges.url.replace("/v1", "/down/v1")
+    apis = [{"api_base": down, "api_key": "k"},
+            {"api_base": judges.url, "api_key": "k"},
+            {"api_base": judges.url + "b", "api_key": "k"}]
+    n_req = RESILIENT_STREAMED + RESILIENT_UNARY
+    bodies = [score_body(300 + k, "training_table") for k in range(n_req)]
+    model = ModelBase.from_json_obj(bodies[0]["model"]).into_model_validate()
+    tables_path = os.path.join(work, "tables.npz")
+    env = {"EMBEDDER_MODEL": model_name, "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "OPENAI_APIS": json.dumps(apis),
+           "TABLES_PATH": tables_path}
+    emb = build_embedder(env, device=device)
+    layers = emb.config.num_layers
+    texts = candidate_texts(np.random.default_rng(14), N_CANDIDATES,
+                            BURST_WORDS)
+    srv = None
+    try:
+        score_tables(emb, model, tables_path)
+        # phase 11's prompt buckets (and any these prompts add), and the
+        # drill's /consensus bucket
+        seqs = sorted({96, 112, 128} | {_seq_bucket(int(emb.tokenize(
+            [f"user: {score_prompt(300 + k)}"], SCORE_MAX_TOKENS)[1].sum()),
+            SCORE_MAX_TOKENS) for k in range(n_req)})
+        s_vote = emb.tokenize(texts, 512)[0].shape[1]
+        env["WARMUP"] = ",".join(
+            [f"16x{s}" for s in seqs] + [f"{N_CANDIDATES}x{s_vote}"])
+        calls = [("/score/completions",
+                  {**bodies[k], "stream": k < RESILIENT_STREAMED}, None)
+                 for k in range(n_req)]
+
+        def serve(extra):
+            config = ServeConfig.from_env({**env, **extra})
+            server = build_server(emb, None, config).start()
+            warm_up(server, config)
+            return server
+
+        # the same traffic with every knob unset and no FAULT_PLAN
+        srv = serve({})
+        plain, (plain_wall,) = run_load(srv.port, [(SCORE_INFLIGHT, calls)])
+        for k, (status, _, out, _) in enumerate(plain):
+            if status != 200:
+                raise AssertionError(f"plain request {k}: {status}")
+            if k < RESILIENT_STREAMED:
+                read_score_stream(out)
+        srv.close()
+        srv = None
+
+        srv = serve({**RESILIENT_ENV, "SCORE_CACHE_TTL": "60",
+                     "TRACE_ENABLED": "1"})
+        if srv.memguard is None or srv.resilience is None:
+            raise AssertionError("the resilient server has no governor or "
+                                 "no policy")
+        recorder = RecordingEncoders(srv.chat_routes.host_fastpath)
+        srv.chat_routes.new_encoder = recorder
+        # a task that dies unseen on the loop (a stream finalized outside
+        # its pump) fails the phase
+        loop_errors = []
+        srv.chat_routes.loop.loop.set_exception_handler(
+            lambda _, ctx: loop_errors.append(ctx.get("message")))
+        sockets0 = socket_fds()
+        graphs0, stats0 = emb.graph_stats(), srv.batcher.stats()
+        calls0, down0 = judges.calls, judges.down_calls
+        reset_launches()
+        answers, (wall,) = run_load(srv.port, [(SCORE_INFLIGHT, calls)])
+        if on_card:
+            torch.cuda.synchronize()
+        traffic_launches = read_launches()
+        routes = read_routes() if on_card else None
+        graphs1, stats1 = emb.graph_stats(), srv.batcher.stats()
+        checked = []
+        for k, (status, _, out, ms) in enumerate(answers):
+            if status != 200:
+                raise AssertionError(f"request {k}: {status} {str(out)[:300]}")
+            checked.append(read_resilient_answer(
+                k, k < RESILIENT_STREAMED, out, ms))
+        res = http(srv.port, "/metrics")[2]["resilience"]
+        counters = res["counters"]
+        down_breakers = {key: b for key, b in res["breakers"].items()
+                         if key.startswith(down + "|")}
+        healthy_breakers = {key: b["state"] for key, b in
+                            res["breakers"].items()
+                            if not key.startswith(down + "|")}
+        down_calls = judges.down_calls - down0
+        if not (counters.get("quorum_degraded", 0) > 0
+                and counters.get("hedge_launched", 0) > 0
+                and counters.get("breaker_rejected", 0) > 0):
+            raise AssertionError(f"resilience counters {counters}")
+        if not any(b["state"] == "open" for b in down_breakers.values()):
+            raise AssertionError(f"no open breaker on {down}: {res}")
+        if set(healthy_breakers.values()) - {"closed"}:
+            raise AssertionError(f"healthy breakers {healthy_breakers}")
+        routed_down = down_calls + counters["breaker_rejected"]
+        if down_calls >= routed_down:
+            raise AssertionError(f"{down_calls} calls of {routed_down} "
+                                 "attempts routed to the 503 backend")
+        # every streamed frame is the slow lane's bytes for its item, and
+        # the bytes each stream's client read are the frames encoded
+        fallbacks = sum(enc.fallbacks for enc, _ in recorder.streams)
+        by_id = {}
+        for _, sent in recorder.streams:
+            slow = FrameEncoder(False)
+            for item, frame in sent:
+                if slow.encode(item) != frame:
+                    raise AssertionError("a splice frame differs from the "
+                                         "slow lane's")
+            if sent:
+                by_id[sent[0][0].id] = [f[6:-2].decode() for _, f in sent]
+        for k in range(RESILIENT_STREAMED):
+            events = answers[k][2]
+            sent = by_id.get(json.loads(events[0])["id"])
+            if sent != events[:-1]:
+                raise AssertionError(f"stream {k}: the wire is not the "
+                                     "encoded frames")
+        if fallbacks or srv.chat_routes.fastpath_fallbacks:
+            raise AssertionError(f"{fallbacks} splice fallbacks")
+        embed_d = stats1["dispatches"]["embed"] - stats0["dispatches"][
+            "embed"]
+        captures = graphs1["captures"] - graphs0["captures"]
+        eager = graphs1["eager_dispatches"] - graphs0["eager_dispatches"]
+        replays = graphs1["replays"] - graphs0["replays"]
+        if on_card and (captures or eager or replays != embed_d or not embed_d
+                        or traffic_launches["attention"] != layers * embed_d
+                        or traffic_launches["cosine_vote"]):
+            raise AssertionError(
+                f"resilient path: {embed_d} embed dispatches, {replays} "
+                f"replays, {captures} captures, {eager} eager, "
+                f"{traffic_launches}")
+        # a degraded request again: never cached, a fresh fan-out
+        k_rep = next(k for k, c in enumerate(checked)
+                     if c["degraded"] and k < RESILIENT_STREAMED)
+        cache0 = http(srv.port, "/metrics")[2]["score_cache"]
+        calls1 = judges.calls + judges.down_calls
+        (rep,), _ = run_load(srv.port, [(1, [calls[k_rep]])])
+        if rep[0] != 200:
+            raise AssertionError(f"repeat: {rep[0]}")
+        repeat = read_resilient_answer(-1, True, rep[2], rep[3])
+        cache1 = http(srv.port, "/metrics")[2]["score_cache"]
+        fresh = judges.calls + judges.down_calls - calls1
+        if (repeat["final"]["id"] == checked[k_rep]["final"]["id"]
+                or not fresh or cache1["hits"] != cache0["hits"]):
+            raise AssertionError(f"repeat of a degraded request: {fresh} "
+                                 f"upstream calls, cache {cache0} -> {cache1}")
+        # cancelled stragglers and hedge losers closed their sockets
+        for _ in range(60):
+            sockets1 = socket_fds()
+            if sockets1 <= sockets0:
+                break
+            time.sleep(0.05)
+        if sockets1 > sockets0:
+            raise AssertionError(f"sockets {sockets0} -> {sockets1}")
+        drill = memory_drill(srv, texts, layers, on_card)
+        if loop_errors:
+            raise AssertionError(f"loop errors: {loop_errors[:3]}")
+        # the phase's launches: the traffic, the repeat and the drill
+        launches = read_launches()
+        us_fast = lane_us_per_frame(recorder.streams, True)
+        us_slow = lane_us_per_frame(recorder.streams, False)
+        trace_snap = http(srv.port, "/metrics")[2]["traces"]
+
+        def p50(xs):
+            return statistics.median(xs)
+
+        row = {
+            "phase": "resilient_path", "gpu": gpu, "nvidia_smi": gpu,
+            "model": model_name, "layers": layers, "requests": n_req,
+            "streamed": RESILIENT_STREAMED, "unary": RESILIENT_UNARY,
+            "in_flight": SCORE_INFLIGHT, "judges": SCORE_JUDGES,
+            "agreement": RESILIENT_AGREEMENT, "knobs": RESILIENT_ENV,
+            "warmup": env["WARMUP"],
+            "plain": {"requests_per_s": n_req / plain_wall,
+                      "client_p50_ms": p50([a[3] for a in plain])},
+            "resilient": {"requests_per_s": n_req / wall,
+                          "client_p50_ms": p50([a[3] for a in answers]),
+                          "client_max_ms": max(a[3] for a in answers)},
+            "degraded": sum(c["degraded"] for c in checked),
+            "error_codes": sorted({code for c in checked
+                                   for code in c["codes"]}),
+            "counters": counters,
+            "breakers": {key: b["state"] for key, b in
+                         res["breakers"].items()},
+            "fault_plan": res.get("fault_plan"),
+            "down_calls": down_calls, "routed_to_down": routed_down,
+            "upstream_calls": judges.calls - calls0,
+            "frames": sum(len(sent) for _, sent in recorder.streams),
+            "splice_us_per_frame": us_fast, "slow_us_per_frame": us_slow,
+            "fastpath_fallbacks": fallbacks,
+            "repeat": {"upstream_calls": fresh, "degraded":
+                       repeat["degraded"]},
+            "sockets": [sockets0, sockets1], "traces": trace_snap,
+            "embed_dispatches": embed_d, "replays": replays,
+            "captures_after_warmup": captures, "eager_dispatches": eager,
+            "launches": launches, "routes": routes,
+            "memory": drill, "rss_at_start": rss0, "auto_watermarks": auto,
+        }
+        emit(row)
+        return row
+    finally:
+        if srv is not None:
+            srv.close()
+        judges.close()
+        del emb
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
-                   archived, traced) -> dict:
+                   archived, traced, resilient) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -6195,7 +6684,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     (``"path": "archive"``, ``archive_path_launches``).  Phase 13's
     traced runs add ``traced_path_launches`` to the main vote and
     attention entries (the rate-1 main run) and to the segment
-    attention's (the traced packed burst).
+    attention's (the traced packed burst); phase 14 adds
+    ``resilient_path_launches`` to the main vote and attention entries
+    (its prompt embeds and the memory drill's ``/consensus`` calls).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -6397,6 +6888,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         if entry["name"] in ("cosine_vote", "attention"):
             entry["traced_path_launches"] = traced["main"]["launches"][
                 entry["name"]]
+            entry["resilient_path_launches"] = resilient["launches"][
+                entry["name"]]
         elif entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -6485,11 +6978,12 @@ def main() -> int:
     timed("archive_path", check_archive_bge_micro, gpu)
     archived = timed("archive_path", archive_path, gpu)
     traced = timed("traced_path", traced_path, gpu)
+    resilient = timed("resilient_path", resilient_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score, archived, traced))
+                        score, archived, traced, resilient))
     print(gpu)
     emit({
         "ok": True,

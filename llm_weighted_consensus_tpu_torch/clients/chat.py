@@ -28,12 +28,20 @@ The port's copy of ``llm_weighted_consensus_tpu/clients/chat.py``.  Its
 real transport is ``StdlibTransport`` (HTTP/1.1 over
 ``asyncio.open_connection``, ``ssl`` for https, chunked decoding, a connect
 timeout) in place of the reference's ``AiohttpTransport``: the card's
-machine has no ``aiohttp``.  The client is the reference's with
-``resilience=None`` (its default): breakers, hedging and fault injection
-wait for their slice; ``_open_committed`` is the seam where they go.
-Traced, each attempt is a ``judge:attempt`` span (gate -> open ->
-first-chunk commit) and its upstream request carries the W3C
-``traceparent`` naming that span as the upstream's parent.
+machine has no ``aiohttp``.  With a ``resilience.ResiliencePolicy`` the
+client is the reference's resilient one: each attempt passes its
+upstream's circuit breaker (keyed ``api_base|model``; 4xx answers and an
+expired deadline are not failures, and a cancelled half-open probe hands
+its slot back), a hedge delay races a backup attempt against the next
+endpoint (it spends the shared retry budget, and the loser is cancelled
+and closed), and the ``resilience`` counters count rejections, hedges,
+denials and ingest-cap trips.  ``resilience=None`` (the default) keeps
+the pre-resilience path.  Traced, each attempt is a ``judge:attempt``
+span (gate -> open -> first-chunk commit; a hedge's primary and backup
+are sibling spans, the judge span carries ``hedge_launched`` /
+``hedge_won``, the attempt its ``breaker_state``) and its upstream
+request carries the W3C ``traceparent`` naming that span as the
+upstream's parent.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from .. import archive as archive_mod
 from .. import obs
 from ..errors import (
     BadStatusError,
+    BreakerOpenError,
     ChatError,
     CtxHandlerError,
     DeadlineExceededError,
@@ -211,6 +220,11 @@ class StdlibTransport(Transport):
         except (OSError, ValueError, asyncio.IncompleteReadError) as e:
             _close_writer(writer)
             raise TransportError(str(e) or type(e).__name__) from e
+        except BaseException:
+            # cancelled before the response exists (a hedge loser, a
+            # quorum straggler): nothing else would close this socket
+            _close_writer(writer)
+            raise
         return _StdlibResponse(status, resp_headers, reader, writer)
 
 
@@ -340,6 +354,7 @@ class DefaultChatClient(ChatClient):
         other_chunk_timeout_ms: float = 60000.0,
         ctx_handler: Optional[CtxHandler] = None,
         archive_fetcher: Optional[archive_mod.Fetcher] = None,
+        resilience=None,
         judge_stream_max_bytes: int = 0,
         sse_max_event_bytes: int = 0,
     ) -> None:
@@ -353,8 +368,11 @@ class DefaultChatClient(ChatClient):
         self.other_chunk_timeout_ms = other_chunk_timeout_ms
         self.ctx_handler = ctx_handler or CtxHandler()
         self.archive_fetcher = archive_fetcher or archive_mod.UnimplementedFetcher()
-        # the ambient retry budget / deadline contextvars are honored
-        # (activating them is opt-in upstream); breakers and hedging wait.
+        # optional resilience.ResiliencePolicy: breakers, hedging, counters.
+        # None (the default) preserves pre-resilience behavior exactly; the
+        # ambient retry budget / deadline contextvars are still honored
+        # because activating them is itself opt-in upstream.
+        self.resilience = resilience
         # Ingest byte budgets (0 = uncapped, the library-level
         # default — the serving config turns them on): the cumulative
         # per-leg stream budget doubles as the bad-status/unary body cap,
@@ -417,8 +435,8 @@ class DefaultChatClient(ChatClient):
         last_error: Optional[ChatError] = None
         sleeps = self.backoff.sleeps()
         while True:
-            for attempt in attempts:
-                result = await self._open_committed(attempt, request)
+            for i, attempt in enumerate(attempts):
+                result = await self._attempt_maybe_hedged(attempts, i, request)
                 if isinstance(result, ChatError):
                     last_error = result
                     continue
@@ -429,6 +447,7 @@ class DefaultChatClient(ChatClient):
             deadline = current_deadline()
             if deadline is not None:
                 if deadline.expired():
+                    self._inc("deadline_expired")
                     obs.annotate(deadline_expired="retry loop")
                     raise DeadlineExceededError("retry loop")
                 # never sleep past the deadline: wake with whatever budget
@@ -438,21 +457,104 @@ class DefaultChatClient(ChatClient):
             if budget is not None and not budget.try_acquire():
                 # the fan-out's shared retry budget is dry: fail this judge
                 # over to its error path instead of joining a retry storm
+                self._inc("retry_denied")
                 obs.annotate(retry_denied=True)
                 raise last_error if last_error is not None else EmptyStreamError()
             await asyncio.sleep(sleep)
 
-    # -- one attempt ---------------------------------------------------------
+    # -- resilience-aware attempt machinery ----------------------------------
+
+    def _inc(self, name: str) -> None:
+        if self.resilience is not None:
+            self.resilience.inc(name)
+
+    async def _attempt_maybe_hedged(self, attempts, i, request):
+        """One slot of the attempt matrix; with hedging enabled, a backup
+        against the next endpoint races the primary after the hedge delay
+        (Dean & Barroso: the loser is cancelled, extra load is bounded by
+        how rarely the delay fires)."""
+        policy = self.resilience
+        hedge = policy.hedge if policy is not None else None
+        if hedge is None or not hedge.enabled or len(attempts) < 2:
+            return await self._open_committed(attempts[i], request)
+        delay_ms = hedge.delay_ms_effective()
+        if delay_ms is None:
+            # quantile-only config, reservoir still cold: no hedge yet
+            return await self._open_committed(attempts[i], request)
+
+        primary = asyncio.create_task(self._open_committed(attempts[i], request))
+        backup = None
+        try:
+            delay = delay_ms / 1000.0
+            deadline = current_deadline()
+            if deadline is not None:
+                delay = min(delay, deadline.remaining())
+            done, _ = await asyncio.wait({primary}, timeout=delay)
+            if primary in done:
+                return primary.result()
+
+            # a hedge is an extra attempt, so it spends the shared retry
+            # budget: under a brown-out (exactly when hedge delays fire) a
+            # dry budget disables hedging before it can double the load
+            budget = current_retry_budget()
+            if budget is not None and not budget.try_acquire():
+                self._inc("hedge_denied")
+                obs.annotate(hedge_denied=True)
+                return await primary
+
+            self._inc("hedge_launched")
+            obs.annotate(
+                hedge_launched=True,
+                hedge_delay_ms=delay_ms,
+                hedge=policy.hedge.explain(),
+            )
+            backup = asyncio.create_task(
+                self._open_committed(attempts[(i + 1) % len(attempts)], request)
+            )
+            tasks = {primary, backup}
+            last: Optional[ChatError] = None
+            while tasks:
+                done, tasks = await asyncio.wait(
+                    tasks, return_when=asyncio.FIRST_COMPLETED
+                )
+                winner = None
+                for task in done:
+                    result = task.result()
+                    if isinstance(result, ChatError):
+                        last = result
+                    elif winner is None:
+                        winner = (task, result)
+                    else:
+                        # both committed in one wake-up: keep the first,
+                        # close the duplicate stream
+                        await _close_committed(result)
+                if winner is not None:
+                    if winner[0] is backup:
+                        self._inc("hedge_won")
+                        obs.annotate(hedge_won=True)
+                    await _discard_attempts(tasks)
+                    return winner[1]
+            return last
+        except BaseException:
+            # cancellation (quorum early-exit, client disconnect) or an
+            # unexpected task exception must not orphan the sibling attempt
+            # or any committed upstream stream it holds
+            await _discard_attempts({t for t in (primary, backup) if t is not None})
+            raise
 
     async def _open_committed(self, attempt, request):
-        """One attempt end to end: open, first-chunk peek.  Returns
-        ``(stream, api_base)`` on commit or the ``ChatError`` that felled
-        it (the reference's ``_open_committed`` with no resilience
-        policy).
+        """One attempt end to end: breaker gate, open, first-chunk peek.
 
-        The attempt span (a child of the ambient judge span) covers open
-        -> first-chunk commit; its activation makes the outgoing
-        ``traceparent`` name THIS attempt as the upstream's parent."""
+        Returns ``(stream, api_base)`` on commit or the ``ChatError`` that
+        felled it; the outcome lands on the attempt's breaker and a commit's
+        first-chunk latency feeds the hedge tracker.
+
+        The attempt span (child of the ambient judge span — hedged
+        attempts run as tasks that inherit it, so primary and backup
+        become sibling children) covers gate -> open -> first-chunk
+        commit; its activation makes the outgoing ``traceparent`` name
+        THIS attempt as the upstream's parent."""
+        policy = self.resilience
         aspan = obs.child_span(
             "judge:attempt",
             api_base=attempt.api_base.api_base,
@@ -460,28 +562,70 @@ class DefaultChatClient(ChatClient):
         )
         atoken = aspan.activate() if aspan is not None else None
         try:
-            req = request.clone()
-            req.model = attempt.model
-            start = time.monotonic()
-            stream = self._open_event_stream(attempt.api_base, req)
-            # first-chunk peek: commit only on a good first chunk
-            try:
-                first = await stream.__anext__()
-            except StopAsyncIteration:
-                first = EmptyStreamError()
-            if isinstance(first, ChatError):
-                await stream.aclose()
+            breaker = None
+            if policy is not None and policy.breakers is not None:
+                breaker = policy.breakers.get(
+                    attempt.api_base.api_base, attempt.model
+                )
                 if aspan is not None:
-                    # attempt-level failures are routine (the retry loop
-                    # may still commit): mark the span errored without
-                    # forcing trace retention
-                    aspan.annotate(error=str(first))
-                    aspan.finish("error")
-                return first
-            if aspan is not None:
-                aspan.annotate(first_chunk_ms=round(
-                    (time.monotonic() - start) * 1000.0, 3))
-            return _prepend(first, stream), attempt.api_base
+                    aspan.annotate(breaker_state=breaker.describe())
+                if not breaker.allow():
+                    self._inc("breaker_rejected")
+                    if aspan is not None:
+                        aspan.annotate(breaker_rejected=True)
+                        aspan.finish("error")
+                    return BreakerOpenError(
+                        attempt.api_base.api_base, attempt.model
+                    )
+            # allow() may have claimed a half-open probe slot; from here on
+            # every exit must settle it — record an outcome, or release it
+            # when the attempt is cancelled / ends without a verdict
+            resolved = breaker is None
+            try:
+                # per-attempt clone: hedged attempts run concurrently and
+                # must not race on the shared request's model field
+                req = request.clone()
+                req.model = attempt.model
+                start = time.monotonic()
+                stream = self._open_event_stream(attempt.api_base, req)
+                # first-chunk peek: commit only on a good first chunk
+                try:
+                    first = await stream.__anext__()
+                except StopAsyncIteration:
+                    first = EmptyStreamError()
+                if isinstance(first, ChatError):
+                    if breaker is not None:
+                        if _breaker_failure(first):
+                            breaker.record_failure()
+                        elif isinstance(first, DeadlineExceededError):
+                            # our budget ran out before the upstream
+                            # answered: neither success nor failure — the
+                            # upstream's health was never actually probed
+                            breaker.release_probe()
+                        else:
+                            breaker.record_success()
+                        resolved = True
+                    await stream.aclose()
+                    if aspan is not None:
+                        # attempt-level failures are routine (the retry
+                        # loop may still commit): mark the span errored
+                        # without forcing trace retention — that verdict
+                        # belongs to the judge/request outcome
+                        aspan.annotate(error=str(first))
+                        aspan.finish("error")
+                    return first
+                if breaker is not None:
+                    breaker.record_success()
+                    resolved = True
+                first_chunk_ms = (time.monotonic() - start) * 1000.0
+                if policy is not None and policy.hedge is not None:
+                    policy.hedge.observe(first_chunk_ms)
+                if aspan is not None:
+                    aspan.annotate(first_chunk_ms=round(first_chunk_ms, 3))
+                return _prepend(first, stream), attempt.api_base
+            finally:
+                if not resolved:
+                    breaker.release_probe()
         finally:
             if aspan is not None:
                 obs.Span.deactivate(atoken)
@@ -546,6 +690,7 @@ class DefaultChatClient(ChatClient):
                     # a hostile upstream can pad an error body too: the
                     # leg's byte budget caps the unary read, and the
                     # oversized body is dropped, not parsed
+                    self._inc("ingest_cap_tripped")
                     yield IngestCapError(
                         "unary_body", self.judge_stream_max_bytes, len(raw)
                     )
@@ -588,6 +733,7 @@ class DefaultChatClient(ChatClient):
                         try:
                             tail = parser.flush()
                         except IngestCapError as e:
+                            self._inc("ingest_cap_tripped")
                             yield e
                             return
                         if tail is not None and tail != DONE_FRAME:
@@ -610,6 +756,7 @@ class DefaultChatClient(ChatClient):
                             self.judge_stream_max_bytes
                             and stream_bytes > self.judge_stream_max_bytes
                         ):
+                            self._inc("ingest_cap_tripped")
                             yield IngestCapError(
                                 "judge_stream",
                                 self.judge_stream_max_bytes,
@@ -619,6 +766,7 @@ class DefaultChatClient(ChatClient):
                         try:
                             pending.extend(parser.feed(data))
                         except IngestCapError as e:
+                            self._inc("ingest_cap_tripped")
                             yield e
                             return
                         continue
@@ -678,6 +826,44 @@ def _timeout_error(tier: str, started: float, deadline) -> ChatError:
     if deadline is not None and deadline.expired():
         return DeadlineExceededError(f"{tier} wait")
     return StreamTimeoutError(tier, (time.monotonic() - started) * 1000.0)
+
+
+def _breaker_failure(err: ChatError) -> bool:
+    """Upstream-health classification: transport failures, timeouts and
+    5xx/429 count against the breaker; any other 4xx means the upstream is
+    alive and answering (a bad request is our fault, not its health), and a
+    deadline expiry is our budget running out, not the upstream's fault."""
+    if isinstance(err, DeadlineExceededError):
+        return False
+    if isinstance(
+        err,
+        (TransportError, StreamTimeoutError, EmptyStreamError, IngestCapError),
+    ):
+        # an ingest-cap trip is the upstream misbehaving (giant lines,
+        # newline-less floods, oversized bodies): it counts against the
+        # upstream's health exactly like a transport failure
+        return True
+    if isinstance(err, BadStatusError):
+        return err.code >= 500 or err.code == 429
+    return False
+
+
+async def _close_committed(result) -> None:
+    """Close a committed (stream, api_base) that lost the hedge race."""
+    stream = result[0]
+    aclose = getattr(stream, "aclose", None)
+    if aclose is not None:
+        await aclose()
+
+
+async def _discard_attempts(tasks) -> None:
+    """Cancel in-flight hedge losers; close any that committed anyway."""
+    for task in tasks:
+        task.cancel()
+    results = await asyncio.gather(*tasks, return_exceptions=True)
+    for result in results:
+        if isinstance(result, tuple):
+            await _close_committed(result)
 
 
 async def _try_join(*coros):

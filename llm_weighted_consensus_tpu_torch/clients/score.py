@@ -45,9 +45,18 @@ retention.  Traced or not, every tally feeds the process-global quality
 aggregator (``obs/quality.py``) and, with a ``ledger``
 (``obs/ledger.py``), one outcome record.
 
-Not ported yet, each with its own slice: live weights, the fleet, the
-judge bias plan, and the resilience quorum and retry budget.  The
-reference's client with each of those at its default (None) is what this
+Resilience, as the reference's: with a ``resilience.ResiliencePolicy``
+the fan-out shares one ``RetryBudget`` (``RESILIENCE_RETRY_BUDGET``), a
+``QuorumTracker`` (``RESILIENCE_QUORUM``) cancels the stragglers once
+they cannot flip the argmax (each gets a ``499`` entry, the frame ships
+``degraded: true``, the trace is kept and annotated with the quorum's
+explain record), and a panel cut short by an expired deadline ships
+degraded with the late judges' ``504`` entries; a degraded frame is never
+cached.  ``bias_plan`` (``JUDGE_BIAS_PLAN``) perturbs one judge's
+extracted vote, for drills.
+
+Not ported yet, each with its own slice: live weights and the fleet.
+The reference's client with those at their default (None) is what this
 client computes.
 """
 
@@ -87,6 +96,7 @@ from ..errors import (
 )
 from ..identity.model import Model, ModelBase
 from ..obs.phases import observe_phase
+from ..resilience import QuorumTracker, RetryBudget, current_deadline
 from ..types import chat_request, score_request
 from ..types.base import SchemaError, fold_chunks
 from ..types.chat_response import Usage
@@ -386,6 +396,14 @@ async def merge_streams(streams: list) -> AsyncIterator:
             # CancelledError is not an Exception and propagates.
             await queue.put(_PumpCrash(exc))
             return
+        finally:
+            # a pump cancelled while its stream waits at a yield (the
+            # consumer left: a quorum cut, a client disconnect) closes the
+            # stream here, in the context that set its span tokens, rather
+            # than leaving it to the event loop's finalizer task
+            aclose = getattr(stream, "aclose", None)
+            if aclose is not None:
+                await aclose()
         await queue.put(_PUMP_DONE)
 
     tasks = [asyncio.create_task(pump(s)) for s in streams]
@@ -428,7 +446,10 @@ class ScoreClient:
     loop's either way.  ``ballot_sink(response_id, judge_index,
     key_indices)``, when set, records each judge's ballot as it is built
     (``archive.InMemoryArchive.put_ballot``: the archived ballots let
-    ``archive/rescore.py`` re-extract votes from stored logprobs)."""
+    ``archive/rescore.py`` re-extract votes from stored logprobs).
+    ``resilience`` (a ``resilience.ResiliencePolicy``) adds the shared
+    retry budget, the weight quorum and the deadline degrade; ``bias_plan``
+    (a ``resilience.JudgeBiasPlan``) miscalibrates one judge's votes."""
 
     def __init__(
         self,
@@ -442,6 +463,8 @@ class ScoreClient:
         host_fastpath: bool = False,
         ballot_sink=None,
         ledger=None,
+        resilience=None,
+        bias_plan=None,
     ) -> None:
         self.chat_client = chat_client
         self.model_fetcher = model_fetcher
@@ -460,6 +483,13 @@ class ScoreClient:
         self.ballot_sink = ballot_sink
         # one outcome record per scored request (obs/ledger.py), or None
         self.ledger = ledger
+        # optional resilience.ResiliencePolicy: a per-request retry budget
+        # shared across the judge fan-out and weight-quorum graceful
+        # degradation.  None (the default) = pre-resilience behavior.
+        self.resilience = resilience
+        # optional resilience.JudgeBiasPlan: deterministic per-judge vote
+        # perturbation at the extraction seam (drills only)
+        self.bias_plan = bias_plan
 
     # -- unary (client.rs:71-91) --------------------------------------------
 
@@ -651,6 +681,24 @@ class ScoreClient:
         pending_initial = initial_chunk
         indexer = ChoiceIndexer(n_choices)
 
+        policy = self.resilience
+        budget_token = None
+        if policy is not None and policy.retry_budget_tokens > 0:
+            # one bucket for the whole fan-out: the pump tasks the stream
+            # merge spawns inherit it via contextvar, so every judge's
+            # backoff loop draws from the same allotment
+            budget_token = RetryBudget(policy.retry_budget_tokens).activate()
+
+        quorum = None
+        if policy is not None and policy.quorum_fraction > 0:
+            # judge-level tracking (each judge settles on its first final
+            # frame); the same Decimal weights as the tally below
+            quorum = QuorumTracker(
+                {llm.index: weights[llm.index] for llm in model.llms},
+                n_choices,
+                policy.quorum_fraction,
+            )
+
         judge_streams = [
             self._judge_stream(
                 ctx, resp_id, created, indexer, llm, weights[llm.index],
@@ -659,6 +707,8 @@ class ScoreClient:
             for llm in model.llms
         ]
 
+        degraded = False
+        quorum_degraded = False
         merged = merge_streams(judge_streams)
         try:
             async for chunk in merged:
@@ -674,24 +724,74 @@ class ScoreClient:
                         usage.push(metadata.usage)
                         metadata.usage = None
                 yield chunk
+                if quorum is not None:
+                    for choice in chunk.choices:
+                        if choice.model_index is None:
+                            continue
+                        if choice.delta.vote is not None:
+                            quorum.record_vote(
+                                choice.model_index, choice.delta.vote
+                            )
+                        elif choice.error is not None:
+                            quorum.record_error(choice.model_index)
+                    if quorum.decided():
+                        # stragglers cannot flip the argmax: cancel them
+                        # (closing the merge cancels pumps and judge
+                        # streams, which close their upstreams) and ship
+                        degraded = True
+                        quorum_degraded = True
+                        policy.inc("quorum_degraded")
+                        obs.annotate(quorum=quorum.explain())
+                        break
         finally:
             await merged.aclose()
+            if budget_token is not None:
+                RetryBudget.deactivate(budget_token)
 
         if pending_initial is not None:
             # no judges / no judge produced output: still emit candidates
             yield pending_initial
 
-        # a judge leg tripped an ingest byte budget while other judges
-        # voted: the consensus ships degraded, so the final frame keeps the
-        # per-judge error entries and the recording refuses to cache it
-        # (all-failed keeps its AllVotesFailed error path below)
-        tail = aggregate.choices[n_choices:]
-        degraded = any(
-            c.error is not None and _is_ingest_cap_error(c.error)
-            for c in tail
-        ) and any(c.delta.vote is not None for c in tail)
-        if degraded:
-            obs.annotate(ingest_cap_degraded=True)
+        if degraded and quorum is not None:
+            # per-judge failure detail for the cancelled stragglers,
+            # pushed into the aggregate so the tally and the final frame
+            # see them like any other errored judge
+            straggler_chunk = self._straggler_chunk(
+                resp_id, created, indexer, model, weights, request, quorum
+            )
+            if straggler_chunk is not None:
+                aggregate.push(straggler_chunk)
+                yield straggler_chunk
+
+        if not degraded and policy is not None:
+            deadline = current_deadline()
+            if deadline is not None and deadline.expired():
+                # time ran out with a partial panel: judges that missed the
+                # deadline carry errors, at least one vote landed -> the
+                # consensus ships, marked degraded (all-failed keeps its
+                # AllVotesFailed error path below)
+                tail = aggregate.choices[n_choices:]
+                if any(c.delta.vote is not None for c in tail) and any(
+                    c.error is not None for c in tail
+                ):
+                    degraded = True
+                    policy.inc("deadline_degraded")
+                    obs.annotate(deadline_degraded=True)
+
+        if not degraded:
+            # a judge leg tripped an ingest byte budget while other judges
+            # voted: the consensus ships degraded, so the final frame keeps
+            # the per-judge error entries and the recording refuses to
+            # cache it (all-failed keeps its AllVotesFailed error path)
+            tail = aggregate.choices[n_choices:]
+            if any(
+                c.error is not None and _is_ingest_cap_error(c.error)
+                for c in tail
+            ) and any(c.delta.vote is not None for c in tail):
+                degraded = True
+                if policy is not None:
+                    policy.inc("ingest_cap_degraded")
+                obs.annotate(ingest_cap_degraded=True)
 
         # tally + all-error detection (client.rs:384-416)
         # the tally span's attributes are the consensus "explain" record:
@@ -699,6 +799,7 @@ class ScoreClient:
         # built only when a trace is live (None otherwise, zero cost)
         t_tally = time.perf_counter()
         tspan = obs.child_span("consensus:tally", n_judges=len(model.llms))
+        tail = aggregate.choices[n_choices:]
         choice_weight = None
         if self.host_fastpath:
             # the weighted-vote fold on scaled-int64 vectors: byte-identical
@@ -893,7 +994,7 @@ class ScoreClient:
             weight_sum=weight_sum if weight_sum > 0 else Decimal(0),
             n_choices=n_choices,
             degraded=degraded,
-            quorum_degraded=False,
+            quorum_degraded=quorum_degraded,
             all_failed=all_failed,
             trace_id=trace_id,
             judges=quality_ballots,
@@ -911,7 +1012,7 @@ class ScoreClient:
                 "margin": margin,
                 "weight_sum": float(weight_sum),
                 "degraded": degraded,
-                "quorum_degraded": False,
+                "quorum_degraded": quorum_degraded,
                 "all_failed": all_failed,
                 "trace_id": trace_id,
                 # no live weight table in the port: the version is None,
@@ -921,6 +1022,10 @@ class ScoreClient:
             })
         # host_tally phase: the weighted-vote fold + final-frame build
         observe_phase("host_tally", (time.perf_counter() - t_tally) * 1e3)
+        if degraded:
+            # degraded consensus is always retained, whatever the sample
+            # rate said at the door
+            obs.force_keep("degraded")
         if all_failed:
             # an all-judges-failed tally is as diagnosis-worthy as a 5xx;
             # the unary surface can be a merged 4xx, below the gateway's
@@ -933,6 +1038,45 @@ class ScoreClient:
 
         if all_failed:
             yield AllVotesFailed(all_error_code)
+
+    @staticmethod
+    def _straggler_chunk(
+        resp_id, created, indexer, model, weights, request, quorum
+    ):
+        """Error choices for judges cancelled by the quorum early exit."""
+        pending = sorted(quorum.pending())
+        if not pending:
+            return None
+        llms_by_index = {llm.index: llm for llm in model.llms}
+        choices = []
+        for judge_index in pending:
+            quorum.record_error(judge_index)
+            llm = llms_by_index.get(judge_index)
+            choices.append(
+                StreamingChoice(
+                    delta=Delta(),
+                    finish_reason="error",
+                    index=indexer.get(judge_index, 0),
+                    logprobs=None,
+                    weight=weights[judge_index],
+                    confidence=None,
+                    error=ResponseError(
+                        code=499,
+                        message="straggler cancelled: weight quorum reached",
+                    ),
+                    model=llm.id if llm is not None else None,
+                    model_index=judge_index,
+                    completion_metadata=None,
+                )
+            )
+        return ChatCompletionChunk(
+            id=resp_id,
+            choices=choices,
+            created=created,
+            model=request.model,
+            usage=None,
+            weight_data=None,
+        )
 
     # -- per-judge ballot stream (client.rs:467-908) ------------------------
 
@@ -1144,6 +1288,11 @@ class ScoreClient:
                     agg_choice.delta.content,
                     logprob_tokens,
                 )
+                if self.bias_plan is not None:
+                    # JUDGE_BIAS_PLAN drill seam: deterministically
+                    # miscalibrate the targeted judge's extracted vote
+                    # (Decimal-in, Decimal-out) before it enters the tally
+                    vote = self.bias_plan.perturb(llm.index, vote)
                 choice.delta.vote = vote
                 obs.annotate(vote=[float(v) for v in vote])
             except InvalidContentError as e:

@@ -3,8 +3,9 @@
 The port's copy of ``llm_weighted_consensus_tpu/errors.py``: ``StatusError``
 (an error that knows its HTTP status and JSON message), ``OverloadedError``
 (503, a load shed, with a retry hint), the chat client's errors
-(``ChatError`` and its kinds, ``DeadlineExceededError`` 504 among them, and
-``IngestCapError`` 502 for the byte caps), the score engine's errors
+(``ChatError`` and its kinds, ``DeadlineExceededError`` 504 among them,
+``IngestCapError`` 502 for the byte caps and ``BreakerOpenError`` 503 for
+an attempt an open circuit breaker refused), the score engine's errors
 (``ScoreChatError``, ``FetchModelError``, ``FetchModelWeightsError``,
 ``InvalidContentError``, ``AllVotesFailed``, ...), and ``to_response_error``, which folds any
 exception into the envelope and sends the detail of an unexpected one to
@@ -188,6 +189,19 @@ class IngestCapError(ChatError):
         self.what = what
         self.limit_bytes = limit_bytes
         self.observed_bytes = observed_bytes
+
+
+class BreakerOpenError(ChatError):
+    """Attempt refused locally: the upstream's circuit breaker is open."""
+
+    def __init__(self, api_base: str, model: str):
+        super().__init__(
+            "breaker_open",
+            f"circuit breaker open for {api_base}|{model}",
+            503,
+        )
+        self.api_base = api_base
+        self.model = model
 
 
 class DeadlineExceededError(ChatError):

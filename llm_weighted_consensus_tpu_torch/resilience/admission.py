@@ -14,7 +14,8 @@ in-flight work, the gauge the drain waits on.
 
 The reference's controller is single-threaded (its event loop); here
 the stdlib server's handler threads acquire and release, so one lock
-guards the decision and the counters.  The reference's aiohttp
+guards the decision, the counters and the AIMD ``limit`` (which the
+memory governor also shrinks, under the same lock).  The reference's aiohttp
 middleware is ``serve.gateway``'s check before a device route runs (the
 probes, ``/livez`` ``/readyz`` ``/metrics``, are never gated: a load
 balancer must read them while the service sheds or drains), and
@@ -52,12 +53,18 @@ class AdmissionController:
         *,
         clock: Callable[[], float] = time.monotonic,
         device_gate: Optional[Callable[[], Optional[str]]] = None,
+        mem_gate: Optional[Callable[[], Optional[str]]] = None,
     ) -> None:
         self.config = config
         self.clock = clock
         # extra shed policy for device work (the watchdog, the warmup):
         # a shed reason, or None to admit
         self.device_gate = device_gate
+        # memory-pressure shed policy (``MemGuard.gate``): unlike
+        # device_gate it applies to ALL non-exempt work — host-only
+        # routes allocate too, and under hard memory pressure every new
+        # request is one the OOM killer might answer instead of us
+        self.mem_gate = mem_gate
         self._lock = threading.Lock()
         self.inflight = 0
         self.draining = False
@@ -77,6 +84,10 @@ class AdmissionController:
         with self._lock:
             if self.draining:
                 return self._shed("draining")
+            if self.mem_gate is not None:
+                reason = self.mem_gate()
+                if reason is not None:
+                    return self._shed(reason)
             if self.device_gate is not None and device_work:
                 reason = self.device_gate()
                 if reason is not None:

@@ -68,8 +68,11 @@ documented in ``serve/config.py``, and so are the archive's
 ``ARCHIVE_MAX_COMPLETIONS``), ``MAX_BODY_BYTES``, request tracing
 (``TRACE_SAMPLE_RATE``, ``TRACE_ENABLED``, ``TRACE_RING``, ``TRACE_DIR``:
 ``GET /v1/traces``), judge quality (``QUALITY_WINDOW``,
-``QUALITY_DRIFT_THRESHOLD``: ``GET /v1/judges``) and the outcome ledger
-(``LEDGER_RING``, ``LEDGER_DIR``, ``LEDGER_ROTATE_BYTES``).  With an
+``QUALITY_DRIFT_THRESHOLD``: ``GET /v1/judges``), the outcome ledger
+(``LEDGER_RING``, ``LEDGER_DIR``, ``LEDGER_ROTATE_BYTES``), judge-side
+resilience (``RESILIENCE_*``, ``FAULT_PLAN``, ``JUDGE_BIAS_PLAN``) and
+the memory governor (``MEMGUARD``, ``MEM_SOFT_BYTES``,
+``MEM_HARD_BYTES``, ``MEMGUARD_INTERVAL_MILLIS``; on by default).  With an
 embedder, a training-table panel's weights come from
 ``TorchTrainingTableFetcher`` on the served embedder and batcher (the tables loaded from
 ``TABLES_PATH``), and ``POST /weights/learn`` learns table rows from the
@@ -241,13 +244,16 @@ def build_reranker(env, device=None, dtype=None):
 
 
 def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
-                       ledger=None):
+                       ledger=None, resilience=None, fault_plan=None):
     """The chat client over the configured upstream endpoints (the stdlib
-    transport), and the multichat and score clients over it.  Panels
+    transport, wrapped in the fault injector under a ``fault_plan``), and
+    the multichat and score clients over it.  Panels
     resolve through an empty model registry (inline panels only) and
     archive references through ``store`` (an empty archive when None);
     with ``ARCHIVE_WRITE`` the score client records its ballots there, and
-    with an outcome ``ledger`` one record per scored request.
+    with an outcome ``ledger`` one record per scored request.  The chat
+    and score clients share the ``resilience`` policy; the score client
+    takes ``JUDGE_BIAS_PLAN``.
     The score client answers a training-table panel with 501 until
     ``build_server`` plugs the training-table fetcher in."""
     from ..archive import InMemoryArchive
@@ -264,8 +270,15 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
     up = config.upstream
     if store is None:
         store = InMemoryArchive()
+    transport = StdlibTransport(connect_timeout_ms=up["connect_timeout_ms"])
+    if fault_plan is not None:
+        # FAULT_PLAN (chaos runs): the seeded fault injector around the
+        # real transport; its close() closes the inner one
+        from ..resilience import FaultInjectionTransport
+
+        transport = FaultInjectionTransport(transport, fault_plan)
     chat_client = DefaultChatClient(
-        StdlibTransport(connect_timeout_ms=up["connect_timeout_ms"]),
+        transport,
         [ApiBase.from_json_obj(a) for a in up["api_bases"]],
         backoff=BackoffPolicy(**up["backoff"]),
         user_agent=up["user_agent"],
@@ -274,6 +287,7 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
         first_chunk_timeout_ms=up["first_chunk_timeout_ms"],
         other_chunk_timeout_ms=up["other_chunk_timeout_ms"],
         archive_fetcher=store,
+        resilience=resilience,
         judge_stream_max_bytes=up["judge_stream_max_bytes"],
         sse_max_event_bytes=up["sse_max_event_bytes"],
     )
@@ -287,6 +301,10 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
         # the archived ballots let /archive/rescore re-extract votes
         ballot_sink=store.put_ballot if config.archive_write else None,
         ledger=ledger,
+        # RESILIENCE_*: shared retry budget + weight-quorum degradation
+        resilience=resilience,
+        # JUDGE_BIAS_PLAN: deterministic vote perturbation (drills only)
+        bias_plan=config.judge_bias_injection_plan(),
     )
     return chat_client, multichat_client, score_client
 
@@ -350,7 +368,12 @@ def build_server(embedder, reranker, config: ServeConfig,
     ``"cpu"``).  ``TRACE_*`` give the server its trace sink
     (``server.trace_sink``), ``LEDGER_*`` the score client its outcome
     ledger (``server.ledger``), and ``QUALITY_*`` configure the
-    process-global quality aggregator."""
+    process-global quality aggregator.  ``RESILIENCE_*`` give the chat and
+    score clients their policy and ``FAULT_PLAN`` the transport its fault
+    injector (``server.resilience``, ``server.fault_plan``); ``MEMGUARD``
+    starts the memory governor over the score and row caches, the trace
+    ring and the admission limit (``server.memguard``, stopped at
+    close)."""
     from ..obs import configure_quality
     from ..weights import WeightFetchers
     from .archive_routes import (
@@ -371,13 +394,20 @@ def build_server(embedder, reranker, config: ServeConfig,
     # LEDGER_*: one outcome record per scored request; None keeps the
     # tally ledger-free
     ledger = config.outcome_ledger()
+    # RESILIENCE_* / FAULT_PLAN: None keeps the clients and the transport
+    # on their pre-resilience paths
+    resilience = config.resilience_policy()
+    fault_plan = config.fault_injection_plan()
     chat_client, multichat_client, score_client = build_chat_clients(
-        config, score_cache, store, ledger
+        config, score_cache, store, ledger, resilience, fault_plan
     )
     served = (chat_client, multichat_client, score_client)
     if config.archive_write:
         served = archiving_clients(store, config, *served)
     tables = load_tables(config) if embedder is not None else None
+    # MEMGUARD: None when off or when an auto watermark cannot be read
+    memguard = config.memguard()
+    trace_sink = config.trace_sink()
     batching = dict(config.packing)
     if embedder is not None:
         batching["embed_cache"] = embed_cache
@@ -397,10 +427,25 @@ def build_server(embedder, reranker, config: ServeConfig,
         device_timing=config.metrics_device_timing,
         ready=False,
         # TRACE_*: None keeps every instrumentation site on its no-op path
-        trace_sink=config.trace_sink(),
+        trace_sink=trace_sink,
         ledger=ledger,
+        resilience=resilience,
+        fault_plan=fault_plan,
+        memguard=memguard,
+        # HOST_FASTPATH: the streams' frames on the splice lane
+        host_fastpath=config.host_fastpath,
         **batching,
     )
+    if memguard is not None:
+        # soft pressure shrinks these budgets (restored on recovery)
+        memguard.govern(
+            caches=[c for c in (score_cache, embed_cache) if c is not None],
+            sinks=[s for s in (trace_sink,) if s is not None],
+            admission=server.admission,
+        )
+        memguard.start()
+    server.resilience = resilience
+    server.fault_plan = fault_plan
     server.tables = tables
     server.ledger = ledger
     server.archive = store

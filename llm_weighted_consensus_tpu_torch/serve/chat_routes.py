@@ -14,7 +14,11 @@ Counterpart of the chat, score and multichat parts of
 * ``"stream": true`` answers ``text/event-stream``: one ``data:`` frame
   per item in the reference's compact JSON, an error item as its
   ``{code, message}`` envelope, then ``data: [DONE]``; otherwise the
-  folded unary body;
+  folded unary body.  Frames are encoded by ``serve/frames.py``'s
+  ``FrameEncoder``, one per stream, on the splice lane under
+  ``HOST_FASTPATH`` (the same bytes; a frame the splicer cannot prove
+  equal goes out on the slow lane, is counted in ``fastpath_fallbacks``
+  and annotated on the request's trace);
 * ``/multichat/completions`` with ``"consensus": true`` and an embedder
   interleaves ``multichat.consensus`` frames as candidates finish
   (``clients.multichat.StreamingSelfConsistency`` through the batcher's
@@ -76,27 +80,11 @@ from ..types.multichat_request import (
 )
 from ..types.score_request import ChatCompletionCreateParams as ScoreParams
 from ..utils import jsonutil
+from .frames import DONE, FrameEncoder
 
 log = logging.getLogger("lwc.torch.gateway")
 
-DONE = b"data: [DONE]\n\n"
 SSE_HEADERS = {"content-type": "text/event-stream", "cache-control": "no-cache"}
-
-
-def frame_bytes(obj) -> bytes:
-    """One SSE ``data:`` frame around a JSON object (compact)."""
-    return b"data: " + jsonutil.dumps(obj).encode("utf-8") + b"\n\n"
-
-
-def encode_item(item) -> bytes:
-    """The frame of one stream item: a chunk or a consensus update, or an
-    error item as its envelope (with the trace id of a traced request,
-    whose retention a mid-stream error forces)."""
-    if isinstance(item, Exception):
-        obs.force_keep("stream_error")
-        return frame_bytes(
-            with_trace_id(to_response_error(item).to_json_obj()))
-    return frame_bytes(item.to_json_obj())
 
 
 def error_response(exc: Exception):
@@ -265,10 +253,11 @@ def multichat_unary(multichat_client, embedder, batcher):
 _OPENED, _OPEN_FAILED, _FRAME, _FAILED, _END = range(5)
 
 
-async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
-    """Open the stream and put its frames on ``frames`` (runs on the
-    loop; the deadline is activated in this task's own context, so the
-    tasks it spawns inherit it)."""
+async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue,
+                encoder, routes):
+    """Open the stream and put its frames, encoded by ``encoder``, on
+    ``frames`` (runs on the loop; the deadline is activated in this
+    task's own context, so the tasks it spawns inherit it)."""
     decimal.setcontext(decimal.Context())
     if deadline is not None:
         deadline.activate()
@@ -280,7 +269,13 @@ async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
     frames.put((_OPENED, None))
     try:
         async for item in stream:
-            frames.put((_FRAME, encode_item(item)))
+            if isinstance(item, Exception):
+                # a mid-stream error makes this trace worth keeping even
+                # when head sampling said no
+                obs.force_keep("stream_error")
+                frames.put((_FRAME, encoder.encode_error(item)))
+            else:
+                frames.put((_FRAME, encoder.encode(item)))
     except asyncio.CancelledError:
         # the client left, or the server is closing: end the response
         frames.put((_FAILED, None))
@@ -292,6 +287,11 @@ async def _pump(create_streaming, ctx, params, deadline, frames: queue.Queue):
         aclose = getattr(stream, "aclose", None)
         if aclose is not None:
             await aclose()
+        if encoder.fallbacks:
+            # fast-lane frames that fell back to the slow lane: loud in
+            # the trace and the counter, invisible on the wire
+            routes.fastpath_fallbacks += encoder.fallbacks
+            obs.annotate(fastpath_fallbacks=encoder.fallbacks)
     frames.put((_END, None))
 
 
@@ -313,11 +313,16 @@ class ChatRoutes:
     create_unary), and the loop their coroutines run on.  Plain JSON
     routes (``/archive/rescore``, ``/weights/learn``) are coroutines
     ``raw body -> (status, body bytes)`` on the same loop
-    (``add_json_route``)."""
+    (``add_json_route``).  ``host_fastpath`` (``HOST_FASTPATH``) puts
+    every stream's frames on the splice lane; ``fastpath_fallbacks``
+    counts the frames it handed to the slow lane (on the loop thread)."""
 
     def __init__(self, chat_client, multichat_client=None, embedder=None,
-                 batcher=None, metrics=None, score_client=None) -> None:
+                 batcher=None, metrics=None, score_client=None,
+                 host_fastpath: bool = False) -> None:
         self.loop = EventLoop()
+        self.host_fastpath = bool(host_fastpath)
+        self.fastpath_fallbacks = 0
         self.routes = {
             "/chat/completions": (
                 ChatParams, chat_client.create_streaming,
@@ -337,6 +342,10 @@ class ChatRoutes:
                 score_client.create_unary,
             )
         self.json_routes: dict = {}
+
+    def new_encoder(self) -> FrameEncoder:
+        """The frame encoder of one response stream."""
+        return FrameEncoder(self.host_fastpath)
 
     def add_json_route(self, path: str, handler) -> None:
         self.json_routes[path] = handler
@@ -382,7 +391,8 @@ class ChatRoutes:
             return
         frames: queue.Queue = queue.Queue()
         future = self.loop.submit(
-            _pump(create_streaming, ctx, params, deadline, frames)
+            _pump(create_streaming, ctx, params, deadline, frames,
+                  self.new_encoder(), self)
         )
         kind, value = frames.get()
         if kind == _OPEN_FAILED:

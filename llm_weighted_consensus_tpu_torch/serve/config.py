@@ -174,6 +174,63 @@ histograms, and ``GET /v1/judges`` / ``/v1/judges/{id}`` serve them):
 * ``LEDGER_ROTATE_BYTES`` — seal the active ledger file under a
   timestamped name (``ledger-<pid>-<ts>-<seq>.jsonl``) once it reaches
   this size; ``0`` (the default) keeps one growing file.
+
+Judge-side resilience (``resilience/``; all opt-in — with every knob
+unset ``resilience_policy()`` is None and the wire bytes are the
+pre-resilience ones), the reference's knobs and defaults:
+
+* ``RESILIENCE_BREAKER_THRESHOLD`` — failure rate in (0, 1] that opens
+  a per-upstream circuit breaker (keyed ``api_base|model``).  ``0`` (the
+  default) disables breakers entirely;
+* ``RESILIENCE_BREAKER_WINDOW`` / ``RESILIENCE_BREAKER_MIN_SAMPLES`` /
+  ``RESILIENCE_BREAKER_COOLDOWN_MILLIS`` — sliding-window size, the
+  volume threshold before the rate is meaningful, and how long an open
+  breaker refuses before half-open probing.  Defaults 20 / 5 / 5000;
+* ``RESILIENCE_RETRY_BUDGET`` — retries one score request's judge
+  fan-out may spend collectively (token bucket; a hedge spends one too).
+  ``0`` = unlimited (no budget);
+* ``RESILIENCE_HEDGE_MILLIS`` — static hedge delay: an attempt with no
+  first chunk after this long races a backup against the next endpoint
+  (the loser is cancelled).  ``0`` = no hedging;
+* ``RESILIENCE_HEDGE_QUANTILE`` — hedge at an observed first-chunk
+  latency quantile (e.g. ``0.95``) once enough samples exist, falling
+  back to ``RESILIENCE_HEDGE_MILLIS`` before that; a quantile in [0, 1).
+  ``0`` = static only;
+* ``RESILIENCE_DEADLINE_MILLIS`` — default per-request deadline the
+  gateway stamps on a request without ``x-deadline-ms``; it flows
+  through the fan-out so timeouts, backoff sleeps and hedges respect
+  the remaining budget.  ``0`` = none;
+* ``RESILIENCE_QUORUM`` — fraction in [0, 1] of the panel's weight that
+  must settle before the quorum early exit may cancel stragglers whose
+  votes cannot flip the argmax; the final frame ships with ``degraded:
+  true`` (and is never cached).  ``0`` = always wait for the full panel;
+* ``FAULT_PLAN`` — fault injection at the transport seam, e.g.
+  ``seed=42,connect=0.1,5xx=0.1,stall_first=0.1,stall_ms=200``
+  (``resilience/faults.py``; the hostile-ingest kinds size their
+  payloads with ``flood_bytes``, default 8 MiB).  Never set in
+  production;
+* ``JUDGE_BIAS_PLAN`` — deterministic per-judge vote perturbation at the
+  extraction seam, e.g. ``judge=2,after=16,flip=1.0,seed=7`` with kinds
+  ``flip`` / ``uniform`` / ``invert``.  Drills only.
+
+The memory governor (``resilience/memguard.py``, on by default as in the
+reference):
+
+* ``MEMGUARD`` — ``1`` (default) samples the process RSS each
+  ``MEMGUARD_INTERVAL_MILLIS`` against two watermarks: soft pressure
+  halves the cache byte budgets, the trace ring and the AIMD admission
+  limit (restored on recovery); hard pressure sheds every new POST with
+  ``503 shed_reason: memory`` and flags ``degraded_mem`` on ``/readyz``
+  (still 200).  Recovery is hysteretic.  ``0`` disables;
+* ``MEM_SOFT_BYTES`` / ``MEM_HARD_BYTES`` — the watermarks; ``0`` (the
+  default) = auto at 80% / 90% of ``/proc/meminfo`` MemTotal (the
+  governor turns itself off when MemTotal is unreadable).  The RSS is
+  the host process's (pinned staging buffers and the CUDA context count,
+  the card's memory does not);
+* ``MEMGUARD_INTERVAL_MILLIS`` — the sampling period.  Default 1000.
+
+The ``resilience`` and ``memguard`` sections of ``GET /metrics`` show
+the counters, breaker states and the governor's level.
 """
 
 from __future__ import annotations
@@ -385,6 +442,21 @@ class ServeConfig:
     ledger_ring: int = 0
     ledger_dir: Optional[str] = None
     ledger_rotate_bytes: int = 0
+    resilience_breaker_threshold: float = 0.0
+    resilience_breaker_window: int = 20
+    resilience_breaker_min_samples: int = 5
+    resilience_breaker_cooldown_millis: float = 5000.0
+    resilience_retry_budget: int = 0
+    resilience_hedge_millis: float = 0.0
+    resilience_hedge_quantile: float = 0.0
+    resilience_deadline_millis: float = 0.0
+    resilience_quorum: float = 0.0
+    fault_plan: Optional[str] = None
+    judge_bias_plan: Optional[str] = None
+    memguard_enabled: bool = True
+    mem_soft_bytes: int = 0
+    mem_hard_bytes: int = 0
+    memguard_interval_millis: float = 1000.0
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
@@ -470,6 +542,31 @@ class ServeConfig:
             ledger_rotate_bytes=_non_negative_int(
                 env, "LEDGER_ROTATE_BYTES", 0
             ),
+            resilience_breaker_threshold=get_f(
+                "RESILIENCE_BREAKER_THRESHOLD", 0
+            ),
+            resilience_breaker_window=max(
+                1, int(env.get("RESILIENCE_BREAKER_WINDOW", 20))
+            ),
+            resilience_breaker_min_samples=max(
+                1, int(env.get("RESILIENCE_BREAKER_MIN_SAMPLES", 5))
+            ),
+            resilience_breaker_cooldown_millis=get_f(
+                "RESILIENCE_BREAKER_COOLDOWN_MILLIS", 5000
+            ),
+            resilience_retry_budget=_non_negative_int(
+                env, "RESILIENCE_RETRY_BUDGET", 0
+            ),
+            resilience_hedge_millis=get_f("RESILIENCE_HEDGE_MILLIS", 0),
+            resilience_hedge_quantile=get_f("RESILIENCE_HEDGE_QUANTILE", 0),
+            resilience_deadline_millis=get_f("RESILIENCE_DEADLINE_MILLIS", 0),
+            resilience_quorum=get_f("RESILIENCE_QUORUM", 0),
+            fault_plan=env.get("FAULT_PLAN"),
+            judge_bias_plan=env.get("JUDGE_BIAS_PLAN"),
+            memguard_enabled=env_truthy(env.get("MEMGUARD", "1")),
+            mem_soft_bytes=_non_negative_int(env, "MEM_SOFT_BYTES", 0),
+            mem_hard_bytes=_non_negative_int(env, "MEM_HARD_BYTES", 0),
+            memguard_interval_millis=get_f("MEMGUARD_INTERVAL_MILLIS", 1000),
         )
         if config.quality_window < 1:
             raise ValueError(
@@ -480,6 +577,16 @@ class ServeConfig:
             raise ValueError(
                 f"QUALITY_DRIFT_THRESHOLD={config.quality_drift_threshold} "
                 "must be an absolute rate drop in (0, 1]"
+            )
+        if not 0 <= config.resilience_quorum <= 1:
+            raise ValueError(
+                f"RESILIENCE_QUORUM={config.resilience_quorum} must be a "
+                "weight fraction in [0, 1]"
+            )
+        if not 0 <= config.resilience_hedge_quantile < 1:
+            raise ValueError(
+                f"RESILIENCE_HEDGE_QUANTILE={config.resilience_hedge_quantile}"
+                " must be a quantile in [0, 1)"
             )
         if not 0 <= config.trace_sample_rate <= 1:
             raise ValueError(
@@ -497,6 +604,21 @@ class ServeConfig:
                 f"ADMISSION_LATENCY_FACTOR={config.admission_latency_factor} "
                 "must be > 1 (it multiplies the latency baseline to form "
                 "the congestion threshold)"
+            )
+        if (
+            config.mem_soft_bytes > 0
+            and config.mem_hard_bytes > 0
+            and config.mem_hard_bytes < config.mem_soft_bytes
+        ):
+            raise ValueError(
+                f"MEM_HARD_BYTES={config.mem_hard_bytes} must be >= "
+                f"MEM_SOFT_BYTES={config.mem_soft_bytes}: the hard "
+                "watermark sheds work the soft watermark only degrades"
+            )
+        if config.memguard_interval_millis <= 0:
+            raise ValueError(
+                f"MEMGUARD_INTERVAL_MILLIS={config.memguard_interval_millis}"
+                " must be > 0 (the governor's RSS sampling period)"
             )
         if config.drain_timeout_millis < 0:
             raise ValueError(
@@ -527,6 +649,79 @@ class ServeConfig:
             min_limit=self.admission_min_limit,
             latency_factor=self.admission_latency_factor,
             retry_after_ms=self.admission_retry_after_millis,
+        )
+
+    def resilience_policy(self):
+        """The configured ``ResiliencePolicy``, or None when every knob is
+        off (None keeps the clients on their pre-resilience code paths)."""
+        from ..resilience import (
+            BreakerConfig,
+            BreakerRegistry,
+            HedgePolicy,
+            ResiliencePolicy,
+        )
+
+        breakers = None
+        if self.resilience_breaker_threshold > 0:
+            breakers = BreakerRegistry(
+                BreakerConfig(
+                    threshold=self.resilience_breaker_threshold,
+                    window=self.resilience_breaker_window,
+                    min_samples=self.resilience_breaker_min_samples,
+                    cooldown_ms=self.resilience_breaker_cooldown_millis,
+                )
+            )
+        hedge = None
+        if self.resilience_hedge_millis > 0 or self.resilience_hedge_quantile > 0:
+            hedge = HedgePolicy(
+                delay_ms=self.resilience_hedge_millis,
+                quantile=self.resilience_hedge_quantile,
+            )
+        if (
+            breakers is None
+            and hedge is None
+            and self.resilience_retry_budget <= 0
+            and self.resilience_quorum <= 0
+            and self.resilience_deadline_millis <= 0
+        ):
+            return None
+        return ResiliencePolicy(
+            breakers=breakers,
+            hedge=hedge,
+            retry_budget_tokens=self.resilience_retry_budget,
+            quorum_fraction=self.resilience_quorum,
+            deadline_ms=self.resilience_deadline_millis,
+        )
+
+    def fault_injection_plan(self):
+        """Parsed ``FAULT_PLAN``, or None (chaos runs only)."""
+        if not self.fault_plan:
+            return None
+        from ..resilience import FaultPlan
+
+        return FaultPlan.parse(self.fault_plan)
+
+    def judge_bias_injection_plan(self):
+        """Parsed ``JUDGE_BIAS_PLAN``, or None (quality drills only)."""
+        if not self.judge_bias_plan:
+            return None
+        from ..resilience import JudgeBiasPlan
+
+        return JudgeBiasPlan.parse(self.judge_bias_plan)
+
+    def memguard(self):
+        """The configured ``MemGuard``, or None when ``MEMGUARD=0`` or an
+        auto watermark is needed but MemTotal is unreadable (the governor
+        never guesses)."""
+        if not self.memguard_enabled:
+            return None
+        from ..resilience.memguard import MemGuard, resolve_watermarks
+
+        marks = resolve_watermarks(self.mem_soft_bytes, self.mem_hard_bytes)
+        if marks is None:
+            return None
+        return MemGuard(
+            marks[0], marks[1], interval_ms=self.memguard_interval_millis
         )
 
     def trace_sink(self):

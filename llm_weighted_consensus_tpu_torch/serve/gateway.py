@@ -29,7 +29,8 @@ bodies, responses and input validation:
 * ``GET /healthz`` -> ``{"ok": true}``;
 * ``GET /livez`` -> ``{"ok": true}`` while the process answers;
 * ``GET /readyz`` -> 200 ``{"ready": true}`` once warmup has finished
-  and while the device is healthy, else 503 ``{"ready": false,
+  and while the device is healthy (with ``"degraded_mem": true`` and
+  ``mem_level`` under memory pressure), else 503 ``{"ready": false,
   "reason": ...}`` (``serve/lifecycle.py``);
 * ``GET /metrics`` -> the JSON snapshot (``serve/metrics.py``), or
   OpenMetrics text with ``?format=prometheus``;
@@ -65,10 +66,13 @@ its own handler thread.  Before a POST route runs, the admission gate
 the response (a stream included) is done; the device routes
 (``/consensus``, ``/embeddings``) also shed while the server is still
 warming its CUDA graphs or the watchdog holds the device unhealthy, as
-the reference's ``DEVICE_PATHS`` do.  An ``x-deadline-ms`` header sets
-the request's deadline (``resilience/deadline.py``): the batcher sheds
-its work with 504 once the deadline cannot cover the dispatch, and the
-chat clients clamp their waits to it.  Cosine and embeddings requests
+the reference's ``DEVICE_PATHS`` do; under hard memory pressure
+(``resilience/memguard.py``) every POST route sheds with ``shed_reason:
+"memory"``.  An ``x-deadline-ms`` header sets the request's deadline
+(``resilience/deadline.py``), else ``RESILIENCE_DEADLINE_MILLIS`` when
+set: the batcher sheds its work with 504 once the deadline cannot cover
+the dispatch, and the chat clients clamp their waits, retries and hedges
+to it.  Cosine and embeddings requests
 wait on the batcher, so concurrent requests coalesce into shared device
 dispatches; an rm request runs its own forward on its handler thread
 (its softmax spans only its own candidates).
@@ -108,6 +112,7 @@ from .metrics import (
     register_overload,
     register_performance,
     register_quality,
+    register_resilience,
     render_prometheus,
 )
 
@@ -281,7 +286,7 @@ def judges_response(path: str):
 
 def make_handler(embedder, batcher, reranker, metrics, admission,
                  lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES,
-                 trace_sink=None):
+                 trace_sink=None, default_deadline_ms=0.0):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
@@ -443,11 +448,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             elif path in ("/healthz", "/livez"):
                 self._send(200, {"ok": True})
             elif path == "/readyz":
-                ok, reason = lifecycle.ready()
-                if ok:
-                    self._send(200, {"ready": True})
-                else:
-                    self._send(503, {"ready": False, "reason": reason})
+                self._send(*lifecycle.readyz())
             elif path == "/metrics":
                 if parse_qs(url.query).get("format") == ["prometheus"]:
                     self._send_raw(
@@ -504,16 +505,17 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 )
 
         def _deadline(self):
-            """The request's deadline from ``x-deadline-ms``, or None."""
+            """The request's deadline: ``x-deadline-ms`` wins, else the
+            default (``RESILIENCE_DEADLINE_MILLIS``); None when neither
+            is a positive number."""
+            ms = default_deadline_ms
             header = self.headers.get("x-deadline-ms")
             if header:
                 try:
                     ms = float(header)
                 except ValueError:
-                    ms = 0.0
-                if ms > 0:
-                    return Deadline(ms / 1000.0)
-            return None
+                    pass
+            return Deadline(ms / 1000.0) if ms > 0 else None
 
         def _post_chat(self, path: str) -> None:
             try:
@@ -632,7 +634,16 @@ class Server:
     ``trace_sink`` (an ``obs.TraceSink``) turns request tracing and
     ``/v1/traces`` on, with the ``traces`` section of ``/metrics``;
     ``ledger`` (the score client's ``obs.OutcomeLedger``) adds the
-    ``ledger`` section beside the always-on ``quality`` one."""
+    ``ledger`` section beside the always-on ``quality`` one.
+    ``resilience`` (the clients' ``resilience.ResiliencePolicy``) and
+    ``fault_plan`` (``FAULT_PLAN``'s ``FaultPlan``) add the ``resilience``
+    section, and the policy's ``deadline_ms`` is the default deadline of
+    a request without ``x-deadline-ms``.  ``memguard`` (a
+    ``resilience.MemGuard``) sheds every POST with 503 ``shed_reason:
+    "memory"`` under hard pressure, flags ``/readyz``, adds the
+    ``memguard`` section and is stopped with the server (``build_server``
+    governs the budgets and starts it).  ``host_fastpath`` puts the
+    streams' frames on the splice lane (``serve/frames.py``)."""
 
     def __init__(
         self,
@@ -655,6 +666,10 @@ class Server:
         score_client=None,
         trace_sink=None,
         ledger=None,
+        resilience=None,
+        fault_plan=None,
+        memguard=None,
+        host_fastpath: bool = False,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -690,18 +705,21 @@ class Server:
             )
             if embedder is not None else None
         )
+        self.memguard = memguard
         self.lifecycle = Lifecycle(
-            batcher=self.batcher, watchdog=self.watchdog,
+            batcher=self.batcher, watchdog=self.watchdog, memguard=memguard,
             drain_timeout_ms=drain_timeout_ms,
             state=READY if ready else STARTING,
         )
         self.admission = AdmissionController(
-            admission, device_gate=self._device_gate
+            admission, device_gate=self._device_gate,
+            mem_gate=memguard.gate if memguard is not None else None,
         )
         self.lifecycle.admission = self.admission
         register_performance(self.metrics)
         register_overload(self.metrics, self.admission, self.watchdog,
-                          self.lifecycle)
+                          self.lifecycle, memguard)
+        register_resilience(self.metrics, resilience, fault_plan)
         register_graphs(self.metrics, embedder=embedder, reranker=reranker)
         register_quality(self.metrics, ledger)
         self.trace_sink = trace_sink
@@ -709,7 +727,8 @@ class Server:
             self.metrics.register_provider("traces", trace_sink.snapshot)
         self.chat_routes = (
             ChatRoutes(chat_client, multichat_client, embedder, self.batcher,
-                       self.metrics, score_client=score_client)
+                       self.metrics, score_client=score_client,
+                       host_fastpath=host_fastpath)
             if chat_client is not None else None
         )
         self.score_client = score_client
@@ -730,7 +749,9 @@ class Server:
             (host, port),
             make_handler(embedder, self.batcher, reranker, self.metrics,
                          self.admission, self.lifecycle, self.chat_routes,
-                         max_body_bytes, trace_sink),
+                         max_body_bytes, trace_sink,
+                         resilience.deadline_ms if resilience is not None
+                         else 0.0),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:
@@ -787,6 +808,8 @@ class Server:
             self.batcher.close()
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.memguard is not None:
+            self.memguard.stop()
         hooks, self.on_close = self.on_close, []
         for hook in hooks:
             try:

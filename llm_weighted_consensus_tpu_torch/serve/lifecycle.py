@@ -8,7 +8,10 @@ threads:
   device watchdog (when configured) holds the device healthy.  A server
   starts ``STARTING`` and turns ``READY`` once its CUDA graphs are
   captured (``mark_ready``), so a load balancer sends no traffic to a
-  replica still warming;
+  replica still warming.  Under memory pressure (``MemGuard``) it stays
+  200 and flags ``degraded_mem`` with the ``mem_level``: soft pressure
+  serves everything and hard pressure sheds at admission with a
+  retryable 503, so the balancer should keep probing (``readyz``);
 * SIGTERM/SIGINT -> ``begin_drain()``: readiness flips, admission stops
   (new requests shed with ``shed_reason: "draining"``), in-flight
   requests finish and the batcher's queue empties, all bounded by
@@ -16,7 +19,7 @@ threads:
 
 State machine: STARTING -> READY -> DRAINING -> STOPPED, one way.
 ``begin_drain`` is idempotent: a repeated SIGTERM joins the drain in
-progress.
+progress.  The drain stops the watchdog and the memory governor.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ class Lifecycle:
         admission=None,
         batcher=None,
         watchdog=None,
+        memguard=None,
         drain_timeout_ms: float = 10000.0,
         clock: Callable[[], float] = time.monotonic,
         state: str = READY,
@@ -46,6 +50,7 @@ class Lifecycle:
         self.admission = admission
         self.batcher = batcher
         self.watchdog = watchdog
+        self.memguard = memguard
         self.drain_timeout_ms = float(drain_timeout_ms)
         self.clock = clock
         self.state = state
@@ -70,6 +75,20 @@ class Lifecycle:
         if self.watchdog is not None and not self.watchdog.healthy():
             return False, "device_unhealthy"
         return True, None
+
+    def readyz(self):
+        """(status, body) of ``GET /readyz``: 200 ``{"ready": true}``,
+        with ``degraded_mem`` and ``mem_level`` while the memory governor
+        reports pressure; else 503 ``{"ready": false, "reason"}``."""
+        ok, reason = self.ready()
+        if not ok:
+            return 503, {"ready": False, "reason": reason}
+        body = {"ready": True}
+        mg = self.memguard
+        if mg is not None and mg.degraded:
+            body["degraded_mem"] = True
+            body["mem_level"] = mg.snapshot()["level"]
+        return 200, body
 
     # -- drain ----------------------------------------------------------------
 
@@ -114,6 +133,8 @@ class Lifecycle:
             clean = self.batcher.drain(remaining) and clean
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.memguard is not None:
+            self.memguard.stop()
         with self._lock:
             self.state = STOPPED
         self.drained_clean = clean

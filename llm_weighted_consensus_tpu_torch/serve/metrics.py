@@ -12,7 +12,13 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
 * ``device_batcher``: the batcher's ``utilization()``, lanes included;
 * ``graphs``: each model's ``graph_stats()`` (the counterpart of the
   reference's ``jit`` section);
-* ``admission``, ``device_watchdog`` and ``lifecycle`` (overload);
+* ``admission``, ``device_watchdog``, ``lifecycle`` and ``memguard``
+  (overload; the governor's RSS, level and watermark trips);
+* ``resilience``: the clients' counters (quorum and deadline degrades,
+  hedges launched, won and denied, breaker rejections, retry denials,
+  ingest-cap trips), each breaker's state keyed ``api_base|model``, the
+  effective hedge delay, and under ``FAULT_PLAN`` the injected faults
+  (``register_resilience``);
 * ``kernels``: the kernel wrappers' launch and route counters
   (``ops/launches.py``), replays included;
 * ``score_cache`` and ``embed_cache``: the caches' counters
@@ -31,8 +37,8 @@ bucket line its latency falls in.
 
 Two expositions off one store: the JSON snapshot (the reference's shape)
 and, with ``?format=prometheus``, OpenMetrics text whose shared families
-(uptime, series, phase, device, the quality families, lanes) render as
-the reference renders them.  One lock guards the series: the handler, dispatch and waiter
+(uptime, series, phase, device, the quality families, the memory
+governor's, lanes) render as the reference renders them.  One lock guards the series: the handler, dispatch and waiter
 threads all observe.
 """
 
@@ -46,6 +52,7 @@ from ..obs.histogram import Histogram, le_for
 
 # every provider section the snapshot may carry
 KNOWN_SECTIONS = (
+    "resilience",
     "admission",
     "device_watchdog",
     "lifecycle",
@@ -58,6 +65,7 @@ KNOWN_SECTIONS = (
     "traces",
     "quality",
     "ledger",
+    "memguard",
 )
 
 PROM_CONTENT_TYPE = (
@@ -164,16 +172,35 @@ def register_performance(metrics: Metrics) -> None:
     metrics.register_provider("kernels", kernel_counters)
 
 
+def register_resilience(metrics: Metrics, policy, fault_plan=None) -> None:
+    """The ``resilience`` section: per-upstream breaker states, the
+    retry/hedge/degraded counters, the effective hedge delay, and — on
+    chaos runs — the fault-injection tallies.  Nothing when both are
+    None."""
+    if policy is None and fault_plan is None:
+        return
+
+    def _snapshot() -> dict:
+        snap = policy.snapshot() if policy is not None else {}
+        if fault_plan is not None:
+            snap["fault_plan"] = fault_plan.snapshot()
+        return snap
+
+    metrics.register_provider("resilience", _snapshot)
+
+
 def register_overload(metrics: Metrics, admission=None, watchdog=None,
-                      lifecycle=None) -> None:
-    """The ``admission``, ``device_watchdog`` and ``lifecycle``
-    sections."""
+                      lifecycle=None, memguard=None) -> None:
+    """The ``admission``, ``device_watchdog``, ``lifecycle`` and
+    ``memguard`` sections."""
     if admission is not None:
         metrics.register_provider("admission", admission.snapshot)
     if watchdog is not None:
         metrics.register_provider("device_watchdog", watchdog.snapshot)
     if lifecycle is not None:
         metrics.register_provider("lifecycle", lifecycle.snapshot)
+    if memguard is not None:
+        metrics.register_provider("memguard", memguard.snapshot)
 
 
 def register_quality(metrics: Metrics, ledger=None) -> None:
@@ -302,6 +329,39 @@ def render_prometheus(metrics: Metrics) -> str:
         lines += _render_hist("lwc_device_latency_ms", "bucket", bucket, hist)
 
     lines += _render_quality()
+
+    memguard = metrics.provider_section("memguard")
+    if isinstance(memguard, dict):
+        lines += prom_family(
+            "lwc_memguard_rss_bytes",
+            "gauge",
+            "Process RSS as last sampled by the memory governor.",
+        )
+        if "rss_bytes" in memguard:
+            lines.append(f"lwc_memguard_rss_bytes {memguard['rss_bytes']}")
+        lines += prom_family(
+            "lwc_memguard_level",
+            "gauge",
+            "Memory pressure level (0 ok, 1 soft, 2 hard).",
+        )
+        level_num = {"ok": 0, "soft": 1, "hard": 2}.get(
+            memguard.get("level"), 0
+        )
+        lines.append(f"lwc_memguard_level {level_num}")
+        lines += prom_family(
+            "lwc_memguard_trips",
+            "counter",
+            "Watermark crossings by kind (soft/hard/recovery).",
+        )
+        for kind, key in (
+            ("soft", "soft_trips"),
+            ("hard", "hard_trips"),
+            ("recovery", "recoveries"),
+        ):
+            lines.append(
+                f'lwc_memguard_trips_total{{kind="{kind}"}} '
+                f"{memguard.get(key, 0)}"
+            )
 
     batcher = metrics.provider_section("device_batcher")
     if isinstance(batcher, dict) and isinstance(batcher.get("lanes"), dict):

@@ -30,7 +30,8 @@ vs CPU 1e-5 (f32), 1e-3 quantized, and its packed rewards against
 per-row ones on the card 1e-5; the training-table lookup on the card
 against the CPU 1e-6 relative (ties in index order), and one
 trained-weight score request on bge_micro card vs CPU 1e-5 relative on
-the weights, the rest of its final frame equal.
+the weights, the rest of its final frame equal (also for a
+quorum-degraded request through a graphed server).
 """
 
 import os
@@ -1375,6 +1376,129 @@ def test_one_score_request_with_trained_weights_on_the_card(card):
                 client.create_unary(None, params))
         finals[device] = result.to_json_obj()
     got, want = finals["cuda"], finals["cpu"]
+    w_got = [float(c["weight"]) for c in got["choices"]]
+    w_want = [float(c["weight"]) for c in want["choices"]]
+    assert np.max(np.abs(np.subtract(w_got, w_want))
+                  / np.maximum(np.abs(w_want), 1e-30)) <= 1e-5
+    for obj in (got, want):
+        obj["id"] = obj["created"] = None
+        obj.pop("weight_data")
+        for c in obj["choices"]:
+            c["weight"] = c["confidence"] = None
+    assert got == want
+
+
+def _quorum_score_on(device):
+    """One streamed, quorum-degraded score request through a graphed
+    bge_micro server (``build_server``, ``warm_up``) on ``device``: three
+    training-table judges behind ``RESILIENCE_QUORUM=0.5`` and
+    ``HOST_FASTPATH``, two agreeing at once and the third stalling until
+    it is cancelled -> (final frame, graph stats delta, resilience
+    counters)."""
+    import asyncio
+    import http.client
+    import json
+
+    from llm_weighted_consensus_tpu_torch.clients import chat as chat_mod
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    class Upstream(chat_mod.Transport):
+        """Every judge names the key of "paris" on its ballot; judge-2
+        first stalls (the quorum cancels it)."""
+
+        async def post_sse(self, url, headers, body):
+            req = json.loads(body)
+            text = req["messages"][-1]["content"]
+            ballot = json.loads(text.split("Select the response:\n\n", 1)[1]
+                                .split("\n\nOutput", 1)[0])
+            key = next(k for k, v in ballot.items() if v == "paris")
+
+            class Resp(chat_mod.TransportResponse):
+                status = 200
+
+                async def read_body(self):
+                    return b""
+
+                async def byte_stream(self):
+                    if req["model"] == "judge-2":
+                        await asyncio.sleep(30.0)
+                    chunk = {"id": "u", "object": "chat.completion.chunk",
+                             "created": 1, "model": req["model"],
+                             "choices": [{"index": 0, "delta": {
+                                 "content": f"pick {key}"},
+                                 "finish_reason": "stop"}]}
+                    yield f"data: {json.dumps(chunk)}\n\n".encode()
+                    yield b"data: [DONE]\n\n"
+
+            return Resp()
+
+    body = {
+        "stream": True,
+        "messages": [{"role": "user", "content": "the capital of france"}],
+        "model": {"llms": [{"model": f"judge-{i}", "weight": {
+            "type": "training_table", "base_weight": 1, "min_weight": 1,
+            "max_weight": 5}} for i in range(3)],
+            "weight": {"type": "training_table",
+                       "embeddings": {"model": "bge-micro",
+                                      "max_tokens": 32}, "top": 2}},
+        "choices": ["paris", "lyon", "nice"],
+    }
+    model = ModelBase.from_json_obj(body["model"]).into_model_validate()
+    emb = _micro_embedder(device)
+    seq = _seq_bucket(int(emb.tokenize(
+        ["user: the capital of france"], 32)[1].sum()), 32)
+    config = ServeConfig.from_env({
+        "OPENAI_API_BASE": "http://127.0.0.1:9/v1", "OPENAI_API_KEY": "k",
+        "BACKOFF_MAX_ELAPSED_TIME_MILLIS": "0", "RESILIENCE_QUORUM": "0.5",
+        "HOST_FASTPATH": "1", "WARMUP": f"16x{seq}"})
+    server = build_server(emb, None, config, device=device).start()
+    try:
+        server.score_client.chat_client.transport = Upstream()
+        rows = emb.embed_texts(["paris is in france", "lyon", "rivers",
+                                "france", "capital cities"])
+        for llm in model.llms[:2]:
+            server.tables.add_rows(llm.training_table_id, rows,
+                                   np.random.default_rng(7).random(len(rows)))
+        warm_up(server, config)
+        graphs0 = emb.graph_stats()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        conn.request("POST", "/score/completions", body=json.dumps(body),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        conn.close()
+        assert resp.status == 200 and raw.endswith(b"data: [DONE]\n\n")
+        final = json.loads(raw.split(b"data: ")[-2])
+        graphs1 = emb.graph_stats()
+        delta = {k: graphs1[k] - graphs0[k]
+                 for k in ("captures", "replays", "eager_dispatches")}
+        counters = dict(server.resilience.counters)
+        assert server.chat_routes.fastpath_fallbacks == 0
+    finally:
+        server.close()
+    return final, delta, counters
+
+
+def test_a_quorum_degraded_score_request_on_the_card_matches_the_cpu(card):
+    """The quorum cuts the stalled judge on the card as on the CPU: the
+    same degraded final frame (the straggler's 499 entry), trained
+    weights within 1e-5 relative, the prompt embed replayed from its
+    graph (no capture, no eager dispatch after warmup)."""
+    got, delta, counters = _quorum_score_on("cuda")
+    want, _, want_counters = _quorum_score_on("cpu")
+    assert counters == want_counters == {"quorum_degraded": 1}
+    assert delta["captures"] == delta["eager_dispatches"] == 0
+    assert delta["replays"] >= 1
+    assert got["degraded"] is True
+    assert [c["error"]["code"] for c in got["choices"]
+            if c.get("error")] == [499]
     w_got = [float(c["weight"]) for c in got["choices"]]
     w_want = [float(c["weight"]) for c in want["choices"]]
     assert np.max(np.abs(np.subtract(w_got, w_want))

@@ -95,7 +95,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "ops.consensus", "ops.votes", "parallel", "parallel.batch",
         "archive.rescore", "weights.learning", "serve.archive_routes",
         "obs", "obs.span", "obs.sink", "obs.propagate", "obs.quality",
-        "obs.ledger",
+        "obs.ledger", "resilience", "resilience.breaker", "resilience.hedge",
+        "resilience.quorum", "resilience.faults", "resilience.memguard",
+        "serve.frames",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

@@ -801,7 +801,13 @@ KNOBS = ("max_body_bytes", "admission_max_inflight",
          "archive_max_completions", "trace_sample_rate", "trace_enabled",
          "trace_ring", "trace_dir", "quality_window",
          "quality_drift_threshold", "ledger_ring", "ledger_dir",
-         "ledger_rotate_bytes")
+         "ledger_rotate_bytes", "resilience_breaker_threshold",
+         "resilience_breaker_window", "resilience_breaker_min_samples",
+         "resilience_breaker_cooldown_millis", "resilience_retry_budget",
+         "resilience_hedge_millis", "resilience_hedge_quantile",
+         "resilience_deadline_millis", "resilience_quorum", "fault_plan",
+         "judge_bias_plan", "memguard_enabled", "mem_soft_bytes",
+         "mem_hard_bytes", "memguard_interval_millis")
 
 KNOB_ENVS = [
     {},
@@ -821,6 +827,19 @@ KNOB_ENVS = [
     {"LEDGER_RING": "32", "LEDGER_DIR": "/tmp/l",
      "LEDGER_ROTATE_BYTES": "4096"},
     {"LEDGER_DIR": "/tmp/l"},
+    {"RESILIENCE_BREAKER_THRESHOLD": "0.5", "RESILIENCE_BREAKER_WINDOW": "0",
+     "RESILIENCE_BREAKER_MIN_SAMPLES": "3",
+     "RESILIENCE_BREAKER_COOLDOWN_MILLIS": "250"},
+    {"RESILIENCE_RETRY_BUDGET": "8", "RESILIENCE_HEDGE_MILLIS": "150",
+     "RESILIENCE_DEADLINE_MILLIS": "5000", "RESILIENCE_QUORUM": "0.5"},
+    {"RESILIENCE_HEDGE_QUANTILE": "0.95"},
+    {"RESILIENCE_QUORUM": "1", "RESILIENCE_BREAKER_MIN_SAMPLES": "-4"},
+    {"FAULT_PLAN": "seed=7,stall_first=0.35,stall_ms=20000",
+     "JUDGE_BIAS_PLAN": "judge=2,after=16,flip=1.0,seed=7"},
+    {"MEMGUARD": "0"},
+    {"MEM_SOFT_BYTES": "1000", "MEM_HARD_BYTES": "2000",
+     "MEMGUARD_INTERVAL_MILLIS": "250"},
+    {"MEM_SOFT_BYTES": "4096"},
 ]
 
 BAD_KNOB_ENVS = [
@@ -841,6 +860,23 @@ BAD_KNOB_ENVS = [
     {"QUALITY_DRIFT_THRESHOLD": "1.5"},
     {"LEDGER_RING": "-1"},
     {"LEDGER_ROTATE_BYTES": "-4096"},
+    {"RESILIENCE_QUORUM": "1.5"},
+    {"RESILIENCE_QUORUM": "-0.5"},
+    {"RESILIENCE_QUORUM": "half"},
+    {"RESILIENCE_HEDGE_QUANTILE": "1"},
+    {"RESILIENCE_HEDGE_QUANTILE": "-0.1"},
+    {"RESILIENCE_RETRY_BUDGET": "-1"},
+    {"RESILIENCE_BREAKER_WINDOW": "wide"},
+    {"RESILIENCE_BREAKER_THRESHOLD": "x"},
+    {"RESILIENCE_BREAKER_COOLDOWN_MILLIS": "later"},
+    {"RESILIENCE_HEDGE_MILLIS": "soon"},
+    {"RESILIENCE_DEADLINE_MILLIS": "never"},
+    {"RESILIENCE_BREAKER_MIN_SAMPLES": "few"},
+    {"MEM_SOFT_BYTES": "2000", "MEM_HARD_BYTES": "1000"},
+    {"MEM_SOFT_BYTES": "-1"},
+    {"MEM_HARD_BYTES": "lots"},
+    {"MEMGUARD_INTERVAL_MILLIS": "0"},
+    {"MEMGUARD_INTERVAL_MILLIS": "-5"},
 ]
 
 
@@ -850,6 +886,13 @@ def test_knobs_read_as_the_reference_reads_them(env):
     assert {n: getattr(port, n) for n in KNOBS} == \
         {n: getattr(ref, n) for n in KNOBS}
     assert vars(port.admission_config()) == vars(ref.admission_config())
+    # the factories the knobs feed: None exactly where the reference's is
+    for name in ("resilience_policy", "fault_injection_plan",
+                 "judge_bias_injection_plan", "memguard"):
+        got, want = getattr(port, name)(), getattr(ref, name)()
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.snapshot() == want.snapshot(), name
 
 
 @pytest.mark.parametrize("env", BAD_KNOB_ENVS)
@@ -916,6 +959,50 @@ def test_the_server_takes_the_trace_quality_and_ledger_knobs(tmp_path,
         server.close()
         for obs in (port_obs, ref_obs):
             obs.configure_quality(window=64, drift_threshold=0.25)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"RESILIENCE_QUORUM": "0.5", "RESILIENCE_BREAKER_THRESHOLD": "0.5",
+     "RESILIENCE_RETRY_BUDGET": "8", "RESILIENCE_HEDGE_MILLIS": "150",
+     "RESILIENCE_DEADLINE_MILLIS": "5000", "HOST_FASTPATH": "1",
+     "FAULT_PLAN": "seed=7,stall_first=0.35,stall_ms=20000",
+     "JUDGE_BIAS_PLAN": "judge=1,flip=1.0", "MEMGUARD": "0"},
+])
+def test_the_server_takes_the_resilience_and_memguard_knobs(extra):
+    from llm_weighted_consensus_tpu_torch.resilience import (
+        FaultInjectionTransport,
+    )
+
+    config = ServeConfig.from_env({**UPSTREAM, **extra})
+    server = serve_main.build_server(None, None, config, device="cpu")
+    try:
+        chat, score = server.chat_routes.routes["/chat/completions"], \
+            server.score_client
+        policy = server.resilience
+        assert (policy is None) == (not extra)
+        assert score.resilience is policy
+        assert chat[1].__self__.resilience is policy
+        transport = chat[1].__self__.transport
+        assert isinstance(transport, FaultInjectionTransport) == bool(extra)
+        assert (score.bias_plan is None) == (not extra)
+        assert server.chat_routes.host_fastpath == bool(extra)
+        snap = server.metrics.snapshot()
+        assert ("resilience" in snap) == bool(extra)
+        # MEMGUARD is on by default: its thread runs until close
+        assert (server.memguard is None) == bool(extra)
+        assert ("memguard" in snap) == (not extra)
+        if server.memguard is not None:
+            assert server.memguard._thread.is_alive()
+            assert server.admission.mem_gate == server.memguard.gate
+        if policy is not None:
+            assert snap["resilience"]["fault_plan"] == {
+                "requests": 0, "injected": {}}
+            assert policy.deadline_ms == 5000.0
+    finally:
+        server.close()
+    if server.memguard is not None:
+        assert server.memguard._thread is None
 
 
 def test_dotenv_is_loaded_and_set_variables_win(tmp_path, monkeypatch):
