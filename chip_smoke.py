@@ -273,7 +273,37 @@ Phases, each printing one JSON line:
    vote.  It prints both servers' requests/s and client p50, µs per frame
    of the splice and slow lanes over the served items, the counters, the
    breaker states, the RSS and the watermarks, beside the nvidia-smi
-   line.
+   line;
+15. learning path (``weights/live.py``, ``train/``): one bge-large build
+   through ``build_embedder`` and two servers through ``build_server``
+   and ``warm_up``.  (a) ``OFFLINE_ENABLED=1``, ``BATCH_MAX=1``, every
+   bucket warmed: phase 4's bursts (2 x 8 ``/consensus``, N=64, s=128)
+   alone, ``POST /v1/train/rescore`` (64 groups of 8, 4 in flight) alone,
+   the drive again while the bursts run (their answers bit-equal to the
+   first run's, and no latency dispatch's queue time covered by offline
+   dispatches for longer than the longest of them), and a second drive
+   posted during a third (409).  (b) The
+   learner drill: phase 11's judges one slot per backend (weights 1, 1,
+   3) with ``LEDGER_DIR``, ``LEDGER_ROTATE_BYTES`` and
+   ``WEIGHTS_ENABLED``, the weight-3 judge mis-voting after 8 ballots
+   (``JUDGE_BIAS_PLAN``): 24 requests, then ``python -m
+   llm_weighted_consensus_tpu_torch.train fit --device cuda --put`` while
+   requests flow, 4 more; it fails on a client error, unless every
+   ledger record names the version that scored it (``base``, then the
+   fitted one), the biased judge gets the smallest weight, the fitted
+   held-out accuracy beats base, the card's fit matches a CPU fit of the
+   same shards within ``LEARN_FIT_TOL``, and a shadow ``PUT`` moves
+   ``lwc_weights_shadow_total``.  Every launch of (a) and (b) is a
+   ``tma`` attention or a ``cluster`` vote replayed from a graph.  (c)
+   The trainers at full width in f32 (TF32 off): ``TRAIN_STEPS``
+   InfoNCE steps on bge-large at ``TRAIN_BERT_SHAPE`` and Bradley-Terry
+   steps on deberta-v3-base at ``TRAIN_RM_SHAPE``, losses finite and
+   falling, every ``attn_q/k/v`` weight with a nonzero gradient, no
+   kernel launched, a full-state resume within ``TRAIN_RESUME_RTOL`` of
+   the straight run; ms per step and peak memory printed.  Then one
+   bge_micro InfoNCE step on the card against the CPU: every gradient
+   within ``TRAIN_GRAD_ATOL`` of the largest plus ``TRAIN_GRAD_RTOL``
+   relative, and a step with the attention's gradient cut outside it.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -498,6 +528,24 @@ RESILIENT_DEADLINE_MARGIN_MS = 2000
 # names the candidate whose text sorts first with this probability (its
 # soft vote peaked there), else a key of its own ballot's hash
 RESILIENT_AGREEMENT = 0.8
+# phase 15: the offline drive (groups of candidates, in flight), the main
+# path's bursts beside it, the learner drill's requests (before the fit,
+# at least during it, after the swap; a cap), its ledger's shard size, the
+# fit's steps and the card-vs-CPU tolerance on its mean-normalized
+# weights, and the trainers' steps, (b, s) and resume tolerance (the
+# card's scatter-add backward sums in a run-dependent order)
+LEARN_GROUPS, LEARN_N, LEARN_INFLIGHT, LEARN_BURSTS = 64, 8, 4, 2
+LEARN_DRILL_BEFORE, LEARN_DRILL_DURING, LEARN_DRILL_AFTER = 24, 16, 4
+LEARN_DRILL_MAX = 160
+LEARN_ROTATE_BYTES = 4096
+LEARN_FIT_STEPS, LEARN_FIT_TOL = 300, 1e-5
+LEARN_CHOICES = ("alpha: the answer is four", "beta: the answer is five")
+TRAIN_STEPS, TRAIN_RESUME_RTOL = 5, 1e-5
+# one bge_micro InfoNCE step, card against CPU: each gradient within
+# 1e-4 of the largest gradient plus 1e-3 relative (tests/test_torch_cuda.py
+# holds the same)
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+TRAIN_BERT_SHAPE, TRAIN_RM_SHAPE = (16, 128), (8, 128)
 
 
 def emit(obj) -> None:
@@ -1613,15 +1661,15 @@ def bound_ms_ops(nbytes: float, int8_ops: float):
 # -- phase 3: bge_micro on the card against the CPU ---------------------------
 
 
-def http(port: int, path: str, body=None):
+def http(port: int, path: str, body=None, method=None):
     """(status, headers, JSON or text body) of a GET (``body`` None) or a
-    POST, error statuses included."""
+    POST (or ``method``), error statuses included."""
     import urllib.error
     import urllib.request
 
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}{path}", data=data,
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
         headers={"content-type": "application/json"},
     )
     try:
@@ -6660,9 +6708,657 @@ def resilient_path(gpu: str, device: str = "cuda",
             torch.cuda.empty_cache()
 
 
+def graph_window(emb, batcher) -> dict:
+    """The embedder's graph counters and the batcher's dispatches, to
+    difference around a window of traffic."""
+    graphs, stats = emb.graph_stats(), batcher.stats()
+    return {"captures": graphs["captures"], "replays": graphs["replays"],
+            "eager": graphs["eager_dispatches"],
+            "consensus": stats["dispatches"]["consensus"],
+            "embed": stats["dispatches"]["embed"]}
+
+
+def replayed_only(before: dict, after: dict, what: str,
+                  on_card: bool = True) -> dict:
+    """The window's dispatches; on the card it fails unless every one
+    replayed a graph warmed before it (none captured, none eager)."""
+    d = {k: after[k] - before[k] for k in after}
+    if on_card and (d["captures"] or d["eager"]
+                    or d["replays"] != d["consensus"] + d["embed"]):
+        raise AssertionError(f"{what}: {d}")
+    return d
+
+
+def dispatch_timeline(batcher) -> list:
+    """Record each dispatch ``batcher`` accounts from here on as (lane,
+    first item's submit time, start, end), perf_counter seconds, by
+    wrapping its ``_observe`` on the instance (``del batcher._observe``
+    stops it)."""
+    rows = []
+    observe = batcher._observe
+
+    def recorded(group, t0, token, *, error):
+        observe(group, t0, token, error=error)
+        rows.append((group[0].lane, min(i.submitted for i in group), t0,
+                     time.perf_counter()))
+
+    batcher._observe = recorded
+    return rows
+
+
+def offline_holds(rows) -> dict:
+    """How long each latency dispatch waited behind offline ones: the
+    part of its queue time (first submit to start) that offline
+    dispatches covered, against the longest offline dispatch among them.
+    A latency item takes the first pipeline slot that frees, so the
+    covered time stays within that one dispatch; more means an offline
+    dispatch started ahead of a queued latency item."""
+    offline = [(a, b) for lane, _, a, b in rows if lane == "offline"]
+    held, worst = 0, {"covered_ms": 0.0, "longest_ms": 0.0}
+    for lane, sub, t0, _ in rows:
+        if lane != "latency":
+            continue
+        hits = sorted((max(a, sub), min(b, t0), b - a)
+                      for a, b in offline if a < t0 and b > sub)
+        covered, reach = 0.0, sub
+        for lo, hi, _ in hits:
+            covered += max(0.0, hi - max(lo, reach))
+            reach = max(reach, hi)
+        longest = max((d for *_, d in hits), default=0.0)
+        if covered > 0:
+            held += 1
+        if covered > longest + 1e-9:
+            raise AssertionError(
+                f"a latency dispatch waited {covered * 1e3:.3f} ms behind "
+                f"offline dispatches, the longest {longest * 1e3:.3f} ms")
+        if covered > worst["covered_ms"] / 1e3:
+            worst = {"covered_ms": covered * 1e3, "longest_ms": longest * 1e3}
+    return {"latency_dispatches": sum(r[0] == "latency" for r in rows),
+            "offline_dispatches": len(offline),
+            "behind_offline": held, "worst": worst}
+
+
+def offline_drive(gpu, emb, on_card) -> dict:
+    """Phase 15 (a): ``POST /v1/train/rescore`` on a server with
+    ``OFFLINE_ENABLED=1`` and every bucket the drive and the main path's
+    bursts hit warmed, ``BATCH_MAX=1`` (each request or group its own
+    R=1 dispatch, so an answer's bucket does not depend on what shares
+    the card with it): the bursts alone, the drive alone, the drive again
+    while the bursts run (their answers bit-equal to the first run's, and
+    no latency dispatch held behind more than one offline dispatch:
+    ``offline_holds``), and a second drive posted during a third
+    (409)."""
+    import threading
+
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.train.feed import synthetic_groups
+
+    rng = np.random.default_rng(15)
+    bursts = [[candidate_texts(rng, N_CANDIDATES, BURST_WORDS)
+               for _ in range(BURST)] for _ in range(LEARN_BURSTS)]
+    groups = synthetic_groups(LEARN_GROUPS, LEARN_N, seed=0)
+    s_vote = emb.tokenize(bursts[0][0], 512)[0].shape[1]
+    s_off = sorted({emb.tokenize(g, 512)[0].shape[1] for g in groups})
+    env = serving_env(
+        EMBEDDER_MODEL=emb.model_name, BATCH_MAX="1", OFFLINE_ENABLED="1",
+        OFFLINE_INFLIGHT=str(LEARN_INFLIGHT),
+        WARMUP=",".join([f"{N_CANDIDATES}x{s_vote}"]
+                        + [f"{LEARN_N}x{s}" for s in s_off]))
+    config = ServeConfig.from_env(env)
+    srv = build_server(emb, None, config).start()
+    drive = {"groups": LEARN_GROUPS, "n": LEARN_N, "seed": 0,
+             "inflight": LEARN_INFLIGHT}
+    try:
+        warm_up(srv, config)
+        # the phase's launches count from here (a warm-up runs each
+        # bucket's forward once before its capture)
+        reset_launches()
+        w0 = graph_window(emb, srv.batcher)
+        alone = drive_bursts(srv.port, bursts)
+        t = time.perf_counter()
+        solo = post(srv.port, "/v1/train/rescore", drive)
+        solo_s = time.perf_counter() - t
+        # the drive again, with the bursts running beside it
+        box, spans = {}, {}
+
+        def run_drive():
+            spans["drive"] = [time.perf_counter()]
+            box["out"] = http(srv.port, "/v1/train/rescore", drive)
+            spans["drive"].append(time.perf_counter())
+
+        timeline = dispatch_timeline(srv.batcher)
+        thread = threading.Thread(target=run_drive)
+        thread.start()
+        while not srv.offline_rescore._lock.locked():
+            time.sleep(0.001)
+        spans["bursts"] = [time.perf_counter()]
+        beside = drive_bursts(srv.port, bursts)
+        spans["bursts"].append(time.perf_counter())
+        thread.join(600)
+        del srv.batcher._observe
+        holds = offline_holds(timeline)
+        status, _, shared = box["out"]
+        if status != 200:
+            raise AssertionError(f"drive beside bursts: {status} {shared}")
+        if not spans["drive"][0] < spans["bursts"][0] < spans["drive"][1]:
+            raise AssertionError(f"the drive and the bursts never overlapped:"
+                                 f" {spans}")
+        for k, (a, b) in enumerate(zip(alone["answers"], beside["answers"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"answer {k} beside the drive differs by "
+                    f"{float(np.abs(a - b).max())}")
+        for name, out in (("alone", solo), ("beside", shared)):
+            if (out["errors"] or out["groups"] != LEARN_GROUPS
+                    or out["items"] != LEARN_GROUPS * LEARN_N
+                    or not 0 < out["offline_occupancy"] <= 1):
+                raise AssertionError(f"drive {name}: {out}")
+        # a second drive posted during a third
+        box.clear()
+        long_drive = {**drive, "groups": 4 * LEARN_GROUPS, "inflight": 1}
+        thread = threading.Thread(target=lambda: box.update(
+            out=http(srv.port, "/v1/train/rescore", long_drive)))
+        thread.start()
+        while not srv.offline_rescore._lock.locked():
+            time.sleep(0.001)
+        conflict = http(srv.port, "/v1/train/rescore", drive)
+        thread.join(600)
+        if conflict[0] != 409 or box["out"][0] != 200:
+            raise AssertionError(f"overlapping drives: {conflict[0]} "
+                                 f"{conflict[2]}, first {box['out'][0]}")
+        window = replayed_only(w0, graph_window(emb, srv.batcher),
+                               "offline drive", on_card)
+        lanes = http(srv.port, "/metrics")[2]["device_batcher"]["lanes"]
+    finally:
+        srv.close()
+    row = {
+        "warmup": env["WARMUP"], "drive": drive,
+        "alone": {k: solo[k] for k in ("groups", "items", "errors",
+                                       "offline_occupancy", "lanes")},
+        "alone_wall_s": solo_s,
+        "beside": {k: shared[k] for k in ("groups", "items", "errors",
+                                          "offline_occupancy", "lanes")},
+        "drive_wall_s": spans["drive"][1] - spans["drive"][0],
+        "bursts_wall_s": spans["bursts"][1] - spans["bursts"][0],
+        "consensus_p50_ms": {"without_drive": alone["p50_ms"],
+                             "with_drive": beside["p50_ms"]},
+        "answers_per_s": {"without_drive": alone["answers_per_s"],
+                          "with_drive": beside["answers_per_s"]},
+        "answers_bit_equal": len(alone["answers"]),
+        "latency_behind_offline": holds,
+        "overlapping_drive": conflict[0], "lanes": lanes,
+        "dispatches": window,
+    }
+    emit({"phase": "learning_path", "part": "offline_drive",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+def drill_body(k: int, model_name: str) -> dict:
+    return {"messages": [{"role": "user", "content": score_prompt(400 + k)}],
+            "model": learn_panel(model_name),
+            "choices": list(LEARN_CHOICES)}
+
+
+def learn_panel(model_name: str) -> dict:
+    """Phase 11's judges and weight type cut to one slot per backend, as
+    the reference's learner drill: weights 1, 1 and 3 (base weights: no
+    table is learned), the prompt embedded for each request."""
+    return {"llms": [
+        {"model": f"backend-{i}",
+         "weight": {"type": "training_table", "base_weight": w,
+                    "min_weight": 1, "max_weight": 5}}
+        for i, w in enumerate((1, 1, 3))],
+        "weight": {"type": "training_table", "top": SCORE_TOP,
+                   "embeddings": {"model": model_name,
+                                  "max_tokens": SCORE_MAX_TOKENS}}}
+
+
+def drill_requests(port, ks, model_name, errors: list) -> list:
+    """``ks``' unary score requests one at a time -> their winners;
+    a status other than 200 or an error body lands in ``errors``."""
+    import numpy as np
+
+    winners = []
+    for k in ks:
+        status, _, out = http(port, "/score/completions",
+                              drill_body(k, model_name))
+        if status != 200 or not isinstance(out, dict) or "error" in out:
+            errors.append((k, status, str(out)[:300]))
+            continue
+        conf = [float(c["confidence"]) for c in out["choices"]
+                if c["index"] < len(LEARN_CHOICES)]
+        winners.append(int(np.argmax(conf)) if conf else None)
+    return winners
+
+
+def learner_drill(gpu, emb, device, on_card) -> dict:
+    """Phase 15 (b): the reference's learner drill end to end.  Phase
+    11's judges on loopback (``ScriptedJudges``, every judge naming the
+    right candidate) behind ``LEDGER_DIR`` with ``LEDGER_ROTATE_BYTES``
+    (the ledger shards) and ``WEIGHTS_ENABLED=1``; the weight-3 judge
+    mis-votes after its 8th ballot (``JUDGE_BIAS_PLAN``).  24 requests,
+    then ``python -m llm_weighted_consensus_tpu_torch.train fit --device
+    <device> --put`` over a copy of the shards while requests flow (at
+    least ``LEARN_DRILL_DURING``, on until the CLI exits), then 4 more.  It fails on any client error, unless each record
+    names the version that scored it (``base``, then the fitted ``wv-``
+    one), the biased judge gets the smallest weight, the fitted held-out
+    accuracy beats base, the card's weights match a CPU fit of the same
+    shards within ``LEARN_FIT_TOL``, and a shadow ``PUT`` moves
+    ``lwc_weights_shadow_total``."""
+    import shutil
+
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.obs.ledger import (
+        ledger_shard_paths,
+        load_ledger_records,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.train.fit import fit_from_ledger
+
+    work = os.path.join(REPO, "build", "learning_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    ledger_dir, snapshot = (os.path.join(work, "ledger"),
+                            os.path.join(work, "shards"))
+    os.makedirs(ledger_dir)
+    model_name = emb.model_name
+    model = ModelBase.from_json_obj(
+        learn_panel(model_name)).into_model_validate()
+    biased = next(l for l in model.llms if l.base.model == "backend-2")
+    seqs = sorted({_seq_bucket(int(emb.tokenize(
+        [f"user: {score_prompt(400 + k)}"], SCORE_MAX_TOKENS)[1].sum()),
+        SCORE_MAX_TOKENS) for k in range(LEARN_DRILL_MAX)})
+    judges = ScriptedJudges(agree=1.0)
+    env = serving_env(
+        EMBEDDER_MODEL=model_name,
+        OPENAI_APIS=json.dumps([{"api_base": judges.url, "api_key": "k"}]),
+        LEDGER_DIR=ledger_dir, LEDGER_ROTATE_BYTES=str(LEARN_ROTATE_BYTES),
+        WEIGHTS_ENABLED="1",
+        JUDGE_BIAS_PLAN=f"judge={biased.index},after=8,flip=1.0,seed=7",
+        WARMUP=",".join(f"16x{s}" for s in seqs))
+    config = ServeConfig.from_env(env)
+    srv = build_server(emb, None, config).start()
+    errors: list = []
+    try:
+        launches0 = read_launches()
+        warm_up(srv, config)
+        warm = {k: v - launches0[k] for k, v in read_launches().items()}
+        w0 = graph_window(emb, srv.batcher)
+        before = drill_requests(srv.port, range(LEARN_DRILL_BEFORE),
+                                model_name, errors)
+        shutil.copytree(ledger_dir, snapshot)
+        records, _ = load_ledger_records(snapshot)
+        labels_path = os.path.join(work, "labels.json")
+        with open(labels_path, "w") as f:
+            json.dump({r["id"]: 0 for r in records}, f)
+        # the fit and its hot swap while requests flow: at least
+        # LEARN_DRILL_DURING of them, and on until the CLI has exited
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.train",
+             "fit", "--device", device, "--ledger-dir", snapshot,
+             "--labels", labels_path, "--steps", str(LEARN_FIT_STEPS),
+             "--put", f"http://127.0.0.1:{srv.port}"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+        during: list = []
+        k = LEARN_DRILL_BEFORE
+        while (proc.poll() is None or len(during) < LEARN_DRILL_DURING) \
+                and k < LEARN_DRILL_MAX - LEARN_DRILL_AFTER - 4:
+            during += drill_requests(srv.port, [k], model_name, errors)
+            k += 1
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        cli_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"train fit: {err[-2000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        n_total = k + LEARN_DRILL_AFTER
+        after = drill_requests(srv.port, range(
+            n_total - LEARN_DRILL_AFTER, n_total), model_name, errors)
+        if errors:
+            raise AssertionError(f"client errors: {errors[:3]}")
+        version = report["version"]
+        if report["put"] != {"ok": True, "version": version,
+                             "mode": "active"}:
+            raise AssertionError(f"the put: {report['put']}")
+        fitted = report["weights"]
+        acc = report["accuracy"]
+        if not (acc["fitted"] > acc["base"]
+                and fitted[biased.id] == min(fitted.values())):
+            raise AssertionError(f"the fit: {report}")
+        # every record names the version that scored it
+        live, torn = load_ledger_records(ledger_dir)
+        versions = [r["weights_version"] for r in live]
+        swap = versions.index(version) if version in versions else None
+        if (len(live) != n_total or torn or swap is None
+                or swap < LEARN_DRILL_BEFORE
+                or versions[:swap] != ["base"] * swap
+                or versions[swap:] != [version] * (n_total - swap)):
+            raise AssertionError(f"record versions {versions}")
+        if after != [0] * LEARN_DRILL_AFTER:
+            raise AssertionError(f"winners after the swap {after}")
+        # the same shards fit on the CPU
+        cpu = fit_from_ledger(snapshot, labels={
+            r["id"]: 0 for r in records}, steps=LEARN_FIT_STEPS,
+            device="cpu")
+        fit_err = max(abs(fitted[j] - cpu["weights"][j]) for j in fitted)
+        if fit_err > LEARN_FIT_TOL or cpu["accuracy"] != acc:
+            raise AssertionError(f"card fit {fitted} vs CPU {cpu['weights']}")
+        # a shadow table (the base weights) moves the shadow counters
+        shadow = {llm.id: float(llm.base.weight.base_weight)
+                  for llm in model.llms}
+        status, _, put = http(srv.port, "/v1/weights",
+                              {"weights": shadow, "mode": "shadow"},
+                              method="PUT")
+        drill_requests(srv.port, range(n_total, n_total + 4), model_name,
+                       errors)
+        prom = http(srv.port, "/metrics?format=prometheus")[2]
+        wire = http(srv.port, "/v1/weights")[2]
+        compared = f'lwc_weights_shadow_total{{kind="compared"}} ' \
+                   f'{wire["shadow_compared"]}'
+        # the base table would flip every post-swap verdict back
+        if (status != 200 or errors or wire["shadow_compared"] != 4
+                or wire["shadow_would_flip"] != 4 or compared not in prom):
+            raise AssertionError(f"shadow: {status} {put} {wire} {errors}")
+        window = replayed_only(w0, graph_window(emb, srv.batcher),
+                               "learner drill", on_card)
+        weights_snap = http(srv.port, "/metrics")[2]["weights"]
+    finally:
+        srv.close()
+        judges.close()
+    row = {
+        "warmup": env["WARMUP"], "requests": n_total + 4,
+        "requests_during_fit": len(during),
+        "bias_plan": env["JUDGE_BIAS_PLAN"],
+        "shards": report["shards"], "ledger_shards": len(
+            ledger_shard_paths(ledger_dir)),
+        "records": report["records"], "accuracy": acc,
+        "weights": fitted, "biased": biased.id, "version": version,
+        "cpu_weights": cpu["weights"], "fit_max_abs_err": fit_err,
+        "cli_wall_s": cli_s, "swap_at_record": swap,
+        "winners_before": before,
+        "shadow": {"compared": wire["shadow_compared"],
+                   "would_flip": wire["shadow_would_flip"]},
+        "weights_section": weights_snap, "dispatches": window,
+        "warmup_launches": warm,
+    }
+    emit({"phase": "learning_path", "part": "learner_drill",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+def train_run(step, model, opt, batch, n: int, sync) -> tuple:
+    """``n`` steps of ``step`` on one batch -> (losses, ms per step)."""
+    losses = []
+    t = time.perf_counter()
+    for _ in range(n):
+        losses.append(step(model, opt, *batch))
+    sync()
+    ms = (time.perf_counter() - t) * 1e3 / n
+    return [float(x) for x in losses], ms
+
+
+def trainer_case(gpu, name, cls, config, step, shape, device, on_card,
+                 work) -> dict:
+    """``TRAIN_STEPS`` steps of ``step`` on one seeded batch at ``shape``
+    (b, s), f32 from a random init (seed 0): the losses finite and
+    falling, every ``attn_q/k/v`` weight with a nonzero gradient, no
+    kernel launched; then 3 steps, ``save_train_state``, a fresh model
+    and optimizer loaded from the file, and the last steps again, within
+    ``TRAIN_RESUME_RTOL`` of the straight run."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert
+
+    state = bert.random_state(cls, config, 0)
+    rng = np.random.default_rng(16)
+    b, s = shape
+    batch = [rng.integers(3, config.vocab_size, (b, s)), np.ones((b, s)),
+             rng.integers(3, config.vocab_size, (b, s)), np.ones((b, s))]
+    batch[1][b - 1, s // 2:] = 0
+    batch[3][0, s // 3:] = 0
+    batch = [np.asarray(a, np.int64) for a in batch]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = bert.trainable(cls, state, config, device=device)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    launches0 = read_launches()
+    opt = train.make_optimizer(model)
+    straight, ms = train_run(step, model, opt, batch, TRAIN_STEPS, sync)
+    projections = [p for n, p in model.named_parameters()
+                   if n.endswith(("query.weight", "key.weight",
+                                  "value.weight", "attn_q.weight",
+                                  "attn_k.weight", "attn_v.weight"))]
+    if (not np.isfinite(straight).all() or straight[-1] >= straight[0]
+            or len(projections) != 3 * config.num_layers
+            or any(float(p.grad.abs().max()) == 0 for p in projections)):
+        raise AssertionError(f"{name}: losses {straight}, zero gradients "
+                             f"{sum(float(p.grad.abs().max()) == 0 for p in projections)}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    # the interrupted run: 3 steps, the full state to disk, a fresh model
+    model.load_state_dict(init)
+    opt = train.make_optimizer(model)
+    first, _ = train_run(step, model, opt, batch, 3, sync)
+    path = os.path.join(work, f"{name}_train_state.pt")
+    t = time.perf_counter()
+    train.save_train_state(path, model, opt, step=3)
+    save_s = time.perf_counter() - t
+    del model, opt
+    like = bert.trainable(cls, state, config, device=device)
+    like, like_opt, at = train.load_train_state(
+        path, like, train.make_optimizer(like))
+    rest, _ = train_run(step, like, like_opt, batch, TRAIN_STEPS - 3, sync)
+    os.unlink(path)
+    resumed = first + rest
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    if at != 3 or err > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"{name} resume: {resumed} vs {straight}")
+    if read_launches() != launches0:
+        raise AssertionError(f"{name}: training launched a kernel "
+                             f"{read_launches()} vs {launches0}")
+    del like, like_opt
+    row = {"model": name, "shape": list(shape), "dtype": "float32",
+           "losses": straight, "resumed": resumed, "resume_rel_err": err,
+           "ms_per_step": ms, "max_memory_allocated": peak,
+           "save_train_state_s": save_s,
+           "parameters": sum(int(np.prod(v.shape)) for v in state.values())}
+    emit({"phase": "learning_path", "part": "trainer", "nvidia_smi": gpu,
+          **row})
+    return row
+
+
+def micro_step(cfg, state, device, cut_attention=False):
+    """One InfoNCE step (lr 1e-3) of a trainable bge_micro (``cfg``,
+    ``state``) on ``device``: (every parameter's gradient, every
+    parameter after the step), numpy.  ``cut_attention`` detaches the
+    attention's output, the gradient a kernel without a backward would
+    drop."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert
+
+    model = bert.trainable(bert.BertEncoder, state, cfg, device=device)
+    opt = train.make_optimizer(model, lr=1e-3)
+    rng = np.random.default_rng(5)
+    q = rng.integers(3, cfg.vocab_size, (8, 32)).astype(np.int64)
+    p = rng.integers(3, cfg.vocab_size, (8, 32)).astype(np.int64)
+    mask = np.ones((8, 32), np.int64)
+    mask[3, 20:] = 0
+    plain = bert.attention_plain
+    if cut_attention:
+        bert.attention_plain = lambda *args: plain(*args).detach()
+    try:
+        train.contrastive_loss(model, q, mask, p, mask).backward()
+    finally:
+        bert.attention_plain = plain
+    grads = {n: (torch.zeros_like(t) if t.grad is None else t.grad)
+             .detach().cpu().numpy() for n, t in model.named_parameters()}
+    opt.step()
+    return grads, {n: t.detach().cpu().numpy()
+                   for n, t in model.named_parameters()}
+
+
+def step_parity(device) -> dict:
+    """bge_micro's first InfoNCE step on ``device`` against the CPU's:
+    the largest gradient gap over the largest gradient, the worst gap
+    over its limit (``TRAIN_GRAD_ATOL`` of the largest gradient plus
+    ``TRAIN_GRAD_RTOL`` relative: at most 1), the largest parameter gap
+    after the step, and the same limit ratio for a wrong step (the CPU's
+    with the attention's gradient cut), which must exceed 1."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import loading
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "bge_micro")
+    cfg = loading.load_hf_config(fixture)
+    served = loading.load_params(fixture, cfg, dtype=torch.float32,
+                                 device="cpu")
+    state = {k: v.numpy() for k, v in served.state_dict().items()}
+    grads, params = micro_step(cfg, state, device)
+    want, want_params = micro_step(cfg, state, "cpu")
+    cut, _ = micro_step(cfg, state, "cpu", cut_attention=True)
+    scale = max(float(np.abs(g).max()) for g in want.values())
+
+    def worst(got):
+        return max(float(np.max(np.abs(got[n] - w) / (
+            TRAIN_GRAD_ATOL * scale + TRAIN_GRAD_RTOL * np.abs(w))))
+            for n, w in want.items())
+
+    row = {"grad_gap_over_largest": max(
+               float(np.abs(grads[n] - w).max()) for n, w in want.items())
+           / scale,
+           "grad_gap_over_limit": worst(grads),
+           "param_gap_after_step": max(
+               float(np.abs(params[n] - w).max())
+               for n, w in want_params.items()),
+           "cut_attention_over_limit": worst(cut)}
+    if row["grad_gap_over_limit"] > 1 or row["cut_attention_over_limit"] <= 1:
+        raise AssertionError(f"bge_micro step, {device} vs CPU: {row}")
+    return row
+
+
+def trainers(gpu, device, on_card, model_name, rm_name) -> list:
+    """Phase 15 (c): the InfoNCE step on the embedder's preset and the
+    Bradley-Terry step on the reward model's, full width, f32, TF32 off,
+    and bge_micro's step against the CPU (``step_parity``); no
+    hand-written kernel runs (the counters must not move)."""
+    import shutil
+
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert, deberta
+    from llm_weighted_consensus_tpu_torch.models.configs import PRESETS
+    from llm_weighted_consensus_tpu_torch.models.reranker import RM_PRESETS
+
+    if on_card and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 matmuls")
+    work = os.path.join(REPO, "build", "learning_smoke")
+    os.makedirs(work, exist_ok=True)
+    scale = 1 if on_card else 8
+    rows = [
+        trainer_case(gpu, model_name, bert.BertEncoder, PRESETS[model_name],
+                     train.contrastive_train_step,
+                     (TRAIN_BERT_SHAPE[0] // scale,
+                      TRAIN_BERT_SHAPE[1] // scale), device, on_card, work),
+        trainer_case(gpu, rm_name, deberta.DebertaModel, RM_PRESETS[rm_name],
+                     train.reward_train_step,
+                     (TRAIN_RM_SHAPE[0] // scale,
+                      TRAIN_RM_SHAPE[1] // scale), device, on_card, work),
+    ]
+    shutil.rmtree(work, ignore_errors=True)
+    rows.append({"name": "bge_micro_step_vs_cpu", **step_parity(device)})
+    if on_card:
+        torch.cuda.empty_cache()
+    return rows
+
+
+def learning_path(gpu: str, device: str = "cuda",
+                  model_name: str = "bge-large-en",
+                  rm_name: str = "deberta-v3-base") -> dict:
+    """Phase 15: live judge weights, the offline lane and the learners at
+    full width (random weights from seed 0; bf16 serving, f32 training):
+    ``offline_drive``, ``learner_drill`` and ``trainers`` on one
+    bge-large build through ``build_embedder``, ``build_server`` and
+    ``warm_up``.  The served parts' launches must all be ``tma``
+    attention and ``cluster`` votes replayed from graphs.  (``device=
+    "cpu"`` with the tiny presets rehearses the control flow; the
+    kernel counters count only on the card.)"""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+    )
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    env = {"EMBEDDER_MODEL": model_name, "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1"}
+    emb = build_embedder(env, device=device)
+    layers = emb.config.num_layers
+    try:
+        drive = offline_drive(gpu, emb, on_card)
+        drill = learner_drill(gpu, emb, device, on_card)
+        if on_card:
+            torch.cuda.synchronize()
+        # the traffic's launches: the drill server's warm-up forwards out
+        routes = read_routes() if on_card else None
+        launches = {k: v - drill["warmup_launches"][k]
+                    for k, v in read_launches().items()}
+        dispatches = {k: drive["dispatches"][k] + drill["dispatches"][k]
+                      for k in ("consensus", "embed")}
+        if on_card and (
+                launches["attention"] != layers * sum(dispatches.values())
+                or launches["cosine_vote"] != dispatches["consensus"]
+                or launches["segment_attention"]
+                or launches["w8a8_matmul"] or launches["w4a8_matmul"]):
+            raise AssertionError(f"learning path: {dispatches} dispatches, "
+                                 f"launches {launches}")
+    finally:
+        del emb
+        if on_card:
+            torch.cuda.empty_cache()
+    counted = read_launches()
+    trained = trainers(gpu, device, on_card, model_name, rm_name)
+    if read_launches() != counted:
+        raise AssertionError("the trainers launched a kernel")
+    row = {"phase": "learning_path", "gpu": gpu, "nvidia_smi": gpu,
+           "model": model_name, "layers": layers, "offline": drive,
+           "drill": drill, "trainers": trained, "launches": launches,
+           "routes": routes, "dispatches": dispatches,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
-                   archived, traced, resilient) -> dict:
+                   archived, traced, resilient, learning) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -6686,7 +7382,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     attention entries (the rate-1 main run) and to the segment
     attention's (the traced packed burst); phase 14 adds
     ``resilient_path_launches`` to the main vote and attention entries
-    (its prompt embeds and the memory drill's ``/consensus`` calls).
+    (its prompt embeds and the memory drill's ``/consensus`` calls), and
+    phase 15 ``learning_path_launches`` (the offline drives, the bursts
+    beside them and the learner drill's prompt embeds).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -6890,6 +7588,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                 entry["name"]]
             entry["resilient_path_launches"] = resilient["launches"][
                 entry["name"]]
+            entry["learning_path_launches"] = learning["launches"][
+                entry["name"]]
         elif entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -6979,11 +7679,12 @@ def main() -> int:
     archived = timed("archive_path", archive_path, gpu)
     traced = timed("traced_path", traced_path, gpu)
     resilient = timed("resilient_path", resilient_path, gpu)
+    learning = timed("learning_path", learning_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score, archived, traced, resilient))
+                        score, archived, traced, resilient, learning))
     print(gpu)
     emit({
         "ok": True,

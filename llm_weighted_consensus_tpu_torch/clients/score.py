@@ -55,9 +55,14 @@ degraded with the late judges' ``504`` entries; a degraded frame is never
 cached.  ``bias_plan`` (``JUDGE_BIAS_PLAN``) perturbs one judge's
 extracted vote, for drills.
 
-Not ported yet, each with its own slice: live weights and the fleet.
-The reference's client with those at their default (None) is what this
-client computes.
+Live weights (``WEIGHTS_*``): with a ``weights.live.LiveWeightStore``
+the active table overrides the fetched weights by judge id, its version
+(``base`` without one) is captured once per request and stamped on the
+``consensus:tally`` span and the ledger record, and a staged shadow
+table is compared against every tally.
+
+Not ported yet: the fleet (the reference's client with ``fleet=None`` is
+what this client computes).
 """
 
 from __future__ import annotations
@@ -449,7 +454,9 @@ class ScoreClient:
     ``archive/rescore.py`` re-extract votes from stored logprobs).
     ``resilience`` (a ``resilience.ResiliencePolicy``) adds the shared
     retry budget, the weight quorum and the deadline degrade; ``bias_plan``
-    (a ``resilience.JudgeBiasPlan``) miscalibrates one judge's votes."""
+    (a ``resilience.JudgeBiasPlan``) miscalibrates one judge's votes;
+    ``live_weights`` (a ``weights.live.LiveWeightStore``) overrides the
+    fetched weights with its active table."""
 
     def __init__(
         self,
@@ -465,6 +472,7 @@ class ScoreClient:
         ledger=None,
         resilience=None,
         bias_plan=None,
+        live_weights=None,
     ) -> None:
         self.chat_client = chat_client
         self.model_fetcher = model_fetcher
@@ -490,6 +498,11 @@ class ScoreClient:
         # optional resilience.JudgeBiasPlan: deterministic per-judge vote
         # perturbation at the extraction seam (drills only)
         self.bias_plan = bias_plan
+        # optional weights.live.LiveWeightStore (WEIGHTS_*): versioned
+        # per-judge weight overrides behind atomic hot-swap, with the
+        # applied version stamped on every tally span and ledger record
+        # and the shadow table's would-have-flipped counters
+        self.live_weights = live_weights
 
     # -- unary (client.rs:71-91) --------------------------------------------
 
@@ -623,12 +636,22 @@ class ScoreClient:
         except ResponseError as e:
             raise FetchModelWeightsError(e) from e
 
+        # live weight overrides (weights/live.py): the (weights, version)
+        # pair is captured HERE, in one store read, and threaded through
+        # the whole stream, so a hot swap mid-request can never mix two
+        # versions inside one tally
+        weights_version = None
+        if self.live_weights is not None:
+            weights, weights_version = self.live_weights.apply(
+                model, weights
+            )
+
         initial_chunk = self._initial_chunk(
             resp_id, created, model, internal_choices
         )
         return self._stream(
             ctx, resp_id, created, model, request, weights, weight_data,
-            initial_chunk, n_choices,
+            initial_chunk, n_choices, weights_version=weights_version,
         )
 
     def _initial_chunk(
@@ -666,7 +689,7 @@ class ScoreClient:
 
     async def _stream(
         self, ctx, resp_id, created, model, request, weights, weight_data,
-        initial_chunk, n_choices,
+        initial_chunk, n_choices, weights_version=None,
     ):
         # usage seeded by embeddings evidence for trained weights
         # (client.rs:330-337)
@@ -983,8 +1006,14 @@ class ScoreClient:
                 weight_sum=float(weight_sum),
                 winner=winner,
                 degraded=degraded,
+                **({"weights_version": weights_version}
+                   if weights_version is not None else {}),
             )
             tspan.finish()
+        if self.live_weights is not None:
+            # shadow-mode comparison: re-tally the same ballots under the
+            # staged table; pure observation, the result is already final
+            self.live_weights.observe_shadow(quality_ballots, n_choices)
         trace_id = obs.current_trace_id()
         # consensus-quality aggregates (obs/quality.py): always on, like
         # the phase aggregate below
@@ -1015,9 +1044,9 @@ class ScoreClient:
                 "quorum_degraded": quorum_degraded,
                 "all_failed": all_failed,
                 "trace_id": trace_id,
-                # no live weight table in the port: the version is None,
-                # as the reference's record says without one
-                "weights_version": None,
+                # the table version that scored this request: "base" with
+                # no active table, None with no live weight store
+                "weights_version": weights_version,
                 "judges": ledger_judges,
             })
         # host_tally phase: the weighted-vote fold + final-frame build

@@ -15,7 +15,12 @@ Counterpart of ``llm_weighted_consensus_tpu/models/bert.py``:
   attention, per-segment positions and one pooled vector per segment;
 * attention goes through ``ops.attention.attention`` (padded) or
   ``segment_attention`` (packed): the CUDA kernel for tensors on the
-  card, its plain version on the CPU.  No other path exists on the card;
+  card, its plain version on the CPU.  ``encode(...,
+  attention_impl="plain")`` (and ``embed``'s) runs the plain versions on
+  either device: the trainers' differentiable path (``train/``), the
+  counterpart of the reference's ``attention_impl="einsum"`` (in the
+  trainers' f32 the two are one computation), since the kernels define
+  no backward;
 * the dense layers go through ``layers.dense_cfg`` / ``mlp_cfg``: a layer
   stack quantized by ``models.quant`` (``QuantLinear``) runs the W8A8 or
   W4A8 kernel for every dense layer, with the GELU in the MLP expansion's
@@ -32,7 +37,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import attention, segment_attention
+from ..ops.attention import (
+    attention,
+    attention_plain,
+    segment_attention,
+    segment_attention_plain,
+)
 from . import quant
 from .configs import BertConfig, position_base
 from .layers import dense_cfg, layer_norm, mlp_cfg
@@ -131,7 +141,13 @@ class BertEncoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _attention(x, p: BertAttention, key_mask, config: BertConfig):
+# ``encode``'s attention choices: "auto" (the kernel on the card, its
+# plain version on the CPU) and "plain" (the plain version on either)
+ATTENTION_IMPLS = ("auto", "plain")
+
+
+def _attention(x, p: BertAttention, key_mask, config: BertConfig,
+               attention_impl: str = "auto"):
     """``key_mask`` is the f32 key bias[b, s] of the padded layout or the
     int32 segment ids[b, s] of the packed one."""
     b, s, h = x.shape
@@ -140,13 +156,18 @@ def _attention(x, p: BertAttention, key_mask, config: BertConfig):
     q = dense_cfg(x, sa.query).view(b, s, nh, hd)
     k = dense_cfg(x, sa.key).view(b, s, nh, hd)
     v = dense_cfg(x, sa.value).view(b, s, nh, hd)
-    fn = attention if key_mask.dtype.is_floating_point else segment_attention
+    plain = attention_impl == "plain"
+    if key_mask.dtype.is_floating_point:
+        fn = attention_plain if plain else attention
+    else:
+        fn = segment_attention_plain if plain else segment_attention
     ctx = fn(q, k, v, key_mask, 1.0 / float(hd) ** 0.5)
     return dense_cfg(ctx.reshape(b, s, h), p.output.dense)
 
 
-def _layer(x, layer: BertLayer, key_mask, config: BertConfig):
-    attn = _attention(x, layer.attention, key_mask, config)
+def _layer(x, layer: BertLayer, key_mask, config: BertConfig,
+           attention_impl: str = "auto"):
+    attn = _attention(x, layer.attention, key_mask, config, attention_impl)
     x = layer.attention.output.LayerNorm(x + attn)
     mlp = mlp_cfg(x, layer.intermediate.dense, layer.output.dense)
     return layer.output.LayerNorm(x + mlp)
@@ -171,9 +192,13 @@ def encode(
     token_type_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
+    attention_impl: str = "auto",
 ) -> torch.Tensor:
     """input_ids[b, s], attention_mask[b, s] -> hidden[b, s, h] in the
     param dtype.  Positions are left-aligned from ``position_base``.
+    ``attention_impl`` is ``"auto"`` (the kernel on the card, its plain
+    version on the CPU) or ``"plain"`` (the plain version on either
+    device: the differentiable path the trainers take).
 
     The packed layout passes int32 ``segment_ids[b, s]`` (0 = pad slot)
     and ``positions[b, s]`` (restarting at 0 in each segment) instead of
@@ -183,6 +208,11 @@ def encode(
     runs here for positions on the CPU; on the card the caller makes it
     from its host copy before the upload (``TorchEmbedder.embed_packed``),
     so no device sync is added."""
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention_impl={attention_impl!r}: the port takes one of "
+            f"{ATTENTION_IMPLS}"
+        )
     config = model.config
     b, s = input_ids.shape
     base = position_base(config)
@@ -212,7 +242,7 @@ def encode(
             torch.full((), -1e9, dtype=torch.float32, device=ids.device),
         )
     for layer in model.encoder.layer:
-        x = _layer(x, layer, key_mask, config)
+        x = _layer(x, layer, key_mask, config, attention_impl)
     return x
 
 
@@ -276,9 +306,11 @@ def embed(
     attention_mask: torch.Tensor,
     pooling: str = "cls",
     normalize: bool = True,
+    attention_impl: str = "auto",
 ) -> torch.Tensor:
-    """ids -> pooled vectors [b, h] f32."""
-    hidden = encode(model, input_ids, attention_mask)
+    """ids -> pooled vectors [b, h] f32 (``attention_impl``: ``encode``'s)."""
+    hidden = encode(model, input_ids, attention_mask,
+                    attention_impl=attention_impl)
     return pool(hidden, attention_mask, pooling, normalize)
 
 
@@ -353,6 +385,19 @@ def build_from_state(
                 )
             param.copy_(value.to(device=device, dtype=dtype))
     return model.requires_grad_(False).eval()
+
+
+def trainable(cls, state: dict, config, device=None) -> nn.Module:
+    """A model to train (``train/``): ``build_from_state`` in f32 with
+    gradients on, in train mode, on CUDA unless ``device="cpu"``.  The
+    trainers run it with ``attention_impl="plain"`` (the kernels define
+    no backward: their wrappers refuse an input that requires grad).  A
+    quantized ``state`` is refused: int8 and int4 weights cannot
+    train."""
+    if any(name.endswith(".weight_q") for name in state):
+        raise ValueError("a quantized state cannot train")
+    model = build_from_state(cls, state, config, torch.float32, device)
+    return model.requires_grad_(True).train()
 
 
 def random_state(cls, config, seed: int) -> dict:

@@ -15,7 +15,8 @@ Counterparts of ``llm_weighted_consensus_tpu/ops/attention.py``'s
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel
 (read straight from the [b, s, nh, hd] layout, no head transposes) or
-raises.  ``attention_route`` and ``segment_attention_route`` pick the
+raises, and so does one that requires grad under grad mode (the kernels
+define no backward: ``launches.refuse_grad``).  ``attention_route`` and ``segment_attention_route`` pick the
 kernel from dtype, head dim, strides and alignment alone:
 
 * ``"tma"``: bf16, hd 64, every base 16-byte aligned and every stride a
@@ -244,6 +245,7 @@ def kernel_tile_schedule(q, k, v, segment_ids, scale):
     _check_qkv("kernel_tile_schedule", q, k, v, segment_ids, torch.int32)
     if segment_attention_route(q, k, v) != "tma":
         raise ValueError("kernel_tile_schedule takes a call of the tma route")
+    launches.refuse_grad("kernel_tile_schedule", q, k, v)
     b, s = segment_ids.shape
     dims = (ctypes.c_int * 4)()
     _build.library().lwc_attention_seg_tma_tiles(s, dims)
@@ -264,6 +266,7 @@ def attention(
     _check_qkv("attention", q, k, v, bias, torch.float32)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias, scale)
+    launches.refuse_grad("attention", q, k, v, bias)
     route = attention_route(q, k, v)
     entry = "lwc_attention_tma" if route == "tma" else "lwc_attention"
     out = _launch(entry, q, k, v, bias, scale)
@@ -285,6 +288,7 @@ def segment_attention(
     _check_qkv("segment_attention", q, k, v, segment_ids, torch.int32)
     if q.device.type == "cpu":
         return segment_attention_plain(q, k, v, segment_ids, scale)
+    launches.refuse_grad("segment_attention", q, k, v)
     route = segment_attention_route(q, k, v)
     entry = "lwc_attention_seg_tma" if route == "tma" else "lwc_attention_seg"
     out = _launch(entry, q, k, v, segment_ids, scale)

@@ -18,7 +18,9 @@ memory) wherever the plan's shared memory fits a block, which is every
 shape the server makes; ``"block"`` (``csrc/cosine_vote.cu``, one block
 per request) past that.  ``cosine_vote.launches`` counts the kernel
 launches, ``cosine_vote.routes`` the launches per route (``ops.launches``:
-a CUDA graph's launches count at each replay, not at its capture).
+a CUDA graph's launches count at each replay, not at its capture).  Every
+wrapper here refuses, on the card, an input that requires grad under grad
+mode (``launches.refuse_grad``: the kernels define no backward).
 
 Quantized dense layers: ``w8a8_matmul(x, wq, sw, bias, gelu)`` computes
 ``x[..., K] @ wq[N, K]^T`` with per-row dynamic int8 activations, int32
@@ -188,6 +190,7 @@ def cosine_vote(
         )
     if emb.device.type != "cuda":
         raise ValueError(f"cosine_vote: unsupported device {emb.device}")
+    launches.refuse_grad("cosine_vote", emb)
     if not emb.is_contiguous():
         raise ValueError("cosine_vote wants a contiguous emb")
     if counts is not None and not counts.is_contiguous():
@@ -299,6 +302,7 @@ def quantize_rows(x: torch.Tensor, kp: int):
         return quantize_rows_plain(x, kp)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: unsupported device {x.device}")
+    launches.refuse_grad("quantize_rows", x)
     if not x.is_contiguous():
         raise ValueError("quantize_rows wants a contiguous x")
     lib = _build.library()
@@ -380,6 +384,7 @@ def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
     """Launch the row quantisation and the GEMM for ``x[..., K]``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    launches.refuse_grad(name, x, w, sw, bias)
     if not (w.is_contiguous() and sw.is_contiguous()
             and bias.is_contiguous()):
         raise ValueError(f"{name} wants contiguous weight, scale and bias")

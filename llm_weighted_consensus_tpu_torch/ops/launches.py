@@ -12,6 +12,13 @@ captured at each replay, with no wrapper on the host.  So under
 nothing to the counters: it notes the launch in the recording, and
 ``replayed(recording)`` adds the recording's launches once per replay.
 The counters then count the kernels the card ran, eager or replayed.
+
+A kernel's output is a fresh tensor its C entry point fills: it carries
+no ``grad_fn``, so a backward through it would drop the gradient into the
+kernel's inputs without an error.  Each wrapper therefore calls
+``refuse_grad`` before it launches: under grad mode an input that
+requires grad is an error (the trainers run the attention's plain
+version in torch ops, ``models/bert.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,22 @@ from typing import Optional
 
 _lock = threading.Lock()
 _local = threading.local()
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` (None entries
+    skipped) requires grad: the kernel ``what`` has no backward."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but the kernel defines no "
+            "backward and would drop its gradient; run under "
+            "torch.no_grad(), or train through the plain path "
+            "(attention_impl=\"plain\", models.bert.trainable)"
+        )
 
 
 def count(wrapper, route: Optional[str] = None) -> None:

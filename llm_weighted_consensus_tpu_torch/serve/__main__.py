@@ -72,7 +72,10 @@ documented in ``serve/config.py``, and so are the archive's
 (``LEDGER_RING``, ``LEDGER_DIR``, ``LEDGER_ROTATE_BYTES``), judge-side
 resilience (``RESILIENCE_*``, ``FAULT_PLAN``, ``JUDGE_BIAS_PLAN``) and
 the memory governor (``MEMGUARD``, ``MEM_SOFT_BYTES``,
-``MEM_HARD_BYTES``, ``MEMGUARD_INTERVAL_MILLIS``; on by default).  With an
+``MEM_HARD_BYTES``, ``MEMGUARD_INTERVAL_MILLIS``; on by default), and
+live weights and the offline lane (``WEIGHTS_ENABLED``, ``WEIGHTS_PATH``:
+``GET``/``PUT /v1/weights``; ``OFFLINE_ENABLED``, ``OFFLINE_INFLIGHT``:
+``POST /v1/train/rescore``).  With an
 embedder, a training-table panel's weights come from
 ``TorchTrainingTableFetcher`` on the served embedder and batcher (the tables loaded from
 ``TABLES_PATH``), and ``POST /weights/learn`` learns table rows from the
@@ -244,7 +247,8 @@ def build_reranker(env, device=None, dtype=None):
 
 
 def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
-                       ledger=None, resilience=None, fault_plan=None):
+                       ledger=None, resilience=None, fault_plan=None,
+                       live_weights=None):
     """The chat client over the configured upstream endpoints (the stdlib
     transport, wrapped in the fault injector under a ``fault_plan``), and
     the multichat and score clients over it.  Panels
@@ -253,7 +257,7 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
     with ``ARCHIVE_WRITE`` the score client records its ballots there, and
     with an outcome ``ledger`` one record per scored request.  The chat
     and score clients share the ``resilience`` policy; the score client
-    takes ``JUDGE_BIAS_PLAN``.
+    takes ``JUDGE_BIAS_PLAN`` and the ``live_weights`` store.
     The score client answers a training-table panel with 501 until
     ``build_server`` plugs the training-table fetcher in."""
     from ..archive import InMemoryArchive
@@ -305,6 +309,8 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
         resilience=resilience,
         # JUDGE_BIAS_PLAN: deterministic vote perturbation (drills only)
         bias_plan=config.judge_bias_injection_plan(),
+        # WEIGHTS_*: versioned live judge-weight tables (weights/live.py)
+        live_weights=live_weights,
     )
     return chat_client, multichat_client, score_client
 
@@ -373,7 +379,9 @@ def build_server(embedder, reranker, config: ServeConfig,
     injector (``server.resilience``, ``server.fault_plan``); ``MEMGUARD``
     starts the memory governor over the score and row caches, the trace
     ring and the admission limit (``server.memguard``, stopped at
-    close)."""
+    close).  ``WEIGHTS_*`` give the score client its live weight store
+    (``server.live_weights``, ``/v1/weights``; a set ``WEIGHTS_PATH``
+    must be writable) and ``OFFLINE_*`` serve ``/v1/train/rescore``."""
     from ..obs import configure_quality
     from ..weights import WeightFetchers
     from .archive_routes import (
@@ -398,8 +406,20 @@ def build_server(embedder, reranker, config: ServeConfig,
     # on their pre-resilience paths
     resilience = config.resilience_policy()
     fault_plan = config.fault_injection_plan()
+    # WEIGHTS_*: versioned live judge-weight tables behind atomic
+    # hot-swap; None keeps the fetched weights
+    live_weights = config.live_weights()
+    if live_weights is not None and config.weights_path:
+        from ..utils.io import probe_writable_config
+
+        probe_writable_config(
+            config.weights_path,
+            "WEIGHTS_PATH",
+            "hot-swapped weight tables would be lost at shutdown",
+        )
     chat_client, multichat_client, score_client = build_chat_clients(
-        config, score_cache, store, ledger, resilience, fault_plan
+        config, score_cache, store, ledger, resilience, fault_plan,
+        live_weights,
     )
     served = (chat_client, multichat_client, score_client)
     if config.archive_write:
@@ -434,6 +454,11 @@ def build_server(embedder, reranker, config: ServeConfig,
         memguard=memguard,
         # HOST_FASTPATH: the streams' frames on the splice lane
         host_fastpath=config.host_fastpath,
+        # WEIGHTS_* / OFFLINE_*: the live weight hot-swap endpoints and
+        # the offline lane's rescore drive
+        live_weights=live_weights,
+        offline_enabled=config.offline_enabled,
+        offline_inflight=config.offline_inflight,
         **batching,
     )
     if memguard is not None:

@@ -798,32 +798,43 @@ class DeviceBatcher:
                                  token, wd)
         except Exception as exc:
             log.exception("device dispatch failed")
-            for item in group:
-                _settle(item, exc=exc)
-            self._finish(group, t0, token, wd, error=True)
+            self._finish(group, t0, token, wd, exc=exc)
 
     def _await_group(self, group, staged, t0, token, wd) -> None:
         try:
             results = self._finalize_group(staged)
         except Exception as exc:
             log.exception("device dispatch failed at readiness")
-            for item in group:
-                _settle(item, exc=exc)
-            self._finish(group, t0, token, wd, error=True)
+            self._finish(group, t0, token, wd, exc=exc)
             return
+        answers = []
         for item, result in zip(group, results):
             if item.kind == "embed" and not item.per_row:
                 result = (result[0], int(np.sum(result[1])))
-            _settle(item, result)
-        self._finish(group, t0, token, wd, error=False)
+            answers.append(result)
+        self._finish(group, t0, token, wd, results=answers)
 
-    def _finish(self, group, t0, token, wd, *, error: bool) -> None:
-        self._observe(group, t0, token, error=error)
-        if wd is not None:
-            self.watchdog.end(wd)
-        self._slots.release()
-        with self._cond:
-            self._cond.notify_all()
+    def _finish(self, group, t0, token, wd, *, results=None,
+                exc=None) -> None:
+        """Count the dispatch, then answer its items (``results``, or
+        ``exc`` for every one), then free its pipeline slot.  Counting
+        first means a caller woken by its answer reads counters that
+        include its dispatch, as on the reference's one loop (the
+        offline drive's ``lanes``); a fault in the counting still
+        answers the items and frees the slot."""
+        try:
+            self._observe(group, t0, token, error=exc is not None)
+        finally:
+            for k, item in enumerate(group):
+                if exc is not None:
+                    _settle(item, exc=exc)
+                else:
+                    _settle(item, results[k])
+            if wd is not None:
+                self.watchdog.end(wd)
+            self._slots.release()
+            with self._cond:
+                self._cond.notify_all()
 
     def _observe(self, group, t0, token, *, error: bool) -> None:
         end = time.perf_counter()

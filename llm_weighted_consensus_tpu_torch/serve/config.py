@@ -175,6 +175,25 @@ histograms, and ``GET /v1/judges`` / ``/v1/judges/{id}`` serve them):
   timestamped name (``ledger-<pid>-<ts>-<seq>.jsonl``) once it reaches
   this size; ``0`` (the default) keeps one growing file.
 
+Live weights and the offline lane (``weights/live.py``, ``train/``):
+
+* ``WEIGHTS_ENABLED`` — arm the versioned live weight store and the
+  ``GET/PUT /v1/weights`` hot-swap endpoints; per-judge overrides apply
+  to every tally, the applied version is stamped on each
+  ``consensus:tally`` span and ledger record, and a staged shadow table
+  feeds the would-have-flipped counters.  Default off (the routes then
+  answer 403);
+* ``WEIGHTS_PATH`` — persist the live weight tables as JSON
+  (``lwc.weights.v1``) so a hot-swapped table survives a restart;
+  setting it implies ``WEIGHTS_ENABLED``;
+* ``OFFLINE_ENABLED`` — expose ``POST /v1/train/rescore``: a drive of
+  the batcher's offline priority class (synthetic candidate groups
+  re-scored whenever the latency lane has no ready group).  Default off
+  (403); the offline class itself always exists in the batcher;
+* ``OFFLINE_INFLIGHT`` — candidate groups the offline feeder keeps in
+  flight (its only backpressure: offline items skip the queue-depth
+  shed).  Default 4, and at least 1 when ``OFFLINE_ENABLED``.
+
 Judge-side resilience (``resilience/``; all opt-in — with every knob
 unset ``resilience_policy()`` is None and the wire bytes are the
 pre-resilience ones), the reference's knobs and defaults:
@@ -442,6 +461,10 @@ class ServeConfig:
     ledger_ring: int = 0
     ledger_dir: Optional[str] = None
     ledger_rotate_bytes: int = 0
+    weights_enabled: bool = False
+    weights_path: Optional[str] = None
+    offline_enabled: bool = False
+    offline_inflight: int = 4
     resilience_breaker_threshold: float = 0.0
     resilience_breaker_window: int = 20
     resilience_breaker_min_samples: int = 5
@@ -542,6 +565,10 @@ class ServeConfig:
             ledger_rotate_bytes=_non_negative_int(
                 env, "LEDGER_ROTATE_BYTES", 0
             ),
+            weights_enabled=env_truthy(env.get("WEIGHTS_ENABLED", "0")),
+            weights_path=env.get("WEIGHTS_PATH"),
+            offline_enabled=env_truthy(env.get("OFFLINE_ENABLED", "0")),
+            offline_inflight=_non_negative_int(env, "OFFLINE_INFLIGHT", 4),
             resilience_breaker_threshold=get_f(
                 "RESILIENCE_BREAKER_THRESHOLD", 0
             ),
@@ -635,6 +662,12 @@ class ServeConfig:
                 "WARMUP_R is set but WARMUP is empty: the grouped-path "
                 "warmup needs NxS shapes to compile (set WARMUP, e.g. "
                 "WARMUP=64x112 WARMUP_R=2)"
+            )
+        if config.offline_enabled and config.offline_inflight < 1:
+            raise ValueError(
+                f"OFFLINE_INFLIGHT={config.offline_inflight} must be >= 1 "
+                "(concurrent offline-lane groups; a zero-slot rescore "
+                "drive can never make progress)"
             )
         return config
 
@@ -755,6 +788,17 @@ class ServeConfig:
             disk_dir=self.ledger_dir,
             rotate_bytes=self.ledger_rotate_bytes,
         )
+
+    def live_weights(self):
+        """The configured ``LiveWeightStore``, or None when nothing
+        enables it (None keeps the scoring path on its fetched weights).
+        ``WEIGHTS_PATH`` alone implies enabled: pointing at a table means
+        serving it."""
+        if not (self.weights_enabled or self.weights_path):
+            return None
+        from ..weights.live import LiveWeightStore
+
+        return LiveWeightStore(path=self.weights_path)
 
     def packed_buckets(self) -> list:
         """The packed (B, L, K) buckets to warm, as the reference picks

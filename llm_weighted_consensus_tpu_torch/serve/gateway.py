@@ -37,11 +37,17 @@ bodies, responses and input validation:
 * ``GET /v1/judges`` -> ``{"window", "drift_threshold", "judges": [...]}``
   and ``GET /v1/judges/{judge_id}`` -> one judge's scorecard
   (``obs/quality.py``, always served; 404 ``unknown judge id``);
+* ``GET /v1/weights`` -> the live weight store's active table, shadow
+  table and shadow counters, and ``PUT /v1/weights`` -> installs or
+  clears a table (``weights_put``; admission-exempt), when the server
+  has a store (``WEIGHTS_*``), else 403 both;
+* ``POST /v1/train/rescore`` -> a drive of the batcher's offline lane
+  (``OfflineRescore``), when ``OFFLINE_ENABLED``, else 403;
 * ``GET /v1/traces`` -> ``{"traces": [...]}`` (newest first, ``?limit=``,
   default 50) and ``GET /v1/traces/{trace_id}`` -> the span tree, when
   the server has a trace sink (``TRACE_*``; 404 ``unknown trace_id``).
-  Both families answer through ``json.dumps``, as the reference's
-  aiohttp ``json_response`` does.
+  These families and the two above answer through ``json.dumps``, as
+  the reference's aiohttp ``json_response`` does.
 
 Tracing (``obs/``, when the server has a trace sink): each request but
 the probes, ``/metrics``, ``/v1/traces`` and ``/v1/judges`` is traced on
@@ -120,6 +126,8 @@ log = logging.getLogger("lwc.torch.gateway")
 
 # the reference's request-size ceiling on /consensus
 MAX_CONSENSUS_CANDIDATES = 256
+# the offline lane's drive (OFFLINE_ENABLED; 403 when off)
+RESCORE_PATH = "/v1/train/rescore"
 # the default request-body cap (``MAX_BODY_BYTES``; aiohttp's own default,
 # which the reference keeps when the knob is 0)
 MAX_BODY_BYTES = 1024 * 1024
@@ -284,9 +292,111 @@ def judges_response(path: str):
     return 200, card
 
 
+WEIGHTS_DISABLED = {
+    "code": 403,
+    "message": "live weights disabled: set WEIGHTS_ENABLED=1 "
+    "or WEIGHTS_PATH",
+}
+OFFLINE_DISABLED = {
+    "code": 403,
+    "message": "offline lane disabled: set OFFLINE_ENABLED=1 "
+    "(and configure EMBED_MODEL)",
+}
+
+
+def weights_put(store, raw: bytes):
+    """(status, body obj) of ``PUT /v1/weights``: ``{"weights": {judge
+    id: number}, "version"?: str, "mode"?: "active" | "shadow"}``
+    installs a table (an empty ``weights`` clears the mode's slot); a
+    body that is not a JSON object with a ``weights`` object, or a table
+    the store refuses, is a 400 that leaves the active table alone."""
+    try:
+        body = jsonutil.loads(raw.decode("utf-8"))
+    except Exception:
+        return 400, {"code": 400, "message": "body must be a JSON object"}
+    if not isinstance(body, dict) or not isinstance(
+        body.get("weights"), dict
+    ):
+        return 400, {"code": 400, "message": 'body needs a "weights" object'}
+    mode = body.get("mode", "active")
+    try:
+        if not body["weights"]:
+            store.clear(mode=mode)
+            return 200, {"ok": True, "cleared": mode}
+        version = store.put(
+            body["weights"], version=body.get("version"), mode=mode
+        )
+    except ValueError as e:
+        return 400, {"code": 400, "message": str(e)}
+    return 200, {"ok": True, "version": version, "mode": mode}
+
+
+class OfflineRescore:
+    """``POST /v1/train/rescore``: drive deterministic synthetic candidate
+    groups through the batcher's offline priority class
+    (``train.feed.OfflineFeed``) and answer the lane stats.  Body, all
+    optional: ``{"groups": int (1-4096, default 32), "n": int (2-256,
+    default 8), "seed": int, "inflight": int (1-64, default
+    OFFLINE_INFLIGHT), "temperature": float (default 0.05)}``; a body
+    that is not JSON counts as ``{}``, a value that is not a number is a
+    400.  The drive runs to its end on the handler thread, on an event
+    loop of its own, and answers ``{"ok", "groups", "items", "errors",
+    "offline_occupancy", "lanes"}``.  One drive at a time: another one
+    posted meanwhile gets 409 (two saturators would count each other's
+    idle)."""
+
+    def __init__(self, batcher, default_inflight: int = 4) -> None:
+        self.batcher = batcher
+        self.default_inflight = default_inflight
+        self._lock = threading.Lock()
+
+    def __call__(self, raw: bytes):
+        import asyncio
+
+        from ..train.feed import OfflineFeed, synthetic_groups
+
+        if not self._lock.acquire(blocking=False):
+            return 409, {"code": 409,
+                         "message": "a rescore drive is already running"}
+        try:
+            try:
+                body = jsonutil.loads(raw.decode("utf-8")) if raw else {}
+            except Exception:
+                body = {}
+            if not isinstance(body, dict):
+                body = {}
+            try:
+                n_groups = max(1, min(int(body.get("groups", 32)), 4096))
+                n = max(2, min(int(body.get("n", 8)),
+                               MAX_CONSENSUS_CANDIDATES))
+                seed = int(body.get("seed", 0))
+                inflight = max(1, min(
+                    int(body.get("inflight", self.default_inflight)), 64))
+                temperature = float(body.get("temperature", 0.05))
+            except (TypeError, ValueError):
+                return 400, {"code": 400,
+                             "message": "rescore params must be numeric"}
+            feed = OfflineFeed(self.batcher, inflight=inflight)
+            _results, occupancy = asyncio.run(feed.drive(
+                synthetic_groups(n_groups, n, seed=seed),
+                temperature=temperature,
+            ))
+        finally:
+            self._lock.release()
+        return 200, {
+            "ok": True,
+            "groups": feed.groups,
+            "items": feed.items,
+            "errors": feed.errors,
+            "offline_occupancy": occupancy,
+            "lanes": self.batcher.utilization()["lanes"],
+        }
+
+
 def make_handler(embedder, batcher, reranker, metrics, admission,
                  lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES,
-                 trace_sink=None, default_deadline_ms=0.0):
+                 trace_sink=None, default_deadline_ms=0.0,
+                 live_weights=None, offline_rescore=None):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
@@ -445,6 +555,11 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 answer = judges_response(path)
             if answer is not None:
                 self._send(*answer)
+            elif path == "/v1/weights":
+                if live_weights is None:
+                    self._send(403, WEIGHTS_DISABLED)
+                else:
+                    self._send(200, live_weights.wire())
             elif path in ("/healthz", "/livez"):
                 self._send(200, {"ok": True})
             elif path == "/readyz":
@@ -463,10 +578,71 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
         def do_POST(self):
             self._traced("POST", self._post_route)
 
+        def do_PUT(self):
+            self._traced("PUT", self._put_route)
+
+        def _raw_body(self):
+            """The request's raw body, or None once a 400 (malformed
+            content-length) or the 413 (the body cap) has been sent."""
+            try:
+                length = int(self.headers.get("content-length") or 0)
+            except ValueError:
+                length = -1
+            if length < 0:
+                self.close_connection = True
+                self._send_raw(400, jsonutil.dumps(with_trace_id({
+                    "code": 400, "message": "malformed content-length",
+                })).encode())
+                return None
+            if length >= body_cap:
+                self.close_connection = True
+                self._send_raw(413, payload_too_large())
+                return None
+            return self.rfile.read(length) if length else b""
+
+        def _put_route(self):
+            """``PUT /v1/weights``: admission-exempt (promoting a table
+            is a tiny admin swap an operator may need mid-overload, as
+            the reference's gate exempts it), under the body cap."""
+            t0 = time.perf_counter()
+            if self.path != "/v1/weights":
+                self.close_connection = True  # its body stays unread
+                self._error(404, f"no route PUT {self.path}")
+                return
+            self._series = ("http:/v1/weights", t0)
+            raw = self._raw_body()
+            if raw is None:
+                return
+            if live_weights is None:
+                self._send(403, WEIGHTS_DISABLED)
+            else:
+                self._send(*weights_put(live_weights, raw))
+
+        def _post_rescore(self) -> None:
+            raw = self._raw_body()
+            if raw is None:
+                return
+            if offline_rescore is None:
+                self._send(403, OFFLINE_DISABLED)
+                return
+            deadline = self._deadline()
+            token = deadline.activate() if deadline is not None else None
+            try:
+                answer = offline_rescore(raw)
+            except Exception:  # the server keeps serving; detail to the log
+                log.exception("request failed: POST /v1/train/rescore")
+                self._error(500, "internal server error")
+                return
+            finally:
+                if token is not None:
+                    Deadline.deactivate(token)
+            self._send(*answer)
+
         def _post_route(self):
             t0 = time.perf_counter()
             path = self.path
-            host_route = chat_routes is not None and chat_routes.serves(path)
+            host_route = path == RESCORE_PATH or (
+                chat_routes is not None and chat_routes.serves(path))
             if path not in device_routes and not host_route:
                 self.close_connection = True  # its body stays unread
                 self._error(404, f"no route POST {path}")
@@ -492,7 +668,9 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             obs.annotate(admission_inflight=admission.inflight,
                          admission_wait_ms=round(wait_ms, 3))
             try:
-                if host_route:
+                if path == RESCORE_PATH:
+                    self._post_rescore()
+                elif host_route:
                     self._post_chat(path)
                 else:
                     self._post(path)
@@ -518,21 +696,9 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             return Deadline(ms / 1000.0) if ms > 0 else None
 
         def _post_chat(self, path: str) -> None:
-            try:
-                length = int(self.headers.get("content-length") or 0)
-            except ValueError:
-                length = -1
-            if length < 0:
-                self.close_connection = True
-                self._send_raw(400, jsonutil.dumps(with_trace_id({
-                    "code": 400, "message": "malformed content-length",
-                })).encode())
+            raw = self._raw_body()
+            if raw is None:
                 return
-            if length >= body_cap:
-                self.close_connection = True
-                self._send_raw(413, payload_too_large())
-                return
-            raw = self.rfile.read(length) if length else b""
             chat_routes.serve(self, path, raw, self._deadline(), metrics)
 
         def _post(self, path: str) -> None:
@@ -643,7 +809,12 @@ class Server:
     "memory"`` under hard pressure, flags ``/readyz``, adds the
     ``memguard`` section and is stopped with the server (``build_server``
     governs the budgets and starts it).  ``host_fastpath`` puts the
-    streams' frames on the splice lane (``serve/frames.py``)."""
+    streams' frames on the splice lane (``serve/frames.py``).
+    ``live_weights`` (a ``weights.live.LiveWeightStore``, the score
+    client's) serves ``GET``/``PUT /v1/weights`` and the ``weights``
+    section; ``offline_enabled`` (with an embedder) serves ``POST
+    /v1/train/rescore``, ``offline_inflight`` groups in flight by
+    default.  Either route answers 403 when off."""
 
     def __init__(
         self,
@@ -670,6 +841,9 @@ class Server:
         fault_plan=None,
         memguard=None,
         host_fastpath: bool = False,
+        live_weights=None,
+        offline_enabled: bool = False,
+        offline_inflight: int = 4,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -721,7 +895,12 @@ class Server:
                           self.lifecycle, memguard)
         register_resilience(self.metrics, resilience, fault_plan)
         register_graphs(self.metrics, embedder=embedder, reranker=reranker)
-        register_quality(self.metrics, ledger)
+        register_quality(self.metrics, ledger, live_weights)
+        self.live_weights = live_weights
+        self.offline_rescore = (
+            OfflineRescore(self.batcher, offline_inflight)
+            if offline_enabled and self.batcher is not None else None
+        )
         self.trace_sink = trace_sink
         if trace_sink is not None:
             self.metrics.register_provider("traces", trace_sink.snapshot)
@@ -751,7 +930,7 @@ class Server:
                          self.admission, self.lifecycle, self.chat_routes,
                          max_body_bytes, trace_sink,
                          resilience.deadline_ms if resilience is not None
-                         else 0.0),
+                         else 0.0, live_weights, self.offline_rescore),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:

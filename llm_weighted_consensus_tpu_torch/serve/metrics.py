@@ -29,7 +29,8 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
 * ``quality``: judge scorecards, pairwise kappa, drift flags, the margin
   histogram and outcome rates (``obs/quality.py``, always on), and
   ``ledger``: the outcome ledger's counters, when ``LEDGER_*`` turns it
-  on (``register_quality``).
+  on, and ``weights``: the live weight store's versions and counters,
+  when ``WEIGHTS_*`` turns it on (``register_quality``).
 
 A series observed with a ``trace_id`` keeps the newest as its exemplar:
 the JSON snapshot names it, and the Prometheus text attaches it to the
@@ -38,7 +39,7 @@ bucket line its latency falls in.
 Two expositions off one store: the JSON snapshot (the reference's shape)
 and, with ``?format=prometheus``, OpenMetrics text whose shared families
 (uptime, series, phase, device, the quality families, the memory
-governor's, lanes) render as the reference renders them.  One lock guards the series: the handler, dispatch and waiter
+governor's, lanes, live weights) render as the reference renders them.  One lock guards the series: the handler, dispatch and waiter
 threads all observe.
 """
 
@@ -66,6 +67,7 @@ KNOWN_SECTIONS = (
     "quality",
     "ledger",
     "memguard",
+    "weights",
 )
 
 PROM_CONTENT_TYPE = (
@@ -203,15 +205,20 @@ def register_overload(metrics: Metrics, admission=None, watchdog=None,
         metrics.register_provider("memguard", memguard.snapshot)
 
 
-def register_quality(metrics: Metrics, ledger=None) -> None:
+def register_quality(metrics: Metrics, ledger=None, live_weights=None
+                     ) -> None:
     """The ``quality`` section (the process-global judge scorecards,
-    pairwise kappa, drift flags, margin histogram and outcome rates) and,
-    with an outcome ledger, its ``ledger`` section."""
+    pairwise kappa, drift flags, margin histogram and outcome rates),
+    with an outcome ledger its ``ledger`` section, and with a live weight
+    store its ``weights`` section (active and shadow versions, swap and
+    shadow-comparison counters)."""
     from ..obs import quality as _quality
 
     metrics.register_provider("quality", _quality.quality_snapshot)
     if ledger is not None:
         metrics.register_provider("ledger", ledger.snapshot)
+    if live_weights is not None:
+        metrics.register_provider("weights", live_weights.snapshot)
 
 
 def register_graphs(metrics: Metrics, **models) -> None:
@@ -405,6 +412,28 @@ def render_prometheus(metrics: Metrics) -> str:
             lines.append(
                 f'lwc_batcher_shed_total{{reason="{reason}"}} '
                 f"{batcher.get(key, 0)}"
+            )
+
+    weights = metrics.provider_section("weights")
+    if isinstance(weights, dict):
+        lines += prom_family(
+            "lwc_weights_swaps",
+            "counter",
+            "Live weight-table installs (active + shadow).",
+        )
+        lines.append(f"lwc_weights_swaps_total {weights.get('swaps', 0)}")
+        lines += prom_family(
+            "lwc_weights_shadow",
+            "counter",
+            "Shadow-table comparisons by kind (compared/would_flip).",
+        )
+        for kind, key in (
+            ("compared", "shadow_compared"),
+            ("would_flip", "shadow_would_flip"),
+        ):
+            lines.append(
+                f'lwc_weights_shadow_total{{kind="{kind}"}} '
+                f"{weights.get(key, 0)}"
             )
 
     graphs = metrics.provider_section("graphs")

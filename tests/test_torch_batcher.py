@@ -239,6 +239,25 @@ def test_offline_lane_waits_for_the_latency_lane(micro):
     assert 0.0 < occupancy <= 1.0
 
 
+def test_a_fault_in_the_counting_still_answers_and_frees_the_slot(micro):
+    _, port = micro
+
+    class FaultyMetrics(Metrics):
+        def observe(self, name, *args, **kwargs):
+            if name.startswith("device:batch:"):
+                raise RuntimeError("metrics fault")
+            return super().observe(name, *args, **kwargs)
+
+    with DeviceBatcher(port, FaultyMetrics(), window_ms=0.0,
+                       pipeline_depth=1) as batcher:
+        first = batcher.submit_embed(["one"]).result(30)
+        # one pipeline slot: a slot left held would stall this dispatch
+        second = batcher.submit_embed(["two"]).result(30)
+        util = batcher.utilization()
+    assert first[0].shape[0] == second[0].shape[0] == 1
+    assert util["dispatches"] == 2
+
+
 def test_pipelined_groups_resolve_in_their_own_futures(micro):
     _, port = micro
     want = [port.consensus_confidence(t) for t in CONS]

@@ -31,7 +31,12 @@ per-row ones on the card 1e-5; the training-table lookup on the card
 against the CPU 1e-6 relative (ties in index order), and one
 trained-weight score request on bge_micro card vs CPU 1e-5 relative on
 the weights, the rest of its final frame equal (also for a
-quorum-degraded request through a graphed server).
+quorum-degraded request through a graphed server); the learners, in f32
+with TF32 off: one InfoNCE step on bge_micro card vs CPU, the loss 1e-5
+relative, every gradient 1e-4 of the largest gradient plus 1e-3
+relative, the next step's loss 1e-4; the judge-weight fit 1e-5 on the
+weights and 1e-5 relative on its losses.  Every kernel wrapper refuses an
+input that requires grad under grad mode.
 """
 
 import os
@@ -1591,3 +1596,129 @@ def test_softmax_votes_on_the_card_match_the_cpu(card):
     assert got.device.type == "cuda"
     assert float((got.cpu() - want).abs().max()) <= 1e-6
     assert not got[2].any() and not got[3].any()
+
+
+# -- the learners: grad refusal, a training step and the weight fit --------
+
+
+def _grad_cases(card):
+    """(name, call) for every kernel wrapper, on card tensors that
+    require grad (the first argument of each)."""
+    from llm_weighted_consensus_tpu_torch.models import quant as q
+
+    g = torch.Generator().manual_seed(0)
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(card, dtype) \
+            .requires_grad_(True)
+
+    qkv = [leaf(2, 64, 4, 64) for _ in range(3)]
+    bias = torch.zeros(2, 64, device=card)
+    seg = torch.ones(2, 64, dtype=torch.int32, device=card)
+    w = torch.randn(128, 64, generator=g)
+    wq, sw = q.quantize_weight(w)
+    w4, sw4 = q.quantize_weight_int4(w)
+    b = torch.zeros(128, device=card)
+    return [
+        ("attention", lambda: attention.attention(*qkv, bias, 0.125)),
+        ("segment_attention",
+         lambda: attention.segment_attention(*qkv, seg, 0.125)),
+        ("cosine_vote", lambda: kernels.cosine_vote(
+            leaf(2, 8, 64, dtype=torch.float32))),
+        ("quantize_rows", lambda: kernels.quantize_rows(leaf(4, 64), 64)),
+        ("w8a8_matmul", lambda: kernels.w8a8_matmul(
+            leaf(4, 64), wq.to(card), sw.to(card), b)),
+        ("w4a8_matmul", lambda: kernels.w4a8_matmul(
+            leaf(4, 64), w4.to(card), sw4.to(card), b)),
+    ]
+
+
+def test_every_kernel_wrapper_refuses_an_input_that_requires_grad(card):
+    """A kernel's output carries no grad_fn: under grad mode a wrapper
+    raises rather than drop the gradient; under no_grad it launches."""
+    for name, call in _grad_cases(card):
+        wrapper = getattr(attention, name, None) or getattr(kernels, name)
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert wrapper.launches == before, name
+        with torch.no_grad():
+            call()
+        assert wrapper.launches > before, name
+
+
+def _train_step(device):
+    """One InfoNCE step of a trainable bge_micro on ``device`` from the
+    fixture's weights, then a second: (the loss and every parameter's
+    gradient of the first step, the second step's loss)."""
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert
+
+    cfg = loading.load_hf_config(FIXTURE)
+    served = loading.load_params(FIXTURE, cfg, dtype=torch.float32,
+                                 device="cpu")
+    state = {k: v.numpy() for k, v in served.state_dict().items()}
+    model = bert.trainable(bert.BertEncoder, state, cfg, device=device)
+    opt = train.make_optimizer(model, lr=1e-3)
+    rng = np.random.default_rng(5)
+    q = rng.integers(3, cfg.vocab_size, (8, 32)).astype(np.int64)
+    p = rng.integers(3, cfg.vocab_size, (8, 32)).astype(np.int64)
+    mask = np.ones((8, 32), np.int64)
+    mask[3, 20:] = 0
+    before = attention.attention.launches
+    loss = train.contrastive_loss(model, q, mask, p, mask)
+    loss.backward()
+    grads = {n: t.grad.detach().cpu().numpy()
+             for n, t in model.named_parameters()}
+    opt.step()
+    second = train.contrastive_train_step(model, opt, q, mask, p, mask)
+    assert attention.attention.launches == before
+    for i in range(cfg.num_layers):
+        for proj in ("query", "key", "value"):
+            name = f"encoder.layer.{i}.attention.self.{proj}.weight"
+            assert float(np.abs(grads[name]).max()) > 0, name
+    return float(loss.detach()), grads, float(second)
+
+
+def test_one_bge_micro_training_step_on_the_card_matches_the_cpu(card):
+    """f32, TF32 off: the first step's loss and every parameter's
+    gradient on the card against the CPU's (loss 1e-5 relative,
+    gradients 1e-4 of the largest gradient plus 1e-3 relative: f32
+    reassociation across the two matmul libraries; a gradient that is 0
+    in exact arithmetic, such as the key biases', is noise on both), and
+    the second step's loss 1e-4; no kernel launches."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    loss, grads, second = _train_step(card)
+    want_loss, want_grads, want_second = _train_step("cpu")
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    scale = max(float(np.abs(g).max()) for g in want_grads.values())
+    for name, value in want_grads.items():
+        np.testing.assert_allclose(grads[name], value, rtol=1e-3,
+                                   atol=1e-4 * scale, err_msg=name)
+    np.testing.assert_allclose(second, want_second, atol=1e-4)
+
+
+def test_fit_weights_on_the_card_matches_the_cpu(card):
+    """The judge-weight fit on the card against the CPU on a
+    miscalibrated panel: 1e-5 on the mean-normalized weights."""
+    from llm_weighted_consensus_tpu_torch.train import fit
+
+    rng = np.random.default_rng(9)
+    records = []
+    for i in range(200):
+        n = int(rng.integers(2, 6))
+        judges = []
+        for j in range(7):
+            vote = rng.random(n) ** 3
+            if j == 6 and i >= 50:  # the miscalibrated judge
+                vote = vote[::-1]
+            judges.append({"model": f"judge-{j}",
+                           "vote": (vote / vote.sum()).tolist(),
+                           "weight": 1.0 + j % 3})
+        records.append({"id": f"r{i}", "n_choices": n, "label": 0,
+                        "judges": judges})
+    dataset = fit.build_dataset(records)
+    got, got_losses = fit.fit_losses(dataset, steps=300, device=card)
+    want, want_losses = fit.fit_losses(dataset, steps=300, device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)

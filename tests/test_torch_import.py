@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
-the JAX package, nor ``xxhash`` or ``aiohttp``, which the card's machine
-does not have.
+the JAX package, nor ``optax``/``orbax`` (its trainers are torch's), nor
+``xxhash`` or ``aiohttp``, which the card's machine does not have.
 
 A subprocess imports every module of ``llm_weighted_consensus_tpu_torch``
 (and ``chip_smoke.py``) with ``jax``, ``jaxlib``,
@@ -18,7 +18,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "llm_weighted_consensus_tpu_torch"
-BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp")
+BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp",
+          "optax", "orbax")
 
 _PROBE = r"""
 import importlib
@@ -26,7 +27,8 @@ import json
 import pkgutil
 import sys
 
-BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp")
+BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp",
+          "optax", "orbax")
 
 
 class _Poison:
@@ -97,7 +99,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "obs", "obs.span", "obs.sink", "obs.propagate", "obs.quality",
         "obs.ledger", "resilience", "resilience.breaker", "resilience.hedge",
         "resilience.quorum", "resilience.faults", "resilience.memguard",
-        "serve.frames",
+        "serve.frames", "weights.live", "train", "train.feed",
+        "train.fit", "train.__main__",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

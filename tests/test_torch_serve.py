@@ -807,7 +807,8 @@ KNOBS = ("max_body_bytes", "admission_max_inflight",
          "resilience_hedge_millis", "resilience_hedge_quantile",
          "resilience_deadline_millis", "resilience_quorum", "fault_plan",
          "judge_bias_plan", "memguard_enabled", "mem_soft_bytes",
-         "mem_hard_bytes", "memguard_interval_millis")
+         "mem_hard_bytes", "memguard_interval_millis", "weights_enabled",
+         "weights_path", "offline_enabled", "offline_inflight")
 
 KNOB_ENVS = [
     {},
@@ -840,6 +841,10 @@ KNOB_ENVS = [
     {"MEM_SOFT_BYTES": "1000", "MEM_HARD_BYTES": "2000",
      "MEMGUARD_INTERVAL_MILLIS": "250"},
     {"MEM_SOFT_BYTES": "4096"},
+    {"WEIGHTS_ENABLED": "1", "OFFLINE_ENABLED": "1"},
+    {"WEIGHTS_PATH": "/nonexistent/lwc-weights.json",
+     "OFFLINE_INFLIGHT": "9"},
+    {"WEIGHTS_ENABLED": "0", "OFFLINE_ENABLED": "0", "OFFLINE_INFLIGHT": "0"},
 ]
 
 BAD_KNOB_ENVS = [
@@ -877,6 +882,9 @@ BAD_KNOB_ENVS = [
     {"MEM_HARD_BYTES": "lots"},
     {"MEMGUARD_INTERVAL_MILLIS": "0"},
     {"MEMGUARD_INTERVAL_MILLIS": "-5"},
+    {"OFFLINE_ENABLED": "1", "OFFLINE_INFLIGHT": "0"},
+    {"OFFLINE_INFLIGHT": "-1"},
+    {"OFFLINE_INFLIGHT": "many"},
 ]
 
 
@@ -888,7 +896,7 @@ def test_knobs_read_as_the_reference_reads_them(env):
     assert vars(port.admission_config()) == vars(ref.admission_config())
     # the factories the knobs feed: None exactly where the reference's is
     for name in ("resilience_policy", "fault_injection_plan",
-                 "judge_bias_injection_plan", "memguard"):
+                 "judge_bias_injection_plan", "memguard", "live_weights"):
         got, want = getattr(port, name)(), getattr(ref, name)()
         assert (got is None) == (want is None), name
         if got is not None:
