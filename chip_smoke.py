@@ -303,7 +303,40 @@ Phases, each printing one JSON line:
    the straight run; ms per step and peak memory printed.  Then one
    bge_micro InfoNCE step on the card against the CPU: every gradient
    within ``TRAIN_GRAD_ATOL`` of the largest plus ``TRAIN_GRAD_RTOL``
-   relative, and a step with the attention's gradient cut outside it.
+   relative, and a step with the attention's gradient cut outside it;
+16. fault path (``resilience/meshfault.py``, the CPU twin,
+   ``serve/profiling.py``, ``analysis/roofline.py``): one bge-large build
+   (``build_embedder``, bf16) and its CPU twin (``build_cpu_twin``, f32)
+   through servers of ``build_server`` and ``warm_up``
+   (``WARMUP=64x128,8x32``, ``WARMUP_R=8``).  (a) ``MESH_ENABLED=1
+   MESH_FAULT_ENABLED=1`` and ``FAULT_SCRIPT``, no twin: 4 bursts of 8
+   ``/consensus`` (N=64, s=128); a single transient re-dispatches on the
+   card, the third in a row escalates to persistent and fails its group
+   with the 500 envelope, the next burst answers 200, ``re_dispatches``
+   is the retried transients' items, every 200 within ``RUN_TOL`` of a
+   clean server's answer, the vote and attention launches those of the
+   dispatches that reached the card, no graph captured after warmup.  (b)
+   the same with ``DEVICE_WATCHDOG_MILLIS=2000``, the twin and a 3 s
+   ``hang``: ``/readyz`` 503 ``device_unhealthy`` while overdue,
+   ``/consensus`` admitted meanwhile, the hang classified persistent, the
+   twin on (and still on after the recovery), its answers within
+   ``MICRO_TOL`` of the port's CPU answers and within the
+   quantized-vs-padded bars of the card's, ``fallback_dispatches`` the
+   twin's dispatches, no launch while it serves.  (c) the watchdog and the
+   twin alone, one dispatch behind a 6 s ``torch.cuda._sleep`` spin: the
+   requests sent after the trip answer from the twin while the spin runs,
+   then the twin turns off and the next burst runs on the card with its
+   launches counted.  (d) an allocation past the card's memory classifies
+   transient; a subprocess (bge_micro, the twin under the ladder) meets a
+   real device-side assert, classifies it persistent and answers from the
+   twin (exception type, message and exit code recorded).  (e) ``POST
+   /v1/profile`` with ``PROFILE_DIR`` during a burst: the Chrome trace
+   parses and names ``attention_tma_kernel<false>`` and
+   ``cosine_vote_cluster_kernel`` as often as the launch counters rose, a
+   concurrent ``/profile/start`` is a 400, ``/v1/profile`` answers under a
+   saturated gate and 403 without ``PROFILE_DIR``.  (f) the ``roofline``
+   section: ``sol_ms``, ``device_p50_ms`` and ``attainment`` (at most 1.0)
+   for every card bucket that ran, and both Prometheus families.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -323,10 +356,15 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# published H100 SXM peaks (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_INT8_OPS = 1979e12
+# published H100 SXM peaks (NVIDIA data sheet, dense), from the port's
+# roofline module: the bounds here and its gauge divide by the same peaks
+from llm_weighted_consensus_tpu_torch.analysis.roofline import (  # noqa: E402
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_PEAKS,
+)
+
+PEAK_FLOPS = {k: H100_PEAKS[k] for k in ("bfloat16", "float32")}
+PEAK_INT8_OPS = H100_PEAKS["int8"]
 
 VOTE_TOL = 1e-5
 # the main path's traffic (phase 4): candidates per /consensus request,
@@ -546,6 +584,21 @@ TRAIN_STEPS, TRAIN_RESUME_RTOL = 5, 1e-5
 # holds the same)
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 TRAIN_BERT_SHAPE, TRAIN_RM_SHAPE = (16, 128), (8, 128)
+# phase 16 (device faults): bge-large served at FAULT_WARMUP / _R; (a) the
+# main path's bursts through FAULT_SCRIPT, whose 2nd dispatch is a
+# transient retried once and whose 4th-6th are three transients in a row
+# (MESH_FAULT_TRANSIENT_RETRIES=2: the third escalates to persistent),
+# FAULT_RETRIED re-queues of a burst each; a 1 s window makes each burst
+# one group; (b) and (c) N=8 requests in the s=32 bucket (the twin is
+# bge-large on the CPU), (b) a hang past the watchdog, (c) a spin of
+# FAULT_SPIN_S on the card past its watchdog; (e) a 1 s capture
+FAULT_WARMUP, FAULT_WARMUP_R, FAULT_WINDOW_MS = "64x128,8x32", "8", "1000"
+FAULT_SCRIPT = "ok|transient|ok|transient|transient|transient|ok"
+FAULT_RETRIED = 3
+FAULT_SMALL_N, FAULT_SMALL_WORDS = 8, 20
+FAULT_WATCHDOG_MS, FAULT_HANG_MS = 2000, 3000
+FAULT_WEDGE_WATCHDOG_MS, FAULT_SPIN_S = 1000, 6.0
+FAULT_PROFILE_MS, FAULT_STICKY_TIMEOUT_S = 1000, 120
 
 
 def emit(obj) -> None:
@@ -7356,9 +7409,755 @@ def learning_path(gpu: str, device: str = "cuda",
     return row
 
 
+# -- phase 16: device faults, the CPU twin, the profiler and the roofline ------
+
+
+def fault_burst(port, texts_list) -> list:
+    """Every /consensus body of ``texts_list`` at once -> [(status, body,
+    ms, perf_counter at the answer)] in order, error statuses included."""
+    import threading
+
+    out = [None] * len(texts_list)
+
+    def call(i, texts):
+        t = time.perf_counter()
+        status, _, body = http(port, "/consensus", {"input": texts})
+        out[i] = (status, body, (time.perf_counter() - t) * 1e3,
+                  time.perf_counter())
+
+    threads = [threading.Thread(target=call, args=(i, texts))
+               for i, texts in enumerate(texts_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a /consensus request did not return")
+    return out
+
+
+def launch_delta(before: dict) -> dict:
+    """The kernel launches since ``before`` (a ``read_launches``)."""
+    return {k: v - before[k] for k, v in read_launches().items()}
+
+
+def burst_p50(results) -> float:
+    import numpy as np
+
+    return float(np.median([ms for _, _, ms, _ in results]))
+
+
+def fault_server(emb, twin, **env):
+    """A started, warmed server on ``emb`` for phase 16's environment
+    ``env`` (over ``serving_env`` with ``FAULT_WARMUP``) -> (server,
+    config)."""
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    config = ServeConfig.from_env(serving_env(**{
+        "EMBEDDER_MODEL": emb.model_name, "BATCH_WINDOW_MS": FAULT_WINDOW_MS,
+        "WARMUP": FAULT_WARMUP, "WARMUP_R": FAULT_WARMUP_R, **env}))
+    srv = build_server(emb, None, config, twin=twin).start()
+    try:
+        warm_up(srv, config)
+    except BaseException:
+        srv.close()
+        raise
+    return srv, config
+
+
+def fault_retry(gpu, emb, bursts, on_card) -> dict:
+    """Phase 16 (a): ``FAULT_SCRIPT`` under ``MESH_FAULT_ENABLED`` with
+    ``MESH_FAULT_TRANSIENT_RETRIES=2`` and no twin, one burst per group
+    (a 1 s window closes as the 8th request arrives): burst 2's transient
+    re-dispatches on the card, burst 3's third transient in a row
+    escalates to persistent and, the one-rung ladder spent and no twin,
+    fails its group with the 500 envelope, burst 4 answers 200.  Every
+    200 within ``RUN_TOL`` of a clean server's answer to the same texts,
+    the launches those of the dispatches that reached the card, no graph
+    captured after warmup."""
+    import numpy as np
+
+    srv, _ = fault_server(emb, None)
+    try:
+        a0 = read_launches()
+        clean = [fault_burst(srv.port, burst) for burst in bursts]
+        clean_launches = launch_delta(a0)
+        status, _, disabled = http(srv.port, "/v1/profile",
+                                   {"duration_ms": 10})
+    finally:
+        srv.close()
+    if status != 403 or disabled != {
+            "code": 403, "message": "profiling disabled: set PROFILE_DIR"}:
+        raise AssertionError(f"/v1/profile without PROFILE_DIR: {status} "
+                             f"{disabled}")
+    srv, _ = fault_server(
+        emb, None, MESH_ENABLED="1", MESH_FAULT_ENABLED="1",
+        MESH_FAULT_TRANSIENT_RETRIES="2",
+        DEVICE_FAULT_PLAN=f"script={FAULT_SCRIPT}")
+    try:
+        reset_launches()
+        w0 = graph_window(emb, srv.batcher)
+        got = [fault_burst(srv.port, burst) for burst in bursts]
+        window = graph_window(emb, srv.batcher)
+        launches = read_launches()
+        routes = read_routes() if on_card else None
+        total = {k: launches[k] + clean_launches[k] for k in launches}
+        snap = srv.meshfault.snapshot()
+        ready = http(srv.port, "/readyz")
+        util = srv.batcher.utilization()
+    finally:
+        srv.close()
+    statuses = [[s for s, _, _, _ in burst] for burst in got]
+    want = [[200] * BURST, [200] * BURST, [500] * BURST, [200] * BURST]
+    if statuses != want:
+        raise AssertionError(f"fault drill statuses {statuses}")
+    envelope = got[2][0][1]
+    if envelope != {"code": 500, "message": "internal server error"}:
+        raise AssertionError(f"failed group's envelope {envelope}")
+    worst = 0.0
+    for k in (0, 1, 3):
+        for (_, body, _, _), (_, ref, _, _) in zip(got[k], clean[k]):
+            check_answer(body["confidence"], N_CANDIDATES)
+            worst = max(worst, answers_diff([np.asarray(body["confidence"])],
+                                            [np.asarray(ref["confidence"])]))
+    if worst > RUN_TOL:
+        raise AssertionError(f"fault drill answers differ by {worst}")
+    injected = {"transient": 4}
+    if (snap["re_dispatches"] != FAULT_RETRIED * BURST
+            or snap["downsizes"] or snap["ladder"] != [[1, 1]]
+            or snap["fault_plan"] != {"requests": 7, "injected": injected}):
+        raise AssertionError(f"meshfault {snap}")
+    reached = 3  # bursts 1, 2 (its retry) and 4; faults raise pre-launch
+    d = {k: window[k] - w0[k] for k in window}
+    layers = emb.config.num_layers
+    if on_card and (launches["cosine_vote"] != reached
+                    or launches["attention"] != reached * layers
+                    or d["captures"] or d["eager"]
+                    or d["replays"] != reached):
+        raise AssertionError(f"fault drill launches {launches}, {d}")
+    if ready[0] != 200 or util["fallback_active"]:
+        raise AssertionError(f"after the drill: /readyz {ready}, {util}")
+    row = {
+        "script": FAULT_SCRIPT, "statuses": statuses,
+        "failed_envelope": envelope, "meshfault": snap,
+        "max_answer_diff": worst, "run_tol": RUN_TOL,
+        "launches": launches, "routes": routes, "dispatches": d,
+        "phase_launches": total,
+        "clean_p50_ms": [burst_p50(b) for b in clean],
+        "fault_p50_ms": [burst_p50(b) for b in got],
+        "retry_cost_ms": burst_p50(got[1]) - burst_p50(clean[1]),
+        "profile_disabled": status,
+    }
+    emit({"phase": "fault_path", "part": "a_classify_and_retry",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+def twin_checks(emb, twin, texts_list, answers) -> dict:
+    """The twin's answers against the port's CPU answers (the twin
+    called directly, ``MICRO_TOL``) and against the card's (bf16) at the
+    quantized-vs-padded bars (confidences ``PACKED_CONF_TOL``; the
+    embedding cosine ``PACKED_MIN_COS`` on the first request's texts, as
+    each bge-large forward on the CPU takes about a second)."""
+    import numpy as np
+
+    cpu_diff = card_diff = 0.0
+    for texts, conf in zip(texts_list, answers):
+        conf = np.asarray(conf)
+        cpu_diff = max(cpu_diff, float(np.abs(
+            conf - twin.consensus_confidence(texts)).max()))
+        card_diff = max(card_diff, float(np.abs(
+            conf - emb.consensus_confidence(texts)).max()))
+    a, b = twin.embed_texts(texts_list[0]), emb.embed_texts(texts_list[0])
+    min_cos = float(np.min(np.sum(a * b, axis=1)))
+    if cpu_diff > MICRO_TOL or card_diff > PACKED_CONF_TOL \
+            or min_cos < PACKED_MIN_COS:
+        raise AssertionError(
+            f"twin answers: {cpu_diff} from the CPU's, {card_diff} from the "
+            f"card's, embedding cosine {min_cos}")
+    return {"twin_vs_cpu_max_diff": cpu_diff, "cpu_tol": MICRO_TOL,
+            "twin_vs_card_max_diff": card_diff, "card_tol": PACKED_CONF_TOL,
+            "twin_vs_card_min_cosine": min_cos,
+            "min_cosine_bar": PACKED_MIN_COS}
+
+
+def wait_until(pred, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def fault_hang(gpu, emb, twin, small, on_card) -> dict:
+    """Phase 16 (b): a ``hang`` of ``FAULT_HANG_MS`` under the ladder with
+    ``DEVICE_WATCHDOG_MILLIS`` ``FAULT_WATCHDOG_MS`` and the twin: the
+    watchdog trips (``/readyz`` 503 ``device_unhealthy`` while the card is
+    overdue, ``/consensus`` admitted meanwhile), the hang's raise
+    classifies persistent, the spent ladder switches to the twin, the
+    re-queued request, the one admitted meanwhile and every later one
+    answer 200 from it, and the twin stays on after the watchdog
+    recovers.  ``BATCH_PIPELINE=1``: no other dispatch may complete on the
+    card between the trip and the hang's raise, since a clean dispatch
+    clears the watchdog's note (as the reference's does) and the hang
+    would then classify transient and retry on the card."""
+    import threading
+
+    srv, _ = fault_server(
+        emb, twin, BATCH_WINDOW_MS="5", BATCH_PIPELINE="1",
+        MESH_ENABLED="1",
+        MESH_FAULT_ENABLED="1", MESH_FAULT_TRANSIENT_RETRIES="2",
+        DEVICE_WATCHDOG_MILLIS=str(FAULT_WATCHDOG_MS),
+        DEVICE_WATCHDOG_CPU_FALLBACK="1",
+        DEVICE_FAULT_PLAN=f"script=ok|hang,hang_ms={FAULT_HANG_MS}")
+    try:
+        b0 = read_launches()
+        first = fault_burst(srv.port, small[:1])
+        card_launches = launch_delta(b0)
+        twin0 = twin.graph_stats()["eager_dispatches"]
+        box = {}
+        hang = threading.Thread(target=lambda: box.update(
+            hang=fault_burst(srv.port, small[1:2])))
+        hang.start()
+        tripped = wait_until(lambda: not srv.watchdog.healthy(),
+                             FAULT_HANG_MS / 1e3 + 5, "the watchdog's trip")
+        readyz = http(srv.port, "/readyz")
+        # admitted (a twin can absorb it), queued behind the hang
+        meanwhile = fault_burst(srv.port, small[2:3])
+        hang.join(120)
+        if hang.is_alive():
+            raise AssertionError("the hung request did not return")
+        later = (fault_burst(srv.port, small[3:4])
+                 + fault_burst(srv.port, small[4:5]))
+        wait_until(srv.watchdog.healthy, 30, "the watchdog's recovery")
+        util = srv.batcher.utilization()
+        snap = srv.meshfault.snapshot()
+        wd = srv.watchdog.snapshot()
+        twin_dispatches = twin.graph_stats()["eager_dispatches"] - twin0
+        launches = launch_delta(b0)
+    finally:
+        srv.close()
+    served = first + box["hang"] + meanwhile + later
+    if [s for s, _, _, _ in served] != [200] * 5:
+        raise AssertionError(f"hang drill statuses {served}")
+    if readyz[0] != 503 or readyz[2].get("reason") != "device_unhealthy":
+        raise AssertionError(f"/readyz while overdue: {readyz}")
+    if (not util["fallback_active"] or wd["trips"] != 1
+            or wd["recoveries"] < 1):
+        raise AssertionError(f"the twin did not survive the recovery: "
+                             f"{util} {wd}")
+    if util["fallback_dispatches"] != twin_dispatches or twin_dispatches < 2:
+        raise AssertionError(
+            f"fallback_dispatches {util['fallback_dispatches']}, twin "
+            f"dispatches {twin_dispatches}")
+    if on_card and launches != card_launches:
+        raise AssertionError(f"the twin moved the launch counters: "
+                             f"{card_launches} -> {launches}")
+    if snap["re_dispatches"] != 1 or snap["fault_plan"]["injected"] != {
+            "hang": 1}:
+        raise AssertionError(f"meshfault {snap}")
+    checks = twin_checks(emb, twin, small[1:5],
+                         [b["confidence"] for _, b, _, _ in served[1:]])
+    row = {
+        "watchdog_ms": FAULT_WATCHDOG_MS, "hang_ms": FAULT_HANG_MS,
+        "tripped_after_s": tripped, "readyz_while_overdue": readyz[2],
+        "statuses": [s for s, _, _, _ in served],
+        "hung_request_ms": box["hang"][0][2],
+        "admitted_while_unhealthy_ms": meanwhile[0][2],
+        "twin_ms_per_request": sum(ms for _, _, ms, _ in later) / 2,
+        "twin_request_ms": [ms for _, _, ms, _ in later],
+        "card_request_ms": first[0][2],
+        "fallback_dispatches": util["fallback_dispatches"],
+        "fallback_active_after_recovery": util["fallback_active"],
+        "watchdog": wd, "meshfault": snap, "card_launches": card_launches,
+        "phase_launches": launches,
+        **checks,
+    }
+    emit({"phase": "fault_path", "part": "b_twin_after_a_hang",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+def spin_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles for ``seconds`` on this card (timed
+    with CUDA events over a 20 ms spin)."""
+    import torch
+
+    probe = 40_000_000
+    torch.cuda._sleep(probe // 10)  # its first launch, outside the timing
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    torch.cuda.synchronize()
+    return int(probe * seconds * 1e3 / start.elapsed_time(end))
+
+
+def fault_wedge(gpu, emb, twin, small, on_card) -> dict:
+    """Phase 16 (c): the twin beside a really slow card, without the
+    ladder (``DEVICE_WATCHDOG_MILLIS`` ``FAULT_WEDGE_WATCHDOG_MS`` and the
+    twin only).  One dispatch is wrapped here, not in the package, so
+    that it enqueues a ``torch.cuda._sleep`` spin of ``FAULT_SPIN_S``
+    ahead of its forward; the requests sent once the watchdog has
+    tripped answer from the twin while the spin still runs (its CUDA
+    event not yet reached); after it the watchdog recovers, the twin turns
+    off and the next burst runs on the card with its launches counted."""
+    import threading
+
+    import torch
+
+    srv, _ = fault_server(
+        emb, twin, DEVICE_WATCHDOG_MILLIS=str(FAULT_WEDGE_WATCHDOG_MS),
+        DEVICE_WATCHDOG_CPU_FALLBACK="1")
+    spin = {}
+    try:
+        c0 = read_launches()
+        cycles = spin_cycles(FAULT_SPIN_S) if on_card else 0
+        real = srv.batcher._dispatch_consensus
+
+        def wedged(group, embedder):
+            if embedder is emb and not spin:
+                spin["t0"] = time.perf_counter()
+                if on_card:
+                    torch.cuda._sleep(cycles)
+                    spin["done"] = torch.cuda.Event()
+                    spin["done"].record()
+                else:  # the CPU rehearsal blocks the dispatch thread
+                    time.sleep(FAULT_SPIN_S)
+            return real(group, embedder)
+
+        srv.batcher._dispatch_consensus = wedged
+        box = {}
+        wedge = threading.Thread(target=lambda: box.update(
+            wedged=fault_burst(srv.port, small[:1])))
+        wedge.start()
+        # the trip's callback has switched the twin on: what is sent now
+        # must not reach the card's stream
+        tripped = wait_until(lambda: srv.batcher.fallback_active,
+                             FAULT_SPIN_S + 5, "the watchdog's trip")
+        twin0 = twin.graph_stats()["eager_dispatches"]
+        launched = read_launches()
+        during = fault_burst(srv.port, small[1:4])
+        spinning = [not spin["done"].query()] if on_card else []
+        after_twin = read_launches()
+        wedge.join(120)
+        if wedge.is_alive():
+            raise AssertionError("the wedged request did not return")
+        wait_until(srv.watchdog.healthy, 30, "the watchdog's recovery")
+        wait_until(lambda: not srv.batcher.fallback_active, 5,
+                   "the twin's switch off")
+        twin_dispatches = twin.graph_stats()["eager_dispatches"] - twin0
+        cb0 = read_launches()
+        w0 = graph_window(emb, srv.batcher)
+        # a burst of 8: one group at the warmed R=8 bucket
+        card = fault_burst(srv.port, small)
+        d = {k: v - w0[k] for k, v in graph_window(emb, srv.batcher).items()}
+        card_launches = launch_delta(cb0)
+        phase_launches = launch_delta(c0)
+        util = srv.batcher.utilization()
+        wd = srv.watchdog.snapshot()
+    finally:
+        srv.batcher.__dict__.pop("_dispatch_consensus", None)
+        srv.close()
+    spin_end = spin["t0"] + FAULT_SPIN_S
+    served = box["wedged"] + during + card
+    if [s for s, _, _, _ in served] != [200] * len(served):
+        raise AssertionError(f"wedge drill statuses {served}")
+    late = [t - spin_end for _, _, _, t in during if t >= spin_end]
+    if late or (on_card and not all(spinning)):
+        raise AssertionError(f"a twin answer waited for the spin: {late}, "
+                             f"spinning {spinning}")
+    if on_card and after_twin != launched:
+        raise AssertionError("the twin moved the launch counters")
+    if twin_dispatches < 1 or util["fallback_dispatches"] != twin_dispatches:
+        raise AssertionError(f"twin dispatches {twin_dispatches}, "
+                             f"{util['fallback_dispatches']}")
+    layers = emb.config.num_layers
+    if on_card and (card_launches["cosine_vote"] != d["consensus"]
+                    or card_launches["attention"] != layers * d["consensus"]
+                    or d["replays"] != d["consensus"] or d["captures"]):
+        raise AssertionError(f"after the wedge: {card_launches}, {d}")
+    row = {
+        "watchdog_ms": FAULT_WEDGE_WATCHDOG_MS, "spin_s": FAULT_SPIN_S,
+        "spin_cycles": cycles, "tripped_after_s": tripped,
+        "twin_answers_before_spin_end_s": [
+            spin_end - t for _, _, _, t in during],
+        "twin_request_ms": [ms for _, _, ms, _ in during],
+        "card_still_spinning_at_last_twin_answer": spinning,
+        "wedged_request_ms": box["wedged"][0][2],
+        "twin_dispatches": twin_dispatches,
+        "fallback_active_after": util["fallback_active"],
+        "card_burst_p50_ms": burst_p50(card), "card_dispatches": d,
+        "card_launches": card_launches, "watchdog": wd,
+        "phase_launches": phase_launches,
+    }
+    emit({"phase": "fault_path", "part": "c_twin_beside_a_slow_card",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+STICKY_CLIENT = r"""
+import json, os, sys, time
+env, repo = json.loads(sys.argv[1]), sys.argv[2]
+sys.path.insert(0, repo)
+import torch
+from llm_weighted_consensus_tpu_torch.models import loading, tokenizer
+from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+    build_server, warm_up)
+from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+from chip_smoke import http
+
+fixture = os.path.join(repo, "tests", "fixtures", "bge_micro")
+cfg = loading.load_hf_config(fixture)
+
+def micro(device):
+    return TorchEmbedder(
+        "bge-micro", model=loading.load_params(fixture, cfg, device=device),
+        config=cfg, tokenizer=tokenizer.load_tokenizer(
+            loading.find_vocab(fixture)), max_tokens=64, device=device)
+
+emb, twin = micro("cuda"), micro("cpu")
+twin.label_suffix = "@cpu"
+config = ServeConfig.from_env(env)
+srv = build_server(emb, None, config, twin=twin).start()
+warm_up(srv, config)
+texts = [f"candidate {i} about the capital of france" for i in range(4)]
+out = {"before": [http(srv.port, "/consensus", {"input": texts})[0]
+                  for _ in range(2)]}
+seen = []
+classify = srv.meshfault.classify
+
+def recording(exc):
+    kind = classify(exc)
+    seen.append([type(exc).__module__ + "." + type(exc).__name__,
+                 str(exc)[:400], kind])
+    return kind
+
+srv.meshfault.classify = recording
+real = srv.batcher._dispatch_consensus
+armed = [True]
+
+def asserting(group, embedder):
+    if armed and embedder is emb:
+        armed.clear()
+        x = torch.zeros(4, device="cuda")
+        x[torch.full((1,), 10, dtype=torch.long, device="cuda")]
+    return real(group, embedder)
+
+srv.batcher._dispatch_consensus = asserting
+t = time.perf_counter()
+out["faulted"] = http(srv.port, "/consensus", {"input": texts})[:3:2]
+out["faulted_ms"] = (time.perf_counter() - t) * 1e3
+out["after"] = [http(srv.port, "/consensus", {"input": texts})[0]
+                for _ in range(3)]
+out["classified"] = seen
+out["utilization"] = {k: srv.batcher.utilization()[k] for k in (
+    "fallback_active", "fallback_dispatches")}
+print(json.dumps(out), flush=True)
+os._exit(0)  # the poisoned context's teardown is not part of the drill
+"""
+
+
+def fault_sticky(gpu, on_card) -> dict:
+    """Phase 16 (d): an allocation past the card's memory raises
+    ``torch.OutOfMemoryError`` and classifies transient; then, in a
+    subprocess with a time limit (a sticky error poisons its process),
+    bge_micro served on the card with the twin under the ladder, one
+    dispatch made to raise a real device-side assert (an out-of-range
+    index on the card; bge_micro, the committed fixture, so that the
+    subprocess starts within seconds): the classifier's verdict on the real exception
+    is persistent, the twin takes over and the faulted and later requests
+    answer 200.  The exception's type and message and the subprocess's
+    exit code are recorded."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.resilience import (
+        classify_dispatch_error,
+    )
+
+    row = {}
+    if on_card:
+        _, total = torch.cuda.mem_get_info()
+        try:
+            torch.empty(2 * int(total), dtype=torch.uint8, device="cuda")
+        except torch.OutOfMemoryError as exc:
+            row["oom"] = {"type": type(exc).__name__,
+                          "message": str(exc)[:300],
+                          "kind": classify_dispatch_error(exc)}
+        else:
+            raise AssertionError("an allocation past the card succeeded")
+        if row["oom"]["kind"] != "transient":
+            raise AssertionError(f"OOM classified {row['oom']}")
+        env = {"BATCH_WINDOW_MS": "5",
+               "WARMUP": "4x16", "MESH_ENABLED": "1",
+               "MESH_FAULT_ENABLED": "1", "DEVICE_WATCHDOG_MILLIS": "5000",
+               "DEVICE_WATCHDOG_CPU_FALLBACK": "1", "MEMGUARD": "0"}
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", STICKY_CLIENT, json.dumps(env), REPO],
+            capture_output=True, text=True, timeout=FAULT_STICKY_TIMEOUT_S,
+            cwd=REPO)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "fault_sticky.err"),
+                  "w") as f:
+            f.write(proc.stderr)
+        lines = proc.stdout.strip().splitlines()
+        if not lines:
+            raise AssertionError(f"sticky drill: rc {proc.returncode}, "
+                                 f"{proc.stderr[-2000:]}")
+        out = json.loads(lines[-1])
+        kinds = [k for _, _, k in out["classified"]]
+        if (proc.returncode != 0 or out["before"] != [200, 200]
+                or out["faulted"][0] != 200 or out["after"] != [200] * 3
+                or not kinds or kinds[0] != "persistent"
+                or not out["utilization"]["fallback_active"]):
+            raise AssertionError(f"sticky drill: rc {proc.returncode} {out}")
+        row["sticky"] = {"exit_code": proc.returncode,
+                         "seconds": time.perf_counter() - t, **out}
+    emit({"phase": "fault_path", "part": "d_real_cuda_errors",
+          "nvidia_smi": gpu, **row})
+    return row
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel and graph-launch events of a Chrome trace by port kernel
+    (``attention_tma_kernel<false>``, ``cosine_vote_cluster_kernel``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"attention_tma_kernel<false>": 0,
+              "cosine_vote_cluster_kernel": 0, "kernels": 0,
+              "cudaGraphLaunch": 0}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") == "kernel":
+            counts["kernels"] += 1
+            fn = port_kernel(name)
+            if fn == "attention_tma_kernel" and "<false>" in name:
+                counts["attention_tma_kernel<false>"] += 1
+            elif fn == "cosine_vote_cluster_kernel":
+                counts["cosine_vote_cluster_kernel"] += 1
+        elif name.startswith("cudaGraphLaunch"):
+            counts["cudaGraphLaunch"] += 1
+    return counts
+
+
+def fault_profile(gpu, emb, small, on_card) -> dict:
+    """Phase 16 (e): ``POST /v1/profile {"duration_ms": FAULT_PROFILE_MS}``
+    with ``PROFILE_DIR`` while a burst of 8 small requests is served (up
+    to 3 captures while the trace's kernel counts miss the launch
+    counters' rise), a concurrent ``/profile/start`` answering 400, the
+    burst's p50 with and without the capture, and ``/v1/profile``
+    answering under a saturated gate (``ADMISSION_MAX_INFLIGHT=1``, its
+    slot held) while ``/consensus`` sheds 503."""
+    import threading
+
+    profile_dir = os.path.join(REPO, "build", "fault_profile")
+    srv, _ = fault_server(emb, None, PROFILE_DIR=profile_dir)
+    try:
+        e0 = read_launches()
+        plain = fault_burst(srv.port, small[:BURST])
+        for traces in range(1, 4):
+            box = {}
+            capture = threading.Thread(target=lambda: box.update(
+                out=http(srv.port, "/v1/profile",
+                         {"duration_ms": FAULT_PROFILE_MS})))
+            before, r0 = read_launches(), emb.graph_stats()["replays"]
+            n_traces = len(srv.profiler.traces)
+            capture.start()
+            wait_until(lambda: srv.profiler._prof is not None, 30,
+                       "the capture's start")
+            busy = http(srv.port, "/profile/start", {})
+            time.sleep(0.2)  # the tracer's first records, then the burst
+            traced = fault_burst(srv.port, small[:BURST])
+            capture.join(60)
+            rise = {k: v - before[k] for k, v in read_launches().items()}
+            replays = emb.graph_stats()["replays"] - r0
+            status, _, body = box["out"]
+            if status != 200 or len(srv.profiler.traces) != n_traces + 1:
+                raise AssertionError(f"/v1/profile: {status} {body}")
+            path = srv.profiler.traces[-1]
+            counts = trace_kernels(path)
+            kernels_match = (
+                counts["attention_tma_kernel<false>"] == rise["attention"]
+                and counts["cosine_vote_cluster_kernel"]
+                == rise["cosine_vote"])
+            if not on_card or kernels_match:
+                break
+        graph_events = not kernels_match and counts["kernels"] == 0 and (
+            counts["cudaGraphLaunch"] == replays)
+        if on_card and not (kernels_match or graph_events):
+            raise AssertionError(f"trace {counts} against launches {rise}, "
+                                 f"replays {replays}")
+        if busy[0] != 400 or busy[2] != {"code": 400,
+                                         "message": "trace already active"}:
+            raise AssertionError(f"/profile/start during a capture: {busy}")
+        statuses = [s for s, _, _, _ in plain + traced]
+        if statuses != [200] * len(statuses):
+            raise AssertionError(f"profiled burst statuses {statuses}")
+        trace_bytes = os.path.getsize(path)
+        phase_launches = launch_delta(e0)
+    finally:
+        srv.close()
+    srv, _ = fault_server(emb, None, PROFILE_DIR=profile_dir,
+                          ADMISSION_MAX_INFLIGHT="1")
+    try:
+        if srv.admission.try_acquire() is not None:  # the one slot, held
+            raise AssertionError("the gate refused its first slot")
+        exempt = http(srv.port, "/v1/profile", {"duration_ms": 10})
+        shed = http(srv.port, "/consensus", {"input": small[0]})
+    finally:
+        srv.close()
+    if exempt[0] != 200 or shed[0] != 503:
+        raise AssertionError(f"saturated gate: /v1/profile {exempt[0]}, "
+                             f"/consensus {shed[0]}")
+    row = {
+        "duration_ms": body["duration_ms"], "traces": traces,
+        "trace_bytes": trace_bytes, "trace_counts": counts,
+        "launch_rise": rise, "replays": replays,
+        "kernels_match": kernels_match, "graph_events_only": graph_events,
+        "burst_p50_ms": burst_p50(plain),
+        "burst_p50_ms_captured": burst_p50(traced),
+        "capture_overhead_ms": burst_p50(traced) - burst_p50(plain),
+        "concurrent_start": busy[0], "saturated_gate": {
+            "v1_profile": exempt[0], "consensus": shed[0]},
+        "phase_launches": phase_launches,
+    }
+    emit({"phase": "fault_path", "part": "e_profile", "nvidia_smi": gpu,
+          **row})
+    return row
+
+
+def fault_roofline(gpu, srv_metrics, on_card) -> dict:
+    """Phase 16 (f): the ``roofline`` section after (a)-(c) (scraped by
+    ``fault_path`` from a server of this phase; the phase aggregator was
+    reset at the phase's start): every card bucket that ran has
+    ``sol_ms``, ``device_p50_ms`` and ``attainment``, none above 1.0; the
+    twin's ``@cpu`` rows carry counts only."""
+    section, families = srv_metrics
+    rows = section["buckets"]
+    card = {k: v for k, v in rows.items() if not k.endswith("@cpu")}
+    if on_card:
+        missing = [k for k, v in card.items()
+                   if not {"sol_ms", "device_p50_ms", "attainment"} <= set(v)]
+        over = {k: v["attainment"] for k, v in card.items()
+                if v.get("attainment", 0) > 1.0}
+        if (section["backend"] != "cuda" or not card or missing or over
+                or not families):
+            raise AssertionError(f"roofline: missing {missing}, over 1.0 "
+                                 f"{over}, families {families}")
+    row = {"backend": section["backend"], "buckets": rows,
+           "prometheus_samples": families}
+    emit({"phase": "fault_path", "part": "f_roofline", "nvidia_smi": gpu,
+          **row})
+    return row
+
+
+def scrape_roofline(port) -> tuple:
+    """The ``roofline`` section and the two Prometheus families' samples
+    (``scrape_metrics`` parses the whole text)."""
+    scrape_metrics(port)
+    section = http(port, "/metrics")[2]["roofline"]
+    text = http(port, "/metrics?format=prometheus")[2]
+    families = [ln for ln in text.splitlines()
+                if ln.startswith(("lwc_roofline_sol_ms{",
+                                  "lwc_roofline_attainment{"))]
+    return section, families
+
+
+def fault_path(gpu: str, device: str = "cuda",
+               model_name: str = "bge-large-en") -> dict:
+    """Phase 16: device faults on one card, the CPU twin, the profiler
+    routes and the roofline gauge, on one bge-large build (random weights
+    from seed 0, bf16) through ``build_embedder``, ``build_server`` and
+    ``warm_up`` (``FAULT_WARMUP``, ``FAULT_WARMUP_R``) and one CPU twin
+    (``build_cpu_twin``, f32): ``fault_retry`` (a), ``fault_hang`` (b),
+    ``fault_wedge`` (c), ``fault_sticky`` (d), ``fault_profile`` (e) and
+    ``fault_roofline`` (f).  (``device="cpu"`` with test-tiny rehearses
+    the control flow: no kernel counts, no spin, no sticky error.)"""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import obs
+    from llm_weighted_consensus_tpu_torch.resilience.memguard import (
+        read_rss_bytes,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_cpu_twin,
+        build_embedder,
+    )
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    # the roofline section reads this phase's device timings alone, and
+    # the process-global quality aggregator drops the earlier phases'
+    # margin exemplars (``scrape_metrics`` parses lines without them)
+    obs.reset_phases()
+    obs.reset_quality()
+    env = serving_env(EMBEDDER_MODEL=model_name)
+    emb = build_embedder(env, device=device)
+    rss0 = read_rss_bytes() or 0
+    twin = build_cpu_twin(env)
+    twin_rss = (read_rss_bytes() or 0) - rss0
+    seconds = {"build": time.perf_counter() - t0}
+    rng = np.random.default_rng(16)
+    bursts = [[candidate_texts(rng, N_CANDIDATES, BURST_WORDS)
+               for _ in range(BURST)] for _ in range(4)]
+    small = [candidate_texts(rng, FAULT_SMALL_N, FAULT_SMALL_WORDS)
+             for _ in range(BURST)]
+    try:
+        def part(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t
+            return out
+
+        retry = part("a", fault_retry, gpu, emb, bursts, on_card)
+        hang = part("b", fault_hang, gpu, emb, twin, small, on_card)
+        wedge = part("c", fault_wedge, gpu, emb, twin, small, on_card)
+        # (f) reads the gauge through a server of this phase after (a)-(c)
+        srv, _ = fault_server(emb, None)
+        try:
+            metrics = scrape_roofline(srv.port)
+        finally:
+            srv.close()
+        roofline = part("f", fault_roofline, gpu, metrics, on_card)
+        sticky = part("d", fault_sticky, gpu, on_card)
+        profile = part("e", fault_profile, gpu, emb, small, on_card)
+    finally:
+        del emb, twin
+        if on_card:
+            torch.cuda.empty_cache()
+    row = {"phase": "fault_path", "gpu": gpu, "nvidia_smi": gpu,
+           "model": model_name, "twin_rss_bytes": twin_rss,
+           "retry": {k: retry[k] for k in ("retry_cost_ms", "launches")},
+           "hang": {k: hang[k] for k in ("twin_ms_per_request",
+                                         "fallback_dispatches")},
+           "wedge": {k: wedge[k] for k in ("twin_dispatches",
+                                           "card_launches")},
+           "sticky": sticky.get("sticky", {}).get("classified"),
+           "profile_overhead_ms": profile["capture_overhead_ms"],
+           "attainment": {k: v.get("attainment")
+                          for k, v in roofline["buckets"].items()},
+           # every launch of the phase's traffic (warm-ups left out)
+           "launches": {k: sum(p["phase_launches"][k]
+                               for p in (retry, hang, wedge, profile))
+                        for k in retry["phase_launches"]},
+           "seconds_by_part": seconds,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
-                   archived, traced, resilient, learning) -> dict:
+                   archived, traced, resilient, learning, fault) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -7384,7 +8183,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     ``resilient_path_launches`` to the main vote and attention entries
     (its prompt embeds and the memory drill's ``/consensus`` calls), and
     phase 15 ``learning_path_launches`` (the offline drives, the bursts
-    beside them and the learner drill's prompt embeds).
+    beside them and the learner drill's prompt embeds), and phase 16
+    ``fault_path_launches`` (its traffic on the card, the twin's
+    dispatches launching nothing).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -7590,6 +8391,7 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                 entry["name"]]
             entry["learning_path_launches"] = learning["launches"][
                 entry["name"]]
+            entry["fault_path_launches"] = fault["launches"][entry["name"]]
         elif entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -7680,11 +8482,12 @@ def main() -> int:
     traced = timed("traced_path", traced_path, gpu)
     resilient = timed("resilient_path", resilient_path, gpu)
     learning = timed("learning_path", learning_path, gpu)
+    fault = timed("fault_path", fault_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score, archived, traced, resilient, learning))
+                        score, archived, traced, resilient, learning, fault))
     print(gpu)
     emit({
         "ok": True,

@@ -258,12 +258,15 @@ class StreamingSelfConsistency:
         return pending
 
     def _ensure_capacity(self) -> None:
+        # through the batcher, the buffer lives where its model serves
+        # now (the card, or the CPU twin)
+        source = self.batcher if self.batcher is not None else self.embedder
         if self._buf is None:
-            self._buf = self.embedder.stream_buffer(self.INITIAL_CAPACITY)
+            self._buf = source.stream_buffer(self.INITIAL_CAPACITY)
         elif self.count == self._buf.shape[0]:
             # double (the next power-of-two bucket); the live rows move
             # with it, the new half is zero
-            grown = self.embedder.stream_buffer(2 * self._buf.shape[0])
+            grown = source.stream_buffer(2 * self._buf.shape[0])
             grown[: self.count].copy_(self._buf)
             self._buf = grown
 

@@ -136,20 +136,33 @@ def drain_sink(
     observe_interval: Optional[Callable[[float, float], None]] = None,
     release: Optional[Callable] = None,
     clock: Callable[[], float] = time.perf_counter,
+    retain: Optional[Callable] = None,
 ) -> None:
     """The waiter hop: wait on every pending dispatch in enqueue order,
     recording each timed one's device ms and its (enqueue, ready)
     interval.  Staging buffers go back to the pool only on a clean drain:
-    a raising ``wait`` (a device fault) propagates and the buffers are
-    left to the garbage collector."""
-    for record in sink.pending:
-        record.wait(record.out)
-        t1 = clock()
-        if record.timed:
-            if observe_device is not None:
-                observe_device(record.label, record.device_ms(t1))
-            if observe_interval is not None:
-                observe_interval(record.t0, t1)
+    a raising ``wait`` (a device fault) propagates, and the group's
+    staging buffers and pinned outputs go to ``retain`` first
+    (``StagingPool.retain``: after a sticky CUDA error, freeing a pinned
+    buffer aborts the process)."""
+    try:
+        for record in sink.pending:
+            record.wait(record.out)
+            t1 = clock()
+            if record.timed:
+                if observe_device is not None:
+                    observe_device(record.label, record.device_ms(t1))
+                if observe_interval is not None:
+                    observe_interval(record.t0, t1)
+    except BaseException:
+        if retain is not None:
+            for buf in sink.staged:
+                retain(buf)
+            for record in sink.pending:
+                host = getattr(record.out, "host", None)
+                if host is not None:
+                    retain(host)
+        raise
     if release is not None:
         for buf in sink.staged:
             release(buf)
@@ -169,6 +182,8 @@ class StagingPool:
         self.pin = bool(pin)
         self._lock = threading.Lock()
         self._free: Dict[Tuple[tuple, torch.dtype], list] = {}
+        # buffers of failed dispatches past their bucket's cap (``retain``)
+        self._retained: list = []
         self.hits = 0
         self.misses = 0
 
@@ -194,6 +209,21 @@ class StagingPool:
             free = self._free.setdefault(key, [])
             if len(free) < self.per_bucket:
                 free.append(buf)
+
+    def retain(self, buf: torch.Tensor) -> None:
+        """Hand back a buffer of a dispatch that failed: recycled as by
+        ``release`` when its bucket has room, else kept, never freed.
+        After a sticky CUDA error (an illegal address, a device-side
+        assert) freeing a pinned buffer that served a copy records a CUDA
+        event, which fails inside a destructor and aborts the process;
+        the CPU twin can only take over in a process that lives."""
+        key = (tuple(buf.shape), buf.dtype)
+        with self._lock:
+            free = self._free.setdefault(key, [])
+            if len(free) < self.per_bucket:
+                free.append(buf)
+            else:
+                self._retained.append(buf)
 
     def stats(self) -> dict:
         with self._lock:
@@ -231,5 +261,6 @@ def settle(dispatch, pool: StagingPool, timed: bool = True):
         observe_device=phases.observe_device,
         observe_interval=phases.observe_device_interval,
         release=pool.release,
+        retain=pool.retain,
     )
     return dispatch.result()

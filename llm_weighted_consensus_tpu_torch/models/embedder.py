@@ -141,6 +141,10 @@ class TorchEmbedder:
         )
         # per-bucket device timing (METRICS_DEVICE_TIMING=0 clears it)
         self.device_timing = True
+        # appended to every device-timing label: the reference's mesh
+        # suffix (``@dp1xtp1`` under MESH_ENABLED), or the CPU twin's
+        # ``@cpu``, so its rows never mix with the card's
+        self.label_suffix = ""
 
     # -- CUDA graphs per bucket (the reference's aot_warmup) -----------------
 
@@ -206,7 +210,8 @@ class TorchEmbedder:
         """One dispatch at bucket ``key`` (``GraphTable.dispatch``): a
         handle under the batcher's sink, the numpy result otherwise."""
         return self.graphs.dispatch(
-            key, label, arrays, forward, post, self.staging_pool,
+            key, label + self.label_suffix, arrays, forward, post,
+            self.staging_pool,
             timed=self.device_timing,
         )
 
@@ -409,10 +414,16 @@ class TorchEmbedder:
                 return conf
             return conf.index_select(0, dev_index[r:].long())
 
-        return self._dispatch(
-            ("embed", pad_b, s), f"stream(r={r},cap={cap},s={s})",
-            {"ids": pids, "mask": pmask}, self._forward, post,
-        )
+        try:
+            return self._dispatch(
+                ("embed", pad_b, s), f"stream(r={r},cap={cap},s={s})",
+                {"ids": pids, "mask": pmask}, self._forward, post,
+            )
+        except BaseException:
+            # the pinned upload of a failed dispatch is never freed
+            # (``StagingPool.retain``)
+            self.staging_pool.retain(index)
+            raise
 
     # -- packed (continuous-batching) path ------------------------------------
 

@@ -224,25 +224,34 @@ class GraphTable:
             buf = pool.acquire(a.shape, torch.int32)
             buf.numpy()[...] = a
             staged[name] = buf
-        with self.lock, torch.inference_mode():
-            t0 = time.perf_counter()
-            events = None
-            if self.on_card:
-                events = (
-                    torch.cuda.Event(enable_timing=timed),
-                    torch.cuda.Event(enable_timing=timed),
-                )
-                events[0].record()
-            out = post(self._run(key, staged, forward))
-            if self.on_card:
-                host = pool.acquire(out.shape, out.dtype)
-                host.copy_(out, non_blocking=True)
-                events[1].record()
-                done = Dispatch(label, t0, host, events,
-                                list(staged.values()), pool)
-            else:
-                done = Dispatch(label, t0, out, None, list(staged.values()),
-                                None)
+        host = None
+        try:
+            with self.lock, torch.inference_mode():
+                t0 = time.perf_counter()
+                events = None
+                if self.on_card:
+                    events = (
+                        torch.cuda.Event(enable_timing=timed),
+                        torch.cuda.Event(enable_timing=timed),
+                    )
+                    events[0].record()
+                out = post(self._run(key, staged, forward))
+                if self.on_card:
+                    host = pool.acquire(out.shape, out.dtype)
+                    host.copy_(out, non_blocking=True)
+                    events[1].record()
+                    done = Dispatch(label, t0, host, events,
+                                    list(staged.values()), pool)
+                else:
+                    done = Dispatch(label, t0, out, None,
+                                    list(staged.values()), None)
+        except BaseException:
+            # a failed launch's pinned buffers are never freed (a sticky
+            # CUDA error makes freeing one abort the process)
+            for buf in [*staged.values(), *([host] if host is not None
+                                            else [])]:
+                pool.retain(buf)
+            raise
         return settle(done, pool, timed)
 
     # caller holds self.lock

@@ -21,10 +21,13 @@ mechanism its own module with a pure, clock-injectable core:
   cache, trace and AIMD budgets, hard pressure sheds new work
   (``shed_reason: "memory"``) and flags ``degraded_mem`` on /readyz;
 * ``admission`` — the gateway's admission gate (hard cap, AIMD limit);
-* ``watchdog``  — the device dispatch watchdog.
-
-The reference's ``meshfault`` (the dp x tp mesh's fault ladder) waits
-for the port's multi-device slice.
+* ``watchdog``  — the device dispatch watchdog;
+* ``meshfault`` — device fault domains on one card: dispatch-failure
+  classification for CUDA errors (transient / persistent / not a device
+  fault), the transient-streak and watchdog-overdue escalations, the
+  one-rung ladder whose exhaustion hands the work to the CPU twin, and
+  the seeded ``DEVICE_FAULT_PLAN`` injection seam at the batcher's
+  dispatch boundary.  The multi-device slice adds rungs.
 
 Everything is opt-in: a ``ResiliencePolicy`` of ``None`` (the default
 everywhere) keeps the clients on their pre-resilience code paths, byte
@@ -47,6 +50,14 @@ from .faults import (  # noqa: F401
 )
 from .hedge import HedgePolicy, LatencyTracker  # noqa: F401
 from .memguard import MemGuard  # noqa: F401
+from .meshfault import (  # noqa: F401
+    DeviceFaultPlan,
+    InjectedHangError,
+    InjectedPersistentError,
+    InjectedTransientError,
+    MeshFaultManager,
+    classify_dispatch_error,
+)
 from .quorum import QuorumTracker  # noqa: F401
 from .watchdog import DeviceWatchdog  # noqa: F401
 
@@ -95,16 +106,22 @@ __all__ = [
     "BreakerRegistry",
     "CircuitBreaker",
     "Deadline",
+    "DeviceFaultPlan",
     "DeviceWatchdog",
     "FaultInjectionTransport",
     "FaultPlan",
     "HedgePolicy",
+    "InjectedHangError",
+    "InjectedPersistentError",
+    "InjectedTransientError",
     "JudgeBiasPlan",
     "LatencyTracker",
     "MemGuard",
+    "MeshFaultManager",
     "QuorumTracker",
     "ResiliencePolicy",
     "RetryBudget",
+    "classify_dispatch_error",
     "current_deadline",
     "current_retry_budget",
 ]

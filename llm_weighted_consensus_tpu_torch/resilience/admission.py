@@ -31,6 +31,15 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+# routes the gate never sheds: the probes, which a load balancer must read
+# while the service sheds or drains, and the reference's two admin routes,
+# ``/v1/profile`` (an on-demand capture is the tool for diagnosing an
+# overload) and ``/v1/weights`` (a tiny table swap); the gateway checks
+# this set before it asks the gate
+EXEMPT_PATHS = frozenset(
+    {"/healthz", "/livez", "/readyz", "/metrics", "/v1/profile", "/v1/weights"}
+)
+
 
 @dataclass
 class AdmissionConfig:

@@ -75,7 +75,11 @@ the memory governor (``MEMGUARD``, ``MEM_SOFT_BYTES``,
 ``MEM_HARD_BYTES``, ``MEMGUARD_INTERVAL_MILLIS``; on by default), and
 live weights and the offline lane (``WEIGHTS_ENABLED``, ``WEIGHTS_PATH``:
 ``GET``/``PUT /v1/weights``; ``OFFLINE_ENABLED``, ``OFFLINE_INFLIGHT``:
-``POST /v1/train/rescore``).  With an
+``POST /v1/train/rescore``), device faults (``DEVICE_WATCHDOG_CPU_FALLBACK``:
+the CPU twin; ``MESH_ENABLED``, ``MESH_SHAPE``, ``MESH_FAULT_*``,
+``DEVICE_FAULT_PLAN``; the legacy ``MESH_DP``/``MESH_TP``/``MESH_SP`` and
+``LONG_CONTEXT_WARMUP`` are refused past one card) and ``PROFILE_DIR``
+(``POST /v1/profile``).  With an
 embedder, a training-table panel's weights come from
 ``TorchTrainingTableFetcher`` on the served embedder and batcher (the tables loaded from
 ``TABLES_PATH``), and ``POST /weights/learn`` learns table rows from the
@@ -163,6 +167,42 @@ def build_embedder(env, device=None, dtype=None):
             )
         log.warning("SYNTHETIC EMBEDDER PARAMS: %s; serving anyway", detail)
     return embedder
+
+
+# the knobs the CPU twin does not take from the card's environment: it is
+# the unquantized embedder on one CPU device
+TWIN_STRIPPED = ("EMBEDDER_QUANTIZE", "MESH_ENABLED", "MESH_SHAPE", "MESH_DP",
+                 "MESH_TP", "MESH_SP")
+
+
+def build_cpu_twin(env):
+    """The CPU twin of ``DEVICE_WATCHDOG_CPU_FALLBACK`` (the reference's
+    ``_build_cpu_fallback``): ``build_embedder`` from the same
+    environment with quantization and mesh stripped, on the CPU in f32,
+    built at startup while the card is healthy.  It computes the card
+    embedder's function on the same weights (a checkpoint reloads; a
+    random-init preset draws the same seed).  Its device-timing labels
+    carry ``@cpu``.  A failure to build it degrades to the watchdog
+    without a twin (device routes shed while the card is unhealthy)
+    rather than failing startup: None."""
+    from ..resilience.memguard import read_rss_bytes
+
+    before = read_rss_bytes() or 0
+    try:
+        twin = build_embedder(
+            {k: v for k, v in env.items() if k not in TWIN_STRIPPED},
+            device="cpu",
+        )
+    except Exception:
+        log.warning(
+            "DEVICE_WATCHDOG_CPU_FALLBACK: could not build the CPU twin; "
+            "device routes will shed while the watchdog holds the card "
+            "unhealthy", exc_info=True)
+        return None
+    twin.label_suffix = "@cpu"
+    log.info("CPU twin ready (%s, f32; host RSS +%.0f MB)", twin.model_name,
+             ((read_rss_bytes() or 0) - before) / 2**20)
+    return twin
 
 
 def _check_quantize(var: str, quantize: str) -> None:
@@ -359,8 +399,42 @@ def load_tables(config: ServeConfig):
     return tables
 
 
+def build_meshfault(embedder, config: ServeConfig):
+    """``MESH_FAULT_ENABLED``'s ``MeshFaultManager`` over the one card
+    (``MESH_FAULT_TRANSIENT_RETRIES``, ``MESH_FAULT_PROBE_MILLIS``,
+    ``DEVICE_FAULT_PLAN``), or None.  Its ``probe_fn`` is a one-token
+    forward at the first ``WARMUP`` spec (a warmed bucket replays)."""
+    if not config.mesh_fault_enabled or embedder is None:
+        return None
+    import numpy as np
+
+    from ..models.embedder import _seq_bucket
+    from ..resilience import MeshFaultManager
+
+    manager = MeshFaultManager(
+        embedder, shape=(1, 1),
+        transient_retries=config.mesh_fault_transient_retries,
+        probe_millis=config.mesh_fault_probe_millis,
+        fault_plan=config.device_fault_injection_plan(),
+    )
+    log.info("mesh fault ladder: %s", " -> ".join(
+        f"{d}x{t}" for d, t in manager.build_ladder()))
+    n, s = config.warmup[0] if config.warmup else (2, 8)
+    s = _seq_bucket(s, embedder.max_tokens)
+
+    def probe():
+        ids = np.zeros((n, s), np.int32)
+        mask = np.zeros((n, s), np.int32)
+        mask[:, 0] = 1  # one real token per row: a clean forward
+        embedder.consensus_confidence_tokens(ids, mask)
+
+    manager.probe_fn = probe
+    return manager
+
+
 def build_server(embedder, reranker, config: ServeConfig,
-                 host: str = "127.0.0.1", port: int = 0, device=None):
+                 host: str = "127.0.0.1", port: int = 0, device=None,
+                 twin=None):
     """The ``Server`` the configuration describes (the device routes of
     its models, the chat and score routes over its upstream, the archive
     and ``/archive/rescore``), not ready until ``warm_up``.  With an
@@ -381,7 +455,14 @@ def build_server(embedder, reranker, config: ServeConfig,
     ring and the admission limit (``server.memguard``, stopped at
     close).  ``WEIGHTS_*`` give the score client its live weight store
     (``server.live_weights``, ``/v1/weights``; a set ``WEIGHTS_PATH``
-    must be writable) and ``OFFLINE_*`` serve ``/v1/train/rescore``."""
+    must be writable) and ``OFFLINE_*`` serve ``/v1/train/rescore``.
+    ``twin`` is the CPU twin (``build_cpu_twin``); under
+    ``DEVICE_WATCHDOG_CPU_FALLBACK`` the caller builds it from the same
+    environment as the embedder (``main`` does), and it is dropped when
+    the knob is off.  ``MESH_FAULT_*`` give the batcher its
+    ``MeshFaultManager`` (``server.meshfault``), ``MESH_ENABLED`` labels
+    the device timings ``@dp1xtp1`` and adds the ``mesh`` section, and
+    ``PROFILE_DIR`` turns the profiler routes on."""
     from ..obs import configure_quality
     from ..weights import WeightFetchers
     from .archive_routes import (
@@ -392,6 +473,9 @@ def build_server(embedder, reranker, config: ServeConfig,
     from .config import score_caches
     from .gateway import Server
 
+    if embedder is not None:
+        # the reference's mesh labels: one card is the 1x1 shape
+        embedder.label_suffix = "@dp1xtp1" if config.mesh_enabled else ""
     score_cache, embed_cache = score_caches(config)
     store = load_archive(config)
     # QUALITY_*: the drift knobs of the always-on quality aggregator
@@ -459,6 +543,13 @@ def build_server(embedder, reranker, config: ServeConfig,
         live_weights=live_weights,
         offline_enabled=config.offline_enabled,
         offline_inflight=config.offline_inflight,
+        # DEVICE_WATCHDOG_CPU_FALLBACK / MESH_* / PROFILE_DIR
+        fallback_embedder=(
+            twin if config.device_watchdog_cpu_fallback
+            and embedder is not None else None),
+        meshfault=build_meshfault(embedder, config),
+        mesh=config.mesh_enabled,
+        profile_dir=config.profile_dir,
         **batching,
     )
     if memguard is not None:
@@ -548,8 +639,13 @@ def main(argv=None) -> int:
         if env.get("EMBEDDER_MODEL") else None
     )
     reranker = build_reranker(env, device=args.device)
+    twin = (
+        build_cpu_twin(env)
+        if embedder is not None and config.device_watchdog_cpu_fallback
+        else None
+    )
     server = build_server(embedder, reranker, config, config.address,
-                          config.port, device=args.device)
+                          config.port, device=args.device, twin=twin)
     for what, served in (("embedder", embedder), ("reranker", reranker)):
         if served is not None:
             log.info(

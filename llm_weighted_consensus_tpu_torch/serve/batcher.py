@@ -89,14 +89,41 @@ time, not time outside every span.  A failed, shed or cancelled item
 finishes its span at once, errored.  An untraced item carries None and
 costs nothing.
 
-Left for later: ring and mesh dispatch and the CPU fallback; the
-reference's ``fallback_*`` and ``shed_redispatch_limit`` keys read as
-their idle values.
+Device faults (``resilience/meshfault.py``), as the reference triages
+them: with a ``meshfault`` manager (``MESH_FAULT_ENABLED``) a card
+dispatch that fails on either hop is classified.  A transient fault puts
+the group's live items back at the front of their lane (``_requeue``:
+an item past its deadline fails with 504, one re-queued
+``REDISPATCH_LIMIT`` times inherits the fault and counts in
+``shed_redispatch_limit``); a persistent one walks the ladder, and with
+the ladder spent (on one card, at once) switches to the CPU twin
+(``fallback_embedder``, ``DEVICE_WATCHDOG_CPU_FALLBACK``) and re-queues,
+or, without a twin, fails the group.  An application error keeps the
+fail-the-group path.  The ``DEVICE_FAULT_PLAN`` seam injects on the
+dispatch thread, inside the manager's ``dispatch_guard``, before
+anything is staged; a clean dispatch notes ``note_dispatch_ok`` at
+readiness.  Without a manager nothing of this runs.
+
+The twin (``use_fallback(True)``: the watchdog's trip, or the spent
+ladder) serves every kind, the offline lane's too, on the CPU and touches
+no CUDA state: no pinned staging buffer, no CUDA event, no graph replay
+and no launch lock of the card, so it neither fails after a sticky error
+nor queues behind a wedged launch.  It tokenizes inline with its own
+tokenizer, as the reference's does, and makes its results on the
+dispatch thread.  A stream's buffer moves to the device of the model
+serving its update (``buf.data``, in place), and ``stream_buffer``
+allocates a new one there.  ``fallback_dispatches`` counts the twin's
+dispatches and ``fallback_active`` shows the switch; a twin dispatch's
+failure is never classified.  Unlike the reference, which stops
+classifying once the switch is on, a card dispatch that fails after the
+switch (the other pipelined group after a sticky error) is still
+classified and re-queued onto the twin.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import threading
 import time
@@ -117,6 +144,7 @@ from ..models.embedder import _bucket, next_pow2
 from ..obs import phases as _phases
 from ..obs.span import child_span
 from ..resilience.deadline import current_deadline
+from ..resilience.meshfault import PERSISTENT
 from . import packing as _packing
 
 log = logging.getLogger("lwc.torch.batcher")
@@ -141,7 +169,7 @@ def _caller_done(future: Future) -> None:
 class _Item:
     __slots__ = (
         "kind", "key", "payload", "future", "deadline", "submitted",
-        "prepared", "lane", "per_row", "span", "dspan",
+        "prepared", "lane", "per_row", "span", "dspan", "redispatches",
     )
 
     def __init__(self, kind, key, payload, deadline=None, lane="latency",
@@ -164,6 +192,8 @@ class _Item:
         # dispatches, that span's device:dispatch child; None untraced
         self.span = span
         self.dspan = None
+        # fault re-queues so far (bounded by REDISPATCH_LIMIT)
+        self.redispatches = 0
 
     @property
     def texts(self) -> list:
@@ -230,7 +260,13 @@ class DeviceBatcher:
     company; ``max_batch`` bounds padded items per dispatch and
     ``max_rows`` encoder rows.
     ``window_ms=0`` still batches whatever accumulates behind an in-flight
-    dispatch."""
+    dispatch.  ``fallback_embedder`` is the CPU twin and ``meshfault`` the
+    device-fault manager (module doc)."""
+
+    # each item survives at most this many fault re-queues before it
+    # inherits the device exception: a backstop so that a fault loop can
+    # never recycle one item forever
+    REDISPATCH_LIMIT = 8
 
     def __init__(
         self,
@@ -251,6 +287,8 @@ class DeviceBatcher:
         prefix_dedup_min_chars: int = 48,
         host_tokenizer_workers: int = 2,
         embed_cache=None,
+        fallback_embedder=None,
+        meshfault=None,
     ) -> None:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -273,6 +311,9 @@ class DeviceBatcher:
         self.prefix_dedup_min_chars = max(1, int(prefix_dedup_min_chars))
         self.host_tokenizer_workers = max(0, int(host_tokenizer_workers))
         self.embed_cache = embed_cache
+        self.fallback_embedder = fallback_embedder
+        self._use_fallback = False
+        self.meshfault = meshfault
         # row fingerprint -> the Future of the request computing it; the
         # lock guards this table, the cache and the collapse counter
         self._embed_lock = threading.Lock()
@@ -290,7 +331,9 @@ class DeviceBatcher:
         self._ewma_ms: dict = {}
         self.shed_queue_full = 0
         self.shed_deadline = 0
+        self.shed_redispatch_limit = 0
         self.cancelled_items = 0
+        self.fallback_dispatches = 0
         self._busy: deque = deque(maxlen=1024)
         self._dispatches = 0
         self._items = 0
@@ -792,20 +835,24 @@ class DeviceBatcher:
                     batch_size=len(group))
         wd = (self.watchdog.begin(self._est_kind(group[0]))
               if self.watchdog is not None else None)
+        # the branch and the shape epoch this dispatch is stamped with: a
+        # fault hands the epoch to ``downsize``, and a twin's failure is
+        # never classified
+        twin = self._use_fallback and self.fallback_embedder is not None
+        epoch = self.meshfault.epoch if self.meshfault is not None else None
         try:
-            staged = self._dispatch(group)
+            staged = self._dispatch(group, twin)
             self._waiters.submit(self._await_group, group, staged, t0,
-                                 token, wd)
+                                 token, wd, twin, epoch)
         except Exception as exc:
-            log.exception("device dispatch failed")
-            self._finish(group, t0, token, wd, exc=exc)
+            self._failed(group, t0, token, wd, exc, twin, epoch)
 
-    def _await_group(self, group, staged, t0, token, wd) -> None:
+    def _await_group(self, group, staged, t0, token, wd, twin=False,
+                     epoch=None) -> None:
         try:
             results = self._finalize_group(staged)
         except Exception as exc:
-            log.exception("device dispatch failed at readiness")
-            self._finish(group, t0, token, wd, exc=exc)
+            self._failed(group, t0, token, wd, exc, twin, epoch)
             return
         answers = []
         for item, result in zip(group, results):
@@ -814,18 +861,97 @@ class DeviceBatcher:
             answers.append(result)
         self._finish(group, t0, token, wd, results=answers)
 
-    def _finish(self, group, t0, token, wd, *, results=None,
-                exc=None) -> None:
-        """Count the dispatch, then answer its items (``results``, or
-        ``exc`` for every one), then free its pipeline slot.  Counting
-        first means a caller woken by its answer reads counters that
-        include its dispatch, as on the reference's one loop (the
-        offline drive's ``lanes``); a fault in the counting still
-        answers the items and frees the slot."""
+    def _failed(self, group, t0, token, wd, exc, twin, epoch) -> None:
+        """A dispatch raised on either hop: the device-fault triage
+        (module doc), then the group's end."""
+        kind = (self.meshfault.classify(exc)
+                if self.meshfault is not None and not twin else None)
+        if kind is None:
+            log.error("device dispatch failed", exc_info=exc)
+            self._finish(group, t0, token, wd, exc=exc)
+            return
+        log.warning("device fault (%s): %s", kind, exc)
+        requeued = False
         try:
-            self._observe(group, t0, token, error=exc is not None)
+            requeued = self._handle_device_fault(kind, exc, group, epoch)
+        finally:
+            self._finish(group, t0, token, wd,
+                         exc=None if requeued else exc, requeued=requeued)
+
+    def _handle_device_fault(self, kind, exc, group, epoch) -> bool:
+        """A classified fault: a persistent one walks the ladder, and a
+        spent ladder switches to the CPU twin (the last resort) or,
+        without a twin, fails the group (False).  Every surviving path
+        re-queues the group's live items (True)."""
+        if kind == PERSISTENT and not self.meshfault.downsize(
+                observed_epoch=epoch):
+            if self.fallback_embedder is None:
+                return False
+            self.use_fallback(True)
+        self._requeue(group, exc)
+        return True
+
+    def _requeue(self, group, exc) -> None:
+        """Put a faulted group's items back at the FRONT of their own
+        lane (they are the oldest work), bounded by their deadlines (an
+        item past its budget fails with 504, as the pre-dispatch shed
+        does) and by ``REDISPATCH_LIMIT``."""
+        live = []
+        for item in group:
+            if item.future.done():
+                self._count(cancelled_items=1)
+                continue
+            if item.deadline is not None and item.deadline.expired():
+                if item.span is not None:
+                    item.span.annotate(shed="deadline")
+                _settle(item, exc=DeadlineExceededError(
+                    "deadline expired during re-dispatch"))
+                self._count(shed_deadline=1)
+                if self.metrics is not None:
+                    self.metrics.observe("device:shed:deadline", 0.0,
+                                         error=True)
+                continue
+            if item.redispatches >= self.REDISPATCH_LIMIT:
+                # observable like the deadline shed: a fault loop that
+                # exhausts items shows in /metrics, not only at clients
+                if item.span is not None:
+                    item.span.annotate(shed="redispatch_limit")
+                _settle(item, exc=exc)
+                self._count(shed_redispatch_limit=1)
+                if self.metrics is not None:
+                    self.metrics.observe("device:shed:redispatch", 0.0,
+                                         error=True)
+                continue
+            item.redispatches += 1
+            if item.dspan is not None:
+                item.dspan.finish("error")
+                item.dspan = None
+            live.append(item)
+        if not live:
+            return
+        with self._cond:
+            self._pending[:0] = [i for i in live if i.lane != "offline"]
+            self._pending_offline[:0] = [i for i in live
+                                         if i.lane == "offline"]
+            self._cond.notify_all()
+        self.meshfault.note_redispatch(len(live))
+
+    def _finish(self, group, t0, token, wd, *, results=None,
+                exc=None, requeued=False) -> None:
+        """Count the dispatch, then answer its items (``results``, or
+        ``exc`` for every one; nothing when the fault triage re-queued
+        them), then free its pipeline slot.  Counting first means a
+        caller woken by its answer reads counters that include its
+        dispatch, as on the reference's one loop (the offline drive's
+        ``lanes``); a fault in the counting still answers the items and
+        frees the slot."""
+        try:
+            self._observe(group, t0, token,
+                          error=exc is not None or requeued)
         finally:
             for k, item in enumerate(group):
+                if requeued:
+                    break
                 if exc is not None:
                     _settle(item, exc=exc)
                 else:
@@ -862,29 +988,51 @@ class DeviceBatcher:
             self.metrics.observe(f"device:batch:{series}", (end - t0) * 1e3,
                                  error=error, trace_id=trace_id)
 
-    def _dispatch(self, group: list) -> _StagedGroup:
+    def _dispatch(self, group: list, twin: bool = False) -> _StagedGroup:
         """Stage and enqueue the group under a deferred-readiness sink;
-        the returned closure makes its results after readiness."""
+        the returned closure makes its results after readiness.  On the
+        twin the results are made here, inline (no sink)."""
         if group[0].key == PACKED_KEY:
             fn = self._dispatch_packed
         else:
             fn = getattr(self, "_dispatch_" + group[0].kind)
+        if twin:
+            self._count(fallback_dispatches=1)
+            with _seam.deferred_readiness(None):
+                results = fn(group, self.fallback_embedder)()
+            return _StagedGroup(None, lambda: results)
         sink = _seam.DispatchSink()
-        with _seam.deferred_readiness(sink):
-            finalize = fn(group, self.embedder)
+        guard = (self.meshfault.dispatch_guard()
+                 if self.meshfault is not None else contextlib.nullcontext())
+        with guard:
+            if self.meshfault is not None:
+                # the DEVICE_FAULT_PLAN seam: on the dispatch thread,
+                # before anything is staged or launched
+                self.meshfault.maybe_inject()
+            with _seam.deferred_readiness(sink):
+                finalize = fn(group, self.embedder)
         return _StagedGroup(sink, finalize)
 
     def _finalize_group(self, staged: _StagedGroup) -> list:
         """Waiter hop: wait on the group's dispatches, record device time
-        and intervals, recycle the staging buffers, make the results."""
+        and intervals, recycle the staging buffers, make the results (the
+        twin's are made already)."""
+        if staged.sink is None:
+            return staged.finalize()
         pool = getattr(self.embedder, "staging_pool", None)
         _seam.drain_sink(
             staged.sink,
             observe_device=_phases.observe_device,
             observe_interval=_phases.observe_device_interval,
             release=pool.release if pool is not None else None,
+            retain=pool.retain if pool is not None else None,
         )
-        return staged.finalize()
+        results = staged.finalize()
+        if self.meshfault is not None:
+            # a dispatch resets the transient streak once its device work
+            # completed, not merely enqueued
+            self.meshfault.note_dispatch_ok()
+        return results
 
     # -- submit-time host work -------------------------------------------------
 
@@ -903,7 +1051,10 @@ class DeviceBatcher:
         """The group's submit-time rows concatenated into the batch one
         group-level ``tokenize`` would give: each item's rows padded from
         its own sequence bucket to the group's (pad id, mask 0).  None
-        when an item has no prepared rows."""
+        when an item has no prepared rows, or on the twin (it tokenizes
+        inline)."""
+        if embedder is not self.embedder:
+            return None
         rows = []
         for item in group:
             if item.prepared is None:
@@ -999,6 +1150,11 @@ class DeviceBatcher:
         else:
             ids, mask = embedder.tokenize([item.payload[0] for item in group])
         bufs = [item.payload[1] for item in group]
+        for buf in bufs:
+            if buf.device.type != embedder.device.type:
+                # the stream's state follows the model serving it (the
+                # twin, or the card again), in place
+                buf.data = buf.data.to(embedder.device)
         positions = [item.payload[2] for item in group]
         temperature = group[0].payload[3]
         wanted = [i for i, item in enumerate(group) if item.payload[4]]
@@ -1095,7 +1251,7 @@ class DeviceBatcher:
         """One item's group-wide plan: its submit-time plan when there is
         one, else planned here; its rows join the group's segments and
         its dedup counters apply now."""
-        if item.prepared is not None:
+        if embedder is self.embedder and item.prepared is not None:
             plan, rows, stats = item.prepared.result()
         else:
             plan, rows, stats = self._plan_packed_payload(
@@ -1220,6 +1376,25 @@ class DeviceBatcher:
         self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)
         conf = embedder.consensus_confidence_tokens(ids, mask, temperature)
         return conf, int(mask.sum())
+
+    # -- the twin ---------------------------------------------------------------
+
+    def use_fallback(self, active: bool) -> None:
+        """Route dispatches to the CPU twin (the watchdog's trip, or a
+        spent ladder) or back to the card (the watchdog's recovery).  A
+        flag the next dispatch reads; no effect without a twin."""
+        self._use_fallback = bool(active)
+
+    @property
+    def fallback_active(self) -> bool:
+        return self._use_fallback and self.fallback_embedder is not None
+
+    def stream_buffer(self, capacity: int):
+        """A new stream buffer on the device of the model that serves
+        now (``TorchEmbedder.stream_buffer``)."""
+        model = (self.fallback_embedder if self.fallback_active
+                 else self.embedder)
+        return model.stream_buffer(capacity)
 
     # -- lifecycle ---------------------------------------------------------------
 
@@ -1354,10 +1529,10 @@ class DeviceBatcher:
                 "max_queue_depth": self.max_queue_depth,
                 "shed_queue_full": self.shed_queue_full,
                 "shed_deadline": self.shed_deadline,
-                "shed_redispatch_limit": 0,
+                "shed_redispatch_limit": self.shed_redispatch_limit,
                 "cancelled_items": self.cancelled_items,
-                "fallback_active": False,
-                "fallback_dispatches": 0,
+                "fallback_active": self._use_fallback,
+                "fallback_dispatches": self.fallback_dispatches,
             }
         pool = getattr(self.embedder, "staging_pool", None)
         out["staging"] = pool.stats() if pool is not None else None

@@ -46,6 +46,19 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
 * ``DEVICE_WATCHDOG_INTERVAL_MILLIS`` — the watchdog's check period
   (``0``: a quarter of ``DEVICE_WATCHDOG_MILLIS``, at least 10).
   Default 0;
+* ``DEVICE_WATCHDOG_CPU_FALLBACK`` — ``1`` builds a CPU twin of the
+  embedder at startup (the same weights in f32, unquantized) and routes
+  every dispatch to it while the watchdog holds the card unhealthy, or,
+  under ``MESH_FAULT_ENABLED``, once a persistent fault has spent the
+  ladder: degraded but alive beats shedding.  Needs
+  ``DEVICE_WATCHDOG_MILLIS`` > 0, and with ``MESH_ENABLED`` also
+  ``MESH_FAULT_ENABLED`` (the twin is the last resort after the
+  ladder).  Default 0;
+* ``PROFILE_DIR`` — turns on ``POST /profile/start``, ``POST
+  /profile/stop`` and the one-shot ``POST /v1/profile {"duration_ms"}``
+  (default 500, clamped to [10, 10000]): ``torch.profiler`` captures of
+  the CPU and the card, written as Chrome-trace JSON under this
+  directory.  Unset, ``/v1/profile`` answers 403;
 * ``METRICS_DEVICE_TIMING`` — per-bucket device time from CUDA events
   and the overlap gauge (``0`` skips the recording).  Default 1;
 * ``MAX_BODY_BYTES`` — the request-body cap of every route: a body of
@@ -54,6 +67,34 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
   aiohttp cap does.  Default 1048576 (1 MiB); ``0`` keeps that default;
 * ``ADDRESS`` / ``PORT`` — where the server listens (``--address`` and
   ``--port`` override them).  Default ``0.0.0.0:5000``.
+
+Device fault domains (``resilience/meshfault.py``), the reference's
+knobs, defaults and refusals:
+
+* ``MESH_ENABLED`` — the first-class serving mesh.  The port serves one
+  card, so it takes the one-device shape ``1x1`` (the reference's
+  "``MESH_SHAPE`` unset = every local device on dp" on a one-card host),
+  and its device labels carry ``@dp1xtp1``.  Default 0;
+* ``MESH_SHAPE`` — ``DPxTP`` or ``DPxTPxSP`` (needs ``MESH_ENABLED``);
+  a shape spanning more than one device is refused: that is the
+  multi-device slice (ROADMAP queue 1, item 9);
+* ``MESH_DP`` / ``MESH_TP`` / ``MESH_SP`` (the legacy hooks) and
+  ``LONG_CONTEXT_WARMUP`` (ring buckets) — read and refused past one
+  card, for the same reason (``MESH_TP=1`` is accepted);
+* ``MESH_FAULT_ENABLED`` — classify dispatch failures (transient /
+  persistent / an application error), retry a transient one on the same
+  shape and escalate a streak to persistent; a persistent fault with the
+  one-rung ladder spent switches to the CPU twin when there is one, else
+  fails its group.  Needs ``MESH_ENABLED``.  The ``meshfault`` /metrics
+  section counts it.  Default 0;
+* ``MESH_FAULT_TRANSIENT_RETRIES`` — consecutive transient faults retried
+  before the streak escalates.  Default 2;
+* ``MESH_FAULT_PROBE_MILLIS`` — the recovery prober's period (0 = none;
+  on one card there is no smaller shape to recover from).  Default 0;
+* ``DEVICE_FAULT_PLAN`` — deterministic device-fault injection at the
+  batcher's dispatch seam, e.g. ``seed=42,persistent=0.05`` or
+  ``script=ok|transient|hang|ok,hang_ms=50`` (kinds ``transient``,
+  ``persistent``, ``hang``).  Needs ``MESH_FAULT_ENABLED``.  Drills only.
 
 ``python -m llm_weighted_consensus_tpu_torch.serve`` first loads a
 ``.env`` file from the working directory into the environment
@@ -357,6 +398,61 @@ def _parse_warmup_r(raw) -> list:
     return buckets
 
 
+def _parse_long_context_warmup(raw) -> list:
+    """"4x4096,1x8192" -> [(4, 4096), (1, 8192)], the reference's
+    parser; raises on malformed specs."""
+    if not raw:
+        return []
+    out = []
+    for part in str(raw).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            n_s = part.split("x")
+            n, s = int(n_s[0]), int(n_s[1])
+            if len(n_s) != 2 or n < 1 or s < 1:
+                raise ValueError
+        except (ValueError, IndexError):
+            raise ValueError(
+                f"LONG_CONTEXT_WARMUP spec {part!r}: expected NxS with "
+                "N >= 1 candidates and S >= 1 tokens (e.g. 4x4096)"
+            ) from None
+        out.append((n, s))
+    return out
+
+
+def _parse_mesh_shape(raw) -> Optional[tuple]:
+    """"4x2" -> (4, 2); "2x2x2" -> (2, 2, 2), the reference's parser:
+    raises on malformed values, and an sp axis of 1 is the 2-axis
+    shape."""
+    if not raw:
+        return None
+    try:
+        parts = [int(p) for p in str(raw).strip().split("x")]
+        if len(parts) not in (2, 3) or any(p < 1 for p in parts):
+            raise ValueError
+    except (ValueError, IndexError):
+        raise ValueError(
+            f"MESH_SHAPE {raw!r}: expected DPxTP or DPxTPxSP with "
+            "positive axes (e.g. 4x2 = batches split 4-way, encoder "
+            "params 2-way; 2x2x2 adds 2-way sequence parallelism for "
+            "long-context serving)"
+        ) from None
+    if len(parts) == 3 and parts[2] == 1:
+        parts = parts[:2]
+    return tuple(parts)
+
+
+# the one-card refusals' common tail (the port's divergence from the
+# reference until its multi-device slice)
+ONE_CARD = (
+    "the port serves one card; meshes past one device, the legacy "
+    "MESH_DP/MESH_TP/MESH_SP hooks and ring buckets wait for its "
+    "multi-device slice (ROADMAP queue 1, item 9)"
+)
+
+
 def packing_options(env) -> dict:
     """The batcher's packing keyword arguments, with the reference's
     defaults and clamps."""
@@ -435,6 +531,18 @@ class ServeConfig:
     drain_timeout_millis: float = 10000.0
     device_watchdog_millis: float = 0.0
     device_watchdog_interval_millis: float = 0.0
+    device_watchdog_cpu_fallback: bool = False
+    profile_dir: Optional[str] = None
+    mesh_enabled: bool = False
+    mesh_shape: Optional[tuple] = None
+    mesh_dp: Optional[int] = None
+    mesh_tp: int = 1
+    mesh_sp: Optional[int] = None
+    long_context_warmup: list = field(default_factory=list)
+    mesh_fault_enabled: bool = False
+    mesh_fault_transient_retries: int = 2
+    mesh_fault_probe_millis: float = 0.0
+    device_fault_plan: Optional[str] = None
     metrics_device_timing: bool = True
     max_body_bytes: int = 1024 * 1024
     address: str = "0.0.0.0"
@@ -518,6 +626,26 @@ class ServeConfig:
             device_watchdog_interval_millis=get_f(
                 "DEVICE_WATCHDOG_INTERVAL_MILLIS", 0
             ),
+            device_watchdog_cpu_fallback=env_truthy(
+                env.get("DEVICE_WATCHDOG_CPU_FALLBACK", "0")
+            ),
+            profile_dir=env.get("PROFILE_DIR"),
+            mesh_enabled=env_truthy(env.get("MESH_ENABLED", "0")),
+            mesh_shape=_parse_mesh_shape(env.get("MESH_SHAPE")),
+            mesh_dp=int(env["MESH_DP"]) if env.get("MESH_DP") else None,
+            mesh_tp=int(env.get("MESH_TP", 1)),
+            mesh_sp=int(env["MESH_SP"]) if env.get("MESH_SP") else None,
+            long_context_warmup=_parse_long_context_warmup(
+                env.get("LONG_CONTEXT_WARMUP")
+            ),
+            mesh_fault_enabled=env_truthy(
+                env.get("MESH_FAULT_ENABLED", "0")
+            ),
+            mesh_fault_transient_retries=_non_negative_int(
+                env, "MESH_FAULT_TRANSIENT_RETRIES", 2
+            ),
+            mesh_fault_probe_millis=get_f("MESH_FAULT_PROBE_MILLIS", 0),
+            device_fault_plan=env.get("DEVICE_FAULT_PLAN"),
             metrics_device_timing=env_truthy(
                 env.get("METRICS_DEVICE_TIMING", "1")
             ),
@@ -657,6 +785,16 @@ class ServeConfig:
                 f"DEVICE_WATCHDOG_MILLIS={config.device_watchdog_millis} "
                 "must be >= 0 (0 = watchdog disabled)"
             )
+        if (
+            config.device_watchdog_cpu_fallback
+            and config.device_watchdog_millis <= 0
+        ):
+            raise ValueError(
+                "DEVICE_WATCHDOG_CPU_FALLBACK=1 needs "
+                "DEVICE_WATCHDOG_MILLIS > 0: without the watchdog nothing "
+                "ever routes work to the fallback"
+            )
+        config._check_mesh()
         if config.warmup_r and not config.warmup:
             raise ValueError(
                 "WARMUP_R is set but WARMUP is empty: the grouped-path "
@@ -670,6 +808,89 @@ class ServeConfig:
                 "drive can never make progress)"
             )
         return config
+
+    def _check_mesh(self) -> None:
+        """The reference's refusals of the mesh and fault knobs, in its
+        order, then the one-card refusals."""
+        if self.mesh_shape is not None and not self.mesh_enabled:
+            raise ValueError(
+                "MESH_SHAPE is set but MESH_ENABLED is not: the shape only "
+                "configures the first-class mesh mode (set MESH_ENABLED=1 "
+                "MESH_SHAPE=4x2)"
+            )
+        if self.mesh_enabled and (
+            self.mesh_dp is not None
+            or self.mesh_tp > 1
+            or self.mesh_sp is not None
+        ):
+            raise ValueError(
+                "MESH_ENABLED is mutually exclusive with the legacy "
+                "MESH_DP/MESH_TP/MESH_SP hooks: the first-class mesh mode "
+                "supersedes them (use MESH_SHAPE=DPxTP)"
+            )
+        if self.long_context_warmup and (
+            self.mesh_shape is None or len(self.mesh_shape) != 3
+        ):
+            raise ValueError(
+                "LONG_CONTEXT_WARMUP is set but MESH_SHAPE carries no sp "
+                "axis: ring buckets only compile on a sequence-parallel "
+                "mesh (set MESH_SHAPE=DPxTPxSP, e.g. 2x2x2, or unset "
+                "LONG_CONTEXT_WARMUP)"
+            )
+        if self.mesh_fault_enabled and not self.mesh_enabled:
+            raise ValueError(
+                "MESH_FAULT_ENABLED=1 needs MESH_ENABLED=1: fault domains, "
+                "the downsize ladder and re-dispatch all operate on the "
+                "first-class serving mesh (set MESH_ENABLED=1, optionally "
+                "MESH_SHAPE=DPxTP)"
+            )
+        if self.device_fault_plan and not self.mesh_fault_enabled:
+            raise ValueError(
+                "DEVICE_FAULT_PLAN is set but MESH_FAULT_ENABLED is not: "
+                "the injection seam lives in the mesh fault-domain "
+                "subsystem, so the plan would silently never fire (set "
+                "MESH_FAULT_ENABLED=1, or unset DEVICE_FAULT_PLAN)"
+            )
+        if self.mesh_fault_probe_millis < 0:
+            raise ValueError(
+                f"MESH_FAULT_PROBE_MILLIS={self.mesh_fault_probe_millis} "
+                "must be >= 0 (0 = no automatic recovery upsize)"
+            )
+        if (
+            self.mesh_enabled
+            and self.device_watchdog_cpu_fallback
+            and not self.mesh_fault_enabled
+        ):
+            raise ValueError(
+                "DEVICE_WATCHDOG_CPU_FALLBACK=1 with MESH_ENABLED=1 needs "
+                "MESH_FAULT_ENABLED=1: the CPU twin is single-device, so "
+                "in mesh mode it is the last resort AFTER the downsize "
+                "ladder is exhausted — enabling it without the ladder "
+                "would collapse the mesh to one CPU on the first trip"
+            )
+        # the one-card refusals: loud, never a silent ignore
+        shape = self.mesh_shape or (1, 1)
+        if shape[0] * shape[1] * (shape[2] if len(shape) > 2 else 1) > 1:
+            raise ValueError(
+                f"MESH_SHAPE={'x'.join(map(str, shape))} spans more than "
+                f"one device: {ONE_CARD}"
+            )
+        if self.mesh_dp is not None:
+            raise ValueError(f"MESH_DP={self.mesh_dp} is refused: {ONE_CARD}")
+        if self.mesh_tp > 1:
+            raise ValueError(f"MESH_TP={self.mesh_tp} is refused: {ONE_CARD}")
+        if self.mesh_sp is not None:
+            raise ValueError(f"MESH_SP={self.mesh_sp} is refused: {ONE_CARD}")
+        if self.long_context_warmup:
+            raise ValueError(f"LONG_CONTEXT_WARMUP is refused: {ONE_CARD}")
+
+    def device_fault_injection_plan(self):
+        """Parsed ``DEVICE_FAULT_PLAN``, or None (drills only)."""
+        if not self.device_fault_plan:
+            return None
+        from ..resilience import DeviceFaultPlan
+
+        return DeviceFaultPlan.parse(self.device_fault_plan)
 
     def admission_config(self):
         """The ``AdmissionConfig`` of the gateway's admission gate."""

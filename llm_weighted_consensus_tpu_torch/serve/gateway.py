@@ -43,6 +43,12 @@ bodies, responses and input validation:
   has a store (``WEIGHTS_*``), else 403 both;
 * ``POST /v1/train/rescore`` -> a drive of the batcher's offline lane
   (``OfflineRescore``), when ``OFFLINE_ENABLED``, else 403;
+* ``POST /v1/profile`` -> a one-shot ``torch.profiler`` capture of
+  ``{"duration_ms"}`` under ``PROFILE_DIR``, with ``POST /profile/start``
+  and ``POST /profile/stop`` (``serve/profiling.py``); without
+  ``PROFILE_DIR`` ``/v1/profile`` answers the reference's 403 and the
+  other two do not exist (404).  ``/v1/profile`` is admission-exempt
+  (``resilience.admission.EXEMPT_PATHS``);
 * ``GET /v1/traces`` -> ``{"traces": [...]}`` (newest first, ``?limit=``,
   default 50) and ``GET /v1/traces/{trace_id}`` -> the span tree, when
   the server has a trace sink (``TRACE_*``; 404 ``unknown trace_id``).
@@ -72,7 +78,9 @@ its own handler thread.  Before a POST route runs, the admission gate
 the response (a stream included) is done; the device routes
 (``/consensus``, ``/embeddings``) also shed while the server is still
 warming its CUDA graphs or the watchdog holds the device unhealthy, as
-the reference's ``DEVICE_PATHS`` do; under hard memory pressure
+the reference's ``DEVICE_PATHS`` do (with a CPU twin, ``fallback``,
+the watchdog's trip sheds nothing: the twin absorbs the work); under hard
+memory pressure
 (``resilience/memguard.py``) every POST route sheds with ``shed_reason:
 "memory"``.  An ``x-deadline-ms`` header sets the request's deadline
 (``resilience/deadline.py``), else ``RESILIENCE_DEADLINE_MILLIS`` when
@@ -103,6 +111,7 @@ from ..errors import (
 )
 from ..obs.phases import observe_phase
 from ..resilience.admission import (
+    EXEMPT_PATHS,
     AdmissionConfig,
     AdmissionController,
     retry_after_seconds,
@@ -121,6 +130,7 @@ from .metrics import (
     register_resilience,
     render_prometheus,
 )
+from .profiling import PROFILE_DISABLED, ProfileRoutes
 
 log = logging.getLogger("lwc.torch.gateway")
 
@@ -396,7 +406,7 @@ class OfflineRescore:
 def make_handler(embedder, batcher, reranker, metrics, admission,
                  lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES,
                  trace_sink=None, default_deadline_ms=0.0,
-                 live_weights=None, offline_rescore=None):
+                 live_weights=None, offline_rescore=None, profiler=None):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
@@ -638,37 +648,64 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                     Deadline.deactivate(token)
             self._send(*answer)
 
+        def _post_profile(self, path: str) -> None:
+            raw = self._raw_body()
+            if raw is None:
+                return
+            if profiler is None:
+                self._send(403, PROFILE_DISABLED)
+                return
+            route = {"/profile/start": profiler.start,
+                     "/profile/stop": profiler.stop,
+                     "/v1/profile": profiler.capture}[path]
+            try:
+                answer = route(raw)
+            except Exception as exc:  # the server keeps serving
+                log.exception("request failed: POST %s", path)
+                status, headers, body = error_response(exc)
+                self._send_raw(status, body, headers)
+                return
+            self._send(*answer)
+
         def _post_route(self):
             t0 = time.perf_counter()
             path = self.path
-            host_route = path == RESCORE_PATH or (
+            profile_route = path == "/v1/profile" or (
+                profiler is not None
+                and path in ("/profile/start", "/profile/stop"))
+            host_route = path == RESCORE_PATH or profile_route or (
                 chat_routes is not None and chat_routes.serves(path))
             if path not in device_routes and not host_route:
                 self.close_connection = True  # its body stays unread
                 self._error(404, f"no route POST {path}")
                 return
             self._series = (f"http:{path}", t0)
-            # admitted or shed here; the device routes also pass the
-            # device gate (warming, watchdog)
-            t_wait = time.perf_counter()
-            reason = admission.try_acquire(
-                device_work=path in device_routes)
-            if reason is not None:
-                # lands on the root span; the 503 forces its retention
-                obs.annotate(shed_reason=reason)
-                status, headers, body = shed_response(
-                    reason, admission.config.retry_after_ms
-                )
-                self._send_raw(status, body, headers)
-                return
-            # door -> slot held; the gate is admit-or-shed (no queueing),
-            # so this phase reads ~0, recorded so the breakdown is whole
-            wait_ms = (time.perf_counter() - t_wait) * 1e3
-            observe_phase("admission_wait", wait_ms)
-            obs.annotate(admission_inflight=admission.inflight,
-                         admission_wait_ms=round(wait_ms, 3))
+            # admitted or shed here (the exempt routes skip the gate); the
+            # device routes also pass the device gate (warming, watchdog)
+            exempt = path in EXEMPT_PATHS
+            if not exempt:
+                t_wait = time.perf_counter()
+                reason = admission.try_acquire(
+                    device_work=path in device_routes)
+                if reason is not None:
+                    # lands on the root span; the 503 forces its retention
+                    obs.annotate(shed_reason=reason)
+                    status, headers, body = shed_response(
+                        reason, admission.config.retry_after_ms
+                    )
+                    self._send_raw(status, body, headers)
+                    return
+                # door -> slot held; the gate is admit-or-shed (no
+                # queueing), so this phase reads ~0, recorded so the
+                # breakdown is whole
+                wait_ms = (time.perf_counter() - t_wait) * 1e3
+                observe_phase("admission_wait", wait_ms)
+                obs.annotate(admission_inflight=admission.inflight,
+                             admission_wait_ms=round(wait_ms, 3))
             try:
-                if path == RESCORE_PATH:
+                if profile_route:
+                    self._post_profile(path)
+                elif path == RESCORE_PATH:
                     self._post_rescore()
                 elif host_route:
                     self._post_chat(path)
@@ -678,9 +715,11 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 # a stream cut short is observed here
                 status = self._status or 500  # None: nothing was sent
                 self._observe(status)
-                admission.release(
-                    (time.perf_counter() - t0) * 1e3, error=status >= 500,
-                )
+                if not exempt:
+                    admission.release(
+                        (time.perf_counter() - t0) * 1e3,
+                        error=status >= 500,
+                    )
 
         def _deadline(self):
             """The request's deadline: ``x-deadline-ms`` wins, else the
@@ -763,6 +802,24 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
     return Handler
 
 
+def _roofline_gauge(embedder):
+    """The live roofline gauge over ``analysis/roofline.json`` for the
+    embedder's device type, or None (no embedder, no committed file).
+    Observability, never a serving dependency: a failure to build it
+    leaves the section out."""
+    if embedder is None:
+        return None
+    try:
+        from ..analysis.roofline import RooflineGauge, load_roofline
+
+        roofline = load_roofline()
+        return (RooflineGauge(roofline, embedder.device.type) if roofline
+                else None)
+    except Exception:
+        log.exception("roofline gauge unavailable")
+        return None
+
+
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     # the listen backlog: socketserver's default of 5 drops the SYNs of a
@@ -814,7 +871,19 @@ class Server:
     client's) serves ``GET``/``PUT /v1/weights`` and the ``weights``
     section; ``offline_enabled`` (with an embedder) serves ``POST
     /v1/train/rescore``, ``offline_inflight`` groups in flight by
-    default.  Either route answers 403 when off."""
+    default.  Either route answers 403 when off.
+    ``fallback_embedder`` (the CPU twin, ``DEVICE_WATCHDOG_CPU_FALLBACK``)
+    and ``meshfault`` (a ``resilience.MeshFaultManager``,
+    ``MESH_FAULT_ENABLED``) go to the batcher; the watchdog's trip and
+    recovery switch the twin with the reference's precedence (under a
+    manager a trip marks the next fault persistent and the ladder
+    decides, and a twin switched on survives the recovery; without one a
+    trip turns the twin on and the recovery off), a manager adds the
+    ``meshfault`` section (and, with ``probe_millis``, the recovery
+    prober) and ``mesh`` (``MESH_ENABLED``) the ``mesh`` section.
+    ``profile_dir`` turns the profiler routes on; with an embedder the
+    ``roofline`` section gauges its buckets against
+    ``analysis/roofline.json``."""
 
     def __init__(
         self,
@@ -844,6 +913,10 @@ class Server:
         live_weights=None,
         offline_enabled: bool = False,
         offline_inflight: int = 4,
+        fallback_embedder=None,
+        meshfault=None,
+        mesh: bool = False,
+        profile_dir=None,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -875,14 +948,19 @@ class Server:
             DeviceBatcher(
                 embedder, self.metrics, max_batch=max_batch,
                 window_ms=window_ms, watchdog=self.watchdog,
+                fallback_embedder=fallback_embedder, meshfault=meshfault,
                 **batching,
             )
             if embedder is not None else None
         )
+        self.meshfault = meshfault if self.batcher is not None else None
+        if self.watchdog is not None:
+            self.watchdog.on_trip = self._on_trip
+            self.watchdog.on_recover = self._on_recover
         self.memguard = memguard
         self.lifecycle = Lifecycle(
             batcher=self.batcher, watchdog=self.watchdog, memguard=memguard,
-            drain_timeout_ms=drain_timeout_ms,
+            meshfault=self.meshfault, drain_timeout_ms=drain_timeout_ms,
             state=READY if ready else STARTING,
         )
         self.admission = AdmissionController(
@@ -890,7 +968,18 @@ class Server:
             mem_gate=memguard.gate if memguard is not None else None,
         )
         self.lifecycle.admission = self.admission
-        register_performance(self.metrics)
+        register_performance(self.metrics, _roofline_gauge(embedder))
+        if mesh and embedder is not None:
+            self.metrics.register_provider("mesh", lambda: {
+                "enabled": True, "dp": 1, "tp": 1, "sp": 1, "devices": 1,
+                "ring": False, "ring_max_tokens": None,
+                "aot_buckets": embedder.graph_stats()["graphs"],
+            })
+        if self.meshfault is not None:
+            self.metrics.register_provider("meshfault",
+                                           self.meshfault.snapshot)
+        self.profiler = (ProfileRoutes(profile_dir) if profile_dir
+                         else None)
         register_overload(self.metrics, self.admission, self.watchdog,
                           self.lifecycle, memguard)
         register_resilience(self.metrics, resilience, fault_plan)
@@ -930,20 +1019,76 @@ class Server:
                          self.admission, self.lifecycle, self.chat_routes,
                          max_body_bytes, trace_sink,
                          resilience.deadline_ms if resilience is not None
-                         else 0.0, live_weights, self.offline_rescore),
+                         else 0.0, live_weights, self.offline_rescore,
+                         self.profiler),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:
             self.watchdog.start()
+        self._prober_stop = threading.Event()
+        self._prober = None
+        if self.meshfault is not None and self.meshfault.probe_millis > 0:
+            self._prober = threading.Thread(
+                target=self._probe_loop, name="lwc-torch-mesh-prober",
+                daemon=True)
+            self._prober.start()
 
     def _device_gate(self):
         """Shed device routes while the graphs are still being captured
-        (a capture must own the card) or the device is unhealthy."""
+        (a capture must own the card), or while the device is unhealthy
+        and no CPU twin can absorb the work."""
         if self.lifecycle.state == STARTING:
             return "warming"
         if self.watchdog is not None and not self.watchdog.healthy():
-            return "device_unhealthy"
+            if self.batcher is None or self.batcher.fallback_embedder is None:
+                return "device_unhealthy"
         return None
+
+    # -- the watchdog's switch of the twin (the reference's precedence) ------
+
+    def _mesh_absorbs(self) -> bool:
+        """Under a fault manager a wedge goes to the ladder, not straight
+        to the twin: the batcher switches the twin on only when the ladder
+        reports itself spent."""
+        return self.meshfault is not None and not self.batcher.fallback_active
+
+    def _on_trip(self, kind: str, overdue_ms: float) -> None:
+        twin = self.batcher is not None and (
+            self.batcher.fallback_embedder is not None)
+        log.error(
+            "device watchdog TRIPPED: %s dispatch overdue after %.0f ms%s",
+            kind, overdue_ms,
+            "; escalating to the fault ladder" if self._mesh_absorbs()
+            else "; routing device work to the CPU twin" if twin
+            else "; device routes shed until it completes")
+        if self._mesh_absorbs():
+            self.meshfault.note_watchdog_trip()
+            return
+        if self.batcher is not None:
+            self.batcher.use_fallback(True)
+
+    def _on_recover(self) -> None:
+        log.warning("device watchdog recovered: the overdue dispatch "
+                    "completed, device traffic resumes")
+        if self.meshfault is not None:
+            # a twin switched on by a spent ladder survives: a completed
+            # wedge does not un-spend the ladder
+            return
+        if self.batcher is not None:
+            self.batcher.use_fallback(False)
+
+    def _probe_loop(self) -> None:
+        """``MESH_FAULT_PROBE_MILLIS``: while degraded, re-validate the
+        full shape and upsize back (on one card never degraded)."""
+        mf = self.meshfault
+        while not self._prober_stop.wait(
+                mf.probe_millis / 1e3 * mf.probe_backoff_scale()):
+            try:
+                if mf.try_recover():
+                    log.warning("mesh fault recovery: back to %s",
+                                mf.current_shape)
+            except Exception:
+                log.exception("mesh fault recovery probe failed")
 
     @property
     def port(self) -> int:
@@ -987,6 +1132,11 @@ class Server:
             self.batcher.close()
         if self.watchdog is not None:
             self.watchdog.stop()
+        self._prober_stop.set()
+        if self._prober is not None:
+            self._prober.join(5)
+        if self.profiler is not None:
+            self.profiler.close()
         if self.memguard is not None:
             self.memguard.stop()
         hooks, self.on_close = self.on_close, []

@@ -11,7 +11,12 @@ threads:
   replica still warming.  Under memory pressure (``MemGuard``) it stays
   200 and flags ``degraded_mem`` with the ``mem_level``: soft pressure
   serves everything and hard pressure sheds at admission with a
-  retryable 503, so the balancer should keep probing (``readyz``);
+  retryable 503, so the balancer should keep probing (``readyz``).  A
+  downsized mesh (``MeshFaultManager.degraded``) likewise stays 200 and
+  flags ``degraded_mesh`` with the ``mesh_shape`` it serves on; one card
+  has no smaller shape, so the flag waits for the multi-device slice.  A
+  card the watchdog holds unhealthy answers 503 ``device_unhealthy``
+  with or without a CPU twin;
 * SIGTERM/SIGINT -> ``begin_drain()``: readiness flips, admission stops
   (new requests shed with ``shed_reason: "draining"``), in-flight
   requests finish and the batcher's queue empties, all bounded by
@@ -43,6 +48,7 @@ class Lifecycle:
         batcher=None,
         watchdog=None,
         memguard=None,
+        meshfault=None,
         drain_timeout_ms: float = 10000.0,
         clock: Callable[[], float] = time.monotonic,
         state: str = READY,
@@ -51,6 +57,7 @@ class Lifecycle:
         self.batcher = batcher
         self.watchdog = watchdog
         self.memguard = memguard
+        self.meshfault = meshfault
         self.drain_timeout_ms = float(drain_timeout_ms)
         self.clock = clock
         self.state = state
@@ -84,6 +91,10 @@ class Lifecycle:
         if not ok:
             return 503, {"ready": False, "reason": reason}
         body = {"ready": True}
+        mf = self.meshfault
+        if mf is not None and mf.degraded:
+            body["degraded_mesh"] = True
+            body["mesh_shape"] = list(mf.current_shape)
         mg = self.memguard
         if mg is not None and mg.degraded:
             body["degraded_mem"] = True

@@ -21,6 +21,14 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
   (``register_resilience``);
 * ``kernels``: the kernel wrappers' launch and route counters
   (``ops/launches.py``), replays included;
+* ``roofline``: per observed device-timing bucket, its count and device
+  p50 and, for a bucket with a committed row
+  (``analysis/roofline.json``), its speed-of-light time and
+  ``attainment = sol_ms / device_p50_ms`` (``register_performance``);
+* ``mesh`` and ``meshfault``: under ``MESH_ENABLED`` the serving shape
+  (one card: ``1x1``), under ``MESH_FAULT_ENABLED`` the fault manager's
+  shape, epoch, re-dispatch and ladder counters and the injection plan's
+  tallies (``resilience/meshfault.py``);
 * ``score_cache`` and ``embed_cache``: the caches' counters
   (``cache/store.py``) with their in-flight collapses, when
   ``SCORE_CACHE_TTL`` turns them on;
@@ -38,8 +46,9 @@ bucket line its latency falls in.
 
 Two expositions off one store: the JSON snapshot (the reference's shape)
 and, with ``?format=prometheus``, OpenMetrics text whose shared families
-(uptime, series, phase, device, the quality families, the memory
-governor's, lanes, live weights) render as the reference renders them.  One lock guards the series: the handler, dispatch and waiter
+(uptime, series, phase, device, the roofline gauges, the quality
+families, the memory governor's, lanes, live weights) render as the
+reference renders them.  One lock guards the series: the handler, dispatch and waiter
 threads all observe.
 """
 
@@ -59,6 +68,9 @@ KNOWN_SECTIONS = (
     "lifecycle",
     "device_batcher",
     "phases",
+    "roofline",
+    "mesh",
+    "meshfault",
     "graphs",
     "kernels",
     "score_cache",
@@ -165,13 +177,17 @@ class Metrics:
         return items
 
 
-def register_performance(metrics: Metrics) -> None:
+def register_performance(metrics: Metrics, roofline=None) -> None:
     """The ``phases`` section (per-phase histograms, device share,
-    overlap) and the ``kernels`` section (launch and route counters)."""
+    overlap), the ``kernels`` section (launch and route counters) and,
+    with a gauge (``analysis.roofline.RooflineGauge``), the ``roofline``
+    section."""
     from ..obs import phases as _phases
 
     metrics.register_provider("phases", _phases.phases_snapshot)
     metrics.register_provider("kernels", kernel_counters)
+    if roofline is not None:
+        metrics.register_provider("roofline", roofline.snapshot)
 
 
 def register_resilience(metrics: Metrics, policy, fault_plan=None) -> None:
@@ -334,6 +350,33 @@ def render_prometheus(metrics: Metrics) -> str:
     )
     for bucket, hist in sorted(device_hists.items()):
         lines += _render_hist("lwc_device_latency_ms", "bucket", bucket, hist)
+
+    roofline = metrics.provider_section("roofline")
+    if isinstance(roofline, dict):
+        rows = roofline.get("buckets", {})
+        lines += prom_family(
+            "lwc_roofline_sol_ms",
+            "gauge",
+            "Speed-of-light time per AOT bucket from analysis/roofline.json.",
+        )
+        for bucket, row in sorted(rows.items()):
+            sol = row.get("sol_ms")
+            if sol is not None:
+                lines.append(
+                    f'lwc_roofline_sol_ms{{bucket="{_esc(bucket)}"}} {sol:.6g}'
+                )
+        lines += prom_family(
+            "lwc_roofline_attainment",
+            "gauge",
+            "sol_ms / measured device p50 per AOT bucket (1.0 = roofline).",
+        )
+        for bucket, row in sorted(rows.items()):
+            att = row.get("attainment")
+            if att is not None:
+                lines.append(
+                    f'lwc_roofline_attainment{{bucket="{_esc(bucket)}"}} '
+                    f'{att:.6g}'
+                )
 
     lines += _render_quality()
 

@@ -36,7 +36,10 @@ with TF32 off: one InfoNCE step on bge_micro card vs CPU, the loss 1e-5
 relative, every gradient 1e-4 of the largest gradient plus 1e-3
 relative, the next step's loss 1e-4; the judge-weight fit 1e-5 on the
 weights and 1e-5 relative on its losses.  Every kernel wrapper refuses an
-input that requires grad under grad mode.
+input that requires grad under grad mode.  Device faults: a real
+allocation past the card's memory classifies transient, and a CPU twin's
+dispatch completes while a ``torch.cuda._sleep`` spin occupies the card
+(its answers within 1e-5 of the card's f32 ones, no kernel launched).
 """
 
 import os
@@ -1722,3 +1725,48 @@ def test_fit_weights_on_the_card_matches_the_cpu(card):
     want, want_losses = fit.fit_losses(dataset, steps=300, device="cpu")
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
+
+
+# -- device faults ------------------------------------------------------------
+
+
+def test_a_real_oom_classifies_transient(card):
+    from llm_weighted_consensus_tpu_torch.resilience import (
+        classify_dispatch_error,
+    )
+
+    free, total = torch.cuda.mem_get_info()
+    with pytest.raises(torch.OutOfMemoryError) as caught:
+        torch.empty(int(total) * 2, dtype=torch.uint8, device=card)
+    assert classify_dispatch_error(caught.value) == "transient"
+
+
+def test_a_twin_dispatch_does_not_queue_behind_a_busy_card(card):
+    """A spin of ~3 s on the card's stream; the CPU twin's batcher
+    dispatch completes before it ends and launches no kernel."""
+    import time
+
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+    from llm_weighted_consensus_tpu_torch.serve.metrics import (
+        kernel_counters,
+    )
+
+    emb, twin = _micro(card), _micro("cpu")
+    twin.label_suffix = "@cpu"
+    want = emb.consensus_confidence(MICRO_TEXTS)
+    with DeviceBatcher(emb, window_ms=1.0, fallback_embedder=twin) as b:
+        b.use_fallback(True)
+        torch.cuda.synchronize()
+        rate = torch.cuda.get_device_properties(card).clock_rate  # kHz
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(3.0 * rate * 1e3))
+        before = kernel_counters()
+        conf, _ = b.consensus(MICRO_TEXTS)
+        answered = time.perf_counter() - t0
+        busy = not torch.cuda.current_stream(card).query()
+        torch.cuda.synchronize()
+        spin = time.perf_counter() - t0
+        assert kernel_counters() == before
+        assert b.utilization()["fallback_dispatches"] == 1
+    assert busy and answered < spin, (answered, spin)
+    np.testing.assert_allclose(conf, want, atol=1e-5)

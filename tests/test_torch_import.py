@@ -100,7 +100,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "obs.ledger", "resilience", "resilience.breaker", "resilience.hedge",
         "resilience.quorum", "resilience.faults", "resilience.memguard",
         "serve.frames", "weights.live", "train", "train.feed",
-        "train.fit", "train.__main__",
+        "train.fit", "train.__main__", "resilience.meshfault", "analysis",
+        "analysis.roofline", "analysis.cost", "serve.profiling",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 
