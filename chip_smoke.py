@@ -330,13 +330,29 @@ Phases, each printing one JSON line:
    transient; a subprocess (bge_micro, the twin under the ladder) meets a
    real device-side assert, classifies it persistent and answers from the
    twin (exception type, message and exit code recorded).  (e) ``POST
-   /v1/profile`` with ``PROFILE_DIR`` during a burst: the Chrome trace
-   parses and names ``attention_tma_kernel<false>`` and
-   ``cosine_vote_cluster_kernel`` as often as the launch counters rose, a
+   /v1/profile`` with ``PROFILE_DIR`` during two bursts: the Chrome trace
+   parses and, for the second burst's launch calls, names
+   ``attention_tma_kernel<false>`` and ``cosine_vote_cluster_kernel`` as
+   often as the launch counters rose over it (the first takes the
+   tracer's loss of a capture's first device records), a
    concurrent ``/profile/start`` is a 400, ``/v1/profile`` answers under a
    saturated gate and 403 without ``PROFILE_DIR``.  (f) the ``roofline``
    section: ``sol_ms``, ``device_p50_ms`` and ``attainment`` (at most 1.0)
    for every card bucket that ran, and both Prometheus families.
+
+17. bench path (``llm_weighted_consensus_tpu_torch/bench/``): each bench
+   of ``BENCH_RUNS`` in a subprocess with its own time limit, two lanes
+   at once: ``headline`` (bge-large, N=64, s=128, none and int8),
+   ``configs --quick --single-run`` (BASELINE configs 1-5, the int8
+   headline, the learning effect), ``fwd``, ``attn``, ``http`` (the trio,
+   ``--trace-overhead``, ``--offline``, at a small depth) and ``host``.
+   Each run exits 0 with exactly its expected records, one parseable JSON
+   line each, keys equal to ``BENCH_KEYS`` of its kind, rates, latencies
+   and times finite and positive, ``device`` equal to the nvidia-smi
+   line; the headline runs' launch counters rose by 24 ``tma`` attention
+   launches and one ``cluster`` vote per consensus dispatch (int8: 144
+   ``tma`` W8A8 launches), all replayed, and every bench held its warm
+   answers to a sum of 1 within 1e-3 (it fails otherwise).
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -599,6 +615,10 @@ FAULT_SMALL_N, FAULT_SMALL_WORDS = 8, 20
 FAULT_WATCHDOG_MS, FAULT_HANG_MS = 2000, 3000
 FAULT_WEDGE_WATCHDOG_MS, FAULT_SPIN_S = 1000, 6.0
 FAULT_PROFILE_MS, FAULT_STICKY_TIMEOUT_S = 1000, 120
+# the gap between a trace window's edges and the traced work
+# (``profile_call``; ``analysis/trace_stamps.py`` counts the traces that
+# lose a kernel record with and without it)
+PROFILE_MARGIN_S = 0.05
 
 
 def emit(obj) -> None:
@@ -2643,10 +2663,13 @@ def profile_call(fn, complete=None, tries: int = 3):
     ``fn``.  A first call runs while the profiler already traces and its
     events are dropped (the schedule's warm-up step): a trace that starts
     with the measured call can miss its first kernels (one layer of a
-    dispatch).  The profiler can still drop device records of the
-    measured call, so where ``complete(rows)`` is false the call is
-    traced anew, up to ``tries`` traces; the last is returned either way
-    and the caller's checks judge it."""
+    dispatch).  The profiler drops every device record stamped outside
+    its window, and on the H100 a kernel's record can be stamped up to
+    ~5 ms before its own launch call: so the measured call starts, and
+    the window closes, ``PROFILE_MARGIN_S`` away from the window's
+    edges.  Where ``complete(rows)`` is still false the call is traced
+    anew, up to ``tries`` traces; the last is returned either way and
+    the caller's checks judge it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2658,10 +2681,12 @@ def profile_call(fn, complete=None, tries: int = 3):
             fn()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_MARGIN_S)
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
         rows = device_table(prof)
         if complete is None or complete(rows):
@@ -7926,36 +7951,56 @@ def fault_sticky(gpu, on_card) -> dict:
     return row
 
 
-def trace_kernels(path: str) -> dict:
+def trace_kernels(path: str, skip_graph_launches: int = 0) -> dict:
     """Kernel and graph-launch events of a Chrome trace by port kernel
-    (``attention_tma_kernel<false>``, ``cosine_vote_cluster_kernel``)."""
+    (``attention_tma_kernel<false>``, ``cosine_vote_cluster_kernel``),
+    counting, where ``skip_graph_launches`` is set, only the work
+    launched from that ``cudaGraphLaunch`` on (0-based; kernels matched to
+    their launch calls by correlation id); ``skipped_kernels`` counts the
+    kernel events left out."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    graph = sorted(ev["ts"] for ev in events
+                   if ev.get("name", "").startswith("cudaGraphLaunch"))
+    cut = float("-inf")
+    if skip_graph_launches:
+        cut = (graph[skip_graph_launches]
+               if skip_graph_launches < len(graph) else float("inf"))
+    late = {ev.get("args", {}).get("correlation") for ev in events
+            if ev.get("cat") == "cuda_runtime" and ev["ts"] >= cut}
     counts = {"attention_tma_kernel<false>": 0,
               "cosine_vote_cluster_kernel": 0, "kernels": 0,
-              "cudaGraphLaunch": 0}
+              "cudaGraphLaunch": sum(1 for ts in graph if ts >= cut),
+              "skipped_kernels": 0}
     for ev in events:
         name = ev.get("name", "")
-        if ev.get("cat") == "kernel":
-            counts["kernels"] += 1
-            fn = port_kernel(name)
-            if fn == "attention_tma_kernel" and "<false>" in name:
-                counts["attention_tma_kernel<false>"] += 1
-            elif fn == "cosine_vote_cluster_kernel":
-                counts["cosine_vote_cluster_kernel"] += 1
-        elif name.startswith("cudaGraphLaunch"):
-            counts["cudaGraphLaunch"] += 1
+        if ev.get("cat") != "kernel":
+            continue
+        if (skip_graph_launches
+                and ev.get("args", {}).get("correlation") not in late):
+            counts["skipped_kernels"] += 1
+            continue
+        counts["kernels"] += 1
+        fn = port_kernel(name)
+        if fn == "attention_tma_kernel" and "<false>" in name:
+            counts["attention_tma_kernel<false>"] += 1
+        elif fn == "cosine_vote_cluster_kernel":
+            counts["cosine_vote_cluster_kernel"] += 1
     return counts
 
 
 def fault_profile(gpu, emb, small, on_card) -> dict:
     """Phase 16 (e): ``POST /v1/profile {"duration_ms": FAULT_PROFILE_MS}``
-    with ``PROFILE_DIR`` while a burst of 8 small requests is served (up
-    to 3 captures while the trace's kernel counts miss the launch
-    counters' rise), a concurrent ``/profile/start`` answering 400, the
-    burst's p50 with and without the capture, and ``/v1/profile``
-    answering under a saturated gate (``ADMISSION_MAX_INFLIGHT=1``, its
-    slot held) while ``/consensus`` sheds 503."""
+    with ``PROFILE_DIR`` while two bursts of 8 small requests are served
+    one after the other, the trace's kernel counts of the second held to
+    the launch counters' rise over it (up to 3 captures while they miss),
+    a concurrent ``/profile/start`` answering 400, the burst's p50 with
+    and without the capture, and ``/v1/profile`` answering under a
+    saturated gate (``ADMISSION_MAX_INFLIGHT=1``, its slot held) while
+    ``/consensus`` sheds 503.  Late in a long process the tracer drops
+    the first device records of each capture (about 30 on the H100, as
+    out of its window), so the first burst takes that loss and the
+    second is matched to its own launch calls (``trace_kernels``)."""
     import threading
 
     profile_dir = os.path.join(REPO, "build", "fault_profile")
@@ -7968,13 +8013,17 @@ def fault_profile(gpu, emb, small, on_card) -> dict:
             capture = threading.Thread(target=lambda: box.update(
                 out=http(srv.port, "/v1/profile",
                          {"duration_ms": FAULT_PROFILE_MS})))
-            before, r0 = read_launches(), emb.graph_stats()["replays"]
             n_traces = len(srv.profiler.traces)
             capture.start()
             wait_until(lambda: srv.profiler._prof is not None, 30,
                        "the capture's start")
             busy = http(srv.port, "/profile/start", {})
-            time.sleep(0.2)  # the tracer's first records, then the burst
+            time.sleep(0.2)  # the tracer's first records, then the bursts
+            p0 = emb.graph_stats()["replays"]
+            primed = fault_burst(srv.port, small[:BURST])
+            skip = emb.graph_stats()["replays"] - p0
+            time.sleep(0.1)
+            before, r0 = read_launches(), emb.graph_stats()["replays"]
             traced = fault_burst(srv.port, small[:BURST])
             capture.join(60)
             rise = {k: v - before[k] for k, v in read_launches().items()}
@@ -7983,7 +8032,7 @@ def fault_profile(gpu, emb, small, on_card) -> dict:
             if status != 200 or len(srv.profiler.traces) != n_traces + 1:
                 raise AssertionError(f"/v1/profile: {status} {body}")
             path = srv.profiler.traces[-1]
-            counts = trace_kernels(path)
+            counts = trace_kernels(path, skip)
             kernels_match = (
                 counts["attention_tma_kernel<false>"] == rise["attention"]
                 and counts["cosine_vote_cluster_kernel"]
@@ -7998,7 +8047,7 @@ def fault_profile(gpu, emb, small, on_card) -> dict:
         if busy[0] != 400 or busy[2] != {"code": 400,
                                          "message": "trace already active"}:
             raise AssertionError(f"/profile/start during a capture: {busy}")
-        statuses = [s for s, _, _, _ in plain + traced]
+        statuses = [s for s, _, _, _ in plain + primed + traced]
         if statuses != [200] * len(statuses):
             raise AssertionError(f"profiled burst statuses {statuses}")
         trace_bytes = os.path.getsize(path)
@@ -8020,7 +8069,9 @@ def fault_profile(gpu, emb, small, on_card) -> dict:
     row = {
         "duration_ms": body["duration_ms"], "traces": traces,
         "trace_bytes": trace_bytes, "trace_counts": counts,
-        "launch_rise": rise, "replays": replays,
+        "launch_rise": rise, "replays": replays, "primed_replays": skip,
+        # both bursts replay one graph: the first's missing kernel records
+        "first_burst_lost": counts["kernels"] - counts["skipped_kernels"],
         "kernels_match": kernels_match, "graph_events_only": graph_events,
         "burst_p50_ms": burst_p50(plain),
         "burst_p50_ms_captured": burst_p50(traced),
@@ -8155,9 +8206,263 @@ def fault_path(gpu: str, device: str = "cuda",
     return row
 
 
+# -- phase 17: the benches ----------------------------------------------------------
+
+# (label, bench argv, time limit s, the record kinds it prints in order),
+# in two lanes run at once: a bench's figures here are a gate's, not a
+# measurement's (PERF.md's come from the benches run alone)
+BENCH_LANES = (
+    (
+        ("headline", ["headline", "--requests", "40",
+                      "--latency-requests", "20"], 300, ["headline"]),
+        ("headline_int8", ["headline", "--quantize", "int8", "--requests",
+                           "20", "--latency-requests", "10"], 300,
+         ["headline"]),
+        ("fwd", ["fwd"], 240, ["fwd"]),
+        ("attn", ["attn"], 180,
+         ["attn_row"] * 7 + ["attn"]),
+        ("host", ["host", "--requests", "20"], 180, ["host"]),
+    ),
+    (
+        ("configs", ["configs", "--quick", "--single-run"], 600,
+         ["config1", "config2", "config3", "config4", "config5", "config7",
+          "config6"]),
+        ("http", ["http", "--quick", "--requests", "16"], 300,
+         ["/consensus", "/score/completions", "/multichat/completions"]),
+        ("http_trace", ["http", "--trace-overhead", "--quick",
+                        "--requests", "12"], 300, ["trace"]),
+        ("http_offline", ["http", "--offline", "--quick", "--requests",
+                          "12"], 300, ["offline"]),
+    ),
+)
+_ENVELOPE = ("cuda", "device", "git", "seed", "torch")
+_CONFIG = ("baseline_basis", "config", "metric", "unit", "value")
+_ENDPOINT = ("baseline_basis", "endpoint", "note", "phase_breakdown",
+             "quality_summary", "unit", "value", "concurrency", "requests")
+# each record kind's keys: the reference's, less the written renames of
+# tests/test_torch_bench.py (which holds these lists to the reference)
+BENCH_KEYS = {
+    "headline": ("backend", "baseline", "baseline_basis", "device_only_ms",
+                 "device_only_ms_runs", "dispatch_evidence",
+                 "effective_tflops", "graphs", "latency_requests", "metric",
+                 "mfu_h100_bf16", "model", "n_candidates", "numerics",
+                 "p50_ms", "p99_ms", "quantize", "quantize_accuracy",
+                 "requests", "roofline", "seq",
+                 "serving_bucketed_answers_per_sec", "serving_bucketed_seq",
+                 "tflop_per_answer", "unit", "value", "vs_baseline"),
+    "config1": _CONFIG + ("graphs", "launches", "p50_ms", "requests"),
+    "config2": _CONFIG + ("breakdown", "device_fraction", "graphs", "p50_ms",
+                          "phase_ms", "requests", "serial_answers_per_sec"),
+    "config3": _CONFIG + ("graphs", "numerics", "p50_ms", "requests"),
+    "config4": _CONFIG + ("batch_seconds", "batches_sampled"),
+    "config5": _CONFIG + ("concurrency", "graphs", "requests",
+                          "stream_seconds_per_request"),
+    "config6": _CONFIG + ("held_out_prompts", "learn_rows_per_sec",
+                          "learned_accuracy", "rows_learned", "scenario",
+                          "static_accuracy"),
+    "config7": _CONFIG + ("graphs", "int8_dispatch", "launches", "p50_ms",
+                          "quantize", "requests"),
+    "fwd": ("attn=kernel", "attn=plain", "b", "backend", "dtype",
+            "gelu+ln=identity", "gelu=identity", "gelu=tanh",
+            "gelu_ln_share", "ln=identity", "metric", "model", "runs", "seq",
+            "timer"),
+    "attn": ("backend", "dtype", "hd", "metric", "nh", "results", "timer"),
+    "/consensus": _ENDPOINT + ("direct_call_answers_per_sec", "graphs",
+                               "launches", "n_candidates", "p50_ms",
+                               "p99_ms", "quantize", "served_vs_direct"),
+    "/score/completions": _ENDPOINT + ("p50_ms", "p99_ms"),
+    "/multichat/completions": _ENDPOINT + ("generators", "graphs", "p50_ms",
+                                           "p99_ms"),
+    "trace": _ENDPOINT + ("consensus_round_deltas", "full", "graphs", "off",
+                          "p50_inflation_pct_full", "round_deltas", "rounds",
+                          "sampled_1pct"),
+    "offline": _ENDPOINT + (
+        "baseline", "contended", "contended_rescore", "graphs",
+        "idle_rescore", "lanes", "n_candidates",
+        "offline_dispatches_during_contention", "offline_n",
+        "offline_occupancy_idle", "p50_inflation_pct", "p99_inflation_pct",
+        "round_p50_deltas", "round_p99_deltas", "rounds"),
+    "host": ("baseline_basis", "breakdown", "cuda_initialized", "judges",
+             "metric", "n_candidates", "note", "p50_ms", "p99_ms",
+             "requests", "seq", "stream_chunks_per_request", "unit",
+             "value"),
+}
+BENCH_KEYS = {kind: tuple(sorted(set(keys) | set(_ENVELOPE)))
+              for kind, keys in BENCH_KEYS.items()}
+BENCH_LAYERS = 24  # bge-large's layers: attention launches per encoder call
+
+
+def run_bench(label, argv, limit_s, device) -> dict:
+    """One bench in a subprocess -> its exit code, records and seconds."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.bench",
+           *argv, "--device", device]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=limit_s)
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    except subprocess.TimeoutExpired as exc:
+        rc, out = "timeout", exc.stdout or ""
+        err = exc.stderr or ""
+        out = out.decode() if isinstance(out, bytes) else out
+        err = err.decode() if isinstance(err, bytes) else err
+    lines = [line for line in out.splitlines() if line.strip()]
+    records, bad = [], []
+    for line in lines:
+        try:
+            records.append(json.loads(line))
+        except ValueError:
+            bad.append(line[:200])
+    return {"label": label, "rc": rc, "records": records, "bad_lines": bad,
+            "stderr_tail": err[-1500:], "seconds": time.perf_counter() - t0}
+
+
+def _finite_positive(value) -> bool:
+    import math
+
+    return (isinstance(value, (int, float)) and not isinstance(value, bool)
+            and math.isfinite(value) and value > 0)
+
+
+def check_bench_record(record: dict, kind: str, gpu, on_card: bool) -> None:
+    """Keys, finite positive figures and the device line of one record."""
+    if kind == "attn_row":
+        rows = [v for k, v in record.items() if k != "bench"]
+        if set(record) - {"bench"} == set() or len(rows) != 1:
+            raise AssertionError(f"attn row {record}")
+        figures = [rows[0][k] for k in ("kernel_ms", "plain_ms", "sdpa_ms")]
+    else:
+        keys = tuple(sorted(record))
+        if keys != BENCH_KEYS[kind]:
+            raise AssertionError(
+                f"{kind}: keys {sorted(set(keys) ^ set(BENCH_KEYS[kind]))} "
+                "differ from BENCH_KEYS")
+        if on_card and record["device"] != gpu:
+            raise AssertionError(f"{kind}: device {record['device']!r}")
+        figures = []
+        if kind == "fwd":
+            figures = [record[k] for k in BENCH_KEYS["fwd"] if "=" in k]
+        elif kind == "attn":
+            figures = [row[k] for row in record["results"].values()
+                       for k in ("kernel_ms", "plain_ms", "sdpa_ms")]
+        elif kind not in ("trace", "offline", "config6"):
+            figures = [record["value"]]
+        if "p50_ms" in record:
+            figures.append(record["p50_ms"])
+        if kind == "headline" and on_card:
+            figures += [record["device_only_ms"], record["mfu_h100_bf16"]]
+        if kind == "trace":
+            figures += [record[s]["p50_ms"] for s in
+                        ("off", "sampled_1pct", "full")]
+        if kind == "offline":
+            figures += [record["baseline"]["p50_ms"],
+                        record["contended"]["p50_ms"]]
+    for value in figures:
+        if not _finite_positive(value):
+            raise AssertionError(f"{kind}: a figure is {value!r}")
+
+
+def check_headline_launches(record: dict, on_card: bool) -> dict:
+    """The launch counters' rise over the headline's timed windows against
+    its consensus dispatches."""
+    ev = record["dispatch_evidence"]
+    k = ev["dispatches"]
+    got = {name: row["launches"] for name, row in ev["launches"].items()}
+    if not on_card:
+        return got
+    want = {"attention": BENCH_LAYERS * k, "cosine_vote": k}
+    if record["quantize"] == "int8":
+        want["w8a8_matmul"] = 6 * BENCH_LAYERS * k
+    for name, n in want.items():
+        routes = ev["launches"][name]["routes"]
+        route = "cluster" if name == "cosine_vote" else "tma"
+        if got[name] != n or routes.get(route, 0) != n:
+            raise AssertionError(
+                f"headline {record['quantize']}: {name} launched {got[name]} "
+                f"times {routes}, want {n} on {route}")
+    if ev["replays"] != k or ev["eager_dispatches"] or ev["captures"]:
+        raise AssertionError(f"headline dispatches not all replays: {ev}")
+    return got
+
+
+def bench_launches(records: list) -> dict:
+    """The launches the bench records report (the headline windows,
+    configs 1 and 7, the served /consensus)."""
+    total: dict = {}
+    for record in records:
+        rows = (record.get("dispatch_evidence", {}).get("launches")
+                or record.get("launches") or {})
+        for name, row in rows.items():
+            total[name] = total.get(name, 0) + row["launches"]
+    return total
+
+
+def bench_path(gpu, device: str = "cuda", lanes=BENCH_LANES) -> dict:
+    """Phase 17: every bench in a subprocess, two lanes at once; one row
+    per run (exit code, records, seconds) and the launches the records
+    report.  ``device="cpu"`` (with small ``lanes``) rehearses the
+    control flow."""
+    import threading
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    results = [[] for _ in lanes]
+
+    def lane(i):
+        for label, argv, limit_s, _ in lanes[i]:
+            results[i].append(run_bench(label, argv, limit_s, device))
+
+    threads = [threading.Thread(target=lane, args=(i,))
+               for i in range(len(lanes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rows, failures, records_all = [], [], []
+    for runs, spec in zip(results, lanes):
+        for run, (label, argv, _, kinds) in zip(runs, spec):
+            row = {"label": label, "argv": argv, "rc": run["rc"],
+                   "seconds": run["seconds"],
+                   "records": len(run["records"])}
+            try:
+                if run["rc"] != 0 or run["bad_lines"]:
+                    raise AssertionError(
+                        f"rc {run['rc']}, unparsed {run['bad_lines']}: "
+                        f"{run['stderr_tail']}")
+                if len(run["records"]) != len(kinds):
+                    raise AssertionError(
+                        f"{len(run['records'])} records, want {len(kinds)}: "
+                        f"{[r.get('error') for r in run['records']]}")
+                for record, kind in zip(run["records"], kinds):
+                    check_bench_record(record, kind, gpu, on_card)
+                    if kind == "headline":
+                        row["launches"] = check_headline_launches(
+                            record, on_card)
+                        row["answers_per_sec"] = record["value"]
+                        row["p50_ms"] = record["p50_ms"]
+                        row["device_only_ms"] = record["device_only_ms"]
+                        row["mfu_h100_bf16"] = record["mfu_h100_bf16"]
+                        row["roofline"] = record["roofline"]
+                    elif kind.startswith("config") or kind in (
+                            "/consensus", "host"):
+                        row.setdefault("values", {})[kind] = record["value"]
+                records_all += run["records"]
+            except AssertionError as exc:
+                failures.append(f"{label}: {exc}")
+            rows.append(row)
+    out = {"phase": "bench_path", "rows": rows,
+           "launches": bench_launches(records_all),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if failures:
+        raise AssertionError("bench path: " + " | ".join(failures))
+    return out
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
-                   archived, traced, resilient, learning, fault) -> dict:
+                   archived, traced, resilient, learning, fault,
+                   bench) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -8185,7 +8490,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     phase 15 ``learning_path_launches`` (the offline drives, the bursts
     beside them and the learner drill's prompt embeds), and phase 16
     ``fault_path_launches`` (its traffic on the card, the twin's
-    dispatches launching nothing).
+    dispatches launching nothing); phase 17 adds ``bench_path_launches``
+    to every kernel its bench records report (the headline windows,
+    configs 1 and 7, the served ``/consensus``).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -8392,7 +8699,10 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
             entry["learning_path_launches"] = learning["launches"][
                 entry["name"]]
             entry["fault_path_launches"] = fault["launches"][entry["name"]]
-        elif entry["name"] == "segment_attention":
+        if entry["name"] in bench["launches"]:
+            # phase 17's subprocesses, as their records report them
+            entry["bench_path_launches"] = bench["launches"][entry["name"]]
+        if entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
     graphed = {"cosine_vote": "main", "attention": "main",
@@ -8483,11 +8793,13 @@ def main() -> int:
     resilient = timed("resilient_path", resilient_path, gpu)
     learning = timed("learning_path", learning_path, gpu)
     fault = timed("fault_path", fault_path, gpu)
+    bench = timed("bench_path", bench_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
-                        score, archived, traced, resilient, learning, fault))
+                        score, archived, traced, resilient, learning, fault,
+                        bench))
     print(gpu)
     emit({
         "ok": True,

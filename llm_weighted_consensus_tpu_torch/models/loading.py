@@ -13,9 +13,10 @@ Two accepted layouts:
 buffers), so no ``safetensors`` package is needed; ``.bin``/``.pt`` load
 with ``torch.load(weights_only=True)``.  HF state dicts may carry a
 ``bert.`` (or, for the reward model, ``deberta.``) prefix from task-head
-checkpoints; it is stripped.  The orbax checkpoints of the JAX trainer
-are refused by name: they belong to the trainers' slice (``ROADMAP.md``,
-queue 1 item 8).
+checkpoints; it is stripped.  The port reads HF weights and its own
+checkpoint files (``train.save_checkpoint``); an Orbax checkpoint
+directory of the JAX trainer is refused by name: carry its parameters
+over with ``models.convert`` and ``train.save_checkpoint``.
 """
 
 from __future__ import annotations
@@ -112,9 +113,10 @@ def _weights_file(path: str) -> str:
                 return candidate
         if _is_orbax_dir(path):
             raise NotImplementedError(
-                f"{path!r} is an orbax checkpoint of the JAX trainer; the "
-                "PyTorch port reads HF weights only (orbax checkpoints come "
-                "with the trainers, ROADMAP.md queue 1 item 8)"
+                f"{path!r} is an Orbax checkpoint of the JAX trainer, which "
+                "the port does not read: it reads HF weights and its own "
+                "checkpoint files; carry the parameters over with "
+                "models.convert and train.save_checkpoint"
             )
         raise FileNotFoundError(
             f"{path!r} is a directory but contains no HF weights file "

@@ -9,6 +9,10 @@ whose system prompt carries a ballot ("Select the response:") answers "I
 select <a random key>".  ``FAKE_UPSTREAM_DELAY_MS`` (read per request)
 sleeps before the first frame, so requests hold their admission slot for
 a judge-like interval.
+
+``ScriptedTransport`` is the in-memory twin: a ``clients.chat.Transport``
+that answers each request with the next scripted SSE body (``Script``,
+``chunk_obj``), the reference's ``tests/fakes.py`` transport.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import random
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..clients.chat import Transport, TransportResponse
 
 
 def fake_completion_frames(body: dict) -> bytes:
@@ -78,6 +84,8 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
     def do_POST(self):
+        with self.server.lock:
+            self.server.requests += 1
         length = int(self.headers.get("content-length") or 0)
         raw = self.rfile.read(length)
         if self.path != "/v1/chat/completions":
@@ -93,13 +101,22 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("content-type", "text/event-stream")
         self.send_header("content-length", str(len(payload)))
         self.end_headers()
-        self.wfile.write(payload)
+        try:
+            self.wfile.write(payload)
+        except (BrokenPipeError, ConnectionResetError):
+            # the client cancelled the attempt (a quorum, a deadline)
+            self.close_connection = True
 
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
     # a panel's slots connect at once (see the gateway's backlog)
     request_queue_size = 128
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.lock = threading.Lock()
+        self.requests = 0
 
 
 class FakeUpstream:
@@ -115,6 +132,11 @@ class FakeUpstream:
         self._thread.start()
 
     @property
+    def requests(self) -> int:
+        """POSTs answered so far."""
+        return self.httpd.requests
+
+    @property
     def url(self) -> str:
         return f"http://127.0.0.1:{self.httpd.server_address[1]}/v1"
 
@@ -122,3 +144,72 @@ class FakeUpstream:
         self.httpd.shutdown()
         self._thread.join(10)
         self.httpd.server_close()
+
+
+# -- an in-memory scripted upstream (the benches' configs 2 and 5) --------------
+
+
+def chunk_obj(content=None, *, cid: str = "cc-1", model: str = "fake-model",
+              index: int = 0, finish=None, usage=None, role=None,
+              created: int = 1700000000) -> dict:
+    """One ``chat.completion.chunk`` object with a one-choice delta."""
+    delta: dict = {}
+    if role is not None:
+        delta["role"] = role
+    if content is not None:
+        delta["content"] = content
+    obj = {
+        "id": cid, "object": "chat.completion.chunk", "created": created,
+        "model": model,
+        "choices": [{"index": index, "delta": delta,
+                     "finish_reason": finish}],
+    }
+    if usage is not None:
+        obj["usage"] = usage
+    return obj
+
+
+def sse_frames(events: list) -> bytes:
+    """Event payloads (dict -> JSON, str -> raw) as SSE ``data:`` frames."""
+    return "".join(
+        f"data: {json.dumps(ev) if isinstance(ev, dict) else ev}\n\n"
+        for ev in events
+    ).encode()
+
+
+class Script:
+    """One scripted upstream response: its SSE events, then ``[DONE]``."""
+
+    def __init__(self, events=None, *, status: int = 200,
+                 body: bytes = b"") -> None:
+        self.events = list(events or [])
+        self.status = status
+        self.body = body
+
+
+class ScriptedTransport(Transport):
+    """A ``clients.chat.Transport`` that answers each request with the
+    next ``Script``, in memory (no socket): the upstream of the benches
+    that time the port's own fan-out and device consensus, not a
+    provider."""
+
+    def __init__(self, scripts: list) -> None:
+        self.scripts = list(scripts)
+
+    async def post_sse(self, url, headers, body):
+        if not self.scripts:
+            raise RuntimeError(f"no script left for a request to {url}")
+        script = self.scripts.pop(0)
+
+        class _Response(TransportResponse):
+            status = script.status
+
+            async def read_body(self) -> bytes:
+                return script.body
+
+            async def byte_stream(self):
+                for event in script.events:
+                    yield sse_frames([event])
+                yield b"data: [DONE]\n\n"
+
+        return _Response()

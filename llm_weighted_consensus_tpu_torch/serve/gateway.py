@@ -458,6 +458,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self._trace_header()
             self.send_header("content-length", str(len(body)))
             self.end_headers()
+            self._offer_trace()
             self.wfile.write(body)
 
         def _start_chunked(self, status: int, headers: dict) -> None:
@@ -503,29 +504,42 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 root.set_error(exc)
                 raise
             finally:
-                status = self._status
-                if status is not None:
-                    root.annotate(http_status=status)
-                    if status >= 500:
-                        # sheds answer 503 rather than raising; the gate
-                        # annotated shed_reason already
-                        root.status = "error"
-                        root.trace.force(f"http_{status}")
                 obs.Span.deactivate(token)
-                root.finish()
-                self._root = None
-                try:
-                    root.annotate(
-                        phase_breakdown=obs.phase_breakdown(root.trace))
-                except Exception:
-                    log.exception("phase breakdown failed")
-                trace_sink.offer(root.trace)
+                # a route that wrote no answer's last bytes (it raised,
+                # or its stream ended unterminated) is offered here
+                self._offer_trace()
+
+        def _offer_trace(self) -> None:
+            """Close the traced request's root and offer its trace to the
+            sink, once, before the response's last bytes go out (a unary
+            body, a stream's terminator): a client holding its answer
+            finds the trace at ``/v1/traces``, as in the reference."""
+            root = self._root
+            if root is None:
+                return
+            self._root = None
+            status = self._status
+            if status is not None:
+                root.annotate(http_status=status)
+                if status >= 500:
+                    # sheds answer 503 rather than raising; the gate
+                    # annotated shed_reason already
+                    root.status = "error"
+                    root.trace.force(f"http_{status}")
+            root.finish()
+            try:
+                root.annotate(
+                    phase_breakdown=obs.phase_breakdown(root.trace))
+            except Exception:
+                log.exception("phase breakdown failed")
+            trace_sink.offer(root.trace)
 
         def _write_chunk(self, data: bytes) -> None:
             self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
             self.wfile.flush()
 
         def _end_chunked(self) -> None:
+            self._offer_trace()
             self.wfile.write(b"0\r\n\r\n")
             self.wfile.flush()
 

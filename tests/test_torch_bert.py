@@ -237,3 +237,62 @@ def test_roberta_positions_start_past_the_pad_id():
             torch.zeros((1, s + 1), dtype=torch.int32),
             torch.ones((1, s + 1), dtype=torch.int32),
         )
+
+
+# -- transformers.BertModel ---------------------------------------------------------
+
+HF_TINY = dict(vocab_size=512, hidden_size=64, num_layers=3, num_heads=4,
+               intermediate_size=128, max_position_embeddings=64)
+HF_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def hf_pair():
+    """A random-init ``transformers.BertModel`` (f32, erf GELU, no pooler)
+    and the port's encoder on its state dict."""
+    transformers = pytest.importorskip("transformers")
+    cfg = configs.BertConfig(**HF_TINY)
+    hf_config = transformers.BertConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        num_hidden_layers=cfg.num_layers,
+        num_attention_heads=cfg.num_heads,
+        intermediate_size=cfg.intermediate_size,
+        max_position_embeddings=cfg.max_position_embeddings,
+        type_vocab_size=cfg.type_vocab_size,
+        layer_norm_eps=cfg.layer_norm_eps, hidden_act="gelu",
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+    )
+    torch.manual_seed(0)
+    hf = transformers.BertModel(hf_config, add_pooling_layer=False).eval()
+    state = {k: v.detach().clone() for k, v in hf.state_dict().items()}
+    model = bert.from_hf_state_dict(state, cfg, dtype=torch.float32,
+                                    device="cpu")
+    return cfg, hf, model
+
+
+@pytest.mark.parametrize("what", ["hidden", "cls", "mean"])
+def test_encode_matches_transformers_bert_model(hf_pair, what):
+    cfg, hf, model = hf_pair
+    ids, mask = _tokens(4, 24, cfg.vocab_size, seed=1, n_pad=15)
+    tids = torch.from_numpy(ids).long()
+    tmask = torch.from_numpy(mask).long()
+    with torch.no_grad():
+        ref = hf(input_ids=tids, attention_mask=tmask).last_hidden_state
+        if what == "hidden":
+            got = bert.encode(model, torch.from_numpy(ids),
+                              torch.from_numpy(mask))
+            # HF computes values at pad positions too; nothing reads them
+            real = torch.from_numpy(mask).bool()
+            got, ref = got[real], ref[real]
+        else:
+            got = bert.embed(model, torch.from_numpy(ids),
+                             torch.from_numpy(mask), pooling=what,
+                             normalize=True)
+            if what == "cls":
+                pooled = ref[:, 0]
+            else:
+                m = tmask.float()[:, :, None]
+                pooled = (ref * m).sum(1) / m.sum(1)
+            ref = torch.nn.functional.normalize(pooled, p=2, dim=-1)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=HF_TOL,
+                               rtol=0)

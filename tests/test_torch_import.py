@@ -1,11 +1,13 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
 the JAX package, nor ``optax``/``orbax`` (its trainers are torch's), nor
-``xxhash`` or ``aiohttp``, which the card's machine does not have.
+``xxhash`` or ``aiohttp``, which the card's machine does not have, nor
+the reference's root benches (``bench*.py``) or anything under
+``tests/`` (its benches keep their own copies of what they share).
 
 A subprocess imports every module of ``llm_weighted_consensus_tpu_torch``
-(and ``chip_smoke.py``) with ``jax``, ``jaxlib``,
-``llm_weighted_consensus_tpu``, ``xxhash`` and ``aiohttp`` poisoned, and
-an AST scan shows that no file of the port names those modules.
+(its ``bench/`` subpackage included, and ``chip_smoke.py``) with those
+modules poisoned, and an AST scan shows that no file of the port names
+them.
 """
 
 import ast
@@ -19,7 +21,9 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "llm_weighted_consensus_tpu_torch"
 BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp",
-          "optax", "orbax")
+          "optax", "orbax", "bench", "bench_all", "bench_attn", "bench_fwd",
+          "bench_host", "bench_http", "bench_scaling", "tests", "fakes",
+          "conftest", "test_learning_effect")
 
 _PROBE = r"""
 import importlib
@@ -28,7 +32,9 @@ import pkgutil
 import sys
 
 BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp",
-          "optax", "orbax")
+          "optax", "orbax", "bench", "bench_all", "bench_attn", "bench_fwd",
+          "bench_host", "bench_http", "bench_scaling", "tests", "fakes",
+          "conftest", "test_learning_effect")
 
 
 class _Poison:
@@ -101,7 +107,11 @@ def test_port_imports_without_jax_or_the_jax_package():
         "resilience.quorum", "resilience.faults", "resilience.memguard",
         "serve.frames", "weights.live", "train", "train.feed",
         "train.fit", "train.__main__", "resilience.meshfault", "analysis",
-        "analysis.roofline", "analysis.cost", "serve.profiling",
+        "analysis.roofline", "analysis.cost", "analysis.trace_stamps",
+        "serve.profiling",
+        "bench", "bench.__main__", "bench.common", "bench.headline",
+        "bench.fwd", "bench.attn", "bench.configs", "bench.learning",
+        "bench.http", "bench.host",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

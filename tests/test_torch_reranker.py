@@ -218,7 +218,7 @@ def test_load_rm_params_encoder_only_and_orbax(tmp_path):
     orbax = tmp_path / "ckpt"
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Orbax checkpoint"):
         loading.load_rm_params(str(orbax), configs.DEBERTA_TEST_TINY,
                                device="cpu")
     with pytest.raises(FileNotFoundError):

@@ -595,3 +595,35 @@ def test_a_full_queue_sheds_with_a_batcher_span(tiny_embedders):
     assert spans["batcher:consensus"]["attributes"]["shed"] == "queue_full"
     assert spans["batcher:consensus"]["status"] == "error"
     assert "device:dispatch" not in spans
+
+
+class SlowSink(port_obs.TraceSink):
+    """A sink whose ``offer`` takes 200 ms: a trace offered after the
+    answer's last bytes would still be missing when the client, holding
+    its answer, reads ``/v1/traces``."""
+
+    def offer(self, trace) -> None:
+        import time
+
+        time.sleep(0.2)
+        super().offer(trace)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_the_trace_is_offered_before_the_answer_is_written(stream):
+    b, scripts = CASES["agreement"]
+    calls = [post("/score/completions", {**b, "stream": stream}),
+             get("/v1/traces"), get("/v1/traces/{tid}")]
+    server, _ = port_server(scripts, SlowSink(sample_rate=1.0))
+    with server:
+        got = port_calls(server, calls)
+    assert got[0][0] == 200
+    tid = got[0][1]["x-trace-id"]
+    assert [e["trace_id"] for e in json.loads(got[1][2])["traces"]] == [tid]
+    assert got[2][0] == 200
+    record = json.loads(got[2][2])
+    assert record["trace_id"] == tid
+    root = record["spans"][0]
+    assert root["attributes"]["http_status"] == 200
+    breakdown = root["attributes"]["phase_breakdown"]
+    assert breakdown["e2e_ms"] <= record["duration_ms"] + 1e-6
