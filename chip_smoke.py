@@ -8459,10 +8459,412 @@ def bench_path(gpu, device: str = "cuda", lanes=BENCH_LANES) -> dict:
     return out
 
 
+# phase 18 (the analysis path): the served main path's traffic under
+# LOCK_WITNESS=1 and with the knob unset, from one warmed bge-large
+ANALYSIS_BURSTS, ANALYSIS_SCORES, ANALYSIS_OFFLINE_GROUPS = 3, 4, 16
+ANALYSIS_OFFLINE_N, ANALYSIS_PACKED_BURST = 8, 8
+ANALYSIS_CLI_LIMIT_S = 300
+ANALYSIS_SLOT_S = 0.03
+# the packed burst: requests 10 ms apart inside a 400 ms window
+ANALYSIS_PACKED_GAP_S, ANALYSIS_PACKED_WINDOW_MS = 0.01, 400
+
+
+class AnalysisUpstream:
+    """The judges and the generators on one loopback base: a request
+    whose last message carries a ballot is answered as ``ScriptedJudges``
+    answers it (``judge_frames``, at once), any other streams
+    ``stream_candidate`` of its seed as ``ScriptedGenerators`` does, in
+    one frame, ``ANALYSIS_SLOT_S`` x slot after it arrives.  Every answer
+    is a function of its request."""
+
+    def __init__(self) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["content-length"])))
+                last = str(body.get("messages", [{}])[-1].get("content", ""))
+                if "Select the response:" in last:
+                    frame = judge_frames(body)
+                else:
+                    request, slot = divmod(int(body.get("seed") or 0), 1000)
+                    # slots finish in slot order, so a stream's buffer
+                    # fills in the same order every run
+                    time.sleep(ANALYSIS_SLOT_S * slot)
+                    chunk = {
+                        "id": f"gen-{body.get('seed')}", "created": 1,
+                        "object": "chat.completion.chunk",
+                        "model": body.get("model"),
+                        "choices": [{"index": 0, "finish_reason": "stop",
+                                     "delta": {"content": stream_candidate(
+                                         request, slot)}}],
+                    }
+                    frame = (f"data: {json.dumps(chunk)}\n\n"
+                             "data: [DONE]\n\n").encode()
+                self.send_response(200)
+                self.send_header("content-type", "text/event-stream")
+                self.send_header("content-length", str(len(frame)))
+                self.end_headers()
+                self.wfile.write(frame)
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+            request_queue_size = 1024
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/v1"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def analysis_cli(device: str) -> dict:
+    """(a) ``python -m llm_weighted_consensus_tpu_torch.analysis --json``
+    in a subprocess over the port's package, the dispatch audit's CPU
+    half included: exit 0, no finding, seconds by part."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.analysis",
+         "--json"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=ANALYSIS_CLI_LIMIT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis CLI exit {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["findings"] or out["stale_baseline"] or not out["audit_run"]:
+        raise AssertionError(f"analysis CLI: {out}")
+    return {"rc": proc.returncode, "wall_s": wall,
+            "lint_s": out["lint_seconds"],
+            "concurrency_s": out["concurrency_seconds"],
+            "audit_s": out["audit_seconds"],
+            "baselined": len(out["suppressed"]), "mesh": out["mesh"]["reason"]}
+
+
+def analysis_traffic(srv, bursts, scores, model_name, packed=None) -> dict:
+    """The phase's traffic on ``srv``: the bursts of /consensus (their
+    p50), one /embeddings request, the score requests, one multichat
+    stream, a ``PUT /v1/weights`` swap, and the offline drive beside one
+    more burst; with ``packed`` (a packed server) one packed burst there.
+    -> every answer, in order."""
+    import random
+    import threading
+
+    import numpy as np
+
+    out = {}
+    # one unmeasured burst first: the staging pool's pinned buffers are
+    # allocated by the first server's traffic on the shared embedder
+    drive_bursts(srv.port, bursts[:1])
+    run = drive_bursts(srv.port, bursts[:-1])
+    out["bursts"] = run["answers"]
+    out["p50_ms"] = run["p50_ms"]
+    status, _, emb = http(srv.port, "/embeddings",
+                          {"model": model_name, "input": bursts[0][0][:4]})
+    if status != 200:
+        raise AssertionError(f"/embeddings: {status} {emb}")
+    out["embeddings"] = np.asarray([r["embedding"] for r in emb["data"]])
+    # the judges' ballots from a seeded generator: the scripted judges
+    # vote by a hash of the ballot, so the answers repeat run to run
+    srv.score_client.rng_factory = lambda: random.Random(18)
+    score = drive_score(srv.port, scores, len(scores))
+    out["score"] = [score_answer(o["final"]) for o in score["outs"]]
+    status, events, _ = sse_post(srv.port, "/multichat/completions", {
+        "messages": [{"role": "user", "content": "question 7"}],
+        "model": stream_panel(), "seed": 7000, "stream": True,
+        "consensus": True})
+    stream = read_stream(events)
+    if status != 200 or not stream["done"] or not stream["frames"]:
+        raise AssertionError(f"multichat stream: {status} {events[-2:]}")
+    out["stream"] = stream["frames"]
+    status, _, put = http(srv.port, "/v1/weights",
+                          {"weights": {"backend-0": 2.0}}, method="PUT")
+    if status != 200:
+        raise AssertionError(f"PUT /v1/weights: {status} {put}")
+    out["swap"] = put.get("version")
+    box = {}
+
+    def drive():
+        box["out"] = http(srv.port, "/v1/train/rescore", {
+            "groups": ANALYSIS_OFFLINE_GROUPS, "n": ANALYSIS_OFFLINE_N,
+            "seed": 0, "inflight": 4})
+
+    thread = threading.Thread(target=drive)
+    thread.start()
+    beside = drive_bursts(srv.port, bursts[-1:])
+    thread.join(600)
+    status, _, offline = box["out"]
+    if status != 200 or offline["errors"]:
+        raise AssertionError(f"offline drive: {status} {offline}")
+    out["bursts"] += beside["answers"]
+    out["offline"] = (offline["groups"], offline["items"])
+    if packed is not None:
+        out["packed"] = packed_answers(packed.port, packed_burst())
+    return out
+
+
+def packed_answers(port, burst) -> list:
+    """The packed burst's requests, started ``ANALYSIS_PACKED_GAP_S``
+    apart inside the packed server's window: they join one group in a
+    fixed order, so the packed layout (and with it each answer's bits)
+    is the same run to run."""
+    import threading
+
+    import numpy as np
+
+    results = {}
+
+    def call(i, texts):
+        status, _, out = http(port, "/consensus", {"input": texts})
+        if status != 200:
+            raise AssertionError(f"packed /consensus {i}: {status} {out}")
+        results[i] = out
+
+    threads = []
+    for i, texts in enumerate(burst):
+        threads.append(threading.Thread(target=call, args=(i, texts)))
+        threads[-1].start()
+        time.sleep(ANALYSIS_PACKED_GAP_S)
+    for t in threads:
+        t.join(600)
+    answers = []
+    for i, texts in enumerate(burst):
+        check_answer(results[i]["confidence"], len(texts))
+        answers.append(np.asarray(results[i]["confidence"]))
+    return answers
+
+
+def score_answer(final: dict) -> tuple:
+    """A score stream's answer: the candidates' confidences by index, and
+    the judges' entries with the indices their arrival order gave them
+    taken out, sorted."""
+    cands = sorted((c["index"], c["confidence"]) for c in final["choices"]
+                   if c["index"] < SCORE_N)
+    judges = sorted(
+        json.dumps({k: v for k, v in c.items()
+                    if k not in ("index", "model_index")}, sort_keys=True)
+        for c in final["choices"] if c["index"] >= SCORE_N)
+    return cands, judges
+
+
+def packed_burst() -> list:
+    """The packed burst: the first ``ANALYSIS_PACKED_BURST`` requests of
+    the mixed-length traffic's first burst."""
+    return mixed_traffic()[0][0][:ANALYSIS_PACKED_BURST]
+
+
+def same_answers(a, b, path="") -> None:
+    """Bit-equal answers (numpy arrays compared element for element)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            same_answers(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} != {len(b)} items")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_answers(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{path}: answers differ")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+
+
+def analysis_served(gpu, emb, packed_emb, on_card) -> dict:
+    """(b) the served main path with the knob unset, then under
+    ``LOCK_WITNESS=1``, from the same warmed embedder: a padded server
+    (``BATCH_MAX=1``: each request its own R=1 dispatch, so an answer's
+    bucket does not depend on what shares the card with it) and a packed
+    one.  The witness stays clean, wraps nothing it does not see
+    acquired, and the answers are bit-equal."""
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+    bursts = [[candidate_texts(rng, N_CANDIDATES, BURST_WORDS)
+               for _ in range(BURST)] for _ in range(ANALYSIS_BURSTS + 1)]
+    s = emb.tokenize(bursts[0][0], 512)[0].shape[1]
+    scores = [score_body(k, "training_table") for k in range(ANALYSIS_SCORES)]
+    upstream = AnalysisUpstream()
+    runs, launches = {}, {}
+    try:
+        for mode in ("off", "on"):
+            knob = {"LOCK_WITNESS": "1"} if mode == "on" else {}
+            env = serving_env(
+                EMBEDDER_MODEL=emb.model_name, BATCH_MAX="1",
+                WARMUP=f"{N_CANDIDATES}x{s}", MESH_ENABLED="1",
+                MESH_FAULT_ENABLED="1", DEVICE_WATCHDOG_MILLIS="30000",
+                WEIGHTS_ENABLED="1", OFFLINE_ENABLED="1",
+                TRACE_SAMPLE_RATE="1", LEDGER_RING="256",
+                SCORE_CACHE_TTL="600", OPENAI_API_BASE=upstream.url,
+                OPENAI_API_KEY="smoke-key", **knob)
+            penv = serving_env(
+                EMBEDDER_MODEL=emb.model_name, PACKING_ENABLED="1",
+                BATCH_MAX="64",
+                BATCH_WINDOW_MS=str(ANALYSIS_PACKED_WINDOW_MS), **knob)
+            config = ServeConfig.from_env(env)
+            srv = build_server(emb, None, config).start()
+            psrv = build_server(packed_emb, None,
+                                ServeConfig.from_env(penv)).start()
+            try:
+                warm_up(srv, config)
+                psrv.warmup([], [], [(b, l, PACKING["packing_max_segments"])
+                                     for b, l in PACKED_SHAPES[:8]])
+                reset_launches()
+                run = analysis_traffic(srv, bursts, scores, emb.model_name,
+                                       packed=psrv)
+                launches[mode] = read_launches()
+                if on_card:
+                    read_routes()
+                witnesses = [w for w in (srv.lock_witness,
+                                         psrv.lock_witness) if w is not None]
+                run["witness"] = [
+                    dict(w.snapshot(), locks=w.counts(), wrapped=w.wrapped())
+                    for w in witnesses]
+                runs[mode] = run
+            finally:
+                psrv.close()
+                srv.close()
+    finally:
+        upstream.close()
+    off, on = runs["off"], runs["on"]
+    if off["witness"] or len(on["witness"]) != 2:
+        raise AssertionError("the knob wrapped (or failed to wrap) a server")
+    for snap in on["witness"]:
+        never = sorted(set(snap["wrapped"]) - set(snap["locks"]))
+        if on_card is False:
+            # the plain versions on the CPU count no launch
+            never = [k for k in never if k != "launches._lock"]
+        if snap["violations"] or snap["undeclared"] or never:
+            raise AssertionError(
+                f"lock witness: {snap['violations']} violations, undeclared "
+                f"{snap['undeclared']}, never acquired {never}")
+    answers = {k: v for k, v in on.items() if k not in ("witness", "p50_ms")}
+    same_answers(answers, {k: off[k] for k in answers}, "answers")
+    row = {"phase": "analysis_path", "part": "served", "gpu": gpu,
+           "nvidia_smi": gpu, "bursts_p50_ms": {"off": off["p50_ms"],
+                                                "on": on["p50_ms"]},
+           "witness_cost": on["p50_ms"] / off["p50_ms"] - 1.0,
+           "witness": [{k: snap[k] for k in ("acquisitions", "locks",
+                                              "undeclared", "violations")}
+                       | {"edges": len(snap["edges"])}
+                       for snap in on["witness"]],
+           "launches": launches}
+    print(f"phase 18 bursts p50: {off['p50_ms']:.3f} ms without the "
+          f"witness, {on['p50_ms']:.3f} ms with it ({gpu})", flush=True)
+    return row
+
+
+def analysis_card(gpu, emb, model_name, device, on_card) -> dict:
+    """(c) the dispatch audit's card half over the padded server's warmed
+    buckets (the consensus and the embed forward at N=64) and one R=1,
+    N=64 dispatch of an ``int8`` embedder: no sync inside any enqueue, no
+    capture and no eager dispatch after warmup, every launch on its
+    route (24 attention launches per encoder call, 144 W8A8)."""
+    from llm_weighted_consensus_tpu_torch.analysis import dispatch_audit as da
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+
+    import numpy as np
+
+    layers = emb.config.num_layers
+    rng = np.random.default_rng(18)
+    s = emb.tokenize(candidate_texts(rng, N_CANDIDATES, BURST_WORDS),
+                     512)[0].shape[1]
+    specs = [(N_CANDIDATES, s)]
+    keys = da.expected_keys(emb, specs, (), ())
+    calls = [(label, thunk) for label, _, thunk in
+             da.served_calls(emb, specs, (), ())]
+    int8 = TorchEmbedder(model_name, device=device, seed=0, quantize="int8",
+                         max_tokens=emb.max_tokens)
+    int8.warmup(specs)
+    q_keys = da.expected_keys(int8, specs, (), ())[:1]
+    q_calls = [(label + "@int8", thunk) for label, symbol, thunk in
+               da.served_calls(int8, specs, (), ())
+               if symbol == "consensus_confidence_tokens"]
+    if not on_card:
+        return {"phase": "analysis_path", "part": "card",
+                "keys": [str(k) for k in keys + q_keys]}
+    full = da.card_audit(emb, keys, calls, {
+        "attention": {"tma": 2 * layers}, "cosine_vote": {"cluster": 1},
+        "w8a8_matmul": {}, "segment_attention": {}}, device=device)
+    quant = da.card_audit(int8, q_keys, q_calls, {
+        "attention": {"tma": layers}, "cosine_vote": {"cluster": 1},
+        "w8a8_matmul": {"tma": 6 * layers}, "segment_attention": {}},
+        device=device)
+    row = {"phase": "analysis_path", "part": "card", "gpu": gpu,
+           "nvidia_smi": gpu, "full": full, "int8": quant}
+    bad = full["findings"] + quant["findings"]
+    if bad:
+        raise AssertionError("dispatch audit, card half: " + " | ".join(bad))
+    row["launches"] = {
+        name: full["launches"][name].get(route, 0)
+        + quant["launches"][name].get(route, 0)
+        for name, route in (("attention", "tma"), ("cosine_vote", "cluster"),
+                            ("w8a8_matmul", "tma"))}
+    return row
+
+
+def analysis_path(gpu: str, device: str = "cuda",
+                  model_name: str = "bge-large-en") -> dict:
+    """Phase 18: static analysis and the lock model.  (a) the analysis
+    CLI in a subprocess, (b) the served main path at full bge-large width
+    (random weights from seed 0, bf16) under ``LOCK_WITNESS=1`` against
+    the knob unset (``analysis_served``), (c) the dispatch audit's card
+    half (``analysis_card``).  Any failure fails the script.
+    (``device="cpu"`` with test-tiny rehearses the control flow.)"""
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import build_embedder
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    cli = analysis_cli(device)
+    emb = build_embedder(serving_env(EMBEDDER_MODEL=model_name),
+                         device=device)
+    packed_emb = TorchEmbedder(emb.model_name, model=emb.model,
+                               config=emb.config, tokenizer=emb.tokenizer,
+                               max_tokens=emb.max_tokens, device=emb.device,
+                               dtype=emb.dtype)
+    served = analysis_served(gpu, emb, packed_emb, on_card)
+    card = analysis_card(gpu, emb, model_name, device, on_card)
+    launches = dict(served["launches"]["on"])
+    for name, n in card.get("launches", {}).items():
+        launches[name] = launches.get(name, 0) + n
+    out = {"phase": "analysis_path", "gpu": gpu, "nvidia_smi": gpu,
+           "cli": cli, "bursts_p50_ms": served["bursts_p50_ms"],
+           "witness_cost": served["witness_cost"],
+           "witness": served["witness"], "card": card, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
                    archived, traced, resilient, learning, fault,
-                   bench) -> dict:
+                   bench, analysis) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -8492,7 +8894,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     ``fault_path_launches`` (its traffic on the card, the twin's
     dispatches launching nothing); phase 17 adds ``bench_path_launches``
     to every kernel its bench records report (the headline windows,
-    configs 1 and 7, the served ``/consensus``).
+    configs 1 and 7, the served ``/consensus``), and phase 18
+    ``analysis_path_launches`` to every kernel its witnessed runs and
+    its dispatch audit launched.
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -8702,6 +9106,9 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         if entry["name"] in bench["launches"]:
             # phase 17's subprocesses, as their records report them
             entry["bench_path_launches"] = bench["launches"][entry["name"]]
+        if analysis["launches"].get(entry["name"]):
+            entry["analysis_path_launches"] = analysis["launches"][
+                entry["name"]]
         if entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -8794,12 +9201,13 @@ def main() -> int:
     learning = timed("learning_path", learning_path, gpu)
     fault = timed("fault_path", fault_path, gpu)
     bench = timed("bench_path", bench_path, gpu)
+    analysis = timed("analysis_path", analysis_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
                         score, archived, traced, resilient, learning, fault,
-                        bench))
+                        bench, analysis))
     print(gpu)
     emit({
         "ok": True,

@@ -171,10 +171,16 @@ class StdlibTransport(Transport):
     headers, the reference's ``sock_connect``; the body is bounded by the
     client's own per-chunk timeouts.  Bodies come as they arrive,
     ``transfer-encoding: chunked`` decoded, else up to ``content-length``
-    or the connection's end."""
+    or the connection's end.  ``max_body_bytes`` (the client's
+    ``judge_stream_max_bytes``; 0 = no cap) bounds what a unary
+    ``read_body`` holds: past it the rest is counted, not kept, and the
+    read raises ``IngestCapError("unary_body", cap, full length)``, the
+    error the client's own check after a full read gives."""
 
-    def __init__(self, connect_timeout_ms: float = 30000.0) -> None:
+    def __init__(self, connect_timeout_ms: float = 30000.0,
+                 max_body_bytes: int = 0) -> None:
         self.connect_timeout_ms = connect_timeout_ms
+        self.max_body_bytes = int(max_body_bytes)
 
     async def post_sse(self, url, headers, body) -> TransportResponse:
         parts = urlsplit(url)
@@ -225,7 +231,8 @@ class StdlibTransport(Transport):
             # quorum straggler): nothing else would close this socket
             _close_writer(writer)
             raise
-        return _StdlibResponse(status, resp_headers, reader, writer)
+        return _StdlibResponse(status, resp_headers, reader, writer,
+                               self.max_body_bytes)
 
 
 async def _read_head(reader) -> tuple:
@@ -250,11 +257,13 @@ def _close_writer(writer) -> None:
 
 
 class _StdlibResponse(TransportResponse):
-    def __init__(self, status, headers, reader, writer) -> None:
+    def __init__(self, status, headers, reader, writer,
+                 max_body_bytes: int = 0) -> None:
         self.status = status
         self._headers = headers
         self._reader = reader
         self._writer = writer
+        self._max_body_bytes = max_body_bytes
 
     async def byte_stream(self):
         reader = self._reader
@@ -286,13 +295,20 @@ class _StdlibResponse(TransportResponse):
             yield data
 
     async def read_body(self) -> bytes:
-        parts = []
+        cap = self._max_body_bytes
+        body, total, over = bytearray(), 0, False
         try:
             async for data in self.byte_stream():
-                parts.append(data)
+                total += len(data)
+                if cap and len(body) + len(data) > cap:
+                    over = True  # the rest is counted, never held
+                if not over:
+                    body += data
         finally:
             await self.close()
-        return b"".join(parts)
+        if over:
+            raise IngestCapError("unary_body", cap, total)
+        return bytes(body)
 
     async def close(self) -> None:
         writer, self._writer = self._writer, None
@@ -682,6 +698,12 @@ class DefaultChatClient(ChatClient):
                     )
                 except asyncio.TimeoutError:
                     yield _timeout_error("first_chunk", started, deadline)
+                    return
+                except IngestCapError as e:
+                    # a transport that caps its own unary read
+                    # (StdlibTransport's max_body_bytes)
+                    self._inc("ingest_cap_tripped")
+                    yield e
                     return
                 if (
                     self.judge_stream_max_bytes

@@ -193,6 +193,7 @@ def encode(
     segment_ids: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     attention_impl: str = "auto",
+    positions_checked: bool = False,
 ) -> torch.Tensor:
     """input_ids[b, s], attention_mask[b, s] -> hidden[b, s, h] in the
     param dtype.  Positions are left-aligned from ``position_base``.
@@ -207,7 +208,9 @@ def encode(
     each segment is bounded instead (``check_positions``).  That check
     runs here for positions on the CPU; on the card the caller makes it
     from its host copy before the upload (``TorchEmbedder.embed_packed``),
-    so no device sync is added."""
+    so no device sync is added.  ``positions_checked=True`` says the
+    caller bounded them already (the embedder does, on either device),
+    so the dispatch reads no tensor on the host."""
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"attention_impl={attention_impl!r}: the port takes one of "
@@ -218,7 +221,8 @@ def encode(
     base = position_base(config)
     if positions is None:
         check_positions(config, s - 1, f"sequence {s}")
-    elif positions.device.type == "cpu" and positions.numel():
+    elif (not positions_checked and positions.device.type == "cpu"
+          and positions.numel()):
         last = int(positions.max())
         check_positions(config, last, f"a segment of {last + 1} tokens")
     emb = model.embeddings
@@ -322,12 +326,14 @@ def embed_packed(
     seg_starts: torch.Tensor,
     pooling: str = "cls",
     normalize: bool = True,
+    positions_checked: bool = False,
 ) -> torch.Tensor:
     """The packed twin of ``embed``: ids/segment_ids/positions[b, s]
     int32, seg_starts[b, k] int32 -> one pooled vector per segment slot,
-    [b, k, h] f32."""
+    [b, k, h] f32 (``positions_checked``: ``encode``'s)."""
     hidden = encode(
-        model, input_ids, None, segment_ids=segment_ids, positions=positions
+        model, input_ids, None, segment_ids=segment_ids, positions=positions,
+        positions_checked=positions_checked,
     )
     return pool_segments(hidden, segment_ids, seg_starts, pooling, normalize)
 

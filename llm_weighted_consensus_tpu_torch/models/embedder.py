@@ -154,9 +154,10 @@ class TorchEmbedder:
         )
 
     def _forward_packed(self, ids, segment_ids, positions, seg_starts):
+        # embed_packed bounded the positions on its host copy
         return bert.embed_packed(
             self.model, ids, segment_ids, positions, seg_starts,
-            pooling=self.pooling, normalize=True,
+            pooling=self.pooling, normalize=True, positions_checked=True,
         )
 
     def warmup(

@@ -162,13 +162,18 @@ class GraphTable:
         arrays ``inputs`` (int32, the bucket's shapes; their values only
         need to make a valid forward).  -> (label, seconds), or None if
         ``key`` was warmed already."""
-        if key in self._entries:
-            return None
-        t0 = time.perf_counter()
-        if not self.on_card:
-            self._entries[key] = None
-            return key_label(key), time.perf_counter() - t0
-        with self.lock, torch.inference_mode():
+        with self.lock:
+            if key in self._entries:
+                return None
+            t0 = time.perf_counter()
+            if not self.on_card:
+                self._entries[key] = None
+                return key_label(key), time.perf_counter() - t0
+            return self._capture(key, inputs, forward, t0)
+
+    # caller-holds-lock: launch_lock.lock (only warm calls this, inside its with-lock block)
+    def _capture(self, key, inputs, forward, t0) -> tuple:
+        with torch.inference_mode():
             static = {
                 name: torch.from_numpy(
                     np.array(a, np.int32, order="C")).to(self.device)
@@ -193,6 +198,7 @@ class GraphTable:
             self.pool_bytes = self._measure_pool()
         return key_label(key), time.perf_counter() - t0
 
+    # caller-holds-lock: launch_lock.lock (only _capture calls this)
     def _measure_pool(self) -> int:
         """Bytes of the device segments the shared graph pool holds."""
         want = tuple(self._pool)
@@ -254,7 +260,7 @@ class GraphTable:
             raise
         return settle(done, pool, timed)
 
-    # caller holds self.lock
+    # caller-holds-lock: launch_lock.lock (only dispatch calls this, inside its with-lock block)
     def _run(self, key, staged, forward) -> torch.Tensor:
         entry = self._entries.get(key)
         if entry is not None:

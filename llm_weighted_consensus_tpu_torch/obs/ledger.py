@@ -67,6 +67,7 @@ class OutcomeLedger:
             except OSError:
                 self._active_bytes = 0
 
+    # caller-holds-lock: OutcomeLedger._lock (only _offer calls this)
     def _rotate(self) -> None:
         """Seal the active shard under a timestamped, size-ordered name
         that still matches the ``ledger-*.jsonl`` read glob, so
@@ -91,6 +92,7 @@ class OutcomeLedger:
         with self._lock:
             self._offer(record)
 
+    # caller-holds-lock: OutcomeLedger._lock (only offer calls this, inside its with-lock block)
     def _offer(self, record: dict) -> None:
         record.setdefault("schema", LEDGER_SCHEMA)
         key = record.get("id") or f"outcome-{self.kept}"

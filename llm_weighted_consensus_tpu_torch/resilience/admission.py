@@ -120,14 +120,14 @@ class AdmissionController:
             if self.config.adaptive and self.config.max_inflight > 0:
                 self._adapt(latency_ms, error)
 
-    # caller holds self._lock
+    # caller-holds-lock: AdmissionController._lock (only called inside with-lock blocks)
     def _shed(self, reason: str) -> str:
         self.shed[reason] = self.shed.get(reason, 0) + 1
         return reason
 
     # -- the AIMD/gradient limit ----------------------------------------------
 
-    # caller holds self._lock
+    # caller-holds-lock: AdmissionController._lock (only called inside with-lock blocks)
     def _adapt(self, ms: float, error: bool) -> None:
         """The baseline is a decayed minimum of observed latency: it
         snaps down at once and drifts up 0.1% per sample.  A sample past

@@ -107,7 +107,13 @@ import signal
 import sys
 import threading
 
-from .config import ServeConfig, env_truthy, load_dotenv, staging_buffers
+from .config import (
+    ServeConfig,
+    env_truthy,
+    load_dotenv,
+    process_env,
+    staging_buffers,
+)
 from .config import packing_options  # noqa: F401  (the server's env API)
 
 log = logging.getLogger("lwc.torch.serve")
@@ -314,7 +320,10 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
     up = config.upstream
     if store is None:
         store = InMemoryArchive()
-    transport = StdlibTransport(connect_timeout_ms=up["connect_timeout_ms"])
+    transport = StdlibTransport(
+        connect_timeout_ms=up["connect_timeout_ms"],
+        max_body_bytes=up["judge_stream_max_bytes"],
+    )
     if fault_plan is not None:
         # FAULT_PLAN (chaos runs): the seeded fault injector around the
         # real transport; its close() closes the inner one
@@ -589,7 +598,95 @@ def build_server(embedder, reranker, config: ServeConfig,
         server.on_close.append(lambda: store.save(config.archive_path))
     if score_cache is not None:
         server.on_close.append(score_cache.flush)
+    # LOCK_WITNESS=1: runtime lockdep over the registered primitives,
+    # wrapped here, before warmup's first dispatch; None leaves every
+    # lock bare
+    server.lock_witness = (
+        install_lock_witness(server, embedder, reranker)
+        if config.lock_witness else None
+    )
     return server
+
+
+def install_lock_witness(server, embedder, reranker):
+    """Wrap every registered threading primitive a served request
+    reaches in ``LockWitness`` proxies (``analysis/witness.py``, the keys
+    of ``analysis/concurrency_model.py``): the per-device launch locks
+    (the ``models.graphs`` table and every ``GraphTable`` holding one,
+    the CPU twin's included), the staging pools, the batcher's condition
+    and (with an embed cache) its join-table lock, the shape gate and
+    the manager lock, the watchdog, the admission gate, the memory
+    governor, the metrics series, the phase and quality aggregators, the
+    kernel launch counters, the trace sink, the ledger and the live
+    weight store.  The snapshot, with acquisitions per lock, is the
+    ``lock_witness`` section of ``/metrics``; at close the summary line
+    is printed and every proxy is taken out again, so objects the server
+    shares (an embedder) are bare for the next one."""
+    from ..analysis.witness import LockWitness
+    from ..models import graphs
+    from ..obs import phases, quality
+    from ..ops import launches
+
+    witness = LockWitness()
+    proxies: dict = {}
+    undo: list = []
+
+    def proxy_for(lock, key):
+        if id(lock) not in proxies:
+            proxies[id(lock)] = witness.wrap_lock(key, lock)
+        return proxies[id(lock)]
+
+    def wrap(obj, attr, key):
+        if obj is None:
+            return
+        lock = getattr(obj, attr)
+        setattr(obj, attr, proxy_for(lock, key))
+        undo.append(lambda: setattr(obj, attr, lock))
+
+    for dev, lock in list(graphs._locks.items()):
+        graphs._locks[dev] = proxy_for(lock, "launch_lock.lock")
+        undo.append(lambda d=dev, l=lock: graphs._locks.__setitem__(d, l))
+    batcher = server.batcher
+    twin = getattr(batcher, "fallback_embedder", None)
+    for model in (embedder, reranker, twin):
+        if model is None:
+            continue
+        wrap(model.graphs, "lock", "launch_lock.lock")
+        wrap(getattr(model, "staging_pool", None), "_lock",
+             "StagingPool._lock")
+    if batcher is not None:
+        wrap(batcher, "_cond", "DeviceBatcher._cond")
+        if batcher.embed_cache is not None:
+            wrap(batcher, "_embed_lock", "DeviceBatcher._embed_lock")
+    meshfault = server.meshfault
+    if meshfault is not None:
+        wrap(meshfault, "_lock", "MeshFaultManager._lock")
+        gate = meshfault._shape_gate
+        witness.wrap_gate(gate)
+        undo.append(lambda: [gate.__dict__.pop(name, None)
+                             for name in ("shared", "exclusive")])
+    wrap(server.watchdog, "_lock", "DeviceWatchdog._lock")
+    wrap(server.admission, "_lock", "AdmissionController._lock")
+    wrap(server.memguard, "_lock", "MemGuard._lock")
+    wrap(server.metrics, "_lock", "Metrics._lock")
+    wrap(phases._AGG, "_lock", "PhaseAggregator._lock")
+    wrap(quality._AGG, "_lock", "QualityAggregator._lock")
+    wrap(launches, "_lock", "launches._lock")
+    wrap(server.trace_sink, "_lock", "TraceSink._lock")
+    wrap(getattr(server, "ledger", None), "_lock", "OutcomeLedger._lock")
+    wrap(server.live_weights, "_lock", "LiveWeightStore._lock")
+    server.metrics.register_provider(
+        "lock_witness",
+        lambda: dict(witness.snapshot(), locks=witness.counts()),
+    )
+
+    def report_and_unwrap() -> None:
+        print(witness.summary_line(), flush=True)
+        for step in reversed(undo):
+            step()
+
+    server.on_close.append(report_and_unwrap)
+    return witness
 
 
 def warm_up(server, config: ServeConfig) -> list:
@@ -617,7 +714,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
 
     load_dotenv()
-    env = dict(os.environ)
+    env = process_env()
     fake = None
     if args.fake_upstream:
         from .fake_upstream import FakeUpstream

@@ -594,19 +594,20 @@ class DeviceBatcher:
         offline = priority == "offline"
         # submit -> result for THIS request's item, a child of the caller's
         # ambient span (made here, on the caller's thread)
-        span = child_span(
-            f"batcher:{kind}", queue_depth=len(self._pending),
-            **({"lane": "offline"} if offline else {}),
-        )
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
+            depth = len(self._pending)
             # the queue bound guards the latency lane only: offline feeds
             # limit themselves by waiting on their futures
             shed = (not offline and self.max_queue_depth
-                    and len(self._pending) >= self.max_queue_depth)
+                    and depth >= self.max_queue_depth)
             if shed:
                 self.shed_queue_full += 1
+        span = child_span(
+            f"batcher:{kind}", queue_depth=depth,
+            **({"lane": "offline"} if offline else {}),
+        )
         if shed:
             if self.metrics is not None:
                 self.metrics.observe("device:shed:queue_full", 0.0,
@@ -636,6 +637,7 @@ class DeviceBatcher:
 
     # -- the flusher ---------------------------------------------------------
 
+    # caller-holds-lock: DeviceBatcher._cond (the flusher's loop and _plan_round test the queues inside their with-_cond blocks)
     def _has_pending(self) -> bool:
         return bool(self._pending or self._pending_offline)
 
@@ -663,23 +665,40 @@ class DeviceBatcher:
         whatever is queued then."""
         while True:
             self._slots.acquire()
-            with self._cond:
-                # shed after the slot wait: that queueing delay is where
-                # deadlines die under overload
-                group = self._shed_group(self._next_group())
+            # the slot and the in-flight entry pass to ``_run_group`` only
+            # once it is submitted; every other way out gives them back
+            group, token, handed = [], None, False
+            try:
+                with self._cond:
+                    # shed after the slot wait: that queueing delay is
+                    # where deadlines die under overload
+                    group = self._shed_group(self._next_group())
+                    if group:
+                        token, t0 = object(), time.perf_counter()
+                        self._inflight[token] = (t0, group[0].lane)
+                        self._count_group(group)
                 if group:
-                    token, t0 = object(), time.perf_counter()
-                    self._inflight[token] = (t0, group[0].lane)
-                    self._count_group(group)
-            if group:
-                self._dispatchers.submit(self._run_group, group, token, t0)
-            else:
-                self._slots.release()
+                    self._dispatchers.submit(self._run_group, group, token,
+                                             t0)
+                    handed = True
+            except Exception as exc:
+                # e.g. the dispatch executor refused the group (shut down
+                # in a drain race): the group fails, the flusher lives on
+                log.error("device group not dispatched", exc_info=exc)
+                for item in group:
+                    _settle(item, exc=exc)
+            finally:
+                if not handed:
+                    if token is not None:
+                        with self._cond:
+                            self._inflight.pop(token, None)
+                            self._cond.notify_all()
+                    self._slots.release()
             with self._cond:
                 if not self._has_pending():
                     return
 
-    # caller holds self._cond
+    # caller-holds-lock: DeviceBatcher._cond (only called inside the flusher's with-_cond blocks)
     def _count_group(self, group: list) -> None:
         key = group[0].key
         if key == PACKED_KEY:
@@ -712,7 +731,7 @@ class DeviceBatcher:
             return self.packing_max_rows * self.packing_max_segments
         return self.max_rows
 
-    # caller holds self._cond
+    # caller-holds-lock: DeviceBatcher._cond (only called inside the flusher's with-_cond blocks)
     def _head_group_full(self) -> bool:
         """Whether the head key already fills a group, so the window need
         not run out."""
@@ -729,7 +748,7 @@ class DeviceBatcher:
                 return True
         return False
 
-    # caller holds self._cond
+    # caller-holds-lock: DeviceBatcher._cond (only called inside the flusher's with-_cond blocks)
     def _next_group(self) -> list:
         """Plan ONE group from the live queue: the head item's key,
         joined by every same-key item in arrival order up to
@@ -790,7 +809,7 @@ class DeviceBatcher:
             start += size
             remaining -= size
 
-    # caller holds self._cond
+    # caller-holds-lock: DeviceBatcher._cond (only called inside the flusher's with-_cond blocks)
     def _shed_group(self, group: list) -> list:
         """The items still worth dispatching: items whose caller cancelled
         are dropped; items whose deadline has expired, or has less left

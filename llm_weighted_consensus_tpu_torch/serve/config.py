@@ -54,6 +54,15 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
   ``DEVICE_WATCHDOG_MILLIS`` > 0, and with ``MESH_ENABLED`` also
   ``MESH_FAULT_ENABLED`` (the twin is the last resort after the
   ladder).  Default 0;
+* ``LOCK_WITNESS`` — ``1`` turns on the runtime lockdep witness
+  (``analysis/witness.py``): ``build_server`` wraps the registered
+  threading primitives a served request reaches (the launch lock, the
+  batcher's condition, the shape gate and the manager lock, the staging
+  pool, the watchdog, the aggregators, the trace sink, the ledger, the
+  live weights, the memory governor, ...) so every acquisition's order
+  is checked against ``analysis/concurrency_model.py``; the snapshot
+  rides ``/metrics`` as ``lock_witness`` and the drain prints its
+  summary line.  Default 0: nothing is wrapped;
 * ``PROFILE_DIR`` — turns on ``POST /profile/start``, ``POST
   /profile/stop`` and the one-shot ``POST /v1/profile {"duration_ms"}``
   (default 500, clamped to [10, 10000]): ``torch.profiler`` captures of
@@ -332,6 +341,13 @@ def load_dotenv(path: str = ".env") -> None:
             os.environ.setdefault(key.strip(), value)
 
 
+def process_env() -> dict:
+    """A copy of the process environment: the one read of it that the
+    entry points (``serve``, ``train rescore``) hand to
+    ``ServeConfig.from_env`` and to the model builders."""
+    return dict(os.environ)
+
+
 def staging_buffers(env: dict) -> int:
     """``STAGING_BUFFERS``: the models' pinned staging buffers per
     bucket (``build_embedder`` and ``build_reranker`` size both pools)."""
@@ -533,6 +549,7 @@ class ServeConfig:
     device_watchdog_interval_millis: float = 0.0
     device_watchdog_cpu_fallback: bool = False
     profile_dir: Optional[str] = None
+    lock_witness: bool = False
     mesh_enabled: bool = False
     mesh_shape: Optional[tuple] = None
     mesh_dp: Optional[int] = None
@@ -630,6 +647,7 @@ class ServeConfig:
                 env.get("DEVICE_WATCHDOG_CPU_FALLBACK", "0")
             ),
             profile_dir=env.get("PROFILE_DIR"),
+            lock_witness=env_truthy(env.get("LOCK_WITNESS", "0")),
             mesh_enabled=env_truthy(env.get("MESH_ENABLED", "0")),
             mesh_shape=_parse_mesh_shape(env.get("MESH_SHAPE")),
             mesh_dp=int(env["MESH_DP"]) if env.get("MESH_DP") else None,

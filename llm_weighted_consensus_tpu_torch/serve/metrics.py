@@ -80,6 +80,45 @@ KNOWN_SECTIONS = (
     "ledger",
     "memguard",
     "weights",
+    "lock_witness",
+)
+
+# Every Prometheus family the text exposition may emit (the reference's
+# registry, serve/metrics.py, with the port's own families: the graph,
+# kernel, admission, health and batcher-shed ones).  LWC012 holds it both
+# ways: a `prom_family(...)` call with an unlisted name fails lint, and a
+# listed family no call site emits is stale.  Counter families are
+# declared WITHOUT the `_total` sample suffix (OpenMetrics convention).
+KNOWN_PROM_FAMILIES = (
+    "lwc_uptime_seconds",
+    "lwc_series_requests",
+    "lwc_series_errors",
+    "lwc_series_latency_ms",
+    "lwc_phase_latency_ms",
+    "lwc_device_latency_ms",
+    "lwc_roofline_sol_ms",
+    "lwc_roofline_attainment",
+    "lwc_confidence_margin",
+    "lwc_consensus_outcomes",
+    "lwc_judge_agreement",
+    "lwc_judge_drift",
+    "lwc_memguard_rss_bytes",
+    "lwc_memguard_level",
+    "lwc_memguard_trips",
+    "lwc_lane_dispatches",
+    "lwc_lane_items",
+    "lwc_lane_busy_fraction",
+    "lwc_batcher_shed",
+    "lwc_weights_swaps",
+    "lwc_weights_shadow",
+    "lwc_graph_events",
+    "lwc_graphs",
+    "lwc_graph_pool_bytes",
+    "lwc_admission_inflight",
+    "lwc_admission_shed",
+    "lwc_device_healthy",
+    "lwc_kernel_launches",
+    "lwc_kernel_route_launches",
 )
 
 PROM_CONTENT_TYPE = (

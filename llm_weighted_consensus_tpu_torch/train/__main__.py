@@ -98,10 +98,10 @@ def _cmd_fit(args) -> int:
 def _cmd_rescore(args) -> int:
     from ..serve.__main__ import build_embedder
     from ..serve.batcher import DeviceBatcher
-    from ..serve.config import ServeConfig
+    from ..serve.config import ServeConfig, process_env
     from .feed import OfflineFeed, archive_groups, synthetic_groups
 
-    env = dict(os.environ)
+    env = process_env()
     config = ServeConfig.from_env(env)
     if not env.get("EMBEDDER_MODEL"):
         print("rescore: no embedder configured (EMBEDDER_MODEL)",

@@ -216,7 +216,7 @@ class LiveWeightStore:
 
     # -- persistence ----------------------------------------------------------
 
-    # caller holds self._lock
+    # caller-holds-lock: LiveWeightStore._lock (only called inside with-lock blocks)
     def _save(self) -> None:
         payload = table_document(
             self._active.as_wire() if self._active else None,

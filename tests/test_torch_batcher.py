@@ -258,6 +258,44 @@ def test_a_fault_in_the_counting_still_answers_and_frees_the_slot(micro):
     assert util["dispatches"] == 2
 
 
+def test_a_refused_dispatch_keeps_the_full_pipeline_depth(micro):
+    """The dispatch executor refusing a group (shut down in a drain race)
+    fails that group and gives its slot and in-flight entry back: the
+    batcher keeps its whole pipeline depth and serves what comes next."""
+    _, port = micro
+
+    class RefuseOnce:
+        def __init__(self, inner):
+            self.inner, self.refused = inner, 0
+
+        def submit(self, *args, **kwargs):
+            if not self.refused:
+                self.refused += 1
+                raise RuntimeError("cannot schedule new futures after "
+                                   "shutdown")
+            return self.inner.submit(*args, **kwargs)
+
+        def shutdown(self, *args, **kwargs):
+            return self.inner.shutdown(*args, **kwargs)
+
+    with DeviceBatcher(port, Metrics(), window_ms=0.0,
+                       pipeline_depth=2) as batcher:
+        batcher._dispatchers = RefuseOnce(batcher._dispatchers)
+        refused = batcher.submit_embed(["one"])
+        with pytest.raises(RuntimeError, match="shutdown"):
+            refused.result(30)
+        assert batcher._dispatchers.refused == 1
+        # both slots are free and nothing is left in flight
+        deadline = time.monotonic() + 10
+        while batcher._slots._value != 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert batcher._slots._value == batcher.pipeline_depth == 2
+        with batcher._cond:
+            assert batcher._inflight == {}
+        served = batcher.submit_embed(["two"]).result(30)
+    assert served[0].shape[0] == 1
+
+
 def test_pipelined_groups_resolve_in_their_own_futures(micro):
     _, port = micro
     want = [port.consensus_confidence(t) for t in CONS]

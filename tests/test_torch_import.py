@@ -25,6 +25,18 @@ BANNED = ("jax", "jaxlib", "llm_weighted_consensus_tpu", "xxhash", "aiohttp",
           "bench_host", "bench_http", "bench_scaling", "tests", "fakes",
           "conftest", "test_learning_effect")
 
+LWC_RULES = (
+    "lwc001_swallowed_cancellation", "lwc002_orphaned_task",
+    "lwc003_release_in_finally", "lwc004_contextvar_token",
+    "lwc005_decimal_purity", "lwc006_blocking_in_async",
+    "lwc007_envelope_kind", "lwc008_env_read_outside_config",
+    "lwc009_torch_in_async", "lwc010_registry_consistency",
+    "lwc011_config_readme_drift", "lwc012_prom_family_registry",
+    "lwc013_blocking_readiness", "lwc014_guarded_field",
+    "lwc015_lock_order", "lwc016_blocking_under_lock",
+    "lwc017_frame_rebuild_in_merge_loop", "lwc018_unbounded_ingest_growth",
+)
+
 _PROBE = r"""
 import importlib
 import json
@@ -108,6 +120,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "serve.frames", "weights.live", "train", "train.feed",
         "train.fit", "train.__main__", "resilience.meshfault", "analysis",
         "analysis.roofline", "analysis.cost", "analysis.trace_stamps",
+        "analysis.engine", "analysis.rules", "analysis.concurrency",
+        "analysis.concurrency_model", "analysis.witness",
+        "analysis.dispatch_audit", "analysis.__main__",
+        *(f"analysis.rules.{rule}" for rule in LWC_RULES),
         "serve.profiling",
         "bench", "bench.__main__", "bench.common", "bench.headline",
         "bench.fwd", "bench.attn", "bench.configs", "bench.learning",
@@ -164,3 +180,59 @@ def test_port_has_its_kernel_sources():
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
     # the packed path's segment-masked attention has its own entry point
     assert 'extern "C" int lwc_attention_seg(' in (csrc / "attention.cu").read_text()
+
+
+_LINT_PROBE = r"""
+import json
+import sys
+
+
+class _Poison:
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.split(".")[0] in ("torch", "numpy", "jax"):
+            raise ImportError(f"POISONED: the lint imported {fullname}")
+
+
+sys.meta_path.insert(0, _Poison())
+from llm_weighted_consensus_tpu_torch.analysis.__main__ import main
+
+rc = main(["--no-jaxpr", "--json"])
+print(json.dumps({"rc": rc, "torch": "torch" in sys.modules,
+                  "numpy": "numpy" in sys.modules}))
+"""
+
+
+def test_the_lint_alone_never_imports_torch():
+    """``python -m llm_weighted_consensus_tpu_torch.analysis --no-jaxpr``
+    runs with torch, numpy and jax poisoned, and exits 0: the lint and
+    the concurrency audit are stdlib only, the package's import included
+    (it sets torch's precision flags only once torch is imported)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LINT_PROBE],
+        capture_output=True,
+        text=True,
+        timeout=300,
+        cwd=str(REPO),
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, f"{proc.stdout}\n{proc.stderr}"
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"rc": 0, "torch": False, "numpy": False}
+
+
+def test_torch_keeps_full_precision_matmuls_once_imported():
+    probe = (
+        "import json, sys\n"
+        "import llm_weighted_consensus_tpu_torch\n"
+        "assert 'torch' not in sys.modules\n"
+        "import torch\n"
+        "print(json.dumps([torch.backends.cuda.matmul.allow_tf32,\n"
+        "                  torch.backends.cudnn.allow_tf32,\n"
+        "                  type(torch.__spec__.loader).__name__]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=300, cwd=str(REPO),
+                          env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [
+        False, False, "SourceFileLoader"]

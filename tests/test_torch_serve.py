@@ -1033,3 +1033,34 @@ def test_dotenv_is_loaded_and_set_variables_win(tmp_path, monkeypatch):
     assert got[load_dotenv] == got[ref_load_dotenv] == {
         "A_LWC_X": "1", "A_LWC_Y": "two words", "A_LWC_Z": "3",
         "A_LWC_SET": "env"}
+
+
+def test_known_prom_families_hold_the_exposition_both_ways():
+    """``serve/metrics.py`` declares every family the exposition emits
+    (``KNOWN_PROM_FAMILIES``, the reference's registry with the port's
+    own families): LWC012 holds the declaration against every
+    ``prom_family`` call both ways, a live server's exposition names only
+    declared families, and the reference's families keep their names (the
+    fleet's wait for the fleet tier)."""
+    from llm_weighted_consensus_tpu.serve.metrics import (
+        KNOWN_PROM_FAMILIES as REF_FAMILIES,
+    )
+    from llm_weighted_consensus_tpu_torch.analysis import run_lint
+    from llm_weighted_consensus_tpu_torch.analysis.rules import RULES_BY_NAME
+    from llm_weighted_consensus_tpu_torch.serve import metrics as port_metrics
+
+    families = port_metrics.KNOWN_PROM_FAMILIES
+    assert len(set(families)) == len(families)
+    assert run_lint(rules=[RULES_BY_NAME["LWC012"]]) == []
+    config = ServeConfig.from_env({
+        **UPSTREAM, "MEMGUARD": "1", "WEIGHTS_ENABLED": "1",
+        "ADMISSION_MAX_INFLIGHT": "4", "DEVICE_WATCHDOG_MILLIS": "5000",
+        "LEDGER_RING": "8"})
+    with serve_main.build_server(None, None, config, device="cpu") as server:
+        text = port_metrics.render_prometheus(server.metrics)
+    exposed = {line.split()[2] for line in text.splitlines()
+               if line.startswith("# TYPE ")}
+    assert "lwc_uptime_seconds" in exposed
+    assert exposed <= set(families), exposed - set(families)
+    assert set(REF_FAMILIES) - set(families) == {
+        "lwc_fleet_peer_fetches", "lwc_fleet_leases", "lwc_fleet_disruptions"}
