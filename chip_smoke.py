@@ -354,6 +354,31 @@ Phases, each printing one JSON line:
    ``tma`` W8A8 launches), all replayed, and every bench held its warm
    answers to a sum of 1 within 1e-3 (it fails otherwise).
 
+18. analysis path (``analysis/``): the analysis CLI, the served main
+   path under ``LOCK_WITNESS=1`` against the knob unset, and the dispatch
+   audit's card half (``analysis_path``).
+
+19. fleet path (``fleet/``): one bge-large build (random weights from
+   seed 0, bf16) with phase 11's training tables and 32-judge panel,
+   shared by three servers of ``build_server`` on loopback ports
+   (``FLEET_SELF`` / ``FLEET_PEERS``, ``SCORE_CACHE_TTL=600``, ``WARMUP``
+   only the prompt embed's ``16xS`` buckets) over one counting
+   ``ScriptedJudges``.  Cold: ``FLEET_COLD`` distinct training-table
+   bodies round-robin, ``FLEET_INFLIGHT`` in flight, each final frame
+   within ``MICRO_TOL`` of a fleet-less server's on the same embedder.
+   Warm: the same bodies at the next replica, 0 judge calls, 0 prompt-
+   embed dispatches, bytes equal to the cold answers.  Hot stampede: one
+   new body ``FLEET_HOT`` times across the replicas at once, one panel of
+   judge calls, one prompt-embed dispatch (24 ``tma`` attention launches,
+   one graph replay) and byte-identical bodies.  Drain: replica 0 takes
+   ``FLEET_DRAIN_KEYS`` fresh keys it owns, drains (``fleet_handoff_entries``
+   > 0) and closes; each key at its post-drain owner then costs 0 judge
+   calls.  Then ``bench http --fleet`` and ``--fleet-partition`` in
+   subprocesses, their records held to ``BENCH_KEYS`` and their acceptance
+   (warm ``upstream_calls`` 0, hot 1; under the partition no dirty frame
+   and at most one fan-out per component).  The round p50s, the
+   per-replica ``fleet`` counters and the seconds are printed.
+
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -8287,6 +8312,12 @@ BENCH_KEYS = {
              "requests", "seq", "stream_chunks_per_request", "unit",
              "value"),
 }
+BENCH_KEYS["fleet"] = _ENDPOINT + (
+    "cold", "hot_stampede", "lease_waits", "peer_fetch_hits", "replicas",
+    "warm")
+BENCH_KEYS["fleet_partition"] = _ENDPOINT + (
+    "healthy_warm", "local_fallbacks", "partitioned_warm", "peer_errors",
+    "quarantines", "replicas")
 BENCH_KEYS = {kind: tuple(sorted(set(keys) | set(_ENVELOPE)))
               for kind, keys in BENCH_KEYS.items()}
 BENCH_LAYERS = 24  # bge-large's layers: attention launches per encoder call
@@ -8861,10 +8892,368 @@ def analysis_path(gpu: str, device: str = "cuda",
     return out
 
 
+# phase 19 (the fleet path): three replicas over one bge-large embedder,
+# phase 11's tables and panel; the bench runs' depth and time limit
+FLEET_COLD, FLEET_INFLIGHT, FLEET_HOT, FLEET_DRAIN_KEYS = 24, 8, 24, 4
+FLEET_BENCH_REQUESTS, FLEET_BENCH_LIMIT_S = 24, 180
+# the prompts' k: cold 300.., hot 400, the drain's keys from 500
+FLEET_KEY_RANGE = (300, 600)
+
+
+def fleet_post(port: int, body: dict):
+    """(status, raw body, seconds) of one streamed /score/completions."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/score/completions",
+                     body=json.dumps({**body, "stream": True}),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        raw, status = resp.read(), resp.status
+    finally:
+        conn.close()
+    return status, raw, time.perf_counter() - t0
+
+
+def fleet_round(pairs, inflight: int) -> dict:
+    """``(port, body)`` pairs, ``inflight`` at once -> each answer's raw
+    bytes and checked final frame, the seconds and their p50."""
+    import concurrent.futures
+    import statistics
+
+    with concurrent.futures.ThreadPoolExecutor(inflight) as pool:
+        answers = list(pool.map(lambda pb: fleet_post(*pb), pairs))
+    raws, finals = [], []
+    for status, raw, _ in answers:
+        events = [blk[len(b"data: "):].decode()
+                  for blk in raw.split(b"\n\n") if blk.startswith(b"data: ")]
+        if status != 200:
+            raise AssertionError(f"fleet /score/completions: {status} "
+                                 f"{raw[:300]!r}")
+        raws.append(raw)
+        finals.append(read_score_stream(events)["final"])
+    seconds = [s for _, _, s in answers]
+    return {"raws": raws, "finals": finals, "seconds": seconds,
+            "p50_ms": statistics.median(seconds) * 1e3}
+
+
+def fleet_answer(final: dict) -> dict:
+    """A final frame's answer, independent of the judges' arrival order:
+    the candidates' confidences by index, the judges' weights sorted, and
+    the judges' entries without their weight, index and confidence,
+    sorted."""
+    cands = sorted((c["index"], float(c["confidence"]))
+                   for c in final["choices"] if c["index"] < SCORE_N)
+    judges = [c for c in final["choices"] if c["index"] >= SCORE_N]
+    return {
+        "confidence": [c for _, c in cands],
+        "weight": sorted(float(c["weight"]) for c in judges),
+        "entries": sorted(json.dumps(
+            {k: v for k, v in c.items()
+             if k not in ("index", "model_index", "weight", "confidence")},
+            sort_keys=True) for c in judges),
+    }
+
+
+def fleet_close(want: dict, got: dict, tol: float) -> float:
+    """Largest relative difference of two ``fleet_answer``s' numbers;
+    raises where the entries differ."""
+    if want["entries"] != got["entries"]:
+        raise AssertionError("fleet answer: the judges' entries differ")
+    worst = 0.0
+    for key in ("confidence", "weight"):
+        if len(want[key]) != len(got[key]):
+            raise AssertionError(f"fleet answer: {key} counts differ")
+        for a, b in zip(want[key], got[key]):
+            worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+    if worst > tol:
+        raise AssertionError(f"fleet answer off by {worst} (tol {tol})")
+    return worst
+
+
+def fleet_settle(servers, timeout_s: float = 30.0) -> None:
+    """Wait for every replica's fire-and-forget peer legs (the peers'
+    publishes to the owners) to finish."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(s.fleet_routes.call(lambda s=s: len(s.fleet._tasks)) == 0
+               for s in servers):
+            return
+        time.sleep(0.01)
+    raise AssertionError("fleet: peer legs still running")
+
+
+def fleet_counts(judges, servers, emb) -> dict:
+    graphs = emb.graph_stats()
+    return {"calls": judges.calls,
+            "embeds": sum(s.batcher.stats()["dispatches"]["embed"]
+                          for s in servers),
+            "replays": graphs["replays"], "captures": graphs["captures"],
+            "eager": graphs["eager_dispatches"]}
+
+
+def fleet_benches(gpu, device, on_card) -> dict:
+    """``bench http --fleet`` and ``--fleet-partition`` in subprocesses,
+    side by side: their records' keys and the reference's acceptance."""
+    import threading
+
+    runs = {}
+    argvs = {"fleet": ["http", "--fleet"],
+             "fleet_partition": ["http", "--fleet-partition"]}
+
+    def one(kind):
+        runs[kind] = run_bench(
+            kind, [*argvs[kind], "--requests", str(FLEET_BENCH_REQUESTS)],
+            FLEET_BENCH_LIMIT_S, device)
+
+    threads = [threading.Thread(target=one, args=(k,)) for k in argvs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = {}
+    for kind, run in runs.items():
+        if run["rc"] != 0 or run["bad_lines"] or len(run["records"]) != 1:
+            raise AssertionError(
+                f"bench http {kind}: rc {run['rc']}, {len(run['records'])} "
+                f"records, unparsed {run['bad_lines']}: {run['stderr_tail']}")
+        (record,) = run["records"]
+        check_bench_record(record, kind, gpu, on_card)
+        out[kind] = {"record": record, "seconds": run["seconds"]}
+    fleet = out["fleet"]["record"]
+    if fleet["warm"]["upstream_calls"] != 0 or \
+            fleet["hot_stampede"]["upstream_calls"] != 1:
+        raise AssertionError(f"bench --fleet acceptance: warm "
+                             f"{fleet['warm']}, hot {fleet['hot_stampede']}")
+    part = out["fleet_partition"]["record"]
+    healthy, cut = part["healthy_warm"], part["partitioned_warm"]
+    n = part["requests"]
+    if (healthy["upstream_calls"] or healthy["dirty_frames"]
+            or cut["dirty_frames"] or cut["cold_upstream_calls"] != n
+            or cut["cold_upstream_calls"] + cut["upstream_calls"] > 2 * n):
+        raise AssertionError(f"bench --fleet-partition acceptance: healthy "
+                             f"{healthy}, partitioned {cut}")
+    return out
+
+
+def fleet_path(gpu: str, device: str = "cuda",
+               model_name: str = "bge-large-en") -> dict:
+    """Phase 19: the fleet tier over three servers of ``build_server``
+    sharing one embedder (cold, warm, hot stampede, the drain handoff),
+    then the fleet benches.  Any failure fails the script.
+    (``device="cpu"`` with test-tiny rehearses the control flow.)"""
+    import random
+    import socket
+
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.cache import score_fingerprint
+    from llm_weighted_consensus_tpu_torch.identity.model import ModelBase
+    from llm_weighted_consensus_tpu_torch.models.embedder import _seq_bucket
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+    from llm_weighted_consensus_tpu_torch.types.score_request import (
+        ChatCompletionCreateParams,
+    )
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    judges = ScriptedJudges()
+    work = os.path.join(REPO, "build", "fleet_smoke")
+    os.makedirs(work, exist_ok=True)
+    tables_path = os.path.join(work, "tables.npz")
+    # BATCH_MAX=1: each prompt embed is its own dispatch at its own
+    # bucket, so a replica's answer does not depend on what shared a
+    # dispatch with it, and the fleet-less server's answers are the bar
+    env = {"EMBEDDER_MODEL": model_name, "EMBEDDER_MAX_TOKENS": "512",
+           "LWC_ALLOW_RANDOM_PARAMS": "1", "OPENAI_API_BASE": judges.url,
+           "OPENAI_API_KEY": "smoke-key", "TABLES_PATH": tables_path,
+           "SCORE_CACHE_TTL": "600", "BATCH_MAX": "1"}
+    emb = build_embedder(env, device=device)
+    layers = emb.config.num_layers
+    servers, alone = [], None
+    try:
+        cold_bodies = [score_body(300 + k, "training_table")
+                       for k in range(FLEET_COLD)]
+        hot_body = score_body(400, "training_table")
+        model = ModelBase.from_json_obj(
+            cold_bodies[0]["model"]).into_model_validate()
+        score_tables(emb, model, tables_path)
+        # every prompt this phase may send (the drain's keys are found in
+        # the same range)
+        seqs = sorted({_seq_bucket(int(emb.tokenize(
+            [f"user: {score_prompt(k)}"], SCORE_MAX_TOKENS)[1].sum()),
+            SCORE_MAX_TOKENS) for k in range(*FLEET_KEY_RANGE)})
+        env["WARMUP"] = ",".join(f"16x{s}" for s in seqs)
+
+        def seeded(srv):
+            # ballots from a seeded generator: the scripted judges vote by
+            # a hash of the ballot, so every server answers alike
+            srv.score_client.rng_factory = lambda: random.Random(19)
+            return srv
+
+        # the fleet-less answers first, on the same embedder
+        config = ServeConfig.from_env(env)
+        alone = seeded(build_server(emb, None, config).start())
+        t_warm = time.perf_counter()
+        warm_up(alone, config)
+        warm_s = time.perf_counter() - t_warm
+        want = fleet_round([(alone.port, b) for b in cold_bodies],
+                           FLEET_INFLIGHT)
+        alone.close()
+        alone = None
+        ports = []
+        for _ in range(3):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+            sock.close()
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        for i, port in enumerate(ports):
+            config = ServeConfig.from_env(
+                {**env, "FLEET_SELF": urls[i], "FLEET_PEERS": ",".join(urls)})
+            srv = seeded(build_server(emb, None, config, "127.0.0.1", port))
+            servers.append(srv.start())
+            warm_up(srv, config)
+        # cold: every body new, round-robin over the replicas
+        c0 = fleet_counts(judges, servers, emb)
+        reset_launches()
+        cold = fleet_round([(ports[i % 3], b)
+                            for i, b in enumerate(cold_bodies)],
+                           FLEET_INFLIGHT)
+        fleet_settle(servers)
+        c1 = fleet_counts(judges, servers, emb)
+        worst = max(fleet_close(fleet_answer(a), fleet_answer(b), MICRO_TOL)
+                    for a, b in zip(want["finals"], cold["finals"]))
+        if c1["calls"] - c0["calls"] != FLEET_COLD * SCORE_JUDGES:
+            raise AssertionError(f"fleet cold: {c1['calls'] - c0['calls']} "
+                                 "judge calls")
+        # warm: each body at the next replica, a hit fleet-wide
+        warm = fleet_round([(ports[(i + 1) % 3], b)
+                            for i, b in enumerate(cold_bodies)],
+                           FLEET_INFLIGHT)
+        c2 = fleet_counts(judges, servers, emb)
+        if c2["calls"] != c1["calls"] or c2["embeds"] != c1["embeds"]:
+            raise AssertionError(f"fleet warm: {c1} -> {c2}")
+        if warm["raws"] != cold["raws"]:
+            raise AssertionError("fleet warm: a hit differs from its miss")
+        launches = read_launches()
+        if on_card:
+            read_routes()
+        # the hot stampede: one new body at every replica at once
+        reset_launches()
+        hot = fleet_round([(ports[i % 3], hot_body)
+                           for i in range(FLEET_HOT)], FLEET_HOT)
+        fleet_settle(servers)
+        hot_launches = read_launches()
+        hot_routes = read_routes() if on_card else {}
+        c3 = fleet_counts(judges, servers, emb)
+        hot_delta = {k: c3[k] - c2[k] for k in c3}
+        if len(set(hot["raws"])) != 1:
+            raise AssertionError("fleet hot: the bodies differ")
+        if hot_delta["calls"] != SCORE_JUDGES or hot_delta["embeds"] != 1:
+            raise AssertionError(f"fleet hot: {hot_delta}")
+        if on_card and (
+                hot_launches["attention"] != layers
+                or hot_routes["attention"].get("tma", 0) != layers
+                or hot_delta["replays"] != 1 or hot_delta["captures"]
+                or hot_delta["eager"]):
+            raise AssertionError(f"fleet hot: launches {hot_launches} "
+                                 f"{hot_routes}, graphs {hot_delta}")
+        # the drain: replica 0 takes fresh keys it owns, hands them off,
+        # and leaves; each key at its post-drain owner is then a hit
+        a = servers[0]
+        mine, k = [], FLEET_KEY_RANGE[1] - 100
+        while len(mine) < FLEET_DRAIN_KEYS:
+            if k >= FLEET_KEY_RANGE[1]:
+                raise AssertionError("fleet drain: too few keys on replica 0")
+            body = score_body(k, "training_table")
+            fp = score_fingerprint(
+                ChatCompletionCreateParams.from_json_obj(body))
+            if a.fleet_routes.call(lambda fp=fp: (
+                    a.fleet.membership.owner(fp) == urls[0])):
+                heir = a.fleet_routes.call(
+                    lambda fp=fp: a.fleet.membership.departure_view()
+                    .owner(fp))
+                mine.append((body, fp, ports[urls.index(heir)]))
+            k += 1
+        reset_launches()
+        fleet_round([(ports[0], b) for b, _, _ in mine], FLEET_DRAIN_KEYS)
+        drain_launches = read_launches()
+        if on_card:
+            read_routes()
+        t_drain = time.perf_counter()
+        if not a.drain():
+            raise AssertionError("fleet drain: not clean")
+        drain_s = time.perf_counter() - t_drain
+        handed = a.lifecycle.handoff_entries
+        a.close()
+        servers = servers[1:]
+        c4 = fleet_counts(judges, servers, emb)
+        after = fleet_round([(heir, b) for b, _, heir in mine],
+                            FLEET_DRAIN_KEYS)
+        c5 = fleet_counts(judges, servers, emb)
+        if not handed or c5["calls"] != c4["calls"] or \
+                c5["embeds"] != c4["embeds"]:
+            raise AssertionError(f"fleet drain: {handed} entries handed "
+                                 f"off, then {c4} -> {c5}")
+        counters = [s.fleet_routes.stats() for s in servers]
+        for name, n in list(hot_launches.items()) + list(
+                drain_launches.items()):
+            launches[name] = launches.get(name, 0) + n
+    finally:
+        for srv in servers + ([alone] if alone is not None else []):
+            srv.close()
+        judges.close()
+        del emb
+        if on_card:
+            torch.cuda.empty_cache()
+    benches = fleet_benches(gpu, device, on_card)
+    rounds = {"cold": cold["p50_ms"], "warm": warm["p50_ms"],
+              "hot": hot["p50_ms"], "after_drain": after["p50_ms"]}
+    out = {"phase": "fleet_path", "gpu": gpu, "nvidia_smi": gpu,
+           "model": model_name, "layers": layers, "judges": SCORE_JUDGES,
+           "warmup": env["WARMUP"], "warmup_s": warm_s,
+           "round_p50_ms": rounds, "cold_vs_alone_max_rel": worst,
+           "cold_judge_calls": c1["calls"] - c0["calls"],
+           "cold_embed_dispatches": c1["embeds"] - c0["embeds"],
+           "warm_judge_calls": c2["calls"] - c1["calls"],
+           "warm_embed_dispatches": c2["embeds"] - c1["embeds"],
+           "hot": hot_delta, "hot_launches": hot_launches,
+           "hot_routes": hot_routes, "drain_s": drain_s,
+           "fleet_handoff_entries": handed,
+           "after_drain_judge_calls": c5["calls"] - c4["calls"],
+           "survivor_counters": counters, "launches": launches,
+           "benches": {kind: {
+               "seconds": b["seconds"],
+               "record": {k: b["record"][k] for k in b["record"]
+                          if k not in ("phase_breakdown", "quality_summary",
+                                       "baseline_basis", "note")}}
+               for kind, b in benches.items()},
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 19 round p50 ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rounds.items()) + f" ({gpu})", flush=True)
+    for i, c in enumerate(counters):
+        print(f"phase 19 survivor {i + 1} fleet: peer_fetch "
+              f"{c['peer_fetch']}, leases granted {c['leases']['granted']} "
+              f"waits {c['leases']['waits']} published "
+              f"{c['leases']['published']}, handoff {c['handoff']}",
+              flush=True)
+    print(f"phase 19 seconds: {out['seconds']:.1f}", flush=True)
+    emit(out)
+    return out
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
                    archived, traced, resilient, learning, fault,
-                   bench, analysis) -> dict:
+                   bench, analysis, fleet) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -8896,7 +9285,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     to every kernel its bench records report (the headline windows,
     configs 1 and 7, the served ``/consensus``), and phase 18
     ``analysis_path_launches`` to every kernel its witnessed runs and
-    its dispatch audit launched.
+    its dispatch audit launched, and phase 19 ``fleet_path_launches``
+    (the fleet's prompt embeds: cold, hot and the drain's keys).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -9109,6 +9499,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         if analysis["launches"].get(entry["name"]):
             entry["analysis_path_launches"] = analysis["launches"][
                 entry["name"]]
+        if fleet["launches"].get(entry["name"]):
+            entry["fleet_path_launches"] = fleet["launches"][entry["name"]]
         if entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -9202,12 +9594,13 @@ def main() -> int:
     fault = timed("fault_path", fault_path, gpu)
     bench = timed("bench_path", bench_path, gpu)
     analysis = timed("analysis_path", analysis_path, gpu)
+    fleet = timed("fleet_path", fleet_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
                         score, archived, traced, resilient, learning, fault,
-                        bench, analysis))
+                        bench, analysis, fleet))
     print(gpu)
     emit({
         "ok": True,

@@ -5,7 +5,10 @@ The port's own table, not a copy of the reference's
 reference runs its server on one asyncio loop, the port on threads — a
 ``ThreadingHTTPServer`` thread per request, the chat routes' loop thread,
 the batcher's flusher, dispatch, waiter and tokenizer pools, and the
-watchdog's and the memory governor's monitors.  ``CONCURRENCY_MODEL`` is
+watchdog's and the memory governor's monitors.  The fleet tier
+(``fleet/``) adds no row: its state is confined to the chat routes' loop,
+and the handler and drain threads reach it only by submitting to that
+loop (``fleet/handlers.py`` ``FleetRoutes``).  ``CONCURRENCY_MODEL`` is
 the declarative table the concurrency rules (LWC014–016,
 ``analysis/concurrency.py``) and the runtime ``LockWitness``
 (``analysis/witness.py``, ``LOCK_WITNESS=1``) both consume.  It is

@@ -63,7 +63,7 @@ BENCH_WORDS = [
 WATCHDOG_S = 1800.0
 
 # the ROADMAP items that bring the scenarios one card cannot run
-ROADMAP_ITEM = {"mesh": 9, "fleet": 7}
+ROADMAP_ITEM = {"mesh": 9}
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

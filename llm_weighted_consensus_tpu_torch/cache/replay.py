@@ -29,7 +29,7 @@ reason.  The port's copy of ``llm_weighted_consensus_tpu/cache/replay.py``.
 
 from __future__ import annotations
 
-from typing import AsyncIterator, Callable, List
+from typing import AsyncIterator, Callable, List, Optional
 
 
 async def record_stream(
@@ -74,3 +74,16 @@ async def replay_stream(chunk_objs: List[dict]) -> AsyncIterator:
 
     for obj in chunk_objs:
         yield ChatCompletionChunk.from_json_obj(obj)
+
+
+def chunks_from_record(chunk_objs: List[dict]) -> Optional[list]:
+    """Decode all recorded frames at once (the unary hit path: callers
+    fold these with ``fold_chunks``).  Returns None on a corrupt record
+    (e.g. a hand-edited disk segment) so callers fall back to a miss."""
+    from ..types.base import SchemaError
+    from ..types.score_response import ChatCompletionChunk
+
+    try:
+        return [ChatCompletionChunk.from_json_obj(obj) for obj in chunk_objs]
+    except (SchemaError, ValueError, TypeError, KeyError):
+        return None

@@ -1,11 +1,14 @@
 """Single-flight deduplication: concurrent same-key requests collapse
 onto one in-flight computation.
 
-The score streaming path's leader must stream *live* to its own client
-while recording, so it claims the key, streams, and completes/fails the
-flight when the stream finishes; followers that arrived mid-flight await
-the recorded chunks and replay them.  A key's future is removed from the
-table by whoever resolves it, never left to dangle.
+The classic shape is ``do(key, factory)`` — first caller (the leader)
+runs the factory, everyone else awaits the leader's future.  The score
+streaming path needs the primitives underneath instead: the leader must
+stream *live* to its own client while recording, so it claims the key,
+streams, and completes/fails the flight when the stream finishes;
+followers that arrived mid-flight await the recorded chunks and replay
+them.  Both shapes share one invariant: a key's future is removed from
+the table by whoever resolves it, never left to dangle.
 
 Cancellation safety:
 
@@ -21,14 +24,13 @@ Single event loop assumed (the chat routes' one loop thread); no locks
 needed — all table mutations happen synchronously between awaits.  The
 port's copy of ``llm_weighted_consensus_tpu/cache/singleflight.py``: a
 traced follower's wait is a ``singleflight:wait`` span
-(``leader_abandoned`` when the leader left).  The reference's
-``do(key, factory)`` shape is left out: nothing here calls it.
+(``leader_abandoned`` when the leader left).
 """
 
 from __future__ import annotations
 
 import asyncio
-from typing import Dict, Optional
+from typing import Awaitable, Callable, Dict, Optional
 
 
 class _Flight:
@@ -97,3 +99,22 @@ class SingleFlight:
                         s.annotate(leader_abandoned=True)
                     return False, None  # leader abandoned; caller retries
                 raise  # caller itself was cancelled
+
+    # -- classic interface ---------------------------------------------------
+
+    async def do(self, key: str, factory: Callable[[], Awaitable]):
+        """Run ``factory`` once per key: leaders execute, followers await
+        the leader's result.  A cancelled leader promotes a follower."""
+        while True:
+            future = self.claim(key)
+            if future is None:
+                try:
+                    value = await factory()
+                except BaseException as exc:
+                    self.fail(key, exc)
+                    raise
+                self.complete(key, value)
+                return value
+            ok, value = await self.wait(future)
+            if ok:
+                return value

@@ -93,14 +93,25 @@ class CacheStore:
         self.hits += 1
         return value
 
-    def put(self, fp: str, value, size: int) -> None:
+    def put(
+        self, fp: str, value, size: int, ttl_sec: Optional[float] = None
+    ) -> None:
         """Insert (or refresh) ``fp``; evicts least-recently-used entries
         until the byte budget holds.  A value larger than the whole
         budget is not stored (it would evict everything for one entry
-        that can never be joined by another)."""
+        that can never be joined by another).  ``ttl_sec`` overrides the
+        store TTL for this entry (clamped to it, never extended) — the
+        fleet drain handoff uses it so a transferred entry expires
+        exactly when the original would have."""
         if not self.enabled or size > self.max_bytes:
             return
-        expires_at = self.clock() + self.ttl_sec
+        if ttl_sec is not None:
+            ttl_sec = min(float(ttl_sec), self.ttl_sec)
+            if ttl_sec <= 0:
+                return
+        expires_at = self.clock() + (
+            self.ttl_sec if ttl_sec is None else ttl_sec
+        )
         old = self._entries.pop(fp, None)
         if old is not None:
             self._bytes -= old[1]
@@ -119,8 +130,33 @@ class CacheStore:
             self.puts += 1
             self._append_disk(fp, value, expires_at)
 
+    def holds(self, fp: str) -> bool:
+        """Whether a live entry for ``fp`` is stored, without counting a
+        hit or a miss or refreshing its LRU position (the fleet's lease
+        guard asks before granting a lease)."""
+        entry = self._entries.get(fp) if self.enabled else None
+        return entry is not None and self.clock() < entry[2]
+
     def __len__(self) -> int:
         return len(self._entries)
+
+    def hot_entries(self, limit: int) -> list:
+        """The most-recently-used live entries, MRU first:
+        ``[(fp, value, remaining_ttl_sec)]``.  The fleet drain handoff
+        (fleet/coordinator.py) pushes these to their post-drain owners —
+        MRU order so a bounded transfer carries the hottest keys."""
+        if not self.enabled:
+            return []
+        now = self.clock()
+        out = []
+        for fp in reversed(list(self._entries)):
+            value, _, expires_at = self._entries[fp]
+            if expires_at <= now:
+                continue
+            out.append((fp, value, expires_at - now))
+            if len(out) >= limit:
+                break
+        return out
 
     def stats(self) -> dict:
         return {
@@ -300,14 +336,16 @@ class ScoreCache(CacheStore):
             ttl_sec, max_bytes, disk_dir, clock=clock, name="score_cache"
         )
 
-    def put_chunks(self, fp: str, chunk_objs: list) -> None:
+    def put_chunks(
+        self, fp: str, chunk_objs: list, ttl_sec: Optional[float] = None
+    ) -> None:
         # the recording leader's trace_id must not leak into replays: a
         # cache hit is a different request with (usually) no trace, and a
         # stale id pointing at the leader's span tree would mislead more
         # than it helps — cached responses simply carry no trace_id
         for obj in chunk_objs:
             obj.pop("trace_id", None)
-        self.put(fp, chunk_objs, self.measure(chunk_objs))
+        self.put(fp, chunk_objs, self.measure(chunk_objs), ttl_sec)
 
     def decode_value(self, obj):
         return obj if isinstance(obj, list) else None

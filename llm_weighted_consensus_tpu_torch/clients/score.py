@@ -25,7 +25,11 @@ The port's copy of ``llm_weighted_consensus_tpu/clients/score.py``
 11. if every judge errored: trailing AllVotesFailed error item.
 
 A cache (``cache/``) in front answers repeats from recorded frames and
-collapses identical concurrent requests onto one fan-out.
+collapses identical concurrent requests onto one fan-out.  With a
+``fleet`` (``fleet.FleetCoordinator``, ``FLEET_*``) the in-process
+leader of a miss also asks the fleet: a peer's cached entry is replayed,
+a cross-replica lease makes this replica the one that fans out (and
+publishes to the owner), and every fleet failure computes locally.
 
 Streaming protocol invariants (the product contract): candidate choices
 arrive first and finished; judge streams interleave arbitrarily but
@@ -60,9 +64,6 @@ the active table overrides the fetched weights by judge id, its version
 (``base`` without one) is captured once per request and stamped on the
 ``consensus:tally`` span and the ledger record, and a staged shadow
 table is compared against every tally.
-
-Not ported yet: the fleet (the reference's client with ``fleet=None`` is
-what this client computes).
 """
 
 from __future__ import annotations
@@ -456,7 +457,8 @@ class ScoreClient:
     retry budget, the weight quorum and the deadline degrade; ``bias_plan``
     (a ``resilience.JudgeBiasPlan``) miscalibrates one judge's votes;
     ``live_weights`` (a ``weights.live.LiveWeightStore``) overrides the
-    fetched weights with its active table."""
+    fetched weights with its active table; ``fleet`` (a
+    ``fleet.FleetCoordinator``) shares the cache across replicas."""
 
     def __init__(
         self,
@@ -473,6 +475,7 @@ class ScoreClient:
         resilience=None,
         bias_plan=None,
         live_weights=None,
+        fleet=None,
     ) -> None:
         self.chat_client = chat_client
         self.model_fetcher = model_fetcher
@@ -503,6 +506,11 @@ class ScoreClient:
         # applied version stamped on every tally span and ledger record
         # and the shadow table's would-have-flipped counters
         self.live_weights = live_weights
+        # optional fleet.FleetCoordinator (FLEET_*): after winning the
+        # in-process single-flight slot, the leader additionally consults
+        # the fleet — peer cache fetch or a cross-replica lease — so a
+        # fleet-wide hot fingerprint hits upstream exactly once
+        self.fleet = fleet
 
     # -- unary (client.rs:71-91) --------------------------------------------
 
@@ -561,13 +569,29 @@ class ScoreClient:
                 return replay_stream(record)
             future = self.flights.claim(fp)
             if future is None:  # leader
+                # only the in-process leader talks to the fleet: one
+                # replica contributes at most one fleet participant per
+                # fingerprint, and every fleet failure mode resolves to
+                # plan "local" — exactly the pre-fleet behavior
+                plan, chunks = "local", None
+                if self.fleet is not None:
+                    plan, chunks = await self.fleet.begin(fp)
+                if plan == "hit":
+                    _decide("fleet_hit")
+                    self.cache.put_chunks(fp, chunks)
+                    self.flights.complete(fp, chunks)
+                    return replay_stream(chunks)
                 _decide("leader")
                 try:
                     live = await self._create_streaming_live(ctx, params)
                 except BaseException as e:
                     self.flights.fail(fp, e)
+                    if plan == "lease":
+                        self.fleet.abandon(fp)
                     raise
-                return self._record_and_stream(fp, live)
+                return self._record_and_stream(
+                    fp, live, lease=(plan == "lease")
+                )
             waits += 1
             if cspan is not None:
                 cspan.annotate(singleflight_waits=waits)
@@ -578,11 +602,15 @@ class ScoreClient:
             # leader abandoned (disconnect) or produced an uncacheable
             # stream: retry — this caller likely becomes the new leader
 
-    async def _record_and_stream(self, fp, live):
+    async def _record_and_stream(self, fp, live, lease: bool = False):
         """Leader path: stream live to this client while recording; on
         clean error-free completion the recording lands in the cache and
         resolves every follower.  Any other outcome (abandoned stream,
-        error items) releases the flight so followers retry as leaders."""
+        error items) releases the flight so followers retry as leaders.
+        With ``lease`` (the fleet granted this replica the cross-replica
+        slot) a clean completion also publishes to the owning replica,
+        and anything else releases the lease so fleet waiters fall back
+        instead of riding out the TTL."""
         from ..cache import record_stream
 
         done = False
@@ -592,6 +620,8 @@ class ScoreClient:
             done = True
             self.cache.put_chunks(fp, chunk_objs)
             self.flights.complete(fp, chunk_objs)
+            if lease:
+                self.fleet.publish(fp, chunk_objs)
 
         rec = record_stream(live, on_complete)
         try:
@@ -601,6 +631,8 @@ class ScoreClient:
             await rec.aclose()
             if not done:
                 self.flights.fail(fp, asyncio.CancelledError())
+                if lease:
+                    self.fleet.abandon(fp)
 
     # -- streaming (client.rs:93-465) ---------------------------------------
 

@@ -1,4 +1,4 @@
-"""XXH3-128 (seed 0, the default secret) in pure Python.
+"""XXH3-128 and XXH3-64 (seed 0, the default secret) in pure Python.
 
 The reference hashes panel ids with the ``xxhash`` package
 (``llm_weighted_consensus_tpu/identity/__init__.py``); the card's machine
@@ -9,7 +9,12 @@ are computed once per panel validation, off the device path, so speed
 is not a concern.  ``xxh3_128_intdigest`` equals
 ``xxhash.xxh3_128_intdigest`` on every input; ``Xxh3_128`` buffers its
 updates and hashes at ``intdigest``, so any split of the input gives
-the one-shot value.
+the one-shot value.  ``xxh3_64_intdigest`` equals
+``xxhash.xxh3_64_intdigest``: the fleet's ring points, its fault plan's
+per-pair seeds and its record digests run on it.  The 64-bit variant
+shares the secret and the long hash's accumulate loop, but has its own
+short and mid-size paths and its own final merge, so it is not the
+128-bit value truncated.
 """
 
 from __future__ import annotations
@@ -227,6 +232,73 @@ def xxh3_128_intdigest(data: bytes) -> int:
     else:
         low, high = _long(data, n)
     return (high << 64) | low
+
+
+def _rrmxmx(h: int, n: int) -> int:
+    h ^= ((h << 49) | (h >> 15)) & _M64 ^ ((h << 24) | (h >> 40)) & _M64
+    h = (h * _PMX_2) & _M64
+    h ^= (h >> 35) + n
+    h = (h * _PMX_2) & _M64
+    return h ^ (h >> 28)
+
+
+def _len_0to16_64(data: bytes, n: int) -> int:
+    if n > 8:
+        lo = _r64(data, 0) ^ (_r64(_SECRET, 24) ^ _r64(_SECRET, 32))
+        hi = _r64(data, n - 8) ^ (_r64(_SECRET, 40) ^ _r64(_SECRET, 48))
+        acc = (n + _swap64(lo) + hi + _fold64(lo, hi)) & _M64
+        return _xxh3_avalanche(acc)
+    if n >= 4:
+        in64 = _r32(data, n - 4) + (_r32(data, 0) << 32)
+        return _rrmxmx(in64 ^ (_r64(_SECRET, 8) ^ _r64(_SECRET, 16)), n)
+    if n:
+        combined = (data[0] << 16) | (data[n >> 1] << 24) | data[n - 1] | (n << 8)
+        return _xxh64_avalanche(combined ^ (_r32(_SECRET, 0) ^ _r32(_SECRET, 4)))
+    return _xxh64_avalanche(_r64(_SECRET, 56) ^ _r64(_SECRET, 64))
+
+
+def _len_17to128_64(data: bytes, n: int) -> int:
+    acc = n * _P64_1
+    if n > 32:
+        if n > 64:
+            if n > 96:
+                acc += _mix16(data, 48, 96) + _mix16(data, n - 64, 112)
+            acc += _mix16(data, 32, 64) + _mix16(data, n - 48, 80)
+        acc += _mix16(data, 16, 32) + _mix16(data, n - 32, 48)
+    acc += _mix16(data, 0, 0) + _mix16(data, n - 16, 16)
+    return _xxh3_avalanche(acc & _M64)
+
+
+def _len_129to240_64(data: bytes, n: int) -> int:
+    acc = n * _P64_1
+    for i in range(8):
+        acc += _mix16(data, 16 * i, 16 * i)
+    acc = _xxh3_avalanche(acc & _M64)
+    for i in range(8, n // 16):
+        acc += _mix16(data, 16 * i, 16 * (i - 8) + 3)
+    # the last 16 bytes, against the secret's tail (seed 0: no negation)
+    acc += _mix16(data, n - 16, 136 - 17)
+    return _xxh3_avalanche(acc & _M64)
+
+
+def xxh3_64_intdigest(data: bytes) -> int:
+    """XXH3-64 of ``data`` with seed 0."""
+    data = bytes(data)
+    n = len(data)
+    if n <= 16:
+        return _len_0to16_64(data, n)
+    if n <= 128:
+        return _len_17to128_64(data, n)
+    if n <= 240:
+        return _len_129to240_64(data, n)
+    # the long hash's low half is the 64-bit merge (secret offset 11)
+    return _long(data, n)[0]
+
+
+def xxh3_64_hexdigest(data: bytes) -> str:
+    """``xxh3_64_intdigest`` as 16 lower-case hex digits, as
+    ``xxhash.xxh3_64_hexdigest`` writes it."""
+    return f"{xxh3_64_intdigest(data):016x}"
 
 
 class Xxh3_128:

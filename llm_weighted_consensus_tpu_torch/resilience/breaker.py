@@ -21,8 +21,7 @@ sleeping; nothing here is async — callers sequence ``allow`` /
 ``record_*`` from the event loop.
 
 The port's copy of ``llm_weighted_consensus_tpu/resilience/breaker.py``
-(the chat routes' one loop thread is the only caller), without the
-fleet's ``force_close`` and ``peek``.
+(the chat routes' one loop thread is the only caller).
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 CLOSED = "closed"
 OPEN = "open"
@@ -104,6 +103,18 @@ class CircuitBreaker:
         self._outcomes.append(False)
         if self.state == CLOSED and self._failure_rate_trips():
             self._trip()
+
+    def force_close(self) -> None:
+        """Close the breaker on out-of-band evidence of recovery (the
+        fleet's liveness probe answered while the breaker was open).
+        Fresh window — the failures that opened it belong to the
+        incident that just ended, not to the recovered peer.  Named
+        ``force_close`` (not ``reset``) so the concurrency auditor's
+        name-based call resolution can't conflate it with other
+        ``reset`` methods (QualityAggregator.reset is lock-guarded)."""
+        self.state = CLOSED
+        self._outcomes.clear()
+        self._probes_in_flight = 0
 
     def release_probe(self) -> None:
         """Return a probe slot claimed by ``allow()`` without recording an
@@ -183,3 +194,11 @@ class BreakerRegistry:
             key: breaker.snapshot()
             for key, breaker in sorted(self._breakers.items())
         }
+
+    def peek(self, api_base: str, model: str) -> Optional[str]:
+        """The breaker's current state, or None when no attempt ever
+        touched this key.  Read-only: an observer (e.g. the fleet's
+        lease-liveness check asking "is the holder's breaker open?")
+        must not lazily materialize breakers it never drives."""
+        breaker = self._breakers.get(self.key(api_base, model))
+        return breaker.state if breaker is not None else None

@@ -73,6 +73,11 @@ documented in ``serve/config.py``, and so are the archive's
 resilience (``RESILIENCE_*``, ``FAULT_PLAN``, ``JUDGE_BIAS_PLAN``) and
 the memory governor (``MEMGUARD``, ``MEM_SOFT_BYTES``,
 ``MEM_HARD_BYTES``, ``MEMGUARD_INTERVAL_MILLIS``; on by default), and
+the fleet tier (``FLEET_SELF``, ``FLEET_PEERS``, ``FLEET_PEERS_FILE``,
+``FLEET_VNODES``, ``FLEET_LEASE_MILLIS``, ``FLEET_FETCH_TIMEOUT_MILLIS``,
+``FLEET_FAULT_PLAN``, ``FLEET_QUARANTINE_FAILURES``,
+``FLEET_PROBE_MILLIS``: ``/fleet/v1/*``; ``AOT_CACHE_DIR``,
+``WARMUP_AOT`` and ``COMPILE_CACHE_DIR`` are read and reported inert),
 live weights and the offline lane (``WEIGHTS_ENABLED``, ``WEIGHTS_PATH``:
 ``GET``/``PUT /v1/weights``; ``OFFLINE_ENABLED``, ``OFFLINE_INFLIGHT``:
 ``POST /v1/train/rescore``), device faults (``DEVICE_WATCHDOG_CPU_FALLBACK``:
@@ -294,7 +299,7 @@ def build_reranker(env, device=None, dtype=None):
 
 def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
                        ledger=None, resilience=None, fault_plan=None,
-                       live_weights=None):
+                       live_weights=None, fleet=None):
     """The chat client over the configured upstream endpoints (the stdlib
     transport, wrapped in the fault injector under a ``fault_plan``), and
     the multichat and score clients over it.  Panels
@@ -303,7 +308,8 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
     with ``ARCHIVE_WRITE`` the score client records its ballots there, and
     with an outcome ``ledger`` one record per scored request.  The chat
     and score clients share the ``resilience`` policy; the score client
-    takes ``JUDGE_BIAS_PLAN`` and the ``live_weights`` store.
+    takes ``JUDGE_BIAS_PLAN``, the ``live_weights`` store and the
+    ``fleet`` coordinator (``FLEET_*``).
     The score client answers a training-table panel with 501 until
     ``build_server`` plugs the training-table fetcher in."""
     from ..archive import InMemoryArchive
@@ -360,6 +366,8 @@ def build_chat_clients(config: ServeConfig, score_cache=None, store=None,
         bias_plan=config.judge_bias_injection_plan(),
         # WEIGHTS_*: versioned live judge-weight tables (weights/live.py)
         live_weights=live_weights,
+        # FLEET_*: peer fetch and cross-replica leases on a miss
+        fleet=fleet,
     )
     return chat_client, multichat_client, score_client
 
@@ -471,7 +479,12 @@ def build_server(embedder, reranker, config: ServeConfig,
     the knob is off.  ``MESH_FAULT_*`` give the batcher its
     ``MeshFaultManager`` (``server.meshfault``), ``MESH_ENABLED`` labels
     the device timings ``@dp1xtp1`` and adds the ``mesh`` section, and
-    ``PROFILE_DIR`` turns the profiler routes on."""
+    ``PROFILE_DIR`` turns the profiler routes on.  ``FLEET_*`` (with the
+    score cache the config guarantees) build the ``FleetCoordinator``
+    over that cache (``server.fleet``): the score client's miss path
+    asks it, ``/fleet/v1/*`` serve it, and the drain hands off through
+    it.  ``AOT_CACHE_DIR``, ``WARMUP_AOT`` and ``COMPILE_CACHE_DIR`` are
+    logged once as inert here."""
     from ..obs import configure_quality
     from ..weights import WeightFetchers
     from .archive_routes import (
@@ -485,7 +498,19 @@ def build_server(embedder, reranker, config: ServeConfig,
     if embedder is not None:
         # the reference's mesh labels: one card is the 1x1 shape
         embedder.label_suffix = "@dp1xtp1" if config.mesh_enabled else ""
+    for note in config.inert_knob_notes():
+        log.warning("%s", note)
     score_cache, embed_cache = score_caches(config)
+    # FLEET_*: the replicated-cache tier (fleet/).  Config validation
+    # guarantees the score cache exists whenever the fleet is on; the
+    # coordinator serves /fleet/v1 from it and publishes into it
+    fleet = None
+    fleet_cfg = config.fleet_config()
+    if fleet_cfg is not None and score_cache is not None:
+        from ..fleet import FleetCoordinator
+
+        fleet = FleetCoordinator(fleet_cfg)
+        fleet.cache = score_cache
     store = load_archive(config)
     # QUALITY_*: the drift knobs of the always-on quality aggregator
     configure_quality(
@@ -512,7 +537,7 @@ def build_server(embedder, reranker, config: ServeConfig,
         )
     chat_client, multichat_client, score_client = build_chat_clients(
         config, score_cache, store, ledger, resilience, fault_plan,
-        live_weights,
+        live_weights, fleet,
     )
     served = (chat_client, multichat_client, score_client)
     if config.archive_write:
@@ -559,6 +584,7 @@ def build_server(embedder, reranker, config: ServeConfig,
         meshfault=build_meshfault(embedder, config),
         mesh=config.mesh_enabled,
         profile_dir=config.profile_dir,
+        fleet=fleet,
         **batching,
     )
     if memguard is not None:
@@ -574,6 +600,7 @@ def build_server(embedder, reranker, config: ServeConfig,
     server.tables = tables
     server.ledger = ledger
     server.archive = store
+    server.fleet = fleet
     model = embedder if embedder is not None else reranker
     # one lock for every handler that mutates the archive or the tables
     lock = asyncio.Lock()

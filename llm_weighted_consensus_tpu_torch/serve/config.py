@@ -300,6 +300,51 @@ reference):
 
 The ``resilience`` and ``memguard`` sections of ``GET /metrics`` show
 the counters, breaker states and the governor's level.
+
+Fleet tier (``fleet/``), the reference's knobs, defaults and refusals: N
+replicas with ``FLEET_*`` set serve as ONE tier — consistent-hash
+ownership of score-cache fingerprints, peer-to-peer result fetch before
+going upstream, cross-replica single-flight leases (a fleet-wide hot key
+hits the upstream judges exactly once), and drain-time hot-set handoff.
+Everything unset = single-replica behavior untouched; a dead or
+unreachable peer degrades to exactly that:
+
+* ``FLEET_SELF`` — this replica's own base URL as peers reach it (e.g.
+  ``http://10.0.0.3:5000``).  Required to enable the fleet; requires
+  ``SCORE_CACHE_TTL`` > 0 (the fleet shares score-cache entries) and a
+  roster via one of the next two knobs;
+* ``FLEET_PEERS`` — static comma-separated roster of replica base URLs,
+  ``FLEET_SELF`` included;
+* ``FLEET_PEERS_FILE`` — file-watched roster instead (one URL per line,
+  ``#`` comments allowed), re-read within ~1 s of an mtime change.
+  Mutually exclusive with ``FLEET_PEERS``;
+* ``FLEET_VNODES`` — virtual nodes per replica on the ownership ring
+  (min 1).  Default 64;
+* ``FLEET_LEASE_MILLIS`` — cross-replica single-flight lease TTL (> 0).
+  Default 10000;
+* ``FLEET_FETCH_TIMEOUT_MILLIS`` — per-peer-call timeout (> 0), always
+  additionally clamped to HALF the remaining request deadline.  Default
+  2000;
+* ``FLEET_FAULT_PLAN`` — deterministic peer fault injection, e.g.
+  ``seed=7,blackhole=0.05,slow=0.1,slow_ms=150`` or
+  ``blackhole=1.0,to=http://10.0.0.2:5000`` (``fleet/faults.py``; parsed
+  at startup).  Drills only;
+* ``FLEET_QUARANTINE_FAILURES`` — consecutive peer transport failures
+  before a peer is quarantined off the ring (``0`` = never).  Default 3;
+* ``FLEET_PROBE_MILLIS`` — how often a quarantined peer is probed for
+  re-admission, and the owner-side lease-wait slice (> 0).  Default 1000.
+
+The ``fleet`` section of ``GET /metrics`` and of ``/readyz`` shows the
+membership, leases, peer fetches, quarantine and handoff counters.
+
+Read and inert on this card (the server says so once at startup):
+``AOT_CACHE_DIR`` (the reference's fleet-shared serialized-executable
+store), ``WARMUP_AOT`` (its AOT-compiled warmup, default 1) and
+``COMPILE_CACHE_DIR`` (its persistent XLA compilation cache).  The port
+compiles no XLA executables: its warmup captures one CUDA graph per
+bucket, and a graph holds the device addresses of the process that
+captured it, so there is nothing to serialize or share between
+replicas.
 """
 
 from __future__ import annotations
@@ -309,6 +354,14 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..utils import env_truthy
+
+
+def _parse_peer_list(raw) -> list:
+    """"http://a:5000, http://b:5000" -> normalized URL list (trailing
+    slashes stripped, empties dropped)."""
+    if not raw:
+        return []
+    return [p.strip().rstrip("/") for p in str(raw).split(",") if p.strip()]
 
 
 def _non_negative_int(env: dict, name: str, default: int) -> int:
@@ -605,6 +658,22 @@ class ServeConfig:
     mem_soft_bytes: int = 0
     mem_hard_bytes: int = 0
     memguard_interval_millis: float = 1000.0
+    # fleet tier (fleet/): fleet_self unset = everything off;
+    # fleet_config() returns None
+    fleet_self: Optional[str] = None
+    fleet_peers: list = field(default_factory=list)
+    fleet_peers_file: Optional[str] = None
+    fleet_vnodes: int = 64
+    fleet_lease_millis: float = 10000.0
+    fleet_fetch_timeout_millis: float = 2000.0
+    fleet_fault_plan: Optional[str] = None
+    fleet_quarantine_failures: int = 3
+    fleet_probe_millis: float = 1000.0
+    # the reference's XLA compile knobs: read, inert on this card
+    # (inert_knob_notes); warmup_aot None = unset (the reference's 1)
+    aot_cache_dir: Optional[str] = None
+    warmup_aot: Optional[bool] = None
+    compile_cache_dir: Optional[str] = None
 
     @classmethod
     def from_env(cls, env: Optional[dict] = None) -> "ServeConfig":
@@ -740,6 +809,23 @@ class ServeConfig:
             mem_soft_bytes=_non_negative_int(env, "MEM_SOFT_BYTES", 0),
             mem_hard_bytes=_non_negative_int(env, "MEM_HARD_BYTES", 0),
             memguard_interval_millis=get_f("MEMGUARD_INTERVAL_MILLIS", 1000),
+            fleet_self=env.get("FLEET_SELF"),
+            fleet_peers=_parse_peer_list(env.get("FLEET_PEERS")),
+            fleet_peers_file=env.get("FLEET_PEERS_FILE"),
+            fleet_vnodes=max(1, int(env.get("FLEET_VNODES", 64))),
+            fleet_lease_millis=get_f("FLEET_LEASE_MILLIS", 10000),
+            fleet_fetch_timeout_millis=get_f(
+                "FLEET_FETCH_TIMEOUT_MILLIS", 2000
+            ),
+            fleet_fault_plan=env.get("FLEET_FAULT_PLAN"),
+            fleet_quarantine_failures=_non_negative_int(
+                env, "FLEET_QUARANTINE_FAILURES", 3
+            ),
+            fleet_probe_millis=get_f("FLEET_PROBE_MILLIS", 1000),
+            aot_cache_dir=env.get("AOT_CACHE_DIR"),
+            warmup_aot=(env_truthy(env["WARMUP_AOT"])
+                        if "WARMUP_AOT" in env else None),
+            compile_cache_dir=env.get("COMPILE_CACHE_DIR"),
         )
         if config.quality_window < 1:
             raise ValueError(
@@ -819,6 +905,7 @@ class ServeConfig:
                 "warmup needs NxS shapes to compile (set WARMUP, e.g. "
                 "WARMUP=64x112 WARMUP_R=2)"
             )
+        config._check_fleet()
         if config.offline_enabled and config.offline_inflight < 1:
             raise ValueError(
                 f"OFFLINE_INFLIGHT={config.offline_inflight} must be >= 1 "
@@ -901,6 +988,116 @@ class ServeConfig:
             raise ValueError(f"MESH_SP={self.mesh_sp} is refused: {ONE_CARD}")
         if self.long_context_warmup:
             raise ValueError(f"LONG_CONTEXT_WARMUP is refused: {ONE_CARD}")
+
+    def _check_fleet(self) -> None:
+        """The reference's refusals of the ``FLEET_*`` knobs, in its
+        order and with its messages."""
+        if self.fleet_peers and self.fleet_peers_file:
+            raise ValueError(
+                "FLEET_PEERS and FLEET_PEERS_FILE are mutually exclusive: "
+                "one roster source of truth (static list OR watched file)"
+            )
+        if (self.fleet_peers or self.fleet_peers_file) and (
+            not self.fleet_self
+        ):
+            raise ValueError(
+                "a fleet roster is set but FLEET_SELF is not: replicas "
+                "must know their own base URL to place themselves on the "
+                "ownership ring (set e.g. FLEET_SELF=http://10.0.0.3:5000)"
+            )
+        if self.fleet_self:
+            if not (self.fleet_peers or self.fleet_peers_file):
+                raise ValueError(
+                    "FLEET_SELF is set but no roster is: the fleet needs "
+                    "FLEET_PEERS (static) or FLEET_PEERS_FILE (watched) — "
+                    "a roster of one is valid but must be explicit"
+                )
+            if self.fleet_peers and (
+                self.fleet_self.rstrip("/") not in self.fleet_peers
+            ):
+                raise ValueError(
+                    f"FLEET_SELF={self.fleet_self} is not in FLEET_PEERS: "
+                    "the static roster must include this replica, or peers "
+                    "would route its owned keys elsewhere"
+                )
+            if self.score_cache_ttl_sec <= 0:
+                raise ValueError(
+                    "FLEET_SELF is set but SCORE_CACHE_TTL is 0: the fleet "
+                    "tier replicates score-cache entries, so without a "
+                    "cache there is nothing to own, lease, or hand off "
+                    "(set SCORE_CACHE_TTL > 0)"
+                )
+            if self.fleet_lease_millis <= 0:
+                raise ValueError(
+                    f"FLEET_LEASE_MILLIS={self.fleet_lease_millis} must "
+                    "be > 0 (the lease TTL bounds how long waiters trust a "
+                    "possibly-dead holder)"
+                )
+            if self.fleet_fetch_timeout_millis <= 0:
+                raise ValueError(
+                    f"FLEET_FETCH_TIMEOUT_MILLIS="
+                    f"{self.fleet_fetch_timeout_millis} must be > 0"
+                )
+            if self.fleet_probe_millis <= 0:
+                raise ValueError(
+                    f"FLEET_PROBE_MILLIS={self.fleet_probe_millis} must "
+                    "be > 0 (how often a quarantined peer is probed for "
+                    "re-admission, and the owner-side lease-wait slice)"
+                )
+        if self.fleet_fault_plan is not None:
+            # parse eagerly so a typo fails at startup, not mid-drill
+            from ..fleet.faults import FleetFaultPlan
+
+            FleetFaultPlan.parse(self.fleet_fault_plan)
+
+    def fleet_config(self):
+        """The fleet membership config (fleet/membership.py), or None
+        when the fleet tier is off (single-replica behavior untouched)."""
+        if not self.fleet_self:
+            return None
+        from ..fleet import FleetConfig
+
+        return FleetConfig(
+            self_url=self.fleet_self.rstrip("/"),
+            peers=list(self.fleet_peers),
+            peers_file=self.fleet_peers_file,
+            vnodes=self.fleet_vnodes,
+            lease_millis=self.fleet_lease_millis,
+            fetch_timeout_millis=self.fleet_fetch_timeout_millis,
+            fault_plan_spec=self.fleet_fault_plan,
+            quarantine_failures=self.fleet_quarantine_failures,
+            probe_millis=self.fleet_probe_millis,
+        )
+
+    def inert_knob_notes(self) -> list:
+        """One line per set knob that the reference reads and this card
+        has no use for (``AOT_CACHE_DIR``, ``WARMUP_AOT``,
+        ``COMPILE_CACHE_DIR``): the server logs them once at startup,
+        so a replica started with the reference's environment says what
+        it ignores instead of ignoring it silently."""
+        why = (
+            "the port compiles no XLA executables; its warmup captures "
+            "one CUDA graph per bucket, which holds this process's device "
+            "addresses and cannot be serialized or shared"
+        )
+        notes = []
+        if self.aot_cache_dir:
+            notes.append(
+                f"AOT_CACHE_DIR={self.aot_cache_dir} does nothing on this "
+                f"card: {why}"
+            )
+        if self.warmup_aot is not None:
+            notes.append(
+                f"WARMUP_AOT={int(self.warmup_aot)} does nothing on this "
+                "card: WARMUP always captures CUDA graphs, there is no AOT "
+                "compile to choose"
+            )
+        if self.compile_cache_dir:
+            notes.append(
+                f"COMPILE_CACHE_DIR={self.compile_cache_dir} does nothing "
+                f"on this card: {why}"
+            )
+        return notes
 
     def device_fault_injection_plan(self):
         """Parsed ``DEVICE_FAULT_PLAN``, or None (drills only)."""

@@ -49,6 +49,13 @@ bodies, responses and input validation:
   ``PROFILE_DIR`` ``/v1/profile`` answers the reference's 403 and the
   other two do not exist (404).  ``/v1/profile`` is admission-exempt
   (``resilience.admission.EXEMPT_PATHS``);
+* ``/fleet/v1/*`` (``GET``/``PUT /fleet/v1/entry/{fp}``,
+  ``POST``/``DELETE /fleet/v1/lease/{fp}``, ``POST /fleet/v1/handoff``,
+  ``GET /fleet/v1/ping``) — the replica-to-replica fleet surface
+  (``fleet/handlers.py``), when the server has a fleet coordinator
+  (``FLEET_*``): admission-exempt, as the reference exempts it, each
+  answered on the chat routes' loop and observed as its route template
+  (``http:/fleet/v1/entry/{fp}``);
 * ``GET /v1/traces`` -> ``{"traces": [...]}`` (newest first, ``?limit=``,
   default 50) and ``GET /v1/traces/{trace_id}`` -> the span tree, when
   the server has a trace sink (``TRACE_*``; 404 ``unknown trace_id``).
@@ -117,6 +124,7 @@ from ..resilience.admission import (
     retry_after_seconds,
     shed_response,
 )
+from ..fleet.handlers import match as fleet_match
 from ..resilience.deadline import Deadline
 from ..utils import jsonutil
 from .lifecycle import READY, STARTING, Lifecycle
@@ -406,7 +414,8 @@ class OfflineRescore:
 def make_handler(embedder, batcher, reranker, metrics, admission,
                  lifecycle, chat_routes=None, max_body_bytes=MAX_BODY_BYTES,
                  trace_sink=None, default_deadline_ms=0.0,
-                 live_weights=None, offline_rescore=None, profiler=None):
+                 live_weights=None, offline_rescore=None, profiler=None,
+                 fleet_routes=None):
     device_routes = set()
     if embedder is not None or reranker is not None:
         device_routes.add("/consensus")
@@ -569,7 +578,38 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
         def do_GET(self):
             self._traced("GET", self._get)
 
+        def do_DELETE(self):
+            self._traced("DELETE", self._delete)
+
+        def _fleet(self, method: str) -> bool:
+            """Answer a ``/fleet/v1`` request (admission-exempt: peer
+            calls are cheap bounded bookkeeping that must keep answering
+            while the gate sheds); False when it is no fleet route."""
+            if fleet_routes is None:
+                return False
+            url = urlsplit(self.path)
+            route = fleet_match(method, url.path)
+            if route is None:
+                return False
+            self._series = (f"http:{route[0]}", time.perf_counter())
+            raw = self._raw_body()
+            if raw is None:
+                return True
+            status, obj = fleet_routes.serve(
+                method, route[0], route[1], url.query, self.headers, raw,
+                self._deadline(),
+            )
+            self._send_raw(status, jsonutil.dumps(obj).encode())
+            return True
+
+        def _delete(self):
+            if not self._fleet("DELETE"):
+                self.close_connection = True  # its body stays unread
+                self._error(404, f"no route DELETE {self.path}")
+
         def _get(self):
+            if self._fleet("GET"):
+                return
             url = urlsplit(self.path)
             path = url.path
             answer = None
@@ -629,6 +669,8 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             is a tiny admin swap an operator may need mid-overload, as
             the reference's gate exempts it), under the body cap."""
             t0 = time.perf_counter()
+            if self._fleet("PUT"):
+                return
             if self.path != "/v1/weights":
                 self.close_connection = True  # its body stays unread
                 self._error(404, f"no route PUT {self.path}")
@@ -682,6 +724,8 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             self._send(*answer)
 
         def _post_route(self):
+            if self._fleet("POST"):
+                return
             t0 = time.perf_counter()
             path = self.path
             profile_route = path == "/v1/profile" or (
@@ -897,7 +941,11 @@ class Server:
     prober) and ``mesh`` (``MESH_ENABLED``) the ``mesh`` section.
     ``profile_dir`` turns the profiler routes on; with an embedder the
     ``roofline`` section gauges its buckets against
-    ``analysis/roofline.json``."""
+    ``analysis/roofline.json``.  ``fleet`` (a ``fleet.FleetCoordinator``
+    over the score client's cache, ``FLEET_*``; needs the chat client)
+    serves ``/fleet/v1/*`` on the chat routes' loop, adds the ``fleet``
+    section, hands the hot set off at the drain's step 0 and puts the
+    membership on ``/readyz``; ``close`` closes it."""
 
     def __init__(
         self,
@@ -931,6 +979,7 @@ class Server:
         meshfault=None,
         mesh: bool = False,
         profile_dir=None,
+        fleet=None,
         **batching,
     ) -> None:
         from ..resilience.watchdog import DeviceWatchdog
@@ -1024,6 +1073,13 @@ class Server:
                 return stats
 
             self.metrics.register_provider("score_cache", score_cache_stats)
+        self.fleet_routes = None
+        if fleet is not None and self.chat_routes is not None:
+            from ..fleet import FleetRoutes
+
+            self.fleet_routes = FleetRoutes(fleet, self.chat_routes.loop)
+            self.metrics.register_provider("fleet", self.fleet_routes.stats)
+            self.lifecycle.fleet = self.fleet_routes
         # run at close, after the batcher stops (the training tables'
         # snapshot, the score cache's disk flush)
         self.on_close: list = []
@@ -1034,7 +1090,7 @@ class Server:
                          max_body_bytes, trace_sink,
                          resilience.deadline_ms if resilience is not None
                          else 0.0, live_weights, self.offline_rescore,
-                         self.profiler),
+                         self.profiler, self.fleet_routes),
         )
         self._thread: threading.Thread = None
         if self.watchdog is not None:
@@ -1140,6 +1196,8 @@ class Server:
             self.httpd.shutdown()
             self._thread.join(10)
         self.httpd.server_close()
+        if self.fleet_routes is not None:
+            self.fleet_routes.close()
         if self.chat_routes is not None:
             self.chat_routes.close()
         if self.batcher is not None:

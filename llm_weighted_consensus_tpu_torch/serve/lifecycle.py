@@ -17,10 +17,13 @@ threads:
   has no smaller shape, so the flag waits for the multi-device slice.  A
   card the watchdog holds unhealthy answers 503 ``device_unhealthy``
   with or without a CPU twin;
-* SIGTERM/SIGINT -> ``begin_drain()``: readiness flips, admission stops
-  (new requests shed with ``shed_reason: "draining"``), in-flight
-  requests finish and the batcher's queue empties, all bounded by
-  ``DRAIN_TIMEOUT_MILLIS``.
+* SIGTERM/SIGINT -> ``begin_drain()``: with a fleet, first the hot-set
+  handoff (step 0, at most half the budget, while readiness still reads
+  200 and peers can still fetch from this replica); then readiness
+  flips, admission stops (new requests shed with ``shed_reason:
+  "draining"``), in-flight requests finish and the batcher's queue
+  empties, all bounded by ``DRAIN_TIMEOUT_MILLIS``.  With a fleet,
+  ``/readyz``'s 200 body carries the ``fleet`` membership snapshot.
 
 State machine: STARTING -> READY -> DRAINING -> STOPPED, one way.
 ``begin_drain`` is idempotent: a repeated SIGTERM joins the drain in
@@ -49,6 +52,7 @@ class Lifecycle:
         watchdog=None,
         memguard=None,
         meshfault=None,
+        fleet=None,
         drain_timeout_ms: float = 10000.0,
         clock: Callable[[], float] = time.monotonic,
         state: str = READY,
@@ -58,6 +62,11 @@ class Lifecycle:
         self.watchdog = watchdog
         self.memguard = memguard
         self.meshfault = meshfault
+        # fleet.FleetRoutes (FLEET_*): the drain hands this replica's hot
+        # set to its post-drain owners before readiness flips, and
+        # /readyz shows the membership
+        self.fleet = fleet
+        self.handoff_entries: Optional[int] = None
         self.drain_timeout_ms = float(drain_timeout_ms)
         self.clock = clock
         self.state = state
@@ -99,6 +108,11 @@ class Lifecycle:
         if mg is not None and mg.degraded:
             body["degraded_mem"] = True
             body["mem_level"] = mg.snapshot()["level"]
+        if self.fleet is not None:
+            # the balancer-facing view of fleet membership: who this
+            # replica is, the roster it sees, and the key-space share it
+            # currently owns (full counters live in /metrics)
+            body["fleet"] = self.fleet.membership_snapshot()
         return 200, body
 
     # -- drain ----------------------------------------------------------------
@@ -124,6 +138,15 @@ class Lifecycle:
     def drain(self) -> bool:
         t0 = self.clock()
         deadline = t0 + self.drain_timeout_ms / 1e3
+        # 0. fleet hot-set handoff BEFORE readiness flips: the entries
+        #    this replica holds move to their post-drain owners while
+        #    peers can still fetch from us, so a fleet-wide hot key stays
+        #    a cache hit across the departure.  At most HALF the budget:
+        #    the in-flight requests' share must survive a dark fleet
+        if self.fleet is not None:
+            self.handoff_entries = self.fleet.handoff_hot_set(
+                max(0.05, (deadline - self.clock()) * 0.5)
+            )
         # 1. stop admitting BEFORE waiting: readiness flips and the gate
         #    sheds everything new, so the in-flight set only shrinks
         with self._lock:
@@ -162,4 +185,6 @@ class Lifecycle:
         if self.drained_clean is not None:
             out["drained_clean"] = self.drained_clean
             out["drain_elapsed_ms"] = round(self.drain_elapsed_ms, 1)
+        if self.handoff_entries is not None:
+            out["fleet_handoff_entries"] = self.handoff_entries
         return out

@@ -38,7 +38,10 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
   histogram and outcome rates (``obs/quality.py``, always on), and
   ``ledger``: the outcome ledger's counters, when ``LEDGER_*`` turns it
   on, and ``weights``: the live weight store's versions and counters,
-  when ``WEIGHTS_*`` turns it on (``register_quality``).
+  when ``WEIGHTS_*`` turns it on (``register_quality``);
+* ``fleet``: the fleet coordinator's membership, peer-fetch, lease,
+  quarantine and handoff counters (``fleet/coordinator.py``), when
+  ``FLEET_*`` turns the fleet on, with the ``lwc_fleet_*`` families.
 
 A series observed with a ``trace_id`` keeps the newest as its exemplar:
 the JSON snapshot names it, and the Prometheus text attaches it to the
@@ -81,6 +84,7 @@ KNOWN_SECTIONS = (
     "memguard",
     "weights",
     "lock_witness",
+    "fleet",
 )
 
 # Every Prometheus family the text exposition may emit (the reference's
@@ -102,6 +106,9 @@ KNOWN_PROM_FAMILIES = (
     "lwc_consensus_outcomes",
     "lwc_judge_agreement",
     "lwc_judge_drift",
+    "lwc_fleet_peer_fetches",
+    "lwc_fleet_leases",
+    "lwc_fleet_disruptions",
     "lwc_memguard_rss_bytes",
     "lwc_memguard_level",
     "lwc_memguard_trips",
@@ -418,6 +425,7 @@ def render_prometheus(metrics: Metrics) -> str:
                 )
 
     lines += _render_quality()
+    lines += _render_fleet(metrics.provider_section("fleet"))
 
     memguard = metrics.provider_section("memguard")
     if isinstance(memguard, dict):
@@ -634,4 +642,49 @@ def _render_quality() -> List[str]:
     )
     for judge, flagged in qsnap["drift_flagged"].items():
         lines.append(f'lwc_judge_drift{{judge="{_esc(judge)}"}} {flagged:.0f}')
+    return lines
+
+
+def _render_fleet(fleet) -> List[str]:
+    """The fleet families, as the reference renders them after the
+    quality ones: peer fetches by result, the owner's active leases, and
+    the failure-plane events by kind.  Nothing without a ``fleet``
+    section."""
+    if not isinstance(fleet, dict):
+        return []
+    fetch = fleet.get("peer_fetch", {})
+    lines = prom_family(
+        "lwc_fleet_peer_fetches",
+        "counter",
+        "Peer cache fetches by result (hit/miss/error).",
+    )
+    for result in ("hits", "misses", "errors"):
+        lines.append(
+            f'lwc_fleet_peer_fetches_total{{result="{result}"}} '
+            f"{fetch.get(result, 0)}"
+        )
+    leases = fleet.get("leases", {})
+    lines += prom_family(
+        "lwc_fleet_leases",
+        "gauge",
+        "Cross-replica single-flight leases active on this owner.",
+    )
+    lines.append(f"lwc_fleet_leases {leases.get('active', 0)}")
+    health = fleet.get("health", {})
+    lines += prom_family(
+        "lwc_fleet_disruptions",
+        "counter",
+        "Fleet failure-plane events by kind (partition tolerance).",
+    )
+    for kind, value in (
+        ("ring_divergence", fleet.get("ring_divergences", 0)),
+        ("ring_reject", fleet.get("ring_rejects", 0)),
+        ("early_takeover", fleet.get("early_takeovers", 0)),
+        ("late_publish", leases.get("late_publishes", 0)),
+        ("quarantine", health.get("quarantines", 0)),
+        ("readmission", health.get("readmissions", 0)),
+    ):
+        lines.append(
+            f'lwc_fleet_disruptions_total{{kind="{kind}"}} {value}'
+        )
     return lines

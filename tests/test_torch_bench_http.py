@@ -2,7 +2,11 @@
 process through ``build_server`` / ``warm_up``, driven by the stdlib
 client, one record per scenario with the reference's keys (less the
 written renames of ``tests/test_torch_bench.py``), and the open-loop
-pacer holding its schedule against a slow server."""
+pacer holding its schedule against a slow server.  ``--fleet`` and
+``--fleet-partition`` run three host-only replicas and meet the
+reference's acceptance (``bench_http.py``'s notes): warm
+``upstream_calls`` 0 and hot ``upstream_calls`` 1; under the partition
+every answer is 200 and clean, at most one fan-out per component."""
 
 import json
 import threading
@@ -103,3 +107,30 @@ def test_the_open_loop_pacer_keeps_its_schedule_against_a_slow_server():
     for i, offset in enumerate(offsets):
         assert offset == pytest.approx(i * interval, abs=0.04)
     assert total < n * interval + 0.4 + 1.0 < n * 0.4
+
+
+def test_fleet_meets_the_references_acceptance(capsys):
+    (record,) = _run(["--fleet", "--requests", "12"], capsys)
+    assert record["endpoint"] == "/score/completions?fleet"
+    assert set(record) == expected(ref_http_keys("bench_fleet"), "fleet")
+    assert record["cold"]["upstream_calls"] == 12
+    assert record["warm"]["upstream_calls"] == 0
+    assert record["hot_stampede"]["upstream_calls"] == 1
+    assert record["replicas"] == 3 and record["peer_fetch_hits"] > 0
+    for phase in ("cold", "warm", "hot_stampede"):
+        assert set(record[phase]) == {"rps", "p50_ms", "p99_ms",
+                                      "upstream_calls"}
+
+
+def test_fleet_partition_answers_clean_under_the_cut(capsys):
+    (record,) = _run(["--fleet-partition", "--requests", "12"], capsys)
+    assert record["endpoint"] == "/score/completions?fleet-partition"
+    assert set(record) == expected(ref_http_keys("bench_fleet_partition"),
+                                   "fleet_partition")
+    healthy, cut = record["healthy_warm"], record["partitioned_warm"]
+    assert healthy["upstream_calls"] == 0 and healthy["dirty_frames"] == 0
+    assert cut["dirty_frames"] == 0
+    # each fingerprint fans out at most once per component
+    assert cut["cold_upstream_calls"] == 12
+    assert cut["cold_upstream_calls"] + cut["upstream_calls"] <= 24
+    assert record["quarantines"] > 0 and record["peer_errors"] > 0

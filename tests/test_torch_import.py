@@ -128,6 +128,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "bench", "bench.__main__", "bench.common", "bench.headline",
         "bench.fwd", "bench.attn", "bench.configs", "bench.learning",
         "bench.http", "bench.host",
+        "fleet", "fleet.wire", "fleet.membership", "fleet.leases",
+        "fleet.health", "fleet.faults", "fleet.client", "fleet.coordinator",
+        "fleet.handlers",
     ):
         assert f"llm_weighted_consensus_tpu_torch.{name}" in out["modules"]
 

@@ -1040,8 +1040,8 @@ def test_known_prom_families_hold_the_exposition_both_ways():
     (``KNOWN_PROM_FAMILIES``, the reference's registry with the port's
     own families): LWC012 holds the declaration against every
     ``prom_family`` call both ways, a live server's exposition names only
-    declared families, and the reference's families keep their names (the
-    fleet's wait for the fleet tier)."""
+    declared families, and the reference's families keep their names
+    (every one of them is declared, the fleet's included)."""
     from llm_weighted_consensus_tpu.serve.metrics import (
         KNOWN_PROM_FAMILIES as REF_FAMILIES,
     )
@@ -1062,5 +1062,4 @@ def test_known_prom_families_hold_the_exposition_both_ways():
                if line.startswith("# TYPE ")}
     assert "lwc_uptime_seconds" in exposed
     assert exposed <= set(families), exposed - set(families)
-    assert set(REF_FAMILIES) - set(families) == {
-        "lwc_fleet_peer_fetches", "lwc_fleet_leases", "lwc_fleet_disruptions"}
+    assert set(REF_FAMILIES) - set(families) == set()
