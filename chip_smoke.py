@@ -379,6 +379,29 @@ Phases, each printing one JSON line:
    and at most one fan-out per component).  The round p50s, the
    per-replica ``fleet`` counters and the seconds are printed.
 
+20. mesh path (``parallel/``): (a) the main path's bursts (3 x 8
+   ``/consensus`` of N=64 at s=128, and one embedding request) through a
+   ``DeviceBatcher`` over ``shard_embedder_mesh`` at ``MESH_SHAPES``
+   (2x1, 1x2, 2x2, and 1x2 under ``int8``; bge-large, random weights
+   from seed 0, bf16): the shards share the card where it is the only
+   one and take distinct cards where there are enough; on one card the
+   buckets are warmed (one CUDA graph per bucket holding every shard)
+   after one eager burst, across cards they run eager.  Each answer is
+   held to the one-device run of the same traffic (``MESH_CONF_TOL``,
+   embeddings ``PACKED_MIN_COS``), the launches to the dispatches (every
+   tp shard's attention on the ``tma`` route, and under int8 six ``tma``
+   W8A8 launches per layer per shard; no vote kernel: the mesh votes
+   with the sharded vote), p50 and launches by route printed.  (b)
+   bert-long-8k on a 1x1x4 mesh: ring embeds at ``RING_LENGTHS`` and a
+   ring vote of ``RING_VOTE_N`` at 8192, held to the one-device dense
+   forward at the same length (``RING_TOL``, ``PACKED_MIN_COS``,
+   ``MESH_CONF_TOL``).  (c) ``run_group(2, 1)`` and ``run_group(2, 2)``
+   with each process on the card (one card: gloo over host copies).  (d)
+   ``build_embedder`` / ``build_server`` with ``MESH_ENABLED=1
+   MESH_SHAPE=1x2``: serving (``/metrics`` counts the mesh) on two
+   cards, the reference's ``make_mesh`` refusal on one.  Each part
+   prints its layout (cards, shards per card, backend).
+
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -644,6 +667,39 @@ FAULT_PROFILE_MS, FAULT_STICKY_TIMEOUT_S = 1000, 120
 # (``profile_call``; ``analysis/trace_stamps.py`` counts the traces that
 # lose a kernel record with and without it)
 PROFILE_MARGIN_S = 0.05
+# phase 20 (the serving mesh): the main path's bursts at each (mesh shape,
+# mode) through a batcher, answers held to the one-device run's (bf16:
+# another split of the sums changes the rounding), the bert-long-8k ring
+# lengths and the ring vote's candidates (held to the dense forward: the
+# ring's f32 softmax against the kernel's bf16 probabilities).  Each limit
+# lies between the sound readings and a control that a faulty run would
+# read, and the script fails where a control of its own run does not pass
+# the limit.  On an H100 (NVIDIA H100 80GB HBM3, 700 W): confidences read
+# <= 9.95e-5 against a uniform-answer control >= 3.33e-4 and a
+# swapped-answer control >= 4.18e-4; burst vectors 1 - cos <= 1.03e-4
+# (int8: 6.40e-4) against >= 1.78e-3 between two candidates of a
+# request; the ring's vectors <= 8.63e-5 against >= 2.35e-2, its vote
+# 1.24e-4 against a uniform-answer control of 1.39e-2
+MESH_SHAPES = (("2x1", "none"), ("1x2", "none"), ("2x2", "none"),
+               ("1x2", "int8"), ("1x2", "packed"))
+# the shapes a shard of those bursts gives the kernels (part a0): the
+# attention's [b, s, heads] at 2x1 (dp halves the rows), 1x2 (tp halves
+# the heads) and 2x2; the packed 1x2 burst's segment attention at the
+# bucket with tp's 8 heads; the int8 1x2 mesh's rows (8 x 64 x 128) and
+# its (K, N, split, GELU): q/k/v and MLP in column-split (N/tp), the
+# attention output and MLP out row-split (K/tp)
+MESH_ATTENTION_SHAPES = ((256, 128, 16), (512, 128, 8), (256, 128, 8))
+MESH_SEG_HEADS = 8
+MESH_QUANT_M = BURST * N_CANDIDATES * 128
+MESH_QUANT_SHAPES = ((1024, 512, "column", False),
+                     (1024, 2048, "column", True),
+                     (1024, 1024, "row", False), (4096, 1024, "row", False))
+MESH_BURSTS = 3
+MESH_CONF_TOL = 2e-4
+MESH_VEC_TOL = {"none": 4e-4, "packed": 4e-4, "int8": 1e-3}
+RING_LENGTHS, RING_VOTE_N = (4096, 8192), 4
+RING_TOL = ATTN_TOL["bfloat16"]
+RING_VOTE_TOL, RING_VEC_TOL = 2e-3, 5e-4
 
 
 def emit(obj) -> None:
@@ -8719,6 +8775,25 @@ def same_answers(a, b, path="") -> None:
         raise AssertionError(f"{path}: {a!r} != {b!r}")
 
 
+def same_stream_frames(a: list, b: list, path: str) -> int:
+    """The consensus frames of one multichat stream in two runs: the
+    upstream slots finish in an order that thread timing sets, so a frame
+    is matched by the slots it holds, not by its position.  The last
+    frames (every slot) must hold the same slots, and every frame whose
+    slots the other run also reached must be bit-equal to it.  Returns
+    the frames compared."""
+    def by_slots(frames):
+        return {frozenset(f): f for f in frames}
+
+    if not a or not b or set(a[-1]) != set(b[-1]):
+        raise AssertionError(f"{path}: the last frames hold other slots")
+    mine, theirs = by_slots(a), by_slots(b)
+    common = [k for k in mine if k in theirs]
+    for k in common:
+        same_answers(mine[k], theirs[k], f"{path}[{sorted(k)}]")
+    return len(common)
+
+
 def analysis_served(gpu, emb, packed_emb, on_card) -> dict:
     """(b) the served main path with the knob unset, then under
     ``LOCK_WITNESS=1``, from the same warmed embedder: a padded server
@@ -8793,8 +8868,11 @@ def analysis_served(gpu, emb, packed_emb, on_card) -> dict:
             raise AssertionError(
                 f"lock witness: {snap['violations']} violations, undeclared "
                 f"{snap['undeclared']}, never acquired {never}")
-    answers = {k: v for k, v in on.items() if k not in ("witness", "p50_ms")}
+    answers = {k: v for k, v in on.items()
+               if k not in ("witness", "p50_ms", "stream")}
     same_answers(answers, {k: off[k] for k in answers}, "answers")
+    frames_compared = same_stream_frames(on["stream"], off["stream"],
+                                         "answers.stream")
     row = {"phase": "analysis_path", "part": "served", "gpu": gpu,
            "nvidia_smi": gpu, "bursts_p50_ms": {"off": off["p50_ms"],
                                                 "on": on["p50_ms"]},
@@ -8803,6 +8881,9 @@ def analysis_served(gpu, emb, packed_emb, on_card) -> dict:
                                               "undeclared", "violations")}
                        | {"edges": len(snap["edges"])}
                        for snap in on["witness"]],
+           "stream_frames": {"off": len(off["stream"]),
+                             "on": len(on["stream"]),
+                             "compared": frames_compared},
            "launches": launches}
     print(f"phase 18 bursts p50: {off['p50_ms']:.3f} ms without the "
           f"witness, {on['p50_ms']:.3f} ms with it ({gpu})", flush=True)
@@ -8886,8 +8967,9 @@ def analysis_path(gpu: str, device: str = "cuda",
     out = {"phase": "analysis_path", "gpu": gpu, "nvidia_smi": gpu,
            "cli": cli, "bursts_p50_ms": served["bursts_p50_ms"],
            "witness_cost": served["witness_cost"],
-           "witness": served["witness"], "card": card, "launches": launches,
-           "seconds": time.perf_counter() - t0}
+           "witness": served["witness"],
+           "stream_frames": served["stream_frames"], "card": card,
+           "launches": launches, "seconds": time.perf_counter() - t0}
     emit(out)
     return out
 
@@ -9250,10 +9332,640 @@ def fleet_path(gpu: str, device: str = "cuda",
     return out
 
 
+# -- phase 20: the serving mesh and the process group --------------------------
+
+
+def mesh_devices(n: int, device: str) -> list:
+    """n shard devices: distinct cards where the machine has enough, else
+    every shard on the first card (or the CPU, rehearsing)."""
+    import torch
+
+    if device == "cpu":
+        return [torch.device("cpu")] * n
+    cards = torch.cuda.device_count()
+    if cards >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def mesh_layout(mesh, backend: str = "one process") -> dict:
+    out = mesh.layout()
+    out["backend"] = backend
+    return out
+
+
+def mesh_burst_run(emb, bursts, embed_texts, graphed: bool,
+                   **options) -> dict:
+    """The main path's /consensus bursts (and one embedding request)
+    through a ``DeviceBatcher`` on ``emb`` with the batcher ``options``:
+    one eager burst, then (with ``graphed``) the buckets warmed and every
+    burst replayed; the launch counts are set to 0 just before the bursts
+    and read just after.  After that count, the first burst's candidates
+    are embedded once more by the forward the bursts ran (padded at
+    their bucket, or packed as the batcher packs them), for the vector
+    check."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+
+    on_card = emb.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    r = len(bursts[0])
+
+    def drive(batcher, burst_list):
+        answers, lat = {}, []
+        for k, burst in enumerate(burst_list):
+            t0 = time.perf_counter()
+            done = {}
+            futures = []
+            for i, texts in enumerate(burst):
+                fut = batcher.submit_consensus(texts, 0.05)
+                fut.add_done_callback(
+                    lambda f, i=i: done.setdefault(i, time.perf_counter()))
+                futures.append(fut)
+            for i, fut in enumerate(futures):
+                conf, _ = fut.result(600)
+                check_answer(conf, len(burst[i]))
+                answers[(k, i)] = np.asarray(conf)
+            lat += [(done[i] - t0) * 1e3 for i in range(len(burst))]
+        return answers, lat
+
+    with DeviceBatcher(emb, window_ms=100, max_batch=r,
+                       **options) as batcher:
+        batcher.consensus(bursts[0][0])  # warm-up: handles, pools
+        sync()
+        t = time.perf_counter()
+        _, eager_lat = drive(batcher, bursts[:1])
+        eager_s = time.perf_counter() - t
+        warm_s = 0.0
+        if graphed:
+            t = time.perf_counter()
+            emb.warmup([(len(bursts[0][0]), 128)], r_buckets=[r])
+            warm_s = time.perf_counter() - t
+        sync()
+        stats0 = batcher.stats()
+        graphs0 = emb.graph_stats()
+        reset_launches()
+        answers, lat = drive(batcher, bursts)
+        vecs, _ = batcher.embed(embed_texts)
+        sync()
+        launches = read_launches()
+        routes = read_routes()
+        stats1 = batcher.stats()
+        graphs1 = emb.graph_stats()
+    d = {k: stats1["dispatches"].get(k, 0) - stats0["dispatches"].get(k, 0)
+         for k in ("consensus", "embed")}
+    shapes = _delta(stats1["packing"]["call_shapes"],
+                    stats0["packing"]["call_shapes"])
+    texts = [t for req in bursts[0] for t in req]
+    burst_vecs = (packed_vectors(emb, texts) if options.get("packing")
+                  else emb.embed_texts(texts))
+    return {
+        "answers": answers, "vecs": np.asarray(vecs),
+        "burst_vecs": np.asarray(burst_vecs), "launches": launches,
+        "routes": routes, "dispatches": d,
+        "packed_calls": sum(shapes.values()),
+        "p50_ms": float(np.median(lat)), "max_ms": float(max(lat)),
+        "eager_p50_ms": float(np.median(eager_lat)), "eager_burst_s": eager_s,
+        "warmup_s": warm_s,
+        "replays": graphs1["replays"] - graphs0["replays"],
+        "eager_dispatches": (graphs1["eager_dispatches"]
+                             - graphs0["eager_dispatches"]),
+        "captures": graphs1["captures"],
+    }
+
+
+def mesh_answers_diff(got: dict, want: dict) -> float:
+    import numpy as np
+
+    return max(float(np.abs(got[k] - want[k]).max()) for k in want)
+
+
+def min_cosine(a, b) -> float:
+    import numpy as np
+
+    return float(np.min(np.sum(a * b, axis=1) / (
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))))
+
+
+def mesh_readings(out: dict, want: dict, mode: str) -> dict:
+    """A mesh run's answers against the one-device run's, each reading
+    beside its control (what a faulty run would read):
+    ``conf_max_abs_err`` against ``conf_uniform_control`` (a forward whose
+    vectors are all equal answers 1/n) and ``conf_swap_control`` (each
+    request given its neighbour's answer); ``vec_max_one_minus_cos`` (each
+    burst candidate's vector against its one-device twin) against
+    ``vec_control`` (the least 1 - cos between two distinct candidates'
+    one-device vectors), and ``vec_nearest_own``: every mesh vector's
+    nearest one-device vector is its own candidate's."""
+    import numpy as np
+
+    keys = sorted(want["answers"])
+    uniform = max(float(np.abs(want["answers"][k]
+                               - 1.0 / want["answers"][k].size).max())
+                  for k in keys)
+    r = 1 + max(i for _, i in keys)
+    swap = max(float(np.abs(want["answers"][(b, i)]
+                            - want["answers"][(b, (i + 1) % r)]).max())
+               for b, i in keys)
+    got, ref = (v / np.linalg.norm(v, axis=1, keepdims=True)
+                for v in (out["burst_vecs"], want["burst_vecs"]))
+    cross = got @ ref.T
+    own = np.diag(cross)
+    pairs = ref @ ref.T
+    np.fill_diagonal(pairs, -np.inf)
+    return {
+        "conf_max_abs_err": mesh_answers_diff(out["answers"],
+                                              want["answers"]),
+        "conf_limit": MESH_CONF_TOL, "conf_uniform_control": uniform,
+        "conf_swap_control": swap,
+        "vec_rows": int(got.shape[0]),
+        "vec_max_one_minus_cos": float(1.0 - own.min()),
+        "vec_limit": MESH_VEC_TOL[mode],
+        "vec_control": float(1.0 - pairs.max()),
+        "vec_nearest_own": bool(
+            (np.argmax(cross, axis=1) == np.arange(len(own))).all()),
+        "embed_min_cosine": min_cosine(out["vecs"], want["vecs"]),
+        "cosine_bar": PACKED_MIN_COS,
+    }
+
+
+def check_mesh_readings(what: str, got: dict) -> None:
+    """Fails where a mesh run's readings pass a limit, or where a control
+    does not: a limit that the control would also meet tells nothing."""
+    bad = []
+    if got["conf_max_abs_err"] > MESH_CONF_TOL:
+        bad.append("confidences off the one-device run")
+    if min(got["conf_uniform_control"],
+           got["conf_swap_control"]) <= MESH_CONF_TOL:
+        bad.append("a confidence control within the limit")
+    if got["vec_max_one_minus_cos"] > got["vec_limit"]:
+        bad.append("burst vectors off the one-device run")
+    if got["vec_control"] <= got["vec_limit"]:
+        bad.append("the vector control within the limit")
+    if not got["vec_nearest_own"]:
+        bad.append("a burst vector nearest another candidate's")
+    if got["embed_min_cosine"] < PACKED_MIN_COS:
+        bad.append("/embeddings vectors off the one-device run")
+    if bad:
+        raise AssertionError(f"mesh {what}: {'; '.join(bad)}: {got}")
+
+
+def check_mesh_kernels(gpu: str) -> dict:
+    """(a0) Every kernel the mesh bursts launch, at the shapes a shard
+    gives it there, against its plain version on the card: the attention
+    (tma) at each shard's [b, 128, heads, 64] (``MESH_ATTENTION_SHAPES``),
+    the segment attention (tma) at the packed bucket's per-shard
+    [8, 512, 8, 64], and, for the int8 mesh, the row quantisation and the
+    W8A8 GEMM (tma) at its rows (``MESH_QUANT_M``): the column-split
+    shards N/tp = 512 (q, k, v) and 2048 (MLP in, GELU) at K = 1024, and
+    the row-split shards K/tp = 512 (attention out) and 2048 (MLP out) at
+    N = 1024, quantised with the full row's scale (``row_scale``), their
+    partial products in f32."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.quant import quantize_weight
+    from llm_weighted_consensus_tpu_torch.ops import kernels
+
+    hd = 64
+    attn_rows = []
+    for b, s, nh in MESH_ATTENTION_SHAPES:
+        q, k, v, bias = attention_inputs(b, s, nh, hd, torch.bfloat16,
+                                         seed=b + nh)
+        err, u_err = attention_err(q, k, v, bias, hd ** -0.5, "tma",
+                                   f"mesh shard b={b} s={s} nh={nh}")
+        attn_rows.append({"shape": [b, s, nh, hd], "max_abs_err": err,
+                          "all_pad_row_err": u_err})
+        del q, k, v, bias
+    b, s = SEG_BUCKET
+    q, k, v, seg = segment_case(b, s, MESH_SEG_HEADS, hd, torch.bfloat16,
+                                seed=b * s)
+    seg_err = segment_err(q, k, v, seg, hd ** -0.5, "tma",
+                          f"mesh shard b={b} s={s} nh={MESH_SEG_HEADS}")
+    del q, k, v, seg
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    quant_rows = []
+    for k_full, n, split, gelu in MESH_QUANT_SHAPES:
+        kk = k_full // 2 if split == "row" else k_full
+        x_full = torch.randn(MESH_QUANT_M, k_full, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        x = x_full[:, :kk].contiguous()
+        scale = None
+        if split == "row":  # the full row's scale, as the tp pmax gives it
+            scale = kernels.symmetric_scale(
+                torch.amax(torch.abs(x_full.float()), dim=-1), 127.0)
+        del x_full
+        w = torch.randn(n, kk, generator=gen, device="cuda") * 0.02
+        wq, sw = quantize_weight(w)
+        bias = (torch.zeros(n, device="cuda") if split == "row"
+                else torch.randn(n, generator=gen, device="cuda") * 0.02)
+        kp = -(-kk // kernels.QUANT_K_TILE) * kernels.QUANT_K_TILE
+        xq, sx = kernels.quantize_rows(x, kp, scale)
+        want_q, want_sx = kernels.quantize_rows_plain(x, kp, scale)
+        before = dict(kernels.w8a8_matmul.routes)
+        got = kernels.w8a8_matmul(x, wq, sw, bias, gelu, row_scale=scale)
+        want = kernels.w8a8_matmul_plain(x, wq, sw, bias, gelu,
+                                         row_scale=scale)
+        torch.cuda.synchronize()
+        taken = [r for r, c in kernels.w8a8_matmul.routes.items()
+                 if c != before[r]]
+        dtype = "float32" if split == "row" else "bfloat16"
+        what = f"mesh W8A8 {split}-split M={MESH_QUANT_M} K={kk} N={n}"
+        if taken != ["tma"] or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: took {taken}, {got.dtype}")
+        if not (torch.equal(xq, want_q) and torch.equal(sx, want_sx)):
+            raise AssertionError(f"{what}: the row quantisation differs "
+                                 "from its plain version")
+        err = quant_err(got, want, what, dtype)
+        quant_rows.append({"split": split, "m": MESH_QUANT_M, "k": kk,
+                           "n": n, "gelu": gelu, "out": dtype,
+                           "route": "tma", "xq_equal": True,
+                           "max_abs_err": err, "limit": QUANT_TOL[dtype]})
+        del x, w, wq, xq, want_q, got, want
+    out = {"part": "a0", "gpu": gpu, "attention": attn_rows,
+           "attention_limit": ATTN_TOL["bfloat16"],
+           "segment_attention": {"shape": [b, s, MESH_SEG_HEADS, hd],
+                                 "max_abs_err": seg_err},
+           "w8a8_and_quantize_rows": quant_rows}
+    emit({"phase": "mesh_path", **out})
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_traffic(gpu, device, model_name, dtype) -> dict:
+    """(a) bge-large's /consensus bursts through a batcher over
+    ``shard_embedder_mesh`` at every ``MESH_SHAPES`` entry, padded, and
+    packed (``PACKING``, prefix dedup off) over 1x2, each held against
+    the one-device run of the same traffic (``mesh_readings``)."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import quant
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_embedder_mesh,
+    )
+
+    on_card = device == "cuda"
+    rng = np.random.default_rng(0)
+    n, r = N_CANDIDATES, BURST
+    bursts = [[candidate_texts(rng, n, BURST_WORDS) for _ in range(r)]
+              for _ in range(MESH_BURSTS)]
+    embed_texts = candidate_texts(rng, EMBED_N, EMBED_WORDS)
+    packing = dict(PACKING, prefix_dedup=False)
+    base = TorchEmbedder(model_name, seed=0, dtype=dtype, max_tokens=512,
+                         device=device)
+    layers = base.config.num_layers
+    # the one-device runs are eager: their answers are the reference
+    one = {"none": mesh_burst_run(base, bursts, embed_texts, False),
+           "packed": mesh_burst_run(base, bursts[:1], embed_texts, False,
+                                    **packing)}
+    int8_model = copy.deepcopy(base.model)
+    quant.quantize_encoder(int8_model, "int8")
+    one_int8 = TorchEmbedder(model_name, model=int8_model,
+                             config=int8_model.config, max_tokens=512,
+                             device=device, dtype=dtype)
+    one["int8"] = mesh_burst_run(one_int8, bursts, embed_texts, False)
+    rows = []
+    for shape, mode in MESH_SHAPES:
+        dp, tp = (int(x) for x in shape.split("x"))
+        model = int8_model if mode == "int8" else base.model
+        emb = TorchEmbedder(model_name, model=model, config=model.config,
+                            max_tokens=512, device=device, dtype=dtype)
+        mesh = make_mesh(dp=dp, tp=tp, devices=mesh_devices(dp * tp, device))
+        shard_embedder_mesh(emb, mesh)
+        packed = mode == "packed"
+        graphed = on_card and mesh.on_one_device() and not packed
+        out = mesh_burst_run(emb, bursts[:1] if packed else bursts,
+                             embed_texts, graphed,
+                             **(packing if packed else {}))
+        want = one[mode]
+        readings = mesh_readings(out, want, mode)
+        per = dp * tp * layers
+        d = out["dispatches"]["consensus"] + out["dispatches"]["embed"]
+        # a packed call's rows split over dp, its layers over tp
+        calls = out["packed_calls"] * tp * layers
+        expect = {
+            "cosine_vote": 0,
+            "attention": per * d if on_card and not packed else 0,
+            "segment_attention": calls if on_card and packed else 0,
+            "quantize_rows": 6 * per * d if on_card and mode == "int8"
+            else 0,
+            "w8a8_matmul": 6 * per * d if on_card and mode == "int8" else 0,
+            "w4a8_matmul": 0,
+        }
+        row = {
+            "part": "a", "mesh": shape, "mode": mode,
+            "layout": mesh_layout(mesh), "graphs": (
+                "one graph per bucket holding every shard" if graphed
+                else "eager (packed)" if packed and on_card
+                else "eager (shards across cards)" if on_card else "cpu"),
+            **readings,
+            "p50_ms": out["p50_ms"], "max_ms": out["max_ms"],
+            "one_device_p50_ms": want["p50_ms"],
+            "eager_p50_ms": out["eager_p50_ms"],
+            "one_device_eager_p50_ms": want["eager_p50_ms"],
+            "warmup_s": out["warmup_s"], "replays": out["replays"],
+            "eager_dispatches": out["eager_dispatches"],
+            "dispatches": out["dispatches"],
+            "packed_calls": out["packed_calls"],
+            "one_device_packed_calls": want["packed_calls"],
+            "launches": out["launches"],
+            "routes": out["routes"], "expected_launches": expect,
+        }
+        emit({"phase": "mesh_path", **row})
+        check_mesh_readings(f"{shape} {mode}", readings)
+        if packed and (out["packed_calls"] < 1
+                       or out["packed_calls"] != want["packed_calls"]):
+            raise AssertionError(
+                f"mesh {shape} packed: {out['packed_calls']} packed calls, "
+                f"one device {want['packed_calls']}")
+        if out["launches"] != expect:
+            raise AssertionError(f"mesh {shape} {mode}: launches "
+                                 f"{out['launches']} != {expect}")
+        if graphed and out["replays"] < 1:
+            raise AssertionError(f"mesh {shape}: no graph replayed")
+        rows.append(row)
+        del emb, out
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    for mode, run in one.items():
+        rows.append({"part": "a", "mesh": "one device", "mode": mode,
+                     "p50_ms": run["p50_ms"],
+                     "eager_p50_ms": run["eager_p50_ms"],
+                     "launches": run["launches"], "routes": run["routes"]})
+    del base, one_int8, int8_model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def check_ring_row(row: dict) -> None:
+    """Fails where a ring reading passes its limit, or where its control
+    does not (``check_mesh_readings``)."""
+    if row["what"] == "ring vote":
+        bad = (row["max_abs_err"] > RING_VOTE_TOL
+               or row["conf_uniform_control"] <= RING_VOTE_TOL)
+    else:
+        bad = (row["max_abs_err"] > RING_TOL
+               or row["min_cosine"] < PACKED_MIN_COS
+               or row["vec_max_one_minus_cos"] > RING_VEC_TOL
+               or row["vec_control"] <= RING_VEC_TOL
+               or not row["vec_nearest_own"])
+    if bad:
+        raise AssertionError(f"{row['what']} at s={row['s']}: {row}")
+
+
+def ring_part(gpu, device, model_name, dtype, lengths) -> dict:
+    """(b) bert-long-8k on ``MESH_SHAPE``-equivalent 1x1x4: ring embeds
+    of ``RING_VOTE_N`` candidates at each of ``lengths`` and the ring
+    vote of those at the last, each held against the one-device dense
+    forward at the same length (``check_ring_row``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_embedder_mesh,
+    )
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dense = TorchEmbedder(model_name, seed=0, dtype=dtype,
+                          max_tokens=max(lengths), device=device)
+    emb = TorchEmbedder(model_name, model=dense.model, config=dense.config,
+                        max_tokens=512, device=device, dtype=dtype)
+    mesh = make_mesh(dp=1, tp=1, sp=4, devices=mesh_devices(4, device))
+    shard_embedder_mesh(emb, mesh)
+    rng = np.random.default_rng(1)
+    rows = []
+    launches = {name: 0 for name in _wrappers()}
+    dense_launches = dict(launches)
+
+    def timed(fn, *args, into):
+        """One call and its ms (a second call takes the same time on the
+        H100: nothing here is a first-call cost); its launches go to
+        ``into``."""
+        reset_launches()
+        sync()
+        t = time.perf_counter()
+        out = fn(*args)
+        sync()
+        for name, count in read_launches().items():
+            into[name] += count
+        return out, (time.perf_counter() - t) * 1e3
+
+    def vec_readings(got, want) -> dict:
+        """Each ring vector against its dense twin, beside the control
+        (the least 1 - cos between two candidates' dense vectors)."""
+        cross = got @ want.T
+        pairs = want @ want.T
+        np.fill_diagonal(pairs, -np.inf)
+        return {"max_abs_err": float(np.abs(got - want).max()),
+                "min_cosine": min_cosine(got, want),
+                "vec_max_one_minus_cos": float(1 - np.diag(cross).min()),
+                "vec_limit": RING_VEC_TOL,
+                "vec_control": float(1 - pairs.max()),
+                "vec_nearest_own": bool((np.argmax(cross, axis=1)
+                                         == np.arange(len(got))).all())}
+
+    for s in lengths:
+        # the vote's candidates: one of them half padding (padded keys in
+        # the ring); the embed dispatch pads them to its 16-row bucket
+        ids = rng.integers(1, dense.config.vocab_size,
+                           (RING_VOTE_N, s)).astype(np.int32)
+        mask = np.ones_like(ids)
+        mask[1, s // 2:] = 0
+        got, ring_ms = timed(emb.embed_tokens_ring, ids, mask,
+                             into=launches)
+        want, dense_ms = timed(dense.embed_tokens, ids, mask,
+                               into=dense_launches)
+        row = {"part": "b", "what": "ring embed", "s": s,
+               **vec_readings(got, want), "limit": RING_TOL,
+               "cosine_bar": PACKED_MIN_COS, "ring_ms": ring_ms,
+               "dense_ms": dense_ms, "rows": RING_VOTE_N, "bucket_rows": 16}
+        rows.append(row)
+        check_ring_row(row)
+    # the vote on the last length's candidates
+    got, ring_ms = timed(emb.consensus_confidence_tokens_ring, ids, mask,
+                         0.05, into=launches)
+    want, dense_ms = timed(dense.consensus_confidence_tokens, ids, mask,
+                           0.05, into=dense_launches)
+    check_answer(got, RING_VOTE_N)
+    want = np.asarray(want)
+    err = float(np.abs(np.asarray(got) - want).max())
+    row = {"part": "b", "what": "ring vote", "n": RING_VOTE_N, "s": s,
+           "max_abs_err": err, "limit": RING_VOTE_TOL,
+           "conf_uniform_control": float(np.abs(want - 1 / RING_VOTE_N).max()),
+           "ring_ms": ring_ms, "dense_ms": dense_ms, "rows": RING_VOTE_N}
+    rows.append(row)
+    check_ring_row(row)
+    # the ring runs torch ops only (the reference's ring is einsums): no
+    # port kernel; the dense reference's launches are reported apart
+    if any(launches.values()):
+        raise AssertionError(f"the ring launched port kernels: {launches}")
+    out = {"layout": mesh_layout(mesh), "rows": rows, "launches": launches,
+           "dense_reference_launches": dense_launches,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if on_card else None)}
+    emit({"phase": "mesh_path", "part": "b", **out})
+    del emb, dense
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def group_part(device) -> dict:
+    """(c) the process group: ``run_group(2, 1)`` and ``run_group(2, 2)``
+    with each process on ``device``."""
+    from llm_weighted_consensus_tpu_torch.parallel.multihost_smoke import (
+        run_group,
+    )
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    shapes = ((2, 1), (2, 2))
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(shapes)) as pool:  # both groups at once
+        runs = [pool.submit(run_group, num, devices_per_proc=dpp,
+                            device=device, timeout=300, attempts=1)
+                for num, dpp in shapes]
+        groups = [run.result() for run in runs]
+    seconds = time.perf_counter() - t
+    import torch
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    rows = []
+    for (num, dpp), results in zip(shapes, groups):
+        used = [d for r in results for d in r["tp_devices"]]
+        if cards >= num * dpp and len(set(used)) != num * dpp:
+            raise AssertionError(
+                f"run_group({num}, {dpp}) on {cards} cards shared a card: "
+                f"{used}")
+        rows.append({
+            "part": "c", "processes": num, "devices_per_proc": dpp,
+            "cards": cards,
+            "layout": [{"process": r["process_id"], "device": r["device"],
+                        "tp_devices": r["tp_devices"],
+                        "backend": r["backend"],
+                        "host_copies": r["host_copies"]} for r in results],
+            "confidence": results[0]["confidence"],
+            "tally_ms": [r["tally_ms"] for r in results],
+            "crossing_group_sizes": results[0]["crossing_group_sizes"],
+            "within_process_group_sizes": results[0][
+                "within_process_group_sizes"],
+            "encoder_max_err_vs_unsharded": results[0].get(
+                "encoder_max_err_vs_unsharded"),
+            "seconds_both_groups": seconds,
+        })
+    emit({"phase": "mesh_path", "part": "c", "rows": rows})
+    return {"rows": rows}
+
+
+def server_part(device, model_name) -> dict:
+    """(d) the server with ``MESH_ENABLED=1 MESH_SHAPE=1x2``: it starts
+    and answers where the machine has two cards (``/metrics`` counting
+    the mesh), and on one card it refuses with the reference's
+    ``make_mesh`` message."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+        build_server,
+        mesh_devices_for,
+        warm_up,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
+
+    env = {"EMBEDDER_MODEL": model_name, "LWC_ALLOW_RANDOM_PARAMS": "1",
+           "MESH_ENABLED": "1", "MESH_SHAPE": "1x2", "WARMUP": "8x32"}
+    config = ServeConfig.from_env(env)
+    have = len(mesh_devices_for(device))
+    if have < 2:
+        want = f"mesh 1x2 needs 2 devices, have {have}"
+        try:
+            build_embedder(env, device=device)
+        except ValueError as exc:
+            if str(exc) != want:
+                raise AssertionError(f"refusal {exc!r}, want {want!r}")
+            out = {"part": "d", "cards": have, "refused": str(exc)}
+            emit({"phase": "mesh_path", **out})
+            return out
+        raise AssertionError("MESH_SHAPE=1x2 on one card was not refused")
+    emb = build_embedder(env, device=device)
+    server = build_server(emb, None, config, port=0, device=device)
+    rng_texts = [f"mesh candidate {i} on two cards" for i in range(8)]
+    with server:
+        warm_up(server, config)
+        answer = post(server.port, "/consensus", {"input": rng_texts})
+        _, _, metrics = http(server.port, "/metrics")
+    check_answer(answer["confidence"], len(rng_texts))
+    mesh = metrics["mesh"]
+    if mesh["devices"] != 2 or mesh["cards"] != 2:
+        raise AssertionError(f"/metrics mesh {mesh}")
+    out = {"part": "d", "cards": have, "layout": mesh_layout(emb.mesh),
+           "mesh_metrics": mesh}
+    emit({"phase": "mesh_path", **out})
+    del emb
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path(gpu: str, device: str = "cuda",
+              model_name: str = "bge-large-en",
+              long_name: str = "bert-long-8k",
+              ring_lengths=RING_LENGTHS) -> dict:
+    """Phase 20: (a) the mesh batcher, (b) the ring, (c) the process
+    group, (d) the server.  Any failure fails the script.
+    (``device="cpu"`` with test-tiny and short rings rehearses the
+    control flow.)"""
+    import torch
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    t = {}
+    t0 = time.perf_counter()
+    if device == "cuda":  # the kernels have no CPU rehearsal
+        check_mesh_kernels(gpu)
+    a = mesh_traffic(gpu, device, model_name, dtype)
+    t["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = ring_part(gpu, device, long_name, dtype, ring_lengths)
+    t["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = group_part(device)
+    t["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = server_part(device, model_name)
+    t["d"] = time.perf_counter() - t0
+    launches = {name: 0 for name in _wrappers()}
+    for row in a["rows"]:
+        if row["mesh"] != "one device":
+            for name, count in row["launches"].items():
+                launches[name] += count
+    for name, count in b["launches"].items():
+        launches[name] += count
+    out = {"phase": "mesh_path", "gpu": gpu, "seconds_by_part": t,
+           "launches": launches}
+    emit(out)
+    return {"a": a, "b": b, "c": c, "d": d, "launches": launches}
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
                    archived, traced, resilient, learning, fault,
-                   bench, analysis, fleet) -> dict:
+                   bench, analysis, fleet, mesh) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -9286,7 +9998,11 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     configs 1 and 7, the served ``/consensus``), and phase 18
     ``analysis_path_launches`` to every kernel its witnessed runs and
     its dispatch audit launched, and phase 19 ``fleet_path_launches``
-    (the fleet's prompt embeds: cold, hot and the drain's keys).
+    (the fleet's prompt embeds: cold, hot and the drain's keys), and
+    phase 20 ``mesh_path_launches`` to every main entry (the mesh
+    bursts' and the ring's launches: every tp shard's attention, the
+    int8 mesh's W8A8 and row quantisation, the packed mesh's segment
+    attention; the vote 0, since the mesh votes with the sharded vote).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -9501,6 +10217,7 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                 entry["name"]]
         if fleet["launches"].get(entry["name"]):
             entry["fleet_path_launches"] = fleet["launches"][entry["name"]]
+        entry["mesh_path_launches"] = mesh["launches"].get(entry["name"], 0)
         if entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -9595,12 +10312,13 @@ def main() -> int:
     bench = timed("bench_path", bench_path, gpu)
     analysis = timed("analysis_path", analysis_path, gpu)
     fleet = timed("fleet_path", fleet_path, gpu)
+    mesh = timed("mesh_path", mesh_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
                         score, archived, traced, resilient, learning, fault,
-                        bench, analysis, fleet))
+                        bench, analysis, fleet, mesh))
     print(gpu)
     emit({
         "ok": True,

@@ -24,9 +24,9 @@ package.  The dispatch audit's knobs (``ANALYSIS_JAXPR_MODEL`` /
 ``dispatch_audit.py``.  ``--no-mesh``, ``ANALYSIS_SKIP_MESH`` and the
 mesh audit's knobs (``ANALYSIS_MESH_*``, ``ANALYSIS_BUDGETS``,
 ``ANALYSIS_ROOFLINE``) are accepted so that scripts written for the
-reference keep working; the port serves one card, so the mesh audit
-waits for the multi-device slice (ROADMAP queue 1, item 9), and the
-report says so rather than skipping it in silence.
+reference keep working; the mesh audit and its budgets wait for the rest
+of the multi-device slice (ROADMAP queue 1, item 9), and the report says
+so rather than skipping it in silence.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ MESH_KNOBS = (
     "ANALYSIS_ROOFLINE",
 )
 MESH_NOTE = (
-    "mesh audit: not run — the port serves one card; the sharding/"
-    "resource audit waits for the multi-device slice (ROADMAP queue 1, "
+    "mesh audit: not run — the sharding/resource audit and its budgets "
+    "wait for the rest of the multi-device slice (ROADMAP queue 1, "
     "item 9)"
 )
 

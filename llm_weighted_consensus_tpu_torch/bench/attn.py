@@ -13,8 +13,9 @@ lengths.  ``bound_ms`` is the larger of the bytes (q, k, v and the mask
 read once, the output written once) over the HBM rate and the dense
 FLOPs over the bf16 peak.
 
-``--long-seq`` (the ring against dense attention) is refused: it needs
-the sequence-parallel mesh of ROADMAP.md queue 1 item 9.
+``--long-seq`` (the ring against dense attention) is refused: the ring
+serves (``parallel/ring.py``), but its bench waits for the rest of
+ROADMAP.md queue 1 item 9.
 
 Run: ``python -m llm_weighted_consensus_tpu_torch.bench attn``.
 """
@@ -143,7 +144,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--nh", type=int, default=16)
     p.add_argument("--hd", type=int, default=64)
     p.add_argument("--long-seq", action="store_true",
-                   help="refused: the ring needs ROADMAP item 9's mesh")
+                   help="refused: the ring's bench waits for ROADMAP item 9")
     common.add_device_flag(p)
     return p
 

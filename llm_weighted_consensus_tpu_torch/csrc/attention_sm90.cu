@@ -603,9 +603,11 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                                     static_cast<long long>(nh) * kHD, kHD};
   const int rc = operand_map(&maps[3], out, b, s, nh, out_strides, 64);
   if (rc) return rc;
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      attention_tma_kernel<SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  const cudaError_t smem_set = sm90::once_per_device([] {
+    return cudaFuncSetAttribute(attention_tma_kernel<SEG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   const int items = b * nh * ((s + kBQ - 1) / kBQ);
   const int sms = sm90::sm_count();

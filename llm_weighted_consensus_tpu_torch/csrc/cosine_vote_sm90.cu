@@ -66,6 +66,8 @@
 
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -381,11 +383,11 @@ __global__ void __launch_bounds__(kThreads)
     out[i] = i < n_valid ? logits[i] / s : 0.0f;
 }
 
-// Once per instantiation: the largest dynamic shared memory and the
-// non-portable cluster sizes (9-16).
+// Once per instantiation and device: the largest dynamic shared memory
+// and the non-portable cluster sizes (9-16).
 template <typename T>
 cudaError_t configure() {
-  static const cudaError_t rc = [] {
+  return sm90::once_per_device([] {
     cudaError_t e = cudaFuncSetAttribute(
         cosine_vote_cluster_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
@@ -393,8 +395,7 @@ cudaError_t configure() {
     return cudaFuncSetAttribute(cosine_vote_cluster_kernel<T>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
                                 1);
-  }();
-  return rc;
+  });
 }
 
 bool plan_ok(int n, int d, int cluster, int cols, size_t smem) {

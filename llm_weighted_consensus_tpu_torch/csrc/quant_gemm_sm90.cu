@@ -422,9 +422,11 @@ int launch(const void* xq, const void* w, const void* sx, const void* sw,
     if (rc) return rc;
   }
   constexpr int kSmem = smem_bytes<T>();
-  static const cudaError_t smem_set = cudaFuncSetAttribute(
-      quant_gemm_tma_kernel<T, W4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const cudaError_t smem_set = sm90::once_per_device([] {
+    return cudaFuncSetAttribute(quant_gemm_tma_kernel<T, W4>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
   if (smem_set != cudaSuccess) return static_cast<int>(smem_set);
   const int tiles = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   const int sms = sm90::sm_count();

@@ -100,28 +100,36 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* row, int col,
   }
 }
 
-// x[M, K] -> xq[M, Kp] int8 (zero past K), sx[M] f32; one warp per row
+// x[M, K] -> xq[M, Kp] int8 (zero past K), sx[M] f32; one warp per row.
+// given: sx already holds each row's scale (a tensor-parallel shard of a
+// row-split layer quantises its K/tp slice with the scale of the FULL row,
+// max|x| taken across the shards), read instead of computed.
 template <typename T>
 __global__ void __launch_bounds__(32 * kQuantRows)
     quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
                          float* __restrict__ sx, int m, int k, int kp,
-                         bool vec) {
+                         bool vec, bool given) {
   const int row = blockIdx.x * kQuantRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= m) return;  // whole warps leave together
   const T* xr = x + static_cast<size_t>(row) * k;
-  float amax = 0.0f;
-  for (int c = lane * 8; c < k; c += 256) {
-    float v[8];
-    load8(xr, c, k, vec, v);
+  float s;
+  if (given) {
+    s = sx[row];
+  } else {
+    float amax = 0.0f;
+    for (int c = lane * 8; c < k; c += 256) {
+      float v[8];
+      load8(xr, c, k, vec, v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+    if (lane == 0) sx[row] = s;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
-  if (lane == 0) sx[row] = s;
   int8_t* qr = xq + static_cast<size_t>(row) * kp;
   for (int c = lane * 8; c < kp; c += 256) {
     float v[8];
@@ -311,13 +319,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int quantize(const void* x, void* xq, void* sx, int m, int k, int kp,
-             cudaStream_t stream) {
+             bool given, cudaStream_t stream) {
   const bool vec =
       k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int blocks = (m + kQuantRows - 1) / kQuantRows;
   quantize_rows_kernel<T><<<blocks, 32 * kQuantRows, 0, stream>>>(
       static_cast<const T*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), m, k, kp, vec);
+      static_cast<float*>(sx), m, k, kp, vec, given);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,14 +347,17 @@ int gemm(const void* xq, const void* w, const void* sx, const void* sw,
 }  // namespace
 
 // x: [m, k] contiguous, dtype 0 = f32, 1 = bf16.  xq: [m, kp] int8 with
-// kp a multiple of 64 and >= k (written, zero past k).  sx: [m] f32.
+// kp a multiple of 64 and >= k (written, zero past k).  sx: [m] f32,
+// written, or with given = 1 read: the rows' scales, computed elsewhere.
 // Returns cudaGetLastError() after the launch.
 extern "C" int lwc_quantize_rows(const void* x, void* xq, void* sx, int m,
-                                 int k, int kp, int dtype, void* stream) {
+                                 int k, int kp, int dtype, int given,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kp % kTK != 0 || kp < k) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return quantize<float>(x, xq, sx, m, k, kp, st);
-  if (dtype == 1) return quantize<__nv_bfloat16>(x, xq, sx, m, k, kp, st);
+  if (dtype == 0) return quantize<float>(x, xq, sx, m, k, kp, given, st);
+  if (dtype == 1)
+    return quantize<__nv_bfloat16>(x, xq, sx, m, k, kp, given, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,8 +18,30 @@
 #include <dlfcn.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace sm90 {
+
+// -- per-device kernel attributes ---------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// A function attribute (cudaFuncSetAttribute) belongs to the current
+// device's copy of the kernel, so it is set once per device: a mesh
+// launches the same kernel on several cards.  Each call site's lambda is
+// its own instantiation, with its own flags; an out-of-range device gets
+// the attribute set on every call.
+template <typename F>
+inline cudaError_t once_per_device(F set) {
+  static std::once_flag flags[kMaxDevices];
+  static cudaError_t rc[kMaxDevices];
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev < 0 || dev >= kMaxDevices) return set();
+  std::call_once(flags[dev], [&] { rc[dev] = set(); });
+  return rc[dev];
+}
 
 // -- shared memory and barriers ----------------------------------------------
 
@@ -289,6 +311,7 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
 
 // streaming multiprocessors of the device (persistent grids), read once
 inline int sm_count() {
+  // every H100 has the same count, so one read serves every device
   static const int n = [] {
     int dev = 0, count = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||

@@ -26,7 +26,28 @@ Counterpart of ``llm_weighted_consensus_tpu/models/bert.py``:
   W4A8 kernel for every dense layer, with the GELU in the MLP expansion's
   epilogue, and never reaches ``F.linear``.
 
-The layer loop is a Python loop over ``encoder.layer``.
+The layer loop is a Python loop over ``encoder.layer``.  Each layer is a
+generator (``_layer_steps``) that yields at its collectives, so one layer
+body serves three callers:
+
+* ``encode``: one device; nothing yields;
+* the tensor-parallel layer (``embed_mesh`` / ``embed_packed_mesh`` over
+  a ``parallel.sharding.MeshModel``): each tp shard holds nh/tp heads of
+  the column-split q/k/v and MLP expansion and its K/tp rows of the
+  row-split attention output and MLP contraction; a row-split layer
+  yields its partial product in f32 (``"psum"`` over ``tp``), and gets
+  back the sum, to which it adds the bias once and casts once.  Under
+  int8 / int4 a shard first yields its rows' max |x| (``"pmax"``) and
+  quantises its K/tp slice with the full row's scale, as the reference's
+  row-split layout assumes.  LayerNorm and the residual are replicated;
+* ``attention_impl="ring"`` (``parallel/ring.py``'s ``ring_encode``):
+  the attention yields its shard's q/k/v and key bias (``"ring"`` over
+  ``sp``) and gets back its rows' context from the ring; positions are
+  offset per shard (``position_offset``).  Packed segment ids are refused
+  there, as in the reference.
+
+``parallel.collectives.run_lockstep`` drives the shards' generators
+through their collectives.
 """
 
 from __future__ import annotations
@@ -45,7 +66,7 @@ from ..ops.attention import (
 )
 from . import quant
 from .configs import BertConfig, position_base
-from .layers import dense_cfg, layer_norm, mlp_cfg
+from .layers import dense_cfg, layer_norm
 
 
 class LayerNorm(nn.Module):
@@ -142,35 +163,80 @@ class BertEncoder(nn.Module):
 
 
 # ``encode``'s attention choices: "auto" (the kernel on the card, its
-# plain version on the CPU) and "plain" (the plain version on either)
-ATTENTION_IMPLS = ("auto", "plain")
+# plain version on the CPU), "plain" (the plain version on either) and
+# "ring" (sequence-parallel, driven across sp shards by
+# ``parallel.ring.ring_encode``)
+ATTENTION_IMPLS = ("auto", "plain", "ring")
+
+
+def _row_dense(x, linear, tp: bool):
+    """A row-split dense layer (generator): on one device the layer as it
+    is held; under tp the shard's partial product in f32, summed over tp
+    (``"psum"``), plus the bias once, one cast (module doc)."""
+    if not tp:
+        return dense_cfg(x, linear)
+    if isinstance(linear, quant.QuantLinear):
+        amax = torch.amax(torch.abs(x.float()), dim=-1)
+        amax = yield ("pmax", "tp", amax)
+        row_scale = quant.symmetric_scale(amax, 127.0)
+        part = linear.partial(x, row_scale)
+    else:
+        part = torch.matmul(x.float(), linear.weight.float().t())
+    total = yield ("psum", "tp", part)
+    return (total + linear.bias.float()).to(x.dtype)
 
 
 def _attention(x, p: BertAttention, key_mask, config: BertConfig,
-               attention_impl: str = "auto"):
-    """``key_mask`` is the f32 key bias[b, s] of the padded layout or the
-    int32 segment ids[b, s] of the packed one."""
-    b, s, h = x.shape
-    nh, hd = config.num_heads, config.head_dim
+               attention_impl: str = "auto", tp: bool = False):
+    """(generator) ``key_mask`` is the f32 key bias[b, s] of the padded
+    layout or the int32 segment ids[b, s] of the packed one.  The shard's
+    heads are its q projection's width over the head dim (nh/tp under
+    tp)."""
+    b, s, _ = x.shape
+    hd = config.head_dim
     sa = p.self
-    q = dense_cfg(x, sa.query).view(b, s, nh, hd)
+    q = dense_cfg(x, sa.query)
+    nh = q.shape[-1] // hd
+    q = q.view(b, s, nh, hd)
     k = dense_cfg(x, sa.key).view(b, s, nh, hd)
     v = dense_cfg(x, sa.value).view(b, s, nh, hd)
-    plain = attention_impl == "plain"
-    if key_mask.dtype.is_floating_point:
-        fn = attention_plain if plain else attention
+    scale = 1.0 / float(hd) ** 0.5
+    if attention_impl == "ring":
+        ctx = yield ("ring", "sp", (q, k, v, key_mask, scale))
     else:
-        fn = segment_attention_plain if plain else segment_attention
-    ctx = fn(q, k, v, key_mask, 1.0 / float(hd) ** 0.5)
-    return dense_cfg(ctx.reshape(b, s, h), p.output.dense)
+        plain = attention_impl == "plain"
+        if key_mask.dtype.is_floating_point:
+            fn = attention_plain if plain else attention
+        else:
+            fn = segment_attention_plain if plain else segment_attention
+        ctx = fn(q, k, v, key_mask, scale)
+    return (yield from _row_dense(ctx.reshape(b, s, nh * hd),
+                                  p.output.dense, tp))
 
 
-def _layer(x, layer: BertLayer, key_mask, config: BertConfig,
-           attention_impl: str = "auto"):
-    attn = _attention(x, layer.attention, key_mask, config, attention_impl)
+def _layer_steps(x, layer: BertLayer, key_mask, config: BertConfig,
+                 attention_impl: str = "auto", tp: bool = False):
+    """One encoder layer (generator; module doc)."""
+    attn = yield from _attention(x, layer.attention, key_mask, config,
+                                 attention_impl, tp)
     x = layer.attention.output.LayerNorm(x + attn)
-    mlp = mlp_cfg(x, layer.intermediate.dense, layer.output.dense)
+    inter = dense_cfg(x, layer.intermediate.dense, gelu=True)
+    mlp = yield from _row_dense(inter, layer.output.dense, tp)
     return layer.output.LayerNorm(x + mlp)
+
+
+def run_local(body):
+    """Run an encoder generator that must not meet a collective (one
+    device) to its value."""
+    try:
+        ask = next(body)
+    except StopIteration as stop:
+        return stop.value
+    raise ValueError(
+        f"a {ask[0]!r} collective over {ask[1]!r} runs across shards: "
+        "attention_impl='ring' is driven by parallel.ring.ring_encode, a "
+        "tensor-parallel layer by bert.embed_mesh"
+    )
 
 
 def check_positions(config: BertConfig, last: int, what: str) -> None:
@@ -194,6 +260,7 @@ def encode(
     positions: Optional[torch.Tensor] = None,
     attention_impl: str = "auto",
     positions_checked: bool = False,
+    position_offset: int = 0,
 ) -> torch.Tensor:
     """input_ids[b, s], attention_mask[b, s] -> hidden[b, s, h] in the
     param dtype.  Positions are left-aligned from ``position_base``.
@@ -210,17 +277,46 @@ def encode(
     from its host copy before the upload (``TorchEmbedder.embed_packed``),
     so no device sync is added.  ``positions_checked=True`` says the
     caller bounded them already (the embedder does, on either device),
-    so the dispatch reads no tensor on the host."""
+    so the dispatch reads no tensor on the host.
+
+    ``position_offset`` starts the left-aligned positions that many
+    places later (a ring shard's slice of the sequence).  The encoder is
+    the generator ``encode_steps``; ``encode`` runs it on one device."""
+    return run_local(encode_steps(
+        model, input_ids, attention_mask, token_type_ids, segment_ids,
+        positions, attention_impl, positions_checked, position_offset,
+    ))
+
+
+def encode_steps(
+    model: BertEncoder,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],
+    token_type_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    attention_impl: str = "auto",
+    positions_checked: bool = False,
+    position_offset: int = 0,
+    tp: bool = False,
+):
+    """``encode`` as a generator that yields at its collectives (module
+    doc); ``tp`` marks a tensor-parallel shard."""
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"attention_impl={attention_impl!r}: the port takes one of "
             f"{ATTENTION_IMPLS}"
         )
+    if attention_impl == "ring" and segment_ids is not None:
+        # the ring rotates k/v shards; a same-segment mask would need the
+        # GLOBAL segment row on every shard
+        raise ValueError("ring attention does not support packed segment_ids")
     config = model.config
     b, s = input_ids.shape
-    base = position_base(config)
+    base = position_base(config) + int(position_offset)
     if positions is None:
-        check_positions(config, s - 1, f"sequence {s}")
+        check_positions(config, int(position_offset) + s - 1,
+                        f"sequence {int(position_offset) + s}")
     elif (not positions_checked and positions.device.type == "cpu"
           and positions.numel()):
         last = int(positions.max())
@@ -246,7 +342,8 @@ def encode(
             torch.full((), -1e9, dtype=torch.float32, device=ids.device),
         )
     for layer in model.encoder.layer:
-        x = _layer(x, layer, key_mask, config, attention_impl)
+        x = yield from _layer_steps(x, layer, key_mask, config,
+                                    attention_impl, tp)
     return x
 
 
@@ -336,6 +433,81 @@ def embed_packed(
         positions_checked=positions_checked,
     )
     return pool_segments(hidden, segment_ids, seg_starts, pooling, normalize)
+
+
+# ---------------------------------------------------------------------------
+# The mesh: dp rows, tensor-parallel shards
+# ---------------------------------------------------------------------------
+
+
+def _mesh_encode(placed, rows: dict, make_body) -> list:
+    """Run ``make_body(shard module, its rows, tp)`` (an ``encode_steps``
+    generator) for every (dp, tp) shard of ``placed`` (a
+    ``parallel.sharding.MeshModel``) in lockstep.  ``rows`` are the
+    dispatch's inputs, their batch a dp multiple: dp row d takes block d,
+    moved to its shards' devices.  Returns, per dp row, tp shard 0's
+    result (every tp shard holds the same hidden states after each
+    reduce).  A mesh with an sp axis runs this dense path on its sp = 0
+    shards: the reference replicates it over sp."""
+    from ..parallel.collectives import run_lockstep
+
+    mesh, tp = placed.mesh, placed.tp
+    dp = mesh.shape["dp"]
+    b = next(iter(rows.values())).shape[0]
+    if b % dp:
+        raise ValueError(f"batch {b} does not divide by dp={dp}")
+    per = b // dp
+    bodies, coords, devices = [], [], []
+    for d in range(dp):
+        for t in range(tp):
+            device = mesh.device(dp=d, tp=t)
+            part = {name: x[d * per:(d + 1) * per].to(device)
+                    for name, x in rows.items()}
+            bodies.append(make_body(placed.shard(t, device), part, tp > 1))
+            coords.append({"dp": d, "tp": t})
+            devices.append(device)
+    out = run_lockstep(bodies, coords, {"tp": tp}, devices)
+    return out[::tp]
+
+
+def _gather_rows(parts: list, device) -> torch.Tensor:
+    return torch.cat([p.to(device) for p in parts])
+
+
+def embed_mesh(placed, input_ids, attention_mask, pooling: str = "cls",
+               normalize: bool = True) -> torch.Tensor:
+    """``embed`` over a mesh: ids/mask[b, s] (b a dp multiple) -> pooled
+    vectors [b, h] f32 on the mesh's first device; batch rows over dp,
+    each dp row's layers tensor-parallel over its tp shards."""
+
+    def body(model, part, tp):
+        hidden = yield from encode_steps(
+            model, part["ids"], part["mask"], tp=tp)
+        return pool(hidden, part["mask"], pooling, normalize)
+
+    parts = _mesh_encode(
+        placed, {"ids": input_ids, "mask": attention_mask}, body)
+    return _gather_rows(parts, placed.mesh.device())
+
+
+def embed_packed_mesh(placed, input_ids, segment_ids, positions, seg_starts,
+                      pooling: str = "cls", normalize: bool = True,
+                      positions_checked: bool = False) -> torch.Tensor:
+    """``embed_packed`` over a mesh: packed rows over dp (a dp multiple),
+    layers tensor-parallel -> [b, k, h] f32 on the mesh's first device."""
+
+    def body(model, part, tp):
+        hidden = yield from encode_steps(
+            model, part["ids"], None, segment_ids=part["seg"],
+            positions=part["pos"], positions_checked=positions_checked,
+            tp=tp)
+        return pool_segments(hidden, part["seg"], part["starts"], pooling,
+                             normalize)
+
+    parts = _mesh_encode(
+        placed, {"ids": input_ids, "seg": segment_ids, "pos": positions,
+                 "starts": seg_starts}, body)
+    return _gather_rows(parts, placed.mesh.device())
 
 
 # ---------------------------------------------------------------------------

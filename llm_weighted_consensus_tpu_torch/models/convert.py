@@ -19,6 +19,11 @@ can run on the same weights:
   ``quant.QuantLinear`` modules, so both packages compute from the same
   quantized weights.
 
+``jax_leaf_path`` is the inverse naming: a port state name -> the
+reference tree's "/"-joined leaf path (and the layer it unstacks), from
+the same tables, so the partition-rule tables of ``parallel/sharding.py``
+match the port's tensors by the reference's paths.
+
 This module reads numpy arrays only and imports nothing of JAX.
 """
 
@@ -40,6 +45,18 @@ _LAYER_LN = {
     "attn_ln": "attention.output.LayerNorm",
     "mlp_ln": "output.LayerNorm",
 }
+
+
+_BERT_EMBED = {
+    "token_embed": "embeddings.word_embeddings.weight",
+    "position_embed": "embeddings.position_embeddings.weight",
+    "type_embed": "embeddings.token_type_embeddings.weight",
+}
+_BERT_EMBED_LN = "embeddings.LayerNorm"
+# a dense leaf's keys: JAX's on the left, the port's on the right
+_DENSE_KEYS = {"kernel": "weight", "kernel_q": "weight_q", "scale": "scale",
+               "bias": "bias"}
+_LN_KEYS = {"scale": "weight", "bias": "bias"}
 
 
 def _f32(x) -> np.ndarray:
@@ -64,13 +81,9 @@ def _dense_into(state: dict, name: str, p: dict, i=None) -> None:
 
 def from_jax_params(tree: dict, config: BertConfig) -> dict:
     """JAX BERT params (nested dict of arrays) -> {HF name: np.ndarray}."""
-    state = {
-        "embeddings.word_embeddings.weight": _f32(tree["token_embed"]),
-        "embeddings.position_embeddings.weight": _f32(tree["position_embed"]),
-        "embeddings.token_type_embeddings.weight": _f32(tree["type_embed"]),
-        "embeddings.LayerNorm.weight": _f32(tree["embed_ln"]["scale"]),
-        "embeddings.LayerNorm.bias": _f32(tree["embed_ln"]["bias"]),
-    }
+    state = {name: _f32(tree[leaf]) for leaf, name in _BERT_EMBED.items()}
+    for key, port_key in _LN_KEYS.items():
+        state[f"{_BERT_EMBED_LN}.{port_key}"] = _f32(tree["embed_ln"][key])
     layers = tree["layers"]
     for i in range(config.num_layers):
         base = f"encoder.layer.{i}"
@@ -110,3 +123,44 @@ def from_jax_deberta_params(tree: dict, config: DebertaConfig) -> dict:
     for name in ("head_dense", "head_out"):
         _dense_into(state, name, tree[name])
     return state
+
+
+def jax_leaf_path(name: str) -> tuple:
+    """A port state name (a ``BertEncoder``'s HF names or a
+    ``DebertaModel``'s) -> (the reference tree's leaf path, the layer
+    index it was unstacked from or None): ``"encoder.layer.3.attention.
+    self.query.weight"`` -> ``("layers/attn_q/kernel", 3)``.  Raises on a
+    name the conversion does not write."""
+    for leaf, port in _BERT_EMBED.items():
+        if name == port:
+            return leaf, None
+    head, _, key = name.rpartition(".")
+    if head == _BERT_EMBED_LN and key in _LN_KEYS.values():
+        return "embed_ln/" + _inverse(_LN_KEYS)[key], None
+    if head in ("token_embed", "rel_embed") and key == "weight":
+        return head, None
+    if head in ("embed_ln", "rel_ln") and key in _LN_KEYS.values():
+        return f"{head}/{_inverse(_LN_KEYS)[key]}", None
+    if head in ("head_dense", "head_out") and key in _DENSE_KEYS.values():
+        return f"{head}/{_inverse(_DENSE_KEYS)[key]}", None
+    parts = head.split(".")
+    if parts[:2] == ["encoder", "layer"] and len(parts) > 2:
+        layer, module = int(parts[2]), ".".join(parts[3:])
+        for jax_name, hf in _LAYER_DENSE.items():
+            if module == hf and key in _DENSE_KEYS.values():
+                return (f"layers/{jax_name}/{_inverse(_DENSE_KEYS)[key]}",
+                        layer)
+        for jax_name, hf in _LAYER_LN.items():
+            if module == hf and key in _LN_KEYS.values():
+                return f"layers/{jax_name}/{_inverse(_LN_KEYS)[key]}", layer
+    if parts[0] == "layers" and len(parts) == 3:
+        layer, module = int(parts[1]), parts[2]
+        if module in _DEBERTA_DENSE and key in _DENSE_KEYS.values():
+            return (f"layers/{module}/{_inverse(_DENSE_KEYS)[key]}", layer)
+        if module in ("attn_ln", "mlp_ln") and key in _LN_KEYS.values():
+            return f"layers/{module}/{_inverse(_LN_KEYS)[key]}", layer
+    raise KeyError(f"{name!r} is not a tensor the conversion writes")
+
+
+def _inverse(table: dict) -> dict:
+    return {v: k for k, v in table.items()}

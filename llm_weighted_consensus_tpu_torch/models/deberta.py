@@ -51,9 +51,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bert import LayerNorm, build_from_state, random_state
+from .bert import LayerNorm, _row_dense, build_from_state, random_state
+from .bert import run_local
 from .configs import DebertaConfig
-from .layers import dense, dense_cfg, gelu_f32, mlp_cfg
+from .layers import dense, dense_cfg, gelu_f32
 
 MASK_FILL = -1e9
 
@@ -150,12 +151,18 @@ def rel_index(seq: int, config: DebertaConfig) -> torch.Tensor:
 
 
 def _disentangled_attention(x, rel, layer: DebertaLayer, mask_bias,
-                            rel_idx, config: DebertaConfig):
-    b, s, h = x.shape
-    nh, hd = config.num_heads, config.head_dim
+                            rel_idx, config: DebertaConfig, tp: bool = False):
+    """(generator, as ``bert``'s layers: it yields at a tensor-parallel
+    shard's collectives) The shard's heads are its q projection's width
+    over the head dim (nh/tp under tp); its position projections are
+    split with them."""
+    b, s, _ = x.shape
+    hd = config.head_dim
     k = config.att_span
 
-    q_c = dense_cfg(x, layer.attn_q).view(b, s, nh, hd)
+    q_c = dense_cfg(x, layer.attn_q)
+    nh = q_c.shape[-1] // hd
+    q_c = q_c.view(b, s, nh, hd)
     k_c = dense_cfg(x, layer.attn_k).view(b, s, nh, hd)
     v = dense_cfg(x, layer.attn_v).view(b, s, nh, hd)
     # the relative projections of the shared table, [2k, nh, hd]: always
@@ -184,7 +191,8 @@ def _disentangled_attention(x, rel, layer: DebertaLayer, mask_bias,
     logits = (c2c + c2p + p2c) * scale + mask_bias.to(x.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bnqk,bknd->bqnd", probs, v)
-    return dense_cfg(ctx.reshape(b, s, h), layer.attn_out)
+    return (yield from _row_dense(ctx.reshape(b, s, nh * hd), layer.attn_out,
+                                  tp))
 
 
 def encode(
@@ -202,7 +210,15 @@ def encode(
     a contiguous span of its row, so its relative distances are those of
     the padded forward; the mask removes every cross-segment term.
     Masked logits are -1e9, never -inf, so a row past its segments stays
-    finite."""
+    finite.  The encoder is the generator ``encode_steps``."""
+    return run_local(encode_steps(model, input_ids, attention_mask,
+                                  segment_ids))
+
+
+def encode_steps(model: DebertaModel, input_ids, attention_mask,
+                 segment_ids=None, tp: bool = False):
+    """``encode`` as a generator that yields at its collectives; ``tp``
+    marks a tensor-parallel shard (``reward_mesh``)."""
     config = model.config
     s = input_ids.shape[1]
     x = model.token_embed.weight[input_ids.long()]
@@ -218,20 +234,32 @@ def encode(
         mask_bias = torch.where(same, zero, fill)[:, None]
     rel_idx = model.rel_index_on(s, x.device)
     for layer in model.layers:
-        attn = _disentangled_attention(x, rel, layer, mask_bias, rel_idx,
-                                       config)
+        attn = yield from _disentangled_attention(
+            x, rel, layer, mask_bias, rel_idx, config, tp)
         y = layer.attn_ln(x + attn)
-        x = layer.mlp_ln(y + mlp_cfg(y, layer.mlp_in, layer.mlp_out))
+        inter = dense_cfg(y, layer.mlp_in, gelu=True)
+        x = layer.mlp_ln(y + (yield from _row_dense(inter, layer.mlp_out,
+                                                    tp)))
     return x
 
 
 def _head(model: DebertaModel, cls: torch.Tensor) -> torch.Tensor:
     """CLS states [..., h] f32 -> rewards [...] f32: ``head_dense`` in f32
     (the param-dtype weights widened), exact erf GELU, ``head_out``."""
+    return run_local(_head_steps(model, cls))
+
+
+def _head_steps(model: DebertaModel, cls: torch.Tensor, tp: bool = False):
+    """``_head`` as a generator: under tp ``head_dense`` is column-split
+    and ``head_out`` row-split, its partial sums reduced (``"psum"``) and
+    its bias added once."""
     hd, ho = model.head_dense, model.head_out
     z = F.linear(cls, hd.weight.float(), hd.bias.float())
     z = gelu_f32(z, approx=False)
-    return F.linear(z, ho.weight.float(), ho.bias.float())[..., 0]
+    if not tp:
+        return F.linear(z, ho.weight.float(), ho.bias.float())[..., 0]
+    total = yield ("psum", "tp", F.linear(z, ho.weight.float()))
+    return (total + ho.bias.float())[..., 0]
 
 
 def reward(
@@ -261,6 +289,38 @@ def reward_packed(
         hidden, seg_starts.long()[:, :, None], dim=1
     ).float()
     return _head(model, cls)
+
+
+def _reward_mesh(placed, arrays: dict, body_of) -> torch.Tensor:
+    """Run ``body_of(shard module, its inputs)`` on the tp shards of the
+    mesh's first dp row in lockstep: the batch is not split (a reward
+    softmax normalises over one request's candidates)."""
+    from ..parallel.collectives import run_lockstep
+
+    mesh, tp = placed.mesh, placed.tp
+    devices = [mesh.device(tp=t) for t in range(tp)]
+    bodies = [
+        body_of(placed.shard(t, device),
+                {k: v.to(device) for k, v in arrays.items()})
+        for t, device in enumerate(devices)
+    ]
+    out = run_lockstep(bodies, [{"tp": t} for t in range(tp)], {"tp": tp},
+                       devices)
+    return out[0].to(mesh.device())
+
+
+def reward_mesh(placed, input_ids, attention_mask) -> torch.Tensor:
+    """``reward`` with the layers and the head tensor-parallel over a
+    ``parallel.sharding.MeshModel``'s tp shards -> [b] f32."""
+
+    def body(model, a):
+        hidden = yield from encode_steps(model, a["ids"], a["mask"],
+                                         tp=True)
+        return (yield from _head_steps(model, hidden[:, 0, :].float(),
+                                       tp=True))
+
+    return _reward_mesh(placed, {"ids": input_ids, "mask": attention_mask},
+                        body)
 
 
 def reward_consensus_vote(

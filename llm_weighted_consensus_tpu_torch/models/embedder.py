@@ -28,6 +28,27 @@ The packed path (``tokenize_ragged``, ``embed_packed``) takes the ragged
 layout of ``serve/packing.py``: one upload and one forward per packed
 call, one pooled vector per segment.
 
+Mesh mode (``parallel.sharding.shard_embedder_mesh``, ``MESH_ENABLED``;
+``attach_mesh``) is the reference's ``_mesh_embed_and_vote`` path: the
+forward runs over the mesh (``bert.embed_mesh``: batch rows over dp,
+each dp row's layers tensor-parallel over tp), every dispatch pads its
+rows to a dp multiple (``batch_multiple``; pad rows attend to one token
+and are masked out of the vote), and the consensus dispatches vote with
+``parallel.collectives.sharded_cosine_vote``, so the vote kernel
+launches only for the streams there.  Graph keys are namespaced per mesh
+shape, ``("mesh", dp, tp) + key`` (the ring's ``("mesh", dp, tp, sp) +
+key``), and device-timing labels end in ``@dp{dp}xtp{tp}[xsp{sp}]``.  A
+mesh whose shards share one card captures one CUDA graph per bucket
+holding every shard; a mesh across cards runs eager (a graph captures
+one device's stream), with the keys still recorded.  On a mesh with an
+sp axis the dense dispatches are unchanged and the ring dispatches
+(``tokenize_ring``, ``embed_tokens_ring``,
+``consensus_confidence_tokens_ring``) serve sequences up to
+``ring_max_tokens`` with ``parallel/ring.py``.  The legacy hooks
+(``shard_embedder``: ``MESH_DP``/``MESH_TP``; ``shard_embedder_sp``:
+``MESH_SP``, an ``embed_override``) keep no graphs and no packing, as in
+the reference.
+
 ``warmup`` is the counterpart of the reference's ``aot_warmup``: it
 captures one CUDA graph per serving bucket under the reference's keys
 (``models/graphs.py``), and every dispatch at a warmed bucket replays
@@ -40,6 +61,7 @@ waiter thread; a direct call waits for its own result.
 
 from __future__ import annotations
 
+import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -145,23 +167,135 @@ class TorchEmbedder:
         # suffix (``@dp1xtp1`` under MESH_ENABLED), or the CPU twin's
         # ``@cpu``, so its rows never mix with the card's
         self.label_suffix = ""
+        # the mesh (``attach_mesh``): batches pad to a dp multiple; mesh
+        # mode is the first-class MESH_ENABLED path, else the legacy
+        # hooks; ``embed_override`` is the legacy MESH_SP ring forward
+        self.mesh = None
+        self.mesh_model = None
+        self.mesh_mode = False
+        self.mesh_shape = None
+        self.mesh_sp = 1
+        self.batch_multiple = 1
+        self.ring_max_tokens = None
+        self.embed_override = None
+        self.sp_mesh = None
+
+    # -- the mesh --------------------------------------------------------------
+
+    def attach_mesh(self, placed, mesh_mode: bool) -> None:
+        """Serve from ``placed`` (a ``parallel.sharding.MeshModel`` of this
+        embedder's model) over its mesh, whose first device must be the
+        embedder's; ``mesh_mode`` is the first-class mesh (module doc),
+        else the legacy hooks."""
+        from ..parallel.mesh import same_device
+        from .configs import usable_positions
+
+        mesh = placed.mesh
+        if not same_device(mesh.device(), self.device):
+            raise ValueError(
+                f"the mesh's first device {mesh.device()} is not the "
+                f"embedder's {self.device}"
+            )
+        dp, tp = mesh.shape["dp"], mesh.shape.get("tp", 1)
+        sp = mesh.shape.get("sp", 1)
+        self.mesh, self.mesh_model, self.mesh_mode = mesh, placed, mesh_mode
+        self.mesh_shape, self.mesh_sp = (dp, tp), sp
+        self.batch_multiple = dp
+        # one graph captures one device's stream: across cards, eager
+        self.graphs.capture = mesh.on_one_device()
+        if mesh_mode:
+            self.label_suffix = f"@dp{dp}xtp{tp}" + (
+                f"xsp{sp}" if sp > 1 else "")
+            if sp > 1:
+                # ring sequences pad to an sp multiple; the cap keeps the
+                # padding inside the position table
+                self.ring_max_tokens = (
+                    usable_positions(self.config) // sp) * sp
+
+    def mesh_stats(self) -> dict:
+        """The ``mesh`` section of ``/metrics``: the shape traffic shards
+        over, its device count, the cards it spans, the ring and the
+        warmed buckets of the mesh (an embedder without a mesh is the
+        1x1 shape)."""
+        dp, tp = self.mesh_shape or (1, 1)
+        sp = self.mesh_sp
+        labels = self.graphs.stats()["keys"]
+        return {
+            "enabled": True, "dp": dp, "tp": tp, "sp": sp,
+            "devices": dp * tp * sp,
+            "cards": (len(self.mesh.distinct_devices()) if self.mesh
+                      is not None else 1),
+            "ring": self.ring_available(),
+            "ring_max_tokens": self.ring_max_tokens,
+            "aot_buckets": sum(
+                1 for label in labels
+                if not self.mesh_mode or label.startswith("mesh(")),
+        }
+
+    def _key(self, key: tuple) -> tuple:
+        """A graph key, namespaced per mesh shape in mesh mode."""
+        if self.mesh_mode:
+            return ("mesh",) + tuple(self.mesh_shape) + key
+        return key
+
+    def _ring_key(self, key: tuple) -> tuple:
+        return ("mesh",) + tuple(self.mesh_shape) + (self.mesh_sp,) + key
+
+    def _pad_to(self, rows: int) -> int:
+        return rows + (-rows) % self.batch_multiple
 
     # -- CUDA graphs per bucket (the reference's aot_warmup) -----------------
 
     def _forward(self, ids, mask):
+        if self.mesh_model is not None:
+            return bert.embed_mesh(self.mesh_model, ids, mask,
+                                   pooling=self.pooling, normalize=True)
         return bert.embed(
             self.model, ids, mask, pooling=self.pooling, normalize=True
         )
 
     def _forward_packed(self, ids, segment_ids, positions, seg_starts):
         # embed_packed bounded the positions on its host copy
+        if self.mesh_model is not None:
+            return bert.embed_packed_mesh(
+                self.mesh_model, ids, segment_ids, positions, seg_starts,
+                pooling=self.pooling, normalize=True, positions_checked=True,
+            )
         return bert.embed_packed(
             self.model, ids, segment_ids, positions, seg_starts,
             pooling=self.pooling, normalize=True, positions_checked=True,
         )
 
+    def _forward_ring(self, ids, mask):
+        from ..parallel.ring import ring_embed
+
+        return ring_embed(self.mesh_model, ids, mask, self.mesh,
+                          dp_axis="dp", pooling=self.pooling)
+
+    def _vote(self, emb, n: int, temperature: float, r: int = 0):
+        """The consensus vote after a forward: the cosine-vote kernel on
+        one device (``r`` > 0: ``emb[:r * n]`` as r requests), the
+        dp-sharded vote in mesh mode (per request)."""
+        if self.mesh is None:
+            if r:
+                return cosine_vote(emb[: r * n].reshape(r, n, -1), n,
+                                   temperature)
+            return cosine_vote(emb[:n].reshape(1, n, -1), n,
+                               temperature)[0]
+        from ..parallel.collectives import sharded_cosine_vote
+
+        if not r:
+            return sharded_cosine_vote(emb, self.mesh, temperature,
+                                       n_valid=n)
+        return torch.stack([
+            sharded_cosine_vote(emb[i * n:(i + 1) * n], self.mesh,
+                                temperature)
+            for i in range(r)
+        ])
+
     def warmup(
-        self, specs: list, r_buckets: list = (), packed_buckets: list = ()
+        self, specs: list, r_buckets: list = (), packed_buckets: list = (),
+        ring_buckets: list = (),
     ) -> list:
         """Capture a CUDA graph for every serving bucket up front: per
         (N, S) spec the single-request consensus forward ``("vote1", N,
@@ -173,22 +307,35 @@ class TorchEmbedder:
         nothing; the vote stays outside every graph (one launch after the
         replay, its temperature a run-time value).  On the CPU the keys
         are recorded and nothing is captured.  Returns [(label, seconds)]
-        for the buckets warmed by this call."""
+        for the buckets warmed by this call.
+
+        In mesh mode the keys are the mesh's (``_key``) and the row
+        counts padded to the dp multiple, as the dispatches pad them;
+        ``ring_buckets`` ((N, S) specs, ``LONG_CONTEXT_WARMUP``) warm the
+        ring dispatches of an sp mesh and nothing elsewhere.  The legacy
+        hook embedders keep no graphs: their warmup runs one eager
+        consensus dispatch per spec, as the reference's does."""
+        if self.embed_override is not None or (
+                self.mesh is not None and not self.mesh_mode):
+            return self._warm_by_dispatch(specs)
         warm = self.graphs.warm
+        pad = self._pad_to
         timings = []
         for n, s in specs:
             s = _seq_bucket(s, self.max_tokens)
-            pad_b = _bucket(n, self.MAX_DEVICE_BATCH)
-            timings.append(warm(("vote1", n, s), warm_rows(n, s),
-                                self._forward))
-            timings.append(warm(("embed", pad_b, s), warm_rows(pad_b, s),
-                                self._forward))
+            pad_b = pad(_bucket(n, self.MAX_DEVICE_BATCH))
+            timings.append(warm(self._key(("vote1", n, s)),
+                                warm_rows(pad(n), s), self._forward))
+            timings.append(warm(self._key(("embed", pad_b, s)),
+                                warm_rows(pad_b, s), self._forward))
             timings += [
-                warm(("many", r, n, s), warm_rows(r * n, s), self._forward)
+                warm(self._key(("many", r, n, s)), warm_rows(pad(r * n), s),
+                     self._forward)
                 for r in r_buckets
                 if r >= 2  # R=1 groups dispatch the single-request path
             ]
         for b, l, k in packed_buckets:
+            b = pad(b)
             col = np.arange(l, dtype=np.int32)
             width = min(l, self.max_tokens)
             inputs = {
@@ -197,9 +344,32 @@ class TorchEmbedder:
                 "positions": np.tile(col % width, (b, 1)),
                 "seg_starts": np.zeros((b, k), np.int32),
             }
-            timings.append(warm(("packed", b, l, k), inputs,
+            timings.append(warm(self._key(("packed", b, l, k)), inputs,
                                 self._forward_packed))
+        if ring_buckets and self.ring_available():
+            sp = self.mesh_sp
+            for n, s in ring_buckets:
+                s = _seq_bucket(s, self.ring_max_tokens)
+                s = min(s + (-s) % sp, self.ring_max_tokens)
+                pad_b = pad(_bucket(n, self.MAX_DEVICE_BATCH))
+                timings.append(warm(self._ring_key(("ring_vote", n, s)),
+                                    warm_rows(pad(n), s),
+                                    self._forward_ring))
+                timings.append(warm(self._ring_key(("ring", pad_b, s)),
+                                    warm_rows(pad_b, s), self._forward_ring))
         return [t for t in timings if t is not None]
+
+    def _warm_by_dispatch(self, specs: list) -> list:
+        timings = []
+        for n, s in specs:
+            s = _seq_bucket(s, self.max_tokens)
+            t0 = time.perf_counter()
+            with deferred_readiness(None):
+                self.consensus_confidence_tokens(*(
+                    a[:n] for a in warm_rows(n, s).values()))
+            timings.append((f"dispatch vote1({n},{s})",
+                            time.perf_counter() - t0))
+        return timings
 
     def graph_stats(self) -> dict:
         """The counterpart of the reference's ``jit_stats``: ``graphs``,
@@ -248,14 +418,16 @@ class TorchEmbedder:
                     ],
                     axis=0,
                 )
-        pad_b = _bucket(b, self.MAX_DEVICE_BATCH)
+        pad_b = self._pad_to(_bucket(b, self.MAX_DEVICE_BATCH))
         s = ids.shape[1]
         pids = np.zeros((pad_b, s), np.int32)
         pmask = np.zeros((pad_b, s), np.int32)
         pids[:b] = ids
         pmask[:b] = mask
+        if self.embed_override is not None:
+            return self.embed_override(pids, pmask)[:b]
         return self._dispatch(
-            ("embed", pad_b, s), f"embed(b={pad_b},s={s})",
+            self._key(("embed", pad_b, s)), f"embed(b={pad_b},s={s})",
             {"ids": pids, "mask": pmask}, self._forward,
             lambda emb: emb[:b],
         )
@@ -278,14 +450,20 @@ class TorchEmbedder:
         temperature: float = DEFAULT_VOTE_TEMPERATURE,
     ):
         """ids/mask[N, S] -> confidence[N]: the forward at ``("vote1", N,
-        S)`` and one vote launch after it."""
+        S)`` and one vote launch after it (on a mesh: rows padded to the
+        dp multiple, pad rows attending to one token, and the sharded
+        vote over the first N)."""
         n, s = ids.shape
         temperature = float(temperature)
+        pad_n = self._pad_to(n)
+        if pad_n != n:
+            ids = np.concatenate([ids, np.zeros((pad_n - n, s), np.int32)])
+            mask = np.concatenate([mask, np.zeros((pad_n - n, s), np.int32)])
+            mask[n:, 0] = 1
         return self._dispatch(
-            ("vote1", n, s), f"vote1(n={n},s={s})",
+            self._key(("vote1", n, s)), f"vote1(n={n},s={s})",
             {"ids": ids, "mask": mask}, self._forward,
-            lambda emb: cosine_vote(emb[:n].reshape(1, n, -1), n,
-                                    temperature)[0],
+            lambda emb: self._vote(emb, n, temperature),
         )
 
     def consensus_confidence_tokens_many(
@@ -300,17 +478,18 @@ class TorchEmbedder:
         vote."""
         r, n, s = ids.shape
         r_bucket = next_pow2(r)
-        flat_ids = np.zeros((r_bucket * n, s), np.int32)
-        flat_mask = np.zeros((r_bucket * n, s), np.int32)
+        rows = self._pad_to(r_bucket * n)
+        flat_ids = np.zeros((rows, s), np.int32)
+        flat_mask = np.zeros((rows, s), np.int32)
         flat_ids[: r * n] = ids.reshape(r * n, s)
         flat_mask[: r * n] = mask.reshape(r * n, s)
         flat_mask[r * n :, 0] = 1
         temperature = float(temperature)
         return self._dispatch(
-            ("many", r_bucket, n, s), f"many(r={r_bucket},n={n},s={s})",
+            self._key(("many", r_bucket, n, s)),
+            f"many(r={r_bucket},n={n},s={s})",
             {"ids": flat_ids, "mask": flat_mask}, self._forward,
-            lambda emb: cosine_vote(emb[: r * n].reshape(r, n, -1), n,
-                                    temperature),
+            lambda emb: self._vote(emb, n, temperature, r),
         )
 
     # -- streaming consensus ---------------------------------------------------
@@ -389,7 +568,7 @@ class TorchEmbedder:
             if not 0 <= int(position) < cap:
                 raise ValueError(f"position {position} outside [0, {cap})")
         wanted = list(range(r)) if wanted is None else list(wanted)
-        pad_b = _bucket(r, self.MAX_DEVICE_BATCH)
+        pad_b = self._pad_to(_bucket(r, self.MAX_DEVICE_BATCH))
         s = ids.shape[1]
         pids = np.zeros((pad_b, s), np.int32)
         pmask = np.zeros((pad_b, s), np.int32)
@@ -417,7 +596,8 @@ class TorchEmbedder:
 
         try:
             return self._dispatch(
-                ("embed", pad_b, s), f"stream(r={r},cap={cap},s={s})",
+                self._key(("embed", pad_b, s)),
+                f"stream(r={r},cap={cap},s={s})",
                 {"ids": pids, "mask": pmask}, self._forward, post,
             )
         except BaseException:
@@ -429,9 +609,10 @@ class TorchEmbedder:
     # -- packed (continuous-batching) path ------------------------------------
 
     def supports_packing(self) -> bool:
-        """The packed dispatch is always available in the port (one
-        device, no mesh hooks)."""
-        return True
+        """The packed dispatch: on one device and in mesh mode; the legacy
+        hooks keep the padded paths, as in the reference."""
+        return self.embed_override is None and (
+            self.mesh is None or self.mesh_mode)
 
     def tokenize_ragged(
         self, texts: Iterable[str], max_tokens: Optional[int] = None
@@ -467,11 +648,98 @@ class TorchEmbedder:
             )
         b, l = np.shape(ids)
         k = np.shape(seg_starts)[1]
+        arrays = {"ids": ids, "segment_ids": segment_ids,
+                  "positions": positions, "seg_starts": seg_starts}
+        pb = self._pad_to(b)
+        if pb != b:
+            # all-zero rows: segment id 0 is the fully masked pad slot
+            arrays = {name: np.pad(np.asarray(a, np.int32),
+                                   ((0, pb - b), (0, 0)))
+                      for name, a in arrays.items()}
         return self._dispatch(
-            ("packed", b, l, k), f"packed(b={b},l={l},k={k})",
-            {"ids": ids, "segment_ids": segment_ids, "positions": positions,
-             "seg_starts": seg_starts},
-            self._forward_packed, lambda out: out,
+            self._key(("packed", pb, l, k)), f"packed(b={pb},l={l},k={k})",
+            arrays, self._forward_packed, lambda out: out[:b],
+        )
+
+    # -- long-context ring (sequence-parallel) path ---------------------------
+
+    def ring_available(self) -> bool:
+        """Whether the ring dispatch is wired: mesh mode on a mesh with an
+        sp axis.  The batcher routes over-length requests here only then;
+        otherwise they truncate at ``max_tokens``."""
+        return self.mesh_mode and self.mesh_sp > 1
+
+    def _require_ring(self) -> None:
+        if not self.ring_available():
+            raise RuntimeError(
+                "ring dispatch needs first-class mesh mode on a mesh "
+                "with an sp axis (MESH_SHAPE=dp,tp,sp + "
+                "shard_embedder_mesh)"
+            )
+
+    def _ring_pad_seq(self, ids, mask):
+        """Pad the sequence to an sp multiple (pads are masked keys)."""
+        pad_s = (-ids.shape[1]) % self.mesh_sp
+        if pad_s:
+            ids = np.pad(np.asarray(ids), ((0, 0), (0, pad_s)))
+            mask = np.pad(np.asarray(mask), ((0, 0), (0, pad_s)))
+        return ids, mask
+
+    def tokenize_ring(self, texts: Iterable[str],
+                      max_tokens: Optional[int] = None):
+        """``tokenize`` for the ring: capped at ``ring_max_tokens`` (the
+        position window rounded down to an sp multiple), the trimmed
+        sequence bucket rounded up to an sp multiple."""
+        self._require_ring()
+        sp = self.mesh_sp
+        cap = min(max_tokens or self.ring_max_tokens, self.ring_max_tokens)
+        cap = max((cap // sp) * sp, sp)
+        ids, mask = self.tokenizer.encode_batch(list(texts), cap)
+        seq = _seq_bucket(int(mask.sum(axis=1).max(initial=1)), cap)
+        seq = min(seq + (-seq) % sp, cap)
+        return ids[:, :seq], mask[:, :seq]
+
+    def embed_tokens_ring(self, ids: np.ndarray, mask: np.ndarray):
+        """The ring twin of ``embed_tokens``: the sequence split over sp,
+        attention as a ring (``parallel/ring.py``), one dispatch at
+        ``("mesh", dp, tp, sp, "ring", b, s)``."""
+        self._require_ring()
+        b = ids.shape[0]
+        ids, mask = self._ring_pad_seq(ids, mask)
+        pad_b = self._pad_to(_bucket(b, self.MAX_DEVICE_BATCH))
+        s = ids.shape[1]
+        pids = np.zeros((pad_b, s), np.int32)
+        pmask = np.zeros((pad_b, s), np.int32)
+        pids[:b] = ids
+        pmask[:b] = mask
+        return self._dispatch(
+            self._ring_key(("ring", pad_b, s)), f"ring(b={pad_b},s={s})",
+            {"ids": pids, "mask": pmask}, self._forward_ring,
+            lambda emb: emb[:b],
+        )
+
+    def consensus_confidence_tokens_ring(
+        self, ids: np.ndarray, mask: np.ndarray,
+        temperature: float = DEFAULT_VOTE_TEMPERATURE,
+    ):
+        """The ring twin of ``consensus_confidence_tokens``: the
+        sequence-split forward and the dp-sharded vote in one dispatch,
+        pad rows masked by ``n_valid``."""
+        self._require_ring()
+        n = ids.shape[0]
+        ids, mask = self._ring_pad_seq(ids, mask)
+        s = ids.shape[1]
+        pad_n = self._pad_to(n)
+        pids = np.zeros((pad_n, s), np.int32)
+        pmask = np.zeros((pad_n, s), np.int32)
+        pids[:n] = ids
+        pmask[:n] = mask
+        pmask[n:, 0] = 1
+        temperature = float(temperature)
+        return self._dispatch(
+            self._ring_key(("ring_vote", n, s)), f"ring_vote(n={n},s={s})",
+            {"ids": pids, "mask": pmask}, self._forward_ring,
+            lambda emb: self._vote(emb, n, temperature),
         )
 
     # -- wire contract --------------------------------------------------------

@@ -145,6 +145,9 @@ class GraphTable:
     def __init__(self, device) -> None:
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
+        # False: record keys, capture nothing (a mesh across cards: one
+        # graph captures one device's stream, so its dispatches run eager)
+        self.capture = True
         self.lock = launch_lock(self.device)
         self._entries: Dict[tuple, Optional[GraphEntry]] = {}
         self._pool = None
@@ -166,7 +169,7 @@ class GraphTable:
             if key in self._entries:
                 return None
             t0 = time.perf_counter()
-            if not self.on_card:
+            if not (self.on_card and self.capture):
                 self._entries[key] = None
                 return key_label(key), time.perf_counter() - t0
             return self._capture(key, inputs, forward, t0)
@@ -288,5 +291,6 @@ class GraphTable:
                 "replays": self.replays,
                 "eager_dispatches": self.eager_dispatches,
                 "pool_bytes": self.pool_bytes,
+                "capture": self.capture,
                 "keys": sorted(key_label(k) for k in self._entries),
             }

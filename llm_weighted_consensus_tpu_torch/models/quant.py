@@ -152,6 +152,16 @@ class QuantLinear(nn.Module):
         matmul = w4a8_matmul if self.int4 else w8a8_matmul
         return matmul(x, self.weight_q, self.scale, self.bias, gelu=gelu)
 
+    def partial(self, x: torch.Tensor,
+                row_scale: torch.Tensor) -> torch.Tensor:
+        """A row-split shard's share of this layer, in f32 and without
+        the bias: x's rows quantised with ``row_scale`` (the full row's
+        scale), the bias added once after the tp reduce
+        (``models/bert.py``)."""
+        matmul = w4a8_matmul if self.int4 else w8a8_matmul
+        return matmul(x, self.weight_q, self.scale,
+                      torch.zeros_like(self.bias), row_scale=row_scale)
+
 
 
 def dense_slots(model):

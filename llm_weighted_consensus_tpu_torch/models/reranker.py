@@ -90,12 +90,39 @@ class TorchReranker:
         self.model = model.to(device=self.device, dtype=self.dtype)
         self.config = resolve_quantize(self.model, self.config, quantize)
         self.graphs = GraphTable(self.device)
+        # the mesh (``attach_mesh``, MESH_ENABLED)
+        self.mesh = None
+        self.mesh_model = None
         self.staging_pool = StagingPool(
             per_bucket=staging_buffers, pin=self.device.type == "cuda"
         )
         self.device_timing = True
 
+    def attach_mesh(self, mesh) -> None:
+        """The reward model's params on ``mesh`` by the DeBERTa rule table
+        (``parallel.sharding.shard_reranker_mesh``): with tp past 1 the
+        layers and the head run tensor-parallel
+        (``deberta.reward_mesh``); the batch stays unsharded, on the
+        mesh's first dp row, whose first device must be the reranker's.
+        Across cards the graphs are off (a graph captures one device)."""
+        from ..parallel.mesh import same_device
+        from ..parallel.sharding import MeshModel, deberta_partition_rules
+        from .quant import is_quantized
+
+        if not same_device(mesh.device(), self.device):
+            raise ValueError(
+                f"the mesh's first device {mesh.device()} is not the "
+                f"reranker's {self.device}"
+            )
+        tp = mesh.shape.get("tp", 1)
+        rules = deberta_partition_rules(quantized=is_quantized(self.model))
+        self.mesh_model = MeshModel(self.model, mesh, rules, tp=tp > 1)
+        self.mesh = mesh
+        self.graphs.capture = mesh.on_one_device()
+
     def _forward(self, ids, mask):
+        if self.mesh_model is not None and self.mesh_model.tp > 1:
+            return deberta.reward_mesh(self.mesh_model, ids, mask)
         return deberta.reward(self.model, ids, mask)
 
     def warmup(self, specs: list) -> list:

@@ -141,7 +141,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lwc_attention_seg_tma_schedule.restype = i32
     lib.lwc_attention_seg_tma_tiles.argtypes = [i32, ctypes.POINTER(i32)]
     lib.lwc_attention_seg_tma_tiles.restype = None
-    lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.lwc_quantize_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                      vp]
     lib.lwc_quantize_rows.restype = i32
     for name in ("lwc_quant_matmul", "lwc_quant_matmul_tma"):
         fn = getattr(lib, name)

@@ -269,12 +269,16 @@ def symmetric_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
     return torch.clamp(amax / torch.full_like(amax, qmax), min=1e-12)
 
 
-def quantize_rows_plain(x: torch.Tensor, kp: Optional[int] = None):
+def quantize_rows_plain(x: torch.Tensor, kp: Optional[int] = None,
+                        scale: Optional[torch.Tensor] = None):
     """x[..., K] -> (int8 [..., kp or K], f32 scale[...]): per-row
     symmetric ``sx = max(max|x| / 127, 1e-12)``, x / sx rounded half to
-    even and clipped to +-127; columns past K are 0."""
+    even and clipped to +-127; columns past K are 0.  A given ``scale``
+    (f32 [...]) is used instead of the row's own (a row-split shard's,
+    ``row_scale``)."""
     x32 = x.float()
-    scale = symmetric_scale(torch.amax(torch.abs(x32), dim=-1), 127.0)
+    if scale is None:
+        scale = symmetric_scale(torch.amax(torch.abs(x32), dim=-1), 127.0)
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
     q = q.to(torch.int8)
     k = x.shape[-1]
@@ -283,10 +287,12 @@ def quantize_rows_plain(x: torch.Tensor, kp: Optional[int] = None):
     return q, scale
 
 
-def quantize_rows(x: torch.Tensor, kp: int):
+def quantize_rows(x: torch.Tensor, kp: int,
+                  scale: Optional[torch.Tensor] = None):
     """x[M, K] (f32 or bf16, contiguous) -> (xq[M, kp] int8, sx[M] f32),
-    kp >= K a multiple of ``QUANT_K_TILE``.  A CPU tensor takes
-    ``quantize_rows_plain``; a CUDA tensor launches
+    kp >= K a multiple of ``QUANT_K_TILE``.  ``scale`` (f32 [M]) gives
+    the rows' scales instead of computing them (returned as sx).  A CPU
+    tensor takes ``quantize_rows_plain``; a CUDA tensor launches
     ``lwc_quantize_rows`` or raises."""
     if x.ndim != 2:
         raise ValueError(f"quantize_rows wants x[M, K], got {tuple(x.shape)}")
@@ -298,8 +304,16 @@ def quantize_rows(x: torch.Tensor, kp: int):
             f"quantize_rows: kp={kp} must be >= K={k} and a multiple of "
             f"{QUANT_K_TILE}"
         )
+    if scale is not None and (
+        scale.shape != (m,) or scale.dtype != torch.float32
+        or scale.device != x.device
+    ):
+        raise ValueError(
+            f"quantize_rows: scale must be f32 [{m}] on {x.device}, got "
+            f"{scale.dtype} {tuple(scale.shape)} on {scale.device}"
+        )
     if x.device.type == "cpu":
-        return quantize_rows_plain(x, kp)
+        return quantize_rows_plain(x, kp, scale)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: unsupported device {x.device}")
     launches.refuse_grad("quantize_rows", x)
@@ -307,12 +321,13 @@ def quantize_rows(x: torch.Tensor, kp: int):
         raise ValueError("quantize_rows wants a contiguous x")
     lib = _build.library()
     xq = torch.empty((m, kp), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    sx = (torch.empty((m,), dtype=torch.float32, device=x.device)
+          if scale is None else scale.contiguous())
     if m == 0:
         return xq, sx
     rc = lib.lwc_quantize_rows(
         x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k, kp,
-        0 if x.dtype == torch.float32 else 1,
+        0 if x.dtype == torch.float32 else 1, int(scale is not None),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "quantize_rows")
@@ -334,18 +349,25 @@ def _epilogue_plain(acc, sx, sw, bias, gelu: bool, dtype) -> torch.Tensor:
     return out.to(dtype)
 
 
-def w8a8_matmul_plain(x, wq, sw, bias, gelu: bool = False) -> torch.Tensor:
+def _out_dtype(x, row_scale) -> torch.dtype:
+    # a row-split shard (a given row scale) takes its partial in f32
+    return x.dtype if row_scale is None else torch.float32
+
+
+def w8a8_matmul_plain(x, wq, sw, bias, gelu: bool = False,
+                      row_scale=None) -> torch.Tensor:
     """The W8A8 kernel's arithmetic in plain PyTorch: the int8 product in
     f64 (exact), the epilogue as ``(acc * sx) * sw + bias`` in f32."""
-    xq, sx = quantize_rows_plain(x)
+    xq, sx = quantize_rows_plain(x, scale=row_scale)
     acc = torch.matmul(xq.double(), wq.double().T)
-    return _epilogue_plain(acc, sx, sw, bias, gelu, x.dtype)
+    return _epilogue_plain(acc, sx, sw, bias, gelu, _out_dtype(x, row_scale))
 
 
-def w4a8_matmul_plain(x, wq4, sw, bias, gelu: bool = False) -> torch.Tensor:
+def w4a8_matmul_plain(x, wq4, sw, bias, gelu: bool = False,
+                      row_scale=None) -> torch.Tensor:
     """``w8a8_matmul_plain`` over the unpacked int4 weight."""
     return w8a8_matmul_plain(
-        x, unpack_int4_weights(wq4, x.shape[-1]), sw, bias, gelu
+        x, unpack_int4_weights(wq4, x.shape[-1]), sw, bias, gelu, row_scale,
     )
 
 
@@ -380,7 +402,20 @@ def quant_gemm_route(k: int, int4: bool, *tensors) -> str:
     return "tma"
 
 
-def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
+def _check_row_scale(name, x, row_scale):
+    rows = tuple(x.shape[:-1])
+    if row_scale is not None and (
+        tuple(row_scale.shape) != rows or row_scale.dtype != torch.float32
+        or row_scale.device != x.device
+    ):
+        raise ValueError(
+            f"{name}: row_scale must be f32 {list(rows)} on {x.device}, got "
+            f"{row_scale.dtype} {tuple(row_scale.shape)}"
+        )
+
+
+def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp,
+                  row_scale=None):
     """Launch the row quantisation and the GEMM for ``x[..., K]``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -394,16 +429,18 @@ def _quant_matmul(name, wrapper, x, w, sw, bias, gelu, int4, kp):
     if not x2.is_contiguous():
         x2 = x2.contiguous()
     m = x2.shape[0]
-    xq, sx = quantize_rows(x2, kp)
+    xq, sx = quantize_rows(
+        x2, kp, None if row_scale is None else row_scale.reshape(m))
     lib = _build.library()
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out_dtype = _out_dtype(x, row_scale)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
         route = quant_gemm_route(k, int4, xq, w, out)
         entry = "lwc_quant_matmul_tma" if route == "tma" else "lwc_quant_matmul"
         rc = getattr(lib, entry)(
             xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
             bias.data_ptr(), out.data_ptr(), m, n, k, kp, int(int4),
-            int(bool(gelu)), 0 if x.dtype == torch.float32 else 1,
+            int(bool(gelu)), 0 if out_dtype == torch.float32 else 1,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         _build.check(rc, name)
@@ -417,20 +454,26 @@ def w8a8_matmul(
     sw: torch.Tensor,
     bias: torch.Tensor,
     gelu: bool = False,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x[..., K] (f32 or bf16) @ wq[N, K]^T (int8, per-output-channel
     scale ``sw[N]`` f32) + bias[N] f32 -> [..., N] in x's dtype;
     ``gelu=True`` applies the GELU (erf for f32, A&S 7.1.26 for bf16) to
-    the f32 pre-activation before the one rounding."""
+    the f32 pre-activation before the one rounding.  ``row_scale`` (f32
+    ``x.shape[:-1]``) quantises x's rows with those scales instead of
+    their own and gives the product in f32: a tensor-parallel shard of a
+    row-split layer passes the scale of the full row and takes its
+    partial product (``models/bert.py``)."""
     _check_quant_operands("w8a8_matmul", x, wq, sw, bias, int4=False)
+    _check_row_scale("w8a8_matmul", x, row_scale)
     k = x.shape[-1]
     if wq.shape[1] != k:
         raise ValueError(f"w8a8_matmul: x has K={k}, wq is {tuple(wq.shape)}")
     if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, wq, sw, bias, gelu)
+        return w8a8_matmul_plain(x, wq, sw, bias, gelu, row_scale)
     return _quant_matmul(
         "w8a8_matmul", w8a8_matmul, x, wq, sw, bias, gelu, False,
-        _round_up(k, QUANT_K_TILE),
+        _round_up(k, QUANT_K_TILE), row_scale,
     )
 
 
@@ -444,11 +487,13 @@ def w4a8_matmul(
     sw: torch.Tensor,
     bias: torch.Tensor,
     gelu: bool = False,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``w8a8_matmul`` with the weight as packed biased nibbles
     ``wq4[N, Kp/2]`` uint8 (``pack_int4_weights``, Kp a multiple of 256,
     K <= Kp)."""
     _check_quant_operands("w4a8_matmul", x, wq4, sw, bias, int4=True)
+    _check_row_scale("w4a8_matmul", x, row_scale)
     k = x.shape[-1]
     kp = 2 * wq4.shape[1]
     if kp % W4A8_PACK_K or k > kp:
@@ -457,9 +502,10 @@ def w4a8_matmul(
             f"(Kp={kp} must be a multiple of {W4A8_PACK_K} and >= K)"
         )
     if x.device.type == "cpu":
-        return w4a8_matmul_plain(x, wq4, sw, bias, gelu)
+        return w4a8_matmul_plain(x, wq4, sw, bias, gelu, row_scale)
     return _quant_matmul(
-        "w4a8_matmul", w4a8_matmul, x, wq4, sw, bias, gelu, True, kp
+        "w4a8_matmul", w4a8_matmul, x, wq4, sw, bias, gelu, True, kp,
+        row_scale,
     )
 
 

@@ -16,11 +16,12 @@ reference's answer, kept here:
 * ``MeshFaultManager`` layers the policy over it: a transient streak past
   ``transient_retries`` (or a dispatch the watchdog found overdue)
   escalates to persistent, and a persistent fault walks the downsize
-  ladder.  The port serves one card, so the ladder is the one rung
-  ``[(1, 1)]``: ``exhausted`` is true from the start, ``downsize``
-  returns False and the batcher switches to the CPU twin
-  (``DEVICE_WATCHDOG_CPU_FALLBACK``) or fails the group.  The
-  multi-device slice adds rungs here (``_reshard``);
+  ladder.  The port's ladder is one rung ``[(1, 1)]``: ``exhausted`` is
+  true from the start, ``downsize`` returns False and the batcher
+  switches to the CPU twin (``DEVICE_WATCHDOG_CPU_FALLBACK``) or fails
+  the group.  A mesh past one device serves (``parallel/``), but its
+  ladder (more rungs, ``_reshard``, the prober's upsize) waits for the
+  rest of the multi-device slice (ROADMAP queue 1, item 9);
 * ``DeviceFaultPlan`` is the deterministic injection seam: one
   ``random.Random(seed)`` drawn once per dispatch in dispatch order, or a
   script replayed verbatim.  ``hang`` sleeps ``hang_ms`` (the watchdog's
@@ -355,16 +356,16 @@ class MeshFaultManager:
 
     def build_ladder(self) -> List[tuple]:
         """Declare the ladder: dp halving from the full shape toward 1, tp
-        preserved.  The port serves one card: the full shape must be
-        1x1, and the ladder is that one rung."""
+        preserved.  The port's ladder is one rung: the full shape must be
+        1x1 (a larger mesh serves without the fault manager)."""
         if self._rungs:
             return [(r.dp, r.tp) for r in self._rungs]
         dp, tp = self.full_shape
         if dp * tp * self.sp != 1:
             raise ValueError(
                 f"MeshFaultManager: shape {dp}x{tp} spans more than one "
-                "device; the port serves one card until its multi-device "
-                "slice (ROADMAP queue 1, item 9)"
+                "device; the fault ladder past one rung waits for the rest "
+                "of the multi-device slice (ROADMAP queue 1, item 9)"
             )
         device = getattr(self.embedder, "device", None)
         self._rungs = [_Rung(dp, tp, [device])]

@@ -81,9 +81,10 @@ the fleet tier (``FLEET_SELF``, ``FLEET_PEERS``, ``FLEET_PEERS_FILE``,
 live weights and the offline lane (``WEIGHTS_ENABLED``, ``WEIGHTS_PATH``:
 ``GET``/``PUT /v1/weights``; ``OFFLINE_ENABLED``, ``OFFLINE_INFLIGHT``:
 ``POST /v1/train/rescore``), device faults (``DEVICE_WATCHDOG_CPU_FALLBACK``:
-the CPU twin; ``MESH_ENABLED``, ``MESH_SHAPE``, ``MESH_FAULT_*``,
-``DEVICE_FAULT_PLAN``; the legacy ``MESH_DP``/``MESH_TP``/``MESH_SP`` and
-``LONG_CONTEXT_WARMUP`` are refused past one card) and ``PROFILE_DIR``
+the CPU twin; ``MESH_FAULT_*``, ``DEVICE_FAULT_PLAN``), the serving mesh
+(``MESH_ENABLED``, ``MESH_SHAPE``, ``LONG_CONTEXT_WARMUP``, the legacy
+``MESH_DP``/``MESH_TP``/``MESH_SP``: one process drives every local
+card; ``MULTIHOST`` forms the process group first) and ``PROFILE_DIR``
 (``POST /v1/profile``).  With an
 embedder, a training-table panel's weights come from
 ``TorchTrainingTableFetcher`` on the served embedder and batcher (the tables loaded from
@@ -124,10 +125,87 @@ from .config import packing_options  # noqa: F401  (the server's env API)
 log = logging.getLogger("lwc.torch.serve")
 
 
-def build_embedder(env, device=None, dtype=None):
+def mesh_settings(env) -> dict:
+    """The mesh knobs of the environment, parsed as ``ServeConfig`` does
+    (which also refuses their bad combinations)."""
+    from .config import _parse_mesh_shape
+
+    return {
+        "enabled": env_truthy(env.get("MESH_ENABLED", "0")),
+        "shape": _parse_mesh_shape(env.get("MESH_SHAPE")),
+        "dp": int(env["MESH_DP"]) if env.get("MESH_DP") else None,
+        "tp": int(env.get("MESH_TP", 1)),
+        "sp": int(env["MESH_SP"]) if env.get("MESH_SP") else None,
+    }
+
+
+def mesh_devices_for(device) -> list:
+    """The devices a server's mesh may take: every local card for a CUDA
+    server, the CPU for a CPU one.  Never a list that repeats a card."""
+    import torch
+
+    from ..parallel.mesh import local_devices
+
+    if torch.device(device).type == "cuda":
+        return local_devices()
+    return [torch.device("cpu")]
+
+
+def build_mesh(settings: dict, devices: list):
+    """The first-class mesh of ``MESH_ENABLED`` (``MESH_SHAPE``, unset =
+    every device on dp) over ``devices``: host-local, as the reference's
+    (a request must be servable without another host's cooperation).  A
+    shape past the devices fails with the reference's message."""
+    from ..parallel.mesh import make_mesh
+
+    shape = settings["shape"]
+    return make_mesh(
+        dp=shape[0] if shape else None,
+        tp=shape[1] if shape else 1,
+        sp=shape[2] if shape and len(shape) > 2 else 1,
+        devices=devices,
+    )
+
+
+def shard_for_env(embedder, settings: dict, devices: list) -> None:
+    """The reference's three mesh branches: ``MESH_ENABLED`` (the
+    first-class mesh), the legacy ``MESH_SP`` ring and the legacy
+    ``MESH_DP``/``MESH_TP`` hooks; none of them leaves the embedder on
+    its one device."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.ring import shard_embedder_sp
+    from ..parallel.sharding import shard_embedder, shard_embedder_mesh
+
+    if settings["enabled"]:
+        mesh = build_mesh(settings, devices)
+        shard_embedder_mesh(embedder, mesh)
+    elif settings["sp"] is not None:
+        if settings["tp"] > 1:
+            raise ValueError(
+                "MESH_SP and MESH_TP are mutually exclusive (sequence "
+                "parallelism replicates encoder params)"
+            )
+        # MESH_DP unset = every device not consumed by sp
+        mesh = make_mesh(dp=settings["dp"], tp=settings["sp"],
+                         devices=devices, names=("dp", "sp"))
+        dp = mesh.shape["dp"]
+        shard_embedder_sp(embedder, mesh, dp_axis="dp" if dp > 1 else None)
+    elif settings["dp"] is not None or settings["tp"] > 1:
+        mesh = make_mesh(dp=settings["dp"], tp=settings["tp"],
+                         devices=devices)
+        shard_embedder(embedder, mesh, tp=settings["tp"] > 1)
+    else:
+        return
+    log.info("embedder mesh: %s", mesh.layout())
+
+
+def build_embedder(env, device=None, dtype=None, mesh_devices=None):
     """A ``TorchEmbedder`` from the environment (see module doc).
     Synthetic state — random weights or the hash tokenizer — embeds
-    garbage that looks valid, so it needs ``LWC_ALLOW_RANDOM_PARAMS``."""
+    garbage that looks valid, so it needs ``LWC_ALLOW_RANDOM_PARAMS``.
+    The mesh knobs (``MESH_*``) shard it over ``mesh_devices`` (default:
+    ``mesh_devices_for(device)``; a caller may pass a list that repeats
+    one card, so that several shards share it)."""
     from ..models.bert import resolve_device
     from ..models.configs import PRESETS
     from ..models.embedder import TorchEmbedder
@@ -150,18 +228,28 @@ def build_embedder(env, device=None, dtype=None):
     if weights:
         model = load_params(weights, config, dtype=dtype, device=device)
         vocab = vocab or find_vocab(weights)
-    max_tokens = int(env.get("EMBEDDER_MAX_TOKENS") or 512)
+    settings = mesh_settings(env)
+    max_tokens = env.get("EMBEDDER_MAX_TOKENS")
+    if not max_tokens:
+        from ..models.configs import usable_positions
+
+        # MESH_SP exists to serve long inputs: a default of 512 would
+        # truncate exactly the documents it is configured for
+        max_tokens = (usable_positions(config)
+                      if settings["sp"] is not None else 512)
     embedder = TorchEmbedder(
         name,
         model=model,
         config=config,
         tokenizer=load_tokenizer(vocab) if vocab else None,
-        max_tokens=max_tokens,
+        max_tokens=int(max_tokens),
         device=device,
         dtype=dtype,
         quantize=quantize,
         staging_buffers=staging_buffers(env),
     )
+    shard_for_env(embedder, settings, mesh_devices
+                  if mesh_devices is not None else mesh_devices_for(device))
     synthetic = []
     if model is None:
         synthetic.append("random-init weights (no EMBEDDER_WEIGHTS)")
@@ -226,11 +314,13 @@ def _check_quantize(var: str, quantize: str) -> None:
         )
 
 
-def build_reranker(env, device=None, dtype=None):
+def build_reranker(env, device=None, dtype=None, mesh_devices=None):
     """A ``TorchReranker`` from the environment (see module doc), or None
     without ``RM_MODEL``.  Synthetic state — random weights, a random
     reward head or the hash tokenizer — scores garbage that looks valid,
-    so it needs ``LWC_ALLOW_RANDOM_PARAMS``."""
+    so it needs ``LWC_ALLOW_RANDOM_PARAMS``.  Under ``MESH_ENABLED`` its
+    params go on the mesh (``shard_reranker_mesh``; its batch stays
+    unsharded)."""
     name = env.get("RM_MODEL")
     if not name:
         return None
@@ -270,6 +360,13 @@ def build_reranker(env, device=None, dtype=None):
         quantize=quantize,
         staging_buffers=staging_buffers(env),
     )
+    settings = mesh_settings(env)
+    if settings["enabled"]:
+        from ..parallel.sharding import shard_reranker_mesh
+
+        shard_reranker_mesh(reranker, build_mesh(
+            settings, mesh_devices if mesh_devices is not None
+            else mesh_devices_for(device)))
     synthetic = []
     if model is None:
         synthetic.append("random-init RM weights (no RM_WEIGHTS)")
@@ -495,8 +592,9 @@ def build_server(embedder, reranker, config: ServeConfig,
     from .config import score_caches
     from .gateway import Server
 
-    if embedder is not None:
-        # the reference's mesh labels: one card is the 1x1 shape
+    if embedder is not None and not embedder.mesh_mode:
+        # the reference's mesh labels: an embedder the mesh never placed
+        # is the 1x1 shape
         embedder.label_suffix = "@dp1xtp1" if config.mesh_enabled else ""
     for note in config.inert_knob_notes():
         log.warning("%s", note)
@@ -720,7 +818,8 @@ def warm_up(server, config: ServeConfig) -> list:
     """Capture the configured buckets' CUDA graphs, then turn the server
     ready (``/readyz`` 200).  Returns [(label, seconds)]."""
     timings = server.warmup(config.warmup, config.warmup_r,
-                            config.packed_buckets(), config.rm_warmup)
+                            config.packed_buckets(), config.rm_warmup,
+                            ring_buckets=config.long_context_warmup)
     for label, seconds in timings:
         log.info("warmup %s in %.2fs", label, seconds)
     return timings
@@ -742,6 +841,10 @@ def main(argv=None) -> int:
 
     load_dotenv()
     env = process_env()
+    # MULTIHOST: the process group forms before any mesh is built
+    from ..parallel.dist import maybe_initialize_distributed
+
+    maybe_initialize_distributed(env, device=args.device)
     fake = None
     if args.fake_upstream:
         from .fake_upstream import FakeUpstream

@@ -51,6 +51,20 @@ Every dispatch is bracketed by the watchdog (``begin`` at its start,
 ``end`` at readiness).  ``utilization()`` and ``lane_occupancy()`` have
 the reference's keys; ``close()`` drains before it stops.
 
+The ring kinds (``ring_embed``, ``ring_vote``): on an embedder whose
+mesh carries an sp axis (``ring_available``), a request with a text past
+the dense token window (``max_tokens``) rides the long-context ring
+dispatch instead of truncating, as the reference routes it.  Routing
+keys off the text: ``len(text) + 2`` bounds its token count, so a request
+under the window in characters stays dense at no cost, and only a longer
+one pays a precise tokenization (``tokenize_ring``); an explicit
+``max_tokens`` at or under the window is a truncation request and stays
+dense.  Ring embeds group by their cap and make one
+``embed_tokens_ring`` per group, bypassing the embed cache (its keys
+assume dense truncation); each ring vote item is one
+``consensus_confidence_tokens_ring`` dispatch.  On the CPU twin (no sp
+mesh) both fall back to the dense kinds' dispatches.
+
 The ``stream`` kind (``submit_stream``, the reference's ``stream_update``)
 carries one streaming-consensus update: a live stream's newly finished
 candidate, its device-resident buffer and its position.  Updates group by
@@ -78,7 +92,9 @@ the reference's does.  ``_submit`` makes the ``batcher:{kind}`` child of
 the ambient span (``queue_depth``, ``lane`` on the offline lane,
 ``shed="queue_full"`` or ``"deadline"`` on a shed), each dispatch gives
 every traced item of its group a ``device:dispatch`` child (``kind``,
-``batch_size``) bracketing what the watchdog brackets, and the packed
+``batch_size``, and under ``MESH_FAULT_ENABLED`` the ``mesh_epoch`` the
+dispatch was stamped with) bracketing what the watchdog brackets, and the
+packed
 path stamps each item's share of the group's ``pack_plan_ms`` and
 ``host_tally_ms``.  The device span finishes on the waiter thread before
 the item's future resolves; the batcher span finishes when the caller
@@ -174,7 +190,8 @@ class _Item:
 
     def __init__(self, kind, key, payload, deadline=None, lane="latency",
                  per_row=False, span=None):
-        self.kind = kind  # "consensus", "embed" or "stream"
+        # "consensus", "embed", "stream", "ring_embed" or "ring_vote"
+        self.kind = kind
         self.key = key
         # consensus: (texts, temperature); embed: (texts, max_tokens);
         # stream: (text, buf, position, temperature, want_conf)
@@ -390,8 +407,14 @@ class DeviceBatcher:
     def submit_consensus(
         self, texts, temperature: float = 0.05, priority: str = "latency"
     ) -> Future:
-        """-> Future of (confidence[N] np.ndarray, prompt token count)."""
+        """-> Future of (confidence[N] np.ndarray, prompt token count).
+        Over-length candidates on an sp mesh ride the ring (module doc)."""
         texts = list(texts)
+        if self._route_ring(texts):
+            return self._submit(
+                "ring_vote", ("ring_vote", len(texts), float(temperature)),
+                (texts, float(temperature)), priority,
+            )
         key = (
             PACKED_KEY if self.packing
             else ("consensus", len(texts), float(temperature))
@@ -408,6 +431,9 @@ class DeviceBatcher:
         count).  Padded embedding requests group by ``max_tokens``.  With
         an ``embed_cache``, rows resolve through it first (module doc)."""
         texts = list(texts)
+        if self._route_ring(texts, max_tokens):
+            return self._submit("ring_embed", ("ring_embed", max_tokens),
+                                (texts, max_tokens), priority)
         cache = self.embed_cache
         if cache is None or not cache.enabled or not texts:
             return self._submit("embed", self._embed_key(max_tokens),
@@ -416,6 +442,20 @@ class DeviceBatcher:
 
     def _embed_key(self, max_tokens):
         return PACKED_KEY if self.packing else ("embed", max_tokens)
+
+    def _route_ring(self, texts: list, max_tokens=None) -> bool:
+        """Whether this request rides the ring dispatch (module doc)."""
+        embedder = self.embedder
+        if not texts or not getattr(embedder, "ring_available",
+                                    lambda: False)():
+            return False
+        cap = embedder.max_tokens
+        if max_tokens is not None and int(max_tokens) <= cap:
+            return False
+        if all(len(t) + 2 <= cap for t in texts):
+            return False
+        _, mask = embedder.tokenize_ring(texts, max_tokens)
+        return int(mask.sum(axis=1).max(initial=0)) > cap
 
     def _submit_embed_cached(self, texts, max_tokens, priority) -> Future:
         """The reference's per-row cache path of ``embed`` on threads:
@@ -710,9 +750,11 @@ class DeviceBatcher:
                                              len(group))
             return
         else:
-            self._kind_dispatches[key[0]] += 1
+            # the ring kinds show once they have run
+            self._kind_dispatches[key[0]] = (
+                self._kind_dispatches.get(key[0], 0) + 1)
         for item in group:
-            self._requests[item.kind] += 1
+            self._requests[item.kind] = self._requests.get(item.kind, 0) + 1
         self._largest_group = max(self._largest_group, len(group))
 
     @staticmethod
@@ -847,18 +889,19 @@ class DeviceBatcher:
             )
         # one device child per traced item, bracketing what the watchdog
         # brackets: staging, the launch and readiness on the waiter
-        for item in group:
-            if item.span is not None:
-                item.dspan = item.span.child(
-                    "device:dispatch", kind=item.kind,
-                    batch_size=len(group))
-        wd = (self.watchdog.begin(self._est_kind(group[0]))
-              if self.watchdog is not None else None)
         # the branch and the shape epoch this dispatch is stamped with: a
         # fault hands the epoch to ``downsize``, and a twin's failure is
         # never classified
         twin = self._use_fallback and self.fallback_embedder is not None
         epoch = self.meshfault.epoch if self.meshfault is not None else None
+        extra = {"mesh_epoch": epoch} if epoch is not None else {}
+        for item in group:
+            if item.span is not None:
+                item.dspan = item.span.child(
+                    "device:dispatch", kind=item.kind,
+                    batch_size=len(group), **extra)
+        wd = (self.watchdog.begin(self._est_kind(group[0]))
+              if self.watchdog is not None else None)
         try:
             staged = self._dispatch(group, twin)
             self._waiters.submit(self._await_group, group, staged, t0,
@@ -1064,6 +1107,10 @@ class DeviceBatcher:
             return self.embedder.tokenize(texts, cap)
         if kind == "stream":
             return self.embedder.tokenize([payload[0]])
+        if kind == "ring_embed":
+            return self.embedder.tokenize_ring(*payload)
+        if kind == "ring_vote":
+            return self.embedder.tokenize_ring(payload[0])
         return self.embedder.tokenize(payload[0])
 
     def _prepared_rows(self, group: list, embedder):
@@ -1159,6 +1206,60 @@ class DeviceBatcher:
             return [(conf_np[i], int(tokens[i])) for i in range(r)]
 
         return finalize
+
+    # -- long-context ring dispatches --------------------------------------------
+
+    def _dispatch_ring_embed(self, group: list, embedder):
+        """Over-length embed items -> full-length vectors from one
+        ``embed_tokens_ring``; on the twin, the dense dispatch."""
+        if not embedder.ring_available():
+            return self._dispatch_embed(group, embedder)
+        max_tokens = group[0].payload[1]
+        counts = [len(item.texts) for item in group]
+        prepared = self._prepared_rows(group, embedder)
+        if prepared is not None:
+            ids, mask = prepared
+        else:
+            ids, mask = embedder.tokenize_ring(
+                [t for item in group for t in item.texts], max_tokens)
+        self._count(
+            _pad_real_tokens=mask.sum(),
+            _pad_slot_tokens=embedder._pad_to(
+                _bucket(ids.shape[0], embedder.MAX_DEVICE_BATCH))
+            * ids.shape[1],
+        )
+        emb = embedder.embed_tokens_ring(ids, mask)
+        row_tokens = mask.sum(axis=1)
+
+        def finalize() -> list:
+            vecs = _value(emb)
+            out, start = [], 0
+            for count in counts:
+                stop = start + count
+                out.append((vecs[start:stop], row_tokens[start:stop]))
+                start = stop
+            return out
+
+        return finalize
+
+    def _dispatch_ring_vote(self, group: list, embedder):
+        """Over-length consensus items, one
+        ``consensus_confidence_tokens_ring`` dispatch each (no grouped
+        ring vote, as in the reference); on the twin, the dense
+        dispatch."""
+        if not embedder.ring_available():
+            return self._dispatch_consensus(group, embedder)
+        staged = []
+        for item in group:
+            if item.prepared is not None:
+                ids, mask = item.prepared.result()  # re-raises its errors
+            else:
+                ids, mask = embedder.tokenize_ring(item.texts)
+            self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)
+            conf = embedder.consensus_confidence_tokens_ring(
+                ids, mask, item.payload[1])
+            staged.append((conf, int(mask.sum())))
+        return lambda: [(_value(conf), tok) for conf, tok in staged]
 
     def _dispatch_stream(self, group: list, embedder):
         """R streams' updates in one dispatch; only the wanted

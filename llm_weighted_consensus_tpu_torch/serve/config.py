@@ -80,22 +80,33 @@ clamps and error messages (``_parse_warmup``, ``_parse_warmup_r``):
 Device fault domains (``resilience/meshfault.py``), the reference's
 knobs, defaults and refusals:
 
-* ``MESH_ENABLED`` — the first-class serving mesh.  The port serves one
-  card, so it takes the one-device shape ``1x1`` (the reference's
-  "``MESH_SHAPE`` unset = every local device on dp" on a one-card host),
-  and its device labels carry ``@dp1xtp1``.  Default 0;
+* ``MESH_ENABLED`` — the first-class serving mesh
+  (``parallel.sharding.shard_embedder_mesh``): the embedder's model
+  placed once by the partition-rule tables, batch rows over ``dp``,
+  encoder layers tensor-parallel over ``tp``, graph keys and device
+  labels per mesh shape (``@dp{dp}xtp{tp}``).  The mesh is host-local:
+  one process drives every local card.  Default 0;
 * ``MESH_SHAPE`` — ``DPxTP`` or ``DPxTPxSP`` (needs ``MESH_ENABLED``);
-  a shape spanning more than one device is refused: that is the
-  multi-device slice (ROADMAP queue 1, item 9);
-* ``MESH_DP`` / ``MESH_TP`` / ``MESH_SP`` (the legacy hooks) and
-  ``LONG_CONTEXT_WARMUP`` (ring buckets) — read and refused past one
-  card, for the same reason (``MESH_TP=1`` is accepted);
+  unset = every local card on dp.  The sp axis adds the long-context
+  ring dispatch (``parallel/ring.py``): over-length requests ride it
+  instead of truncating.  A shape past the local cards fails at build
+  with the reference's message (``mesh 4x2 needs 8 devices, have 1``);
+* ``MESH_DP`` / ``MESH_TP`` — the legacy hooks: the embedder over a (dp,
+  tp) mesh, no warmed graphs and no packing; ``MESH_SP`` — the legacy
+  ring (``/embeddings`` over an sp mesh, mutually exclusive with
+  ``MESH_TP``).  All three exclude ``MESH_ENABLED``;
+* ``LONG_CONTEXT_WARMUP`` — ring buckets as ``NxS`` specs (e.g.
+  ``4x4096,1x8192``), warmed at startup; needs ``MESH_SHAPE=DPxTPxSP``;
+* ``MULTIHOST`` — form the ``torch.distributed`` group at startup
+  (``parallel/dist.py``: ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``,
+  ``PROCESS_ID``);
 * ``MESH_FAULT_ENABLED`` — classify dispatch failures (transient /
   persistent / an application error), retry a transient one on the same
   shape and escalate a streak to persistent; a persistent fault with the
   one-rung ladder spent switches to the CPU twin when there is one, else
-  fails its group.  Needs ``MESH_ENABLED``.  The ``meshfault`` /metrics
-  section counts it.  Default 0;
+  fails its group.  Needs ``MESH_ENABLED``, and a shape of one device:
+  the ladder past one rung is refused (ROADMAP queue 1, item 9).  The
+  ``meshfault`` /metrics section counts it.  Default 0;
 * ``MESH_FAULT_TRANSIENT_RETRIES`` — consecutive transient faults retried
   before the streak escalates.  Default 2;
 * ``MESH_FAULT_PROBE_MILLIS`` — the recovery prober's period (0 = none;
@@ -513,12 +524,10 @@ def _parse_mesh_shape(raw) -> Optional[tuple]:
     return tuple(parts)
 
 
-# the one-card refusals' common tail (the port's divergence from the
-# reference until its multi-device slice)
-ONE_CARD = (
-    "the port serves one card; meshes past one device, the legacy "
-    "MESH_DP/MESH_TP/MESH_SP hooks and ring buckets wait for its "
-    "multi-device slice (ROADMAP queue 1, item 9)"
+# the tail of the port's one divergence from the reference's mesh knobs
+LADDER_PENDING = (
+    "the fault ladder past one rung (downsize, re-shard, upsize) waits "
+    "for the rest of the multi-device work (ROADMAP queue 1, item 9)"
 )
 
 
@@ -973,21 +982,16 @@ class ServeConfig:
                 "ladder is exhausted — enabling it without the ladder "
                 "would collapse the mesh to one CPU on the first trip"
             )
-        # the one-card refusals: loud, never a silent ignore
+        # the one refusal the reference does not make: its downsize ladder
+        # past one rung is not in the port yet
         shape = self.mesh_shape or (1, 1)
-        if shape[0] * shape[1] * (shape[2] if len(shape) > 2 else 1) > 1:
+        if self.mesh_fault_enabled and (
+            shape[0] * shape[1] * (shape[2] if len(shape) > 2 else 1) > 1
+        ):
             raise ValueError(
-                f"MESH_SHAPE={'x'.join(map(str, shape))} spans more than "
-                f"one device: {ONE_CARD}"
+                f"MESH_FAULT_ENABLED=1 over MESH_SHAPE="
+                f"{'x'.join(map(str, shape))}: {LADDER_PENDING}"
             )
-        if self.mesh_dp is not None:
-            raise ValueError(f"MESH_DP={self.mesh_dp} is refused: {ONE_CARD}")
-        if self.mesh_tp > 1:
-            raise ValueError(f"MESH_TP={self.mesh_tp} is refused: {ONE_CARD}")
-        if self.mesh_sp is not None:
-            raise ValueError(f"MESH_SP={self.mesh_sp} is refused: {ONE_CARD}")
-        if self.long_context_warmup:
-            raise ValueError(f"LONG_CONTEXT_WARMUP is refused: {ONE_CARD}")
 
     def _check_fleet(self) -> None:
         """The reference's refusals of the ``FLEET_*`` knobs, in its

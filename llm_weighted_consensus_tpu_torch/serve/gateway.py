@@ -1033,11 +1033,7 @@ class Server:
         self.lifecycle.admission = self.admission
         register_performance(self.metrics, _roofline_gauge(embedder))
         if mesh and embedder is not None:
-            self.metrics.register_provider("mesh", lambda: {
-                "enabled": True, "dp": 1, "tp": 1, "sp": 1, "devices": 1,
-                "ring": False, "ring_max_tokens": None,
-                "aot_buckets": embedder.graph_stats()["graphs"],
-            })
+            self.metrics.register_provider("mesh", embedder.mesh_stats)
         if self.meshfault is not None:
             self.metrics.register_provider("meshfault",
                                            self.meshfault.snapshot)
@@ -1165,13 +1161,15 @@ class Server:
         return self.httpd.server_address[1]
 
     def warmup(self, specs=(), r_buckets=(), packed_buckets=(),
-               rm_specs=()) -> list:
+               rm_specs=(), ring_buckets=()) -> list:
         """Capture the CUDA graphs of every configured bucket
-        (``TorchEmbedder.warmup``, ``TorchReranker.warmup``), then turn
-        ready.  Returns [(label, seconds)]."""
+        (``TorchEmbedder.warmup``, ``TorchReranker.warmup``; the ring
+        buckets of an sp mesh), then turn ready.  Returns [(label,
+        seconds)]."""
         timings = []
         if self.embedder is not None:
-            timings += self.embedder.warmup(specs, r_buckets, packed_buckets)
+            timings += self.embedder.warmup(specs, r_buckets, packed_buckets,
+                                            ring_buckets)
         if self.reranker is not None:
             timings += self.reranker.warmup(rm_specs)
         self.lifecycle.mark_ready()

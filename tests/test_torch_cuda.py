@@ -40,6 +40,18 @@ input that requires grad under grad mode.  Device faults: a real
 allocation past the card's memory classifies transient, and a CPU twin's
 dispatch completes while a ``torch.cuda._sleep`` spin occupies the card
 (its answers within 1e-5 of the card's f32 ones, no kernel launched).
+The mesh (shards sharing the one card, or taking distinct cards where
+there are): bge-base's tensor-parallel forward at tp 2 against the
+one-device forward on the card, f32 1e-5 and bf16 2e-2 (row-split
+partials reduced in f32, cast once, against bf16 outputs rounded per
+GEMM); under int8 in f32 |Δ| <= 2e-2 and cosine >= 0.999 (the shared
+row scale makes the shards' int8 rows the one-device layer's, but an
+f32 ulp of a reduced partial can flip one int8 rounding of the next
+layer's activations); the ring at sp 4 against the one-device forward, f32
+1e-4, with every tp attention on the ``tma`` route in bf16; the
+reward model's tensor-parallel layers and head (deberta-v3-base, f32,
+tp 2) against one device 1e-4 + 1e-4 |want| (the f32 partials' sums in
+another order, through 12 layers).
 """
 
 import os
@@ -1770,3 +1782,139 @@ def test_a_twin_dispatch_does_not_queue_behind_a_busy_card(card):
         assert b.utilization()["fallback_dispatches"] == 1
     assert busy and answered < spin, (answered, spin)
     np.testing.assert_allclose(conf, want, atol=1e-5)
+
+
+# -- the mesh ---------------------------------------------------------------------
+
+
+def _card_mesh(dp, tp, sp=1):
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+
+    n = dp * tp * sp
+    cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n)] if cards >= n
+               else [torch.device("cuda", 0)] * n)
+    return make_mesh(dp=dp, tp=tp, sp=sp, devices=devices)
+
+
+def _base_tokens(b, s, seed):
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, 30000, (b, s)).astype(np.int32))
+    mask = torch.ones((b, s), dtype=torch.int32)
+    mask[1, s // 2:] = 0
+    return ids.cuda(), mask.cuda()
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_tp_forward_on_the_card_matches_one_device(card, dtype, tol):
+    from llm_weighted_consensus_tpu_torch.models import bert, configs
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_bert_params,
+    )
+
+    model = bert.init_params(configs.BGE_BASE, seed=0,
+                             dtype=getattr(torch, dtype), device=card)
+    ids, mask = _base_tokens(4, 128, 1)
+    placed = shard_bert_params(model, _card_mesh(2, 2))
+    before = dict(attention.attention.routes)
+    with torch.inference_mode():
+        want = bert.embed(model, ids, mask)
+        got = bert.embed_mesh(placed, ids, mask)
+    torch.cuda.synchronize()
+    assert float((got - want.to(got.device)).abs().max()) <= tol
+    if dtype == "bfloat16":
+        delta = attention.attention.routes["tma"] - before["tma"]
+        # 12 layers: the one-device forward and two dp rows x two shards
+        assert delta == 12 * (1 + 4)
+
+
+def test_tp_forward_int8_on_the_card_matches_one_device(card):
+    from llm_weighted_consensus_tpu_torch.models import bert, configs
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_bert_params,
+    )
+
+    model = bert.init_params(configs.BGE_BASE, seed=0, dtype=torch.float32,
+                             device=card)
+    quant.quantize_encoder(model, "int8")
+    ids, mask = _base_tokens(4, 64, 2)
+    placed = shard_bert_params(model, _card_mesh(1, 2))
+    with torch.inference_mode():
+        want = bert.embed(model, ids, mask)
+        got = bert.embed_mesh(placed, ids, mask).to(want.device)
+    # an f32 ulp of a reduced partial can flip one int8 rounding of the
+    # next layer's activations: the quantized path's bars, not 1e-5
+    assert float((got - want).abs().max()) <= 2e-2
+    assert float(torch.nn.functional.cosine_similarity(got, want).min()) \
+        >= 0.999
+
+
+def test_packed_tp_forward_on_the_card_matches_one_device(card):
+    from llm_weighted_consensus_tpu_torch.models import bert, configs
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_bert_params,
+    )
+
+    model = bert.init_params(configs.BGE_BASE, seed=0, dtype=torch.bfloat16,
+                             device=card)
+    rng = np.random.default_rng(5)
+    b, l = 4, 128
+    ids = torch.from_numpy(rng.integers(1, 30000, (b, l)).astype(np.int32))
+    # three segments of 40 tokens and 8 pad slots a row
+    seg = np.repeat([1, 2, 3, 0], [40, 40, 40, 8])[None].repeat(b, 0)
+    pos = np.concatenate([np.arange(40)] * 3 + [np.zeros(8, np.int64)])
+    starts = torch.tensor([[0, 40, 80]] * b, dtype=torch.int32)
+    seg, pos = (torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                for x in (seg, pos[None].repeat(b, 0)))
+    ids, seg, pos, starts = (t.to(card) for t in (ids, seg, pos, starts))
+    placed = shard_bert_params(model, _card_mesh(2, 2))
+    before = dict(attention.segment_attention.routes)
+    with torch.inference_mode():
+        want = bert.embed_packed(model, ids, seg, pos, starts)
+        got = bert.embed_packed_mesh(placed, ids, seg, pos, starts)
+    torch.cuda.synchronize()
+    got = got.to(want.device)
+    assert float((got - want).abs().max()) <= 2e-2
+    assert float(torch.nn.functional.cosine_similarity(
+        got.flatten(0, 1), want.flatten(0, 1)).min()) >= 0.999
+    # 12 layers: the one-device forward and two dp rows x two tp shards,
+    # each shard's 6 heads on the TMA route
+    delta = attention.segment_attention.routes["tma"] - before["tma"]
+    assert delta == 12 * (1 + 4)
+
+
+def test_ring_on_the_card_matches_one_device(card):
+    from llm_weighted_consensus_tpu_torch.models import bert, configs
+    from llm_weighted_consensus_tpu_torch.parallel.ring import ring_embed
+
+    cfg = configs.BertConfig(hidden_size=256, num_layers=2, num_heads=4,
+                             intermediate_size=1024,
+                             max_position_embeddings=2048)
+    model = bert.init_params(cfg, seed=0, dtype=torch.float32, device=card)
+    ids, mask = _base_tokens(2, 2048, 3)
+    with torch.inference_mode():
+        want = bert.embed(model, ids, mask)
+        got = ring_embed(model, ids, mask, _card_mesh(1, 1, sp=4))
+    assert float((got - want.to(got.device)).abs().max()) <= 1e-4
+
+
+def test_reward_model_tp_on_the_card_matches_one_device(card):
+    from llm_weighted_consensus_tpu_torch.models import configs, deberta
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        deberta_partition_rules,
+        shard_by_rules,
+    )
+
+    cfg = configs.DEBERTA_V3_BASE
+    model = deberta.init_params(cfg, seed=0, dtype=torch.float32,
+                                device=card)
+    ids, mask = _base_tokens(4, 64, 4)
+    ids = ids % cfg.vocab_size
+    placed = shard_by_rules(model, _card_mesh(1, 2),
+                            deberta_partition_rules())
+    with torch.inference_mode():
+        want = deberta.reward(model, ids, mask)
+        got = deberta.reward_mesh(placed, ids, mask)
+    torch.testing.assert_close(got, want.to(got.device), atol=1e-4,
+                               rtol=1e-4)

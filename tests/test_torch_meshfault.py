@@ -48,7 +48,7 @@ from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 from llm_weighted_consensus_tpu_torch.resilience.deadline import Deadline
 from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
 from llm_weighted_consensus_tpu_torch.serve.config import (
-    ONE_CARD,
+    LADDER_PENDING,
     ServeConfig,
 )
 from llm_weighted_consensus_tpu_torch.serve.gateway import Server
@@ -608,8 +608,9 @@ REFUSED = {
         **MESH, "DEVICE_WATCHDOG_MILLIS": "1000",
         "DEVICE_WATCHDOG_CPU_FALLBACK": "1"},
 }
-# the one deliberate divergence: the reference accepts these (a mesh, the
-# legacy hooks, ring buckets), the port refuses them past one card
+# meshes, the legacy hooks and ring buckets: both packages accept the
+# knobs; on a host with one device both refuse to build the mesh, with the
+# reference's make_mesh message (its make_mesh call beside each)
 ONE_CARD_REFUSED = {
     "mesh 4x2": {**MESH, "MESH_SHAPE": "4x2"},
     "mesh 1x1x2": {**MESH, "MESH_SHAPE": "1x1x2"},
@@ -618,6 +619,14 @@ ONE_CARD_REFUSED = {
     "legacy dp": {"MESH_DP": "2"},
     "legacy tp": {"MESH_TP": "2"},
     "legacy sp": {"MESH_SP": "2"},
+}
+REF_MAKE_MESH = {
+    "mesh 4x2": dict(dp=4, tp=2),
+    "mesh 1x1x2": dict(dp=1, tp=1, sp=2),
+    "ring mesh": dict(dp=2, tp=2, sp=2),
+    "legacy dp": dict(dp=2, tp=1),
+    "legacy tp": dict(dp=None, tp=2),
+    "legacy sp": dict(dp=None, tp=2, names=("dp", "sp")),
 }
 
 
@@ -650,11 +659,36 @@ def test_refused_knobs_are_refused_as_the_reference_does(env):
 
 @pytest.mark.parametrize("env", list(ONE_CARD_REFUSED.values()),
                          ids=list(ONE_CARD_REFUSED))
-def test_the_port_refuses_more_than_one_card(env):
-    RefConfig.from_env(env)  # the reference serves these
+def test_mesh_knobs_parse_as_the_references(env):
+    ref, port = RefConfig.from_env(env), ServeConfig.from_env(env)
+    for name in FIELDS:
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("case", list(ONE_CARD_REFUSED))
+def test_the_port_refuses_more_than_one_card(case):
+    """On a host with one device the mesh these knobs ask for cannot be
+    built: the port refuses at build with the reference's message."""
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_embedder,
+    )
+
+    with pytest.raises(ValueError) as want:
+        make_mesh(devices=jax.devices()[:1], **REF_MAKE_MESH[case])
+    env = {**ONE_CARD_REFUSED[case], "EMBEDDER_MODEL": "test-tiny",
+           "LWC_ALLOW_RANDOM_PARAMS": "1"}
+    ServeConfig.from_env(env)
+    with pytest.raises(ValueError) as got:
+        build_embedder(env, device="cpu")  # the CPU is one device
+    assert str(got.value) == str(want.value)
+
+
+def test_the_fault_ladder_past_one_device_is_refused():
+    env = {**MESH, "MESH_SHAPE": "2x1", "MESH_FAULT_ENABLED": "1"}
+    RefConfig.from_env(env)  # the reference walks its ladder
     with pytest.raises(ValueError) as got:
         ServeConfig.from_env(env)
-    assert ONE_CARD in str(got.value) and "item 9" in str(got.value)
+    assert LADDER_PENDING in str(got.value) and "item 9" in str(got.value)
 
 
 def test_a_malformed_plan_is_refused_when_the_server_builds_it():
