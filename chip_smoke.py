@@ -341,7 +341,7 @@ Phases, each printing one JSON line:
    for every card bucket that ran, and both Prometheus families.
 
 17. bench path (``llm_weighted_consensus_tpu_torch/bench/``): each bench
-   of ``BENCH_RUNS`` in a subprocess with its own time limit, two lanes
+   of ``BENCH_LANES`` in a subprocess with its own time limit, three lanes
    at once: ``headline`` (bge-large, N=64, s=128, none and int8),
    ``configs --quick --single-run`` (BASELINE configs 1-5, the int8
    headline, the learning effect), ``fwd``, ``attn``, ``http`` (the trio,
@@ -374,15 +374,17 @@ Phases, each printing one JSON line:
    ``FLEET_DRAIN_KEYS`` fresh keys it owns, drains (``fleet_handoff_entries``
    > 0) and closes; each key at its post-drain owner then costs 0 judge
    calls.  Then ``bench http --fleet`` and ``--fleet-partition`` in
-   subprocesses, their records held to ``BENCH_KEYS`` and their acceptance
-   (warm ``upstream_calls`` 0, hot 1; under the partition no dirty frame
-   and at most one fan-out per component).  The round p50s, the
-   per-replica ``fleet`` counters and the seconds are printed.
+   subprocesses, one after the other, their records held to ``BENCH_KEYS``
+   and their acceptance (warm ``upstream_calls`` 0, hot 1; under the
+   partition no dirty frame and at most one fan-out per component).  The
+   round p50s, the per-replica ``fleet`` counters and the seconds are
+   printed.
 
-20. mesh path (``parallel/``): (a) the main path's bursts (3 x 8
+20. mesh path (``parallel/``): (a) the main path's bursts (2 x 8
    ``/consensus`` of N=64 at s=128, and one embedding request) through a
    ``DeviceBatcher`` over ``shard_embedder_mesh`` at ``MESH_SHAPES``
-   (2x1, 1x2, 2x2, and 1x2 under ``int8``; bge-large, random weights
+   (2x1, and packed 1x2; the 1x2 and 2x2 meshes, bf16 and int8, are
+   phase 21's ladder rungs; bge-large, random weights
    from seed 0, bf16): the shards share the card where it is the only
    one and take distinct cards where there are enough; on one card the
    buckets are warmed (one CUDA graph per bucket holding every shard)
@@ -401,6 +403,28 @@ Phases, each printing one JSON line:
    MESH_SHAPE=1x2``: serving (``/metrics`` counts the mesh) on two
    cards, the reference's ``make_mesh`` refusal on one.  Each part
    prints its layout (cards, shards per card, backend).
+
+21. ladder path (``resilience/meshfault.py`` past one rung, training on
+   a mesh, the mesh audit, the mesh benches): (a0) the attention (tma)
+   at the ladder's shard shapes and the int8 rungs' row quantisation and
+   W8A8 (tma) against their plain versions; (a) bge-large on a 4x2 mesh
+   over the card at bf16 (and under int8 on 2x2), ``warm_ladder`` over
+   the burst bucket and the probe's, then scripted persistent faults
+   walk every rung through a ``DeviceBatcher`` (4x2 -> 2x2 -> 1x2), the
+   spent ladder refuses and the probe upsizes: each rung's answers and
+   burst vectors held to the one-device run beside their controls, 0
+   captures and 0 eager dispatches after the warmup, the launches to the
+   replays, the epochs and faulted shards the reference manager's, the
+   rescale hooks 0.5 first and 1.0 last; p50 and graph pool per rung and
+   the seconds from the fault to the first answer on the smaller rung;
+   (b) one f32 bge-large InfoNCE step on 2x2 and one deberta-v3-base
+   Bradley-Terry step on 2x1 against one device (loss, gradients and
+   parameters, ``MESH_TRAIN_RTOL``), ``fit_weights`` at dp 4 over a
+   ragged record count (``MESH_FIT_TOL``), no kernel launched; (c) the
+   analysis CLI with the mesh audit (JXA006-013), exit 0 and no finding,
+   run beside (a) and (b); (d) ``bench scaling`` (dp 1/2/4), ``bench
+   attn --long-seq`` (512 and 2048) and ``bench http --mesh-faults``
+   (phases A-C) in subprocesses.
 
 Then one JSON line with every kernel's numbers (phase 9's graphed
 launches beside the earlier paths'), the nvidia-smi line, and
@@ -680,21 +704,40 @@ PROFILE_MARGIN_S = 0.05
 # (int8: 6.40e-4) against >= 1.78e-3 between two candidates of a
 # request; the ring's vectors <= 8.63e-5 against >= 2.35e-2, its vote
 # 1.24e-4 against a uniform-answer control of 1.39e-2
-MESH_SHAPES = (("2x1", "none"), ("1x2", "none"), ("2x2", "none"),
-               ("1x2", "int8"), ("1x2", "packed"))
+# phase 20 serves 2x1 and packed 1x2: the 1x2 and 2x2 meshes, bf16 and
+# int8, are phase 21's ladder rungs, which serve the same bursts with the
+# same readings (cut here to keep the script within its time limit)
+MESH_SHAPES = (("2x1", "none"), ("1x2", "packed"))
 # the shapes a shard of those bursts gives the kernels (part a0): the
-# attention's [b, s, heads] at 2x1 (dp halves the rows), 1x2 (tp halves
-# the heads) and 2x2; the packed 1x2 burst's segment attention at the
-# bucket with tp's 8 heads; the int8 1x2 mesh's rows (8 x 64 x 128) and
-# its (K, N, split, GELU): q/k/v and MLP in column-split (N/tp), the
-# attention output and MLP out row-split (K/tp)
-MESH_ATTENTION_SHAPES = ((256, 128, 16), (512, 128, 8), (256, 128, 8))
+# attention's [b, s, heads] at 2x1 (dp halves the rows); the packed 1x2
+# burst's segment attention at the bucket with tp's 8 heads; the int8
+# tp=2 rows' (K, N, split, GELU), checked by phase 21 at its int8
+# rungs' rows: q/k/v and MLP in column-split (N/tp), the attention
+# output and MLP out row-split (K/tp)
+MESH_ATTENTION_SHAPES = ((256, 128, 16),)
 MESH_SEG_HEADS = 8
-MESH_QUANT_M = BURST * N_CANDIDATES * 128
 MESH_QUANT_SHAPES = ((1024, 512, "column", False),
                      (1024, 2048, "column", True),
                      (1024, 1024, "row", False), (4096, 1024, "row", False))
-MESH_BURSTS = 3
+MESH_BURSTS = 2
+# phase 21: the fault ladder (bf16 on 4x2, int8 on 2x2), its probe's
+# bucket, the shard shapes its dispatches give the kernels, the epochs and
+# faulted shards the reference's manager reaches on the same script (after
+# each rung's bursts, then after the upsize; tests/test_torch_meshfault.py
+# holds the port's manager to the reference's), training on a mesh
+LADDER_SHAPE, LADDER_INT8_SHAPE, LADDER_PROBE = (4, 2), (2, 2), (8, 32)
+LADDER_BURSTS = 2
+LADDER_ATTENTION_SHAPES = ((128, 128, 8), (256, 128, 8), (512, 128, 8),
+                           (2, 32, 8), (4, 32, 8), (8, 32, 8))
+LADDER_QUANT_M = (BURST * N_CANDIDATES * 128,  # 1x2's bursts
+                  BURST * N_CANDIDATES * 128 // 2,  # 2x2's bursts
+                  4 * LADDER_PROBE[1])  # 2x2's probe: 8 rows over dp
+LADDER_EXPECT = {
+    (4, 2): ([0, 1, 2, 3], [[], [4, 5, 6, 7], [4, 5, 6, 7, 2, 3], []]),
+    (2, 2): ([0, 1, 2], [[], [2, 3], []]),
+}
+MESH_TRAIN_SHAPE, MESH_TRAIN_RTOL = (8, 64), 1e-4
+MESH_FIT_RECORDS, MESH_FIT_TOL = 23, 1e-5
 MESH_CONF_TOL = 2e-4
 MESH_VEC_TOL = {"none": 4e-4, "packed": 4e-4, "int8": 1e-3}
 RING_LENGTHS, RING_VOTE_N = (4096, 8192), 4
@@ -8290,7 +8333,7 @@ def fault_path(gpu: str, device: str = "cuda",
 # -- phase 17: the benches ----------------------------------------------------------
 
 # (label, bench argv, time limit s, the record kinds it prints in order),
-# in two lanes run at once: a bench's figures here are a gate's, not a
+# in three lanes run at once: a bench's figures here are a gate's, not a
 # measurement's (PERF.md's come from the benches run alone)
 BENCH_LANES = (
     (
@@ -8299,15 +8342,17 @@ BENCH_LANES = (
         ("headline_int8", ["headline", "--quantize", "int8", "--requests",
                            "20", "--latency-requests", "10"], 300,
          ["headline"]),
-        ("fwd", ["fwd"], 240, ["fwd"]),
-        ("attn", ["attn"], 180,
-         ["attn_row"] * 7 + ["attn"]),
         ("host", ["host", "--requests", "20"], 180, ["host"]),
     ),
     (
         ("configs", ["configs", "--quick", "--single-run"], 600,
          ["config1", "config2", "config3", "config4", "config5", "config7",
           "config6"]),
+        ("fwd", ["fwd"], 240, ["fwd"]),
+        ("attn", ["attn"], 180,
+         ["attn_row"] * 7 + ["attn"]),
+    ),
+    (
         ("http", ["http", "--quick", "--requests", "16"], 300,
          ["/consensus", "/score/completions", "/multichat/completions"]),
         ("http_trace", ["http", "--trace-overhead", "--quick",
@@ -8485,7 +8530,7 @@ def bench_launches(records: list) -> dict:
 
 
 def bench_path(gpu, device: str = "cuda", lanes=BENCH_LANES) -> dict:
-    """Phase 17: every bench in a subprocess, two lanes at once; one row
+    """Phase 17: every bench in a subprocess, three lanes at once; one row
     per run (exit code, records, seconds) and the launches the records
     report.  ``device="cpu"`` (with small ``lanes``) rehearses the
     control flow."""
@@ -8618,15 +8663,17 @@ class AnalysisUpstream:
 
 
 def analysis_cli(device: str) -> dict:
-    """(a) ``python -m llm_weighted_consensus_tpu_torch.analysis --json``
-    in a subprocess over the port's package, the dispatch audit's CPU
-    half included: exit 0, no finding, seconds by part."""
+    """(a) ``python -m llm_weighted_consensus_tpu_torch.analysis
+    --no-mesh --json`` in a subprocess over the port's package, the
+    dispatch audit's CPU half included (the mesh audit runs in phase 21):
+    exit 0, no finding, seconds by part."""
     import subprocess
 
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.analysis",
-         "--json"], cwd=os.path.dirname(os.path.abspath(__file__)),
+         "--no-mesh", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
         capture_output=True, text=True, timeout=ANALYSIS_CLI_LIMIT_S)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -8639,7 +8686,8 @@ def analysis_cli(device: str) -> dict:
             "lint_s": out["lint_seconds"],
             "concurrency_s": out["concurrency_seconds"],
             "audit_s": out["audit_seconds"],
-            "baselined": len(out["suppressed"]), "mesh": out["mesh"]["reason"]}
+            "baselined": len(out["suppressed"]),
+            "mesh": "run by phase 21 (c)"}
 
 
 def analysis_traffic(srv, bursts, scores, model_name, packed=None) -> dict:
@@ -9078,23 +9126,15 @@ def fleet_counts(judges, servers, emb) -> dict:
 
 def fleet_benches(gpu, device, on_card) -> dict:
     """``bench http --fleet`` and ``--fleet-partition`` in subprocesses,
-    side by side: their records' keys and the reference's acceptance."""
-    import threading
-
-    runs = {}
+    one after the other: their records' keys and the reference's
+    acceptance.  Not side by side: the partition bench's peer legs time
+    out at 150 ms, and a leg lost to a busy host strands its lease until
+    TTL (a healthy warm round of ~3 requests/s with upstream calls)."""
     argvs = {"fleet": ["http", "--fleet"],
              "fleet_partition": ["http", "--fleet-partition"]}
-
-    def one(kind):
-        runs[kind] = run_bench(
-            kind, [*argvs[kind], "--requests", str(FLEET_BENCH_REQUESTS)],
-            FLEET_BENCH_LIMIT_S, device)
-
-    threads = [threading.Thread(target=one, args=(k,)) for k in argvs]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    runs = {kind: run_bench(
+        kind, [*argv, "--requests", str(FLEET_BENCH_REQUESTS)],
+        FLEET_BENCH_LIMIT_S, device) for kind, argv in argvs.items()}
     out = {}
     for kind, run in runs.items():
         if run["rc"] != 0 or run["bad_lines"] or len(run["records"]) != 1:
@@ -9512,43 +9552,20 @@ def check_mesh_readings(what: str, got: dict) -> None:
         raise AssertionError(f"mesh {what}: {'; '.join(bad)}: {got}")
 
 
-def check_mesh_kernels(gpu: str) -> dict:
-    """(a0) Every kernel the mesh bursts launch, at the shapes a shard
-    gives it there, against its plain version on the card: the attention
-    (tma) at each shard's [b, 128, heads, 64] (``MESH_ATTENTION_SHAPES``),
-    the segment attention (tma) at the packed bucket's per-shard
-    [8, 512, 8, 64], and, for the int8 mesh, the row quantisation and the
-    W8A8 GEMM (tma) at its rows (``MESH_QUANT_M``): the column-split
-    shards N/tp = 512 (q, k, v) and 2048 (MLP in, GELU) at K = 1024, and
-    the row-split shards K/tp = 512 (attention out) and 2048 (MLP out) at
-    N = 1024, quantised with the full row's scale (``row_scale``), their
-    partial products in f32."""
+def mesh_quant_rows(m: int) -> list:
+    """The row quantisation and the W8A8 GEMM (tma) at ``m`` rows of every
+    tp-shard shape of bge-large's int8 layers at tp = 2
+    (``MESH_QUANT_SHAPES``), against their plain versions."""
     import torch
 
     from llm_weighted_consensus_tpu_torch.models.quant import quantize_weight
     from llm_weighted_consensus_tpu_torch.ops import kernels
 
-    hd = 64
-    attn_rows = []
-    for b, s, nh in MESH_ATTENTION_SHAPES:
-        q, k, v, bias = attention_inputs(b, s, nh, hd, torch.bfloat16,
-                                         seed=b + nh)
-        err, u_err = attention_err(q, k, v, bias, hd ** -0.5, "tma",
-                                   f"mesh shard b={b} s={s} nh={nh}")
-        attn_rows.append({"shape": [b, s, nh, hd], "max_abs_err": err,
-                          "all_pad_row_err": u_err})
-        del q, k, v, bias
-    b, s = SEG_BUCKET
-    q, k, v, seg = segment_case(b, s, MESH_SEG_HEADS, hd, torch.bfloat16,
-                                seed=b * s)
-    seg_err = segment_err(q, k, v, seg, hd ** -0.5, "tma",
-                          f"mesh shard b={b} s={s} nh={MESH_SEG_HEADS}")
-    del q, k, v, seg
     gen = torch.Generator(device="cuda").manual_seed(20)
     quant_rows = []
     for k_full, n, split, gelu in MESH_QUANT_SHAPES:
         kk = k_full // 2 if split == "row" else k_full
-        x_full = torch.randn(MESH_QUANT_M, k_full, generator=gen,
+        x_full = torch.randn(m, k_full, generator=gen,
                              device="cuda").to(torch.bfloat16)
         x = x_full[:, :kk].contiguous()
         scale = None
@@ -9571,23 +9588,50 @@ def check_mesh_kernels(gpu: str) -> dict:
         taken = [r for r, c in kernels.w8a8_matmul.routes.items()
                  if c != before[r]]
         dtype = "float32" if split == "row" else "bfloat16"
-        what = f"mesh W8A8 {split}-split M={MESH_QUANT_M} K={kk} N={n}"
+        what = f"mesh W8A8 {split}-split M={m} K={kk} N={n}"
         if taken != ["tma"] or got.dtype != want.dtype:
             raise AssertionError(f"{what}: took {taken}, {got.dtype}")
         if not (torch.equal(xq, want_q) and torch.equal(sx, want_sx)):
             raise AssertionError(f"{what}: the row quantisation differs "
                                  "from its plain version")
         err = quant_err(got, want, what, dtype)
-        quant_rows.append({"split": split, "m": MESH_QUANT_M, "k": kk,
+        quant_rows.append({"split": split, "m": m, "k": kk,
                            "n": n, "gelu": gelu, "out": dtype,
                            "route": "tma", "xq_equal": True,
                            "max_abs_err": err, "limit": QUANT_TOL[dtype]})
         del x, w, wq, xq, want_q, got, want
+    return quant_rows
+
+
+def check_mesh_kernels(gpu: str) -> dict:
+    """(a0) Every kernel the mesh bursts launch, at the shapes a shard
+    gives it there, against its plain version on the card: the attention
+    (tma) at each shard's [b, 128, heads, 64] (``MESH_ATTENTION_SHAPES``)
+    and the segment attention (tma) at the packed bucket's per-shard
+    [8, 512, 8, 64].  (The int8 tp shards' row quantisation and W8A8,
+    ``mesh_quant_rows``, are held by phase 21 at its rungs' rows.)"""
+    import torch
+
+    hd = 64
+    attn_rows = []
+    for b, s, nh in MESH_ATTENTION_SHAPES:
+        q, k, v, bias = attention_inputs(b, s, nh, hd, torch.bfloat16,
+                                         seed=b + nh)
+        err, u_err = attention_err(q, k, v, bias, hd ** -0.5, "tma",
+                                   f"mesh shard b={b} s={s} nh={nh}")
+        attn_rows.append({"shape": [b, s, nh, hd], "max_abs_err": err,
+                          "all_pad_row_err": u_err})
+        del q, k, v, bias
+    b, s = SEG_BUCKET
+    q, k, v, seg = segment_case(b, s, MESH_SEG_HEADS, hd, torch.bfloat16,
+                                seed=b * s)
+    seg_err = segment_err(q, k, v, seg, hd ** -0.5, "tma",
+                          f"mesh shard b={b} s={s} nh={MESH_SEG_HEADS}")
+    del q, k, v, seg
     out = {"part": "a0", "gpu": gpu, "attention": attn_rows,
            "attention_limit": ATTN_TOL["bfloat16"],
            "segment_attention": {"shape": [b, s, MESH_SEG_HEADS, hd],
-                                 "max_abs_err": seg_err},
-           "w8a8_and_quantize_rows": quant_rows}
+                                 "max_abs_err": seg_err}}
     emit({"phase": "mesh_path", **out})
     torch.cuda.empty_cache()
     return out
@@ -9625,12 +9669,14 @@ def mesh_traffic(gpu, device, model_name, dtype) -> dict:
     one = {"none": mesh_burst_run(base, bursts, embed_texts, False),
            "packed": mesh_burst_run(base, bursts[:1], embed_texts, False,
                                     **packing)}
-    int8_model = copy.deepcopy(base.model)
-    quant.quantize_encoder(int8_model, "int8")
-    one_int8 = TorchEmbedder(model_name, model=int8_model,
-                             config=int8_model.config, max_tokens=512,
-                             device=device, dtype=dtype)
-    one["int8"] = mesh_burst_run(one_int8, bursts, embed_texts, False)
+    int8_model = one_int8 = None
+    if any(mode == "int8" for _, mode in MESH_SHAPES):
+        int8_model = copy.deepcopy(base.model)
+        quant.quantize_encoder(int8_model, "int8")
+        one_int8 = TorchEmbedder(model_name, model=int8_model,
+                                 config=int8_model.config, max_tokens=512,
+                                 device=device, dtype=dtype)
+        one["int8"] = mesh_burst_run(one_int8, bursts, embed_texts, False)
     rows = []
     for shape, mode in MESH_SHAPES:
         dp, tp = (int(x) for x in shape.split("x"))
@@ -9962,10 +10008,575 @@ def mesh_path(gpu: str, device: str = "cuda",
     return {"a": a, "b": b, "c": c, "d": d, "launches": launches}
 
 
+# -- phase 21: the fault ladder, training on a mesh, the mesh audit and
+# the mesh benches ------------------------------------------------------------
+
+
+def ladder_kernels(gpu: str) -> dict:
+    """(a0) Every kernel at the shard shapes the ladder's dispatches give
+    it, against its plain version on the card: the attention (tma) at
+    ``LADDER_ATTENTION_SHAPES`` (the burst bucket's rows over dp at each
+    rung, the probe's), and the int8 ladder's row quantisation and W8A8
+    GEMM (tma) at its rungs' rows, the bursts' at 2x2 and 1x2 and the
+    probe's (``LADDER_QUANT_M``)."""
+    import torch
+
+    rows = []
+    for b, s, nh in LADDER_ATTENTION_SHAPES:
+        q, k, v, bias = attention_inputs(b, s, nh, 64, torch.bfloat16,
+                                         seed=b + s + nh)
+        err, u_err = attention_err(q, k, v, bias, 64 ** -0.5, "tma",
+                                   f"ladder shard b={b} s={s} nh={nh}")
+        rows.append({"shape": [b, s, nh, 64], "max_abs_err": err,
+                     "all_pad_row_err": u_err})
+        del q, k, v, bias
+    out = {"part": "a0", "gpu": gpu, "attention": rows,
+           "attention_limit": ATTN_TOL["bfloat16"],
+           "w8a8_and_quantize_rows": [
+               row for m in LADDER_QUANT_M for row in mesh_quant_rows(m)]}
+    emit({"phase": "ladder_path", **out})
+    torch.cuda.empty_cache()
+    return out
+
+
+def ladder_drive(batcher, bursts, marks=None) -> dict:
+    """Each burst's requests submitted at once, answered in full ->
+    answers {(burst, i): conf}, every request's latency, and (``marks``:
+    a list the rescale hook appends (scale, time) to) the seconds from the
+    first rung switch to the first answer after it."""
+    import numpy as np
+
+    answers, lat, first = {}, [], None
+    for k, burst in enumerate(bursts):
+        t0 = time.perf_counter()
+        done = {}
+        futures = []
+        for i, texts in enumerate(burst):
+            fut = batcher.submit_consensus(texts, 0.05)
+            fut.add_done_callback(
+                lambda f, i=i: done.setdefault(i, time.perf_counter()))
+            futures.append(fut)
+        for i, fut in enumerate(futures):
+            conf, _ = fut.result(600)
+            check_answer(conf, len(burst[i]))
+            answers[(k, i)] = np.asarray(conf)
+        lat += [(done[i] - t0) * 1e3 for i in range(len(burst))]
+        if marks and first is None:
+            switched = marks[0][1]
+            after = [t for t in done.values() if t >= switched]
+            if after:
+                first = min(after) - switched
+    return {"answers": answers, "lat": lat, "fault_to_answer_s": first}
+
+
+def ladder_walk(gpu, device, model_name, model, dtype, bursts, shape,
+                mode, one) -> dict:
+    """(a) One mesh embedder at ``shape`` over the card (its shards
+    sharing it), its ladder warmed over the burst bucket and the probe's;
+    scripted persistent faults walk every rung, each rung's bursts held
+    to the one-device run ``one`` (``mesh_readings``); past the last rung
+    ``downsize`` refuses and ``try_recover`` (the probe on the full rung)
+    upsizes.  The launch counts are set to 0 before the walk and read
+    after it; no graph is captured after the warmup and no dispatch runs
+    eager."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_embedder_mesh,
+    )
+    from llm_weighted_consensus_tpu_torch.resilience import (
+        DeviceFaultPlan,
+        MeshFaultManager,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dp, tp = shape
+    emb = TorchEmbedder(model_name, model=model, config=model.config,
+                        max_tokens=512, device=device, dtype=dtype)
+    mesh = make_mesh(dp=dp, tp=tp, devices=mesh_devices(dp * tp, device))
+    shard_embedder_mesh(emb, mesh)
+    mgr = MeshFaultManager(emb, shape=shape)
+    ladder = mgr.build_ladder()
+    n, r = len(bursts[0][0]), len(bursts[0])
+    pn, ps = LADDER_PROBE
+
+    def probe():
+        ids = np.zeros((pn, ps), np.int32)
+        mask = np.zeros((pn, ps), np.int32)
+        mask[:, 0] = 1
+        emb.consensus_confidence_tokens(ids, mask)
+
+    mgr.probe_fn = probe
+    scales, marks = [], []  # every rescale; this step's, with its time
+
+    def rescaled(x):
+        scales.append(x)
+        marks.append((x, time.perf_counter()))
+
+    mgr.rescale_hooks.append(rescaled)
+    t = time.perf_counter()
+    timings = mgr.warm_ladder([(n, 128)], r_buckets=[r])
+    timings += mgr.warm_ladder([LADDER_PROBE])
+    sync()
+    warm_s = time.perf_counter() - t
+    graphs0 = emb.graph_stats()
+    pools = {f"{d}x{tp_}": b for (d, tp_), b in
+             sorted(mgr.rung_pool_bytes.items(), reverse=True)}
+    rows, epochs, faulted = [], [], []
+    # replayed dispatches x the shards of the rung they ran on: each
+    # shard's layers launch once per replay (a faulted dispatch dies
+    # before it stages anything)
+    shard_calls = [0]
+
+    def counted(fn, *args):
+        before = emb.graph_stats()["replays"]
+        value = fn(*args)
+        d, t_ = mgr.current_shape
+        shard_calls[0] += (emb.graph_stats()["replays"] - before) * d * t_
+        return value
+
+    reset_launches()
+    with DeviceBatcher(emb, window_ms=100, max_batch=r,
+                       meshfault=mgr) as batcher:
+        for step, (rung_dp, rung_tp) in enumerate(ladder):
+            marks.clear()
+            if step:
+                # the next dispatch dies as a lost card's would: the
+                # batcher downsizes and re-dispatches on the warmed rung
+                mgr.fault_plan = DeviceFaultPlan.scripted(["persistent"])
+            run = counted(ladder_drive, batcher, bursts, marks)
+            mgr.fault_plan = None
+            snap = mgr.snapshot()
+            epochs.append(snap["epoch"])
+            faulted.append(list(snap["faulted_devices"]))
+            if tuple(snap["current_shape"]) != (rung_dp, rung_tp):
+                raise AssertionError(
+                    f"ladder {mode}: on {snap['current_shape']}, want "
+                    f"{rung_dp}x{rung_tp}")
+            out = {"answers": run["answers"], "burst_vecs": None}
+            rows.append({"rung": f"{rung_dp}x{rung_tp}", "run": run,
+                         "out": out})
+        exhausted = mgr.downsize() is False
+        recovered = counted(mgr.try_recover)  # the probe on the full rung
+        run = counted(ladder_drive, batcher, bursts)
+        rows.append({"rung": f"{dp}x{tp} recovered", "run": run,
+                     "out": {"answers": run["answers"], "burst_vecs": None}})
+        snap = mgr.snapshot()
+        epochs.append(snap["epoch"])
+        faulted.append(list(snap["faulted_devices"]))
+        sync()
+        launches = read_launches()
+        routes = read_routes()
+        graphs1 = emb.graph_stats()
+        stats = batcher.stats()
+    if not (exhausted and recovered):
+        raise AssertionError(f"ladder {mode}: exhausted {exhausted}, "
+                             f"recovered {recovered}")
+    if (graphs1["captures"] != graphs0["captures"]
+            or graphs1["eager_dispatches"] != graphs0["eager_dispatches"]):
+        raise AssertionError(f"ladder {mode}: captures or eager dispatches "
+                             f"after warm_ladder: {graphs0} -> {graphs1}")
+    want_epochs, want_faulted = LADDER_EXPECT[shape]
+    if epochs != want_epochs or faulted != want_faulted:
+        raise AssertionError(
+            f"ladder {mode}: epochs {epochs} / faulted {faulted}, the "
+            f"reference manager's {want_epochs} / {want_faulted}")
+    if scales[:1] != [0.5] or scales[-1:] != [1.0]:
+        raise AssertionError(f"ladder {mode}: rescales {scales}")
+    # each rung's burst vectors by the forward it serves, after the count
+    printed, vecs = [], {}
+    texts_flat = [t for req in bursts[0] for t in req]
+    for row in rows:
+        rung = row["rung"].split()[0]
+        if rung not in vecs:  # the recovered rung is the first one again
+            d, tp_ = (int(x) for x in rung.split("x"))
+            mgr._switch(mgr._rungs[ladder.index((d, tp_))])
+            vecs[rung] = np.asarray(emb.embed_texts(texts_flat))
+        row["out"]["burst_vecs"] = row["out"]["vecs"] = vecs[rung]
+        readings = mesh_readings(row["out"], {**one, "vecs": one[
+            "burst_vecs"]}, mode)
+        if on_card:
+            check_mesh_readings(f"ladder {mode} {row['rung']}", readings)
+        elif readings["conf_max_abs_err"] > MESH_CONF_TOL:
+            # a CPU rehearsal's tiny model reads its controls near 0
+            raise AssertionError(f"ladder {mode} {row['rung']}: {readings}")
+        printed.append({
+            "rung": row["rung"], **readings,
+            "p50_ms": float(np.median(row["run"]["lat"])),
+            "max_ms": float(max(row["run"]["lat"])),
+            "fault_to_answer_s": row["run"]["fault_to_answer_s"]})
+    mgr._switch(mgr._rungs[0])
+    per = shard_calls[0] * model.config.num_layers
+    int8 = on_card and mode == "int8"
+    expect = {"cosine_vote": 0, "attention": per if on_card else 0,
+              "segment_attention": 0,
+              "quantize_rows": 6 * per if int8 else 0,
+              "w8a8_matmul": 6 * per if int8 else 0, "w4a8_matmul": 0}
+    out = {"part": "a", "mesh": f"{dp}x{tp}", "mode": mode,
+           "ladder": [f"{d}x{t_}" for d, t_ in ladder],
+           "layout": mesh_layout(mesh), "warm_ladder_s": warm_s,
+           "warmed": len(timings), "rung_pool_bytes": pools,
+           "rungs": printed, "epochs": epochs, "faulted_devices": faulted,
+           "rescales": scales, "exhausted": exhausted,
+           "recovered": recovered, "captures_after_warm": 0,
+           "eager_dispatches": graphs1["eager_dispatches"],
+           "replays": graphs1["replays"] - graphs0["replays"],
+           "dispatches": stats["dispatches"], "launches": launches,
+           "routes": routes, "expected_launches": expect,
+           "one_device_p50_ms": one["p50_ms"]}
+    emit({"phase": "ladder_path", "gpu": gpu, **out})
+    if launches != expect or (on_card and not per):
+        raise AssertionError(f"ladder {mode}: launches {launches} != "
+                             f"{expect} (the fault's dispatch launches "
+                             "nothing: it dies before staging)")
+    del emb, mgr
+    return out
+
+
+def ladder_part(gpu, device, model_name, dtype) -> dict:
+    """(a) The ladder at bf16 on 4x2 and under int8 on 2x2, each against
+    the one-device run of the same bursts."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.models import quant
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+
+    rng = np.random.default_rng(21)
+    n, r = N_CANDIDATES, BURST
+    bursts = [[candidate_texts(rng, n, BURST_WORDS) for _ in range(r)]
+              for _ in range(LADDER_BURSTS)]
+    embed_texts = candidate_texts(rng, EMBED_N, EMBED_WORDS)
+    base = TorchEmbedder(model_name, seed=0, dtype=dtype, max_tokens=512,
+                         device=device)
+    one = mesh_burst_run(base, bursts, embed_texts, False)
+    rows = [ladder_walk(gpu, device, model_name, base.model, dtype, bursts,
+                        LADDER_SHAPE, "none", one)]
+    int8_model = copy.deepcopy(base.model)
+    quant.quantize_encoder(int8_model, "int8")
+    one_int8 = TorchEmbedder(model_name, model=int8_model,
+                             config=int8_model.config, max_tokens=512,
+                             device=device, dtype=dtype)
+    one8 = mesh_burst_run(one_int8, bursts[:1], embed_texts, False)
+    rows.append(ladder_walk(gpu, device, model_name, int8_model, dtype,
+                            bursts[:1], LADDER_INT8_SHAPE, "int8", one8))
+    del base, one_int8, int8_model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    launches = {name: sum(row["launches"][name] for row in rows)
+                for name in rows[0]["launches"]}
+    return {"rows": rows, "launches": launches}
+
+
+def close_step(name, model, before, loss, one_model, one_loss) -> dict:
+    """A mesh step against the one-device step from the same weights: the
+    loss within ``MESH_TRAIN_RTOL`` relative; every master gradient the
+    one-device gradient within ``MESH_TRAIN_RTOL`` of the largest one
+    plus 1e-3 relative (the tolerance of the trainers' gradient tests: a
+    gradient that is 0 in exact arithmetic is rounding noise in both);
+    every parameter after the step within ``MESH_TRAIN_RTOL`` of the
+    largest parameter; and every parameter with a gradient moved."""
+    import numpy as np
+
+    loss_err = abs(float(loss) - float(one_loss)) / abs(float(one_loss))
+    mine = dict(model.named_parameters())
+    grads = {k: p.grad.detach().float().cpu().numpy()
+             for k, p in one_model.named_parameters()}
+    g_scale = max(float(np.abs(g).max()) for g in grads.values())
+    scale = max(float(p.detach().abs().max())
+                for p in one_model.parameters())
+    worst, g_worst, still, missing = 0.0, 0.0, [], []
+    for key, p in one_model.named_parameters():
+        got = mine[key].detach().float().cpu().numpy()
+        want = p.detach().float().cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()))
+        if mine[key].grad is None:
+            missing.append(key)
+            continue
+        g = mine[key].grad.detach().float().cpu().numpy()
+        excess = np.abs(g - grads[key]) - 1e-3 * np.abs(grads[key])
+        g_worst = max(g_worst, float(excess.max()) / g_scale)
+        if (np.abs(grads[key]).max() > MESH_TRAIN_RTOL * g_scale
+                and np.abs(got - before[key]).max() == 0):
+            still.append(key)
+    row = {"loss": float(loss), "one_device_loss": float(one_loss),
+           "loss_rel_err": loss_err, "param_max_abs_err": worst,
+           "param_limit": MESH_TRAIN_RTOL * scale,
+           "grad_err_of_largest": g_worst, "grad_limit": MESH_TRAIN_RTOL,
+           "no_grad": missing, "unmoved": still}
+    if (loss_err > MESH_TRAIN_RTOL or worst > MESH_TRAIN_RTOL * scale
+            or g_worst > MESH_TRAIN_RTOL or missing or still):
+        raise AssertionError(f"mesh step {name}: {row}")
+    return row
+
+
+def mesh_step_case(gpu, name, cls, config, step, shape, mesh_shape, device,
+                   on_card) -> dict:
+    """One f32 step of ``step`` on ``mesh_shape`` (its shards sharing the
+    card) against the one-device step; ms per step of both; no kernel
+    launched."""
+    import numpy as np
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+
+    state = bert.random_state(cls, config, 0)
+    rng = np.random.default_rng(21)
+    b, s = shape
+    batch = [rng.integers(3, config.vocab_size, (b, s)), np.ones((b, s)),
+             rng.integers(3, config.vocab_size, (b, s)), np.ones((b, s))]
+    batch[1][b - 1, s // 2:] = 0
+    batch[3][0, s // 3:] = 0
+    batch = [np.asarray(a, np.int64) for a in batch]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dp, tp = mesh_shape
+    mesh = make_mesh(dp=dp, tp=tp, devices=mesh_devices(dp * tp, device))
+
+    def timed(model, **kw):
+        # lr 1e-5: a gradient that is 0 in exact arithmetic moves its
+        # parameter by up to lr on rounding noise, differently on each side
+        opt = train.make_optimizer(model, lr=1e-5)
+        sync()
+        t = time.perf_counter()
+        loss = step(model, opt, *batch, **kw)
+        sync()
+        return loss, (time.perf_counter() - t) * 1e3
+
+    reset_launches()
+    one = bert.trainable(cls, state, config, device=device)
+    one_loss, one_ms = timed(one)
+    model = bert.trainable(cls, state, config, device=device)
+    before = {k: v.detach().float().cpu().numpy().copy()
+              for k, v in model.named_parameters()}
+    loss, ms = timed(model, mesh=mesh)
+    launched = read_launches()
+    if any(launched.values()):
+        raise AssertionError(f"mesh step {name}: launched {launched}")
+    row = {"model": name, "mesh": f"{dp}x{tp}", "shape": list(shape),
+           "dtype": "float32", "ms_per_step": ms, "one_device_ms": one_ms,
+           **close_step(name, model, before, loss, one, one_loss),
+           "launches": launched}
+    emit({"phase": "ladder_path", "part": "b", "nvidia_smi": gpu, **row})
+    del one, model, state
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def mesh_fit_case(gpu, device) -> dict:
+    """``fit_weights`` at dp 4 over a ragged record count against the
+    one-device fit (``MESH_FIT_TOL``)."""
+    import numpy as np
+
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+    from llm_weighted_consensus_tpu_torch.train import fit
+
+    rng = np.random.default_rng(21)
+    r, j, n = MESH_FIT_RECORDS, 6, 5
+    votes = rng.random((r, j, n)).astype(np.float32)
+    votes /= votes.sum(axis=2, keepdims=True)
+    labels = rng.integers(0, n, r).astype(np.int32)
+    votes[np.arange(r), :3, labels] += 0.5  # three judges lean right
+    dataset = fit.Dataset(votes, np.ones((r, j), np.float32),
+                          np.ones((r, n), np.float32), labels,
+                          np.ones(r, np.float32),
+                          [f"judge-{k}" for k in range(j)],
+                          np.ones(j, np.float32), 0)
+    mesh = make_mesh(dp=4, tp=1, devices=mesh_devices(4, device))
+    t = time.perf_counter()
+    got = fit.fit_weights(dataset, steps=100, mesh=mesh)
+    mesh_s = time.perf_counter() - t
+    want = fit.fit_weights(dataset, steps=100, device=device)
+    err = float(np.abs(got - want).max())
+    row = {"records": r, "dp": 4, "max_abs_err": err, "limit": MESH_FIT_TOL,
+           "mesh_s": mesh_s}
+    emit({"phase": "ladder_path", "part": "b", "what": "fit_weights",
+          "nvidia_smi": gpu, **row})
+    if err > MESH_FIT_TOL:
+        raise AssertionError(f"fit_weights on a mesh: {row}")
+    return row
+
+
+def training_part(gpu, device, model_name, rm_name) -> dict:
+    """(b) bge-large InfoNCE on 2x2 and deberta-v3-base Bradley-Terry on
+    2x1 (f32, TF32 off), and the dp-4 fit."""
+    import torch
+
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert, deberta
+    from llm_weighted_consensus_tpu_torch.models.configs import PRESETS
+    from llm_weighted_consensus_tpu_torch.models.reranker import RM_PRESETS
+
+    on_card = device == "cuda"
+    if on_card and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 matmuls")
+    scale = 1 if on_card else 4
+    rows = [
+        mesh_step_case(gpu, model_name, bert.BertEncoder, PRESETS[model_name],
+                       train.contrastive_train_step,
+                       (MESH_TRAIN_SHAPE[0], MESH_TRAIN_SHAPE[1] // scale),
+                       (2, 2), device, on_card),
+        mesh_step_case(gpu, rm_name, deberta.DebertaModel,
+                       RM_PRESETS[rm_name], train.reward_train_step,
+                       (MESH_TRAIN_SHAPE[0], MESH_TRAIN_SHAPE[1] // scale),
+                       (2, 1), device, on_card),
+        mesh_fit_case(gpu, device),
+    ]
+    return {"rows": rows}
+
+
+def start_mesh_audit_cli():
+    """(c) ``python -m llm_weighted_consensus_tpu_torch.analysis
+    --no-jaxpr --json`` (the lint, the concurrency audit and the mesh
+    audit, JXA006-013, over ``[cpu] * 8``) started in the background, on
+    two host threads, to run beside (a) and (b) (``mesh_audit_cli``
+    reads it)."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return (subprocess.Popen(
+        [sys.executable, "-m", "llm_weighted_consensus_tpu_torch.analysis",
+         "--no-jaxpr", "--json"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env), time.perf_counter())
+
+
+def mesh_audit_cli(started=None) -> dict:
+    """(c) The CLI's result: exit 0, no finding, the mesh audit run."""
+    proc, t0 = started or start_mesh_audit_cli()
+    try:
+        stdout, stderr = proc.communicate(timeout=ANALYSIS_CLI_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis CLI exit {proc.returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    if out["findings"] or out["stale_baseline"] or not out["mesh_run"]:
+        raise AssertionError(f"analysis CLI: {out}")
+    row = {"part": "c", "rc": proc.returncode, "wall_s": wall,
+           "findings": 0, "mesh_s": out["mesh_seconds"],
+           "lint_s": out["lint_seconds"],
+           "concurrency_s": out["concurrency_seconds"]}
+    emit({"phase": "ladder_path", **row})
+    return row
+
+
+def mesh_benches(gpu, device, model_name) -> dict:
+    """(d) ``bench scaling`` (dp 1/2/4), ``bench attn --long-seq`` (512
+    and 2048) and ``bench http --mesh-faults`` (phases A-C), each in a
+    subprocess, all three at once as phase 17 runs its lanes: exit 0,
+    the final record's figures finite, the answers held to one device, no
+    error in any fault phase."""
+    import threading
+
+    on_card = device == "cuda"
+    model = model_name if on_card else "test-tiny"
+    lanes = (
+        (("scaling", ["scaling", "--model", model, "--dps", "1,2,4",
+                      "--n", str(N_CANDIDATES), "--workers", "2",
+                      "--requests-per-worker", "1", "--max-tokens", "128"],
+          600),),
+        (("attn_long", ["attn", "--long-seq", "--long-seqs", "512,2048"],
+          300),),
+        (("mesh_faults", ["http", "--mesh-faults", "--quick", "--model",
+                          model], 600),),
+    )
+    runs = []
+
+    def lane(specs):
+        for label, argv, limit_s in specs:
+            runs.append(run_bench(label, argv, limit_s, device))
+
+    threads = [threading.Thread(target=lane, args=(specs,))
+               for specs in lanes]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    out = {}
+    for run in runs:
+        if run["rc"] != 0 or not run["records"]:
+            raise AssertionError(f"bench {run['label']}: rc {run['rc']} "
+                                 f"{run['stderr_tail']}")
+        record = run["records"][-1]
+        if on_card and record.get("device") != gpu:
+            raise AssertionError(f"bench {run['label']}: device "
+                                 f"{record.get('device')!r}")
+        out[run["label"]] = {"record": record, "seconds": run["seconds"]}
+    scaling = out["scaling"]["record"]
+    # (the dispatches per request follow the threads' grouping, which the
+    # record reports; each answer is held to one device in the bench)
+    if not all(r["matches_single_device"] and _finite_positive(
+            r["answers_per_sec"]) for r in scaling["rows"]):
+        raise AssertionError(f"bench scaling: {scaling}")
+    long_seq = out["attn_long"]["record"]
+    if set(long_seq["results"]) != {"s=512", "s=2048"}:
+        raise AssertionError(f"bench attn --long-seq: {long_seq}")
+    faults = out["mesh_faults"]["record"]
+    mf = faults["meshfault"]
+    if (any(faults[p]["errors"] for p in ("healthy", "degraded",
+                                          "recovered"))
+            or (mf["downsizes"], mf["upsizes"]) != (1, 1)
+            or not faults["readyz_during"][1].get("degraded_mesh")
+            or faults["graphs"]["eager_dispatches"]):
+        raise AssertionError(f"bench http --mesh-faults: {faults}")
+    emit({"phase": "ladder_path", "part": "d", "gpu": gpu, **out})
+    return {"records": out}
+
+
+def ladder_path(gpu: str, device: str = "cuda",
+                model_name: str = "bge-large-en",
+                rm_name: str = "deberta-v3-base") -> dict:
+    """Phase 21: (a) the fault ladder, (b) training on a mesh, (c) the
+    mesh audit through the analysis CLI (in a subprocess beside (a) and
+    (b)), (d) the mesh benches.  Any failure fails the script.  (``device="cpu"`` with test-tiny and the
+    tiny DeBERTa rehearses the control flow.)"""
+    import torch
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    t = {}
+    cli = start_mesh_audit_cli()
+    try:
+        t0 = time.perf_counter()
+        if device == "cuda":  # the kernels have no CPU rehearsal
+            ladder_kernels(gpu)
+        a = ladder_part(gpu, device, model_name, dtype)
+        t["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = training_part(gpu, device, model_name, rm_name)
+        t["b"] = time.perf_counter() - t0
+    except BaseException:
+        cli[0].kill()
+        cli[0].communicate()
+        raise
+    t0 = time.perf_counter()
+    c = mesh_audit_cli(cli)
+    t["c (its wait after b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = mesh_benches(gpu, device, model_name)
+    t["d"] = time.perf_counter() - t0
+    out = {"phase": "ladder_path", "gpu": gpu, "seconds_by_part": t,
+           "launches": a["launches"]}
+    emit(out)
+    return {"a": a, "b": b, "c": c, "d": d, "launches": a["launches"]}
+
+
 def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
                    packed, rm, serving, counts, multichat, score,
                    archived, traced, resilient, learning, fault,
-                   bench, analysis, fleet, mesh) -> dict:
+                   bench, analysis, fleet, mesh, ladder) -> dict:
     """The kernels line: every kernel of the paths, with its launches
     from the run of the path that takes it (the main path, the int8
     path, the int4 path, the packed path; the row quantisation runs on
@@ -10002,7 +10613,10 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
     phase 20 ``mesh_path_launches`` to every main entry (the mesh
     bursts' and the ring's launches: every tp shard's attention, the
     int8 mesh's W8A8 and row quantisation, the packed mesh's segment
-    attention; the vote 0, since the mesh votes with the sharded vote).
+    attention; the vote 0, since the mesh votes with the sharded vote),
+    and phase 21 ``ladder_path_launches`` (the fault ladder's bursts and
+    probe on every rung: every tp shard's attention, the int8 ladder's
+    W8A8 and row quantisation; the vote and the segment attention 0).
     Each entry also gives ``graphed_launches``: its launches in phase 9's
     graphed run of the path that takes it, every one of them replayed
     from a CUDA graph or eager at a bucket not warmed (the vote and the
@@ -10218,6 +10832,8 @@ def kernel_summary(vote, attn_rows, quant, launches, q8, q4, seg,
         if fleet["launches"].get(entry["name"]):
             entry["fleet_path_launches"] = fleet["launches"][entry["name"]]
         entry["mesh_path_launches"] = mesh["launches"].get(entry["name"], 0)
+        entry["ladder_path_launches"] = ladder["launches"].get(
+            entry["name"], 0)
         if entry["name"] == "segment_attention":
             entry["traced_path_launches"] = traced["packed"]["launches"][
                 "segment_attention"]
@@ -10313,12 +10929,13 @@ def main() -> int:
     analysis = timed("analysis_path", analysis_path, gpu)
     fleet = timed("fleet_path", fleet_path, gpu)
     mesh = timed("mesh_path", mesh_path, gpu)
+    ladder = timed("ladder_path", ladder_path, gpu)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit(kernel_summary(vote, attn_rows, quant, main_row["launches"], q8, q4,
                         seg, packed["row"], rm, serving, counts, multichat,
                         score, archived, traced, resilient, learning, fault,
-                        bench, analysis, fleet, mesh))
+                        bench, analysis, fleet, mesh, ladder))
     print(gpu)
     emit({
         "ok": True,

@@ -18,13 +18,18 @@ One CLI (``python -m llm_weighted_consensus_tpu_torch.analysis``) runs:
   counterpart of the reference's jaxpr audit): the aten ops of one
   dispatch of each served kind, recorded on the CPU, and on the card the
   enqueue under CUDA's sync debug mode, the graph bookkeeping and the
-  kernels' routes.
+  kernels' routes;
+* **the mesh audit** (``mesh_audit.py``, JXA006–JXA013) over
+  ``[cpu] * 8``: the rule tables' coverage and replication, the
+  collective plan, the committed shard budgets (``budgets.py``,
+  ``budgets.json``), parity with one device, the fault ladder's warmed
+  rungs and the roofline rows.
 
 Findings are :class:`~.engine.Finding` objects; intentional deviations
 live in ``analysis/baseline.json`` with a written ``reason``, and the CLI
 fails on any non-baselined finding and on stale baseline entries.  The
 lint imports nothing heavy (stdlib ``ast`` only); torch is imported only
-when the dispatch audit runs.
+when the dispatch or the mesh audit runs.
 
 The performance half: the per-bucket speed-of-light roofline
 (``roofline.py``, committed as ``roofline.json``), the FLOP and byte

@@ -2,9 +2,10 @@
 
 Counterpart of ``python -m llm_weighted_consensus_tpu.analysis``, over
 the port's package.  Runs the AST lint, the concurrency audit (LWC014–
-016) as its own timed pass, then the dispatch audit's CPU half
-(``dispatch_audit.py``, unless skipped), applies ``baseline.json``, and
-reports.
+016) as its own timed pass, the dispatch audit's CPU half
+(``dispatch_audit.py``) and the mesh audit (``mesh_audit.py``,
+JXA006-013 over ``[cpu] * 8``), each unless skipped, applies
+``baseline.json``, and reports.
 
 Exit codes, as the reference's: **0** clean (every finding baselined or
 none), **1** non-baselined findings, **2** baseline problems (a stale
@@ -13,20 +14,17 @@ deleted — or an entry missing its mandatory ``reason``).
 
 Flags/env, under the reference's names: ``--no-jaxpr`` or
 ``ANALYSIS_SKIP_JAXPR=1`` skips the dispatch audit, the port's
-counterpart of the jaxpr audit (lint stays; without the audit the CLI
-never imports torch); ``--no-concurrency`` or
-``ANALYSIS_SKIP_CONCURRENCY=1`` skips LWC014–016; ``--baseline PATH`` /
-``ANALYSIS_BASELINE`` overrides the baseline file; ``--rules
-LWC001,...`` restricts lint rules; ``--json`` emits machine-readable
-findings; positional paths lint specific files instead of the whole
-package.  The dispatch audit's knobs (``ANALYSIS_JAXPR_MODEL`` /
-``_SPECS`` / ``_R_BUCKETS`` / ``_PACKED_BUCKETS``) are documented in
-``dispatch_audit.py``.  ``--no-mesh``, ``ANALYSIS_SKIP_MESH`` and the
-mesh audit's knobs (``ANALYSIS_MESH_*``, ``ANALYSIS_BUDGETS``,
-``ANALYSIS_ROOFLINE``) are accepted so that scripts written for the
-reference keep working; the mesh audit and its budgets wait for the rest
-of the multi-device slice (ROADMAP queue 1, item 9), and the report says
-so rather than skipping it in silence.
+counterpart of the jaxpr audit; ``--no-mesh`` or ``ANALYSIS_SKIP_MESH=1``
+skips the mesh audit (without both audits the CLI never imports torch);
+``--no-concurrency`` or ``ANALYSIS_SKIP_CONCURRENCY=1`` skips LWC014–016;
+``--baseline PATH`` / ``ANALYSIS_BASELINE`` overrides the baseline file;
+``--rules LWC001,...`` restricts lint rules; ``--json`` emits
+machine-readable findings; positional paths lint specific files instead
+of the whole package.  The dispatch audit's knobs
+(``ANALYSIS_JAXPR_MODEL`` / ``_SPECS`` / ``_R_BUCKETS`` /
+``_PACKED_BUCKETS``) are documented in ``dispatch_audit.py``, the mesh
+audit's (``ANALYSIS_MESH_*``, ``ANALYSIS_BUDGETS``,
+``ANALYSIS_ROOFLINE``) in ``mesh_audit.py``.
 """
 
 from __future__ import annotations
@@ -45,43 +43,11 @@ from .engine import (
     run_lint,
 )
 
-# the reference's mesh-audit knobs, read only to report them
-MESH_KNOBS = (
-    "ANALYSIS_MESH_MODEL",
-    "ANALYSIS_MESH_DP",
-    "ANALYSIS_MESH_TP",
-    "ANALYSIS_MESH_SP",
-    "ANALYSIS_MESH_SPECS",
-    "ANALYSIS_MESH_R_BUCKETS",
-    "ANALYSIS_MESH_PACKED_BUCKETS",
-    "ANALYSIS_MESH_RING_BUCKETS",
-    "ANALYSIS_BUDGETS",
-    "ANALYSIS_ROOFLINE",
-)
-MESH_NOTE = (
-    "mesh audit: not run — the sharding/resource audit and its budgets "
-    "wait for the rest of the multi-device slice (ROADMAP queue 1, "
-    "item 9)"
-)
-
-
-def mesh_status(skip: bool) -> dict:
-    """What the CLI says of the mesh audit: skipped on request, or
-    waiting for ROADMAP item 9 (with the mesh knobs that were set)."""
-    knobs = sorted(k for k in MESH_KNOBS if os.environ.get(k))
-    return {
-        "run": False,
-        "skipped": skip,
-        "reason": "skipped" if skip else MESH_NOTE,
-        "knobs_set": knobs,
-    }
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m llm_weighted_consensus_tpu_torch.analysis",
         description="first-party invariant checker (AST lint + dispatch "
-        "audit)",
+        "audit + mesh audit)",
     )
     parser.add_argument(
         "paths", nargs="*", type=Path,
@@ -94,8 +60,8 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--no-mesh", action="store_true",
-        help="accepted for the reference's scripts; the mesh audit waits "
-        "for ROADMAP item 9 (ANALYSIS_SKIP_MESH=1)",
+        help="skip the mesh sharding/resource audit, JXA006-013 "
+        "(ANALYSIS_SKIP_MESH=1)",
     )
     parser.add_argument(
         "--no-concurrency", action="store_true",
@@ -163,9 +129,14 @@ def main(argv=None) -> int:
         findings += run_dispatch_audit()
         audit_s = time.perf_counter() - t0
 
-    mesh = mesh_status(
-        args.no_mesh or bool(os.environ.get("ANALYSIS_SKIP_MESH"))
-    )
+    mesh_s = 0.0
+    skip_mesh = args.no_mesh or bool(os.environ.get("ANALYSIS_SKIP_MESH"))
+    if not skip_mesh:
+        from .mesh_audit import run_mesh_audit
+
+        t0 = time.perf_counter()
+        findings += run_mesh_audit()
+        mesh_s = time.perf_counter() - t0
 
     baseline_path = args.baseline or (
         Path(os.environ["ANALYSIS_BASELINE"])
@@ -189,8 +160,9 @@ def main(argv=None) -> int:
                     "lint_seconds": round(lint_s, 3),
                     "concurrency_seconds": round(concurrency_s, 3),
                     "audit_seconds": round(audit_s, 3),
+                    "mesh_seconds": round(mesh_s, 3),
                     "audit_run": not skip_audit,
-                    "mesh": mesh,
+                    "mesh_run": not skip_mesh,
                 }
             )
         )
@@ -205,9 +177,9 @@ def main(argv=None) -> int:
             summary += f", concurrency audit {concurrency_s:.2f}s"
         if not skip_audit:
             summary += f", dispatch audit {audit_s:.2f}s"
+        if not skip_mesh:
+            summary += f", mesh audit {mesh_s:.2f}s"
         print(summary, file=sys.stderr)
-        print(mesh["reason"] if not mesh["skipped"]
-              else "mesh audit: skipped", file=sys.stderr)
 
     if stale:
         for entry in stale:

@@ -65,12 +65,18 @@ Unguarded-by-design notes (fields deliberately absent from ``guards``):
 * ``DeviceBatcher`` construction-time config (``max_batch``,
   ``window_ms``, ``packing``, ``max_queue_depth``, ...), the pools and
   ``embedder``/``fallback_embedder``/``meshfault`` — set in ``__init__``
-  before the flusher starts.
+  before the flusher starts; ``max_batch``/``max_rows`` are rewritten
+  only by ``rescale_capacity`` (a fault ladder's rescale hook), under
+  ``_cond``, and a planner that read the old value plans one group at
+  the old capacity.
 * ``StagingPool.per_bucket`` / ``pin`` — construction-time capacity
   config; the embedder sizes the pool before the first dispatch thread
   starts.
 * ``MeshFaultManager._rungs`` — built once (idempotent ``build_ladder``
-  at serve-build time) and never appended to afterwards.
+  at serve-build time) and never appended to afterwards; a rung's
+  ``placed`` model and ``rung_pool_bytes`` are written only under the
+  exclusive side of the shape gate (``warm_ladder``, a rung switch),
+  which no dispatch and no other transition shares.
 * ``MeshFaultManager.rescale_hooks`` / ``probe_fn`` / ``fault_plan`` —
   wired at serve-build time before any dispatch thread exists.
 * ``DeviceWatchdog._thread`` / ``_stop`` and ``MemGuard._thread`` /
@@ -231,6 +237,7 @@ CONCURRENCY_MODEL = {
                 "_shed",
                 "_baseline_ms",
                 "_last_decrease",
+                "_mesh_scale",
             ),
         },
         "MemGuard._lock": {
@@ -374,6 +381,11 @@ CONCURRENCY_MODEL = {
         ("_ShapeGate._cond", "launches._lock"),
         ("_ShapeGate._cond", "PhaseAggregator._lock"),
         ("_ShapeGate._cond", "Metrics._lock"),
+        # warm_ladder warms each rung under the gate's exclusive side;
+        # ``.warmup()`` resolves statically to ``Server.warmup`` too (its
+        # ``mark_ready``), so this edge is the over-approximation of a
+        # call into ``TorchEmbedder.warmup``, which takes no lifecycle lock
+        ("_ShapeGate._cond", "Lifecycle._lock"),
         # a phase observation and a consensus outcome are mirrored into
         # the metrics series while the aggregator's lock is held
         ("PhaseAggregator._lock", "Metrics._lock"),

@@ -65,7 +65,9 @@ CLI = "python -m llm_weighted_consensus_tpu_torch.analysis.roofline --write"
 
 # the committed scope: bge-large at the buckets chip_smoke.py's serving
 # phase warms (WARMUP=64x128,16x512,32x64, WARMUP_R=2,4,8, and the
-# packed buckets of its PACKING) and the fault phase's (8x32)
+# packed buckets of its PACKING) and the fault phase's (8x32), and the
+# buckets the mesh audit serves (analysis/mesh_audit.py JXA013: its
+# specs, R buckets, packed and ring buckets)
 DEFAULT_SCOPE = {
     "model": "bge-large-en",
     "dtype": "bfloat16",
@@ -73,6 +75,8 @@ DEFAULT_SCOPE = {
     "specs": ["64x128", "16x512", "32x64", "8x32"],
     "r_buckets": [2, 4, 8],
     "packing": {"row_tokens": 512, "max_rows": 8, "max_segments": 64},
+    "mesh_audit": {"specs": ["8x16"], "r_buckets": [2],
+                   "packed_buckets": ["8x64x8"], "ring_buckets": ["2x64"]},
 }
 
 _MESH_SUFFIX = re.compile(
@@ -261,6 +265,20 @@ def scope_labels(scope: dict) -> List[str]:
         })
         labels += [f"packed(b={b},l={l},k={k})"
                    for b, l, k in config.packed_buckets()]
+    audit = scope.get("mesh_audit")
+    if audit:
+        for spec in audit["specs"]:
+            n, s = (int(v) for v in spec.split("x"))
+            labels.append(f"vote1(n={n},s={s})")
+            labels.append(f"embed(b={_bucket(n, cap)},s={s})")
+            labels += [f"many(r={r},n={n},s={s})"
+                       for r in audit["r_buckets"] if r >= 2]
+        labels += ["packed(b={},l={},k={})".format(*spec.split("x"))
+                   for spec in audit["packed_buckets"]]
+        for spec in audit["ring_buckets"]:
+            n, s = (int(v) for v in spec.split("x"))
+            labels.append(f"ring_vote(n={n},s={s})")
+            labels.append(f"ring(b={_bucket(n, cap)},s={s})")
     return sorted(set(labels))
 
 

@@ -1,5 +1,6 @@
 """``python -m llm_weighted_consensus_tpu_torch.bench <name> [flags]``:
-``headline``, ``fwd``, ``attn``, ``configs``, ``http`` or ``host``
+``headline``, ``fwd``, ``attn``, ``configs``, ``http``, ``host`` or
+``scaling``
 (``--help`` after a name lists its flags)."""
 
 from __future__ import annotations
@@ -7,7 +8,8 @@ from __future__ import annotations
 import importlib
 import sys
 
-BENCHES = ("headline", "fwd", "attn", "configs", "http", "host")
+BENCHES = ("headline", "fwd", "attn", "configs", "http", "host",
+           "scaling")
 
 
 def main(argv=None) -> int:

@@ -13,9 +13,19 @@ lengths.  ``bound_ms`` is the larger of the bytes (q, k, v and the mask
 read once, the output written once) over the HBM rate and the dense
 FLOPs over the bf16 peak.
 
-``--long-seq`` (the ring against dense attention) is refused: the ring
-serves (``parallel/ring.py``), but its bench waits for the rest of
-ROADMAP.md queue 1 item 9.
+``--long-seq`` is the ring against dense attention (the reference's
+``ring_vs_dense_crossover``): at each of ``--long-seqs`` one attention op
+of [``--long-b``, s, ``--long-nh``, ``--hd``], dense (the kernel wrapper,
+``ops.attention.attention``) against the ring over ``--sp`` shards
+(``parallel.ring.ring_attention``, torch ops as the reference's ring),
+held to each other; per implementation the p50 ms per call (CUDA
+events) and the peak and temporary device bytes of one call
+(``torch.cuda.max_memory_allocated`` above the inputs; null on the CPU),
+and the first length at which the ring is faster (``crossover_seq``).
+The ring's shards lie on the first ``--sp`` cards, or share the first
+card where there are fewer (``cards``, ``shared_card``): on a shared
+card the ring's blocks run one after another, so it cannot be faster;
+what it shows there is the memory a shard's tile needs.
 
 Run: ``python -m llm_weighted_consensus_tpu_torch.bench attn``.
 """
@@ -139,12 +149,119 @@ def run_attn(args, device: str, shapes=SHAPES, packed=PACKED,
     }
 
 
+def _peak(fn, device: str, floor: int) -> dict:
+    """Peak and temporary device bytes of one ``fn()`` call above
+    ``floor`` (the inputs' bytes), by the allocator's high-water mark;
+    null on the CPU."""
+    import torch
+
+    if device != "cuda":
+        return {"peak_bytes": None, "temp_bytes": None}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + floor
+    outputs = sum(o.element_size() * o.nelement() for o in (
+        out if isinstance(out, (list, tuple)) else [out]))
+    del out
+    return {"peak_bytes": int(peak),
+            "temp_bytes": int(max(0, peak - floor - outputs))}
+
+
+def ring_vs_dense_crossover(seqs, sp: int, b: int, nh: int, hd: int,
+                            device: str, reps: int = 5,
+                            trials: int = 3) -> tuple:
+    """One attention op per sequence length, dense against the ring over
+    ``sp`` shards: p50 ms per call and one call's device bytes.  Returns
+    the per-length table, the first length at which the ring wins, and
+    the ring's devices."""
+    import torch
+
+    from ..ops import attention as attn
+    from ..parallel.ring import ring_attention
+    from .scaling import mesh_devices
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    devices = mesh_devices(sp, device)
+    gen = torch.Generator().manual_seed(0)
+    scale = 1.0 / float(hd) ** 0.5
+    rows, crossover = {}, None
+    for s in seqs:
+        if s % sp:
+            continue
+        q, k, v = (torch.randn((b, s, nh, hd), generator=gen).to(device,
+                                                                 dtype)
+                   for _ in range(3))
+        bias = torch.zeros((b, s), dtype=torch.float32, device=device)
+        loc = s // sp
+
+        def split(x):
+            return [x[:, i * loc:(i + 1) * loc].contiguous().to(d)
+                    for i, d in enumerate(devices)]
+
+        qs, ks, vs, bs = split(q), split(k), split(v), split(bias)
+
+        def dense():
+            return attn.attention(q, k, v, bias, scale)
+
+        def ring():
+            return ring_attention(qs, ks, vs, bs, scale)
+
+        with torch.inference_mode():
+            want = dense().float()
+            got = torch.cat([x.float().to(device) for x in ring()], dim=1)
+            err = float((got - want).abs().max())
+            if err > 3e-2:  # the reference's bar (bf16 and f32 alike)
+                raise RuntimeError(
+                    f"s={s}: ring off dense attention by {err:.3g}")
+            floor = 4 * q.element_size() * q.nelement()
+            row_dense = _peak(dense, device, floor)
+            row_dense["p50_ms"] = round(common.event_ms(
+                dense, device, reps=reps, trials=trials)[0], 5)
+            row_ring = _peak(ring, device, floor)
+            row_ring["p50_ms"] = round(common.event_ms(
+                ring, device, reps=reps, trials=trials)[0], 5)
+        row_ring["max_abs_err"] = err
+        rows[f"s={s}"] = {"dense": row_dense, f"ring_sp{sp}": row_ring}
+        if crossover is None and row_ring["p50_ms"] < row_dense["p50_ms"]:
+            crossover = s
+        common.emit({"bench": NAME, f"s={s}": rows[f"s={s}"]})
+    return rows, crossover, devices
+
+
+def run_long_seq(args, device: str) -> dict:
+    seqs = [int(x) for x in args.long_seqs.split(",") if x.strip()]
+    rows, crossover, devices = ring_vs_dense_crossover(
+        seqs, args.sp, args.long_b, args.long_nh, args.hd, device)
+    cards = len(dict.fromkeys(str(d) for d in devices))
+    return {
+        "metric": ("ring-vs-dense attention crossover (p50 ms + per-call "
+                   "peak device bytes per seq length)"),
+        "backend": device, "sp": args.sp, "b": args.long_b,
+        "nh": args.long_nh, "hd": args.hd,
+        "crossover_seq": crossover,
+        "cards": cards, "shared_card": cards < args.sp,
+        "timer": "cuda events" if device == "cuda" else "host clock",
+        "results": rows,
+        **common.envelope(0),
+    }
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bench attn")
     p.add_argument("--nh", type=int, default=16)
     p.add_argument("--hd", type=int, default=64)
     p.add_argument("--long-seq", action="store_true",
-                   help="refused: the ring's bench waits for ROADMAP item 9")
+                   help="the ring-vs-dense long-context crossover instead "
+                   "of the per-shape table: p50 and peak bytes per "
+                   "sequence length (--long-seqs), the ring over --sp "
+                   "shards")
+    p.add_argument("--long-seqs", default="256,512,1024,2048")
+    p.add_argument("--sp", type=int, default=4)
+    p.add_argument("--long-b", type=int, default=1)
+    p.add_argument("--long-nh", type=int, default=4)
     common.add_device_flag(p)
     return p
 
@@ -152,9 +269,8 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     base = {"metric": "attention by implementation"}
-    if args.long_seq:
-        common.refuse(NAME, "--long-seq", common.ROADMAP_ITEM["mesh"], base,
-                      "(the ring against dense attention over an sp mesh) "
-                      "needs several cards")
     device = common.select_device(NAME, args.device, base)
+    if args.long_seq:
+        return common.run(NAME, base,
+                          lambda: common.emit(run_long_seq(args, device)))
     return common.run(NAME, base, lambda: common.emit(run_attn(args, device)))

@@ -62,9 +62,6 @@ BENCH_WORDS = [
 # the body watchdog's budget (s); a scenario's own time limit sits inside
 WATCHDOG_S = 1800.0
 
-# the ROADMAP items that bring the scenarios one card cannot run
-ROADMAP_ITEM = {"mesh": 9}
-
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -184,7 +181,7 @@ def emit(record: dict) -> None:
     print(json.dumps(_clean(record)), flush=True)
 
 
-# -- device, watchdog, refusals ----------------------------------------------------
+# -- device and watchdog ----------------------------------------------------
 
 
 def add_device_flag(parser) -> None:
@@ -207,16 +204,6 @@ def select_device(name: str, device: str, base: dict) -> str:
                   "seed", 0))})
         raise SystemExit(2)
     return device
-
-
-def refuse(name: str, scenario: str, item: int, base: dict,
-           why: str) -> None:
-    """One record naming the ROADMAP item that brings ``scenario``, then
-    exit 2: nothing is skipped silently."""
-    emit({**base, "bench": name, "scenario": scenario,
-          "error": f"refused: {scenario} {why}; it comes with ROADMAP.md "
-          f"queue 1 item {item}", "roadmap_item": item})
-    raise SystemExit(2)
 
 
 def run(name: str, base: dict, body: Callable[[], None],

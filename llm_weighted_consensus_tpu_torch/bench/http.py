@@ -29,8 +29,15 @@ upstream (``FAKE_UPSTREAM_DELAY_MS`` 25 unless set): cold, warm and
 hot-stampede rounds, and, for the partition, a second trio under
 ``FLEET_FAULT_PLAN`` specs carving ``{a} | {b, c}``.  Between rounds
 they wait for the owners' publish counters to account for the cold
-round (the reference sleeps 0.3 s).  ``--mesh-faults`` (ROADMAP item 9)
-is refused.
+round (the reference sleeps 0.3 s).  ``--mesh-faults`` serves
+``/consensus`` from a 4x2 mesh with the fault ladder (``MESH_FAULT_*``)
+in three closed-loop phases: healthy, then with ``DEVICE_FAULT_PLAN``
+``script=persistent`` armed (one downsize, the in-flight groups
+re-dispatched on the warmed 2x2 rung), then after the recovery probe.
+Its mesh lies on the local cards where there are eight, else on the
+first card repeated (an explicit device list, as ``chip_smoke.py`` phase
+20 builds it; the server's ``MESH_SHAPE`` never repeats a card), and the
+record says which (``cards``).
 
 Run: ``python -m llm_weighted_consensus_tpu_torch.bench http [--quick]
 [--model M] [--n 64] [--requests 100] [--concurrency 16]``.
@@ -39,6 +46,7 @@ Run: ``python -m llm_weighted_consensus_tpu_torch.bench http [--quick]
 from __future__ import annotations
 
 import argparse
+import gc
 import http.client
 import json
 import os
@@ -886,6 +894,11 @@ def start_fleet(upstream_url: str, extra_env=None) -> list:
         for server in servers:
             server.close()
         raise
+    # the three replicas share this interpreter: a full collection over
+    # their start-up heap (~0.1 s) would stall every peer leg at once
+    # and time out the 150 ms ones of --fleet-partition, stranding their
+    # leases until TTL.  The caller unfreezes (gc.unfreeze) when done.
+    gc.freeze()
     return servers
 
 
@@ -976,6 +989,7 @@ def bench_fleet(args) -> None:
         for server in servers:
             server.close()
         fake.close()
+        gc.unfreeze()
     emit("/score/completions?fleet", warm["rps"],
          "requests/sec warm goodput",
          requests=len(bodies), concurrency=concurrency, replicas=3,
@@ -1050,6 +1064,7 @@ def bench_fleet_partition(args) -> None:
             for server in trio:
                 server.close()
         fake.close()
+        gc.unfreeze()
     emit("/score/completions?fleet-partition", partitioned["rps"],
          "requests/sec degraded goodput (warm round under partition)",
          requests=len(bodies), concurrency=concurrency, replicas=3,
@@ -1069,7 +1084,119 @@ def bench_fleet_partition(args) -> None:
 # -- main -----------------------------------------------------------------------------
 
 
+def bench_mesh_faults(args, device: str) -> None:
+    """Goodput through a device fault (``resilience/meshfault.py``): the
+    reference's three phases (module doc).  Phase A is the healthy
+    baseline; before phase B the manager's ``DEVICE_FAULT_PLAN`` seam is
+    armed with ``script=persistent``, so the burst's first dispatch dies
+    as a lost card's would and the batcher downsizes one rung (dp halves,
+    tp kept) and re-dispatches on the rung's warmed graphs; phase C runs
+    after the recovery probe restored the full shape."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharding import shard_embedder_mesh
+    from ..resilience.meshfault import DeviceFaultPlan
+    from .scaling import mesh_devices
+
+    dp, tp = 4, 2
+    n = max(2, min(args.n, 8))
+    concurrency = min(args.concurrency, 8)
+    # EMBEDDER_MAX_TOKENS=32 and 96-word texts: every request tokenizes
+    # to the cap, so the traffic hits exactly the (n, 32) bucket WARMUP
+    # names and warm_ladder warms on every rung
+    extra_env = {
+        "MESH_ENABLED": "1", "MESH_SHAPE": f"{dp}x{tp}",
+        "MESH_FAULT_ENABLED": "1", "MESH_FAULT_TRANSIENT_RETRIES": "2",
+        "EMBEDDER_MAX_TOKENS": "32",
+    }
+    embedder = build(args.model, args.quantize, device, seq=32)
+    mesh = make_mesh(dp=dp, tp=tp, devices=mesh_devices(dp * tp, device))
+    shard_embedder_mesh(embedder, mesh)
+    svc = start_service(args.model, device, args.window_ms, args.quantize,
+                        extra_env=extra_env, warmup=f"{n}x32",
+                        warmup_r="2,4,8", embedder=embedder)
+    meshfault = svc.server.meshfault
+    bodies = consensus_bodies(args.requests, n)
+
+    def drive_counting(warmup_bursts: int = 0) -> dict:
+        from ..obs import reset_phases, reset_quality
+
+        def one(body):
+            t0 = time.perf_counter()
+            status, _ = post(svc.port, "/consensus", body)
+            return status, (time.perf_counter() - t0) * 1e3
+
+        with ThreadPoolExecutor(concurrency) as pool:
+            for _ in range(warmup_bursts):
+                burst = (bodies * (concurrency // len(bodies) + 1))[
+                    :concurrency]
+                list(pool.map(one, burst))
+            reset_phases()
+            reset_quality()
+            t0 = time.perf_counter()
+            results = list(pool.map(one, bodies))
+            total = time.perf_counter() - t0
+        lat = [ms for status, ms in results if status == 200]
+        return {
+            "goodput_rps": round(len(lat) / total, 3),
+            **common.percentiles(lat or [0.0]),
+            "shed_504": sum(1 for status, _ in results if status == 504),
+            "errors": sum(1 for status, _ in results
+                          if status not in (200, 504)),
+        }
+
+    def readyz() -> tuple:
+        status, raw = post(svc.port, "/readyz", None, method="GET")
+        return status, json.loads(raw)
+
+    graphs = svc.graphs()
+    try:
+        healthy = drive_counting(warmup_bursts=2)
+        # arm the seam: the next device dispatch dies persistently,
+        # mid-burst, with the rest of the phase in flight behind it
+        meshfault.fault_plan = DeviceFaultPlan.parse("script=persistent")
+        degraded = drive_counting()
+        ready_status, ready_body = readyz()
+        # the recovery probe waits out the dispatches in flight (the
+        # shape gate's exclusive side), as a downsize does
+        recovered_ok = meshfault.try_recover()
+        recovered = drive_counting()
+        ready_after_status, ready_after = readyz()
+        counters = get_json(svc.port, "/metrics").get("meshfault")
+        graphs = graph_delta(graphs, svc.graphs())
+        pools = {f"{d}x{t}": b
+                 for (d, t), b in sorted(meshfault.rung_pool_bytes.items(),
+                                         reverse=True)}
+    finally:
+        svc.close()
+    emit(
+        "/consensus?mesh-faults", degraded["goodput_rps"],
+        "goodput answers/sec",
+        requests=len(bodies), concurrency=concurrency, n_candidates=n,
+        mesh_shape=f"{dp}x{tp}", cards=len(mesh.distinct_devices()),
+        fault_plan="script=persistent",
+        healthy=healthy, degraded=degraded, recovered=recovered,
+        degraded_vs_healthy=(
+            round(degraded["goodput_rps"] / healthy["goodput_rps"], 3)
+            if healthy["goodput_rps"] else None),
+        recovered_vs_healthy=(
+            round(recovered["goodput_rps"] / healthy["goodput_rps"], 3)
+            if healthy["goodput_rps"] else None),
+        readyz_during=(ready_status, ready_body),
+        readyz_after=(ready_after_status, ready_after),
+        recovery_probe_ok=bool(recovered_ok),
+        meshfault=counters, graphs=graphs, rung_pool_bytes=pools,
+        note=("closed-loop /consensus on a dp x tp mesh through a scripted "
+              "persistent device fault: value = degraded-phase goodput "
+              "(one downsize rung, in-flight groups re-dispatched on "
+              "warmed graphs); acceptance = zero 'errors' in every "
+              "phase, readyz_during 200 with degraded_mesh, recovered "
+              "goodput back near healthy"),
+    )
+
+
 def run_http(args, device: str) -> None:
+    if args.mesh_faults:
+        return bench_mesh_faults(args, device)
     if args.fleet_partition:
         return bench_fleet_partition(args)
     if args.fleet:
@@ -1139,7 +1266,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", action="store_true")
     p.add_argument("--offline", action="store_true")
     p.add_argument("--mesh-faults", action="store_true",
-                   help="refused: ROADMAP item 9 (a mesh of cards)")
+                   help="/consensus on a 4x2 mesh through a scripted "
+                   "persistent device fault: healthy, degraded, "
+                   "recovered")
     p.add_argument("--fleet", action="store_true",
                    help="three host-only replicas: cold, warm and "
                    "hot-stampede rounds")
@@ -1173,8 +1302,5 @@ def parse(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse(argv)
     base = {"metric": "served answers/sec + p50", "model": args.model}
-    if args.mesh_faults:
-        common.refuse(NAME, "--mesh-faults", common.ROADMAP_ITEM["mesh"],
-                      base, "(the degraded-mesh ladder) needs several cards")
     device = common.select_device(NAME, args.device, base)
     return common.run(NAME, base, lambda: run_http(args, device))

@@ -474,19 +474,33 @@ def _gather_rows(parts: list, device) -> torch.Tensor:
     return torch.cat([p.to(device) for p in parts])
 
 
-def embed_mesh(placed, input_ids, attention_mask, pooling: str = "cls",
-               normalize: bool = True) -> torch.Tensor:
-    """``embed`` over a mesh: ids/mask[b, s] (b a dp multiple) -> pooled
-    vectors [b, h] f32 on the mesh's first device; batch rows over dp,
-    each dp row's layers tensor-parallel over its tp shards."""
+def embed_mesh_parts(placed, input_ids, attention_mask,
+                     pooling: str = "cls", normalize: bool = True,
+                     attention_impl: str = "auto") -> list:
+    """``embed`` over a mesh, left sharded: ids/mask[b, s] (b a dp
+    multiple) -> per dp row its pooled vectors [b/dp, h] f32 on its first
+    tp shard's device; each dp row's layers tensor-parallel over its tp
+    shards (``attention_impl``: ``encode``'s; the trainers take
+    ``"plain"``)."""
 
     def body(model, part, tp):
         hidden = yield from encode_steps(
-            model, part["ids"], part["mask"], tp=tp)
+            model, part["ids"], part["mask"], attention_impl=attention_impl,
+            tp=tp)
         return pool(hidden, part["mask"], pooling, normalize)
 
-    parts = _mesh_encode(
+    return _mesh_encode(
         placed, {"ids": input_ids, "mask": attention_mask}, body)
+
+
+def embed_mesh(placed, input_ids, attention_mask, pooling: str = "cls",
+               normalize: bool = True,
+               attention_impl: str = "auto") -> torch.Tensor:
+    """``embed`` over a mesh: ids/mask[b, s] (b a dp multiple) -> pooled
+    vectors [b, h] f32 on the mesh's first device; batch rows over dp,
+    each dp row's layers tensor-parallel over its tp shards."""
+    parts = embed_mesh_parts(placed, input_ids, attention_mask, pooling,
+                             normalize, attention_impl)
     return _gather_rows(parts, placed.mesh.device())
 
 

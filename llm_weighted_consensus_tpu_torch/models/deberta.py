@@ -43,6 +43,7 @@ reference leaves it to XLA: it is not a TPU kernel of the reference.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Optional
 
@@ -150,6 +151,13 @@ def rel_index(seq: int, config: DebertaConfig) -> torch.Tensor:
     return (torch.clamp(rel, -span, span - 1) + span).long()
 
 
+@functools.lru_cache(maxsize=None)
+def _score_scale(hd: int, dtype: torch.dtype) -> float:
+    """1/sqrt(3 hd) rounded to ``dtype``, once per (hd, dtype): a host
+    constant, so no dispatch reads a tensor for it."""
+    return torch.tensor(1.0 / float(3 * hd) ** 0.5, dtype=dtype).item()
+
+
 def _disentangled_attention(x, rel, layer: DebertaLayer, mask_bias,
                             rel_idx, config: DebertaConfig, tp: bool = False):
     """(generator, as ``bert``'s layers: it yields at a tensor-parallel
@@ -187,7 +195,7 @@ def _disentangled_attention(x, rel, layer: DebertaLayer, mask_bias,
     # Python-float scale is a weakly typed constant of the activation
     # dtype, so its value is 1/sqrt(3 hd) rounded to that dtype (torch
     # would scale by the f32 value before the one rounding)
-    scale = torch.tensor(1.0 / float(3 * hd) ** 0.5, dtype=x.dtype).item()
+    scale = _score_scale(hd, x.dtype)
     logits = (c2c + c2p + p2c) * scale + mask_bias.to(x.dtype)
     probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
     ctx = torch.einsum("bnqk,bknd->bqnd", probs, v)

@@ -232,6 +232,22 @@ class TorchEmbedder:
                 if not self.mesh_mode or label.startswith("mesh(")),
         }
 
+    def aot_mesh_shapes(self) -> list:
+        """The (dp, tp) shapes with warmed mesh-mode buckets, largest
+        first: the fault ladder's audit (``analysis/mesh_audit.py``
+        JXA012) reads it to show every rung was warmed."""
+        shapes = {(key[1], key[2]) for key in self.graphs.keys()
+                  if key and key[0] == "mesh"}
+        return sorted(shapes, reverse=True)
+
+    def has_bucket(self, key: tuple) -> bool:
+        """Whether the bucket ``key`` (unnamespaced, as ``warmup`` takes
+        it) is warmed on the current mesh shape."""
+        return self._key(key) in self.graphs.keys()
+
+    def has_ring_bucket(self, key: tuple) -> bool:
+        return self._ring_key(key) in self.graphs.keys()
+
     def _key(self, key: tuple) -> tuple:
         """A graph key, namespaced per mesh shape in mesh mode."""
         if self.mesh_mode:

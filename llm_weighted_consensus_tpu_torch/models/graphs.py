@@ -280,6 +280,11 @@ class GraphTable:
 
     # -- observability --------------------------------------------------------
 
+    def keys(self) -> list:
+        """The warmed keys, as ``warm`` took them."""
+        with self.lock:
+            return list(self._entries)
+
     def stats(self) -> dict:
         """``graphs`` (warmed buckets), ``captures``, ``replays``,
         ``eager_dispatches`` (dispatches at buckets not warmed) and

@@ -23,7 +23,13 @@ tensor-parallel and ring layers) through their collectives.
 ``recording()`` notes every collective of more than one shard, with its
 group size, so a run can show which groups it formed
 (``parallel/multihost_smoke.py``; ``parallel/dist.py`` notes the ones
-that cross the process group).
+that cross the process group); a collective ``run_lockstep`` forms also
+notes its mesh ``axis`` and its ``members``' coordinates (the mesh
+audit's collective plan, ``analysis/mesh_audit.py`` JXA008).
+
+The collectives are torch ops (``to``, ``add``, ``maximum``, ``cat``), so
+they carry autograd: the trainers' mesh steps differentiate through them
+(``train/__init__.py``).
 
 ``sharded_cosine_vote`` and ``sharded_tally`` are the reference's two
 reductions.  The reference runs no Pallas kernel in them (its einsums and
@@ -60,8 +66,12 @@ def recording():
 def note(op: str, group_size: int, crosses_process: bool = False) -> None:
     notes = getattr(_local, "notes", None)
     if notes is not None and group_size > 1:
-        notes.append({"op": op, "group_size": int(group_size),
-                      "crosses_process": bool(crosses_process)})
+        entry = {"op": op, "group_size": int(group_size),
+                 "crosses_process": bool(crosses_process)}
+        group = getattr(_local, "group", None)
+        if group is not None:
+            entry.update(group)
+        notes.append(entry)
 
 
 def _per_device(devices: list, make) -> list:
@@ -179,7 +189,12 @@ def run_lockstep(bodies: list, coords: list, sizes: dict,
                     f"{len(members)} shards of {sizes.get(axis, 1)}"
                 )
             members.sort(key=lambda i: coords[i].get(axis, 0))
-            out = _OPS[op]([asks[i][2] for i in members])
+            _local.group = {"axis": axis,
+                            "members": [dict(coords[i]) for i in members]}
+            try:
+                out = _OPS[op]([asks[i][2] for i in members])
+            finally:
+                _local.group = None
             for i, value in zip(members, out):
                 sends[i] = value
     return results

@@ -242,12 +242,21 @@ class MeshModel:
     split axes sliced to its t-th block, the rest whole); ``full(device)``
     the whole model there, for the ring (whose params the reference
     replicates).  ``tp`` is the split count (1 when ``tp=False`` or the
-    mesh has no tp axis)."""
+    mesh has no tp axis).
+
+    A serving ``MeshModel`` holds each shard as a sliced copy, gradients
+    off.  ``trainable=True`` (the trainers' mesh step) makes every shard
+    tensor a differentiable slice of the master model's parameter instead
+    (``narrow`` and ``to``, with autograd), so a backward pass through
+    the shards lands in the master's ``.grad``: the dp replicas of one
+    slice sum there, and one optimizer step updates the master.  Such a
+    placement is built per step (its slices hold that step's graph)."""
 
     def __init__(self, model: nn.Module, mesh: Mesh, rules: tuple,
-                 tp: bool = True) -> None:
+                 tp: bool = True, trainable: bool = False) -> None:
         self.model = model
         self.mesh = mesh
+        self.trainable = bool(trainable)
         self.config = model.config
         self.tp = mesh.shape.get("tp", 1) if tp else 1
         specs = match_partition_rules(rules, model)
@@ -275,11 +284,15 @@ class MeshModel:
         key = (int(t), torch.device(device))
         module = self._shards.get(key)
         if module is None:
-            with torch.no_grad():
-                module = _sliced(self.model, "",
-                                 _Slicer(self._axes, self.tp, *key))
+            module = self._slice(_Slicer(self._axes, self.tp, *key))
             self._shards[key] = module
         return module
+
+    def _slice(self, slicer) -> nn.Module:
+        if self.trainable:
+            return _sliced(self.model, "", slicer, trainable=True)
+        with torch.no_grad():
+            return _sliced(self.model, "", slicer)
 
     def full(self, device) -> nn.Module:
         if self.tp == 1:
@@ -287,9 +300,7 @@ class MeshModel:
         device = torch.device(device)
         module = self._full.get(device)
         if module is None:
-            with torch.no_grad():
-                module = _sliced(self.model, "",
-                                 _Slicer(self._axes, 1, 0, device))
+            module = self._slice(_Slicer(self._axes, 1, 0, device))
             self._full[device] = module
         return module
 
@@ -341,19 +352,29 @@ def _int4_rows(wq4: torch.Tensor, k: int, t: int, tp: int, name: str):
     return pack_int4_weights(q[:, t * block:(t + 1) * block].contiguous())
 
 
-def _sliced(module: nn.Module, prefix: str, slice_) -> nn.Module:
+def _sliced(module: nn.Module, prefix: str, slice_,
+            trainable: bool = False) -> nn.Module:
     """A shallow twin of ``module`` whose every parameter and buffer is
     ``slice_(state name, tensor)``, gradients off; ``Linear`` and
-    ``QuantLinear`` sizes follow their new weights."""
+    ``QuantLinear`` sizes follow their new weights.  ``trainable`` keeps
+    each parameter's slice attached to the master parameter's autograd
+    graph (held as a plain tensor attribute of the twin, which reads as
+    the parameter did)."""
     from ..models.quant import QuantLinear
 
     twin = copy.copy(module)
-    twin._parameters = {
+    params = {
         name: None if p is None
-        else nn.Parameter(slice_(prefix + name, p.detach()),
-                          requires_grad=False)
+        else slice_(prefix + name, p if trainable else p.detach())
         for name, p in module._parameters.items()
     }
+    if trainable:
+        twin._parameters = {}
+    else:
+        twin._parameters = {
+            name: None if p is None else nn.Parameter(p, requires_grad=False)
+            for name, p in params.items()
+        }
     k = getattr(module, "in_features", 0)
     twin._buffers = {
         name: None if b is None
@@ -361,9 +382,11 @@ def _sliced(module: nn.Module, prefix: str, slice_) -> nn.Module:
               else slice_(prefix + name, b))
         for name, b in module._buffers.items()
     }
+    if trainable:
+        twin._buffers.update(params)
     twin._modules = {
         name: None if child is None
-        else _sliced(child, f"{prefix}{name}.", slice_)
+        else _sliced(child, f"{prefix}{name}.", slice_, trainable)
         for name, child in module._modules.items()
     }
     if isinstance(twin, nn.Linear):
@@ -376,11 +399,13 @@ def _sliced(module: nn.Module, prefix: str, slice_) -> nn.Module:
 
 
 def shard_by_rules(model: nn.Module, mesh: Mesh, rules: tuple,
-                   tp: bool = True) -> MeshModel:
+                   tp: bool = True, trainable: bool = False) -> MeshModel:
     """Place ``model`` on ``mesh`` by the rule table (tp split only when
-    ``tp`` and the mesh's tp axis is past 1)."""
+    ``tp`` and the mesh's tp axis is past 1; ``trainable``: ``MeshModel``'s
+    differentiable slices)."""
     return MeshModel(model, mesh, rules,
-                     tp=tp and mesh.shape.get("tp", 1) > 1)
+                     tp=tp and mesh.shape.get("tp", 1) > 1,
+                     trainable=trainable)
 
 
 def shard_bert_params(model: nn.Module, mesh: Mesh,

@@ -22,12 +22,14 @@ mechanism its own module with a pure, clock-injectable core:
   (``shed_reason: "memory"``) and flags ``degraded_mem`` on /readyz;
 * ``admission`` — the gateway's admission gate (hard cap, AIMD limit);
 * ``watchdog``  — the device dispatch watchdog;
-* ``meshfault`` — device fault domains on one card: dispatch-failure
+* ``meshfault`` — device fault domains: dispatch-failure
   classification for CUDA errors (transient / persistent / not a device
   fault), the transient-streak and watchdog-overdue escalations, the
-  one-rung ladder whose exhaustion hands the work to the CPU twin, and
-  the seeded ``DEVICE_FAULT_PLAN`` injection seam at the batcher's
-  dispatch boundary.  The multi-device slice adds rungs.
+  downsize ladder over a mesh (dp halving, tp and sp kept, every rung's
+  model and graphs built once at warmup) whose exhaustion hands the work
+  to the CPU twin, the recovery probe's upsize, and the seeded
+  ``DEVICE_FAULT_PLAN`` injection seam at the batcher's dispatch
+  boundary.
 
 Everything is opt-in: a ``ResiliencePolicy`` of ``None`` (the default
 everywhere) keeps the clients on their pre-resilience code paths, byte

@@ -84,6 +84,8 @@ class AdmissionController:
         self._last_decrease = -math.inf
         self.admitted = 0
         self.shed: dict = {}
+        # the surviving device fraction of a degraded mesh (``rescale``)
+        self._mesh_scale = 1.0
 
     # -- the decision ---------------------------------------------------------
 
@@ -103,6 +105,8 @@ class AdmissionController:
                     return self._shed(reason)
             cap = self.config.max_inflight
             if cap > 0:
+                if self._mesh_scale != 1.0:
+                    cap = max(1, int(cap * self._mesh_scale))
                 effective = (
                     max(self.config.min_limit, int(self.limit))
                     if self.config.adaptive
@@ -119,6 +123,26 @@ class AdmissionController:
             self.inflight = max(0, self.inflight - 1)
             if self.config.adaptive and self.config.max_inflight > 0:
                 self._adapt(latency_ms, error)
+
+    def rescale(self, scale: float) -> None:
+        """Scale admission to the surviving device fraction (a
+        ``MeshFaultManager`` rescale hook): a downsized mesh admits
+        proportionally less work instead of queueing the overflow into
+        blown deadlines.  The AIMD limit is rescaled by the same ratio, so
+        it starts the new regime near its value instead of decaying toward
+        it one congestion sample at a time; ``scale=1.0`` (the upsize)
+        restores the full cap."""
+        scale = max(0.0, float(scale))
+        with self._lock:
+            prev = self._mesh_scale
+            self._mesh_scale = scale
+            if (self.config.adaptive and self.config.max_inflight > 0
+                    and prev > 0):
+                self.limit = min(
+                    float(self.config.max_inflight),
+                    max(float(self.config.min_limit),
+                        self.limit * scale / prev),
+                )
 
     # caller-holds-lock: AdmissionController._lock (only called inside with-lock blocks)
     def _shed(self, reason: str) -> str:
@@ -165,6 +189,8 @@ class AdmissionController:
                 "max_inflight": self.config.max_inflight,
                 "max_queue_depth": self.config.max_queue_depth,
             }
+            if self._mesh_scale != 1.0:
+                out["mesh_scale"] = round(self._mesh_scale, 4)
             if self.config.adaptive:
                 out["limit"] = round(self.limit, 2)
                 if self._baseline_ms is not None:

@@ -16,12 +16,20 @@ reference's answer, kept here:
 * ``MeshFaultManager`` layers the policy over it: a transient streak past
   ``transient_retries`` (or a dispatch the watchdog found overdue)
   escalates to persistent, and a persistent fault walks the downsize
-  ladder.  The port's ladder is one rung ``[(1, 1)]``: ``exhausted`` is
-  true from the start, ``downsize`` returns False and the batcher
-  switches to the CPU twin (``DEVICE_WATCHDOG_CPU_FALLBACK``) or fails
-  the group.  A mesh past one device serves (``parallel/``), but its
-  ladder (more rungs, ``_reshard``, the prober's upsize) waits for the
-  rest of the multi-device slice (ROADMAP queue 1, item 9);
+  ladder: dp halving from the full shape toward 1, tp and sp kept, each
+  rung's devices a row-major prefix of the previous rung's list (the
+  dropped tail is the faulted domain).  Each rung serves from its own
+  ``parallel.sharding.MeshModel``, built once (``warm_ladder``, or at the
+  first switch to a rung that was never warmed) and kept alive with the
+  CUDA graphs captured over it: a graph holds its rung's tensors'
+  addresses, so a rung rebuilt at downsize time would replay into freed
+  memory or capture under fire.  ``downsize`` and ``try_recover`` switch
+  the embedder between stored rungs (``TorchEmbedder.attach_mesh``) under
+  the exclusive side of the shape gate: no weight is re-sharded and no
+  graph captured.  Past the last rung the batcher switches to the CPU
+  twin (``DEVICE_WATCHDOG_CPU_FALLBACK``) or fails the group.  An
+  embedder without a mesh is the one-rung ladder ``[(1, 1)]``, spent from
+  the start;
 * ``DeviceFaultPlan`` is the deterministic injection seam: one
   ``random.Random(seed)`` drawn once per dispatch in dispatch order, or a
   script replayed verbatim.  ``hang`` sleeps ``hang_ms`` (the watchdog's
@@ -296,24 +304,34 @@ class _ShapeGate:
 
 
 class _Rung:
-    """One ladder step: its shape and the devices it spans."""
+    """One ladder step: its shape, its mesh (None on the one-rung ladder
+    of an embedder without a mesh), the devices it spans (a row-major
+    prefix of the full list) and its ``MeshModel`` (``placed``), built
+    once and kept for the manager's life (module doc)."""
 
-    __slots__ = ("dp", "tp", "devices")
+    __slots__ = ("dp", "tp", "mesh", "devices", "placed")
 
-    def __init__(self, dp: int, tp: int, devices: list) -> None:
+    def __init__(self, dp: int, tp: int, mesh, devices: list,
+                 placed=None) -> None:
         self.dp = dp
         self.tp = tp
+        self.mesh = mesh
         self.devices = devices
+        self.placed = placed
 
 
 class MeshFaultManager:
     """The fault-domain brain: classify -> downsize -> re-dispatch ->
-    probe -> upsize, on the one card's ladder ``[(1, 1)]``.
+    probe -> upsize.
 
     ``classify``/``note_*``/``snapshot`` and the state properties run
     under a lock (the dispatch and waiter threads and the watchdog's
     monitor all call in).  ``dispatch_guard`` is the shared side of the
-    shape gate, held by each dispatch while it stages and enqueues."""
+    shape gate, held by each dispatch while it stages and enqueues;
+    ``downsize``/``try_recover`` hold the exclusive side across a rung
+    switch, so a switch waits out the dispatches in flight.
+    ``rung_pool_bytes`` maps each warmed rung's (dp, tp) to the graph
+    pool bytes its warmup added."""
 
     def __init__(
         self,
@@ -351,33 +369,91 @@ class MeshFaultManager:
         self._transient_streak = 0
         self._watchdog_overdue = False
         self._faulted_devices: list = []
+        self.rung_pool_bytes: dict = {}
 
     # -- the ladder ------------------------------------------------------------
 
     def build_ladder(self) -> List[tuple]:
-        """Declare the ladder: dp halving from the full shape toward 1, tp
-        preserved.  The port's ladder is one rung: the full shape must be
-        1x1 (a larger mesh serves without the fault manager)."""
+        """Declare the ladder (without warming it): dp halving from the
+        full shape toward 1, tp and sp preserved, each rung's mesh over a
+        row-major prefix of the previous rung's devices.  An embedder
+        without a mesh has the one rung of the full shape, which must be
+        1x1."""
+        from ..parallel.mesh import make_mesh
+
         if self._rungs:
             return [(r.dp, r.tp) for r in self._rungs]
         dp, tp = self.full_shape
-        if dp * tp * self.sp != 1:
-            raise ValueError(
-                f"MeshFaultManager: shape {dp}x{tp} spans more than one "
-                "device; the fault ladder past one rung waits for the rest "
-                "of the multi-device slice (ROADMAP queue 1, item 9)"
-            )
-        device = getattr(self.embedder, "device", None)
-        self._rungs = [_Rung(dp, tp, [device])]
+        full_mesh = getattr(self.embedder, "mesh", None)
+        if full_mesh is None:
+            if dp * tp * self.sp != 1:
+                raise RuntimeError(
+                    "MeshFaultManager needs a mesh-sharded embedder "
+                    "(parallel.shard_embedder_mesh) before build_ladder"
+                )
+            device = getattr(self.embedder, "device", None)
+            self._rungs = [_Rung(dp, tp, None, [device])]
+            return [(r.dp, r.tp) for r in self._rungs]
+        devices = full_mesh.flat()
+        sp = self.sp
+        rungs = [_Rung(dp, tp, full_mesh, devices,
+                       getattr(self.embedder, "mesh_model", None))]
+        step = dp // 2
+        while step >= 1:
+            sub = devices[: step * tp * sp]
+            rungs.append(_Rung(step, tp,
+                               make_mesh(dp=step, tp=tp, sp=sp, devices=sub),
+                               sub))
+            step //= 2
+        self._rungs = rungs
         return [(r.dp, r.tp) for r in self._rungs]
 
-    def _reshard(self, rung: _Rung) -> None:
-        """Move the embedder onto ``rung``'s devices.  One card, one
-        rung: no transition ever reaches here."""
-        raise NotImplementedError(
-            "re-sharding needs the multi-device slice (ROADMAP queue 1, "
-            "item 9)"
-        )
+    def _placed(self, rung: _Rung):
+        """``rung``'s ``MeshModel``: the stored one, or (a rung never
+        warmed) built now from the embedder's model and stored."""
+        if rung.placed is None:
+            from ..parallel.sharding import shard_bert_params
+
+            rung.placed = shard_bert_params(
+                self.embedder.model, rung.mesh, tp=rung.tp > 1)
+        return rung.placed
+
+    def _switch(self, rung: _Rung) -> None:
+        """Serve from ``rung``: the embedder attaches the rung's stored
+        ``MeshModel``; no weight moves and no graph is captured (its
+        buckets' keys are the rung's own, warmed by ``warm_ladder``)."""
+        if rung.mesh is None:
+            return
+        self.embedder.attach_mesh(self._placed(rung), mesh_mode=True)
+
+    def warm_ladder(
+        self,
+        specs: list,
+        r_buckets: list = (),
+        packed_buckets: list = (),
+        ring_buckets: list = (),
+    ) -> list:
+        """Warm every rung so a downsize never captures: bottom-up
+        (smallest rung first, the full shape last), each rung's
+        ``MeshModel`` is built once and the embedder warms the same bucket
+        set the full shape got under that rung's ``("mesh", dp, tp)``
+        keys.  The last step is the full shape, so the embedder leaves
+        warmed and placed as it came.  Returns [(label, seconds)] for the
+        buckets warmed by this call; ``rung_pool_bytes`` gets each rung's
+        share of the graph pool."""
+        self.build_ladder()
+        timings = []
+        with self._shape_gate.exclusive():
+            for rung in reversed(self._rungs):
+                self._switch(rung)
+                before = self.embedder.graph_stats()["pool_bytes"]
+                timings.extend(self.embedder.warmup(
+                    specs, r_buckets, packed_buckets, ring_buckets))
+                pool = self.embedder.graph_stats()["pool_bytes"] - before
+                key = (rung.dp, rung.tp)
+                self.rung_pool_bytes[key] = (
+                    self.rung_pool_bytes.get(key, 0) + pool)
+        return timings
 
     # -- dispatch/transition serialization -------------------------------------
 
@@ -462,7 +538,7 @@ class MeshFaultManager:
     @property
     def exhausted(self) -> bool:
         """Past the last rung: the CPU twin is the only lever left (on
-        one card, from the start)."""
+        the one-rung ladder, from the start)."""
         with self._lock:
             self.build_ladder()
             return self._rung_index >= len(self._rungs) - 1
@@ -486,10 +562,19 @@ class MeshFaultManager:
             hook(scale)
 
     def downsize(self, observed_epoch: Optional[int] = None) -> bool:
-        """Step down one rung; False when the ladder is spent (the caller
-        switches to the CPU twin or fails the group).  A stale
-        ``observed_epoch`` (the shape changed since the failed dispatch
-        launched) re-queues without stepping (True)."""
+        """Step down one rung: switch the embedder to the next rung's
+        stored ``MeshModel``, record the dropped tail's shard indices as
+        the faulted domain, bump the epoch and rescale admission and the
+        batcher.  False when the ladder is spent (the caller switches to
+        the CPU twin or fails the group).
+
+        ``observed_epoch`` is the epoch the failed dispatch was stamped
+        with.  Pipelined dispatches can fault on the same dead device
+        together; only the first fault of an epoch steps the ladder, and
+        a stale epoch re-queues onto the current shape (True, no step).
+
+        Runs under the exclusive side of the shape gate: the switch waits
+        out the dispatches in flight, so it is safe from any thread."""
         self.build_ladder()
         with self._shape_gate.exclusive():
             with self._lock:
@@ -501,18 +586,24 @@ class MeshFaultManager:
                 self._rung_index += 1
                 rung = self._rungs[self._rung_index]
                 self._faulted_devices.extend(
-                    d for d in old.devices if d not in rung.devices)
+                    range(len(rung.devices), len(old.devices)))
                 self._downsizes += 1
                 self._epoch += 1
                 self._transient_streak = 0
                 self._watchdog_overdue = False
-            self._reshard(rung)
+            self._switch(rung)
         self._rescale()
         return True
 
     def try_recover(self) -> bool:
         """The recovery probe: while degraded, re-validate the full shape
-        and upsize back; not degraded (always, on one card), a no-op."""
+        and upsize back.  A ``DeviceFaultPlan`` draw models the probe (a
+        still-faulty plan keeps the mesh down); with a ``probe_fn``
+        (``serve/__main__.py`` wires a warmed-bucket full-mesh dispatch)
+        the switch to the full rung happens first and a device-classified
+        raise rolls it back.  With neither the upsize is unvalidated, and
+        a one-time warning says so.  Holds the exclusive side of the shape
+        gate across the switch, the probe and a rollback."""
         if not self.degraded:
             return False
         if self.fault_plan is not None:
@@ -524,23 +615,28 @@ class MeshFaultManager:
                     self._consecutive_probe_failures += 1
                 return False
         elif self.probe_fn is None:
+            # test-and-set under the lock: two prober threads would
+            # otherwise both warn
             with self._lock:
                 warn = not self._warned_blind_upsize
                 self._warned_blind_upsize = True
             if warn:
                 logging.getLogger("lwc.torch.resilience").warning(
-                    "device fault recovery has no probe_fn and no "
-                    "DEVICE_FAULT_PLAN: upsizing without validating the "
-                    "full shape")
+                    "mesh fault recovery has no probe_fn and no "
+                    "DEVICE_FAULT_PLAN: upsizing to the full mesh without "
+                    "validating it (a still-dead device faults the next "
+                    "dispatch and downsizes again)")
         with self._shape_gate.exclusive():
             with self._lock:
                 prev_index = self._rung_index
-            self._reshard(self._rungs[0])
+            self._switch(self._rungs[0])
             if self.probe_fn is not None:
                 try:
                     self.probe_fn()
                 except Exception as exc:
-                    self._reshard(self._rungs[prev_index])
+                    # roll back first either way: the manager still
+                    # reports the surviving rung
+                    self._switch(self._rungs[prev_index])
                     if classify_dispatch_error(exc) is None:
                         raise  # a probe bug, not a device fault
                     with self._lock:

@@ -514,10 +514,14 @@ def load_tables(config: ServeConfig):
 
 
 def build_meshfault(embedder, config: ServeConfig):
-    """``MESH_FAULT_ENABLED``'s ``MeshFaultManager`` over the one card
-    (``MESH_FAULT_TRANSIENT_RETRIES``, ``MESH_FAULT_PROBE_MILLIS``,
-    ``DEVICE_FAULT_PLAN``), or None.  Its ``probe_fn`` is a one-token
-    forward at the first ``WARMUP`` spec (a warmed bucket replays)."""
+    """``MESH_FAULT_ENABLED``'s ``MeshFaultManager`` over the embedder's
+    mesh shape (``MESH_FAULT_TRANSIENT_RETRIES``,
+    ``MESH_FAULT_PROBE_MILLIS``, ``DEVICE_FAULT_PLAN``), or None; an
+    embedder the mesh never placed is the 1x1 shape.  The ladder is
+    declared and logged here, and warmed with the buckets at startup
+    (``Server.warmup``).  Its ``probe_fn`` is a one-token consensus
+    dispatch at the first ``WARMUP`` spec on the full shape (a warmed
+    bucket replays); the server wires the rescale hooks."""
     if not config.mesh_fault_enabled or embedder is None:
         return None
     import numpy as np
@@ -525,8 +529,10 @@ def build_meshfault(embedder, config: ServeConfig):
     from ..models.embedder import _seq_bucket
     from ..resilience import MeshFaultManager
 
+    shape = (tuple(embedder.mesh_shape) if embedder.mesh_mode
+             else (1, 1))
     manager = MeshFaultManager(
-        embedder, shape=(1, 1),
+        embedder, shape=shape,
         transient_retries=config.mesh_fault_transient_retries,
         probe_millis=config.mesh_fault_probe_millis,
         fault_plan=config.device_fault_injection_plan(),

@@ -315,6 +315,9 @@ class DeviceBatcher:
         self.max_batch = int(max_batch)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.max_rows = max(1, int(max_rows))
+        # the configured capacity, which ``rescale_capacity`` scales
+        self._base_max_batch = self.max_batch
+        self._base_max_rows = self.max_rows
         self.max_queue_depth = max(0, int(max_queue_depth))
         self.watchdog = watchdog
         # the reference's clamps (serve/config.py)
@@ -1498,6 +1501,17 @@ class DeviceBatcher:
         return conf, int(mask.sum())
 
     # -- the twin ---------------------------------------------------------------
+
+    def rescale_capacity(self, scale: float) -> None:
+        """Scale per-dispatch capacity to the surviving device fraction (a
+        ``MeshFaultManager`` rescale hook): a half-size mesh gets half the
+        encoder rows and items per group, so a dispatch's wall time, and
+        the deadline shed's estimate fed by it, stay roughly flat through
+        a downsize.  ``scale=1.0`` restores the configured capacity."""
+        scale = max(0.0, float(scale))
+        with self._cond:
+            self.max_rows = max(1, int(self._base_max_rows * scale))
+            self.max_batch = max(1, int(self._base_max_batch * scale))
 
     def use_fallback(self, active: bool) -> None:
         """Route dispatches to the CPU twin (the watchdog's trip, or a

@@ -102,15 +102,17 @@ knobs, defaults and refusals:
   ``PROCESS_ID``);
 * ``MESH_FAULT_ENABLED`` — classify dispatch failures (transient /
   persistent / an application error), retry a transient one on the same
-  shape and escalate a streak to persistent; a persistent fault with the
-  one-rung ladder spent switches to the CPU twin when there is one, else
-  fails its group.  Needs ``MESH_ENABLED``, and a shape of one device:
-  the ladder past one rung is refused (ROADMAP queue 1, item 9).  The
-  ``meshfault`` /metrics section counts it.  Default 0;
+  shape and escalate a streak to persistent; a persistent fault walks the
+  downsize ladder (dp halving toward 1, tp and sp kept, every rung warmed
+  at startup when ``WARMUP`` is set), and with the ladder spent switches
+  to the CPU twin when there is one, else fails its group.  Needs
+  ``MESH_ENABLED``.  The ``meshfault`` /metrics section counts it.
+  Default 0;
 * ``MESH_FAULT_TRANSIENT_RETRIES`` — consecutive transient faults retried
   before the streak escalates.  Default 2;
-* ``MESH_FAULT_PROBE_MILLIS`` — the recovery prober's period (0 = none;
-  on one card there is no smaller shape to recover from).  Default 0;
+* ``MESH_FAULT_PROBE_MILLIS`` — the recovery prober's period: while
+  degraded it probes the full shape and upsizes back (0 = no automatic
+  upsize).  Default 0;
 * ``DEVICE_FAULT_PLAN`` — deterministic device-fault injection at the
   batcher's dispatch seam, e.g. ``seed=42,persistent=0.05`` or
   ``script=ok|transient|hang|ok,hang_ms=50`` (kinds ``transient``,
@@ -522,13 +524,6 @@ def _parse_mesh_shape(raw) -> Optional[tuple]:
     if len(parts) == 3 and parts[2] == 1:
         parts = parts[:2]
     return tuple(parts)
-
-
-# the tail of the port's one divergence from the reference's mesh knobs
-LADDER_PENDING = (
-    "the fault ladder past one rung (downsize, re-shard, upsize) waits "
-    "for the rest of the multi-device work (ROADMAP queue 1, item 9)"
-)
 
 
 def packing_options(env) -> dict:
@@ -981,16 +976,6 @@ class ServeConfig:
                 "in mesh mode it is the last resort AFTER the downsize "
                 "ladder is exhausted — enabling it without the ladder "
                 "would collapse the mesh to one CPU on the first trip"
-            )
-        # the one refusal the reference does not make: its downsize ladder
-        # past one rung is not in the port yet
-        shape = self.mesh_shape or (1, 1)
-        if self.mesh_fault_enabled and (
-            shape[0] * shape[1] * (shape[2] if len(shape) > 2 else 1) > 1
-        ):
-            raise ValueError(
-                f"MESH_FAULT_ENABLED=1 over MESH_SHAPE="
-                f"{'x'.join(map(str, shape))}: {LADDER_PENDING}"
             )
 
     def _check_fleet(self) -> None:

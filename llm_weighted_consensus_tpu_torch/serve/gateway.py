@@ -1031,6 +1031,13 @@ class Server:
             mem_gate=memguard.gate if memguard is not None else None,
         )
         self.lifecycle.admission = self.admission
+        if self.meshfault is not None:
+            # every shape change rescales admission (the hard cap and the
+            # AIMD limit) and the batcher's group capacity to the
+            # surviving device fraction
+            self.meshfault.rescale_hooks.append(self.admission.rescale)
+            self.meshfault.rescale_hooks.append(
+                self.batcher.rescale_capacity)
         register_performance(self.metrics, _roofline_gauge(embedder))
         if mesh and embedder is not None:
             self.metrics.register_provider("mesh", embedder.mesh_stats)
@@ -1145,7 +1152,8 @@ class Server:
 
     def _probe_loop(self) -> None:
         """``MESH_FAULT_PROBE_MILLIS``: while degraded, re-validate the
-        full shape and upsize back (on one card never degraded)."""
+        full shape and upsize back, through the full rung's stored model
+        and graphs (``MeshFaultManager.try_recover``)."""
         mf = self.meshfault
         while not self._prober_stop.wait(
                 mf.probe_millis / 1e3 * mf.probe_backoff_scale()):
@@ -1170,6 +1178,24 @@ class Server:
         if self.embedder is not None:
             timings += self.embedder.warmup(specs, r_buckets, packed_buckets,
                                             ring_buckets)
+        mf = self.meshfault
+        if mf is not None and specs and len(mf.build_ladder()) > 1:
+            # every fallback rung warmed now, under its own shape's keys:
+            # a downsize mid-traffic switches to graphs captured here
+            from ..models.embedder import _seq_bucket
+
+            snapped = list(dict.fromkeys(
+                (n, _seq_bucket(s, self.embedder.max_tokens))
+                for n, s in specs))
+            for label, seconds in mf.warm_ladder(
+                    snapped, r_buckets, packed_buckets, ring_buckets):
+                log.info("mesh fault ladder warmup %s in %.1fs", label,
+                         seconds)
+                timings.append((label, seconds))
+            for (dp, tp), pool in sorted(mf.rung_pool_bytes.items(),
+                                         reverse=True):
+                log.info("mesh fault ladder rung %dx%d: graph pool +%d "
+                         "bytes", dp, tp, pool)
         if self.reranker is not None:
             timings += self.reranker.warmup(rm_specs)
         self.lifecycle.mark_ready()

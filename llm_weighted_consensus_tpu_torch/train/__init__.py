@@ -35,6 +35,20 @@ define no backward.  The matmuls are f32 with TF32 off (torch's default
 for matmuls; the steps refuse to run with it on) and no autocast, so a
 step on the card matches one on the CPU to f32 rounding.
 
+Both steps also run over a dp x tp mesh (``mesh=``, a
+``parallel.mesh.Mesh``), the reference's GSPMD step written out: the
+batch's rows split over dp, each dp row's encoder tensor-parallel over
+its tp shards by the rule table (``parallel.sharding.MeshModel`` with
+``trainable=True``: every shard tensor a differentiable slice of the
+master parameter, so the backward pass sums every dp replica's gradient
+into the master's ``.grad`` once, and one AdamW step updates it).  The
+row-split layers add their bias once after the tp reduce, in the forward
+and so in the backward.  InfoNCE's in-batch negatives span the global
+batch: each dp row's queries meet every positive, all-gathered across dp
+(``collectives.all_gather``) before the logits, and the shards' summed
+cross-entropies (``psum``) divide by the global batch; a per-shard loss
+would be another function.  The collectives are torch ops with autograd.
+
 Checkpoints are the port's own files (``torch.save`` of a dict with a
 ``schema``): ``save_checkpoint`` keeps the parameters (the serving
 artifact), ``save_train_state`` the parameters, the optimizer's moments
@@ -105,17 +119,45 @@ def _on(model, *arrays) -> list:
     return [torch.as_tensor(a).to(device) for a in arrays]
 
 
+def _placed(model, mesh, rules):
+    """``model``'s differentiable placement on ``mesh`` (module doc)."""
+    from ..parallel.sharding import shard_by_rules
+
+    return shard_by_rules(model, mesh, rules, trainable=True)
+
+
+def _dp_rows(mesh, batch: int, what: str) -> int:
+    dp = mesh.shape["dp"]
+    if batch % dp:
+        raise ValueError(
+            f"{what}: batch {batch} does not divide by dp={dp} (the "
+            "batch's rows split over dp)"
+        )
+    return batch // dp
+
+
+def _mesh_mean(parts: list, batch: int) -> torch.Tensor:
+    """The shards' partial sums ``psum``-ed across dp, over the global
+    batch."""
+    from ..parallel.collectives import psum
+
+    return psum(parts)[0] / batch
+
+
 # ---------------------------------------------------------------------------
 # Contrastive encoder training (InfoNCE, in-batch negatives)
 # ---------------------------------------------------------------------------
 
 
 def contrastive_loss(model, q_ids, q_mask, p_ids, p_mask,
-                     temperature: float = 0.05) -> torch.Tensor:
+                     temperature: float = 0.05, mesh=None) -> torch.Tensor:
     """Mean InfoNCE loss of a batch of (query, positive) pairs, every
     other positive a negative: CLS-pooled, L2-normalized embeddings,
     f32 logits ``q . p^T / temperature``, cross-entropy against the
-    diagonal."""
+    diagonal.  ``mesh``: over a dp x tp mesh (module doc)."""
+    if mesh is not None:
+        return _contrastive_loss_mesh(model, q_ids, q_mask, p_ids, p_mask,
+                                      temperature, mesh)
     q_ids, q_mask, p_ids, p_mask = _on(model, q_ids, q_mask, p_ids, p_mask)
     q = bert.embed(model, q_ids, q_mask, pooling="cls",
                    attention_impl="plain")
@@ -126,13 +168,40 @@ def contrastive_loss(model, q_ids, q_mask, p_ids, p_mask,
     return nn.functional.cross_entropy(logits, labels)
 
 
+def _contrastive_loss_mesh(model, q_ids, q_mask, p_ids, p_mask,
+                           temperature, mesh) -> torch.Tensor:
+    from ..parallel.collectives import all_gather
+    from ..parallel.sharding import bert_partition_rules
+
+    q_ids, q_mask, p_ids, p_mask = _on(model, q_ids, q_mask, p_ids, p_mask)
+    batch = q_ids.shape[0]
+    per = _dp_rows(mesh, batch, "contrastive_loss")
+    placed = _placed(model, mesh, bert_partition_rules())
+    q = bert.embed_mesh_parts(placed, q_ids, q_mask, pooling="cls",
+                              attention_impl="plain")
+    p = bert.embed_mesh_parts(placed, p_ids, p_mask, pooling="cls",
+                              attention_impl="plain")
+    # every dp row's queries against the global batch's positives
+    p_all = all_gather(p)
+    parts = []
+    for d, (q_d, p_d) in enumerate(zip(q, p_all)):
+        logits = (q_d.float() @ p_d.float().T) / temperature
+        labels = d * per + torch.arange(per, device=logits.device)
+        parts.append(nn.functional.cross_entropy(logits, labels,
+                                                 reduction="sum"))
+    return _mesh_mean(parts, batch)
+
+
 def contrastive_train_step(model, optimizer, q_ids, q_mask, p_ids, p_mask,
-                           temperature: float = 0.05) -> torch.Tensor:
+                           temperature: float = 0.05,
+                           mesh=None) -> torch.Tensor:
     """One InfoNCE step on ``model`` in place; returns the step's loss
-    (before the update), detached."""
+    (before the update), detached.  ``mesh``: the step over a dp x tp
+    mesh (module doc); the batch divides by dp."""
     _check_trainable(model, "contrastive_train_step")
     _check_tf32(next(model.parameters()).device)
-    loss = contrastive_loss(model, q_ids, q_mask, p_ids, p_mask, temperature)
+    loss = contrastive_loss(model, q_ids, q_mask, p_ids, p_mask, temperature,
+                            mesh=mesh)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
@@ -144,26 +213,57 @@ def contrastive_train_step(model, optimizer, q_ids, q_mask, p_ids, p_mask,
 # ---------------------------------------------------------------------------
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def reward_pairwise_loss(model, chosen_ids, chosen_mask, rejected_ids,
-                         rejected_mask) -> torch.Tensor:
+                         rejected_mask, mesh=None) -> torch.Tensor:
     """Bradley-Terry: the mean of ``-log sigmoid(r_chosen - r_rejected)``
-    (``softplus(-(r_c - r_r))``, as ``jax.nn.softplus`` computes it)."""
+    (``softplus(-(r_c - r_r))``, as ``jax.nn.softplus`` computes it).
+    ``mesh``: over a dp x tp mesh (module doc)."""
     chosen_ids, chosen_mask, rejected_ids, rejected_mask = _on(
         model, chosen_ids, chosen_mask, rejected_ids, rejected_mask)
+    if mesh is not None:
+        return _reward_loss_mesh(model, chosen_ids, chosen_mask,
+                                 rejected_ids, rejected_mask, mesh)
     r_chosen = deberta.reward(model, chosen_ids, chosen_mask)
     r_rejected = deberta.reward(model, rejected_ids, rejected_mask)
-    margin = -(r_chosen - r_rejected)
-    return torch.mean(torch.logaddexp(margin, torch.zeros_like(margin)))
+    return torch.mean(_softplus(-(r_chosen - r_rejected)))
+
+
+def _reward_loss_mesh(model, chosen_ids, chosen_mask, rejected_ids,
+                      rejected_mask, mesh) -> torch.Tensor:
+    from ..parallel.sharding import deberta_partition_rules
+
+    batch = chosen_ids.shape[0]
+    _dp_rows(mesh, batch, "reward_pairwise_loss")
+    placed = _placed(model, mesh, deberta_partition_rules())
+
+    def body(shard, part, tp):
+        hidden = yield from deberta.encode_steps(
+            shard, part["ids"], part["mask"], tp=tp)
+        return (yield from deberta._head_steps(
+            shard, hidden[:, 0, :].float(), tp=tp))
+
+    r_chosen = bert._mesh_encode(
+        placed, {"ids": chosen_ids, "mask": chosen_mask}, body)
+    r_rejected = bert._mesh_encode(
+        placed, {"ids": rejected_ids, "mask": rejected_mask}, body)
+    parts = [torch.sum(_softplus(-(c - r)))
+             for c, r in zip(r_chosen, r_rejected)]
+    return _mesh_mean(parts, batch)
 
 
 def reward_train_step(model, optimizer, chosen_ids, chosen_mask,
-                      rejected_ids, rejected_mask) -> torch.Tensor:
+                      rejected_ids, rejected_mask, mesh=None) -> torch.Tensor:
     """One Bradley-Terry step on ``model`` in place; returns the step's
-    loss (before the update), detached."""
+    loss (before the update), detached.  ``mesh``: the step over a dp x
+    tp mesh (module doc); the batch divides by dp."""
     _check_trainable(model, "reward_train_step")
     _check_tf32(next(model.parameters()).device)
     loss = reward_pairwise_loss(model, chosen_ids, chosen_mask,
-                                rejected_ids, rejected_mask)
+                                rejected_ids, rejected_mask, mesh=mesh)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()

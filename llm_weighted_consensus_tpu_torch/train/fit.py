@@ -10,9 +10,10 @@ sum of the panel's soft votes, so the learner fits the weight vector
                    + l2 * sum_j theta_j**2
 
 batched over every record at once as one torch optimization
-(``torch.optim.Adam`` on ``theta`` from 0) on one device: the card
-unless the caller asks for the CPU.  The reference's ``mesh`` argument
-(dp-sharding the records over a device mesh) is refused by name.
+(``torch.optim.Adam`` on ``theta`` from 0) on one device (the card
+unless the caller asks for the CPU) or, with ``mesh``, with the records
+dp-sharded over a device mesh and ``theta`` replicated, as the
+reference's ``mesh`` argument does.
 
 Numerics against the reference's optax Adam: torch folds the bias
 corrections into the step size and optax divides the moments; the two
@@ -157,33 +158,74 @@ def tally_accuracy(dataset: Dataset, weights: np.ndarray) -> float:
     return float((hit * dataset.sample_weight).sum() / denom) if denom else 0.0
 
 
+def _dp_shards(dataset: Dataset, mesh) -> list:
+    """The records split over the mesh's dp axis: a ragged tail padded
+    with zero-``sample_weight`` rows (``cand_mask`` 1, so their softmax
+    stays finite; they add nothing to the loss or its gradient), each dp
+    row's block -> {name: array} per dp shard, with its device."""
+    dp = mesh.shape["dp"]
+    arrays = {
+        "votes": dataset.votes, "vote_mask": dataset.vote_mask,
+        "cand_mask": dataset.cand_mask, "labels": dataset.labels,
+        "sample_weight": dataset.sample_weight,
+    }
+    r = dataset.votes.shape[0]
+    pad = (-r) % dp
+    if pad:
+        arrays = {
+            name: np.concatenate([a, np.full(
+                (pad,) + a.shape[1:], 1.0 if name == "cand_mask" else 0,
+                a.dtype)])
+            for name, a in arrays.items()
+        }
+    per = (r + pad) // dp
+    return [({name: a[d * per:(d + 1) * per] for name, a in arrays.items()},
+             mesh.device(dp=d)) for d in range(dp)]
+
+
 def fit_losses(dataset: Dataset, steps: int = 300, lr: float = 0.1,
-               l2: float = 1e-4, device=None) -> tuple:
+               l2: float = 1e-4, device=None, mesh=None) -> tuple:
     """``(weights, losses)``: ``fit_weights``'s result and the loss
     before each of its steps, as floats."""
     import torch
 
     from ..models.bert import resolve_device
 
-    device = resolve_device(device)
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+    if mesh is not None:
+        shards = _dp_shards(dataset, mesh)
+        device = torch.device(shards[0][1])
+    else:
+        device = resolve_device(device)
+        shards = [({"votes": dataset.votes, "vote_mask": dataset.vote_mask,
+                    "cand_mask": dataset.cand_mask, "labels": dataset.labels,
+                    "sample_weight": dataset.sample_weight}, device)]
+    if any(torch.device(d).type == "cuda" for _, d in shards) and (
+            torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(
             "fit_weights runs its f32 matmuls without TF32; set "
             "torch.backends.cuda.matmul.allow_tf32 = False"
         )
 
-    def put(a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    def put(a, dtype, on):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=on)
 
-    votes = put(dataset.votes, torch.float32)
-    vote_mask = put(dataset.vote_mask, torch.float32)
-    cand_mask = put(dataset.cand_mask, torch.float32)
-    labels = put(dataset.labels, torch.int64)
-    sample_weight = put(dataset.sample_weight, torch.float32)
-    denom = torch.clamp(sample_weight.sum(), min=1.0)
-    masked = torch.full((), -1e9, dtype=torch.float32, device=device)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
+    parts = []
+    for arrays, on in shards:
+        parts.append({
+            "votes": put(arrays["votes"], torch.float32, on),
+            "vote_mask": put(arrays["vote_mask"], torch.float32, on),
+            "cand_mask": put(arrays["cand_mask"], torch.float32, on),
+            "labels": put(arrays["labels"], torch.int64, on),
+            "sample_weight": put(arrays["sample_weight"], torch.float32, on),
+            "masked": torch.full((), -1e9, dtype=torch.float32, device=on),
+            "zero": torch.zeros((), dtype=torch.float32, device=on),
+        })
+    denom = torch.clamp(sum(
+        p["sample_weight"].sum().to(device) for p in parts), min=1.0)
+    zero = parts[0]["zero"]
 
+    # theta replicated: each dp shard reads it through a differentiable
+    # copy, so its gradient sums every shard's records
     theta = torch.zeros(len(dataset.judge_ids), dtype=torch.float32,
                         device=device, requires_grad=True)
     # optax.adam's defaults: betas (0.9, 0.999), eps 1e-8
@@ -191,12 +233,18 @@ def fit_losses(dataset: Dataset, steps: int = 300, lr: float = 0.1,
                                  eps=1e-8)
     losses = []
     for _ in range(max(1, int(steps))):
-        w = torch.logaddexp(theta, zero)  # softplus, as jax.nn.softplus
-        logits = torch.einsum("rjn,j,rj->rn", votes, w, vote_mask)
-        logits = torch.where(cand_mask > 0, logits, masked)
-        ce = -torch.log_softmax(logits, dim=-1).gather(
-            1, labels[:, None])[:, 0]
-        loss = (ce * sample_weight).sum() / denom + l2 * torch.sum(theta**2)
+        total = None
+        for p in parts:
+            th = theta.to(p["zero"].device)
+            w = torch.logaddexp(th, p["zero"])  # softplus, as jax's
+            logits = torch.einsum("rjn,j,rj->rn", p["votes"], w,
+                                  p["vote_mask"])
+            logits = torch.where(p["cand_mask"] > 0, logits, p["masked"])
+            ce = -torch.log_softmax(logits, dim=-1).gather(
+                1, p["labels"][:, None])[:, 0]
+            part = (ce * p["sample_weight"]).sum().to(device)
+            total = part if total is None else total + part
+        loss = total / denom + l2 * torch.sum(theta**2)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -219,14 +267,12 @@ def fit_weights(
     """One batched optimization over every record -> per-judge weight
     vector (positive via softplus, mean-normalized to 1.0 so the fitted
     table composes with [min, max] clamps the way static weights do), on
-    ``device`` (CUDA unless ``"cpu"``).  ``mesh`` is refused: the port
-    fits on one device."""
-    if mesh is not None:
-        raise ValueError(
-            "fit_weights: `mesh` (dp-sharding the records over a device "
-            "mesh) is not supported; the port fits on one device"
-        )
-    return fit_losses(dataset, steps=steps, lr=lr, l2=l2, device=device)[0]
+    ``device`` (CUDA unless ``"cpu"``).  ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards the records over its dp axis, a
+    ragged tail padded with zero-weight rows, and replicates theta: the
+    same function, its per-shard sums added on the first dp device."""
+    return fit_losses(dataset, steps=steps, lr=lr, l2=l2, device=device,
+                      mesh=mesh)[0]
 
 
 def holdout_split(dataset: Dataset, every: int = 4) -> tuple:

@@ -399,30 +399,15 @@ def test_cli_exit_codes(tmp_path, capsys):
     reasonless.write_text(json.dumps({"suppressions": [
         {"rule": "LWC001", "path": "gone.py", "symbol": None}]}))
     assert main([str(FIXTURES / "lwc002_good.py"), "--no-jaxpr",
-                 "--baseline", str(reasonless)]) == 2
+                 "--no-mesh", "--baseline", str(reasonless)]) == 2
     assert main(["--rules", "LWC999"]) == 2
-
-
-def test_cli_says_the_mesh_audit_waits(tmp_path, capsys, monkeypatch):
-    from llm_weighted_consensus_tpu_torch.analysis.__main__ import main
-
-    empty = tmp_path / "empty.json"
-    empty.write_text(json.dumps({"suppressions": []}))
-    monkeypatch.setenv("ANALYSIS_MESH_DP", "4")
-    assert main([str(FIXTURES / "lwc002_good.py"), "--no-jaxpr", "--json",
-                 "--baseline", str(empty)]) == 0
-    out = json.loads(capsys.readouterr().out)
-    assert out["mesh"]["run"] is False and not out["mesh"]["skipped"]
-    assert "item 9" in out["mesh"]["reason"]
-    assert out["mesh"]["knobs_set"] == ["ANALYSIS_MESH_DP"]
-    assert out["audit_run"] is False
 
 
 def test_lint_alone_leaves_torch_unimported():
     probe = (
         "import json, sys\n"
         "from llm_weighted_consensus_tpu_torch.analysis.__main__ import main\n"
-        "rc = main(['--no-jaxpr', '--json'])\n"
+        "rc = main(['--no-jaxpr', '--no-mesh', '--json'])\n"
         "print(json.dumps({'rc': rc, 'torch': 'torch' in sys.modules}))\n"
     )
     proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,

@@ -51,7 +51,11 @@ layer's activations); the ring at sp 4 against the one-device forward, f32
 1e-4, with every tp attention on the ``tma`` route in bf16; the
 reward model's tensor-parallel layers and head (deberta-v3-base, f32,
 tp 2) against one device 1e-4 + 1e-4 |want| (the f32 partials' sums in
-another order, through 12 layers).
+another order, through 12 layers).  The fault ladder (test-tiny, f32, 4x2
+over the card): every rung's answers 2e-4 from one device, no capture or
+eager dispatch after the warmup.  Training on a mesh: bge-base's InfoNCE
+step on 2x2 against one device, the loss 1e-4 relative, the parameters
+1e-4 of the largest, the update 1e-3 of its norm.
 """
 
 import os
@@ -1918,3 +1922,103 @@ def test_reward_model_tp_on_the_card_matches_one_device(card):
         got = deberta.reward_mesh(placed, ids, mask)
     torch.testing.assert_close(got, want.to(got.device), atol=1e-4,
                                rtol=1e-4)
+
+
+def test_the_fault_ladder_walks_and_recovers_on_the_card(card):
+    """test-tiny on a 4x2 mesh over the card: the ladder warmed (one CUDA
+    graph per bucket per rung), scripted persistent faults walk 4x2 ->
+    2x2 -> 1x2 through the batcher, the ladder is then spent, and the
+    probe upsizes; every answer within 2e-4 of the one-device embedder
+    (f32), no capture and no eager dispatch after the warmup, every
+    attention launch on its route."""
+    from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
+    from llm_weighted_consensus_tpu_torch.ops import attention
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_embedder_mesh,
+    )
+    from llm_weighted_consensus_tpu_torch.resilience import (
+        DeviceFaultPlan,
+        MeshFaultManager,
+    )
+    from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
+
+    texts = [f"candidate number {i % 3} under fault" for i in range(8)]
+    one = TorchEmbedder("test-tiny", max_tokens=32, seed=3,
+                        dtype=torch.float32, device=card)
+    want = one.consensus_confidence(texts)
+    emb = TorchEmbedder("test-tiny", max_tokens=32, seed=3,
+                        dtype=torch.float32, device=card)
+    shard_embedder_mesh(emb, _card_mesh(4, 2))
+    mgr = MeshFaultManager(emb, shape=(4, 2))
+    s = emb.tokenize(texts)[0].shape[1]
+    mgr.warm_ladder([(8, s)])
+    assert emb.aot_mesh_shapes() == [(4, 2), (2, 2), (1, 2)]
+    stats0 = emb.graph_stats()
+    scales = []
+    mgr.rescale_hooks.append(scales.append)
+    shapes = []
+    with DeviceBatcher(emb, window_ms=5.0, meshfault=mgr) as batcher:
+        for step in range(3):
+            if step:
+                mgr.fault_plan = DeviceFaultPlan.scripted(["persistent"])
+            conf, _ = batcher.consensus(texts)
+            mgr.fault_plan = None
+            np.testing.assert_allclose(conf, want, atol=2e-4)
+            shapes.append(mgr.current_shape)
+        assert mgr.downsize() is False
+        assert mgr.try_recover() is True
+        conf, _ = batcher.consensus(texts)
+        np.testing.assert_allclose(conf, want, atol=2e-4)
+    assert shapes == [(4, 2), (2, 2), (1, 2)]
+    assert mgr.current_shape == (4, 2) and scales == [0.5, 0.25, 1.0]
+    snap = mgr.snapshot()
+    assert (snap["downsizes"], snap["upsizes"], snap["epoch"]) == (2, 1, 3)
+    stats = emb.graph_stats()
+    assert stats["captures"] == stats0["captures"]
+    assert stats["eager_dispatches"] == stats0["eager_dispatches"] == 0
+    assert stats["replays"] > stats0["replays"]
+    assert sum(attention.attention.routes.values()) == (
+        attention.attention.launches)
+
+
+def test_the_infonce_step_on_a_2x2_mesh_matches_one_device(card):
+    """One f32 InfoNCE step of bge-base on a 2x2 mesh over the card
+    against the one-device step: the loss 1e-4 relative, every master
+    gradient within 1e-4 of the largest gradient plus 1e-3 relative, and
+    every parameter after the step within 1e-4 of the largest parameter;
+    no kernel launched."""
+    from llm_weighted_consensus_tpu_torch import train
+    from llm_weighted_consensus_tpu_torch.models import bert, configs
+    from llm_weighted_consensus_tpu_torch.ops import launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.PRESETS["bge-base-en"]
+    state = bert.random_state(bert.BertEncoder, cfg, 0)
+    rng = np.random.default_rng(7)
+    batch = [rng.integers(3, cfg.vocab_size, (8, 32)), np.ones((8, 32)),
+             rng.integers(3, cfg.vocab_size, (8, 32)), np.ones((8, 32))]
+    batch[1][7, 16:] = 0
+    batch = [np.asarray(a, np.int64) for a in batch]
+    one = bert.trainable(bert.BertEncoder, state, cfg, device=card)
+    # lr 1e-5: a gradient that is 0 in exact arithmetic moves its
+    # parameter by up to lr on rounding noise, differently on each side
+    one_loss = train.contrastive_train_step(
+        one, train.make_optimizer(one, lr=1e-5), *batch)
+    model = bert.trainable(bert.BertEncoder, state, cfg, device=card)
+    with launches.recording() as noted:
+        loss = train.contrastive_train_step(
+            model, train.make_optimizer(model, lr=1e-5), *batch,
+            mesh=_card_mesh(2, 2))
+    assert not noted
+    np.testing.assert_allclose(float(loss), float(one_loss), rtol=1e-4)
+    mine = dict(model.named_parameters())
+    g_scale = max(float(p.grad.abs().max()) for p in one.parameters())
+    scale = max(float(p.detach().abs().max()) for p in one.parameters())
+    for name, p in one.named_parameters():
+        assert mine[name].grad is not None, name
+        np.testing.assert_allclose(
+            mine[name].grad.cpu().numpy(), p.grad.cpu().numpy(), rtol=1e-3,
+            atol=1e-4 * g_scale, err_msg=name)
+        np.testing.assert_allclose(
+            mine[name].detach().cpu().numpy(), p.detach().cpu().numpy(),
+            rtol=0, atol=1e-4 * scale, err_msg=name)

@@ -199,15 +199,15 @@ class _Poison:
 sys.meta_path.insert(0, _Poison())
 from llm_weighted_consensus_tpu_torch.analysis.__main__ import main
 
-rc = main(["--no-jaxpr", "--json"])
+rc = main(["--no-jaxpr", "--no-mesh", "--json"])
 print(json.dumps({"rc": rc, "torch": "torch" in sys.modules,
                   "numpy": "numpy" in sys.modules}))
 """
 
 
 def test_the_lint_alone_never_imports_torch():
-    """``python -m llm_weighted_consensus_tpu_torch.analysis --no-jaxpr``
-    runs with torch, numpy and jax poisoned, and exits 0: the lint and
+    """``python -m llm_weighted_consensus_tpu_torch.analysis --no-jaxpr
+    --no-mesh`` runs with torch, numpy and jax poisoned, and exits 0: the lint and
     the concurrency audit are stdlib only, the package's import included
     (it sets torch's precision flags only once torch is imported)."""
     proc = subprocess.run(

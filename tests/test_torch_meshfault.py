@@ -14,6 +14,7 @@ import asyncio
 import dataclasses
 import os
 import random
+import threading
 import time
 
 import jax
@@ -47,10 +48,7 @@ from llm_weighted_consensus_tpu_torch.models import (
 from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 from llm_weighted_consensus_tpu_torch.resilience.deadline import Deadline
 from llm_weighted_consensus_tpu_torch.serve.batcher import DeviceBatcher
-from llm_weighted_consensus_tpu_torch.serve.config import (
-    LADDER_PENDING,
-    ServeConfig,
-)
+from llm_weighted_consensus_tpu_torch.serve.config import ServeConfig
 from llm_weighted_consensus_tpu_torch.serve.gateway import Server
 from llm_weighted_consensus_tpu_torch.serve.metrics import Metrics
 
@@ -243,7 +241,8 @@ def test_one_card_ladder_is_spent_from_the_start():
     assert mgr.downsize() is False
     assert mgr.try_recover() is False
     assert mgr.current_shape == (1, 1)
-    with pytest.raises(ValueError, match="multi-device slice"):
+    # a shape past one device needs an embedder placed on its mesh
+    with pytest.raises(RuntimeError, match="mesh-sharded embedder"):
         res.MeshFaultManager(None, shape=(2, 1)).build_ladder()
 
 
@@ -683,12 +682,16 @@ def test_the_port_refuses_more_than_one_card(case):
     assert str(got.value) == str(want.value)
 
 
-def test_the_fault_ladder_past_one_device_is_refused():
-    env = {**MESH, "MESH_SHAPE": "2x1", "MESH_FAULT_ENABLED": "1"}
-    RefConfig.from_env(env)  # the reference walks its ladder
-    with pytest.raises(ValueError) as got:
-        ServeConfig.from_env(env)
-    assert LADDER_PENDING in str(got.value) and "item 9" in str(got.value)
+def test_the_fault_ladder_past_one_device_is_accepted():
+    """The knobs of a ladder past one rung parse as the reference's (the
+    refusal the port made before its ladder walked is gone)."""
+    for shape in ("2x1", "4x2", "2x2x2"):
+        env = {**MESH, "MESH_SHAPE": shape, "MESH_FAULT_ENABLED": "1",
+               "DEVICE_WATCHDOG_MILLIS": "1000",
+               "DEVICE_WATCHDOG_CPU_FALLBACK": "1"}
+        ref, port = RefConfig.from_env(env), ServeConfig.from_env(env)
+        for name in FIELDS:
+            assert getattr(port, name) == getattr(ref, name), name
 
 
 def test_a_malformed_plan_is_refused_when_the_server_builds_it():
@@ -807,3 +810,474 @@ def test_a_failed_dispatch_never_frees_its_staging_buffers():
             {"ids": np.zeros((2, 4), np.int32), "mask": mask}, asserting,
             lambda out: out, pool)
     assert len(pool._retained) == 2
+
+
+# -- the ladder past one rung, against the reference's ---------------------------
+#
+# Both managers walk test-tiny in f32 with the same weights: the
+# reference's ``TpuEmbedder`` on the conftest's virtual CPU devices, the
+# port's ``TorchEmbedder`` over ``[cpu] * k`` (its shards share the CPU as
+# a mesh's shards share one card).
+
+CPUS = [torch.device("cpu")] * 8
+LN, LS, LR = 4, 16, 2  # the warmed (N, S) spec and R bucket
+LADDER_TEXTS = [f"candidate number {i % 3} under fault" for i in range(6)]
+# the buckets the drives below dispatch at (their 6 and 4 candidates)
+WARM = [(6, LS), (LN, LS)]
+
+
+@pytest.fixture(scope="module")
+def tiny_tree():
+    ref = TpuEmbedder("test-tiny", config=jax_configs.TEST_TINY,
+                      max_tokens=32, seed=3)
+    return jax.tree_util.tree_map(np.asarray, ref.params), ref.tokenizer
+
+
+def _ref_tiny(tiny_tree, dp, tp, sp=1):
+    from llm_weighted_consensus_tpu.parallel.mesh import make_mesh as jm
+
+    ref = TpuEmbedder("test-tiny", config=jax_configs.TEST_TINY,
+                      max_tokens=32, seed=3)
+    if dp:
+        shard_embedder_mesh(ref, jm(dp=dp, tp=tp, sp=sp))
+    return ref
+
+
+def _port_tiny(tiny_tree, dp, tp, sp=1):
+    from llm_weighted_consensus_tpu_torch.models import configs as pc
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh as pm
+    from llm_weighted_consensus_tpu_torch.parallel.sharding import (
+        shard_embedder_mesh as port_shard,
+    )
+
+    tree, tok = tiny_tree
+    model = bert.from_hf_state_dict(convert.from_jax_params(
+        tree, pc.TEST_TINY), pc.TEST_TINY, device="cpu")
+    emb = TorchEmbedder("test-tiny", model=model, config=pc.TEST_TINY,
+                        tokenizer=tok, max_tokens=32, device="cpu")
+    if dp:
+        port_shard(emb, pm(dp=dp, tp=tp, sp=sp, devices=CPUS))
+    return emb
+
+
+def _pair(tiny_tree, dp=4, tp=2, sp=1, plan=None, **kw):
+    """(reference manager, port manager), each over its own mesh
+    embedder, with the same ``DEVICE_FAULT_PLAN`` spec."""
+    ref = _ref_tiny(tiny_tree, dp, tp, sp)
+    port = _port_tiny(tiny_tree, dp, tp, sp)
+    ref_mgr = ref_res.MeshFaultManager(
+        ref, shape=(dp, tp), fault_plan=(
+            ref_res.DeviceFaultPlan.parse(plan) if plan else None), **kw)
+    mgr = res.MeshFaultManager(
+        port, shape=(dp, tp), fault_plan=(
+            res.DeviceFaultPlan.parse(plan) if plan else None), **kw)
+    assert mgr.build_ladder() == ref_mgr.build_ladder()
+    return ref_mgr, mgr
+
+
+def _clean(tiny_tree, texts=LADDER_TEXTS):
+    """The one-device reference answer."""
+    return np.asarray(_ref_tiny(tiny_tree, 0, 0).consensus_confidence(texts))
+
+
+@pytest.mark.parametrize("dp,tp,sp,ladder", [
+    (8, 1, 1, [(8, 1), (4, 1), (2, 1), (1, 1)]),
+    (4, 2, 1, [(4, 2), (2, 2), (1, 2)]),
+    (2, 2, 2, [(2, 2), (1, 2)]),
+], ids=["8x1", "4x2", "2x2x2"])
+def test_the_ladder_walks_as_the_references(tiny_tree, dp, tp, sp, ladder):
+    """dp halves toward 1 with tp and sp kept, every rung a row-major
+    prefix of the full device list; rungs, epochs, the faulted domain and
+    the snapshot follow the reference step by step, and past the last
+    rung both refuse."""
+    ref_mgr, mgr = _pair(tiny_tree, dp, tp, sp)
+    assert mgr.build_ladder() == ladder
+    port = mgr.embedder
+    full = port.mesh.flat()
+    for want in ladder[1:]:
+        assert mgr.downsize() is ref_mgr.downsize() is True
+        assert mgr.current_shape == ref_mgr.current_shape == want
+        assert port.mesh_shape == ref_mgr.embedder.mesh_shape == want
+        assert port.mesh.flat() == full[: want[0] * want[1] * sp]
+        assert port.mesh_sp == sp
+        assert mgr.snapshot() == ref_mgr.snapshot()
+    assert mgr.exhausted and ref_mgr.exhausted
+    assert mgr.downsize() is ref_mgr.downsize() is False
+    snap = mgr.snapshot()
+    assert snap == ref_mgr.snapshot()
+    assert len(snap["faulted_devices"]) == dp * tp * sp - tp * sp
+
+
+def test_warm_ladder_covers_every_rung(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree)
+    got = mgr.warm_ladder([(LN, LS)], [LR], [(4, 64, 8)])
+    want = ref_mgr.warm_ladder([(LN, LS)], [LR], [(4, 64, 8)])
+    # 4 buckets (vote1, embed, many, packed) x 3 rungs
+    assert len(got) == len(want) == 12
+    port = mgr.embedder
+    assert port.aot_mesh_shapes() == ref_mgr.embedder.aot_mesh_shapes() == [
+        (4, 2), (2, 2), (1, 2)]
+    # the embedder leaves placed on the full rung, every rung's model kept
+    assert port.mesh_shape == (4, 2)
+    assert port.mesh_model is mgr._rungs[0].placed
+    assert all(r.placed is not None for r in mgr._rungs)
+    assert set(mgr.rung_pool_bytes) == {(4, 2), (2, 2), (1, 2)}
+    # warming again warms nothing
+    assert mgr.warm_ladder([(LN, LS)], [LR], [(4, 64, 8)]) == []
+
+
+def test_a_downsized_rung_serves_from_its_warmed_buckets(tiny_tree):
+    """A switch builds nothing and captures nothing: after the warmup
+    every rung's dispatch is at a warmed bucket (0 eager dispatches), on
+    the rung's stored model, and answers as the reference's rung."""
+    ref_mgr, mgr = _pair(tiny_tree)
+    mgr.warm_ladder([(LN, LS)], [LR])
+    ref_mgr.warm_ladder([(LN, LS)], [LR])
+    port, ref = mgr.embedder, ref_mgr.embedder
+    rng = np.random.default_rng(5)
+    ids = rng.integers(3, 512, (LN, LS)).astype(np.int32)
+    mask = np.ones((LN, LS), np.int32)
+    placed = [r.placed for r in mgr._rungs]
+    stats0 = port.graph_stats()
+    for rung in range(3):
+        got = port.consensus_confidence_tokens(ids, mask)
+        want = np.asarray(ref.consensus_confidence_tokens(ids, mask))
+        np.testing.assert_allclose(got, want, atol=TOL)
+        assert port.mesh_model is placed[rung]
+        if rung < 2:
+            assert mgr.downsize() is ref_mgr.downsize() is True
+    stats = port.graph_stats()
+    assert stats["eager_dispatches"] == stats0["eager_dispatches"] == 0
+    assert stats["captures"] == stats0["captures"]
+    assert [r.placed for r in mgr._rungs] == placed
+
+
+def test_a_transition_waits_for_the_dispatch_in_flight(tiny_tree):
+    _, mgr = _pair(tiny_tree)
+    dispatching, finish = threading.Event(), threading.Event()
+    order = []
+
+    def dispatch():
+        with mgr.dispatch_guard():
+            dispatching.set()
+            finish.wait(5.0)
+            order.append("dispatch")
+
+    def downsize():
+        mgr.downsize()
+        order.append("downsize")
+
+    t = threading.Thread(target=dispatch)
+    t.start()
+    assert dispatching.wait(5.0)
+    w = threading.Thread(target=downsize)
+    w.start()
+    time.sleep(0.05)
+    assert order == [] and mgr.current_shape == (4, 2)
+    finish.set()
+    t.join(5.0)
+    w.join(5.0)
+    assert order == ["dispatch", "downsize"]
+    assert mgr.current_shape == (2, 2)
+
+
+def test_a_stale_epoch_does_not_step_the_ladder(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree)
+    for m in (mgr, ref_mgr):
+        epoch0 = m.epoch
+        assert m.downsize(observed_epoch=epoch0) is True
+        assert m.downsize(observed_epoch=epoch0) is True
+        assert m.current_shape == (2, 2)
+    snap = mgr.snapshot()
+    assert snap == ref_mgr.snapshot()
+    assert snap["downsizes"] == 1 and snap["epoch"] == 1
+
+
+def _ref_drive(ref_mgr, batches, **kw):
+    batcher = RefBatcher(ref_mgr.embedder, RefMetrics(), meshfault=ref_mgr,
+                         **kw)
+
+    async def run():
+        return await asyncio.gather(*(batcher.consensus(t) for t in batches))
+
+    return asyncio.run(run()), batcher
+
+
+def _port_drive(mgr, batches, **kw):
+    with DeviceBatcher(mgr.embedder, Metrics(), meshfault=mgr, **kw) as b:
+        futures = [b.submit_consensus(t) for t in batches]
+        return [f.result(60) for f in futures], b
+
+
+def test_concurrent_persistent_faults_downsize_once(tiny_tree):
+    """Two pipelined groups drawing persistent faults from one fault
+    event step the ladder once, and every re-dispatched answer is the
+    clean one."""
+    short = LADDER_TEXTS[:4]
+    ref_mgr, mgr = _pair(tiny_tree, plan="script=persistent|persistent")
+    mgr.warm_ladder(WARM, [LR])
+    ref_mgr.warm_ladder(WARM, [LR])
+    # both groups in flight before either faults, as two dispatches on a
+    # dead device are (the reference's loop launches both before either
+    # handler runs; the port's two dispatch threads meet here)
+    both = threading.Barrier(2, timeout=10)
+    draw = mgr.maybe_inject
+
+    def in_flight():
+        both.wait()
+        draw()
+
+    mgr.maybe_inject = in_flight
+    got, _ = _port_drive(mgr, [LADDER_TEXTS, short], window_ms=20.0,
+                         pipeline_depth=2)
+    want, _ = _ref_drive(ref_mgr, [LADDER_TEXTS, short], window_ms=20.0,
+                         pipeline_depth=2)
+    for (conf, tok), (rconf, rtok), texts in zip(got, want,
+                                                 [LADDER_TEXTS, short]):
+        np.testing.assert_allclose(conf, np.asarray(rconf), atol=TOL)
+        np.testing.assert_allclose(conf, _clean(tiny_tree, texts), atol=TOL)
+        assert tok == rtok
+    snap, ref_snap = mgr.snapshot(), ref_mgr.snapshot()
+    assert snap["downsizes"] == ref_snap["downsizes"] == 1
+    assert snap["current_shape"] == ref_snap["current_shape"] == [2, 2]
+    assert snap["re_dispatches"] >= 2 and ref_snap["re_dispatches"] >= 2
+    assert mgr.embedder.graph_stats()["eager_dispatches"] == 0
+
+
+def test_a_persistent_fault_matches_the_clean_run(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree, plan="script=persistent")
+    mgr.warm_ladder(WARM, [LR])
+    ref_mgr.warm_ladder(WARM, [LR])
+    batches = [LADDER_TEXTS, list(reversed(LADDER_TEXTS))]
+    got, _ = _port_drive(mgr, batches, window_ms=20.0)
+    want, _ = _ref_drive(ref_mgr, batches, window_ms=20.0)
+    for (conf, tok), (rconf, rtok), texts in zip(got, want, batches):
+        np.testing.assert_allclose(conf, np.asarray(rconf), atol=TOL)
+        np.testing.assert_allclose(conf, _clean(tiny_tree, texts), atol=TOL)
+        assert tok == rtok
+    assert mgr.snapshot() == ref_mgr.snapshot()
+    assert mgr.snapshot()["downsizes"] == 1 and mgr.degraded
+
+
+def test_a_spent_ladder_switches_to_the_cpu_twin(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree, dp=2, tp=1,
+                         plan="script=persistent|persistent")
+    ref_twin, twin = _ref_tiny(tiny_tree, 0, 0), _port_tiny(tiny_tree, 0, 0)
+    twin.label_suffix = "@cpu"
+    got, b = _port_drive(mgr, [LADDER_TEXTS], window_ms=10.0,
+                         fallback_embedder=twin)
+    want, rb = _ref_drive(ref_mgr, [LADDER_TEXTS], window_ms=10.0,
+                          fallback_embedder=ref_twin)
+    np.testing.assert_allclose(got[0][0], np.asarray(want[0][0]), atol=TOL)
+    assert mgr.exhausted and ref_mgr.exhausted
+    assert b.fallback_active and rb._use_fallback is True
+    assert mgr.snapshot() == ref_mgr.snapshot()
+
+
+def test_a_downsize_rescales_admission_and_the_batcher(tiny_tree):
+    from llm_weighted_consensus_tpu_torch.resilience.admission import (
+        AdmissionConfig,
+        AdmissionController,
+    )
+
+    ref_mgr, mgr = _pair(tiny_tree)
+    pairs = []
+    for m, adm_mod, batcher_cls, metrics in (
+            (mgr, (AdmissionConfig, AdmissionController), DeviceBatcher,
+             Metrics),
+            (ref_mgr, (ref_res.AdmissionConfig, ref_res.AdmissionController),
+             RefBatcher, RefMetrics)):
+        admission = adm_mod[1](adm_mod[0](max_inflight=16, adaptive=True,
+                                          min_limit=2))
+        batcher = batcher_cls(m.embedder, metrics(), window_ms=5.0,
+                              max_batch=32, max_rows=64)
+        m.rescale_hooks.append(admission.rescale)
+        m.rescale_hooks.append(batcher.rescale_capacity)
+        pairs.append((admission, batcher))
+    (adm, b), (radm, rb) = pairs
+    try:
+        for step, want in ((mgr.downsize, (0.5, 8.0, 16, 32)),
+                           (mgr.downsize, (0.25, 4.0, 8, 16))):
+            assert step() is True
+            scale, limit, batch, rows = want
+            assert adm.snapshot()["mesh_scale"] == scale
+            assert (adm.limit, b.max_batch, b.max_rows) == (limit, batch,
+                                                            rows)
+        for _ in range(2):
+            assert ref_mgr.downsize() is True
+        assert adm.snapshot() == radm.snapshot()
+        assert (b.max_batch, b.max_rows) == (rb.max_batch, rb.max_rows)
+        # the scaled cap sheds at a quarter of the configured bound
+        adm.inflight = radm.inflight = 4
+        assert adm.try_acquire() == radm.try_acquire() == "inflight_limit"
+        assert mgr.try_recover() is ref_mgr.try_recover() is True
+        assert "mesh_scale" not in adm.snapshot()
+        assert adm.snapshot() == radm.snapshot()
+        assert (b.max_batch, b.max_rows) == (rb.max_batch, rb.max_rows) == (
+            32, 64)
+        adm.inflight = radm.inflight = 4
+        assert adm.try_acquire() is radm.try_acquire() is None
+    finally:
+        b.close()
+
+
+def test_the_upsize_returns_to_the_full_rung_and_the_clean_answer(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree)
+    mgr.warm_ladder(WARM, [LR])
+    ref_mgr.warm_ladder(WARM, [LR])
+    full = mgr.embedder.mesh_model
+    for m in (mgr, ref_mgr):
+        assert m.downsize() is True
+        epoch = m.epoch
+        assert m.try_recover() is True
+        assert m.current_shape == (4, 2) and not m.degraded
+        assert m.epoch == epoch + 1
+    assert mgr.embedder.mesh_model is full
+    assert mgr.snapshot() == ref_mgr.snapshot()
+    assert mgr.snapshot()["upsizes"] == 1
+    got, _ = _port_drive(mgr, [LADDER_TEXTS], window_ms=10.0)
+    np.testing.assert_allclose(got[0][0], _clean(tiny_tree), atol=TOL)
+    assert mgr.embedder.graph_stats()["eager_dispatches"] == 0
+
+
+def test_recovery_holds_while_the_plan_still_faults(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree, plan="script=persistent|ok")
+    for m in (mgr, ref_mgr):
+        assert m.downsize() is True  # a downsize draws nothing
+        assert m.try_recover() is False and m.degraded
+        assert m.snapshot()["probe_failures"] == 1
+    assert mgr.snapshot() == ref_mgr.snapshot()
+    assert mgr.try_recover() is ref_mgr.try_recover() is True
+    assert not mgr.degraded
+    assert mgr.snapshot() == ref_mgr.snapshot()
+
+
+def test_a_failed_probe_rolls_the_upsize_back(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree)
+    for m, err in ((mgr, res.InjectedPersistentError),
+                   (ref_mgr, ref_res.InjectedPersistentError)):
+        assert m.downsize() is True
+
+        def bad_probe(err=err):
+            raise err("still dead")
+
+        m.probe_fn = bad_probe
+        assert m.try_recover() is False and m.degraded
+        assert m.embedder.mesh_shape == (2, 2)
+    assert mgr.embedder.mesh_model is mgr._rungs[1].placed
+    assert mgr.snapshot() == ref_mgr.snapshot()
+    assert mgr.snapshot()["probe_failures"] == 1
+
+
+def test_the_probe_backoff_doubles_and_resets(tiny_tree):
+    ref_mgr, mgr = _pair(tiny_tree,
+                         plan="script=persistent|persistent|ok")
+    for m in (mgr, ref_mgr):
+        assert m.downsize() is True
+        scales = [m.probe_backoff_scale()]
+        for want in (False, False, True):
+            assert m.try_recover() is want
+            scales.append(m.probe_backoff_scale())
+        assert scales == [1.0, 2.0, 4.0, 1.0]
+    assert mgr.snapshot() == ref_mgr.snapshot()
+
+
+def test_a_blind_upsize_warns_once(tiny_tree, caplog):
+    import logging
+
+    _, mgr = _pair(tiny_tree)
+    assert mgr.downsize() is True
+    with caplog.at_level(logging.WARNING, logger="lwc.torch.resilience"):
+        assert mgr.try_recover() is True
+        assert mgr.downsize() is True
+        assert mgr.try_recover() is True
+    assert len([r for r in caplog.records
+                if "no probe_fn" in r.getMessage()]) == 1
+
+
+def test_the_ring_mesh_ladder_keeps_sp_and_serves_warmed(tiny_tree):
+    """An sp mesh's ladder keeps sp on every rung: its ring buckets are
+    warmed per rung, and a downsized rung's ring dispatch answers as the
+    reference's."""
+    ref_mgr, mgr = _pair(tiny_tree, dp=2, tp=2, sp=2)
+    mgr.warm_ladder([], ring_buckets=[(2, 64)])
+    ref_mgr.warm_ladder([], ring_buckets=[(2, 64)])
+    port, ref = mgr.embedder, ref_mgr.embedder
+    assert mgr.downsize() is ref_mgr.downsize() is True
+    assert port.mesh_sp == 2 and port.mesh.shape == {"dp": 1, "tp": 2,
+                                                     "sp": 2}
+    assert port.has_ring_bucket(("ring_vote", 2, 64))
+    rng = np.random.default_rng(5)
+    ids = rng.integers(3, 512, (2, 64)).astype(np.int32)
+    mask = np.ones((2, 64), np.int32)
+    got = port.consensus_confidence_tokens_ring(ids, mask)
+    want = np.asarray(ref.consensus_confidence_tokens_ring(ids, mask))
+    np.testing.assert_allclose(got, want, atol=TOL)
+    assert port.graph_stats()["eager_dispatches"] == 0
+    assert mgr.snapshot() == ref_mgr.snapshot()
+
+
+def test_the_mid_traffic_drill_downsizes_once_and_recovers(tiny_tree):
+    """The reference's acceptance drill on the port: a persistent fault
+    mid-traffic costs one downsize and no request error, ``/readyz``
+    stays 200 with ``degraded_mesh`` until the upsize, and every answer
+    is the clean one."""
+    from llm_weighted_consensus_tpu_torch.serve.lifecycle import Lifecycle
+
+    ref_mgr, mgr = _pair(tiny_tree, plan="script=ok|persistent")
+    mgr.warm_ladder(WARM, [LR])
+    metrics = Metrics()
+    metrics.register_provider("meshfault", mgr.snapshot)
+    expect = _clean(tiny_tree)
+    with DeviceBatcher(mgr.embedder, metrics, window_ms=15.0,
+                       meshfault=mgr) as b:
+        life = Lifecycle(batcher=b, meshfault=mgr)
+        assert life.readyz() == (200, {"ready": True})
+        for _ in range(2):
+            futures = [b.submit_consensus(LADDER_TEXTS) for _ in range(2)]
+            for f in futures:
+                np.testing.assert_allclose(f.result(60)[0], expect,
+                                           atol=TOL)
+        snap = metrics.snapshot()["meshfault"]
+        assert snap["downsizes"] == 1 and snap["current_shape"] == [2, 2]
+        assert snap["fault_plan"]["injected"] == {"persistent": 1}
+        assert life.readyz() == (200, {"ready": True, "degraded_mesh": True,
+                                       "mesh_shape": [2, 2]})
+        assert mgr.try_recover() is True
+        assert life.readyz() == (200, {"ready": True})
+        np.testing.assert_allclose(b.consensus(LADDER_TEXTS)[0], expect,
+                                   atol=TOL)
+    assert metrics.snapshot()["meshfault"]["upsizes"] == 1
+    assert mgr.embedder.graph_stats()["eager_dispatches"] == 0
+
+
+def test_build_server_warms_the_ladder_and_wires_the_hooks(tiny_tree):
+    """The server's manager takes the embedder's mesh shape, warms every
+    rung with the ``WARMUP`` buckets, probes the full shape and rescales
+    admission and the batcher on a downsize."""
+    from llm_weighted_consensus_tpu_torch.serve.__main__ import (
+        build_server,
+        warm_up,
+    )
+
+    port = _port_tiny(tiny_tree, 4, 2)
+    config = ServeConfig.from_env({
+        **MESH, "MESH_SHAPE": "4x2", "MESH_FAULT_ENABLED": "1",
+        "WARMUP": f"{LN}x{LS}", "WARMUP_R": str(LR),
+        "ADMISSION_MAX_INFLIGHT": "16", "MEMGUARD": "0"})
+    srv = build_server(port, None, config)
+    try:
+        mgr = srv.meshfault
+        assert mgr.full_shape == (4, 2)
+        assert mgr.build_ladder() == [(4, 2), (2, 2), (1, 2)]
+        warm_up(srv, config)
+        assert port.aot_mesh_shapes() == [(4, 2), (2, 2), (1, 2)]
+        assert srv.lifecycle.ready() == (True, None)
+        assert mgr.downsize() is True
+        assert srv.batcher.max_batch == srv.batcher._base_max_batch // 2
+        assert srv.admission.snapshot()["mesh_scale"] == 0.5
+        assert mgr.try_recover() is True  # the probe on the full rung
+        assert port.graph_stats()["eager_dispatches"] == 0
+        assert "mesh_scale" not in srv.admission.snapshot()
+    finally:
+        srv.close()

@@ -215,10 +215,181 @@ def test_the_fit_downweights_the_miscalibrated_judge():
                       if k not in ("version", "weights")}
 
 
-def test_the_mesh_argument_is_refused_by_name():
-    dataset = fit.build_dataset(_synthetic_records(4))
-    with pytest.raises(ValueError, match="mesh"):
-        fit.fit_weights(dataset, mesh=object(), device="cpu")
+# -- the fit and the trainers on a mesh --------------------------------------------
+
+
+def _jax_mesh(dp, tp=1):
+    from llm_weighted_consensus_tpu.parallel.mesh import make_mesh
+
+    return make_mesh(dp=dp, tp=tp)
+
+
+def _port_mesh(dp, tp=1):
+    import torch
+
+    from llm_weighted_consensus_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp=dp, tp=tp, devices=[torch.device("cpu")] * (dp * tp))
+
+
+@pytest.mark.parametrize("records,dp", [(24, 4), (23, 4), (21, 8), (9, 2)],
+                         ids=["24-dp4", "ragged-23-dp4", "ragged-21-dp8",
+                              "ragged-9-dp2"])
+def test_fit_weights_on_a_mesh_matches_the_reference_mesh_fit(records, dp):
+    """The records dp-sharded (a ragged tail padded with zero-weight
+    rows), theta replicated: the reference's mesh fit within 1e-5, and
+    the port's own one-device fit."""
+    labels = {f"rec-{i}": 0 for i in range(records)}
+    rec = _synthetic_records(records, flip_after=5)
+    dataset = fit.build_dataset(rec, labels)
+    got = fit.fit_weights(dataset, steps=120, mesh=_port_mesh(dp))
+    want = ref_fit.fit_weights(ref_fit.build_dataset(rec, labels), steps=120,
+                               mesh=_jax_mesh(dp))
+    one = fit.fit_weights(dataset, steps=120, device="cpu")
+    np.testing.assert_allclose(got, want, atol=FIT_ATOL)
+    np.testing.assert_allclose(got, one, atol=FIT_ATOL)
+    _, losses = fit.fit_losses(dataset, steps=5, mesh=_port_mesh(dp))
+    _, one_losses = fit.fit_losses(dataset, steps=5, device="cpu")
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-6)
+
+
+def _jax_step_on_mesh(step, params, config, batch, lr, dp, tp, shard):
+    import jax
+    import jax.numpy as jnp
+
+    from llm_weighted_consensus_tpu import train as jtrain
+    from llm_weighted_consensus_tpu.parallel import sharding as jsharding
+
+    mesh = _jax_mesh(dp, tp)
+    params = shard(params, mesh)
+    optimizer = jtrain.make_optimizer(lr=lr)
+    opt_state = optimizer.init(params)
+    b_shard = jsharding.batch_sharding(mesh)
+    args = [jax.device_put(jnp.asarray(a), b_shard) for a in batch]
+    params, _, loss = step(params, opt_state, *args, config, optimizer)
+    return jax.tree_util.tree_map(np.asarray, params), float(loss)
+
+
+def _check_step(model, before, loss, want_state, want_loss, one_loss=None):
+    """The loss at 1e-4 relative; every parameter after the step within
+    1e-4 of the model's largest parameter magnitude of the reference's;
+    and the update itself (after - before) the reference's update within
+    1e-3 of its norm, so a step that moved nothing fails."""
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-4)
+    if one_loss is not None:
+        np.testing.assert_allclose(float(loss), float(one_loss), rtol=1e-4)
+    after = {k: v.detach().numpy() for k, v in model.named_parameters()}
+    assert set(after) == set(want_state)
+    scale = max(float(np.abs(v).max()) for v in want_state.values())
+    num = den = 0.0
+    for name, got in after.items():
+        np.testing.assert_allclose(got, want_state[name], rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+        d_got = got - before[name]
+        d_want = want_state[name] - before[name]
+        num += float(np.sum((d_got - d_want) ** 2))
+        den += float(np.sum(d_want ** 2))
+        if float(np.abs(d_want).max()) > 0:
+            assert float(np.abs(d_got).max()) > 0, f"{name} did not move"
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 2), (4, 1), (1, 2)])
+def test_the_infonce_step_on_a_mesh_matches_the_reference(dp, tp):
+    """One InfoNCE step over dp x tp: the batch split over dp, the encoder
+    Megatron-split over tp, positives gathered across dp before the
+    logits (the global batch's negatives), one AdamW step on the master
+    parameters.  Held against the reference's step on the same virtual
+    mesh and against the port's one-device step."""
+    from llm_weighted_consensus_tpu import train as jtrain
+    from llm_weighted_consensus_tpu.models import configs as jconfigs
+    from llm_weighted_consensus_tpu.parallel import sharding as jsharding
+    from llm_weighted_consensus_tpu_torch import train as ptrain
+    from llm_weighted_consensus_tpu_torch.models import configs, convert
+    from test_torch_trainers import _bert_model, _bert_pair, _pairs
+
+    lr = 1e-3
+    params, state = _bert_pair()
+    batch = _pairs(jconfigs.TEST_TINY.vocab_size, 4, 16, seed=7)
+    want_params, want_loss = _jax_step_on_mesh(
+        jtrain.contrastive_train_step, params, jconfigs.TEST_TINY, batch, lr,
+        dp, tp, lambda p, m: jsharding.shard_bert_params(p, m, tp=tp > 1))
+    want = convert.from_jax_params(want_params, configs.TEST_TINY)
+    one = _bert_model(state)
+    one_loss = ptrain.contrastive_train_step(
+        one, ptrain.make_optimizer(one, lr=lr), *batch)
+    model = _bert_model(state)
+    before = {k: v.detach().numpy().copy()
+              for k, v in model.named_parameters()}
+    loss = ptrain.contrastive_train_step(
+        model, ptrain.make_optimizer(model, lr=lr), *batch,
+        mesh=_port_mesh(dp, tp))
+    _check_step(model, before, loss, want, want_loss, one_loss)
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 2), (2, 1)])
+def test_the_bradley_terry_step_on_a_mesh_matches_the_reference(dp, tp):
+    from llm_weighted_consensus_tpu import train as jtrain
+    from llm_weighted_consensus_tpu.models import configs as jconfigs
+    from llm_weighted_consensus_tpu.parallel import sharding as jsharding
+    from llm_weighted_consensus_tpu_torch import train as ptrain
+    from llm_weighted_consensus_tpu_torch.models import configs, convert
+    from test_torch_trainers import _deberta_model, _deberta_pair, _pairs
+
+    lr = 1e-3
+    params, state = _deberta_pair()
+    batch = _pairs(jconfigs.DEBERTA_TEST_TINY.vocab_size, 4, 24, seed=8)
+    want_params, want_loss = _jax_step_on_mesh(
+        jtrain.reward_train_step, params, jconfigs.DEBERTA_TEST_TINY, batch,
+        lr, dp, tp, lambda p, m: jsharding.shard_by_rules(
+            p, m, jsharding.deberta_partition_rules()))
+    want = convert.from_jax_deberta_params(want_params,
+                                           configs.DEBERTA_TEST_TINY)
+    one = _deberta_model(state)
+    one_loss = ptrain.reward_train_step(
+        one, ptrain.make_optimizer(one, lr=lr), *batch)
+    model = _deberta_model(state)
+    before = {k: v.detach().numpy().copy()
+              for k, v in model.named_parameters()}
+    loss = ptrain.reward_train_step(
+        model, ptrain.make_optimizer(model, lr=lr), *batch,
+        mesh=_port_mesh(dp, tp))
+    _check_step(model, before, loss, want, want_loss, one_loss)
+
+
+def test_a_mesh_step_refuses_a_batch_that_does_not_divide_by_dp():
+    from llm_weighted_consensus_tpu.models import configs as jconfigs
+    from llm_weighted_consensus_tpu_torch import train as ptrain
+    from test_torch_trainers import _bert_model, _bert_pair, _pairs
+
+    model = _bert_model(_bert_pair()[1])
+    batch = _pairs(jconfigs.TEST_TINY.vocab_size, 3, 16, seed=7)
+    with pytest.raises(ValueError, match="does not divide by dp=2"):
+        ptrain.contrastive_train_step(model, ptrain.make_optimizer(model),
+                                      *batch, mesh=_port_mesh(2))
+
+
+def test_a_mesh_step_launches_no_kernel_and_records_its_collectives():
+    """The trainers launch no hand-written kernel on a mesh either, and
+    the step's collectives are the plan: two tp reductions per layer per
+    forward, the positives' all-gather and the loss's psum over dp."""
+    from llm_weighted_consensus_tpu.models import configs as jconfigs
+    from llm_weighted_consensus_tpu_torch import train as ptrain
+    from llm_weighted_consensus_tpu_torch.ops import launches
+    from llm_weighted_consensus_tpu_torch.parallel import collectives
+    from test_torch_trainers import _bert_model, _bert_pair, _pairs
+
+    model = _bert_model(_bert_pair()[1])
+    batch = _pairs(jconfigs.TEST_TINY.vocab_size, 4, 16, seed=7)
+    with launches.recording() as noted, collectives.recording() as notes:
+        ptrain.contrastive_train_step(model, ptrain.make_optimizer(model),
+                                      *batch, mesh=_port_mesh(2, 2))
+    assert not noted
+    ops = [(n["op"], n["group_size"]) for n in notes]
+    layers = jconfigs.TEST_TINY.num_layers
+    # per forward (query and positive) and dp row: 2 psums per layer
+    assert ops.count(("psum", 2)) == 2 * 2 * 2 * layers + 1
+    assert ops.count(("all_gather", 2)) == 1
 
 
 # -- the learner drill: serve -> rotated ledger shards -> fit ------------------------
