@@ -266,7 +266,7 @@ CONCURRENCY_MODEL = {
         "PhaseAggregator._lock": {
             "module": "llm_weighted_consensus_tpu_torch/obs/phases.py",
             "kind": "lock",
-            "guards": ("_phases", "_device", "_intervals"),
+            "guards": ("_phases", "_device", "_intervals", "_launched"),
         },
         "QualityAggregator._lock": {
             "module": "llm_weighted_consensus_tpu_torch/obs/quality.py",
@@ -397,6 +397,9 @@ CONCURRENCY_MODEL = {
         ("DeviceBatcher._embed_lock", "DeviceBatcher._cond"),
         ("DeviceBatcher._embed_lock", "StagingPool._lock"),
         ("DeviceBatcher._embed_lock", "launch_lock.lock"),
+        # the same over-approximation: ``DeviceBatcher.stats`` reads the
+        # phase sums
+        ("DeviceBatcher._embed_lock", "PhaseAggregator._lock"),
     ),
     # edges only real interleavings exercise (the static call graph
     # cannot resolve these paths); validated by the LockWitness

@@ -20,7 +20,12 @@ DAG and the edges observed so far:
   runtime half of the registry's both-ways contract;
 * ``Condition.wait`` atomically releases the condition for the sleep:
   the proxy pops the held entry before waiting and re-pushes on wake,
-  so edges are judged against what the thread REALLY holds.
+  so edges are judged against what the thread REALLY holds.  A thread
+  that entered the condition before it was wrapped (the batcher's
+  flusher, started with the batcher, waits in it while the server wires
+  the witness) holds no entry to pop, and its wake pushes none: its
+  ``with`` block exits on the bare primitive, which would leave the
+  entry held for ever after.
 
 The witness never blocks the application: proxies delegate to the real
 primitive first and record after, so a violation is reported, not
@@ -70,18 +75,20 @@ class _LockProxy:
     # -- condition surface (delegated; wait releases the held entry) ---------
 
     def wait(self, timeout: Optional[float] = None):
-        self._witness._on_release(self._key)
+        held = self._witness._on_release(self._key)
         try:
             return self._lock.wait(timeout)
         finally:
-            self._witness._on_acquire(self._key)
+            if held:
+                self._witness._on_acquire(self._key)
 
     def wait_for(self, predicate, timeout: Optional[float] = None):
-        self._witness._on_release(self._key)
+        held = self._witness._on_release(self._key)
         try:
             return self._lock.wait_for(predicate, timeout)
         finally:
-            self._witness._on_acquire(self._key)
+            if held:
+                self._witness._on_acquire(self._key)
 
     def __getattr__(self, name):
         return getattr(self._lock, name)
@@ -181,12 +188,15 @@ class LockWitness:
                         }
                     )
 
-    def _on_release(self, key: str) -> None:
+    def _on_release(self, key: str) -> bool:
+        """Pop the thread's innermost entry of ``key``: False when it
+        held none."""
         stack = self._stack()
         for i in range(len(stack) - 1, -1, -1):
             if stack[i] == key:
                 del stack[i]
-                return
+                return True
+        return False
 
     # caller-holds-lock: LockWitness._mu (only _on_acquire calls this, inside its with-_mu block)
     def _reachable_locked(self, src: str, dst: str) -> bool:

@@ -15,6 +15,13 @@ The batcher splits every dispatch into two hops:
   bucket and its (enqueue, ready) interval for the ``overlap`` gauge,
   and hands the staging buffers back to the ``StagingPool``.
 
+``settle`` notes each timed dispatch at its launch
+(``obs.phases.note_device_launch``), so that ``held_idle`` counts it
+busy until its interval lands; a dispatch whose wait failed is
+forgotten instead (``drain_sink``'s ``forget_launch``).  The batcher
+hands the sink its group's item spans (``DispatchSink.spans``), which
+the ``launch`` phase is observed for.
+
 ``wait_device_ready`` is the one sanctioned blocking call of the
 dispatch path, and it runs on the waiter thread only.  A dispatch with
 CUDA events reports the device time between them (``elapsed_time``); one
@@ -80,13 +87,16 @@ class DispatchSink:
     """Per-group collector the dispatch thread fills under
     ``deferred_readiness``: the pending dispatches and the host staging
     buffers they read (handed back to the pool only after readiness: a
-    ``non_blocking`` copy reads its pinned source until then)."""
+    ``non_blocking`` copy reads its pinned source until then).
+    ``spans`` are the group's items, each its span or None untraced (by
+    default one untraced item)."""
 
-    __slots__ = ("pending", "staged")
+    __slots__ = ("pending", "staged", "spans")
 
-    def __init__(self) -> None:
+    def __init__(self, spans=(None,)) -> None:
         self.pending: List[PendingDispatch] = []
         self.staged: list = []
+        self.spans = tuple(spans)
 
     def add(self, record: PendingDispatch) -> PendingDispatch:
         self.pending.append(record)
@@ -137,6 +147,7 @@ def drain_sink(
     release: Optional[Callable] = None,
     clock: Callable[[], float] = time.perf_counter,
     retain: Optional[Callable] = None,
+    forget_launch: Optional[Callable[[float], None]] = None,
 ) -> None:
     """The waiter hop: wait on every pending dispatch in enqueue order,
     recording each timed one's device ms and its (enqueue, ready)
@@ -144,7 +155,9 @@ def drain_sink(
     a raising ``wait`` (a device fault) propagates, and the group's
     staging buffers and pinned outputs go to ``retain`` first
     (``StagingPool.retain``: after a sticky CUDA error, freeing a pinned
-    buffer aborts the process)."""
+    buffer aborts the process), and each timed dispatch not yet ready to
+    ``forget_launch``."""
+    ready = 0
     try:
         for record in sink.pending:
             record.wait(record.out)
@@ -154,7 +167,12 @@ def drain_sink(
                     observe_device(record.label, record.device_ms(t1))
                 if observe_interval is not None:
                     observe_interval(record.t0, t1)
+            ready += 1
     except BaseException:
+        if forget_launch is not None:
+            for record in sink.pending[ready:]:
+                if record.timed:
+                    forget_launch(record.t0)
         if retain is not None:
             for buf in sink.staged:
                 retain(buf)
@@ -244,6 +262,10 @@ def settle(dispatch, pool: StagingPool, timed: bool = True):
     dispatch) or, for a direct caller, wait for it here, record its
     device time and interval, hand its staging buffers back to ``pool``
     and return its output as numpy."""
+    from ..obs import phases
+
+    if timed:
+        phases.note_device_launch(dispatch.t0)
     sink = active_sink()
     if sink is not None:
         sink.add(PendingDispatch(
@@ -252,8 +274,6 @@ def settle(dispatch, pool: StagingPool, timed: bool = True):
         ))
         sink.staged.extend(dispatch.staged)
         return dispatch
-    from ..obs import phases
-
     record = PendingDispatch(dispatch.label, dispatch.t0, dispatch,
                              timed=timed, events=dispatch.events)
     drain_sink(
@@ -262,5 +282,6 @@ def settle(dispatch, pool: StagingPool, timed: bool = True):
         observe_interval=phases.observe_device_interval,
         release=pool.release,
         retain=pool.retain,
+        forget_launch=phases.forget_device_launch,
     )
     return dispatch.result()

@@ -42,6 +42,11 @@ Where trouble lies, and what this module does about it:
   (``ops.launches.recording``) and adds them at every replay.
 * A capture that fails raises at warmup; nothing falls back quietly.
 
+``dispatch`` is the ``launch`` phase (``obs/phases.py``): from the
+first staged row to the copy back enqueued, observed once for each item
+of the batcher's group (the active sink's spans), or once for a direct
+caller's request.
+
 On the CPU nothing is captured: ``warm`` records the key, and a
 dispatch at a recorded key runs the eager forward without counting as
 an eager dispatch, so the bookkeeping can be held without a card.
@@ -56,8 +61,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..obs.phases import phase
 from ..ops import launches
-from .dispatch_seam import settle
+from .dispatch_seam import active_sink, settle
 
 _locks: Dict[str, threading.RLock] = {}
 _locks_guard = threading.Lock()
@@ -228,6 +234,15 @@ class GraphTable:
         and start the copy back; settled by ``dispatch_seam.settle``: a
         ``Dispatch`` handle under the batcher's sink, otherwise the
         output as numpy once it is ready."""
+        sink = active_sink()
+        with phase("launch", sink.spans if sink is not None else None):
+            done = self._launch(key, label, arrays, forward, post, pool,
+                                timed)
+        return settle(done, pool, timed)
+
+    def _launch(self, key, label, arrays, forward, post, pool, timed):
+        """``dispatch``'s staging and launch, up to the copy back
+        enqueued: the ``Dispatch`` handle."""
         staged = {}
         for name, a in arrays.items():
             buf = pool.acquire(a.shape, torch.int32)
@@ -261,9 +276,9 @@ class GraphTable:
                                             else [])]:
                 pool.retain(buf)
             raise
-        return settle(done, pool, timed)
+        return done
 
-    # caller-holds-lock: launch_lock.lock (only dispatch calls this, inside its with-lock block)
+    # caller-holds-lock: launch_lock.lock (only _launch calls this, inside its with-lock block)
     def _run(self, key, staged, forward) -> torch.Tensor:
         entry = self._entries.get(key)
         if entry is not None:

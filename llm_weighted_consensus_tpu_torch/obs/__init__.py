@@ -6,8 +6,9 @@ contextvar-carried span tree; ``sink`` — the bounded ring + JSONL
 retention with head sampling and forced capture of shed, errored and
 all-failed requests; ``propagate`` — W3C ``traceparent`` inject at the
 upstream judge calls and extract at the gateway door; ``histogram`` and
-``phases`` — mergeable latency histograms and the process-global phase
-aggregator behind ``/metrics``, with ``phase_breakdown`` per traced
+``phases`` — mergeable latency histograms, the process-global phase
+aggregator behind ``/metrics`` and the ``phase`` scope that times the
+host's phases of a request, with ``phase_breakdown`` per traced
 request; ``quality`` — judge scorecards, pairwise kappa, drift and the
 margin histogram (always on); ``ledger`` — one record per scored request.
 
@@ -29,6 +30,7 @@ from .phases import (  # noqa: F401
     PHASES,
     observe_device,
     observe_phase,
+    phase,
     phase_breakdown,
     phases_snapshot,
     reset_phases,

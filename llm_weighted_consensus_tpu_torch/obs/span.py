@@ -57,7 +57,8 @@ def _gen_id(nbytes: int) -> str:
 
 
 # Every span name the tree can contain; a trailing ``*`` covers a
-# dynamic suffix (f-string call sites).  Trace queries and the explain
+# dynamic suffix (f-string call sites).  ``phase:*`` is the port's own:
+# the spans of ``obs/phases.py``'s scopes, one per phase name.  Trace queries and the explain
 # renderer match on these names; ``tests/test_torch_obs.py`` scans the
 # port for span names outside this list.
 KNOWN_SPANS = (
@@ -69,6 +70,7 @@ KNOWN_SPANS = (
     "consensus:tally",
     "judge:stream",
     "judge:attempt",
+    "phase:*",
 )
 
 
@@ -155,6 +157,11 @@ class Span:
         self.status = "error"
         self.attributes["error"] = str(detail)
         self.trace.force(f"error:{self.name}")
+
+    def backdate(self, start: float) -> None:
+        """Start the span at ``start`` (``time.perf_counter`` seconds):
+        a phase whose span is made when it ends."""
+        self._start = start
 
     def finish(self, status: Optional[str] = None) -> None:
         if self._end is None:

@@ -105,6 +105,16 @@ time, not time outside every span.  A failed, shed or cancelled item
 finishes its span at once, errored.  An untraced item carries None and
 costs nothing.
 
+Phases (``obs/phases.py``), each timed on the thread doing it and
+observed once per item: ``tokenize`` on the host pool (or inline on the
+dispatch thread when no rows were prepared), ``batch_window`` on the
+flusher for each item that sat in the window, from its arrival,
+``batcher_queue`` and ``prepare_wait`` on the dispatch thread,
+``launch`` in ``models/graphs.py`` for each item of the group (the
+sink's spans), ``device_dispatch`` and ``finalize`` on the waiter, from
+its wait's return to the answers going out.  ``stats()["phases"]``
+gives each phase's exact sum and count.
+
 Device faults (``resilience/meshfault.py``), as the reference triages
 them: with a ``meshfault`` manager (``MESH_FAULT_ENABLED``) a card
 dispatch that fails on either hop is classified.  A transient fault puts
@@ -606,16 +616,17 @@ class DeviceBatcher:
 
     def consensus(self, texts, temperature: float = 0.05,
                   priority: str = "latency"):
-        return self._wait(self.submit_consensus(texts, temperature, priority))
+        return self.wait(self.submit_consensus(texts, temperature, priority))
 
     def embed(self, texts, max_tokens: Optional[int] = None,
               priority: str = "latency"):
-        return self._wait(self.submit_embed(texts, max_tokens, priority))
+        return self.wait(self.submit_embed(texts, max_tokens, priority))
 
     @staticmethod
-    def _wait(future: Future):
-        """The caller's wait; a caller that leaves (an exception in its
-        thread) cancels its item, which is then dropped before dispatch."""
+    def wait(future: Future):
+        """A submitted item's result, waited for on the caller's thread; a
+        caller that leaves (an exception in its thread) cancels its item,
+        which is then dropped before dispatch."""
         try:
             out = future.result()
         except BaseException:
@@ -669,7 +680,7 @@ class DeviceBatcher:
             # submit-time tokenization: the rows (or the packed plan)
             # build now, overlapping earlier groups' device time
             item.prepared = self._tok_pool.submit(
-                self._prepare_item, kind, key, payload
+                self._prepare_item, kind, key, payload, span
             )
         with self._cond:
             if self._closed:
@@ -686,6 +697,7 @@ class DeviceBatcher:
 
     def _flush_loop(self) -> None:
         while True:
+            window = None
             with self._cond:
                 while not self._has_pending() and not self._closed:
                     self._cond.wait()
@@ -694,12 +706,18 @@ class DeviceBatcher:
                 if self.window_ms > 0 and not self._inflight:
                     # the accumulation window: a lone arrival waits for
                     # company, arrivals behind in-flight work do not
+                    window = _phases.phase("batch_window", ()).enter()
                     end = time.perf_counter() + self.window_ms / 1e3
                     while not self._closed and not self._head_group_full():
                         left = end - time.perf_counter()
                         if left <= 0:
                             break
                         self._cond.wait(left)
+                    sat = [(item.span, item.submitted) for item in
+                           self._pending + self._pending_offline]
+            if window is not None:
+                # each item that sat in it, from its arrival
+                window.leave(sat)
             self._plan_round()
 
     def _plan_round(self) -> None:
@@ -914,9 +932,11 @@ class DeviceBatcher:
 
     def _await_group(self, group, staged, t0, token, wd, twin=False,
                      epoch=None) -> None:
+        finalize = _phases.phase("finalize", [item.span for item in group])
         try:
-            results = self._finalize_group(staged)
+            results = self._finalize_group(staged, finalize)
         except Exception as exc:
+            finalize.leave()
             self._failed(group, t0, token, wd, exc, twin, epoch)
             return
         answers = []
@@ -924,7 +944,8 @@ class DeviceBatcher:
             if item.kind == "embed" and not item.per_row:
                 result = (result[0], int(np.sum(result[1])))
             answers.append(result)
-        self._finish(group, t0, token, wd, results=answers)
+        self._finish(group, t0, token, wd, results=answers,
+                     finalize=finalize)
 
     def _failed(self, group, t0, token, wd, exc, twin, epoch) -> None:
         """A dispatch raised on either hop: the device-fault triage
@@ -1002,18 +1023,21 @@ class DeviceBatcher:
         self.meshfault.note_redispatch(len(live))
 
     def _finish(self, group, t0, token, wd, *, results=None,
-                exc=None, requeued=False) -> None:
+                exc=None, requeued=False, finalize=None) -> None:
         """Count the dispatch, then answer its items (``results``, or
         ``exc`` for every one; nothing when the fault triage re-queued
         them), then free its pipeline slot.  Counting first means a
         caller woken by its answer reads counters that include its
         dispatch, as on the reference's one loop (the offline drive's
         ``lanes``); a fault in the counting still answers the items and
-        frees the slot."""
+        frees the slot.  The ``finalize`` phase ends as the answers go
+        out."""
         try:
             self._observe(group, t0, token,
                           error=exc is not None or requeued)
         finally:
+            if finalize is not None:
+                finalize.leave()
             for k, item in enumerate(group):
                 if requeued:
                     break
@@ -1066,7 +1090,7 @@ class DeviceBatcher:
             with _seam.deferred_readiness(None):
                 results = fn(group, self.fallback_embedder)()
             return _StagedGroup(None, lambda: results)
-        sink = _seam.DispatchSink()
+        sink = _seam.DispatchSink([item.span for item in group])
         guard = (self.meshfault.dispatch_guard()
                  if self.meshfault is not None else contextlib.nullcontext())
         with guard:
@@ -1074,15 +1098,24 @@ class DeviceBatcher:
                 # the DEVICE_FAULT_PLAN seam: on the dispatch thread,
                 # before anything is staged or launched
                 self.meshfault.maybe_inject()
-            with _seam.deferred_readiness(sink):
-                finalize = fn(group, self.embedder)
+            try:
+                with _seam.deferred_readiness(sink):
+                    finalize = fn(group, self.embedder)
+            except BaseException:
+                # no waiter will see these launches ready
+                for record in sink.pending:
+                    if record.timed:
+                        _phases.forget_device_launch(record.t0)
+                raise
         return _StagedGroup(sink, finalize)
 
-    def _finalize_group(self, staged: _StagedGroup) -> list:
+    def _finalize_group(self, staged: _StagedGroup, finalize) -> list:
         """Waiter hop: wait on the group's dispatches, record device time
         and intervals, recycle the staging buffers, make the results (the
-        twin's are made already)."""
+        twin's are made already); the ``finalize`` phase starts once the
+        wait has returned."""
         if staged.sink is None:
+            finalize.enter()
             return staged.finalize()
         pool = getattr(self.embedder, "staging_pool", None)
         _seam.drain_sink(
@@ -1091,7 +1124,9 @@ class DeviceBatcher:
             observe_interval=_phases.observe_device_interval,
             release=pool.release if pool is not None else None,
             retain=pool.retain if pool is not None else None,
+            forget_launch=_phases.forget_device_launch,
         )
+        finalize.enter()
         results = staged.finalize()
         if self.meshfault is not None:
             # a dispatch resets the transient streak once its device work
@@ -1101,20 +1136,22 @@ class DeviceBatcher:
 
     # -- submit-time host work -------------------------------------------------
 
-    def _prepare_item(self, kind, key, payload):
-        """An item's padded rows, or its packed plan (host pool)."""
-        if key == PACKED_KEY:
-            return self._plan_packed_payload(kind, payload, self.embedder)
-        if kind == "embed":
-            texts, cap = payload
-            return self.embedder.tokenize(texts, cap)
-        if kind == "stream":
-            return self.embedder.tokenize([payload[0]])
-        if kind == "ring_embed":
-            return self.embedder.tokenize_ring(*payload)
-        if kind == "ring_vote":
-            return self.embedder.tokenize_ring(payload[0])
-        return self.embedder.tokenize(payload[0])
+    def _prepare_item(self, kind, key, payload, span=None):
+        """An item's padded rows, or its packed plan (host pool), timed
+        as its ``tokenize`` phase."""
+        with _phases.phase("tokenize", (span,)):
+            if key == PACKED_KEY:
+                return self._plan_packed_payload(kind, payload, self.embedder)
+            if kind == "embed":
+                texts, cap = payload
+                return self.embedder.tokenize(texts, cap)
+            if kind == "stream":
+                return self.embedder.tokenize([payload[0]])
+            if kind == "ring_embed":
+                return self.embedder.tokenize_ring(*payload)
+            if kind == "ring_vote":
+                return self.embedder.tokenize_ring(payload[0])
+            return self.embedder.tokenize(payload[0])
 
     def _prepared_rows(self, group: list, embedder):
         """The group's submit-time rows concatenated into the batch one
@@ -1128,7 +1165,8 @@ class DeviceBatcher:
         for item in group:
             if item.prepared is None:
                 return None
-            rows.append(item.prepared.result())  # re-raises its errors
+            with _phases.phase("prepare_wait", (item.span,)):
+                rows.append(item.prepared.result())  # re-raises its errors
         if len(rows) == 1:
             return rows[0]
         width = max(ids.shape[1] for ids, _ in rows)
@@ -1160,7 +1198,8 @@ class DeviceBatcher:
             ids, mask = prepared
         else:
             texts = [t for item in group for t in item.texts]
-            ids, mask = embedder.tokenize(texts, max_tokens)
+            with _phases.phase("tokenize", [item.span for item in group]):
+                ids, mask = embedder.tokenize(texts, max_tokens)
         self._count(
             _pad_real_tokens=mask.sum(),
             _pad_slot_tokens=_bucket(ids.shape[0], embedder.MAX_DEVICE_BATCH)
@@ -1187,9 +1226,10 @@ class DeviceBatcher:
         if prepared is not None:
             ids, mask = prepared
         else:
-            ids, mask = embedder.tokenize(
-                [t for item in group for t in item.texts]
-            )
+            with _phases.phase("tokenize", [item.span for item in group]):
+                ids, mask = embedder.tokenize(
+                    [t for item in group for t in item.texts]
+                )
         r, s = len(group), ids.shape[1]
         if r == 1:
             self._count(_pad_real_tokens=mask.sum(), _pad_slot_tokens=ids.size)
@@ -1575,9 +1615,16 @@ class DeviceBatcher:
     # -- observability -----------------------------------------------------------
 
     def stats(self) -> dict:
-        """Dispatches and requests per kind, and the packing efficiency
-        counters: real tokens embedded against the token slots
-        dispatched, per path."""
+        """Dispatches and requests per kind, the packing efficiency
+        counters (real tokens embedded against the token slots
+        dispatched, per path), and under ``phases`` each phase's exact
+        ``sum_ms`` and ``count`` (``obs/phases.py``, process-wide: the
+        gateway's phases and ``held_idle`` too)."""
+        out = self._counters()
+        out["phases"] = _phases.aggregator().sums()
+        return out
+
+    def _counters(self) -> dict:
         with self._cond:
             pack_real, pack_slot = self._pack_real_tokens, self._pack_slot_tokens
             pad_real, pad_slot = self._pad_real_tokens, self._pad_slot_tokens
@@ -1634,7 +1681,7 @@ class DeviceBatcher:
                         busy += now - max(start, lo)
                 return round(min(busy / span, 1.0), 4)
 
-            stats = self.stats()
+            stats = self._counters()
             out = {
                 "queue_depth": len(self._pending),
                 "busy_fraction": busy_fraction(self._busy),

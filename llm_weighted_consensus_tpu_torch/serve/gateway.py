@@ -73,7 +73,12 @@ runs, the response carries ``x-trace-id`` (a stream too), a status of
 the trace.  Error envelopes then carry ``trace_id``.  The admission gate
 is timed: ``admission_wait`` is observed once per admitted request, and
 a traced request's root carries ``admission_wait_ms`` and
-``admission_inflight``, or ``shed_reason`` when it is shed.
+``admission_inflight``, or ``shed_reason`` when it is shed.  A device
+route is timed on: ``gateway_read`` from the slot held to its item
+submitted, ``gateway_write`` from its answer's return to the last byte
+written, and a ``/consensus`` answered 200 observes ``held_idle``, the
+device's idle time between its door and its last byte
+(``obs/phases.py``).
 
 Errors use the ``{"code", "message"}`` envelope; a request body of
 ``max_body_bytes`` (``MAX_BODY_BYTES``) or more is refused on every route
@@ -116,7 +121,7 @@ from ..errors import (
     to_response_error,
     with_trace_id,
 )
-from ..obs.phases import observe_phase
+from ..obs.phases import observe_held_idle, observe_phase
 from ..resilience.admission import (
     EXEMPT_PATHS,
     AdmissionConfig,
@@ -768,7 +773,7 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 elif host_route:
                     self._post_chat(path)
                 else:
-                    self._post(path)
+                    self._post(path, t0)
             finally:
                 # a stream cut short is observed here
                 status = self._status or 500  # None: nothing was sent
@@ -798,7 +803,22 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                 return
             chat_routes.serve(self, path, raw, self._deadline(), metrics)
 
-        def _post(self, path: str) -> None:
+        def _post(self, path: str, door: float) -> None:
+            """A device route: ``gateway_read`` until its item is
+            submitted, ``gateway_write`` from the answer's return to its
+            last byte, and for a ``/consensus`` answered 200 the device's
+            idle time while it was held (``held_idle``, from ``door``)."""
+            read = obs.phase("gateway_read").enter()
+            write = obs.phase("gateway_write")
+            try:
+                self._answer(path, read, write)
+            finally:
+                read.leave()
+                write.leave()
+            if path == "/consensus" and self._status == 200:
+                observe_held_idle(door, time.perf_counter())
+
+        def _answer(self, path: str, read, write) -> None:
             try:
                 body = self._body()
                 if path == "/consensus":
@@ -819,18 +839,17 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
             try:
                 if path == "/consensus":
                     if scorer == "rm":
-                        t_rm = time.perf_counter()
+                        read.leave()
                         conf, tokens = reranker.rerank_confidence(
                             texts, prompt=prompt, temperature=temperature
                         )
-                        metrics.observe(
-                                "device:rm_vote",
-                                (time.perf_counter() - t_rm) * 1e3,
-                            )
                         model_name = reranker.model_name
                     else:
-                        conf, tokens = batcher.consensus(texts, temperature)
+                        pending = batcher.submit_consensus(texts, temperature)
+                        read.leave()
+                        conf, tokens = batcher.wait(pending)
                         model_name = embedder.model_name
+                    write.enter()
                     answer = json.dumps({
                         "model": model_name,
                         "scorer": scorer,
@@ -841,7 +860,10 @@ def make_handler(embedder, batcher, reranker, metrics, admission,
                         },
                     }).encode()
                 else:
-                    emb, tokens = batcher.embed(texts)
+                    pending = batcher.submit_embed(texts)
+                    read.leave()
+                    emb, tokens = batcher.wait(pending)
+                    write.enter()
                     answer = embeddings_body(
                         embedder.wire_response(emb, tokens).to_json_obj())
             except StatusError as exc:

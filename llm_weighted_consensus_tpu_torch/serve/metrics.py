@@ -5,7 +5,7 @@ Counterpart of ``llm_weighted_consensus_tpu/serve/metrics.py``
 ``render_prometheus``) for the families the port serves:
 
 * the request series (``http:<route>``, ``device:batch:<kind>``,
-  ``device:rm_vote``, the batcher's ``device:shed:*``): count, errors
+  the batcher's ``device:shed:*``): count, errors
   and a latency histogram each;
 * ``phases``: the phase and per-bucket device-time histograms
   (``obs/phases.py``);
@@ -383,7 +383,7 @@ def render_prometheus(metrics: Metrics) -> str:
     lines += prom_family(
         "lwc_phase_latency_ms",
         "histogram",
-        "Request time attributed per phase (admission_wait .. upstream_judge).",
+        "Request time attributed per phase (admission_wait .. held_idle).",
     )
     for phase in _phases.PHASES:
         hist = phase_hists.get(phase)
@@ -392,7 +392,8 @@ def render_prometheus(metrics: Metrics) -> str:
     lines += prom_family(
         "lwc_device_latency_ms",
         "histogram",
-        "Enqueue-to-ready device time per (mesh-shape, bucket).",
+        "Device time per (mesh-shape, bucket): CUDA events on the card, "
+        "enqueue to ready elsewhere.",
     )
     for bucket, hist in sorted(device_hists.items()):
         lines += _render_hist("lwc_device_latency_ms", "bucket", bucket, hist)

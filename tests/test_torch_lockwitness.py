@@ -21,6 +21,7 @@ reference's, and ``LOCK_WITNESS=1`` on a CPU server.
 import json
 import random
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -268,6 +269,36 @@ def test_condition_wait_releases_the_held_entry():
         assert w._stack() == ["C"]
     assert w._stack() == []
     assert held and all("C" not in h for h in held)
+
+
+def test_a_condition_wrapped_while_a_thread_waits_in_it_is_not_left_held():
+    """The batcher's flusher waits in its condition while the server
+    wires the witness: its wake must not leave the condition on its
+    stack once its ``with`` block has exited on the bare primitive."""
+    w = port_witness.LockWitness(_model({"C": "condition", "L": "lock"}))
+    bare = threading.Condition()
+    box = {"cond": bare, "go": False}
+    seen = []
+
+    def flusher():
+        with box["cond"]:  # entered bare
+            while not box["go"]:
+                box["cond"].wait(0.01)  # the proxy, once wrapped
+        with w.wrap_lock("L", threading.Lock()):
+            seen.append(list(w._stack()))
+
+    t = threading.Thread(target=flusher)
+    t.start()
+    time.sleep(0.05)
+    box["cond"] = w.wrap_lock("C", bare)
+    time.sleep(0.05)
+    with box["cond"]:
+        box["go"] = True
+        box["cond"].notify_all()
+    t.join(10)
+    assert not t.is_alive()
+    assert seen == [["L"]]
+    assert w.snapshot()["undeclared"] == []
 
 
 def test_the_default_model_is_the_ports_registry():

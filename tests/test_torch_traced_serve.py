@@ -48,6 +48,11 @@ from test_torch_score import make_client
 
 TIMED = ("phase_breakdown", "admission_wait_ms", "first_chunk_ms",
          "pack_plan_ms", "host_tally_ms", "admission_inflight")
+# the port's own phases (``obs/phases.py``): their ``phase:*`` spans and
+# breakdown keys have no counterpart in the reference, and are left out
+# of the comparison (``tests/test_torch_phase_scope.py`` holds them)
+PORT_PHASES = ("gateway_read", "tokenize", "batch_window", "prepare_wait",
+               "launch", "finalize", "gateway_write")
 CALLER_TID, CALLER_SID = "c" * 32, "d" * 16
 
 
@@ -172,7 +177,7 @@ def norm_attrs(attrs: dict) -> dict:
     out = {}
     for k, v in attrs.items():
         if k == "phase_breakdown":
-            out[k] = sorted(v)
+            out[k] = sorted(p for p in v if p not in PORT_PHASES)
         elif k in TIMED:
             out[k] = type(v).__name__
         elif k == "error":
@@ -188,6 +193,8 @@ def tree(record: dict) -> list:
     by_id = {s["span_id"]: s for s in record["spans"]}
     rows = []
     for s in record["spans"]:
+        if s["name"].startswith("phase:"):
+            continue
         parent = by_id.get(s["parent_id"])
         rows.append(json.dumps([
             s["name"], parent["name"] if parent else s["parent_id"],
