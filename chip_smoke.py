@@ -41,6 +41,11 @@ Phases, each printing one JSON line:
    dense tile work the plain schedule visits, ``visited_ops``, counted
    on the host from the ids, and its schedule read back from the kernel
    and held to the plain one);
+   and the residual add + LayerNorm and GELU kernels at the served rows
+   (``NORM_SHAPES``, ``GELU_SHAPES``) and an odd row count, f32 and bf16,
+   the GELU bit-equal to its plain version and the LayerNorm within
+   ``NORM_ULPS``, timed beside their byte bound, plain versions and
+   ``F.layer_norm`` / ``F.gelu`` (yardsticks the port never calls);
 3. bge_micro: the committed fixture, loaded by the port's loader, served
    through ``/consensus`` on the card and on the CPU; the confidences
    must agree, unquantized and under ``int8`` / ``int4-pallas``; packed
@@ -492,6 +497,23 @@ QUANT_ODD_SHAPES = ((5, 48, 24), (37, 96, 384), (130, 192, 96),
                     (17, 1000, 40))
 # rows of the int8 packed burst's largest call, 8 rows of 512 tokens
 QUANT_SMALL_M = 8 * 512
+# the residual add + LayerNorm at bge-large's rows of one R=8 dispatch
+# ([65536, 1024]) and deberta-v3-base's R=1 rows ([8192, 768]), and the
+# GELU over the MLP intermediates of the same rows ([65536, 4096],
+# [8192, 3072]); each also at an odd row count
+NORM_SHAPES = ((QUANT_M, 1024), (N_CANDIDATES * 128, 768))
+GELU_SHAPES = ((QUANT_M, 4096), (N_CANDIDATES * 128, 3072))
+# the GELU kernel computes the plain version's f32 operations in its
+# order, each rounded alone, with the same IEEE division and CUDA math
+# library expf / erff: bit-equal.  The LayerNorm kernel rounds the same
+# f32 operations but sums each row in another order than torch's mean,
+# so mean and rstd move by an f32 ulp or two, and an output by that
+# share of its size.  Held at NORM_ULPS units in the last place of the
+# output dtype at the tensor's largest |output|: in bf16 (the served
+# dtype) one, since its one rounding hides the f32 ulps but for a flip;
+# in f32 four, since nothing hides them (a 2-ulp difference of rsqrt
+# and the sums' order each move the largest outputs by 1-2 ulps)
+NORM_ULPS = {"bfloat16": 1, "float32": 4}
 # quantized vs unquantized answers on the same weights and texts: the
 # reference's bars (tests/test_quant.py) as (min cosine, max |conf diff|).
 # Its int4 cosine bar (0.95) was set on test-tiny's 2 layers; at
@@ -1385,6 +1407,122 @@ def check_attention(gpu: str) -> dict:
     return {"rows": rows}
 
 
+def ulp_at(v: float, dtype) -> float:
+    """One unit in the last place of ``dtype`` (f32 or bf16) at |v|."""
+    import math
+
+    mant = 7 if str(dtype).endswith("bfloat16") else 23
+    e = math.frexp(max(abs(v), 2.0 ** -126))[1] - 1
+    return 2.0 ** (e - mant)
+
+
+def check_norm_act(gpu: str) -> dict:
+    """Phase 2's residual add + LayerNorm and GELU kernels against their
+    plain versions at the served shapes (``NORM_SHAPES``,
+    ``GELU_SHAPES``) and an odd row count each, f32 and bf16: one launch
+    counted per call, limits as ``NORM_ULPS`` says, times beside the byte
+    bound, the plain version and one PyTorch call each (``F.layer_norm``
+    on the summed rows, ``F.gelu``: yardsticks the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llm_weighted_consensus_tpu_torch.ops import norm_act
+
+    def tensor(shape, seed, dtype, scale=1.0, shift=0.0):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+        return x.to(dtype)
+
+    rows = []
+    for (m, h) in NORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for rows_n in (m, m // 8 + 1):
+                x = tensor((rows_n, h), rows_n + h, dtype, 2.0, 0.25)
+                r = tensor((rows_n, h), rows_n + h + 1, dtype, 3.0)
+                w = tensor((h,), 1, dtype, 0.2, 1.0)
+                b = tensor((h,), 2, dtype, 0.1)
+                errs = {}
+                for label, res in (("residual", r), ("no_residual", None)):
+                    n0 = norm_act.add_layer_norm.launches
+                    got = norm_act.add_layer_norm(x, res, w, b, 1e-12)
+                    want = norm_act.add_layer_norm_plain(x, res, w, b, 1e-12)
+                    torch.cuda.synchronize()
+                    if norm_act.add_layer_norm.launches != n0 + 1:
+                        raise AssertionError(
+                            "add_layer_norm: launch not counted")
+                    diff = (got.float() - want.float()).abs()
+                    top = want.float().abs().max().item()
+                    err = diff.max().item()
+                    limit = NORM_ULPS[name] * ulp_at(top, dtype)
+                    errs[label] = {
+                        "max_abs_err": err, "limit": limit,
+                        "max_abs_want": top,
+                        "differing": int((diff > 0).sum().item()),
+                    }
+                    if not torch.isfinite(got).all() or err > limit:
+                        raise AssertionError(
+                            f"add_layer_norm [{rows_n}, {h}] {name} "
+                            f"{label}: max|diff| {err} > {limit}")
+                row = {"phase": "kernel", "kernel": "add_layer_norm",
+                       "gpu": gpu, "shape": [rows_n, h], "dtype": name,
+                       "errors": errs, "ulps": NORM_ULPS[name]}
+                if rows_n == m:
+                    item = x.element_size()
+                    bound, by = bound_ms(3 * rows_n * h * item, 0.0, name)
+                    row.update({
+                        "kernel_ms": time_ms(lambda: norm_act.add_layer_norm(
+                            x, r, w, b, 1e-12)),
+                        "device_ms": graph_ms(lambda: norm_act.add_layer_norm(
+                            x, r, w, b, 1e-12)),
+                        "plain_ms": time_ms(
+                            lambda: norm_act.add_layer_norm_plain(
+                                x, r, w, b, 1e-12), iters=5),
+                        "library_ms": time_ms(lambda: F.layer_norm(
+                            x + r, (h,), w, b, 1e-12)),
+                        "bound_ms": bound, "bound_by": by,
+                    })
+                emit(row)
+                rows.append(row)
+    for (m, width) in GELU_SHAPES + ((7, 1001),):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for rows_n in sorted({m, m // 8 + 1}):
+                x = tensor((rows_n, width), rows_n + width, dtype, 3.0)
+                n0 = norm_act.gelu.launches
+                got = norm_act.gelu(x)
+                inplace = norm_act.gelu(x.clone(), inplace=True)
+                want = norm_act.gelu_plain(x)
+                torch.cuda.synchronize()
+                if norm_act.gelu.launches != n0 + 2:
+                    raise AssertionError("gelu: launches not counted")
+                err = max((got.float() - want.float()).abs().max().item(),
+                          (inplace.float() - want.float()).abs().max().item())
+                if not (torch.equal(got, want)
+                        and torch.equal(inplace, want)):
+                    raise AssertionError(
+                        f"gelu [{rows_n}, {width}] {name}: not bit-equal to "
+                        f"its plain version, max|diff| {err}")
+                row = {"phase": "kernel", "kernel": "gelu", "gpu": gpu,
+                       "shape": [rows_n, width], "dtype": name,
+                       "max_abs_err": err, "tolerance": 0.0}
+                if rows_n == m and m > 7:
+                    item = x.element_size()
+                    bound, by = bound_ms(2 * x.numel() * item, 0.0, name)
+                    row.update({
+                        "kernel_ms": time_ms(lambda: norm_act.gelu(x)),
+                        "inplace_device_ms": graph_ms(
+                            lambda: norm_act.gelu(x, inplace=True)),
+                        "plain_ms": time_ms(lambda: norm_act.gelu_plain(x),
+                                            iters=5),
+                        "library_ms": time_ms(lambda: F.gelu(x)),
+                        "bound_ms": bound, "bound_by": by,
+                    })
+                emit(row)
+                rows.append(row)
+    return {"rows": rows}
+
+
 def quant_operands(m, k, n, int4, dtype, seed):
     """Hidden-state-like rows (one all zero) and bge-like weights
     N(0, 0.02), quantized by the port's own ``models.quant``."""
@@ -2042,13 +2180,18 @@ def check_answer(conf, n: int) -> None:
 
 def _wrappers() -> dict:
     """The kernel wrappers, each with its ``launches`` count."""
-    from llm_weighted_consensus_tpu_torch.ops import attention, kernels
+    from llm_weighted_consensus_tpu_torch.ops import (
+        attention,
+        kernels,
+        norm_act,
+    )
 
     return {
         "cosine_vote": kernels.cosine_vote, "attention": attention.attention,
         "segment_attention": attention.segment_attention,
         "quantize_rows": kernels.quantize_rows,
         "w8a8_matmul": kernels.w8a8_matmul, "w4a8_matmul": kernels.w4a8_matmul,
+        "add_layer_norm": norm_act.add_layer_norm, "gelu": norm_act.gelu,
     }
 
 
@@ -2174,12 +2317,24 @@ def serve_traffic(emb, bursts, long_texts, embed_texts, model_name,
     }
 
 
+def norm_act_launches(layers, calls, quantize="none", embed_norms=1):
+    """The residual add + LayerNorm and GELU launches of ``calls``
+    encoder calls: two LayerNorms per layer and ``embed_norms`` before
+    the layers (BERT's embedding LayerNorm; DeBERTa's two, the token
+    embeddings' and the relative table's), one GELU per layer unquantized
+    (a quantize mode folds it into the MLP GEMM's epilogue)."""
+    return {"add_layer_norm": (2 * layers + embed_norms) * calls,
+            "gelu": layers * calls if quantize == "none" else 0}
+
+
 def expected_launches(layers, consensus_d, embed_d, quantize="none",
                       packed_calls=0) -> dict:
     """Launches of ``consensus_d`` padded consensus dispatches,
     ``embed_d`` padded embedding dispatches and ``packed_calls`` packed
     calls: one attention (or segment attention) per layer per encoder
-    call, 6 quantized matmuls per layer under a quantize mode."""
+    call, 6 quantized matmuls per layer under a quantize mode, and
+    ``norm_act_launches`` (2 x layers + 1 LayerNorms, ``layers`` GELUs
+    unquantized) per encoder call."""
     encoder_d = consensus_d + embed_d
     dense = 6 * layers * (encoder_d + packed_calls) if quantize != "none" else 0
     int4 = quantize.startswith("int4")
@@ -2188,6 +2343,7 @@ def expected_launches(layers, consensus_d, embed_d, quantize="none",
         "segment_attention": layers * packed_calls,
         "quantize_rows": dense, "w8a8_matmul": 0 if int4 else dense,
         "w4a8_matmul": dense if int4 else 0,
+        **norm_act_launches(layers, encoder_d + packed_calls, quantize),
     }
 
 
@@ -2706,6 +2862,9 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
         "cosine_vote_cluster_kernel": launches_of(
             rows, "cosine_vote_cluster_kernel"),
         "cosine_vote_kernel": launches_of(rows, "cosine_vote_kernel"),
+        "lwc_add_layer_norm_kernel": launches_of(
+            rows, "lwc_add_layer_norm_kernel"),
+        "lwc_gelu_kernel": launches_of(rows, "lwc_gelu_kernel"),
     }
     vote_ms = sum(ms for ms, _, key in rows
                   if port_kernel(key) == "cosine_vote_cluster_kernel")
@@ -2728,6 +2887,11 @@ def profile_dispatch(gpu: str, quantize: str = "none") -> dict:
     if (new_kernels["cosine_vote_cluster_kernel"] != 1
             or new_kernels["cosine_vote_kernel"]):
         raise AssertionError(f"profile ({quantize}): vote {new_kernels}")
+    # the LayerNorms and (unquantized) the GELUs in their kernels
+    norms = norm_act_launches(layers, 1, quantize)
+    if (new_kernels["lwc_add_layer_norm_kernel"] != norms["add_layer_norm"]
+            or new_kernels["lwc_gelu_kernel"] != norms["gelu"]):
+        raise AssertionError(f"profile ({quantize}): norm/GELU {new_kernels}")
     if quantize != "none":
         if cublas:
             raise AssertionError(
@@ -2845,13 +3009,14 @@ def device_table(prof):
     device kernels, memcpys and memsets only (host-side entries, launch
     calls and "Command Buffer Full" waits, carry device time of the
     kernels they wait on; the schedule's step annotation spans the
-    device time of the whole step)."""
+    device time of the whole step, and the port's ``lwc.*`` phase ranges
+    (``obs/phases.py``) that of the kernels they enclose)."""
     import torch
 
     rows = []
     for ev in prof.key_averages():
         if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.key.startswith("ProfilerStep")):
+                or ev.key.startswith(("ProfilerStep", "lwc."))):
             continue
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -3233,10 +3398,14 @@ def rm_path(gpu: str, vocab: str) -> dict:
     long_texts = rm_requests(1, RM_LONG_N, RM_LONG_WORDS, seed=1)[0]
     out = serve_rm(served, requests, long_texts)
     rm_bucket_ok(out["long_out"], RM_LONG_N, 384, 512)
-    if any(out["launches"].values()):
-        # the unquantized RM runs no kernel of the port: the disentangled
-        # attention and the dense layers are torch ops (cuBLAS)
-        raise AssertionError(f"rm: port kernels launched {out['launches']}")
+    # the unquantized RM runs no kernel of the port but the LayerNorms and
+    # GELUs (the disentangled attention and the dense layers are torch
+    # ops, cuBLAS): one reward call per request
+    want = {name: 0 for name in out["launches"]} | norm_act_launches(
+        served.config.num_layers, len(requests) + 1, embed_norms=2)
+    if out["launches"] != want:
+        raise AssertionError(f"rm: port kernels launched {out['launches']}, "
+                             f"want {want}")
     # full-width numerics on one N=4 request: f32 on the card against the
     # CPU, bf16 (the served model) against f32 on the card
     cfg = configs.DEBERTA_V3_BASE
@@ -3300,9 +3469,11 @@ def rm_quant_path(gpu: str, vocab: str, mode: str, full: dict) -> dict:
     other = "w8a8_matmul" if name == "w4a8_matmul" else "w4a8_matmul"
     want = 6 * layers * len(burst)
     launches = out["launches"]
+    norms = norm_act_launches(layers, len(burst), mode, embed_norms=2)
     if (launches[name] != want or launches[other]
             or launches["quantize_rows"] != want
-            or out["routes"][name]["tma"] != want):
+            or out["routes"][name]["tma"] != want
+            or {k: launches[k] for k in norms} != norms):
         raise AssertionError(
             f"rm {mode}: launches {launches}, routes {out['routes']}, "
             f"want {want} on tma")
@@ -3888,10 +4059,12 @@ def serving_phase(gpu: str, timed) -> dict:
             lambda srv, reqs=reqs: drive_rm(srv.port, reqs),
             lambda rr=rr, rids=rids, rmask=rmask: rr.confidence_tokens(
                 rids, rmask),
-            lambda d, dense=dense: {
+            lambda d, dense=dense, mode=mode, calls=len(reqs),
+            layers=rr.config.num_layers: {
                 "cosine_vote": 0, "attention": 0, "segment_attention": 0,
                 "quantize_rows": dense, "w8a8_matmul": dense,
-                "w4a8_matmul": 0})
+                "w4a8_matmul": 0,
+                **norm_act_launches(layers, calls, mode, embed_norms=2)})
         del rr
         torch.cuda.empty_cache()
     return rows
@@ -5990,8 +6163,11 @@ def check_trace(record: dict, root: str, chains: list,
         if not ok:
             raise AssertionError(f"no span chain {chain}")
     breakdown = dict(first["attributes"]["phase_breakdown"])
+    # ``held_idle`` measures the device, not the request: a trace's
+    # breakdown leaves it out (``obs.phases.phase_breakdown``)
     breakdown["named_share"] = sum(
-        breakdown[p] for p in PHASES) / breakdown["e2e_ms"]
+        breakdown[p] for p in PHASES if p != "held_idle"
+    ) / breakdown["e2e_ms"]
     # where the root's unattributed time sits: before its first child
     # span opens, and after its last one closes
     if len(spans) > 1:
@@ -6649,7 +6825,8 @@ def memory_drill(srv, texts, layers, on_card) -> dict:
     if before["confidence"] != after["confidence"]:
         raise AssertionError("/consensus after the pressure differs")
     if on_card and launches != {**{n: 0 for n in launches},
-                                "attention": layers, "cosine_vote": 1}:
+                                "attention": layers, "cosine_vote": 1,
+                                **norm_act_launches(layers, 1)}:
         raise AssertionError(f"drill launches {launches}")
     return {"rss_bytes": rss, "lowered_watermarks": [rss // 4, rss // 2],
             "watermarks": list(marks), "level_under_pressure": level,
@@ -9696,6 +9873,9 @@ def mesh_traffic(gpu, device, model_name, dtype) -> dict:
         d = out["dispatches"]["consensus"] + out["dispatches"]["embed"]
         # a packed call's rows split over dp, its layers over tp
         calls = out["packed_calls"] * tp * layers
+        # every shard runs the replicated LayerNorms, and its slice of the
+        # MLP's GELU
+        shard_calls = out["packed_calls"] * tp if packed else dp * tp * d
         expect = {
             "cosine_vote": 0,
             "attention": per * d if on_card and not packed else 0,
@@ -9704,6 +9884,8 @@ def mesh_traffic(gpu, device, model_name, dtype) -> dict:
             else 0,
             "w8a8_matmul": 6 * per * d if on_card and mode == "int8" else 0,
             "w4a8_matmul": 0,
+            **norm_act_launches(layers, shard_calls if on_card else 0,
+                                "int8" if mode == "int8" else "none"),
         }
         row = {
             "part": "a", "mesh": shape, "mode": mode,
@@ -9856,10 +10038,17 @@ def ring_part(gpu, device, model_name, dtype, lengths) -> dict:
            "ring_ms": ring_ms, "dense_ms": dense_ms, "rows": RING_VOTE_N}
     rows.append(row)
     check_ring_row(row)
-    # the ring runs torch ops only (the reference's ring is einsums): no
-    # port kernel; the dense reference's launches are reported apart
-    if any(launches.values()):
-        raise AssertionError(f"the ring launched port kernels: {launches}")
+    # the ring's attention runs torch ops only (the reference's ring is
+    # einsums): no attention kernel; each sp shard runs its rows'
+    # LayerNorms and GELUs in their kernels, for each of the ring calls
+    # (one embed per length, then the vote); the dense reference's
+    # launches are reported apart
+    ring_calls = mesh.shape["sp"] * (len(lengths) + 1) if on_card else 0
+    want = {name: 0 for name in launches} | norm_act_launches(
+        dense.config.num_layers, ring_calls)
+    if launches != want:
+        raise AssertionError(f"the ring launched port kernels: {launches}, "
+                             f"want {want}")
     out = {"layout": mesh_layout(mesh), "rows": rows, "launches": launches,
            "dense_reference_launches": dense_launches,
            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
@@ -10216,7 +10405,10 @@ def ladder_walk(gpu, device, model_name, model, dtype, bursts, shape,
     expect = {"cosine_vote": 0, "attention": per if on_card else 0,
               "segment_attention": 0,
               "quantize_rows": 6 * per if int8 else 0,
-              "w8a8_matmul": 6 * per if int8 else 0, "w4a8_matmul": 0}
+              "w8a8_matmul": 6 * per if int8 else 0, "w4a8_matmul": 0,
+              **norm_act_launches(model.config.num_layers,
+                                  shard_calls[0] if on_card else 0,
+                                  "int8" if int8 else "none")}
     out = {"part": "a", "mesh": f"{dp}x{tp}", "mode": mode,
            "ladder": [f"{d}x{t_}" for d, t_ in ladder],
            "layout": mesh_layout(mesh), "warm_ladder_s": warm_s,
@@ -10890,6 +11082,7 @@ def main() -> int:
     vote = timed("vote", check_vote, gpu)
     counts = timed("vote", check_vote_counts, gpu)
     attn_rows = timed("attention", check_attention, gpu)["rows"]
+    timed("norm_act", check_norm_act, gpu)
     quant = timed("quant", check_quant, gpu)
     seg = timed("segment_attention", check_segment_attention, gpu)
     timed("bge_micro", check_bge_micro, gpu)

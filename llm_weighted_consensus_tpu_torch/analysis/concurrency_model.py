@@ -381,6 +381,14 @@ CONCURRENCY_MODEL = {
         ("_ShapeGate._cond", "launches._lock"),
         ("_ShapeGate._cond", "PhaseAggregator._lock"),
         ("_ShapeGate._cond", "Metrics._lock"),
+        # the forward it enqueues reaches the LayerNorm and GELU wrappers
+        # (ops/norm_act.py) by direct calls: their first launch loads the
+        # kernel library under its lock, and their ``_build.check``
+        # resolves statically to every ``check`` method, so the watchdog
+        # and memory-governor edges are that over-approximation
+        ("_ShapeGate._cond", "_build._lock"),
+        ("_ShapeGate._cond", "DeviceWatchdog._lock"),
+        ("_ShapeGate._cond", "MemGuard._lock"),
         # warm_ladder warms each rung under the gate's exclusive side;
         # ``.warmup()`` resolves statically to ``Server.warmup`` too (its
         # ``mark_ready``), so this edge is the over-approximation of a

@@ -301,13 +301,14 @@ def event_ms(fn: Callable, device: str, reps: int = 10, warmup: int = 2,
 
 def wrappers() -> dict:
     """The kernel wrappers (``ops/launches.py``), by name."""
-    from ..ops import attention, kernels
+    from ..ops import attention, kernels, norm_act
 
     return {
         "cosine_vote": kernels.cosine_vote, "attention": attention.attention,
         "segment_attention": attention.segment_attention,
         "quantize_rows": kernels.quantize_rows,
         "w8a8_matmul": kernels.w8a8_matmul, "w4a8_matmul": kernels.w4a8_matmul,
+        "add_layer_norm": norm_act.add_layer_norm, "gelu": norm_act.gelu,
     }
 
 

@@ -4,9 +4,11 @@
 Times ``bert.embed`` (the served forward: encoder, CLS pooling, L2
 normalisation) on the card by CUDA events with each cost candidate
 swapped out in turn, inside this bench only: the attention (the kernel
-against its plain version), the GELU (``layers.gelu_erf``: exact, tanh
-or identity) and the LayerNorm (``bert.layer_norm``: real or identity).
-``gelu_ln_share`` is the share of the forward that GELU and LayerNorm
+against its plain version; ``attention_impl="plain"`` also takes the
+LayerNorm's and the GELU's plain versions), the GELU
+(``layers.gelu_erf``: the kernel, tanh or identity) and the residual
+add + LayerNorm (``bert.layer_norm``: the kernel, or the residual add
+alone).  ``gelu_ln_share`` is the share of the forward that GELU and LayerNorm
 together take (1 - both identity / real).  Random weights from seed 0,
 random ids; on ``--device cpu`` the times are the host's (a rehearsal).
 
@@ -71,12 +73,21 @@ def run_fwd(args, device: str, reps: int = REPS) -> dict:
     out, runs = {}, {}
     out["attn=plain"], runs["attn=plain"] = timed("plain")
     out["attn=kernel"], runs["attn=kernel"] = timed()
+
+    def gelu_tanh(x, plain=False, inplace=False):
+        return F.gelu(x, approximate="tanh")
+
+    def gelu_identity(x, plain=False, inplace=False):
+        return x
+
+    def ln_identity(x, w, b, eps, residual=None, plain=False):
+        return x if residual is None else x + residual
+
     cases = {
-        "gelu=tanh": dict(gelu=lambda x: F.gelu(x, approximate="tanh")),
-        "gelu=identity": dict(gelu=lambda x: x),
-        "ln=identity": dict(layer_norm=lambda x, w, b, eps: x),
-        "gelu+ln=identity": dict(gelu=lambda x: x,
-                                 layer_norm=lambda x, w, b, eps: x),
+        "gelu=tanh": dict(gelu=gelu_tanh),
+        "gelu=identity": dict(gelu=gelu_identity),
+        "ln=identity": dict(layer_norm=ln_identity),
+        "gelu+ln=identity": dict(gelu=gelu_identity, layer_norm=ln_identity),
     }
     for key, swap in cases.items():
         with swapped(**swap):

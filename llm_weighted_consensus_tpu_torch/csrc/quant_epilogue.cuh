@@ -21,17 +21,25 @@ __device__ __forceinline__ uint32_t unbias_nibbles(uint32_t n) {
 }
 
 // erf GELU for f32 outputs, A&S 7.1.26 for bf16 (the reference's
-// gelu_f32), with IEEE division and expf on both routes
+// gelu_f32), with IEEE division and expf on both routes.  Each operation
+// is rounded on its own, in the order of the plain version's torch ops
+// (ops/norm_act.py::gelu_f32), so no FMA contraction changes a rounding:
+// norm_act.cu's GELU is bit-equal to it.
 __device__ __forceinline__ float gelu(float x, bool approx) {
-  if (!approx) return x * 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  const float z = fabsf(x) * 0.70710678118654752f;
-  const float t = 1.0f / (1.0f + 0.3275911f * z);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float half_erfc = 0.5f * poly * expf(-z * z);
-  return x * (x > 0.0f ? 1.0f - half_erfc : half_erfc);
+  constexpr float kRsqrt2 = 0.70710678118654752f;
+  if (!approx)
+    return __fmul_rn(__fmul_rn(x, 0.5f),
+                     __fadd_rn(1.0f, erff(__fmul_rn(x, kRsqrt2))));
+  const float z = __fmul_rn(fabsf(x), kRsqrt2);
+  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, z)));
+  float poly = __fmul_rn(t, 1.061405429f);
+  poly = __fmul_rn(t, __fadd_rn(-1.453152027f, poly));
+  poly = __fmul_rn(t, __fadd_rn(1.421413741f, poly));
+  poly = __fmul_rn(t, __fadd_rn(-0.284496736f, poly));
+  poly = __fmul_rn(t, __fadd_rn(0.254829592f, poly));
+  const float half_erfc =
+      __fmul_rn(__fmul_rn(0.5f, poly), expf(__fmul_rn(-z, z)));
+  return __fmul_rn(x, x > 0.0f ? __fsub_rn(1.0f, half_erfc) : half_erfc);
 }
 
 // ((acc * sx) * sw) + bias without FMA contraction, then the GELU

@@ -14,13 +14,14 @@ Counterpart of ``llm_weighted_consensus_tpu/models/bert.py``:
   (``serve/packing.py``): many sequences per row, segment-masked
   attention, per-segment positions and one pooled vector per segment;
 * attention goes through ``ops.attention.attention`` (padded) or
-  ``segment_attention`` (packed): the CUDA kernel for tensors on the
-  card, its plain version on the CPU.  ``encode(...,
-  attention_impl="plain")`` (and ``embed``'s) runs the plain versions on
-  either device: the trainers' differentiable path (``train/``), the
-  counterpart of the reference's ``attention_impl="einsum"`` (in the
-  trainers' f32 the two are one computation), since the kernels define
-  no backward;
+  ``segment_attention`` (packed), the residual add + LayerNorm and the
+  GELU through ``ops.norm_act``: the CUDA kernels for tensors on the
+  card, their plain versions on the CPU.  ``encode(...,
+  attention_impl="plain")`` (and ``embed``'s) runs the plain versions of
+  all three on either device: the trainers' differentiable path
+  (``train/``), the counterpart of the reference's
+  ``attention_impl="einsum"`` (in the trainers' f32 the two are one
+  computation), since the kernels define no backward;
 * the dense layers go through ``layers.dense_cfg`` / ``mlp_cfg``: a layer
   stack quantized by ``models.quant`` (``QuantLinear``) runs the W8A8 or
   W4A8 kernel for every dense layer, with the GELU in the MLP expansion's
@@ -71,7 +72,8 @@ from .layers import dense_cfg, layer_norm
 
 class LayerNorm(nn.Module):
     """HF-named LayerNorm parameters applied with the one-pass
-    ``layers.layer_norm``."""
+    ``layers.layer_norm``, to ``x`` or to ``x + residual`` in one pass
+    (``plain``: the plain version on either device)."""
 
     def __init__(self, dim: int, eps: float):
         super().__init__()
@@ -79,8 +81,11 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, residual,
+                          plain)
 
 
 class BertEmbeddings(nn.Module):
@@ -216,13 +221,15 @@ def _attention(x, p: BertAttention, key_mask, config: BertConfig,
 
 def _layer_steps(x, layer: BertLayer, key_mask, config: BertConfig,
                  attention_impl: str = "auto", tp: bool = False):
-    """One encoder layer (generator; module doc)."""
+    """One encoder layer (generator; module doc).  The residual adds go
+    into the LayerNorms' one pass."""
+    plain = attention_impl == "plain"
     attn = yield from _attention(x, layer.attention, key_mask, config,
                                  attention_impl, tp)
-    x = layer.attention.output.LayerNorm(x + attn)
-    inter = dense_cfg(x, layer.intermediate.dense, gelu=True)
+    x = layer.attention.output.LayerNorm(x, attn, plain=plain)
+    inter = dense_cfg(x, layer.intermediate.dense, gelu=True, plain=plain)
     mlp = yield from _row_dense(inter, layer.output.dense, tp)
-    return layer.output.LayerNorm(x + mlp)
+    return layer.output.LayerNorm(x, mlp, plain=plain)
 
 
 def run_local(body):
@@ -332,7 +339,7 @@ def encode_steps(
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(ids)
     x = x + emb.token_type_embeddings.weight[token_type_ids.long()]
-    x = emb.LayerNorm(x)
+    x = emb.LayerNorm(x, plain=attention_impl == "plain")
     if segment_ids is not None:
         key_mask = segment_ids
     else:

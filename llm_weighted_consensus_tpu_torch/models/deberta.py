@@ -55,7 +55,8 @@ from torch import nn
 from .bert import LayerNorm, _row_dense, build_from_state, random_state
 from .bert import run_local
 from .configs import DebertaConfig
-from .layers import dense, dense_cfg, gelu_f32
+from ..ops.norm_act import gelu_f32
+from .layers import dense, dense_cfg
 
 MASK_FILL = -1e9
 
@@ -208,6 +209,7 @@ def encode(
     input_ids: torch.Tensor,
     attention_mask: Optional[torch.Tensor],
     segment_ids: Optional[torch.Tensor] = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """input_ids[b, s], attention_mask[b, s] -> hidden[b, s, h] in the
     param dtype.
@@ -218,20 +220,22 @@ def encode(
     a contiguous span of its row, so its relative distances are those of
     the padded forward; the mask removes every cross-segment term.
     Masked logits are -1e9, never -inf, so a row past its segments stays
-    finite.  The encoder is the generator ``encode_steps``."""
+    finite.  ``plain=True`` runs the LayerNorms and the GELU in their
+    plain versions on either device (``ops.norm_act``): the trainers'
+    differentiable path.  The encoder is the generator ``encode_steps``."""
     return run_local(encode_steps(model, input_ids, attention_mask,
-                                  segment_ids))
+                                  segment_ids, plain=plain))
 
 
 def encode_steps(model: DebertaModel, input_ids, attention_mask,
-                 segment_ids=None, tp: bool = False):
+                 segment_ids=None, tp: bool = False, plain: bool = False):
     """``encode`` as a generator that yields at its collectives; ``tp``
     marks a tensor-parallel shard (``reward_mesh``)."""
     config = model.config
     s = input_ids.shape[1]
     x = model.token_embed.weight[input_ids.long()]
-    x = model.embed_ln(x)
-    rel = model.rel_ln(model.rel_embed.weight)
+    x = model.embed_ln(x, plain=plain)
+    rel = model.rel_ln(model.rel_embed.weight, plain=plain)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     fill = torch.full((), MASK_FILL, dtype=torch.float32, device=x.device)
     if segment_ids is None:
@@ -244,10 +248,10 @@ def encode_steps(model: DebertaModel, input_ids, attention_mask,
     for layer in model.layers:
         attn = yield from _disentangled_attention(
             x, rel, layer, mask_bias, rel_idx, config, tp)
-        y = layer.attn_ln(x + attn)
-        inter = dense_cfg(y, layer.mlp_in, gelu=True)
-        x = layer.mlp_ln(y + (yield from _row_dense(inter, layer.mlp_out,
-                                                    tp)))
+        y = layer.attn_ln(x, attn, plain=plain)
+        inter = dense_cfg(y, layer.mlp_in, gelu=True, plain=plain)
+        mlp = yield from _row_dense(inter, layer.mlp_out, tp)
+        x = layer.mlp_ln(y, mlp, plain=plain)
     return x
 
 
@@ -274,10 +278,11 @@ def reward(
     model: DebertaModel,
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
+    plain: bool = False,
 ) -> torch.Tensor:
     """(prompt ++ candidate) token batch -> one scalar reward per row,
-    [b] f32."""
-    hidden = encode(model, input_ids, attention_mask)
+    [b] f32 (``plain``: ``encode``'s)."""
+    hidden = encode(model, input_ids, attention_mask, plain=plain)
     return _head(model, hidden[:, 0, :].float())
 
 

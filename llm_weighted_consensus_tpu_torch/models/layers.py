@@ -7,6 +7,11 @@ Abramowitz-Stegun 7.1.26 form for bf16; dense layers run in the param
 dtype with f32 accumulation.  ``F.layer_norm`` and ``F.gelu`` compute
 differently and are not used.
 
+``layer_norm`` and ``gelu_erf`` go through ``ops.norm_act``: on the card
+its hand-written kernels (the residual add fused into the LayerNorm's
+one pass), on the CPU, or with ``plain=True`` on either device (the
+trainers' differentiable path), their plain versions.
+
 ``dense_cfg`` and ``mlp_cfg`` are the layer stack's dense ops: a torch
 ``Linear`` runs ``dense``, a ``quant.QuantLinear`` (``EMBEDDER_QUANTIZE``)
 its W8A8 / W4A8 kernel, with the MLP's GELU folded into the expansion
@@ -15,21 +20,30 @@ layer's epilogue, so no separate GELU pass runs on the quantized path.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from ..ops.norm_act import add_layer_norm, add_layer_norm_plain, gelu
+from ..ops.norm_act import gelu_f32  # noqa: F401  (re-exported)
+from ..ops.norm_act import gelu_plain
 from .quant import QuantLinear
 
 
 def layer_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float,
+    residual: Optional[torch.Tensor] = None,
+    plain: bool = False,
 ) -> torch.Tensor:
-    x32 = x.float()
-    mean = torch.mean(x32, dim=-1, keepdim=True)
-    meansq = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    var = torch.clamp(meansq - mean * mean, min=0.0)
-    normed = (x32 - mean) * torch.rsqrt(var + eps)
-    return (normed * weight.float() + bias.float()).to(x.dtype)
+    """LayerNorm of ``x + residual`` (``residual`` None: of ``x``), the
+    sum rounded to x's dtype first: ``ops.norm_act.add_layer_norm``, or
+    with ``plain`` its plain version on either device."""
+    fn = add_layer_norm_plain if plain else add_layer_norm
+    return fn(x, residual, weight, bias, eps)
 
 
 def dense(
@@ -44,16 +58,18 @@ def dense(
     return F.linear(x, weight, bias)
 
 
-def dense_cfg(x: torch.Tensor, linear, gelu: bool = False) -> torch.Tensor:
+def dense_cfg(x: torch.Tensor, linear, gelu: bool = False,
+              plain: bool = False) -> torch.Tensor:
     """The layer dense op for ``linear`` as it is held: ``dense`` for a
     torch ``Linear``, the quantized kernel for a ``QuantLinear``.
-    ``gelu=True`` applies ``gelu_erf`` after the dense layer, or folds the
-    same GELU into the quantized kernel's f32 epilogue (before the one
-    rounding, as the reference's Pallas kernel does)."""
+    ``gelu=True`` applies ``gelu_erf`` (``plain``: its plain version)
+    after the dense layer, in place over the dense layer's fresh output,
+    or folds the same GELU into the quantized kernel's f32 epilogue
+    (before the one rounding, as the reference's Pallas kernel does)."""
     if isinstance(linear, QuantLinear):
         return linear(x, gelu=gelu)
     out = dense(x, linear.weight, linear.bias)
-    return gelu_erf(out) if gelu else out
+    return gelu_erf(out, plain=plain, inplace=True) if gelu else out
 
 
 def mlp_cfg(x: torch.Tensor, inter, out) -> torch.Tensor:
@@ -62,27 +78,9 @@ def mlp_cfg(x: torch.Tensor, inter, out) -> torch.Tensor:
     return dense_cfg(dense_cfg(x, inter, gelu=True), out)
 
 
-def gelu_erf(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, the activation of HF BERT checkpoints, computed
-    in f32: exact erf for f32 inputs, the A&S 7.1.26 form for bf16 (it
-    agrees with exact erf to <= 1 bf16 ulp; see the reference's
-    ``gelu_erf`` docstring)."""
-    return gelu_f32(x.float(), approx=x.dtype == torch.bfloat16).to(x.dtype)
-
-
-def gelu_f32(x32: torch.Tensor, approx: bool = False) -> torch.Tensor:
-    if not approx:
-        return x32 * 0.5 * (1.0 + torch.erf(x32 * (2.0 ** -0.5)))
-    z = torch.abs(x32) * (2.0 ** -0.5)
-    t = 1.0 / (1.0 + 0.3275911 * z)
-    poly = t * (
-        0.254829592
-        + t
-        * (
-            -0.284496736
-            + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429))
-        )
-    )
-    half_erfc = 0.5 * poly * torch.exp(-z * z)
-    phi = torch.where(x32 > 0, 1.0 - half_erfc, half_erfc)
-    return x32 * phi
+def gelu_erf(x: torch.Tensor, plain: bool = False,
+             inplace: bool = False) -> torch.Tensor:
+    """Exact (erf) GELU in f32, rounded once to x's dtype:
+    ``ops.norm_act.gelu`` (``inplace``: the kernel may write over ``x``),
+    or with ``plain`` its plain version on either device."""
+    return gelu_plain(x) if plain else gelu(x, inplace=inplace)

@@ -27,6 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 SOURCES = (
     "cosine_vote.cu", "cosine_vote_sm90.cu", "attention.cu",
     "attention_sm90.cu", "quant_matmul.cu", "quant_gemm_sm90.cu",
+    "norm_act.cu",
 )
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "liblwc_torch_kernels.so"
@@ -150,6 +151,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
         ]
         fn.restype = i32
+    lib.lwc_add_layer_norm.argtypes = [vp, vp, vp, vp, vp, i32, i32, f32, i32,
+                                       vp]
+    lib.lwc_add_layer_norm.restype = i32
+    lib.lwc_gelu.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
+    lib.lwc_gelu.restype = i32
     return lib
 
 

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build, launches
+from .norm_act import gelu_f32
 from .similarity import masked_cosine_vote
 
 # K of the split-K int4 packing: Kp is K rounded up to a multiple of this
@@ -339,10 +340,6 @@ quantize_rows.launches = 0
 
 
 def _epilogue_plain(acc, sx, sw, bias, gelu: bool, dtype) -> torch.Tensor:
-    # lazy: ops must not import models at module load (models.quant
-    # imports this module)
-    from ..models.layers import gelu_f32
-
     out = acc.float() * sx[..., None] * sw.float() + bias.float()
     if gelu:
         out = gelu_f32(out, approx=dtype == torch.bfloat16)

@@ -2,7 +2,8 @@
 
 Each wrapper (``kernels.cosine_vote``, ``kernels.quantize_rows``,
 ``kernels.w8a8_matmul``, ``kernels.w4a8_matmul``, ``attention.attention``,
-``attention.segment_attention``) carries ``launches`` and, where it has
+``attention.segment_attention``, ``norm_act.add_layer_norm``,
+``norm_act.gelu``) carries ``launches`` and, where it has
 routes, ``routes`` (launches per route).  A wrapper calls ``count`` where
 it launches its kernel.
 

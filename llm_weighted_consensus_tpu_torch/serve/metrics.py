@@ -294,12 +294,13 @@ def register_graphs(metrics: Metrics, **models) -> None:
 
 def kernel_counters() -> dict:
     """Every kernel wrapper's launches and launches per route."""
-    from ..ops import attention, kernels
+    from ..ops import attention, kernels, norm_act
 
     out = {}
     for fn in (kernels.cosine_vote, attention.attention,
                attention.segment_attention, kernels.quantize_rows,
-               kernels.w8a8_matmul, kernels.w4a8_matmul):
+               kernels.w8a8_matmul, kernels.w4a8_matmul,
+               norm_act.add_layer_norm, norm_act.gelu):
         row = {"launches": fn.launches}
         routes = getattr(fn, "routes", None)
         if routes is not None:

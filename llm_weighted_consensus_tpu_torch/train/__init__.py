@@ -27,8 +27,9 @@ Each step takes a model built by ``models.bert.trainable`` (f32
 parameters that require grad, train mode) and a ``make_optimizer`` AdamW,
 runs one forward and backward on the model's device (the card unless the
 model was built on the CPU), the encoder with ``attention_impl="plain"``
-(the attention's plain version in torch ops: in f32 the reference's
-trainers' einsum attention computes the same), and returns the loss.
+(BERT) or ``plain=True`` (DeBERTa): the attention's, LayerNorm's and
+GELU's plain versions in torch ops (in f32 the reference's trainers'
+einsum attention computes the same), and returns the loss.
 No hand-written kernel runs: the reference's trainers differentiate through
 XLA ops, since its Pallas kernels define no VJP, and the port's kernels
 define no backward.  The matmuls are f32 with TF32 off (torch's default
@@ -227,8 +228,9 @@ def reward_pairwise_loss(model, chosen_ids, chosen_mask, rejected_ids,
     if mesh is not None:
         return _reward_loss_mesh(model, chosen_ids, chosen_mask,
                                  rejected_ids, rejected_mask, mesh)
-    r_chosen = deberta.reward(model, chosen_ids, chosen_mask)
-    r_rejected = deberta.reward(model, rejected_ids, rejected_mask)
+    r_chosen = deberta.reward(model, chosen_ids, chosen_mask, plain=True)
+    r_rejected = deberta.reward(model, rejected_ids, rejected_mask,
+                                plain=True)
     return torch.mean(_softplus(-(r_chosen - r_rejected)))
 
 
@@ -242,7 +244,7 @@ def _reward_loss_mesh(model, chosen_ids, chosen_mask, rejected_ids,
 
     def body(shard, part, tp):
         hidden = yield from deberta.encode_steps(
-            shard, part["ids"], part["mask"], tp=tp)
+            shard, part["ids"], part["mask"], tp=tp, plain=True)
         return (yield from deberta._head_steps(
             shard, hidden[:, 0, :].float(), tp=tp))
 

@@ -18,7 +18,11 @@ count per request, where the scalar count is bit-equal to a tensor of
 equal counts); the grouped stream update on bge-base against single
 updates 1e-5;
 attention and segment attention 1e-4 f32, 2e-2 bf16 (probabilities
-rounded to bf16 before P·V); packed bge_micro on the card against the CPU
+rounded to bf16 before P·V); the GELU kernel bit-equal to its plain
+version (the same f32 operations, each rounded alone) and the residual
+add + LayerNorm within 1 ulp of bf16 / 4 of f32 at the largest output
+(its row sums in another order than torch's mean); packed bge_micro on
+the card against the CPU
 and against the padded path 1e-5 (f32), a segment beside other row-mates
 1e-6;
 bge_micro /consensus on the card vs the CPU 1e-5 (f32); W8A8 / W4A8
@@ -67,6 +71,7 @@ import torch
 from llm_weighted_consensus_tpu_torch.models import loading, quant, tokenizer
 from llm_weighted_consensus_tpu_torch.models.embedder import TorchEmbedder
 from llm_weighted_consensus_tpu_torch.ops import _build, attention, kernels
+from llm_weighted_consensus_tpu_torch.ops import norm_act
 from llm_weighted_consensus_tpu_torch.serve import packing
 
 pytestmark = pytest.mark.cuda
@@ -228,6 +233,41 @@ def test_attention_kernel_matches_plain(card, dtype, b, s, nh, hd):
     assert (got.float() - want.float()).abs().max().item() <= tol
     uniform = v[-1].float().mean(dim=0)
     assert (got[-1].float() - uniform[None]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,h,width", [(37, 768, 3072), (9, 1024, 4096),
+                                          (3, 96, 1001)])
+def test_norm_act_kernels_match_plain(card, dtype, rows, h, width):
+    """The GELU kernel is bit-equal to its plain version (the same f32
+    operations, each rounded alone); the LayerNorm kernel within one ulp
+    of bf16, four of f32, at the largest |output| (its row sums run in
+    another order than torch's mean: ``chip_smoke.NORM_ULPS``)."""
+    tdt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(rows)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(card, tdt)
+
+    x, r = rand(rows, h, scale=2.0, shift=0.25), rand(rows, h, scale=3.0)
+    w, b = rand(h, scale=0.2, shift=1.0), rand(h, scale=0.1)
+    mant, ulps = (23, 4) if dtype == "float32" else (7, 1)
+    for res in (r, None):
+        before = norm_act.add_layer_norm.launches
+        got = norm_act.add_layer_norm(x, res, w, b, 1e-12)
+        assert norm_act.add_layer_norm.launches == before + 1
+        want = norm_act.add_layer_norm_plain(x, res, w, b, 1e-12)
+        assert got.dtype == tdt
+        top = want.float().abs().max().item()
+        ulp = 2.0 ** (np.frexp(top)[1] - 1 - mant)
+        assert (got.float() - want.float()).abs().max().item() <= ulps * ulp
+    y = rand(rows, width, scale=3.0)
+    before = norm_act.gelu.launches
+    got = norm_act.gelu(y)
+    want = norm_act.gelu_plain(y)
+    assert torch.equal(got, want)
+    assert torch.equal(norm_act.gelu(y.clone(), inplace=True), want)
+    assert norm_act.gelu.launches == before + 2
 
 
 def test_attention_kernel_reads_unaligned_strided_views(card):
@@ -1649,6 +1689,9 @@ def _grad_cases(card):
             leaf(4, 64), wq.to(card), sw.to(card), b)),
         ("w4a8_matmul", lambda: kernels.w4a8_matmul(
             leaf(4, 64), w4.to(card), sw4.to(card), b)),
+        ("add_layer_norm", lambda: norm_act.add_layer_norm(
+            leaf(4, 64), leaf(4, 64), leaf(64), leaf(64), 1e-12)),
+        ("gelu", lambda: norm_act.gelu(leaf(4, 64))),
     ]
 
 
@@ -1656,7 +1699,8 @@ def test_every_kernel_wrapper_refuses_an_input_that_requires_grad(card):
     """A kernel's output carries no grad_fn: under grad mode a wrapper
     raises rather than drop the gradient; under no_grad it launches."""
     for name, call in _grad_cases(card):
-        wrapper = getattr(attention, name, None) or getattr(kernels, name)
+        wrapper = (getattr(attention, name, None)
+                   or getattr(kernels, name, None) or getattr(norm_act, name))
         before = wrapper.launches
         with pytest.raises(RuntimeError, match="no backward"):
             call()
@@ -1684,14 +1728,16 @@ def _train_step(device):
     p = rng.integers(3, cfg.vocab_size, (8, 32)).astype(np.int64)
     mask = np.ones((8, 32), np.int64)
     mask[3, 20:] = 0
-    before = attention.attention.launches
+    before = (attention.attention.launches,
+              norm_act.add_layer_norm.launches, norm_act.gelu.launches)
     loss = train.contrastive_loss(model, q, mask, p, mask)
     loss.backward()
     grads = {n: t.grad.detach().cpu().numpy()
              for n, t in model.named_parameters()}
     opt.step()
     second = train.contrastive_train_step(model, opt, q, mask, p, mask)
-    assert attention.attention.launches == before
+    assert (attention.attention.launches, norm_act.add_layer_norm.launches,
+            norm_act.gelu.launches) == before
     for i in range(cfg.num_layers):
         for proj in ("query", "key", "value"):
             name = f"encoder.layer.{i}.attention.self.{proj}.weight"

@@ -380,7 +380,7 @@ def test_probes_and_metrics_over_http(tiny):
             "p99_ms": snap["series"]["http:/consensus"]["p99_ms"]}
         assert set(snap["kernels"]) == {
             "cosine_vote", "attention", "segment_attention", "quantize_rows",
-            "w8a8_matmul", "w4a8_matmul"}
+            "w8a8_matmul", "w4a8_matmul", "add_layer_norm", "gelu"}
         assert "device_dispatch" in snap["phases"]
         status, headers, text = _get(srv.port, "/metrics?format=prometheus")
         assert status == 200
