@@ -7,10 +7,11 @@ on many seeds, and the control's on a few, in one process.
 Each seed is a whole run of the cell (its weights, its server, its
 warm-up, a short window at the cell's own load, the reference's
 comparison against a generous limit) whose compared numbers are printed
-as one JSON line.  The control is the program with its own int8 path
-switched on (``quantize="int8"``: W8A8 for every dense layer of the
-encoder), the precision under the bf16 that the configurations state.
-The benchmark's own runs never run it."""
+as one JSON line.  The control is the program with the path its
+configuration's family names switched on (the family's ``control``: for
+BERT and DeBERTa the port's int8 path, W8A8 for every dense layer of
+the encoder), the precision under the bf16 that the
+configurations state.  The benchmark's own runs never run it."""
 
 from __future__ import annotations
 
@@ -52,8 +53,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    cfg = spec.Spec(ROOT).cell(args.workload).cfg
+    control = spec.family(cfg["family"]).control(cfg)
     runs = [("program", "none", s) for s in seeds_of(args.seeds)] + [
-        ("control", "int8", s) for s in seeds_of(args.control_seeds)]
+        ("control", control, s) for s in seeds_of(args.control_seeds)]
     for side, quantize, seed in runs:
         cell = spec.Spec(ROOT).cell(args.workload)
         cell.mix["limits"] = {name: float("inf") for name in (

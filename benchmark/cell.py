@@ -11,7 +11,8 @@ drains (``"close": "drain"`` in an open-loop mix), once every request
 due in those seconds has been answered; with ``trace`` the profiler
 covers it.  Then the device's peak memory is read, the server is
 stopped and the program's state freed, and the reference judges a
-sample of the answers (``check.py``)."""
+sample of the answers (``check.py``) from the weights in the form the
+configuration's family gives them (``reference_state``)."""
 
 from __future__ import annotations
 
@@ -149,6 +150,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     import torch
 
     cfg, mix = cell.cfg, cell.mix
+    family = spec.family(cfg["family"])
     dtype = getattr(torch, cfg["serving_dtype"])
     t0 = time.perf_counter()
     source = RequestSource(mix, seed)
@@ -163,11 +165,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     t3 = time.perf_counter()
     warm(system, mix, source)
     t4 = time.perf_counter()
-    host, load, serve, capture = system.setup_parts
+    load, serve, capture = system.setup_parts
     log(f"setup: to here {time.time() - process_start - (t4 - t0):.3f} s, "
-        f"requests {t1 - t0:.3f} s, weights {t2 - t1:.3f} s, weights to "
-        f"the host {host:.3f} s, port loader {load:.3f} s, server "
-        f"{serve:.3f} s, graph captures {capture:.3f} s "
+        f"requests {t1 - t0:.3f} s, weights {t2 - t1:.3f} s, port loader "
+        f"{load:.3f} s, server {serve:.3f} s, graph captures "
+        f"{capture:.3f} s "
         f"({len(system.warmup)} buckets), warm-up requests {t4 - t3:.3f} s")
 
     tracer = Trace(device) if trace else None
@@ -225,8 +227,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     else:
         digest = tracer.digest()
         tok = check.reference_tokenizer(cfg)
-        lengths = [[len(tok.encode(t, 512)) for t in model_texts(r.request)]
-                   for r in answered]
+        lengths = [[len(tok.encode(t, family.max_tokens(cfg)))
+                    for t in model_texts(r.request)] for r in answered]
         readings = Readings(
             cfg=cfg, mix=mix, window_s=window_s, completed=answered,
             latencies_ms=latencies, lengths=lengths,
@@ -254,9 +256,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     if device == "cuda":
         torch.cuda.empty_cache()
     t5 = time.perf_counter()
-    state32 = weights.float32_copy(state, device)
+    ref_state = family.reference_state(cfg, state, device)
     del state
-    verdict = check.compare(cfg, mix, answered, state32, seed, device,
+    verdict = check.compare(cfg, mix, answered, ref_state, seed, device,
                             failed)
     log(f"check: {time.perf_counter() - t5:.3f} s")
     out["correct"] = verdict["correct"]

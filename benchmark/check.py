@@ -4,11 +4,13 @@ Once the window has closed and the program's state is freed, a sample of
 the requests the program answered in the window (``check_sample`` of
 them, drawn from the seed; all of them when fewer completed) is run
 through the plain reference (``reference/``) with the benchmark's own
-weights widened to float32, TF32 off.  The reference tokenizes each
-request's texts itself, runs the encoder, and forms each candidate's
-score: the centred mean cosine similarity (cosine), or the centred
-reward (rm).  The served answer's confidences give the same scores as
-T x log(confidence), centred.  The numbers compared are those the
+weights in the form the configuration's family gives them
+(``reference_state``: widened to float32 for BERT and DeBERTa), TF32
+off.  The reference tokenizes each request's texts itself (the family's
+tokenizer, at its ``max_tokens``), runs the family's model, and forms
+each candidate's score: the centred mean cosine similarity (cosine), or
+the centred reward (rm).  The served answer's confidences give the same
+scores as T x log(confidence), centred.  The numbers compared are those the
 cell's ``limits`` name, each with its limit, and three exact ones:
 
 * ``score_rel_rms``: the root mean square of (served score - reference
@@ -34,19 +36,13 @@ import math
 
 import numpy as np
 
-from .reference import bert as ref_bert
-from .reference import deberta as ref_deberta
+from . import spec
 from .reference import vote
-from .reference.unigram import Unigram
-from .reference.wordpiece import WordPiece
 from .traffic.requests import model_texts
 
 
 def reference_tokenizer(cfg: dict):
-    vocab = cfg["vocab"]
-    if vocab["kind"] == "wordpiece":
-        return WordPiece(vocab["tokens"])
-    return Unigram(vocab["pieces"])
+    return spec.family(cfg["family"]).reference_tokenizer(cfg)
 
 
 def sample(records: list, seed: int, size: int) -> list:
@@ -57,12 +53,13 @@ def sample(records: list, seed: int, size: int) -> list:
     return [records[i] for i in sorted(picks)]
 
 
-def reference_scores(cfg: dict, state32: dict, tokenizer, texts: list,
+def reference_scores(cfg: dict, ref_state: dict, tokenizer, texts: list,
                      device) -> tuple:
     """(centred scores [n] float64, token count) of one request."""
     import torch
 
-    rows = [tokenizer.encode(t, 512) for t in texts]
+    family = spec.family(cfg["family"])
+    rows = [tokenizer.encode(t, family.max_tokens(cfg)) for t in texts]
     s = max(len(r) for r in rows)
     ids = torch.zeros((len(rows), s), dtype=torch.long)
     mask = torch.zeros((len(rows), s), dtype=torch.long)
@@ -71,17 +68,12 @@ def reference_scores(cfg: dict, state32: dict, tokenizer, texts: list,
         mask[i, :len(r)] = 1
     ids, mask = ids.to(device), mask.to(device)
     with torch.no_grad():
-        if cfg["family"] == "bert":
-            out = vote.cosine_scores(
-                ref_bert.sentence_vectors(state32, cfg, ids, mask))
-        else:
-            out = vote.reward_scores(
-                ref_deberta.rewards(state32, cfg, ids, mask))
+        out = family.reference_scores(cfg, ref_state, ids, mask, device)
     return out.cpu(), int(mask.sum())
 
 
-def compare(cfg: dict, mix: dict, records: list, state32: dict, seed: int,
-            device, failed: int) -> dict:
+def compare(cfg: dict, mix: dict, records: list, ref_state: dict,
+            seed: int, device, failed: int) -> dict:
     """{number: {"value", "limit"}} and ``correct`` for the window's
     answered records."""
     import torch
@@ -96,7 +88,7 @@ def compare(cfg: dict, mix: dict, records: list, state32: dict, seed: int,
         gap, tokens_off = 0.0, 0
         errors, spreads = [], []
         for rec in picked:
-            want, tokens = reference_scores(cfg, state32, tokenizer,
+            want, tokens = reference_scores(cfg, ref_state, tokenizer,
                                             model_texts(rec.request),
                                             device)
             try:

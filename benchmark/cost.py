@@ -4,9 +4,12 @@ Frozen copies, kept here so that a change to the program cannot change
 what it is measured by: ``flops_per_answer`` of the port's
 ``bench/common.py``, and the attention and encoder products of its
 ``analysis/cost.py``, extended to DeBERTa's disentangled attention term
-by term.  Peaks: NVIDIA's H100 SXM data sheet, dense, at 700 W."""
+by term; a family (``families/<family>.py``) sums them per request.
+Peaks: NVIDIA's H100 SXM data sheet, dense, at 700 W."""
 
 from __future__ import annotations
+
+from . import spec
 
 H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -56,11 +59,8 @@ def deberta_table_flops(cfg: dict) -> float:
 
 def request_flops(cfg: dict, lengths: list) -> float:
     """The products a request's sequences need, from their real token
-    counts (no padding)."""
-    if cfg["family"] == "deberta":
-        return (sum(deberta_sequence_flops(cfg, n) for n in lengths)
-                + deberta_table_flops(cfg))
-    return sum(bert_sequence_flops(cfg, n) for n in lengths)
+    counts (no padding), as the configuration's family counts them."""
+    return spec.family(cfg["family"]).request_flops(cfg, lengths)
 
 
 def attention_launch(rows: int, s: int, heads: int, head_dim: int,

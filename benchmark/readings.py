@@ -10,7 +10,7 @@ import re
 from dataclasses import dataclass, field
 from typing import Optional
 
-from . import cost
+from . import cost, spec
 
 _LABEL = re.compile(r"^(\w+)\(([^)]*)\)")
 # the products of cuBLAS and CUTLASS, by their kernels' names
@@ -92,17 +92,16 @@ class Readings:
 
     def attention_roofline_percent(self) -> Optional[float]:
         """Bound time of the traced attention launches over their
-        profiled time.  Each launch's shape comes from the window's
-        dispatches by bucket (one launch per layer per dispatch, the
-        bucket's padded rows at its sequence length); the mix of shapes
-        is scaled to the launches the trace holds."""
+        profiled time.  Each dispatch's launches and their bound come
+        from the configuration's family (``attention_bound``) at the
+        dispatch's bucket: its padded rows at its sequence length; the
+        mix of shapes is scaled to the launches the trace holds."""
         names = [k for k in self.port_kernels if "attention" in k]
         launches = [(n, s, e) for n, s, e in self.trace["kernels"]
                     if any(re.search(rf"\b{k}\b", n) for k in names)]
         if not launches:
             return None
-        heads = self.cfg["num_attention_heads"]
-        hd = self.cfg["hidden_size"] // heads
+        family = spec.family(self.cfg["family"])
         bound, count = 0.0, 0
         for label, n in self.bucket_deltas().items():
             parsed = parse_label(label)
@@ -113,11 +112,9 @@ class Readings:
                     "many": a.get("r", 0) * a.get("n", 0)}.get(kind)
             if not rows or "s" not in a:
                 continue
-            per = cost.bound_seconds(*cost.attention_launch(
-                rows, a["s"], heads, hd))
-            layers = self.cfg["num_hidden_layers"]
-            bound += per * layers * n
-            count += layers * n
+            per, k = family.attention_bound(self.cfg, rows, a["s"])
+            bound += per * n
+            count += k * n
         if not count:
             return None
         measured = sum(e - s for _, s, e in launches) / 1e9

@@ -4,12 +4,14 @@ A cell ``<name>`` of ``workloads`` reads its configuration from the
 configuration's ``file`` and its traffic mix from
 ``benchmark/workloads/<name>.json``; the mix's ``generator`` is
 ``benchmark/traffic/<generator>.py``; a per-layer metric ``<metric>`` is
-read by ``benchmark/metrics/<metric>.py``.  Adding a configuration, a
-cell, a mix or a metric is adding files and entries; nothing here names
-one."""
+read by ``benchmark/metrics/<metric>.py``; a configuration's ``family``
+is ``benchmark/families/<family>.py``.  Adding a configuration, a family,
+a cell, a mix or a metric is adding files and entries; nothing here
+names one."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -35,6 +37,13 @@ def generator(name: str):
 def reader(metric: str):
     return load_module(HERE / "metrics" / f"{metric}.py",
                        "benchmark_metric_" + metric.replace(".", "_"))
+
+
+@functools.cache
+def family(name: str):
+    """The module of a configuration's ``family``, loaded once."""
+    return load_module(HERE / "families" / f"{name}.py",
+                       "benchmark_family_" + name.replace(".", "_"))
 
 
 def _applies(metric: dict, cell: str) -> bool:
